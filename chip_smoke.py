@@ -4,27 +4,47 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the card (``nvidia-smi`` name and power limit, and torch's name);
-2. builds every kernel from ``src/repro_torch/kernels/csrc`` and prints the
-   build time and the ``-Xptxas -v`` register and shared-memory report;
-3. holds every kernel against its plain PyTorch version on the card: every
-   spec of the lowered flat program of the flagship (int8 and f32) and of
-   ``mobilenet_v1_1.0_224_8bit`` (whose fused chain takes the global
-   scratch branch; the flagship's takes shared memory) runs once through
-   the kernel and once through the plain version on copies of the arena as
-   the program reaches that spec, and the whole arena is compared (int8
-   bit-exact except softmax <= 1 LSB, f32 within 1e-4 + 1e-4 * |ref|);
-4. runs the slice: ``compile(mobilenet_v1(0.25, 128, 1), backend="cuda")``
-   (verified ``numeric+cuda``, winner ``fuse``, 49,805 B) and three requests
-   through ``CompiledPlan.execute``, each matching the numpy backend and
-   counting 29 launches, with the launch counts reset just before;
-5. the same on the f32 flagship, the flagship at batch 2 and
+2. builds every kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
+   per source, all started together) and prints the build time and the
+   ``-Xptxas -v`` register and shared-memory report;
+3. holds every kernel against its plain PyTorch version on the card, on
+   copies of the arena as the program reaches each spec, comparing the
+   whole arena (int8 bit-exact except softmax and sigmoid <= 1 LSB, f32
+   within 1e-4 + 1e-4 * |ref|):
+   every spec of the flagship (int8 and f32) and of
+   ``mobilenet_v1_1.0_224_8bit`` (its fused chain takes the global scratch
+   branch, the flagship's shared memory); every pool, elementwise, concat,
+   matmul and pad spec and every row op wider than 8,192 outputs of
+   ``resnet_50_v2`` (f32 and int8), ``densenet_121`` and the reference's
+   test graph ``allops`` (f32 and int8); a hand-built fused chain with
+   pool and elementwise stages (f32 and int8); and a hand-built conv whose
+   output row exceeds a CTA's shared memory (global row buffer);
+4. runs the flagship slice: ``compile(mobilenet_v1(0.25, 128, 1),
+   backend="cuda")`` (verified ``numeric+cuda``, winner ``fuse``, 49,805 B)
+   and three requests through ``CompiledPlan.execute``, each matching the
+   numpy backend and counting 29 launches, with the launch counts reset
+   just before; then the f32 flagship, the flagship at batch 2 and
    ``mobilenet_v1_1.0_224_8bit``;
-6. times ``execute()`` and every kernel with CUDA events (per flagship
-   forward: the sum over the kernel's launches), the plain versions, and
-   one PyTorch call per kernel kind at the flagship's f32 shapes as the
-   yardstick (``F.conv2d`` with TF32 off, ``torch.mean``, ``torch.matmul``,
-   ``torch.softmax``; the port never calls them);
-7. writes every number to ``build/chip_smoke.json`` and prints the
+5. runs this slice's model, ``resnet_50_v2`` at full width, f32
+   (``zoo.resnet50_v2(224, 4)``) and int8: ``compile(..., backend="cuda")``
+   and three requests each, matching the numpy backend, 90 launches each,
+   the device arena exactly ``plan.peak_bytes`` (7,225,344 B in f32);
+6. runs every row of ``zoo.TABLE3_MODELS`` at full width once on the card
+   against the numpy backend, and ``allops`` (f32 and int8); prints each
+   row's winner, arena, launches and seconds. ``nasnet_mobile``'s graph
+   adds a (28, 28, 22) tensor to a (56, 56, 22) one, which no backend of
+   either package executes: the script checks that the port and the numpy
+   backend both refuse it;
+7. times with CUDA events, after a warm-up, every kernel per forward of the
+   path that runs it (``resnet_50_v2`` f32 for conv, pool, elementwise and
+   the head; ``densenet_121`` for concat; ``allops`` f32 for matmul and
+   pad; the flagship for the fused chain), its plain version, and one
+   PyTorch call per op at the same f32 shapes as the yardstick
+   (``F.conv2d`` with TF32 off, ``F.max_pool2d``, ``torch.relu``,
+   ``torch.add``, ``torch.cat``, ``torch.matmul``, ``F.pad``,
+   ``torch.mean``, ``torch.softmax``; the port never calls them), plus the
+   flagship's int8 and f32 kernel times and ``resnet_50_v2`` int8;
+8. writes every number to ``build/chip_smoke.json`` and prints the
    ``kernels`` JSON line, the card line, and as its last line the device
    JSON.
 
@@ -47,28 +67,46 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 FLAGSHIP_BYTES = 49_805
+RESNET_BYTES = 7_225_344
+RESNET_LAUNCHES = 90
+WIDE_ROW = 8_192               # rows wider need a staged row buffer
 HBM_BYTES_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 INT8_OPS_S = 1979e12           # dense int8 tensor-core peak
 F32_OPS_S = 67e12              # f32 outside the tensor cores
 F32_TOL = 1e-4
 
+CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {
     # name -> (source, TPU kernel it replaces)
-    "arena_conv": ("src/repro_torch/kernels/csrc/arena_conv.cu",
+    "arena_conv": (CSRC + "arena_conv.cu",
                    "src/repro/kernels/arena_ops.py:525"),
-    "arena_mean": ("src/repro_torch/kernels/csrc/arena_mean.cu",
+    "arena_pool": (CSRC + "arena_pool.cu",
+                   "src/repro/kernels/arena_ops.py:569"),
+    "arena_elementwise": (CSRC + "arena_elementwise.cu",
+                          "src/repro/kernels/arena_ops.py:616"),
+    "arena_matmul": (CSRC + "arena_matmul.cu",
+                     "src/repro/kernels/arena_ops.py:652"),
+    "arena_pad": (CSRC + "arena_pad.cu",
+                  "src/repro/kernels/arena_ops.py:682"),
+    "arena_concat": (CSRC + "arena_concat.cu",
+                     "src/repro/kernels/arena_ops.py:673"),
+    "arena_mean": (CSRC + "arena_mean.cu",
                    "src/repro/kernels/arena_ops.py:692"),
-    "arena_fully_connected": (
-        "src/repro_torch/kernels/csrc/arena_fully_connected.cu",
-        "src/repro/kernels/arena_ops.py:638"),
-    "arena_softmax": ("src/repro_torch/kernels/csrc/arena_softmax.cu",
+    "arena_fully_connected": (CSRC + "arena_fully_connected.cu",
+                              "src/repro/kernels/arena_ops.py:638"),
+    "arena_softmax": (CSRC + "arena_softmax.cu",
                       "src/repro/kernels/arena_ops.py:628"),
-    "arena_fused_chain": ("src/repro_torch/kernels/csrc/arena_fused_chain.cu",
+    "arena_fused_chain": (CSRC + "arena_fused_chain.cu",
                           "src/repro/kernels/arena_ops.py:736"),
 }
-KIND_KERNEL = {"conv2d": "arena_conv", "depthwise_conv2d": "arena_conv",
-               "mean": "arena_mean", "fully_connected": "arena_fully_connected",
-               "softmax": "arena_softmax", "fused": "arena_fused_chain"}
+#: the path each kernel's line in the ``kernels`` JSON is measured on
+KERNEL_PATH = {
+    "arena_conv": "resnet_50_v2", "arena_pool": "resnet_50_v2",
+    "arena_elementwise": "resnet_50_v2", "arena_mean": "resnet_50_v2",
+    "arena_fully_connected": "resnet_50_v2", "arena_softmax": "resnet_50_v2",
+    "arena_concat": "densenet_121", "arena_matmul": "allops",
+    "arena_pad": "allops", "arena_fused_chain": "mobilenet_v1_0.25_128_8bit",
+}
 
 
 class SmokeError(RuntimeError):
@@ -84,35 +122,138 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _el(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n
+
+
+# ---------------------------------------------------------------------------
+# graphs and specs of the checks (also used by the CPU tests)
+# ---------------------------------------------------------------------------
+
+
+def allops_graph(dtype_bytes: int = 4, graph_cls=None):
+    """The reference's test graph ``allops_graph`` (tests/test_executors.py:
+    max pool, pad, concat, mean, matmul, relu6, add, sigmoid, softmax, two
+    outputs), built with the port's ``Graph`` unless another package's
+    ``graph_cls`` is given; ``dtype_bytes=1`` is its int8 build."""
+    if graph_cls is None:
+        from repro_torch.core.graph import Graph as graph_cls
+    g = graph_cls("allops")
+    a = g.tensor("a", (8, 8, 4), dtype_bytes, "input")
+    b2 = g.tensor("b", (8, 2), dtype_bytes, "input")
+    p = g.op("pool", [a], (4, 4, 4),
+             dict(kernel=(3, 3), stride=(2, 2), padding="same", mode="max"))
+    q = g.op("pad", [p], (6, 6, 4), dict(paddings=((1, 1), (1, 1), (0, 0))))
+    c = g.op("concat", [p, p], (4, 4, 8), dict(axis=-1))
+    m = g.op("mean", [q], (4,), dict(axes=(0, 1)))
+    r1 = g.op("reshape", [c], (16, 8))
+    mm = g.op("matmul", [r1, b2], (16, 2))
+    s = g.op("elementwise", [mm], (16, 2), dict(fn="relu6"))
+    ss = g.op("elementwise", [s, mm], (16, 2), dict(fn="add"))
+    g.op("softmax", [ss], (16, 2), name="out", out_kind="output")
+    g.op("elementwise", [m], (4,), dict(fn="sigmoid"), name="out2",
+         out_kind="output")
+    g.validate()
+    return g
+
+
+def fused_demo_spec(dtype: str, h: int, w: int, c: int):
+    """A fused chain with every stage kind the fused kernel runs, built by
+    hand (the zoo's chains are conv, depthwise and concat only): conv2d
+    3x3 (arena -> scratch s0), max pool 3x3/1 (s0 -> s1), add of s1 and the
+    chain input (-> s2), avg pool 3x3/1 (s2 -> s1), relu6 in place on s1,
+    then concat [s1, s0] written to the arena over the chain input. Returns
+    (spec, the arena bytes it needs); the filter is (3, 3, c, c)."""
+    from repro_torch.kernels.arena_ops import OpSpec
+    q = dtype == "i8"
+    isz = 1 if q else 4
+    n = h * w * c * isz
+    x_off, y_off = _round16(n // 2), 0
+    hw = (h, w, c)
+
+    def st(kind, ins, offs, scr, out_off, out_scr, out_shape, meta, qmeta):
+        return OpSpec(kind=kind, in_off=offs, in_shape=ins, out_off=out_off,
+                      out_shape=out_shape, dtype=dtype, meta=meta,
+                      qmeta=qmeta if q else (), in_scratch=scr,
+                      out_scratch=out_scr)
+
+    s0, s1, s2 = 0, n, 2 * n
+    pool_q = (-2, float(np.float32(0.93)), 3)
+    stages = (
+        st("conv2d", (hw,), (x_off,), (0,), s0, 1, hw,
+           (3, 3, 1, 1, 1, 1, 1, 1, 1),
+           (-3, float(np.float32(0.0123)), 5)),
+        st("pool", (hw,), (s0,), (1,), s1, 1, hw,
+           (3, 3, 1, 1, 1, 1, "max"), pool_q),
+        st("elementwise", (hw, hw), (s1, x_off), (1, 0), s2, 1, hw,
+           ("add",), (((0.05, 3), (0.07, -2)), (0.09, 1))),
+        st("pool", (hw,), (s2,), (1,), s1, 1, hw,
+           (3, 3, 1, 1, 1, 1, "avg"), pool_q),
+        st("elementwise", (hw,), (s1,), (1,), s1, 1, hw,
+           ("relu6",), (((0.04, -1),), (0.03, -100))),
+        st("concat", (hw, hw), (s1, s0), (1, 1), y_off, 0, (h, w, 2 * c),
+           (-1,), (((-100, float(np.float32(0.75))),
+                    (5, float(np.float32(1.25)))), (2,))),
+    )
+    spec = OpSpec(kind="fused", in_off=(x_off,), in_shape=(hw,),
+                  out_off=y_off, out_shape=(h, w, 2 * c), dtype=dtype,
+                  meta=("demo",), stages=stages, scratch_rows=3 * n)
+    return spec, max(x_off + n, y_off + 2 * n)
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def wide_row_spec(ow: int, oc: int):
+    """A hand-built f32 conv2d 3x3 whose output row (ow * oc outputs) may
+    exceed a CTA's shared memory (the global row buffer), overlapped with
+    its input. Returns (spec, arena bytes)."""
+    from repro_torch.kernels.arena_ops import OpSpec
+    ic, rows = 4, 3
+    in_b, out_b = rows * ow * ic * 4, rows * ow * oc * 4
+    spec = OpSpec(kind="conv2d", in_off=(out_b // 3 // 16 * 16,),
+                  in_shape=((rows, ow, ic),), out_off=0,
+                  out_shape=(rows, ow, oc), dtype="f32",
+                  meta=(3, 3, 1, 1, 1, 1, 1, 1, 1))
+    return spec, max(spec.in_off[0] + in_b, out_b)
+
+
+def graph_fault(graph):
+    """The first binary elementwise op whose second operand does not
+    broadcast to the first (numpy rules), as (name, shapes), or None."""
+    for op in graph.ops:
+        if op.kind != "elementwise" or len(op.inputs) != 2:
+            continue
+        a, b = tuple(op.inputs[0].shape), tuple(op.inputs[1].shape)
+        if _el(a) != _el(b) and (len(b) > len(a) or any(
+                y not in (1, x) for x, y in zip(a[::-1], b[::-1]))):
+            return op.name, (a, b)
+    return None
+
+
 # ---------------------------------------------------------------------------
 # per-spec helpers
 # ---------------------------------------------------------------------------
 
 
-def plain(K, arena, spec, w) -> None:
-    """The spec's plain PyTorch version on the same (CUDA) arena."""
-    if spec.kind in ("conv2d", "depthwise_conv2d"):
-        K.conv_plain(arena, spec, w)
-    elif spec.kind == "mean":
-        K.mean_plain(arena, spec)
-    elif spec.kind == "fully_connected":
-        K.fully_connected_plain(arena, spec, w)
-    elif spec.kind == "softmax":
-        K.softmax_plain(arena, spec)
-    elif spec.kind == "fused":
-        K.fused_chain_plain(arena, spec, w)
-    else:
-        raise SmokeError(f"no plain version for {spec.kind}")
-
-
 def out_range(spec):
     """Byte range of the arena a spec writes (a fused chain: its terminal
-    concat's output)."""
-    n = 1
-    for s in spec.out_shape:
-        n *= int(s)
+    stage's output)."""
     isz = 1 if spec.dtype == "i8" else 4
-    return spec.out_off, spec.out_off + n * isz
+    return spec.out_off, spec.out_off + _el(spec.out_shape) * isz
+
+
+def lsb_limit(spec) -> int:
+    """int8 tolerance: exp differs by an ulp between libraries, so softmax
+    and sigmoid (alone or as a fused stage) may differ by one step."""
+    kinds = [spec] + list(spec.stages)
+    return int(any(s.kind == "softmax" or (s.kind == "elementwise"
+                                           and s.meta[0] == "sigmoid")
+                   for s in kinds))
 
 
 def arena_diff(torch, got, ref, spec) -> float:
@@ -127,7 +268,7 @@ def arena_diff(torch, got, ref, spec) -> float:
         g = got[lo:hi].view(torch.int8).to(torch.int32)
         r = ref[lo:hi].view(torch.int8).to(torch.int32)
         err = (g - r).abs().max().item() if hi > lo else 0
-        limit = 1 if spec.kind == "softmax" else 0
+        limit = lsb_limit(spec)
         check(err <= limit, f"{spec.kind}: int8 max error {err} > {limit}")
         return float(err)
     g = got[lo:hi].view(torch.float32)
@@ -142,43 +283,47 @@ def arena_diff(torch, got, ref, spec) -> float:
 def spec_cost(spec):
     """(bytes the op must move, operations, operation rate) at this spec:
     each input read once, each output written once, filters read once;
-    multiply-adds count two operations (every tap of the window)."""
+    multiply-adds count two operations (every tap of the window), a pool
+    one per tap, an elementwise op one per operand element, a concat or
+    pad one per output element (the rescale)."""
     isz = 1 if spec.dtype == "i8" else 4
     rate = INT8_OPS_S if spec.dtype == "i8" else F32_OPS_S
-
-    def el(shape):
-        n = 1
-        for s in shape:
-            n *= int(s)
-        return n
-
-    if spec.kind == "fused":
-        ext = sum(el(s) for s in spec.in_shape) * isz
-        out = el(spec.out_shape) * isz
+    k = spec.kind
+    if k == "fused":
+        ext = sum(_el(s) for s in spec.in_shape) * isz
+        out = _el(spec.out_shape) * isz
         w_bytes, ops = 0, 0
         for st in spec.stages:
+            _, o, _ = spec_cost(st)
+            ops += o
             if st.kind in ("conv2d", "depthwise_conv2d"):
-                b, o, _ = spec_cost(st)
-                ops += o
                 kh, kw = st.meta[:2]
                 ic, oc = st.in_shape[0][-1], st.out_shape[-1]
                 w_bytes += kh * kw * (ic * oc if st.kind == "conv2d"
                                       else oc) * isz
         return ext + out + w_bytes, ops, rate
-    inb = sum(el(s) for s in spec.in_shape) * isz
-    outb = el(spec.out_shape) * isz
-    if spec.kind in ("conv2d", "depthwise_conv2d"):
+    inb = sum(_el(s) for s in spec.in_shape) * isz
+    outb = _el(spec.out_shape) * isz
+    n_out = _el(spec.out_shape)
+    if k in ("conv2d", "depthwise_conv2d"):
         kh, kw = spec.meta[:2]
         ic = spec.in_shape[0][-1]
         oc = spec.out_shape[-1]
-        per = kh * kw * (ic if spec.kind == "conv2d" else 1)
-        wb = kh * kw * (ic * oc if spec.kind == "conv2d" else oc) * isz
-        return inb + outb + wb, 2 * el(spec.out_shape) * per, rate
-    if spec.kind == "fully_connected":
+        per = kh * kw * (ic if k == "conv2d" else 1)
+        wb = kh * kw * (ic * oc if k == "conv2d" else oc) * isz
+        return inb + outb + wb, 2 * n_out * per, rate
+    if k == "pool":
+        return inb + outb, n_out * spec.meta[0] * spec.meta[1], rate
+    if k == "fully_connected":
         idim = spec.in_shape[0][-1]
-        return inb + outb + idim * el(spec.out_shape) * isz, \
-            2 * idim * el(spec.out_shape), rate
-    return inb + outb, 4 * el(spec.in_shape[0]), rate
+        return inb + outb + idim * n_out * isz, 2 * idim * n_out, rate
+    if k == "matmul":
+        return inb + outb, 2 * spec.in_shape[0][-1] * n_out, rate
+    if k == "elementwise":
+        return inb + outb, n_out * len(spec.in_shape), rate
+    if k in ("concat", "pad"):
+        return inb + outb, n_out, rate
+    return inb + outb, 4 * _el(spec.in_shape[0]), rate  # mean, softmax
 
 
 def bound_ms(spec) -> float:
@@ -192,11 +337,12 @@ def bound_by(specs) -> str:
     return "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_ms(torch, fn, reps: int) -> float:
+def time_ms(torch, fn, reps: int, warm: bool = True) -> float:
     """Device time of one ``fn()``: CUDA events around ``reps`` calls queued
     behind a sleep kernel, so host launch overhead does not show as device
     idle time between them."""
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -209,54 +355,172 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_auto(torch, fn, budget_ms: float = 40.0, max_reps: int = 20):
+    """Device ms of one ``fn()`` after a warm-up, with as many repetitions
+    (1 to ``max_reps``) as fit ``budget_ms``."""
+    first = time_ms(torch, fn, 1)
+    reps = int(min(max_reps, budget_ms // max(first, 1e-3)))
+    return time_ms(torch, fn, reps, warm=False) if reps > 1 else first
+
+
+def library_call(torch, F, spec):
+    """One PyTorch call computing the spec's f32 function at its shapes, on
+    fresh random tensors; None where no single call does. Padding the
+    library call needs (TF SAME pads unevenly) is applied outside it."""
+    dev = "cuda"
+    k = spec.kind
+    rnd = lambda *s: torch.randn(*s, device=dev)  # noqa: E731
+    if k in ("conv2d", "depthwise_conv2d", "pool"):
+        ih, iw, ic = spec.in_shape[0][-3:]
+        oh, ow, oc = spec.out_shape[-3:]
+        if k == "pool":
+            kh, kw, sh, sw, ph, pw, mode = spec.meta
+            dh = dw = 1
+        else:
+            kh, kw, sh, sw, dh, dw, ph, pw, _ = spec.meta
+        if ph < 0:
+            return None
+        x = rnd(1, ic, ih, iw)
+        padh = max(0, (oh - 1) * sh + (kh - 1) * dh + 1 - ih)
+        padw = max(0, (ow - 1) * sw + (kw - 1) * dw + 1 - iw)
+        pads = (pw, padw - pw, ph, padh - ph)
+        if k == "pool":
+            if mode == "max":
+                xp = F.pad(x, pads, value=-float("inf"))
+                return lambda: F.max_pool2d(xp, (kh, kw), (sh, sw))
+            if pads[0] != pads[1] or pads[2] != pads[3]:
+                return None
+            return lambda: F.avg_pool2d(x, (kh, kw), (sh, sw), (ph, pw),
+                                        count_include_pad=False)
+        groups = ic if k == "depthwise_conv2d" else 1
+        wt = rnd(oc, ic // groups, kh, kw)
+        xp = F.pad(x, pads)
+        return lambda: F.conv2d(xp, wt, stride=(sh, sw), dilation=(dh, dw),
+                                groups=groups)
+    if k == "elementwise":
+        xs = [rnd(*s) for s in spec.in_shape]
+        fn = {"relu": torch.relu, "relu6": F.relu6,
+              "sigmoid": torch.sigmoid, "add": torch.add, "mul": torch.mul,
+              "sub": torch.sub}.get(spec.meta[0])
+        return None if fn is None else (lambda: fn(*xs))
+    if k == "concat":
+        xs = [rnd(*s) for s in spec.in_shape]
+        return lambda: torch.cat(xs, dim=spec.meta[0])
+    if k == "matmul":
+        kk = spec.in_shape[0][-1]
+        a = rnd(_el(spec.in_shape[0]) // kk, kk)
+        b = rnd(*spec.in_shape[1])
+        return lambda: torch.matmul(a, b)
+    if k == "pad":
+        x = rnd(*spec.in_shape[0])
+        flat = tuple(p for lo_hi in reversed(spec.meta[0]) for p in lo_hi)
+        return lambda: F.pad(x, flat)
+    if k == "mean":
+        x = rnd(*spec.in_shape[0])
+        axes = tuple(a % x.dim() for a in spec.meta[0])
+        return lambda: x.mean(dim=axes)
+    if k == "fully_connected":
+        idim = spec.in_shape[0][-1]
+        x = rnd(_el(spec.in_shape[0]) // idim, idim)
+        wt = rnd(idim, _el(spec.out_shape) * idim // _el(spec.in_shape[0]))
+        return lambda: torch.matmul(x, wt)
+    if k == "softmax":
+        x = rnd(*spec.in_shape[0])
+        return lambda: torch.softmax(x, dim=-1)
+    return None
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
 
-def compare_program(torch, K, be, cp, label: str, errs, weights=None,
-                    quant=None):
-    """Phase 3 for one compiled plan: every spec, kernel vs plain, on copies
-    of the arena as the program reaches it. Returns the specs."""
+def compare_program(torch, K, be, cp, label: str, errs, select=None,
+                    weights=None, quant=None):
+    """Kernel against plain version for every spec of a compiled plan that
+    ``select`` picks (default: all), on copies of the arena as the program
+    reaches it; the other specs advance the arena through their kernels.
+    Returns (specs, fused scratch branches, specs compared)."""
     specs, ws, descs, state = be.program(cp, None, weights, quant=quant)
+    n = 0
     for spec, w, d in zip(specs, ws, descs):
+        if select is not None and not select(spec):
+            K.apply_op(state, spec, w, d)
+            continue
         got = state.clone()
         K.apply_op(got, spec, w, d)
         ref = state.clone()
-        plain(K, ref, spec, w)
+        K.apply_plain(ref, spec, w)
         torch.cuda.synchronize()
-        name = KIND_KERNEL[spec.kind]
-        err = arena_diff(torch, got, ref, spec)
-        errs[name] = max(errs.get(name, 0.0), err)
+        name = K.KERNEL_OF[spec.kind]
+        errs[name] = max(errs.get(name, 0.0), arena_diff(torch, got, ref,
+                                                          spec))
         state = ref
-    fused = [s for s in specs if s.kind == "fused"]
-    branches = [("shared" if K.fused_smem_plan(s)[0] else "global")
-                for s in fused]
-    log(f"[kernels vs plain] {label}: {len(specs)} specs match "
+        n += 1
+    torch.cuda.synchronize()
+    branches = [("global" if K.buffer_plan(s).on_global("scratch")
+                 else "shared") for s in specs if s.kind == "fused"]
+    log(f"[kernels vs plain] {label}: {n} of {len(specs)} specs match "
         f"(fused scratch: {', '.join(branches) or 'none'})")
-    return specs, branches
+    return specs, branches, n
 
 
-def run_requests(torch, K, X, cp, graph, n_launch: int, label: str,
-                 peak: int, seeds=(0, 1, 2)):
-    """Phase 4/5: requests through CompiledPlan.execute on the card, each
-    against the numpy backend and counted. Returns launches per kernel over
-    all requests and the arena the program allocates."""
+def compare_spec(torch, K, spec, nbytes: int, weights, errs, label: str,
+                 seed: int = 0):
+    """Kernel against plain version on one hand-built spec over a seeded
+    random arena of ``nbytes``."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if spec.dtype == "f32":
+        state = torch.randn(-(-nbytes // 4), generator=g).view(torch.uint8)
+    else:
+        state = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                              generator=g)
+    state = state[:nbytes].cuda()
+    w = weights
+    if spec.kind == "fused":
+        w = K.pack_weights(spec, weights, device="cuda")
+    elif weights:
+        w = weights[0]
+    got, ref = state.clone(), state.clone()
+    K.apply_op(got, spec, w)
+    K.apply_plain(ref, spec, w)
+    torch.cuda.synchronize()
+    name = K.KERNEL_OF[spec.kind]
+    err = arena_diff(torch, got, ref, spec)
+    errs[name] = max(errs.get(name, 0.0), err)
+    bp = K.buffer_plan(spec)
+    log(f"[kernels vs plain] {label}: match (max err {err:g}; global "
+        f"buffers: {[n for n, glob, _ in bp.parts if glob] or 'none'})")
+
+
+def requests(torch, K, X, cp, label: str, n_launch, peak: int,
+             seeds=(0, 1, 2)):
+    """Requests through CompiledPlan.execute on the card, each against the
+    numpy backend and counted (counts reset just before each; ``n_launch``
+    None expects one launch per lowered spec). Returns the launches per
+    kernel of one request and the host seconds of the cuda and numpy
+    executions."""
+    graph = cp.graph
     weights = X.synth_weights(graph, 0)
     quant = X.calibrate(graph, 0, weights) if X.needs_quant(graph) else None
-    totals = {k: 0 for k in K.LAUNCHES}
     be = X.get_backend("cuda")
-    _, _, _, arena = be.program(cp, None, weights, quant=quant)
+    specs, _, _, arena = be.program(cp, None, weights, quant=quant)
+    n_launch = len(specs) if n_launch is None else n_launch
     check(arena.device.type == "cuda" and arena.numel() == peak,
           f"{label}: device arena {arena.numel()} B on {arena.device}, "
           f"expected {peak} B on the card")
+    per_request, t_cuda, t_np = None, 0.0, 0.0
     for seed in seeds:
         inputs = (X.quant_inputs(graph, quant, seed) if quant is not None
                   else X.random_inputs(graph, seed))
         K.reset_launches()
+        t0 = time.perf_counter()
         got = cp.execute(inputs, weights, quant=quant)
+        t_cuda += time.perf_counter() - t0
         counts = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
         ref = X.get_backend("numpy").execute(cp, inputs, weights, quant=quant)
+        t_np += time.perf_counter() - t0
         X.compare_outputs(ref, got, exact=False, label=f"{label} seed {seed}")
         for k, v in got.items():
             check(bool(np.isfinite(v.astype(np.float64)).all()),
@@ -264,11 +528,62 @@ def run_requests(torch, K, X, cp, graph, n_launch: int, label: str,
         check(sum(counts.values()) == n_launch,
               f"{label}: {sum(counts.values())} launches, expected "
               f"{n_launch}: {counts}")
-        for k in totals:
-            totals[k] += counts[k]
-    log(f"[slice] {label}: {len(seeds)} requests match numpy, "
-        f"{n_launch} launches each, device arena {peak} B")
-    return totals
+        check(per_request is None or counts == per_request,
+              f"{label}: launches differ between requests")
+        per_request = counts
+    log(f"[slice] {label}: {len(seeds)} requests match numpy, {n_launch} "
+        f"launches each, device arena {peak} B (execute {t_cuda:.2f} s, "
+        f"numpy {t_np:.2f} s)")
+    return per_request, t_cuda, t_np
+
+
+def refused(fn, label: str) -> str:
+    """Run ``fn``; it must raise ValueError (a graph no backend executes).
+    Returns the message."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e).splitlines()[0]
+    raise SmokeError(f"{label}: expected a ValueError")
+
+
+def kernel_times(torch, F, K, ex, cp, weights=None, quant=None,
+                 plain_too=True, library=False, only=None):
+    """Per kernel (of ``only``, default all) over one forward of ``cp``:
+    device ms (CUDA events), the plain version's ms, the bound, the library
+    call's ms (f32, where every op has one) and the specs."""
+    specs, ws, descs, state = ex.program(cp, None, weights, quant=quant)
+    per = {}
+    for spec, wt, d in zip(specs, ws, descs):
+        name = K.KERNEL_OF[spec.kind]
+        if only is not None and name not in only:
+            K.apply_op(state, spec, wt, d)
+            continue
+        row = per.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
+                                    "bound_ms": 0.0, "library_ms": 0.0,
+                                    "launches": 0, "specs": []})
+        a = state.clone()
+        row["ms"] += time_auto(torch, lambda: K.apply_op(a, spec, wt, d))
+        if plain_too:
+            b = state.clone()
+            row["plain_ms"] += time_ms(
+                torch, lambda: K.apply_plain(b, spec, wt), 1, warm=False)
+        if library and row["library_ms"] is not None:
+            call = library_call(torch, F, spec)
+            row["library_ms"] = (None if call is None else
+                                 row["library_ms"] + time_auto(torch, call))
+        K.apply_op(state, spec, wt, d)
+        row["bound_ms"] += bound_ms(spec)
+        row["launches"] += 1
+        row["specs"].append(spec)
+    torch.cuda.synchronize()
+    for row in per.values():
+        row["bound_by"] = bound_by(row["specs"])
+        if not plain_too:
+            row["plain_ms"] = None
+        if not library:
+            row["library_ms"] = None
+    return per
 
 
 def main() -> int:
@@ -292,6 +607,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
+    phase_s = {}
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase[0]
+        t_phase[0] = now
+        log(f"[phase] {name}: {phase_s[name]:.1f} s")
 
     # 1. the card
     smi = subprocess.run(
@@ -306,23 +629,56 @@ def main() -> int:
     build.load()
     log(f"[build] {build.LAST_BUILD_S:.1f} s into {build.build_dir()}")
     log(build.ptxas_report())
+    phase_done("build")
 
     # 3. every kernel against its plain version
     be = X.get_backend("cuda")
+    errs = {}
     flag = zoo.mobilenet_v1(0.25, 128, 1)
     cp8 = compile(flag, backend="numpy")
-    errs = {}
-    specs8, br8 = compare_program(torch, K, be, cp8, "flagship int8", errs)
+    specs8, br8, _ = compare_program(torch, K, be, cp8, "flagship int8",
+                                     errs)
     cp32 = compile(zoo.mobilenet_v1(0.25, 128, 4), backend="numpy")
     compare_program(torch, K, be, cp32, "flagship f32", errs)
     big = zoo.TABLE3_MODELS["mobilenet_v1_1.0_224_8bit"][0]()
     cpb = compile(big, backend="numpy")
-    _, brb = compare_program(torch, K, be, cpb, "mobilenet_v1_1.0_224_8bit",
-                             errs)
+    _, brb, _ = compare_program(torch, K, be, cpb,
+                                "mobilenet_v1_1.0_224_8bit", errs)
     check("shared" in br8 + brb and "global" in br8 + brb,
           "both fused scratch branches must run")
 
-    # 4. the slice on the flagship
+    def new_kinds(spec) -> bool:
+        return spec.kind in ("pool", "elementwise", "concat", "matmul",
+                             "pad") or (spec.kind in K.ROW_KINDS and _el(
+                                 spec.out_shape[-2:]) > WIDE_ROW)
+
+    compiled = {}
+    for label, graph in (
+            ("resnet_50_v2", zoo.resnet50_v2(224, 4)),
+            ("resnet_50_v2 int8", zoo.resnet50_v2(224, 1)),
+            ("densenet_121", zoo.densenet121(224, 4)),
+            ("allops", allops_graph(4)), ("allops int8", allops_graph(1))):
+        compiled[label] = c = compile(graph, backend="cuda")
+        _, _, n = compare_program(torch, K, be, c, label, errs,
+                                  select=new_kinds)
+        check(n > 0, f"{label}: nothing compared")
+    for dtype in ("f32", "i8"):
+        spec, nbytes = fused_demo_spec(dtype, 28, 28, 16)
+        wt = torch.randint(-127, 128, (3, 3, 16, 16), dtype=torch.int8) \
+            if dtype == "i8" else torch.randn(3, 3, 16, 16) * 0.2
+        compare_spec(torch, K, spec, nbytes, [wt.cuda()], errs,
+                     f"fused chain with pool and elementwise stages, "
+                     f"{dtype}")
+    spec, nbytes = wide_row_spec(4_096, 16)
+    check(K.buffer_plan(spec).on_global("row"), "row buffer not global")
+    compare_spec(torch, K, spec, nbytes, [torch.randn(3, 3, 4, 16).cuda()],
+                 errs, "conv with a 65,536-output row (global row buffer)")
+    for name in KERNELS:
+        check(name in errs, f"{name} was never held against its plain "
+              "version")
+    phase_done("kernels vs plain")
+
+    # 4. the flagship slice and its other configurations
     cp = compile(flag, backend="cuda")
     check(cp.verified == "numeric+cuda", f"verified={cp.verified}")
     check(cp.winner == "fuse", f"winner={cp.winner}")
@@ -331,13 +687,9 @@ def main() -> int:
     log(f"[slice] compile(flagship, backend='cuda'): verified={cp.verified} "
         f"winner={cp.winner} peak={cp.peak_bytes} B "
         f"baseline={cp.baseline_bytes} B")
-    K.reset_launches()
-    main_launches = run_requests(torch, K, X, cp, cp.graph, 29, "flagship",
-                                 FLAGSHIP_BYTES)
-    for name in KERNELS:
-        check(main_launches[name] > 0, f"{name} never launched on the path")
-
-    # 5. more configurations
+    paths = {}
+    paths["mobilenet_v1_0.25_128_8bit"], _, _ = requests(
+        torch, K, X, cp, "flagship", 29, FLAGSHIP_BYTES)
     for label, graph, batch, peak, n in (
             ("flagship f32", zoo.mobilenet_v1(0.25, 128, 4), 1, 199_220, 29),
             ("flagship batch 2", flag, 2, 98_957, None),
@@ -348,113 +700,155 @@ def main() -> int:
         check(n is None or n_specs == n, f"{label}: {n_specs} specs")
         log(f"[slice] compile({label}): verified={c.verified} "
             f"winner={c.winner} peak={c.peak_bytes} B")
-        run_requests(torch, K, X, c, c.graph, n_specs, label, peak,
-                     seeds=(0,))
+        requests(torch, K, X, c, label, n_specs, peak, seeds=(0,))
+    phase_done("flagship slice")
 
-    # 6. times
-    ex = X.get_backend("cuda")
-    w0 = X.synth_weights(cp.graph, 0)
-    q0 = X.calibrate(cp.graph, 0, w0)
-    in0 = X.quant_inputs(cp.graph, q0, 0)
-    for _ in range(3):
-        cp.execute(in0, w0, quant=q0)
+    # 5. this slice: resnet_50_v2 at full width, f32 and int8
+    slice_cps = {}
+    for label, graph, peak in (
+            ("resnet_50_v2", zoo.resnet50_v2(224, 4), RESNET_BYTES),
+            ("resnet_50_v2 int8", zoo.resnet50_v2(224, 1), None)):
+        t0 = time.perf_counter()
+        c = compile(graph, backend="cuda")
+        t_compile = time.perf_counter() - t0
+        peak = c.peak_bytes if peak is None else peak
+        check(c.peak_bytes == peak, f"{label}: peak {c.peak_bytes} != {peak}")
+        log(f"[slice] compile({label}, backend='cuda'): verified="
+            f"{c.verified} winner={c.winner} peak={c.peak_bytes} B "
+            f"baseline={c.baseline_bytes} B ({t_compile:.1f} s)")
+        paths[label], _, _ = requests(torch, K, X, c, label,
+                                      RESNET_LAUNCHES, peak)
+        slice_cps[label] = c
+    for name in ("arena_conv", "arena_pool", "arena_elementwise",
+                 "arena_mean", "arena_fully_connected", "arena_softmax"):
+        check(paths["resnet_50_v2"][name] > 0,
+              f"{name} never launched on resnet_50_v2")
+    phase_done("resnet_50_v2 slice")
+
+    # 6. the zoo, and allops
+    zoo_rows = {}
+    for name, (builder, _, _) in zoo.TABLE3_MODELS.items():
+        graph = builder()
+        t0 = time.perf_counter()
+        c = compile(graph, backend="cuda")
+        t_compile = time.perf_counter() - t0
+        row = {"winner": c.winner, "arena_bytes": c.peak_bytes,
+               "verified": c.verified, "compile_s": t_compile}
+        fault = graph_fault(c.graph)
+        if fault is not None:
+            row["refused"] = {
+                "fault": f"{fault[0]} adds {fault[1][0]} and {fault[1][1]}",
+                "cuda": refused(lambda: c.execute(), name),
+                "numpy": refused(
+                    lambda: X.get_backend("numpy").execute(c), name)}
+            zoo_rows[name] = row
+            log(f"[zoo] {name}: winner={c.winner} arena={c.peak_bytes} B "
+                f"compile {t_compile:.1f} s; not executed: "
+                f"{row['refused']['fault']} (no backend of either package "
+                f"runs it; the cuda and numpy backends both refuse it)")
+            continue
+        counts, t_cuda, t_np = requests(torch, K, X, c, name, None,
+                                        c.peak_bytes, seeds=(0,))
+        row.update(launches=sum(counts.values()), execute_s=t_cuda,
+                   numpy_s=t_np)
+        zoo_rows[name] = row
+        if name == "densenet_121":
+            paths[name] = counts
+        log(f"[zoo] {name}: winner={c.winner} arena={c.peak_bytes} B "
+            f"launches={row['launches']} compile {t_compile:.1f} s "
+            f"execute {t_cuda:.2f} s (numpy {t_np:.2f} s)")
+    run = [n for n, r in zoo_rows.items() if "refused" not in r]
+    log(f"[zoo] {len(run)} of {len(zoo_rows)} Table III rows match the "
+        f"numpy backend on the card")
+    for label in ("allops", "allops int8"):
+        c = compiled[label]
+        paths[label], _, _ = requests(torch, K, X, c, label, None,
+                                      c.peak_bytes)
+    for name, path in KERNEL_PATH.items():
+        check(paths[path][name] > 0, f"{name} never launched on {path}")
+    phase_done("zoo")
+
+    # 7. times
     walls = []
+    c = slice_cps["resnet_50_v2"]
+    w0 = X.synth_weights(c.graph, 0)
+    in0 = X.random_inputs(c.graph, 0)
+    c.execute(in0, w0)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c.execute(in0, w0)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    resnet_exec_ms = statistics.median(walls)
+    log(f"[time] resnet_50_v2 execute(): median {resnet_exec_ms:.1f} ms over "
+        f"3 (host clock, inputs up and outputs down included)")
+    fw = X.synth_weights(cp.graph, 0)
+    fq = X.calibrate(cp.graph, 0, fw)
+    fin = X.quant_inputs(cp.graph, fq, 0)
+    for _ in range(3):
+        cp.execute(fin, fw, quant=fq)
+    fwalls = []
     for _ in range(20):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cp.execute(in0, w0, quant=q0)
+        cp.execute(fin, fw, quant=fq)
         torch.cuda.synchronize()
-        walls.append(1e3 * (time.perf_counter() - t0))
-    exec_ms = statistics.median(walls)
-    log(f"[time] flagship execute(): median {exec_ms:.3f} ms over 20 "
-        f"(host clock, inputs up and outputs down included)")
+        fwalls.append(1e3 * (time.perf_counter() - t0))
+    flag_exec_ms = statistics.median(fwalls)
+    log(f"[time] flagship execute(): median {flag_exec_ms:.3f} ms over 20")
 
-    def kernel_times(c, w=None, q=None):
-        specs, ws, descs, state = ex.program(c, None, w, quant=q)
-        per = {}
-        for spec, wt, d in zip(specs, ws, descs):
-            name = KIND_KERNEL[spec.kind]
-            a = state.clone()
-            k_ms = time_ms(torch, lambda: K.apply_op(a, spec, wt, d), 20)
-            b = state.clone()
-            p_ms = time_ms(torch, lambda: plain(K, b, spec, wt), 2)
-            plain(K, state, spec, wt)
-            row = per.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
-                                        "bound_ms": 0.0, "specs": []})
-            row["ms"] += k_ms
-            row["plain_ms"] += p_ms
-            row["bound_ms"] += bound_ms(spec)
-            row["specs"].append(spec)
-        return per, specs
-
-    per8, _ = kernel_times(cp, w0, q0)
-    per32, specs32 = kernel_times(cp32)
-
-    # library yardsticks at the flagship's f32 shapes (never called by the
-    # port): one PyTorch call per op, summed per kernel
-    lib = {"arena_conv": 0.0, "arena_mean": 0.0,
-           "arena_fully_connected": 0.0, "arena_softmax": 0.0}
-    for spec in specs32:
-        if spec.kind in ("conv2d", "depthwise_conv2d"):
-            ih, iw, ic = spec.in_shape[0][-3:]
-            oc = spec.out_shape[-1]
-            kh, kw, sh, sw, dh, dw, ph, pw, m = spec.meta
-            groups = ic if spec.kind == "depthwise_conv2d" else 1
-            x = torch.randn(1, ic, ih, iw, device="cuda")
-            wt = torch.randn(oc, ic // groups, kh, kw, device="cuda")
-            oh, ow = spec.out_shape[-3:-1]
-            # pad so the output has the op's size (SAME pads may be uneven)
-            padh = max(0, (oh - 1) * sh + (kh - 1) * dh + 1 - ih)
-            padw = max(0, (ow - 1) * sw + (kw - 1) * dw + 1 - iw)
-            xp = F.pad(x, (pw, padw - pw, ph, padh - ph)) \
-                if ph >= 0 else x
-            lib["arena_conv"] += time_ms(torch, lambda: F.conv2d(
-                xp, wt, stride=(sh, sw), dilation=(dh, dw), groups=groups),
-                20)
-        elif spec.kind == "mean":
-            x = torch.randn(*spec.in_shape[0], device="cuda")
-            axes = tuple(a % x.dim() for a in spec.meta[0])
-            lib["arena_mean"] += time_ms(torch, lambda: x.mean(dim=axes), 20)
-        elif spec.kind == "fully_connected":
-            idim = spec.in_shape[0][-1]
-            x = torch.randn(1, idim, device="cuda")
-            wt = torch.randn(idim, spec.out_shape[-1], device="cuda")
-            lib["arena_fully_connected"] += time_ms(
-                torch, lambda: torch.matmul(x, wt), 20)
-        elif spec.kind == "softmax":
-            x = torch.randn(*spec.in_shape[0], device="cuda")
-            lib["arena_softmax"] += time_ms(
-                torch, lambda: torch.softmax(x, dim=-1), 20)
+    ex = X.get_backend("cuda")
+    per = {
+        "resnet_50_v2": kernel_times(torch, F, K, ex, c, library=True),
+        "densenet_121": kernel_times(torch, F, K, ex,
+                                     compiled["densenet_121"], library=True,
+                                     only={"arena_concat"}),
+        "allops": kernel_times(torch, F, K, ex, compiled["allops"],
+                               library=True),
+        "mobilenet_v1_0.25_128_8bit": kernel_times(torch, F, K, ex, cp, fw,
+                                                   fq),
+        "mobilenet_v1_0.25_128_f32": kernel_times(torch, F, K, ex, cp32,
+                                                  library=True),
+    }
+    ci8 = slice_cps["resnet_50_v2 int8"]
+    w8 = X.synth_weights(ci8.graph, 0)
+    per["resnet_50_v2 int8"] = kernel_times(
+        torch, F, K, ex, ci8, w8, X.calibrate(ci8.graph, 0, w8),
+        plain_too=False)
+    phase_done("times")
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
-        r8 = per8[name]
+        path = KERNEL_PATH[name]
+        r = per[path][name]
+        check(r["launches"] == paths[path][name],
+              f"{name}: {r['launches']} specs timed, {paths[path][name]} "
+              "launched")
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main_launches[name],
-            "max_abs_err": errs.get(name, 0.0),
-            "ms": r8["ms"], "plain_ms": r8["plain_ms"],
-            "bound_ms": r8["bound_ms"], "bound_by": bound_by(r8["specs"]),
-            # no single PyTorch call computes these int8 functions (int32
-            # accumulation + requantisation); the f32 yardsticks are in the
-            # f32 line above
-            "library_ms": None})
-    f32_rows = {name: {"ms": r["ms"], "plain_ms": r["plain_ms"],
-                       "bound_ms": r["bound_ms"],
-                       "library_ms": lib.get(name)}
-                for name, r in per32.items()}
-    log("[time] per flagship forward, int8 (ms): " + json.dumps(
-        {r["name"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}
-         for r in rows}))
-    log("[time] per flagship forward, f32 (ms; library = one PyTorch call "
-        "per op): " + json.dumps(f32_rows))
+            "replaces": replaces, "path": path,
+            "launches": paths[path][name],
+            "max_abs_err": errs[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            # int8 has no single PyTorch call (int32 accumulation plus
+            # requantisation); the fused chain has none either
+            "library_ms": r["library_ms"]})
+    times = {path: {name: {k: v for k, v in r.items() if k != "specs"}
+                    for name, r in p.items()} for path, p in per.items()}
+    for path, p in times.items():
+        log(f"[time] per {path} forward (ms): " + json.dumps(p))
     out = ROOT / "build"
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "kind": kind, "execute_ms": exec_ms,
-         "walls_ms": walls, "int8": rows, "f32": f32_rows,
-         "build_s": build.LAST_BUILD_S,
-         "wall_s": time.perf_counter() - t_start}, indent=1))
+        {"card": smi, "kind": kind, "kernels": rows, "times": times,
+         "resnet_execute_ms": resnet_exec_ms, "resnet_walls_ms": walls,
+         "flagship_execute_ms": flag_exec_ms, "flagship_walls_ms": fwalls,
+         "launches": paths, "zoo": zoo_rows, "errors": errs,
+         "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
+         "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
+        indent=1))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -146,13 +146,13 @@ class CudaExecutor:
         if layout == "blocks":
             raise NotImplementedError(
                 "layout='blocks' (the row-blocked program) is ROADMAP queue "
-                "1, item 1: the blocked addressing of the next slice")
+                "1, item 1: the blocked addressing, the next slice")
         if layout != "flat":
             raise ValueError(f"unknown cuda layout {layout!r} (expected "
                              "'flat')")
         if mode == "streaming":
             raise NotImplementedError(
-                "mode='streaming' is ROADMAP queue 1, item 3: the streaming "
+                "mode='streaming' is ROADMAP queue 1, item 2: the streaming "
                 "kernels come after the blocked addressing")
         if mode is not None:
             raise ValueError(f"unknown cuda mode {mode!r}")
@@ -348,7 +348,7 @@ class CudaExecutor:
                             if m.kind in K.WEIGHTED_KINDS
                             for _ in range(m.output.storage().batch)]
                 per_spec.append(K.pack_weights(specs[len(per_spec)],
-                                               stage_ws))
+                                               stage_ws, device=self.device))
                 continue
             for _ in range(op.output.storage().batch):
                 per_spec.append(w_of(op) if op.kind in K.WEIGHTED_KINDS

@@ -5,22 +5,34 @@ The arena is ONE ``torch.uint8`` tensor of exactly the plan's peak bytes.
 Every lowered op (an :class:`OpSpec`) addresses its operands at byte
 offsets in it (f32 operands at 4-byte-aligned offsets) and runs in place:
 
-=========================  ==================================================
-wrapper                    TPU kernel it replaces (src/repro/kernels/arena_ops.py)
-=========================  ==================================================
-:func:`arena_conv`         ``_conv_kernel`` (conv2d and depthwise)
-:func:`arena_mean`         ``_mean_kernel``
-:func:`arena_fully_connected`  ``_fully_connected_kernel``
-:func:`arena_softmax`      ``_softmax_kernel``
-:func:`arena_fused_chain`  ``_fused_kernel`` with ``_RoutedFlatMem`` and the
-                           ``_concat_kernel``/``_rescale`` terminal stage
-=========================  ==================================================
+==============================  =============================================
+wrapper                         TPU kernel it replaces
+                                (src/repro/kernels/arena_ops.py)
+==============================  =============================================
+:func:`arena_conv`              ``_conv_kernel`` (conv2d and depthwise)
+:func:`arena_pool`              ``_pool_kernel``
+:func:`arena_elementwise`       ``_elementwise_kernel``
+:func:`arena_matmul`            ``_matmul_kernel``
+:func:`arena_pad`               ``_pad_kernel``
+:func:`arena_concat`            ``_concat_kernel`` with ``_rescale``
+:func:`arena_mean`              ``_mean_kernel``
+:func:`arena_fully_connected`   ``_fully_connected_kernel``
+:func:`arena_softmax`           ``_softmax_kernel``
+:func:`arena_fused_chain`       ``_fused_kernel`` with ``_RoutedFlatMem``
+                                (conv, depthwise, pool, elementwise and
+                                concat stages)
+==============================  =============================================
 
 A wrapper checks device, dtype, shape and contiguity, then routes on the
 arena's device alone: a CPU arena runs the plain version, a CUDA arena
 launches the kernel (built from ``csrc/`` by :mod:`.build`) or raises. A
 CUDA arena never takes the plain route. Each launch adds one to
 :data:`LAUNCHES`.
+
+A kernel's row buffer, staging buffer and (fused chain) scratch live in
+dynamic shared memory when they fit one CTA and otherwise in a global
+workspace allocated once per spec and cached (:func:`buffer_plan`,
+:func:`workspace`); the descriptor tells the kernel where each is.
 
 The plain versions walk output rows in Python with torch ops on typed views
 of the arena bytes, in the reference's order (every read of row ``oy``
@@ -31,9 +43,11 @@ The CPU tests hold them against the Pallas kernels in interpret mode, and
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import struct
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,26 +94,29 @@ class OpSpec:
 
 #: Op kinds that carry one weight operand.
 WEIGHTED_KINDS = frozenset({"conv2d", "depthwise_conv2d", "fully_connected"})
+#: Op kinds that walk output rows (a row buffer each).
+ROW_KINDS = frozenset({"conv2d", "depthwise_conv2d", "pool"})
+#: Stage kinds the fused kernel runs (the planner's FUSABLE_KINDS).
+FUSED_STAGE_KINDS = frozenset(ROW_KINDS | {"elementwise", "concat"})
+
+#: The kernel that runs each lowered op kind.
+KERNEL_OF = {
+    "conv2d": "arena_conv", "depthwise_conv2d": "arena_conv",
+    "pool": "arena_pool", "elementwise": "arena_elementwise",
+    "matmul": "arena_matmul", "pad": "arena_pad", "concat": "arena_concat",
+    "mean": "arena_mean", "fully_connected": "arena_fully_connected",
+    "softmax": "arena_softmax", "fused": "arena_fused_chain",
+}
 
 #: Launches per kernel since :func:`reset_launches`; each wrapper adds one
 #: where it launches its kernel and nowhere else.
-LAUNCHES: Dict[str, int] = {
-    "arena_conv": 0, "arena_mean": 0, "arena_fully_connected": 0,
-    "arena_softmax": 0, "arena_fused_chain": 0,
-}
+LAUNCHES: Dict[str, int] = {name: 0 for name in dict.fromkeys(
+    KERNEL_OF.values())}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def spec_weight_count(spec: OpSpec) -> int:
-    """Weight operands a lowered spec consumes (a fused chain consumes all
-    of its stages' weights, in stage order)."""
-    if spec.kind == "fused":
-        return sum(1 for st in spec.stages if st.kind in WEIGHTED_KINDS)
-    return 1 if spec.kind in WEIGHTED_KINDS else 0
 
 
 def _elems(shape: Sequence[int]) -> int:
@@ -122,18 +139,22 @@ def _round_up(x: int, m: int) -> int:
 # holds the same word offsets)
 # ---------------------------------------------------------------------------
 
-NT = 512                 # threads of the one CTA
-MAXPT = 16               # row outputs one thread holds in registers
-ROW_LIMIT = NT * MAXPT   # widest output row (ow * oc) a conv kernel takes
 DESC_WORDS = 128
 MAX_CAT = 16
+MAX_DIMS = 6
 #: Dynamic shared memory one CTA can use on Hopper (227 KB).
 SMEM_LIMIT = 232_448
 
-K_CONV2D, K_DEPTHWISE, K_CONCAT, K_MEAN, K_FC, K_SOFTMAX = range(6)
+(K_CONV2D, K_DEPTHWISE, K_CONCAT, K_MEAN, K_FC, K_SOFTMAX, K_POOL,
+ K_ELEMENTWISE, K_MATMUL, K_PAD) = range(10)
 _KIND_CODE = {"conv2d": K_CONV2D, "depthwise_conv2d": K_DEPTHWISE,
               "concat": K_CONCAT, "mean": K_MEAN, "fully_connected": K_FC,
-              "softmax": K_SOFTMAX}
+              "softmax": K_SOFTMAX, "pool": K_POOL,
+              "elementwise": K_ELEMENTWISE, "matmul": K_MATMUL, "pad": K_PAD}
+#: Elementwise function codes; codes >= EW_ADD are binary.
+EW_CODE = {"relu": 0, "relu6": 1, "sigmoid": 2, "identity": 3, "add": 4,
+           "mul": 5, "sub": 6}
+EW_ADD = EW_CODE["add"]
 (D_KIND, D_QUANT, D_WOFF, D_IN_OFF, D_OUT_OFF, D_IN_SCR, D_OUT_SCR, D_X_ZP,
  D_Y_ZP, D_AMULT) = range(10)
 (D_IH, D_IW, D_IC, D_OH, D_OW, D_OC, D_KH, D_KW, D_SH, D_SW, D_DH, D_DW,
@@ -143,6 +164,13 @@ D_M, D_IDIM, D_ODIM = 10, 11, 12
 D_ROWS, D_LAST, D_XSCALE, D_YSCALE = 10, 11, 12, 13
 D_NIN, D_OUTER, D_INNER_OUT = 10, 11, 12
 D_CIN_OFF, D_CIN_SCR, D_CINNER, D_CZP, D_CMULT = 16, 32, 48, 64, 80
+(D_FN, D_EN, D_BCAST, D_IN2_OFF, D_IN2_SCR, D_ASCALE, D_BZP, D_BSCALE,
+ D_OSCALE) = range(10, 19)
+D_EDIM0, D_BSTR0 = 20, 26
+D_MM, D_MK, D_MN = 10, 11, 12
+D_PIN0, D_PLO0, D_POUT0, D_PN = 10, 14, 18, 22
+#: Buffer placement words (flag: 1 = global workspace, then byte offset).
+BUFFER_WORD = {"stage": 120, "row": 122, "scratch": 124}
 
 
 def _fbits(x: float) -> int:
@@ -158,12 +186,11 @@ def _check_flat(spec: OpSpec) -> None:
             "addressing, then streaming)")
 
 
-def _conv_geometry(spec: OpSpec) -> Tuple[int, ...]:
+def _row_geometry(spec: OpSpec) -> Tuple[int, ...]:
+    """(ih, iw, ic, oh, ow, oc) of a conv2d, depthwise or pool spec. Any
+    row width runs: the kernels stage one output row in a row buffer."""
     ih, iw, ic = spec.in_shape[0][-3:]
     oh, ow, oc = spec.out_shape[-3:]
-    if ow * oc > ROW_LIMIT:
-        raise ValueError(f"{spec.kind}: output row of {ow * oc} elements "
-                         f"exceeds the kernel's {ROW_LIMIT}")
     return ih, iw, ic, oh, ow, oc
 
 
@@ -179,24 +206,86 @@ def _weight_shape(spec: OpSpec) -> Tuple[int, ...]:
     return (kh, kw, ic, spec.out_shape[-1])
 
 
+def _ew_broadcast(spec: OpSpec) -> Tuple[bool, Tuple[int, ...],
+                                         Tuple[int, ...]]:
+    """(broadcast?, the first operand's dims, the second operand's strides
+    over them), both padded to MAX_DIMS. The second operand is broadcast
+    (numpy rules) when its element count differs, as the reference does;
+    raises ValueError where it does not broadcast."""
+    fn = spec.meta[0]
+    if fn not in EW_CODE:
+        raise ValueError(f"unknown elementwise fn {fn!r}")
+    n_in = 2 if EW_CODE[fn] >= EW_ADD else 1
+    a = tuple(spec.in_shape[0])
+    if len(spec.in_shape) != n_in or _elems(a) != _elems(spec.out_shape) \
+            or len(a) > MAX_DIMS:
+        raise ValueError(f"elementwise {fn}: operands {spec.in_shape} -> "
+                         f"{spec.out_shape}")
+    dims = (1,) * (MAX_DIMS - len(a)) + a
+    if n_in == 1 or _elems(spec.in_shape[1]) == _elems(a):
+        return False, dims, (0,) * MAX_DIMS
+    b = tuple(spec.in_shape[1])
+    if len(b) > len(a) or any(bd not in (1, ad) for bd, ad in
+                              zip(b[::-1], a[::-1])):
+        raise ValueError(f"elementwise {fn}: operand {b} does not broadcast "
+                         f"to {a}")
+    b = (1,) * (MAX_DIMS - len(b)) + b
+    strides, s = [], 1
+    for bd in reversed(b):
+        strides.append(0 if bd == 1 else s)
+        s *= bd
+    return True, dims, tuple(reversed(strides))
+
+
+def _matmul_geometry(spec: OpSpec) -> Tuple[int, int, int]:
+    k = spec.in_shape[0][-1]
+    m = _elems(spec.in_shape[0]) // k
+    b = tuple(spec.in_shape[1])
+    if len(b) != 2 or b[0] != k or _elems(spec.out_shape) != m * b[1]:
+        raise ValueError(f"matmul: {spec.in_shape} -> {spec.out_shape}")
+    return m, k, b[1]
+
+
+def _pad_geometry(spec: OpSpec) -> Tuple[Tuple[int, ...], ...]:
+    """(input dims, leading pads, output dims), each padded to 4."""
+    shape = tuple(spec.in_shape[0])
+    pads = spec.meta[0]
+    if len(shape) > 4 or len(pads) != len(shape) or \
+            tuple(spec.out_shape) != tuple(
+                n + lo + hi for n, (lo, hi) in zip(shape, pads)) or \
+            min((p for lh in pads for p in lh), default=0) < 0:
+        raise ValueError(f"pad {pads}: {shape} -> {spec.out_shape}")
+    lead = 4 - len(shape)
+    return ((1,) * lead + shape, (0,) * lead + tuple(lo for lo, _ in pads),
+            (1,) * lead + tuple(spec.out_shape))
+
+
 def _op_words(spec: OpSpec, woff: int = 0) -> List[int]:
-    """One op's DESC_WORDS descriptor words."""
+    """One op's DESC_WORDS descriptor words (buffer words excluded)."""
     w = [0] * DESC_WORDS
     q = spec.dtype == "i8"
-    w[D_KIND] = _KIND_CODE.get(spec.kind, -1)
+    k = spec.kind
+    if k not in _KIND_CODE:
+        raise NotImplementedError(f"op kind {k!r} has no CUDA kernel")
+    w[D_KIND] = _KIND_CODE[k]
     w[D_QUANT] = int(q)
     w[D_WOFF] = woff
     w[D_IN_OFF] = spec.in_off[0]
     w[D_OUT_OFF] = spec.out_off
     w[D_IN_SCR] = spec.in_scratch[0] if spec.in_scratch else 0
     w[D_OUT_SCR] = spec.out_scratch
-    k = spec.kind
-    if k in ("conv2d", "depthwise_conv2d", "fully_connected", "mean") and q:
+    if k in ("conv2d", "depthwise_conv2d", "pool", "fully_connected",
+             "mean") and q:
         x_zp, amult, y_zp = spec.qmeta
         w[D_X_ZP], w[D_AMULT], w[D_Y_ZP] = x_zp, _fbits(amult), y_zp
     if k in ("conv2d", "depthwise_conv2d"):
-        w[D_IH:D_OC + 1] = _conv_geometry(spec)
+        w[D_IH:D_OC + 1] = _row_geometry(spec)
         w[D_KH:D_MULT + 1] = spec.meta
+    elif k == "pool":
+        kh, kw, sh, sw, ph, pw, mode = spec.meta
+        w[D_IH:D_OC + 1] = _row_geometry(spec)
+        w[D_KH:D_MULT + 1] = (kh, kw, sh, sw, 1, 1, ph, pw,
+                              int(mode == "max"))
     elif k == "mean":
         shape = tuple(spec.in_shape[0])
         if len(shape) > 4:
@@ -218,7 +307,36 @@ def _op_words(spec: OpSpec, woff: int = 0) -> List[int]:
             (xs, xzp), (ys, yzp) = spec.qmeta
             w[D_X_ZP], w[D_XSCALE] = xzp, _fbits(xs)
             w[D_Y_ZP], w[D_YSCALE] = yzp, _fbits(ys)
-    elif k == "concat":
+    elif k == "elementwise":
+        bcast, dims, strides = _ew_broadcast(spec)
+        w[D_FN], w[D_EN], w[D_BCAST] = EW_CODE[spec.meta[0]], _elems(dims), \
+            int(bcast)
+        if len(spec.in_off) == 2:
+            w[D_IN2_OFF] = spec.in_off[1]
+            w[D_IN2_SCR] = spec.in_scratch[1] if spec.in_scratch else 0
+        w[D_EDIM0:D_EDIM0 + MAX_DIMS] = dims
+        w[D_BSTR0:D_BSTR0 + MAX_DIMS] = strides
+        if q:
+            in_q, (ys, yzp) = spec.qmeta
+            w[D_ASCALE], w[D_X_ZP] = _fbits(in_q[0][0]), in_q[0][1]
+            if len(in_q) == 2:
+                w[D_BSCALE], w[D_BZP] = _fbits(in_q[1][0]), in_q[1][1]
+            w[D_OSCALE], w[D_Y_ZP] = _fbits(ys), yzp
+    elif k == "matmul":
+        w[D_MM], w[D_MK], w[D_MN] = _matmul_geometry(spec)
+        w[D_IN2_OFF] = spec.in_off[1]
+        if q:
+            a_zp, b_zp, amult, y_zp = spec.qmeta
+            w[D_X_ZP], w[D_BZP], w[D_AMULT], w[D_Y_ZP] = \
+                a_zp, b_zp, _fbits(amult), y_zp
+    elif k == "pad":
+        ind, lo, outd = _pad_geometry(spec)
+        w[D_PIN0:D_PIN0 + 4], w[D_PLO0:D_PLO0 + 4] = ind, lo
+        w[D_POUT0:D_POUT0 + 4], w[D_PN] = outd, _elems(outd)
+        if q:
+            (x_zp, mult), (y_zp,) = spec.qmeta
+            w[D_X_ZP], w[D_AMULT], w[D_Y_ZP] = x_zp, _fbits(mult), y_zp
+    else:  # concat
         n = len(spec.in_shape)
         if n > MAX_CAT:
             raise ValueError(f"concat of {n} inputs exceeds {MAX_CAT}")
@@ -236,11 +354,86 @@ def _op_words(spec: OpSpec, woff: int = 0) -> List[int]:
             w[D_CINNER + i] = _elems(spec.in_shape[i][axis:])
             w[D_CZP + i] = in_q[i][0]
             w[D_CMULT + i] = _fbits(in_q[i][1])
-    else:
-        raise NotImplementedError(
-            f"op kind {k!r} has no CUDA kernel yet (ROADMAP queue 1: pool, "
-            "elementwise, matmul and pad come after the blocked addressing)")
     return w
+
+
+# ---------------------------------------------------------------------------
+# Buffers: where a kernel's row buffer, staging buffer and scratch live
+# ---------------------------------------------------------------------------
+
+
+class BufferPlan(NamedTuple):
+    """Dynamic shared bytes of the launch, bytes of the global workspace
+    (0: none), and per buffer ``(name, in the global workspace?, byte
+    offset)``."""
+    smem: int
+    gbytes: int
+    parts: Tuple[Tuple[str, bool, int], ...]
+
+    def on_global(self, name: str) -> bool:
+        return any(n == name and g for n, g, _ in self.parts)
+
+
+def _row_bytes(spec: OpSpec) -> int:
+    return _elems(spec.out_shape[-2:]) * _isz(spec.dtype)
+
+
+def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
+    """Buffers the spec's kernel needs, in the order they claim shared
+    memory."""
+    k = spec.kind
+    if k in ROW_KINDS:
+        return (("row", _row_bytes(spec)),)
+    if k in ("mean", "fully_connected"):
+        return (("stage", _elems(spec.in_shape[0]) * _isz(spec.dtype)),)
+    if k == "softmax":
+        return (("stage", 4 * _elems(spec.in_shape[0])),)
+    if k == "fused":
+        return (("scratch", spec.scratch_rows),
+                ("stage", max((_elems(st.out_shape) * _isz(st.dtype)
+                               for st in spec.stages
+                               if st.kind not in ROW_KINDS), default=0)),
+                ("row", max((_row_bytes(st) for st in spec.stages
+                             if st.kind in ROW_KINDS), default=0)))
+    return (("stage", _elems(spec.out_shape) * _isz(spec.dtype)),)
+
+
+@functools.lru_cache(maxsize=1024)
+def buffer_plan(spec: OpSpec) -> BufferPlan:
+    """Each buffer takes dynamic shared memory (16-byte aligned) when it
+    fits beside the ones before it within :data:`SMEM_LIMIT`, else the
+    global workspace."""
+    smem = gbytes = 0
+    parts = []
+    for name, n in _buffer_needs(spec):
+        n = _round_up(n, 16)
+        if smem + n <= SMEM_LIMIT:
+            parts.append((name, False, smem))
+            smem += n
+        else:
+            parts.append((name, True, gbytes))
+            gbytes += n
+    return BufferPlan(smem, gbytes, tuple(parts))
+
+
+_WORKSPACES: "collections.OrderedDict" = collections.OrderedDict()
+_WORKSPACE_CACHE = 256
+
+
+def workspace(spec: OpSpec, device) -> Optional[torch.Tensor]:
+    """The spec's global workspace on ``device`` (None when every buffer
+    fits shared memory), allocated once per spec and cached."""
+    n = buffer_plan(spec).gbytes
+    if not n:
+        return None
+    key = (spec, torch.device(device))
+    t = _WORKSPACES.get(key)
+    if t is None:
+        t = _WORKSPACES[key] = torch.empty(n, dtype=torch.uint8,
+                                           device=device)
+        while len(_WORKSPACES) > _WORKSPACE_CACHE:
+            _WORKSPACES.popitem(last=False)
+    return t
 
 
 def weight_offsets(spec: OpSpec) -> Tuple[Tuple[Optional[int], ...], int]:
@@ -260,20 +453,25 @@ def weight_offsets(spec: OpSpec) -> Tuple[Tuple[Optional[int], ...], int]:
 
 def descriptor_words(spec: OpSpec) -> np.ndarray:
     """The int32 descriptor of a lowered spec: one op's words, or for a
-    fused chain a header (word 0 = stage count) and then every stage's."""
+    fused chain a header (word 0 = stage count) and then every stage's.
+    The op's words, or the header, carry the buffer placement."""
     _check_flat(spec)
-    if spec.kind != "fused":
-        return np.asarray(_op_words(spec), np.int32)
-    offs, _ = weight_offsets(spec)
-    head = [0] * DESC_WORDS
-    head[0] = len(spec.stages)
-    words = head
-    for st, off in zip(spec.stages, offs):
-        if st.kind not in ("conv2d", "depthwise_conv2d", "concat"):
-            raise NotImplementedError(
-                f"fused stage kind {st.kind!r} has no CUDA routine")
-        words = words + _op_words(st, off or 0)
-    return np.asarray(words, np.int32)
+    if spec.kind == "fused":
+        offs, _ = weight_offsets(spec)
+        head = [0] * DESC_WORDS
+        head[0] = len(spec.stages)
+        words = [head]
+        for st, off in zip(spec.stages, offs):
+            if st.kind not in FUSED_STAGE_KINDS:
+                raise NotImplementedError(
+                    f"fused stage kind {st.kind!r} has no CUDA routine")
+            words.append(_op_words(st, off or 0))
+    else:
+        head = _op_words(spec)
+        words = [head]
+    for name, glob, off in buffer_plan(spec).parts:
+        head[BUFFER_WORD[name]:BUFFER_WORD[name] + 2] = (int(glob), off)
+    return np.asarray([x for ws in words for x in ws], np.int32)
 
 
 def descriptor(spec: OpSpec, device) -> torch.Tensor:
@@ -282,16 +480,19 @@ def descriptor(spec: OpSpec, device) -> torch.Tensor:
     return torch.from_numpy(descriptor_words(spec)).to(device)
 
 
-def pack_weights(spec: OpSpec, weights: Sequence[torch.Tensor]) -> torch.Tensor:
+def pack_weights(spec: OpSpec, weights: Sequence[torch.Tensor],
+                 device=None) -> torch.Tensor:
     """A fused chain's stage filters, in stage order, packed into one uint8
-    blob at :func:`weight_offsets` (the layout the fused kernel reads)."""
+    blob at :func:`weight_offsets` (the layout the fused kernel reads), on
+    ``device`` (default: the filters')."""
     offs, total = weight_offsets(spec)
     stages = [st for st in spec.stages if st.kind in WEIGHTED_KINDS]
     if len(weights) != len(stages):
         raise ValueError(f"fused chain takes {len(stages)} filters, got "
                          f"{len(weights)}")
-    blob = torch.zeros(total, dtype=torch.uint8,
-                       device=weights[0].device if weights else "cpu")
+    if device is None:
+        device = weights[0].device if weights else "cpu"
+    blob = torch.zeros(total, dtype=torch.uint8, device=device)
     for st, w, off in zip(stages, weights,
                           [o for o in offs if o is not None]):
         _check_weight(st, w)
@@ -302,9 +503,11 @@ def pack_weights(spec: OpSpec, weights: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def _check_weight(spec: OpSpec, w: torch.Tensor) -> None:
     want = torch.int8 if spec.dtype == "i8" else torch.float32
-    if w.dtype != want or tuple(w.shape) != _weight_shape(spec):
-        raise ValueError(f"{spec.kind}: filter {tuple(w.shape)} {w.dtype}, "
-                         f"expected {_weight_shape(spec)} {want}")
+    if w is None or w.dtype != want or \
+            tuple(w.shape) != _weight_shape(spec):
+        got = None if w is None else (tuple(w.shape), w.dtype)
+        raise ValueError(f"{spec.kind}: filter {got}, expected "
+                         f"{_weight_shape(spec)} {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -342,12 +545,26 @@ def _src(arena, scratch, flags, i):
     return scratch if flags and flags[i] else arena
 
 
+def _read(arena, spec: OpSpec, i: int, scratch=None) -> torch.Tensor:
+    """A copy of input ``i`` in its view shape (whole-block ops read every
+    input before they write)."""
+    shape = spec.in_shape[i]
+    return _typed(_src(arena, scratch, spec.in_scratch, i), spec.in_off[i],
+                  _elems(shape), spec.dtype == "i8").clone().reshape(shape)
+
+
+def _write(arena, spec: OpSpec, y: torch.Tensor, scratch=None) -> None:
+    dst = scratch if spec.out_scratch else arena
+    _typed(dst, spec.out_off, y.numel(), spec.dtype == "i8").copy_(
+        y.reshape(-1))
+
+
 def conv_plain(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
                scratch: Optional[torch.Tensor] = None) -> None:
     """conv2d / depthwise, rows ascending, each row's taps read before its
     store; taps at ``iy = oy*sh - ph + fy*dh`` outside the input count
     zero (after the zero-point shift in int8)."""
-    ih, iw, ic, oh, ow, oc = _conv_geometry(spec)
+    ih, iw, ic, oh, ow, oc = _row_geometry(spec)
     kh, kw, sh, sw, dh, dw, ph, pw, mult = spec.meta
     q = spec.dtype == "i8"
     isz = _isz(spec.dtype)
@@ -386,10 +603,122 @@ def conv_plain(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
                q).copy_(out.reshape(-1))
 
 
+def pool_plain(arena: torch.Tensor, spec: OpSpec,
+               scratch: Optional[torch.Tensor] = None) -> None:
+    """max pool (mode "max") or average pool (any other mode, as in the
+    reference), rows ascending like conv; avg divides by the valid taps;
+    ``ph``/``pw`` are the leading pads (TF SAME pads unevenly)."""
+    ih, iw, c, oh, ow, _ = _row_geometry(spec)
+    kh, kw, sh, sw, ph, pw, mode = spec.meta
+    is_max = mode == "max"
+    q = spec.dtype == "i8"
+    isz = _isz(spec.dtype)
+    src = _src(arena, scratch, spec.in_scratch, 0)
+    dst = scratch if spec.out_scratch else arena
+    dev = arena.device
+    cols = torch.arange(ow, device=dev)
+    for oy in range(oh):
+        if q:
+            acc = torch.full((ow, c), -2147483647 if is_max else 0,
+                             dtype=torch.int32, device=dev)
+        else:
+            acc = torch.full((ow, c), -float("inf") if is_max else 0.0,
+                             dtype=torch.float32, device=dev)
+        cnt = torch.zeros((ow, 1), dtype=torch.float32, device=dev)
+        for fy in range(kh):
+            iy = oy * sh - ph + fy
+            if not 0 <= iy < ih:
+                continue
+            row = _typed(src, spec.in_off[0] + iy * iw * c * isz, iw * c,
+                         q).reshape(iw, c)
+            if q:
+                row = row.to(torch.int32)
+            for fx in range(kw):
+                ix = cols * sw - pw + fx
+                valid = ((ix >= 0) & (ix < iw))[:, None]
+                taps = row[ix.clamp(0, iw - 1)]
+                if is_max:
+                    acc = torch.where(valid, torch.maximum(acc, taps), acc)
+                else:
+                    acc = acc + torch.where(valid, taps,
+                                            torch.zeros((), dtype=acc.dtype))
+                    cnt = cnt + valid.to(torch.float32)
+        if q:
+            x_zp, amult, y_zp = spec.qmeta
+            val = (acc - x_zp if is_max else
+                   acc.to(torch.float32) / cnt.clamp_min(1.0) - x_zp)
+            out = _requant(val, amult, y_zp)
+        else:
+            out = acc if is_max else acc / cnt.clamp_min(1.0)
+        _typed(dst, spec.out_off + oy * ow * c * isz, ow * c,
+               q).copy_(out.reshape(-1))
+
+
+#: torch mirrors of the reference's _ELEMENTWISE table (same maths).
+ELEMENTWISE_TORCH = {
+    "relu": lambda a: torch.clamp_min(a, 0.0),
+    "relu6": lambda a: torch.clamp(a, 0.0, 6.0),
+    "sigmoid": lambda a: 1.0 / (1.0 + torch.exp(-a)),
+    "identity": lambda a: a,
+    "add": lambda a, b: a + b,
+    "mul": lambda a, b: a * b,
+    "sub": lambda a, b: a - b,
+}
+
+
+def elementwise_plain(arena: torch.Tensor, spec: OpSpec,
+                      scratch: Optional[torch.Tensor] = None) -> None:
+    """Every operand read (int8: dequantised at its params), the second
+    broadcast when its element count differs, then the f32 result written
+    (int8: quantised at the output's params)."""
+    bcast = _ew_broadcast(spec)[0]
+    q = spec.dtype == "i8"
+    xs = [_read(arena, spec, i, scratch) for i in range(len(spec.in_shape))]
+    if q:
+        in_q, (ys, yzp) = spec.qmeta
+        xs = [_dequant(x, s, zp) for x, (s, zp) in zip(xs, in_q)]
+    if bcast:
+        xs[1] = torch.broadcast_to(xs[1], xs[0].shape)
+    v = ELEMENTWISE_TORCH[spec.meta[0]](*xs).to(torch.float32)
+    _write(arena, spec, _quant(v, ys, yzp) if q else v, scratch)
+
+
+def matmul_plain(arena: torch.Tensor, spec: OpSpec) -> None:
+    """(M, K) x (K, N) of two arena operands; int8 with two zero points."""
+    m, k, n = _matmul_geometry(spec)
+    a = _read(arena, spec, 0).reshape(m, k)
+    b = _read(arena, spec, 1)
+    if spec.dtype == "i8":
+        a_zp, b_zp, amult, y_zp = spec.qmeta
+        acc = ((a.to(torch.int32) - a_zp)[:, :, None]
+               * (b.to(torch.int32) - b_zp)[None]).sum(1, dtype=torch.int32)
+        y = _requant(acc, amult, y_zp)
+    else:
+        y = a @ b
+    _write(arena, spec, y)
+
+
+def pad_plain(arena: torch.Tensor, spec: OpSpec) -> None:
+    """Constant pad: 0 in f32; int8 pads with x_zp, then rescales the
+    padded tensor to the output's params."""
+    _pad_geometry(spec)
+    q = spec.dtype == "i8"
+    x = _read(arena, spec, 0)
+    fill = spec.qmeta[0][0] if q else 0
+    y = torch.full(tuple(spec.out_shape), fill, dtype=x.dtype,
+                   device=arena.device)
+    y[tuple(slice(lo, lo + n) for (lo, _), n in
+            zip(spec.meta[0], x.shape))] = x
+    if q:
+        (x_zp, mult), (y_zp,) = spec.qmeta
+        y = _requant(y.to(torch.int32) - x_zp, mult, y_zp)
+    _write(arena, spec, y)
+
+
 def mean_plain(arena: torch.Tensor, spec: OpSpec) -> None:
     q = spec.dtype == "i8"
     shape = tuple(spec.in_shape[0])
-    x = _typed(arena, spec.in_off[0], _elems(shape), q).clone().reshape(shape)
+    x = _read(arena, spec, 0)
     axes = tuple(sorted(a % len(shape) for a in spec.meta[0]))
     if q:
         x_zp, amult, y_zp = spec.qmeta
@@ -398,15 +727,14 @@ def mean_plain(arena: torch.Tensor, spec: OpSpec) -> None:
         y = _requant(acc.to(torch.float32) / _f32(cnt) - x_zp, amult, y_zp)
     else:
         y = x.mean(dim=axes)
-    _typed(arena, spec.out_off, y.numel(), q).copy_(y.reshape(-1))
+    _write(arena, spec, y)
 
 
 def fully_connected_plain(arena: torch.Tensor, spec: OpSpec,
                           w: torch.Tensor) -> None:
     q = spec.dtype == "i8"
     idim = spec.in_shape[0][-1]
-    n = _elems(spec.in_shape[0])
-    x = _typed(arena, spec.in_off[0], n, q).clone().reshape(-1, idim)
+    x = _read(arena, spec, 0).reshape(-1, idim)
     if q:
         x_zp, amult, y_zp = spec.qmeta
         acc = ((x.to(torch.int32) - x_zp)[:, :, None]
@@ -414,39 +742,31 @@ def fully_connected_plain(arena: torch.Tensor, spec: OpSpec,
         y = _requant(acc, amult, y_zp)
     else:
         y = x @ w
-    _typed(arena, spec.out_off, y.numel(), q).copy_(y.reshape(-1))
+    _write(arena, spec, y)
 
 
 def softmax_plain(arena: torch.Tensor, spec: OpSpec) -> None:
     q = spec.dtype == "i8"
     last = spec.in_shape[0][-1]
-    n = _elems(spec.in_shape[0])
-    x = _typed(arena, spec.in_off[0], n, q).clone().reshape(-1, last)
+    x = _read(arena, spec, 0).reshape(-1, last)
     if q:
         (xs, xzp), (ys, yzp) = spec.qmeta
         x = _dequant(x, xs, xzp)
     e = torch.exp(x - x.max(dim=-1, keepdim=True).values)
     y = e / e.sum(dim=-1, keepdim=True)
-    if q:
-        y = _quant(y, ys, yzp)
-    _typed(arena, spec.out_off, n, q).copy_(y.reshape(-1))
+    _write(arena, spec, _quant(y, ys, yzp) if q else y)
 
 
 def concat_plain(arena: torch.Tensor, spec: OpSpec,
                  scratch: Optional[torch.Tensor] = None) -> None:
     """concat along ``meta[0]``, int8 inputs rescaled to the output's
     params; every input is read before the output is written."""
-    q = spec.dtype == "i8"
-    xs = [_typed(_src(arena, scratch, spec.in_scratch, i), off, _elems(shp),
-                 q).clone().reshape(shp)
-          for i, (off, shp) in enumerate(zip(spec.in_off, spec.in_shape))]
-    if q:
+    xs = [_read(arena, spec, i, scratch) for i in range(len(spec.in_shape))]
+    if spec.dtype == "i8":
         in_q, (y_zp,) = spec.qmeta
         xs = [_requant(x.to(torch.int32) - zp, mult, y_zp)
               for x, (zp, mult) in zip(xs, in_q)]
-    y = torch.cat(xs, dim=spec.meta[0])
-    dst = scratch if spec.out_scratch else arena
-    _typed(dst, spec.out_off, y.numel(), q).copy_(y.reshape(-1))
+    _write(arena, spec, torch.cat(xs, dim=spec.meta[0]), scratch)
 
 
 def fused_chain_plain(arena: torch.Tensor, spec: OpSpec,
@@ -459,10 +779,38 @@ def fused_chain_plain(arena: torch.Tensor, spec: OpSpec,
     for st, off in zip(spec.stages, offs):
         if st.kind == "concat":
             concat_plain(arena, st, scratch)
-            continue
-        shape = _weight_shape(st)
-        w = _typed(wblob, off, _elems(shape), st.dtype == "i8").reshape(shape)
-        conv_plain(arena, st, w, scratch)
+        elif st.kind == "elementwise":
+            elementwise_plain(arena, st, scratch)
+        elif st.kind == "pool":
+            pool_plain(arena, st, scratch)
+        else:
+            shape = _weight_shape(st)
+            w = _typed(wblob, off, _elems(shape),
+                       st.dtype == "i8").reshape(shape)
+            conv_plain(arena, st, w, scratch)
+
+
+def apply_plain(arena: torch.Tensor, spec: OpSpec,
+                w: Optional[torch.Tensor] = None) -> None:
+    """The plain version of any lowered spec, on the arena's device (the
+    yardstick the card's kernels are held against)."""
+    k = spec.kind
+    if k in ("conv2d", "depthwise_conv2d"):
+        conv_plain(arena, spec, w)
+    elif k == "fully_connected":
+        fully_connected_plain(arena, spec, w)
+    elif k == "fused":
+        fused_chain_plain(arena, spec, w)
+    elif k in _UNWEIGHTED_PLAIN:
+        _UNWEIGHTED_PLAIN[k](arena, spec)
+    else:
+        raise NotImplementedError(f"op kind {k!r} has no plain version")
+
+
+_UNWEIGHTED_PLAIN = {"pool": pool_plain, "elementwise": elementwise_plain,
+                     "matmul": matmul_plain, "pad": pad_plain,
+                     "concat": concat_plain, "mean": mean_plain,
+                     "softmax": softmax_plain}
 
 
 # ---------------------------------------------------------------------------
@@ -492,143 +840,150 @@ def _on_card(arena: torch.Tensor, spec: OpSpec, *tensors) -> bool:
     return True
 
 
-def _launch_args(arena: torch.Tensor, spec: OpSpec,
-                 desc: Optional[torch.Tensor]):
-    if desc is None:
-        desc = descriptor(spec, arena.device)
-    elif desc.dtype != torch.int32 or desc.device != arena.device:
-        raise ValueError("descriptor must be int32 on the arena's device")
-    stream = torch.cuda.current_stream(arena.device).cuda_stream
-    return desc, stream
-
-
-def _staging(arena: torch.Tensor, nbytes: int):
-    """(global staging tensor or None, dynamic shared bytes): shared memory
-    when the staged input fits a CTA, else a wrapper-allocated buffer."""
-    if nbytes <= SMEM_LIMIT:
-        return None, nbytes
-    return torch.empty(nbytes, dtype=torch.uint8, device=arena.device), 0
+def _expect(spec: OpSpec, name: str) -> None:
+    if KERNEL_OF.get(spec.kind) != name:
+        raise ValueError(f"{name} cannot run {spec.kind!r}")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _launch(name: str, arena: torch.Tensor, spec: OpSpec,
+            w: Optional[torch.Tensor], desc: Optional[torch.Tensor]) -> None:
+    """Launch kernel ``name`` on the arena's current stream and count it."""
+    from repro_torch.kernels import build
+    if desc is None:
+        desc = descriptor(spec, arena.device)
+    elif desc.dtype != torch.int32 or desc.device != arena.device:
+        raise ValueError("descriptor must be int32 on the arena's device")
+    stream = torch.cuda.current_stream(arena.device).cuda_stream
+    build.check(build.entry(name)(
+        arena.data_ptr(), desc.data_ptr(), _ptr(w),
+        _ptr(workspace(spec, arena.device)), buffer_plan(spec).smem, stream),
+        name)
+    LAUNCHES[name] += 1
+
+
 def arena_conv(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
                desc: Optional[torch.Tensor] = None) -> None:
     """conv2d / depthwise_conv2d in place on the flat arena."""
-    if spec.kind not in ("conv2d", "depthwise_conv2d"):
-        raise ValueError(f"arena_conv cannot run {spec.kind!r}")
+    _expect(spec, "arena_conv")
     _check_weight(spec, w)
-    _conv_geometry(spec)
     if not _on_card(arena, spec, w):
         conv_plain(arena, spec, w)
         return
-    from repro_torch.kernels import build
-    desc, stream = _launch_args(arena, spec, desc)
-    build.check(build.entry("arena_conv")(
-        arena.data_ptr(), desc.data_ptr(), w.data_ptr(), stream),
-        "arena_conv")
-    LAUNCHES["arena_conv"] += 1
+    _launch("arena_conv", arena, spec, w, desc)
+
+
+def arena_pool(arena: torch.Tensor, spec: OpSpec,
+               desc: Optional[torch.Tensor] = None) -> None:
+    """max / avg pool in place on the flat arena."""
+    _expect(spec, "arena_pool")
+    if not _on_card(arena, spec):
+        pool_plain(arena, spec)
+        return
+    _launch("arena_pool", arena, spec, None, desc)
+
+
+def arena_elementwise(arena: torch.Tensor, spec: OpSpec,
+                      desc: Optional[torch.Tensor] = None) -> None:
+    """relu, relu6, sigmoid, identity, add, mul or sub on the flat arena."""
+    _expect(spec, "arena_elementwise")
+    _ew_broadcast(spec)
+    if not _on_card(arena, spec):
+        elementwise_plain(arena, spec)
+        return
+    _launch("arena_elementwise", arena, spec, None, desc)
+
+
+def arena_matmul(arena: torch.Tensor, spec: OpSpec,
+                 desc: Optional[torch.Tensor] = None) -> None:
+    """(M, K) x (K, N) of two arena operands on the flat arena."""
+    _expect(spec, "arena_matmul")
+    _matmul_geometry(spec)
+    if not _on_card(arena, spec):
+        matmul_plain(arena, spec)
+        return
+    _launch("arena_matmul", arena, spec, None, desc)
+
+
+def arena_pad(arena: torch.Tensor, spec: OpSpec,
+              desc: Optional[torch.Tensor] = None) -> None:
+    """Constant pad (then, int8, rescale) on the flat arena."""
+    _expect(spec, "arena_pad")
+    _pad_geometry(spec)
+    if not _on_card(arena, spec):
+        pad_plain(arena, spec)
+        return
+    _launch("arena_pad", arena, spec, None, desc)
+
+
+def arena_concat(arena: torch.Tensor, spec: OpSpec,
+                 desc: Optional[torch.Tensor] = None) -> None:
+    """A standalone concat (int8 inputs rescaled) on the flat arena."""
+    _expect(spec, "arena_concat")
+    if len(spec.in_shape) > MAX_CAT:
+        raise ValueError(f"concat of {len(spec.in_shape)} inputs exceeds "
+                         f"{MAX_CAT}")
+    if not _on_card(arena, spec):
+        concat_plain(arena, spec)
+        return
+    _launch("arena_concat", arena, spec, None, desc)
 
 
 def arena_mean(arena: torch.Tensor, spec: OpSpec,
                desc: Optional[torch.Tensor] = None) -> None:
-    if spec.kind != "mean":
-        raise ValueError(f"arena_mean cannot run {spec.kind!r}")
+    _expect(spec, "arena_mean")
     if not _on_card(arena, spec):
         mean_plain(arena, spec)
         return
-    from repro_torch.kernels import build
-    desc, stream = _launch_args(arena, spec, desc)
-    gstage, smem = _staging(
-        arena, _elems(spec.in_shape[0]) * _isz(spec.dtype))
-    build.check(build.entry("arena_mean")(
-        arena.data_ptr(), desc.data_ptr(), _ptr(gstage), smem, stream),
-        "arena_mean")
-    LAUNCHES["arena_mean"] += 1
+    _launch("arena_mean", arena, spec, None, desc)
 
 
 def arena_fully_connected(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
                           desc: Optional[torch.Tensor] = None) -> None:
-    if spec.kind != "fully_connected":
-        raise ValueError(f"arena_fully_connected cannot run {spec.kind!r}")
+    _expect(spec, "arena_fully_connected")
     _check_weight(spec, w)
     if not _on_card(arena, spec, w):
         fully_connected_plain(arena, spec, w)
         return
-    from repro_torch.kernels import build
-    desc, stream = _launch_args(arena, spec, desc)
-    gstage, smem = _staging(
-        arena, _elems(spec.in_shape[0]) * _isz(spec.dtype))
-    build.check(build.entry("arena_fully_connected")(
-        arena.data_ptr(), desc.data_ptr(), w.data_ptr(), _ptr(gstage), smem,
-        stream), "arena_fully_connected")
-    LAUNCHES["arena_fully_connected"] += 1
+    _launch("arena_fully_connected", arena, spec, w, desc)
 
 
 def arena_softmax(arena: torch.Tensor, spec: OpSpec,
                   desc: Optional[torch.Tensor] = None) -> None:
-    if spec.kind != "softmax":
-        raise ValueError(f"arena_softmax cannot run {spec.kind!r}")
+    _expect(spec, "arena_softmax")
     if not _on_card(arena, spec):
         softmax_plain(arena, spec)
         return
-    from repro_torch.kernels import build
-    desc, stream = _launch_args(arena, spec, desc)
-    gstage, smem = _staging(arena, 4 * _elems(spec.in_shape[0]))
-    build.check(build.entry("arena_softmax")(
-        arena.data_ptr(), desc.data_ptr(), _ptr(gstage), smem, stream),
-        "arena_softmax")
-    LAUNCHES["arena_softmax"] += 1
-
-
-def _concat_bytes(spec: OpSpec) -> int:
-    """Staging bytes of a fused chain's widest concat stage."""
-    return max((_elems(st.out_shape) * _isz(st.dtype) for st in spec.stages
-                if st.kind == "concat"), default=0)
-
-
-def fused_smem_plan(spec: OpSpec) -> Tuple[bool, bool, int, int]:
-    """Where a fused chain's buffers live: (scratch in shared memory?,
-    concat staging in shared memory?, shared bytes of the scratch, total
-    dynamic shared bytes). The scratch takes shared memory when it fits a
-    CTA; the concat staging follows it there when both fit."""
-    cat = _concat_bytes(spec)
-    scr_smem = spec.scratch_rows <= SMEM_LIMIT
-    scr_bytes = _round_up(spec.scratch_rows, 16) if scr_smem else 0
-    stage_smem = scr_bytes + cat <= SMEM_LIMIT
-    return scr_smem, stage_smem, scr_bytes, \
-        scr_bytes + (cat if stage_smem else 0)
+    _launch("arena_softmax", arena, spec, None, desc)
 
 
 def arena_fused_chain(arena: torch.Tensor, spec: OpSpec, wblob: torch.Tensor,
                       desc: Optional[torch.Tensor] = None) -> None:
     """A fused band chain in one launch; ``wblob`` is
     :func:`pack_weights`' blob of the stage filters."""
-    if spec.kind != "fused":
-        raise ValueError(f"arena_fused_chain cannot run {spec.kind!r}")
-    if wblob.dtype != torch.uint8 or \
+    _expect(spec, "arena_fused_chain")
+    if wblob is None or wblob.dtype != torch.uint8 or \
             wblob.numel() != weight_offsets(spec)[1]:
         raise ValueError("wblob must be the chain's packed uint8 filters")
     for st in spec.stages:
-        if st.kind != "concat":
-            _conv_geometry(st)
+        if st.kind not in FUSED_STAGE_KINDS:
+            raise NotImplementedError(
+                f"fused stage kind {st.kind!r} has no CUDA routine")
+        if st.kind == "elementwise":
+            _ew_broadcast(st)
     if not _on_card(arena, spec, wblob):
         fused_chain_plain(arena, spec, wblob)
         return
-    from repro_torch.kernels import build
-    desc, stream = _launch_args(arena, spec, desc)
-    scr_smem, stage_smem, scr_bytes, smem = fused_smem_plan(spec)
-    dev = arena.device
-    gscratch = None if scr_smem else torch.empty(
-        spec.scratch_rows, dtype=torch.uint8, device=dev)
-    gstage = None if stage_smem else torch.empty(
-        _concat_bytes(spec), dtype=torch.uint8, device=dev)
-    build.check(build.entry("arena_fused_chain")(
-        arena.data_ptr(), desc.data_ptr(), wblob.data_ptr(), _ptr(gscratch),
-        _ptr(gstage), scr_bytes, smem, stream), "arena_fused_chain")
-    LAUNCHES["arena_fused_chain"] += 1
+    _launch("arena_fused_chain", arena, spec, wblob, desc)
+
+
+_WRAPPERS = {"pool": arena_pool, "elementwise": arena_elementwise,
+             "matmul": arena_matmul, "pad": arena_pad,
+             "concat": arena_concat, "mean": arena_mean,
+             "softmax": arena_softmax}
 
 
 def apply_op(arena: torch.Tensor, spec: OpSpec,
@@ -639,15 +994,11 @@ def apply_op(arena: torch.Tensor, spec: OpSpec,
     k = spec.kind
     if k in ("conv2d", "depthwise_conv2d"):
         arena_conv(arena, spec, w, desc)
-    elif k == "mean":
-        arena_mean(arena, spec, desc)
     elif k == "fully_connected":
         arena_fully_connected(arena, spec, w, desc)
-    elif k == "softmax":
-        arena_softmax(arena, spec, desc)
     elif k == "fused":
         arena_fused_chain(arena, spec, w, desc)
+    elif k in _WRAPPERS:
+        _WRAPPERS[k](arena, spec, desc)
     else:
-        raise NotImplementedError(
-            f"op kind {k!r} has no CUDA kernel yet (ROADMAP queue 1: pool, "
-            "elementwise, matmul and pad come after the blocked addressing)")
+        raise NotImplementedError(f"op kind {k!r} has no CUDA kernel")

@@ -39,16 +39,13 @@ LAST_BUILD_S = 0.0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C entry points: name -> argtypes (every pointer and the stream are
-#: c_void_p so ctypes never truncates them to 32 bits). Each returns
-#: cudaGetLastError() after its launch.
-SIGNATURES = {
-    "arena_conv": [_P, _P, _P, _P],
-    "arena_mean": [_P, _P, _P, _I, _P],
-    "arena_fully_connected": [_P, _P, _P, _P, _I, _P],
-    "arena_softmax": [_P, _P, _P, _I, _P],
-    "arena_fused_chain": [_P, _P, _P, _P, _P, _I, _I, _P],
-}
+#: One kernel per source ``csrc/<name>.cu``, whose C entry point is
+#: ``<name>``. Each takes (arena, descriptor, weights or null, global
+#: workspace or null, dynamic shared bytes, stream) -- every pointer and the
+#: stream as c_void_p so ctypes never truncates them to 32 bits -- and
+#: returns cudaGetLastError() after its launch.
+KERNELS = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+ARGTYPES = [_P, _P, _P, _P, _I, _P]
 
 
 def _nvcc() -> str:
@@ -77,7 +74,7 @@ def _compile_all(out: pathlib.Path) -> None:
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for name in SIGNATURES:
+    for name in KERNELS:
         tmp = out / f"lib{name}.so.tmp.{os.getpid()}"
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
@@ -105,13 +102,13 @@ def load() -> Dict[str, ctypes.CDLL]:
             return _LIBS
         out = build_dir()
         t0 = time.perf_counter()
-        if not all((out / f"lib{n}.so").exists() for n in SIGNATURES):
+        if not all((out / f"lib{n}.so").exists() for n in KERNELS):
             _compile_all(out)
         LAST_BUILD_S = time.perf_counter() - t0
-        for name, argtypes in SIGNATURES.items():
+        for name in KERNELS:
             lib = ctypes.CDLL(str(out / f"lib{name}.so"))
             fn = getattr(lib, name)
-            fn.argtypes = argtypes
+            fn.argtypes = ARGTYPES
             fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return _LIBS
@@ -127,7 +124,7 @@ def ptxas_report() -> str:
     shared memory, stack frame and spills, one block per kernel."""
     out = build_dir()
     parts = []
-    for name in SIGNATURES:
+    for name in KERNELS:
         p = out / f"{name}.ptxas.txt"
         if p.exists():
             lines = [ln.strip() for ln in

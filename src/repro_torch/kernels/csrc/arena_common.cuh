@@ -10,12 +10,19 @@
 // Paper §III.F: the planner overlaps an op's input and output diagonally
 // (safe overlap O_s), which is only safe when output rows are produced in
 // ascending order and every read of row oy happens after the row oy-1
-// store. So every op here runs in ONE CTA that walks output rows in order;
-// threads split the columns and channels of one row, hold the row's results
-// in registers, and store only after a __syncthreads(); a second barrier
-// orders the store before the next row's reads. Whole-block ops (mean,
-// fully connected, softmax, concat) read all of their input into a staging
-// buffer, synchronise, then write (read-all-before-write-all).
+// store. So every op here runs in ONE CTA. Row ops (conv2d, depthwise,
+// pool) walk output rows in order; threads split the columns and channels
+// of one row, stage the row's results in a row buffer, and store only after
+// a __syncthreads(); a second barrier orders the store before the next
+// row's reads. Whole-block ops read all of their input before any output
+// byte is written: mean, fully connected and softmax stage their input;
+// elementwise, matmul, pad and concat compute their whole output into a
+// staging buffer, synchronise, then copy it out (read-all-before-write-all).
+//
+// Buffers (row buffer, staging buffer, a fused chain's scratch) live in
+// dynamic shared memory when they fit a CTA and otherwise in a global
+// workspace the wrapper allocates once per spec; the descriptor says which
+// (words D_STAGE_G.. below). Both placements are the kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,18 +33,23 @@
 namespace arena {
 
 constexpr int NT = 512;          // threads of the one CTA
-constexpr int MAXPT = 16;        // row outputs one thread holds in registers
 constexpr int DESC_WORDS = 128;  // int32 words per op/stage descriptor
 constexpr int MAX_CAT = 16;      // concat inputs a descriptor can hold
+constexpr int MAX_DIMS = 6;      // elementwise broadcast rank
 
 // op kinds
 enum { K_CONV2D = 0, K_DEPTHWISE = 1, K_CONCAT = 2, K_MEAN = 3, K_FC = 4,
-       K_SOFTMAX = 5 };
+       K_SOFTMAX = 5, K_POOL = 6, K_ELEMENTWISE = 7, K_MATMUL = 8,
+       K_PAD = 9 };
+// elementwise functions (the reference's _ELEMENTWISE table); the binary
+// ones are EW_ADD and above
+enum { EW_RELU = 0, EW_RELU6 = 1, EW_SIGMOID = 2, EW_IDENTITY = 3,
+       EW_ADD = 4, EW_MUL = 5, EW_SUB = 6 };
 
 // words every descriptor carries
 enum { D_KIND = 0, D_QUANT = 1, D_WOFF = 2, D_IN_OFF = 3, D_OUT_OFF = 4,
        D_IN_SCR = 5, D_OUT_SCR = 6, D_X_ZP = 7, D_Y_ZP = 8, D_AMULT = 9 };
-// conv2d / depthwise
+// conv2d / depthwise / pool (pool: D_MULT = 1 for max, 0 for avg)
 enum { D_IH = 10, D_IW, D_IC, D_OH, D_OW, D_OC, D_KH, D_KW, D_SH, D_SW,
        D_DH, D_DW, D_PH, D_PW, D_MULT };
 // mean: dims padded to 4 with leading 1s, bit i of RMASK = axis i reduced
@@ -49,9 +61,28 @@ enum { D_ROWS = 10, D_LAST = 11, D_XSCALE = 12, D_YSCALE = 13 };
 // concat: outer = product of the dims before the axis, inner = the rest
 enum { D_NIN = 10, D_OUTER = 11, D_INNER_OUT = 12, D_CIN_OFF = 16,
        D_CIN_SCR = 32, D_CINNER = 48, D_CZP = 64, D_CMULT = 80 };
+// elementwise: EDIM = the first operand's dims, BSTR = the second
+// operand's strides over them (0 on a broadcast axis), both padded to
+// MAX_DIMS with leading 1s / 0s
+enum { D_FN = 10, D_EN = 11, D_BCAST = 12, D_IN2_OFF = 13, D_IN2_SCR = 14,
+       D_ASCALE = 15, D_BZP = 16, D_BSCALE = 17, D_OSCALE = 18,
+       D_EDIM0 = 20, D_BSTR0 = 26 };
+// matmul: (M, K) x (K, N); the second operand at D_IN2_OFF, zero point D_BZP
+enum { D_MM = 10, D_MK = 11, D_MN = 12 };
+// pad: dims padded to 4 with leading 1s and zero pads
+enum { D_PIN0 = 10, D_PLO0 = 14, D_POUT0 = 18, D_PN = 22 };
+// buffer placement: a flag (1 = global workspace, 0 = dynamic shared
+// memory) then a byte offset; a fused chain carries them in its header
+enum { D_STAGE_G = 120, D_STAGE_OFF = 121, D_ROW_G = 122, D_ROW_OFF = 123,
+       D_SCR_G = 124, D_SCR_OFF = 125 };
 
 __device__ __forceinline__ float fword(const int* d, int i) {
   return __int_as_float(d[i]);
+}
+
+__device__ __forceinline__ uint8_t* buffer(const int* d, int word,
+                                           uint8_t* smem, uint8_t* gws) {
+  return (d[word] ? gws : smem) + d[word + 1];
 }
 
 // ops.requantise, operation for operation: f32 product (no contraction),
@@ -75,6 +106,26 @@ __device__ __forceinline__ int8_t quant_f(float v, float scale, int zp) {
 
 __device__ __forceinline__ float dequant(int8_t q, float scale, int zp) {
   return __fmul_rn(__fsub_rn((float)q, (float)zp), scale);
+}
+
+// Copy `nbytes` arena bytes into the staging buffer (whole-block ops that
+// stage their input).
+__device__ __forceinline__ void stage_in(uint8_t* stage, const uint8_t* src,
+                                         int nbytes) {
+  for (int e = threadIdx.x; e < nbytes; e += NT) stage[e] = src[e];
+}
+
+// Copy a staged whole-block result to its output, 4-byte words where both
+// ends allow it.
+__device__ __forceinline__ void copy_out(uint8_t* out, const uint8_t* stage,
+                                         int nbytes) {
+  if ((((uintptr_t)out | (uintptr_t)stage | (uintptr_t)nbytes) & 3) == 0) {
+    uint32_t* o = (uint32_t*)out;
+    const uint32_t* s = (const uint32_t*)stage;
+    for (int e = threadIdx.x; e < nbytes / 4; e += NT) o[e] = s[e];
+  } else {
+    for (int e = threadIdx.x; e < nbytes; e += NT) out[e] = stage[e];
+  }
 }
 
 struct ConvP {
@@ -142,50 +193,113 @@ __device__ __forceinline__ uint32_t conv_point(const uint8_t* in,
   else return __float_as_uint(acc);
 }
 
-// conv2d / depthwise over the whole op, rows ascending (see §III.F above).
-// `scratch` routes scratch-flagged operands of a fused stage.
-template <bool Q, bool DW>
-__device__ void conv_op(const int* d, uint8_t* arena, uint8_t* scratch,
-                        const uint8_t* w) {
-  const ConvP p = load_conv(d);
-  const uint8_t* in = (d[D_IN_SCR] ? scratch : arena) + d[D_IN_OFF];
-  uint8_t* out = (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF];
+// One output element (oy, ox, c) of max or average pooling: taps at
+// iy = oy*sh - ph + fy (ph, pw are the leading pads only: TF SAME pads
+// unevenly), the average over the valid taps. int8 max starts at
+// -2147483647 and requantises acc - x_zp; int8 avg requantises
+// acc / max(cnt, 1) - x_zp in f32.
+template <bool Q, bool MAX>
+__device__ __forceinline__ uint32_t pool_point(const uint8_t* in,
+                                               const ConvP& p, int oy,
+                                               int ox, int c) {
+  typedef typename std::conditional<Q, int, float>::type acc_t;
+  acc_t acc;
+  if constexpr (MAX) {
+    if constexpr (Q) acc = -2147483647;
+    else acc = __int_as_float(0xff800000);  // -inf
+  } else {
+    acc = 0;
+  }
+  int cnt = 0;
+  for (int fy = 0; fy < p.kh; ++fy) {
+    const int iy = oy * p.sh - p.ph + fy;
+    if (iy < 0 || iy >= p.ih) continue;
+    for (int fx = 0; fx < p.kw; ++fx) {
+      const int ix = ox * p.sw - p.pw + fx;
+      if (ix < 0 || ix >= p.iw) continue;
+      const int i = (iy * p.iw + ix) * p.ic + c;
+      acc_t v;
+      if constexpr (Q) v = ((const int8_t*)in)[i];
+      else v = ((const float*)in)[i];
+      if constexpr (MAX && Q) acc = max(acc, v);
+      else if constexpr (MAX) acc = fmaxf(acc, v);
+      else acc += v;
+      ++cnt;
+    }
+  }
+  if constexpr (Q) {
+    if constexpr (MAX) {
+      return (uint32_t)(uint8_t)requant_i(acc - p.x_zp, p.amult, p.y_zp);
+    } else {
+      const float v = __fsub_rn(
+          __fdiv_rn(__int2float_rn(acc), fmaxf((float)cnt, 1.0f)),
+          (float)p.x_zp);
+      return (uint32_t)(uint8_t)requant_f(v, p.amult, p.y_zp);
+    }
+  } else {
+    if constexpr (MAX) return __float_as_uint(acc);
+    else return __float_as_uint(__fdiv_rn(acc, fmaxf((float)cnt, 1.0f)));
+  }
+}
+
+// A row op over the whole output, rows ascending (see §III.F above): every
+// element of row oy goes to the row buffer, a barrier, then the row is
+// stored, then a barrier before row oy+1 is read. The row buffer holds one
+// output row (ow * oc elements), so any row width runs.
+template <bool Q, typename Point>
+__device__ void row_walk(const ConvP& p, uint8_t* out, uint8_t* rowbuf,
+                         Point point) {
   const int n = p.ow * p.oc;
   for (int oy = 0; oy < p.oh; ++oy) {
-    uint32_t res[MAXPT];
-#pragma unroll
-    for (int k = 0; k < MAXPT; ++k) {
-      const int e = threadIdx.x + k * NT;
-      if (e < n) {
-        const int ox = e / p.oc;
-        res[k] = conv_point<Q, DW>(in, w, p, oy, ox, e - ox * p.oc);
-      }
+    for (int e = threadIdx.x; e < n; e += NT) {
+      const int ox = e / p.oc;
+      const uint32_t v = point(oy, ox, e - ox * p.oc);
+      if constexpr (Q) rowbuf[e] = (uint8_t)v;
+      else ((uint32_t*)rowbuf)[e] = v;
     }
     __syncthreads();  // every read of row oy is done
-#pragma unroll
-    for (int k = 0; k < MAXPT; ++k) {
-      const int e = threadIdx.x + k * NT;
-      if (e < n) {
-        if constexpr (Q) ((int8_t*)out)[oy * n + e] = (int8_t)(uint8_t)res[k];
-        else ((float*)out)[oy * n + e] = __uint_as_float(res[k]);
-      }
+    if constexpr (Q) {
+      for (int e = threadIdx.x; e < n; e += NT) out[oy * n + e] = rowbuf[e];
+    } else {
+      uint32_t* o = (uint32_t*)out + oy * n;
+      for (int e = threadIdx.x; e < n; e += NT)
+        o[e] = ((const uint32_t*)rowbuf)[e];
     }
     __syncthreads();  // row oy is stored before row oy+1 is read
   }
 }
 
-// Dispatch on the descriptor's kind and tier (uniform across the CTA).
-__device__ __forceinline__ void conv_dispatch(const int* d, uint8_t* arena,
-                                              uint8_t* scratch,
-                                              const uint8_t* w) {
-  const bool dw = d[D_KIND] == K_DEPTHWISE;
+// conv2d, depthwise or pool from its descriptor (kind and tier are uniform
+// across the CTA). `scratch` routes scratch-flagged operands of a fused
+// stage; `w` is the filter (unused by pool).
+__device__ void row_op(const int* d, uint8_t* arena, uint8_t* scratch,
+                       const uint8_t* w, uint8_t* rowbuf) {
+  const ConvP p = load_conv(d);
+  const uint8_t* in = (d[D_IN_SCR] ? scratch : arena) + d[D_IN_OFF];
+  uint8_t* out = (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF];
+  const int kind = d[D_KIND];
+#define ARENA_ROW(Q, F) \
+  row_walk<Q>(p, out, rowbuf, [&](int oy, int ox, int o) { return F; })
   if (d[D_QUANT]) {
-    if (dw) conv_op<true, true>(d, arena, scratch, w);
-    else conv_op<true, false>(d, arena, scratch, w);
+    if (kind == K_DEPTHWISE)
+      ARENA_ROW(true, (conv_point<true, true>(in, w, p, oy, ox, o)));
+    else if (kind == K_CONV2D)
+      ARENA_ROW(true, (conv_point<true, false>(in, w, p, oy, ox, o)));
+    else if (p.m)
+      ARENA_ROW(true, (pool_point<true, true>(in, p, oy, ox, o)));
+    else
+      ARENA_ROW(true, (pool_point<true, false>(in, p, oy, ox, o)));
   } else {
-    if (dw) conv_op<false, true>(d, arena, scratch, w);
-    else conv_op<false, false>(d, arena, scratch, w);
+    if (kind == K_DEPTHWISE)
+      ARENA_ROW(false, (conv_point<false, true>(in, w, p, oy, ox, o)));
+    else if (kind == K_CONV2D)
+      ARENA_ROW(false, (conv_point<false, false>(in, w, p, oy, ox, o)));
+    else if (p.m)
+      ARENA_ROW(false, (pool_point<false, true>(in, p, oy, ox, o)));
+    else
+      ARENA_ROW(false, (pool_point<false, false>(in, p, oy, ox, o)));
   }
+#undef ARENA_ROW
 }
 
 // concat along the descriptor's axis: every input is read (and, int8,
@@ -218,15 +332,62 @@ __device__ void concat_op(const int* d, uint8_t* arena, uint8_t* scratch,
   }
   __syncthreads();  // all inputs read before any output byte is written
   uint8_t* out = (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF];
-  const int nbytes = outer * inner_out * (q ? 1 : 4);
-  for (int e = threadIdx.x; e < nbytes; e += NT) out[e] = stage[e];
+  copy_out(out, stage, outer * inner_out * (q ? 1 : 4));
   __syncthreads();
 }
 
-// Copy `nbytes` arena bytes into the staging buffer (whole-block ops).
-__device__ __forceinline__ void stage_in(uint8_t* stage, const uint8_t* src,
-                                         int nbytes) {
-  for (int e = threadIdx.x; e < nbytes; e += NT) stage[e] = src[e];
+__device__ __forceinline__ float ew_apply(int fn, float a, float b) {
+  switch (fn) {
+    case EW_RELU: return fmaxf(a, 0.0f);
+    case EW_RELU6: return fminf(fmaxf(a, 0.0f), 6.0f);
+    case EW_SIGMOID: return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-a)));
+    case EW_IDENTITY: return a;
+    case EW_ADD: return __fadd_rn(a, b);
+    case EW_MUL: return __fmul_rn(a, b);
+    default: return __fsub_rn(a, b);  // EW_SUB
+  }
+}
+
+// relu, relu6, sigmoid, identity, add, mul, sub. The second operand of a
+// binary op is broadcast (numpy rules) when its element count differs.
+// int8: each operand dequantised at its own params, the f32 result
+// quantised at the output's (IEEE division by the scale).
+__device__ void elementwise_op(const int* d, uint8_t* arena,
+                               uint8_t* scratch, uint8_t* stage) {
+  const bool q = d[D_QUANT] != 0;
+  const int fn = d[D_FN], n = d[D_EN];
+  const bool binary = fn >= EW_ADD, bcast = d[D_BCAST] != 0;
+  const uint8_t* a = (d[D_IN_SCR] ? scratch : arena) + d[D_IN_OFF];
+  const uint8_t* b = (d[D_IN2_SCR] ? scratch : arena) + d[D_IN2_OFF];
+  const int a_zp = d[D_X_ZP], b_zp = d[D_BZP], y_zp = d[D_Y_ZP];
+  const float as = fword(d, D_ASCALE), bs = fword(d, D_BSCALE);
+  const float ys = fword(d, D_OSCALE);
+  for (int e = threadIdx.x; e < n; e += NT) {
+    const float x = q ? dequant(((const int8_t*)a)[e], as, a_zp)
+                      : ((const float*)a)[e];
+    float y = 0.0f;
+    if (binary) {
+      int bi = e;
+      if (bcast) {
+        bi = 0;
+        int rem = e;
+        for (int i = MAX_DIMS - 1; i >= 0; --i) {
+          const int dim = d[D_EDIM0 + i];
+          bi += (rem % dim) * d[D_BSTR0 + i];
+          rem /= dim;
+        }
+      }
+      y = q ? dequant(((const int8_t*)b)[bi], bs, b_zp)
+            : ((const float*)b)[bi];
+    }
+    const float v = ew_apply(fn, x, y);
+    if (q) ((int8_t*)stage)[e] = quant_f(v, ys, y_zp);
+    else ((float*)stage)[e] = v;
+  }
+  __syncthreads();  // every operand read before any output byte is written
+  uint8_t* out = (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF];
+  copy_out(out, stage, n * (q ? 1 : 4));
+  __syncthreads();
 }
 
 }  // namespace arena
@@ -243,3 +404,18 @@ static cudaError_t set_smem(K kernel, int smem, int* configured) {
   }
   return cudaSuccess;
 }
+
+// The C entry point of a one-CTA arena kernel: (arena, descriptor, weights
+// or null, global workspace or null, dynamic shared bytes, stream); returns
+// cudaGetLastError() after the launch.
+#define ARENA_ENTRY(NAME, KERNEL)                                            \
+  extern "C" int NAME(void* arena_buf, const void* desc, const void* w,     \
+                      void* gws, int smem, void* stream) {                   \
+    static int configured = 0;                                               \
+    cudaError_t e = set_smem(KERNEL, smem, &configured);                     \
+    if (e != cudaSuccess) return (int)e;                                     \
+    KERNEL<<<1, arena::NT, smem, (cudaStream_t)stream>>>(                    \
+        (uint8_t*)arena_buf, (const int*)desc, (const uint8_t*)w,            \
+        (uint8_t*)gws);                                                      \
+    return (int)cudaGetLastError();                                          \
+  }

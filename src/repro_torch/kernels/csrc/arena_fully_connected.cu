@@ -18,9 +18,9 @@ using namespace arena;
 
 __global__ void __launch_bounds__(NT)
 arena_fc_kernel(uint8_t* arena_buf, const int* d, const uint8_t* w,
-                uint8_t* gstage) {
+                uint8_t* gws) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* stage = gstage ? gstage : smem;
+  uint8_t* stage = buffer(d, D_STAGE_G, smem, gws);
   const bool q = d[D_QUANT] != 0;
   const int m = d[D_M], idim = d[D_IDIM], odim = d[D_ODIM];
   stage_in(stage, arena_buf + d[D_IN_OFF], m * idim * (q ? 1 : 4));
@@ -45,14 +45,4 @@ arena_fc_kernel(uint8_t* arena_buf, const int* d, const uint8_t* w,
   }
 }
 
-extern "C" int arena_fully_connected(void* arena_buf, const void* desc,
-                                     const void* w, void* gstage, int smem,
-                                     void* stream) {
-  static int configured = 0;
-  cudaError_t e = set_smem(arena_fc_kernel, smem, &configured);
-  if (e != cudaSuccess) return (int)e;
-  arena_fc_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(
-      (uint8_t*)arena_buf, (const int*)desc, (const uint8_t*)w,
-      (uint8_t*)gstage);
-  return (int)cudaGetLastError();
-}
+ARENA_ENTRY(arena_fully_connected, arena_fc_kernel)

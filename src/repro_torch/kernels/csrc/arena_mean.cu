@@ -5,20 +5,22 @@
 // Replaces the TPU kernel src/repro/kernels/arena_ops.py::_mean_kernel
 // (apply_op -> _plain_kernel over _FlatMem).
 //
-// Bound on this card: a few KB in and a few hundred bytes out, so both
-// bounds are far below a microsecond; the kernel is bound by its one CTA
-// and launch. One CTA because the output may overlap the input (on the
+// Bound on this card: a few KB to a few hundred KB in (resnet_50_v2's
+// 7x7x2048 f32 head, 401 KB) and a few KB out, so both bounds are at most
+// a fraction of a microsecond; the kernel is bound by its one CTA and
+// launch. One CTA because the output may overlap the input (on the
 // flagship both start at byte 999): the whole input is staged (shared
-// memory, or a global staging buffer the wrapper allocates when it does not
-// fit) before any output byte is written (paper §III.F).
+// memory, or the global workspace when it does not fit) before any output
+// byte is written (paper §III.F).
 #include "arena_common.cuh"
 
 using namespace arena;
 
 __global__ void __launch_bounds__(NT)
-arena_mean_kernel(uint8_t* arena_buf, const int* d, uint8_t* gstage) {
+arena_mean_kernel(uint8_t* arena_buf, const int* d, const uint8_t*,
+                  uint8_t* gws) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* stage = gstage ? gstage : smem;
+  uint8_t* stage = buffer(d, D_STAGE_G, smem, gws);
   const bool q = d[D_QUANT] != 0;
   int dims[4], stride[4], total = 1;
   for (int i = 3; i >= 0; --i) {
@@ -59,12 +61,4 @@ arena_mean_kernel(uint8_t* arena_buf, const int* d, uint8_t* gstage) {
   }
 }
 
-extern "C" int arena_mean(void* arena_buf, const void* desc, void* gstage,
-                          int smem, void* stream) {
-  static int configured = 0;
-  cudaError_t e = set_smem(arena_mean_kernel, smem, &configured);
-  if (e != cudaSuccess) return (int)e;
-  arena_mean_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(
-      (uint8_t*)arena_buf, (const int*)desc, (uint8_t*)gstage);
-  return (int)cudaGetLastError();
-}
+ARENA_ENTRY(arena_mean, arena_mean_kernel)

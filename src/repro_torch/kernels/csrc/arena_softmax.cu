@@ -30,10 +30,11 @@ __device__ float block_reduce(float v, float* red) {
 }
 
 __global__ void __launch_bounds__(NT)
-arena_softmax_kernel(uint8_t* arena_buf, const int* d, uint8_t* gstage) {
+arena_softmax_kernel(uint8_t* arena_buf, const int* d, const uint8_t*,
+                     uint8_t* gws) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float red[NT / 32];
-  float* x = (float*)(gstage ? gstage : smem);
+  float* x = (float*)buffer(d, D_STAGE_G, smem, gws);
   const bool q = d[D_QUANT] != 0;
   const int rows = d[D_ROWS], last = d[D_LAST], n = rows * last;
   const int x_zp = d[D_X_ZP], y_zp = d[D_Y_ZP];
@@ -61,12 +62,4 @@ arena_softmax_kernel(uint8_t* arena_buf, const int* d, uint8_t* gstage) {
   }
 }
 
-extern "C" int arena_softmax(void* arena_buf, const void* desc, void* gstage,
-                             int smem, void* stream) {
-  static int configured = 0;
-  cudaError_t e = set_smem(arena_softmax_kernel, smem, &configured);
-  if (e != cudaSuccess) return (int)e;
-  arena_softmax_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(
-      (uint8_t*)arena_buf, (const int*)desc, (uint8_t*)gstage);
-  return (int)cudaGetLastError();
-}
+ARENA_ENTRY(arena_softmax, arena_softmax_kernel)

@@ -2,11 +2,13 @@
 against the JAX package's Pallas kernel in interpret mode, on the same
 seeded flat byte arena and the same spec; the whole arena is compared.
 
-Tolerances: int8 bit-exact, except softmax (<= 1 LSB: exp differs by an
-ulp between the two libraries); f32 1e-4 absolute plus 1e-4 relative
-(summation order).
+Tolerances: int8 bit-exact, except softmax and sigmoid (<= 1 LSB: exp
+differs by an ulp between the two libraries); f32 1e-4 absolute plus 1e-4
+relative (summation order).
 """
 import dataclasses
+import importlib.util
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +23,20 @@ from repro_torch.core.exec.cuda_backend import CudaExecutor
 from repro_torch.core.pipeline import compile as t_compile
 from repro_torch.kernels import arena_ops as K
 
-ARENA = 1024      # elements of every synthetic arena
+ARENA = 1024      # elements of a synthetic arena (at least)
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    """The chip script as a module (its spec builders need no card)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _chip_smoke()
 
 
 def _ref_spec(spec: K.OpSpec) -> R.OpSpec:
@@ -31,11 +46,21 @@ def _ref_spec(spec: K.OpSpec) -> R.OpSpec:
     return R.OpSpec(**fields)
 
 
-def _arena(dtype: str, seed: int) -> np.ndarray:
+def _arena(dtype: str, seed: int, n: int = ARENA) -> np.ndarray:
+    """``n`` seeded elements (at least ARENA) as arena bytes."""
     rng = np.random.default_rng(seed)
+    n = max(n, ARENA)
     if dtype == "i8":
-        return rng.integers(0, 256, ARENA, dtype=np.uint8)
-    return rng.standard_normal(ARENA).astype(np.float32).view(np.uint8)
+        return rng.integers(0, 256, n, dtype=np.uint8)
+    return rng.standard_normal(n).astype(np.float32).view(np.uint8)
+
+
+def _extent(spec: K.OpSpec) -> int:
+    """Elements of the arena a spec's operands reach."""
+    isz = 1 if spec.dtype == "i8" else 4
+    ends = [off // isz + K._elems(shp)
+            for off, shp in zip(spec.in_off, spec.in_shape)]
+    return max(ends + [spec.out_off // isz + K._elems(spec.out_shape)])
 
 
 def _weight(shape, dtype: str, seed: int) -> np.ndarray:
@@ -57,7 +82,7 @@ def _compare(spec: K.OpSpec, got: np.ndarray, want: np.ndarray) -> None:
     if spec.dtype == "i8":
         g = got[lo:hi].view(np.int8).astype(np.int32)
         w = want[lo:hi].view(np.int8).astype(np.int32)
-        atol = 1 if spec.kind == "softmax" else 0
+        atol = CS.lsb_limit(spec)
         np.testing.assert_allclose(g, w, rtol=0, atol=atol)
     else:
         np.testing.assert_allclose(got[lo:hi].view(np.float32),
@@ -103,6 +128,10 @@ CONV_CASES = [
      (3, 3, 1, 1, 1, 1, 1, 1, 2), 0, 30),
     ("dw_s2_in_place", "depthwise_conv2d", (8, 8, 4), (4, 4, 4),
      (3, 3, 2, 2, 1, 1, 0, 0, 1), 20, 20),
+    # a row of 8,450 outputs (more than 512 threads x 16 registers once
+    # held), output overlapping its input
+    ("conv_wide_row_overlap", "conv2d", (2, 130, 4), (2, 130, 65),
+     (3, 3, 1, 1, 1, 1, 1, 1, 1), 0, 500),
 ]
 
 
@@ -115,7 +144,7 @@ def test_conv_plain_matches_pallas(case, dtype):
                     out_off=ooff * isz, out_shape=oshp, dtype=dtype,
                     meta=meta, qmeta=QM if dtype == "i8" else ())
     w = _weight(K._weight_shape(spec), dtype, 1)
-    _run_both(spec, _arena(dtype, 2), [w])
+    _run_both(spec, _arena(dtype, 2, _extent(spec)), [w])
 
 
 HEAD_CASES = [
@@ -158,6 +187,121 @@ def test_head_plain_matches_pallas(case, dtype):
     ws = ([_weight(K._weight_shape(spec), dtype, 3)]
           if spec.kind == "fully_connected" else [])
     _run_both(spec, _arena(dtype, 4), ws)
+
+
+#: (id, in_shape, out_shape, meta, in_off, out_off) in elements; TF SAME
+#: pads are uneven, so (ph, pw) are the leading pads only
+POOL_CASES = [
+    ("max_same_s2", (9, 9, 3), (5, 5, 3), (3, 3, 2, 2, 1, 1, "max"), 0, 300),
+    ("max_same_s2_uneven", (8, 8, 4), (4, 4, 4), (3, 3, 2, 2, 0, 0, "max"),
+     40, 0),
+    ("max_valid_s1", (6, 5, 3), (4, 3, 3), (3, 3, 1, 1, 0, 0, "max"), 300, 0),
+    ("avg_same_s1_in_place", (6, 6, 4), (6, 6, 4),
+     (3, 3, 1, 1, 1, 1, "avg"), 8, 8),
+    ("avg_valid_s2_overlap", (8, 8, 4), (4, 4, 4),
+     (2, 2, 2, 2, 0, 0, "avg"), 0, 100),
+    ("avg_same_s2", (7, 7, 2), (4, 4, 2), (3, 3, 2, 2, 1, 1, "avg"), 200, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["i8", "f32"])
+@pytest.mark.parametrize("case", POOL_CASES, ids=[c[0] for c in POOL_CASES])
+def test_pool_plain_matches_pallas(case, dtype):
+    _, ishp, oshp, meta, ioff, ooff = case
+    isz = 1 if dtype == "i8" else 4
+    spec = K.OpSpec(kind="pool", in_off=(ioff * isz,), in_shape=(ishp,),
+                    out_off=ooff * isz, out_shape=oshp, dtype=dtype,
+                    meta=meta,
+                    qmeta=(-3, float(np.float32(0.87)), 5)
+                    if dtype == "i8" else ())
+    _run_both(spec, _arena(dtype, 6, _extent(spec)), [])
+
+
+S3 = (4, 5, 6)
+#: (id, fn, in_shapes, in_offs, out_off) in elements; outputs overlap an
+#: operand where the offsets say so
+EW_CASES = [
+    ("relu_overlap", "relu", (S3,), (10,), 40),
+    ("relu6_in_place", "relu6", (S3,), (7,), 7),
+    ("sigmoid", "sigmoid", (S3,), (0,), 300),
+    ("identity_overlap", "identity", (S3,), (100,), 60),
+    ("add_over_both", "add", (S3, S3), (0, 200), 100),
+    ("mul", "mul", (S3, S3), (0, 200), 500),
+    ("sub_in_place", "sub", (S3, S3), (300, 0), 300),
+    ("add_bcast_last", "add", (S3, (6,)), (0, 300), 0),
+    ("mul_bcast_mid", "mul", (S3, (5, 1)), (0, 400), 10),
+    ("sub_bcast_3d", "sub", (S3, (1, 1, 6)), (200, 0), 150),
+]
+
+
+def _ew_qmeta(fn: str, n_in: int):
+    in_q = ((0.05, 3), (0.07, -2))[:n_in]
+    out_q = (float(np.float32(1 / 256)), -128) if fn == "sigmoid" \
+        else (0.09, 1)
+    return (tuple((float(np.float32(sc)), zp) for sc, zp in in_q),
+            (float(np.float32(out_q[0])), out_q[1]))
+
+
+@pytest.mark.parametrize("dtype", ["i8", "f32"])
+@pytest.mark.parametrize("case", EW_CASES, ids=[c[0] for c in EW_CASES])
+def test_elementwise_plain_matches_pallas(case, dtype):
+    _, fn, shapes, offs, ooff = case
+    isz = 1 if dtype == "i8" else 4
+    spec = K.OpSpec(kind="elementwise", in_off=tuple(o * isz for o in offs),
+                    in_shape=shapes, out_off=ooff * isz, out_shape=shapes[0],
+                    dtype=dtype, meta=(fn,),
+                    qmeta=_ew_qmeta(fn, len(shapes)) if dtype == "i8"
+                    else ())
+    _run_both(spec, _arena(dtype, 7, _extent(spec)), [])
+
+
+#: (id, kind, in_shapes, out_shape, meta, in_offs, out_off, int8 qmeta)
+BLOCK_CASES = [
+    ("matmul_overlap", "matmul", ((16, 8), (8, 2)), (16, 2), (), (0, 200),
+     100, (3, -2, float(np.float32(0.0123)), 5)),
+    ("matmul_3d", "matmul", ((2, 8, 8), (8, 5)), (2, 8, 5), (), (300, 0),
+     300, (-1, 4, float(np.float32(0.0071)), -3)),
+    ("pad_overlap", "pad", ((4, 4, 4),), (6, 6, 4),
+     (((1, 1), (1, 1), (0, 0)),), (0,), 50,
+     ((-3, float(np.float32(0.9))), (4,))),
+    ("pad_uneven", "pad", ((3, 4, 2),), (5, 5, 3),
+     (((0, 2), (1, 0), (0, 1)),), (100,), 0,
+     ((2, float(np.float32(1.1))), (-5,))),
+    ("concat_2", "concat", ((4, 4, 3), (4, 4, 5)), (4, 4, 8), (-1,),
+     (0, 48), 20, (((-3, float(np.float32(0.8))),
+                    (4, float(np.float32(1.3)))), (2,))),
+    ("concat_4_overlap", "concat",
+     ((3, 3, 2), (3, 3, 1), (3, 3, 4), (3, 3, 2)), (3, 3, 9), (-1,),
+     (0, 18, 27, 63), 10,
+     (tuple((zp, float(np.float32(m))) for zp, m in
+            ((1, 0.5), (-2, 1.0), (0, 1.7), (5, 0.9))), (-1,))),
+]
+
+
+@pytest.mark.parametrize("dtype", ["i8", "f32"])
+@pytest.mark.parametrize("case", BLOCK_CASES,
+                         ids=[c[0] for c in BLOCK_CASES])
+def test_whole_block_plain_matches_pallas(case, dtype):
+    """matmul, pad and the standalone concat."""
+    _, kind, shapes, oshp, meta, offs, ooff, qm = case
+    isz = 1 if dtype == "i8" else 4
+    spec = K.OpSpec(kind=kind, in_off=tuple(o * isz for o in offs),
+                    in_shape=shapes, out_off=ooff * isz, out_shape=oshp,
+                    dtype=dtype, meta=meta,
+                    qmeta=qm if dtype == "i8" else ())
+    _run_both(spec, _arena(dtype, 8, _extent(spec)), [])
+
+
+@pytest.mark.parametrize("dtype", ["i8", "f32"])
+def test_fused_chain_with_pool_and_elementwise_stages(dtype):
+    spec, nbytes = CS.fused_demo_spec(dtype, 6, 5, 3)
+    assert {st.kind for st in spec.stages} == K.FUSED_STAGE_KINDS - {
+        "depthwise_conv2d"}
+    isz = 1 if dtype == "i8" else 4
+    w = _weight((3, 3, 3, 3), dtype, 9)
+    if dtype == "f32":
+        w = w * np.float32(0.2)
+    _run_both(spec, _arena(dtype, 9, nbytes // isz), [w])
 
 
 def _flagship_fused(bits: int):
@@ -222,11 +366,40 @@ def test_descriptor_words_conv_and_fused():
 
 def test_fused_scratch_branches():
     spec, _ = _flagship_fused(1)
-    assert K.fused_smem_plan(spec)[:2] == (True, True)
+    row = max(K._row_bytes(st) for st in spec.stages
+              if st.kind in K.ROW_KINDS)
+    bp = K.buffer_plan(spec)
+    assert bp.parts == (("scratch", False, 0), ("stage", False, 25_600),
+                        ("row", False, 25_600 + 32 * 32 * 16))
+    assert (bp.smem, bp.gbytes) == (25_600 + 32 * 32 * 16 + row, 0)
     big = dataclasses.replace(spec, scratch_rows=308_224)
-    scr_smem, stage_smem, scr_bytes, smem = K.fused_smem_plan(big)
-    assert (scr_smem, stage_smem, scr_bytes) == (False, True, 0)
-    assert smem == 32 * 32 * 16
+    bp = K.buffer_plan(big)
+    assert bp.on_global("scratch") and not bp.on_global("stage")
+    assert (bp.smem, bp.gbytes) == (32 * 32 * 16 + row, 308_224)
+    words = K.descriptor_words(big)
+    assert tuple(words[K.BUFFER_WORD["scratch"]:][:2]) == (1, 0)
+    assert tuple(words[K.BUFFER_WORD["stage"]:][:2]) == (0, 0)
+    assert K.workspace(big, "cpu").numel() == 308_224
+    assert K.workspace(big, "cpu") is K.workspace(big, "cpu")
+    assert K.workspace(spec, "cpu") is None
+
+
+def test_buffer_plan_rows_and_whole_blocks():
+    """A row wider than a CTA's shared memory takes the global workspace;
+    so does a whole-block output past 227 KB (resnet_50_v2's adds)."""
+    spec, _ = CS.wide_row_spec(4_096, 16)
+    assert K.buffer_plan(spec) == K.BufferPlan(0, 4_096 * 16 * 4,
+                                               (("row", True, 0),))
+    narrow, _ = CS.wide_row_spec(130, 65)
+    assert K.buffer_plan(narrow) == K.BufferPlan(
+        130 * 65 * 4 + 8, 0, (("row", False, 0),))
+    add = K.OpSpec(kind="elementwise", in_off=(0, 0), in_shape=((56, 56,
+                   256),) * 2, out_off=0, out_shape=(56, 56, 256),
+                   meta=("add",))
+    assert K.buffer_plan(add).parts == (("stage", True, 0),)
+    w = K.descriptor_words(add)
+    assert (w[K.D_KIND], w[K.D_FN], w[K.D_EN], w[K.D_BCAST]) == \
+        (K.K_ELEMENTWISE, K.EW_CODE["add"], 56 * 56 * 256, 0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -242,10 +415,54 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         K.arena_conv(arena, dataclasses.replace(spec, rowlen=16),
                      torch.zeros((1, 1, 2, 3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.apply_op(arena, dataclasses.replace(spec, kind="pool"))
-    wide = dataclasses.replace(spec, in_shape=((1, 128, 2),),
-                               out_shape=(1, 128, 65))
-    with pytest.raises(ValueError, match="row"):
-        K.arena_conv(torch.zeros(40_000, dtype=torch.uint8), wide,
-                     torch.zeros((1, 1, 2, 65)))
+    pool = K.OpSpec(kind="pool", in_off=(0,), in_shape=((4, 4, 2),),
+                    out_off=0, out_shape=(2, 2, 2), dtype="f32",
+                    meta=(2, 2, 2, 2, 0, 0, "max"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # row-blocked
+        K.apply_op(arena, dataclasses.replace(pool, rowlen=16))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # streaming
+        K.apply_op(arena, dataclasses.replace(pool, rowlen=16, win_rows=8))
+    bad = K.OpSpec(kind="elementwise", in_off=(0, 64), in_shape=((2, 2, 4),
+                   (4, 4, 4)), out_off=0, out_shape=(2, 2, 4),
+                   meta=("add",))
+    with pytest.raises(ValueError, match="broadcast"):
+        K.apply_op(torch.zeros(512, dtype=torch.uint8), bad)
+    with pytest.raises(ValueError, match="broadcast"):
+        K.descriptor_words(bad)
+
+
+def test_descriptor_words_new_kinds():
+    pool = K.OpSpec(kind="pool", in_off=(8,), in_shape=((112, 112, 64),),
+                    out_off=0, out_shape=(56, 56, 64), dtype="i8",
+                    meta=(3, 3, 2, 2, 0, 0, "max"),
+                    qmeta=(-3, float(np.float32(0.5)), 4))
+    w = K.descriptor_words(pool)
+    assert (w[K.D_KIND], w[K.D_MULT], w[K.D_DH], w[K.D_X_ZP]) == \
+        (K.K_POOL, 1, 1, -3)
+    assert tuple(w[K.D_IH:K.D_OC + 1]) == (112, 112, 64, 56, 56, 64)
+    assert tuple(w[K.BUFFER_WORD["row"]:][:2]) == (0, 0)
+    ew = K.OpSpec(kind="elementwise", in_off=(0, 400), in_shape=(S3, (5, 1)),
+                  out_off=0, out_shape=S3, meta=("mul",))
+    w = K.descriptor_words(ew)
+    assert w[K.D_BCAST] == 1 and w[K.D_IN2_OFF] == 400
+    assert tuple(w[K.D_EDIM0:K.D_EDIM0 + 6]) == (1, 1, 1, 4, 5, 6)
+    assert tuple(w[K.D_BSTR0:K.D_BSTR0 + 6]) == (0, 0, 0, 0, 1, 0)
+    mm = K.OpSpec(kind="matmul", in_off=(0, 512), in_shape=((16, 8), (8, 2)),
+                  out_off=64, out_shape=(16, 2))
+    w = K.descriptor_words(mm)
+    assert tuple(w[K.D_MM:K.D_MN + 1]) == (16, 8, 2)
+    pad = K.OpSpec(kind="pad", in_off=(0,), in_shape=((3, 4, 2),),
+                   out_off=0, out_shape=(5, 5, 3),
+                   meta=(((0, 2), (1, 0), (0, 1)),))
+    w = K.descriptor_words(pad)
+    assert tuple(w[K.D_PIN0:K.D_PN + 1]) == (1, 3, 4, 2, 0, 0, 1, 0,
+                                             1, 5, 5, 3, 75)
+
+
+def test_every_kernel_has_a_source_a_counter_and_a_plain_version():
+    from repro_torch.kernels import build
+    assert set(build.KERNELS) == set(K.LAUNCHES) == set(K.KERNEL_OF.values())
+    assert set(CS.KERNELS) == set(K.LAUNCHES)
+    for kind in K.KERNEL_OF:
+        assert kind in ("conv2d", "depthwise_conv2d", "fully_connected",
+                        "fused") or kind in K._UNWEIGHTED_PLAIN

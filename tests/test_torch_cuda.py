@@ -16,11 +16,6 @@ from repro_torch.kernels import arena_ops as K
 
 pytestmark = pytest.mark.gpu
 
-PLAIN = {"conv2d": K.conv_plain, "depthwise_conv2d": K.conv_plain,
-         "fully_connected": K.fully_connected_plain,
-         "fused": K.fused_chain_plain}
-
-
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -28,34 +23,37 @@ def card():
     return torch.device("cuda")
 
 
-def _plain(arena, spec, w):
-    fn = PLAIN.get(spec.kind)
-    if fn is not None:
-        fn(arena, spec, w)
-    elif spec.kind == "mean":
-        K.mean_plain(arena, spec)
-    else:
-        K.softmax_plain(arena, spec)
-
-
-@pytest.mark.parametrize("bits", [1, 4])
-def test_kernels_match_plain_versions_on_the_card(card, bits):
-    cp = compile(zoo.mobilenet_v1(0.25, 128, bits))
-    be = CudaExecutor(device=card)
-    specs, ws, descs, state = be.program(cp)
+def _hold_against_plain(card, cp):
+    """Every spec's kernel against its plain version, on copies of the
+    arena as the program reaches it."""
+    specs, ws, descs, state = CudaExecutor(device=card).program(cp)
     for spec, w, d in zip(specs, ws, descs):
         got, ref = state.clone(), state.clone()
         K.apply_op(got, spec, w, d)
-        _plain(ref, spec, w)
+        K.apply_plain(ref, spec, w)
         torch.cuda.synchronize()
-        if bits == 1:
+        if spec.dtype == "i8":
             err = (got.view(torch.int8).int() - ref.view(torch.int8).int())
-            limit = 1 if spec.kind == "softmax" else 0
+            limit = int(spec.kind == "softmax" or (
+                spec.kind == "elementwise" and spec.meta[0] == "sigmoid"))
             assert err.abs().max().item() <= limit, spec.kind
         else:
             g, r = got.view(torch.float32), ref.view(torch.float32)
             assert torch.allclose(g, r, rtol=1e-4, atol=1e-4), spec.kind
         state = ref
+
+
+@pytest.mark.parametrize("bits", [1, 4])
+def test_kernels_match_plain_versions_on_the_card(card, bits):
+    _hold_against_plain(card, compile(zoo.mobilenet_v1(0.25, 128, bits)))
+
+
+@pytest.mark.parametrize("bits", [1, 4])
+def test_zoo_kernels_match_plain_versions_on_the_card(card, bits):
+    """pool, elementwise, standalone concat and wide rows: resnet50_v2 and
+    densenet121 at 64x64 (resnet's 16x16x1024 rows are 16,384 outputs)."""
+    for graph in (zoo.resnet50_v2(64, bits), zoo.densenet121(64, bits)):
+        _hold_against_plain(card, compile(graph))
 
 
 def test_slice_on_the_card(card):
@@ -65,7 +63,9 @@ def test_slice_on_the_card(card):
     K.reset_launches()
     got = cp.execute()
     assert sum(K.LAUNCHES.values()) == 29
-    assert all(v > 0 for v in K.LAUNCHES.values())
+    assert all(K.LAUNCHES[k] > 0 for k in (
+        "arena_conv", "arena_mean", "arena_fully_connected", "arena_softmax",
+        "arena_fused_chain"))
     compare_outputs(get_backend("numpy").execute(cp), got, exact=False,
                     label="cuda vs numpy")
     assert np.isfinite(got["prob_out"].astype(np.float64)).all()
@@ -77,6 +77,6 @@ def test_global_scratch_branch_on_the_card(card):
     assert cp.peak_bytes == 517_052
     fused = [s for s in CudaExecutor(device=card).program(cp)[0]
              if s.kind == "fused"]
-    assert fused and not K.fused_smem_plan(fused[0])[0]
+    assert fused and K.buffer_plan(fused[0]).on_global("scratch")
     compare_outputs(get_backend("numpy").execute(cp), cp.execute(),
                     exact=False, label="1.0_224_8bit")
