@@ -25,7 +25,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    numpy backend and counting 29 launches, with the launch counts reset
    just before; then the f32 flagship, the flagship at batch 2 and
    ``mobilenet_v1_1.0_224_8bit``;
-5. runs this slice's model, ``resnet_50_v2`` at full width, f32
+5. runs ``resnet_50_v2`` at full width, f32
    (``zoo.resnet50_v2(224, 4)``) and int8: ``compile(..., backend="cuda")``
    and three requests each, matching the numpy backend, 90 launches each,
    the device arena exactly ``plan.peak_bytes`` (7,225,344 B in f32);
@@ -35,18 +35,36 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    adds a (28, 28, 22) tensor to a (56, 56, 22) one, which no backend of
    either package executes: the script checks that the port and the numpy
    backend both refuse it;
-7. times with CUDA events, after a warm-up, every kernel per forward of the
+7. runs the row-blocked program (``get_backend("cuda", layout="blocks")``)
+   on the flagship (int8, f32, batch 2), ``resnet_50_v2`` (f32, int8),
+   ``densenet_121``, ``mobilenet_v2_1.0_224`` (the fused chain's global
+   scratch) and ``allops`` (f32, int8): every spec's kernel against its
+   plain blocked version, one request each with the launch counts reset
+   just before, outputs bit-equal to the flat route's on the same inputs
+   and within tolerance of the numpy backend, the typed device arena
+   ``total_rows x arena_rowlen`` elements (73,728, 327,680, 1,835,008 and
+   7,340,032 B for the flagship int8 and f32 and ``resnet_50_v2`` int8 and
+   f32); and hand-built blocked fused chains with pool and elementwise
+   stages (packed and spanning rows, f32 and int8);
+8. runs the standalone DMO depthwise conv ``kernels.ops.dmo_dwconv2d`` on
+   the card on the reference's ``DWCONV_CASES`` and two real layers
+   ((64, 64, 8) of the flagship, (112, 112, 32) of
+   ``mobilenet_v1_1.0_224``), counting its launches, each against its
+   plain version and against ``F.conv2d`` (depthwise, TF32 off);
+9. times with CUDA events, after a warm-up, every kernel per forward of the
    path that runs it (``resnet_50_v2`` f32 for conv, pool, elementwise and
    the head; ``densenet_121`` for concat; ``allops`` f32 for matmul and
-   pad; the flagship for the fused chain), its plain version, and one
-   PyTorch call per op at the same f32 shapes as the yardstick
-   (``F.conv2d`` with TF32 off, ``F.max_pool2d``, ``torch.relu``,
-   ``torch.add``, ``torch.cat``, ``torch.matmul``, ``F.pad``,
-   ``torch.mean``, ``torch.softmax``; the port never calls them), plus the
-   flagship's int8 and f32 kernel times and ``resnet_50_v2`` int8;
-8. writes every number to ``build/chip_smoke.json`` and prints the
-   ``kernels`` JSON line, the card line, and as its last line the device
-   JSON.
+   pad; the flagship for the fused chain), on both programs, its plain
+   version, and one PyTorch call per op at the same f32 shapes as the
+   yardstick (``F.conv2d`` with TF32 off, ``F.max_pool2d``,
+   ``torch.relu``, ``torch.add``, ``torch.cat``, ``torch.matmul``,
+   ``F.pad``, ``torch.mean``, ``torch.softmax``; the port never calls
+   them), plus the flagship's int8 and f32 kernel times, ``resnet_50_v2``
+   int8, the ``dmo_dwconv2d`` cases and both programs' execute walls;
+10. writes every number to ``build/chip_smoke.json`` and prints the
+    ``kernels`` JSON line (a ``[blocks]`` line per kernel for the
+    row-blocked program, and a ``dmo_dwconv2d`` line), the card line, and
+    as its last line the device JSON.
 
 Any failed check raises and the script exits non-zero. It exits 2, printing
 no result, when no CUDA device is visible or when it does not sit at the
@@ -99,6 +117,29 @@ KERNELS = {
     "arena_fused_chain": (CSRC + "arena_fused_chain.cu",
                           "src/repro/kernels/arena_ops.py:736"),
 }
+#: the reference's row-blocked memory layer each kernel now runs under
+BLOCK_REPLACES = {name: "src/repro/kernels/arena_ops.py:314"
+                  for name in KERNELS}
+BLOCK_REPLACES["arena_fused_chain"] = "src/repro/kernels/arena_ops.py:397"
+#: the blocked path each kernel's ``[blocks]`` line is measured on
+BLOCK_KERNEL_PATH = {
+    "arena_conv": "resnet_50_v2", "arena_pool": "resnet_50_v2",
+    "arena_elementwise": "resnet_50_v2", "arena_mean": "resnet_50_v2",
+    "arena_fully_connected": "resnet_50_v2", "arena_softmax": "resnet_50_v2",
+    "arena_concat": "densenet_121", "arena_matmul": "allops",
+    "arena_pad": "allops", "arena_fused_chain": "flagship",
+}
+#: bytes of the typed blocked arena (total_rows x arena_rowlen x dtype)
+BLOCK_BYTES = {"flagship": 73_728, "flagship f32": 327_680,
+               "resnet_50_v2 int8": 1_835_008, "resnet_50_v2": 7_340_032}
+#: the standalone depthwise conv's cases (ih, iw, c, k, stride, pad): the
+#: reference's DWCONV_CASES (tests/test_kernels.py), then a flagship layer
+#: and a mobilenet_v1_1.0_224 layer
+DMO_CASES = [
+    (16, 16, 8, 3, 1, 1), (17, 13, 4, 3, 2, 0), (20, 20, 16, 3, 2, 1),
+    (12, 12, 8, 5, 1, 2), (8, 24, 2, 3, 1, 0), (15, 15, 1, 3, 3, 1),
+    (64, 64, 8, 3, 1, 1), (112, 112, 32, 3, 1, 1),
+]
 #: the path each kernel's line in the ``kernels`` JSON is measured on
 KERNEL_PATH = {
     "arena_conv": "resnet_50_v2", "arena_pool": "resnet_50_v2",
@@ -160,25 +201,52 @@ def allops_graph(dtype_bytes: int = 4, graph_cls=None):
     return g
 
 
-def fused_demo_spec(dtype: str, h: int, w: int, c: int):
+def fused_demo_spec(dtype: str, h: int, w: int, c: int, rowlen: int = 0):
     """A fused chain with every stage kind the fused kernel runs, built by
     hand (the zoo's chains are conv, depthwise and concat only): conv2d
     3x3 (arena -> scratch s0), max pool 3x3/1 (s0 -> s1), add of s1 and the
     chain input (-> s2), avg pool 3x3/1 (s2 -> s1), relu6 in place on s1,
-    then concat [s1, s0] written to the arena over the chain input. Returns
-    (spec, the arena bytes it needs); the filter is (3, 3, c, c)."""
+    then concat [s1, s0] written to the arena over the chain input; the
+    filter is (3, 3, c, c). ``rowlen == 0`` builds the flat program and
+    returns (spec, the arena bytes it needs); ``rowlen > 0`` the row-blocked
+    one over ``rowlen``-element rows, each tensor packed, plain or spanning
+    by its image row's width, and returns (spec, the arena rows it
+    needs)."""
     from repro_torch.kernels.arena_ops import OpSpec
     q = dtype == "i8"
     isz = 1 if q else 4
-    n = h * w * c * isz
-    x_off, y_off = _round16(n // 2), 0
-    hw = (h, w, c)
+    hw, hw2 = (h, w, c), (h, w, 2 * c)
+
+    def addr(shape):
+        """((rows, used), (c, k, rl)) of an image tensor."""
+        rl = shape[1] * shape[2]
+        if rl <= rowlen:
+            cp = rowlen // rl
+            return (-(-shape[0] // cp), cp * rl), (cp, 1, rl)
+        k = -(-rl // rowlen)
+        return (shape[0] * k, rowlen), (1, k, rl)
+
+    if rowlen:
+        n = addr(hw)[0][0]                    # rows of one (h, w, c) slot
+        x_off, y_off = n // 2, 0
+        need = max(x_off + n, y_off + addr(hw2)[0][0])
+    else:
+        n = h * w * c * isz
+        x_off, y_off = _round16(n // 2), 0
+        need = max(x_off + n, y_off + 2 * n)
 
     def st(kind, ins, offs, scr, out_off, out_scr, out_shape, meta, qmeta):
+        blk = {}
+        if rowlen:
+            blk = dict(rowlen=rowlen,
+                       in_rows=tuple(addr(i)[0] for i in ins),
+                       out_rows=addr(out_shape)[0],
+                       in_addr=tuple(addr(i)[1] for i in ins),
+                       out_addr=addr(out_shape)[1])
         return OpSpec(kind=kind, in_off=offs, in_shape=ins, out_off=out_off,
                       out_shape=out_shape, dtype=dtype, meta=meta,
                       qmeta=qmeta if q else (), in_scratch=scr,
-                      out_scratch=out_scr)
+                      out_scratch=out_scr, **blk)
 
     s0, s1, s2 = 0, n, 2 * n
     pool_q = (-2, float(np.float32(0.93)), 3)
@@ -194,14 +262,18 @@ def fused_demo_spec(dtype: str, h: int, w: int, c: int):
            (3, 3, 1, 1, 1, 1, "avg"), pool_q),
         st("elementwise", (hw,), (s1,), (1,), s1, 1, hw,
            ("relu6",), (((0.04, -1),), (0.03, -100))),
-        st("concat", (hw, hw), (s1, s0), (1, 1), y_off, 0, (h, w, 2 * c),
+        st("concat", (hw, hw), (s1, s0), (1, 1), y_off, 0, hw2,
            (-1,), (((-100, float(np.float32(0.75))),
                     (5, float(np.float32(1.25)))), (2,))),
     )
+    blk = {}
+    if rowlen:
+        blk = dict(rowlen=rowlen, in_rows=(addr(hw)[0],),
+                   out_rows=addr(hw2)[0])
     spec = OpSpec(kind="fused", in_off=(x_off,), in_shape=(hw,),
-                  out_off=y_off, out_shape=(h, w, 2 * c), dtype=dtype,
-                  meta=("demo",), stages=stages, scratch_rows=3 * n)
-    return spec, max(x_off + n, y_off + 2 * n)
+                  out_off=y_off, out_shape=hw2, dtype=dtype,
+                  meta=("demo",), stages=stages, scratch_rows=3 * n, **blk)
+    return spec, need
 
 
 def _round16(x: int) -> int:
@@ -258,7 +330,10 @@ def lsb_limit(spec) -> int:
 
 def arena_diff(torch, got, ref, spec) -> float:
     """Max abs difference of two arenas after one spec; raises past the
-    tolerance. Bytes outside the spec's output must be equal."""
+    tolerance. Bytes outside the spec's output (flat), or rows outside its
+    output block (row-blocked), must be equal."""
+    if spec.rowlen:
+        return _block_diff(torch, got, ref, spec)
     lo, hi = out_range(spec)
     outside = torch.ones(got.numel(), dtype=torch.bool, device=got.device)
     outside[lo:hi] = False
@@ -273,6 +348,26 @@ def arena_diff(torch, got, ref, spec) -> float:
         return float(err)
     g = got[lo:hi].view(torch.float32)
     r = ref[lo:hi].view(torch.float32)
+    err = (g - r).abs()
+    check(bool(torch.isfinite(g).all()), f"{spec.kind}: non-finite output")
+    check(bool((err <= F32_TOL + F32_TOL * r.abs()).all()),
+          f"{spec.kind}: f32 error {err.max().item()} over tolerance")
+    return float(err.max().item())
+
+
+def _block_diff(torch, got, ref, spec) -> float:
+    lo, hi = spec.out_off, spec.out_off + spec.out_rows[0]
+    outside = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+    outside[lo:hi] = False
+    check(torch.equal(got[outside], ref[outside]),
+          f"{spec.kind}: rows outside its output block differ")
+    if spec.dtype == "i8":
+        err = (got[lo:hi].to(torch.int32) - ref[lo:hi].to(torch.int32)) \
+            .abs().max().item() if hi > lo else 0
+        limit = lsb_limit(spec)
+        check(err <= limit, f"{spec.kind}: int8 max error {err} > {limit}")
+        return float(err)
+    g, r = got[lo:hi], ref[lo:hi]
     err = (g - r).abs()
     check(bool(torch.isfinite(g).all()), f"{spec.kind}: non-finite output")
     check(bool((err <= F32_TOL + F32_TOL * r.abs()).all()),
@@ -468,14 +563,19 @@ def compare_program(torch, K, be, cp, label: str, errs, select=None,
 def compare_spec(torch, K, spec, nbytes: int, weights, errs, label: str,
                  seed: int = 0):
     """Kernel against plain version on one hand-built spec over a seeded
-    random arena of ``nbytes``."""
+    random arena of ``nbytes`` (flat) or ``nbytes`` rows (row-blocked)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    if spec.dtype == "f32":
-        state = torch.randn(-(-nbytes // 4), generator=g).view(torch.uint8)
+    if spec.rowlen:
+        shape = (nbytes, spec.rowlen)
+        state = (torch.randn(shape, generator=g) if spec.dtype == "f32" else
+                 torch.randint(-128, 128, shape, dtype=torch.int8,
+                               generator=g)).cuda()
+    elif spec.dtype == "f32":
+        state = torch.randn(-(-nbytes // 4), generator=g).view(
+            torch.uint8)[:nbytes].cuda()
     else:
         state = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
-                              generator=g)
-    state = state[:nbytes].cuda()
+                              generator=g).cuda()
     w = weights
     if spec.kind == "fused":
         w = K.pack_weights(spec, weights, device="cuda")
@@ -535,6 +635,61 @@ def requests(torch, K, X, cp, label: str, n_launch, peak: int,
         f"launches each, device arena {peak} B (execute {t_cuda:.2f} s, "
         f"numpy {t_np:.2f} s)")
     return per_request, t_cuda, t_np
+
+
+def blocked_requests(torch, K, X, cp, label: str, nbytes=None,
+                     seeds=(0,)):
+    """Requests through ``get_backend("cuda", layout="blocks")`` on the
+    card, counted (counts reset just before each), each bit-equal to the
+    flat program's outputs on the same inputs and within
+    ``compare_outputs`` of the numpy backend. The typed device arena must
+    be ``total_rows x arena_rowlen`` elements (``nbytes`` where given).
+    Returns the launches per kernel of one request, the arena bytes and the
+    host seconds of the blocked and the flat executions."""
+    graph = cp.graph
+    weights = X.synth_weights(graph, 0)
+    quant = X.calibrate(graph, 0, weights) if X.needs_quant(graph) else None
+    be = X.get_backend("cuda", layout="blocks")
+    flat = X.get_backend("cuda")
+    bp = be.legalised(cp.plan)
+    specs, _, _, arena = be.program(cp, None, weights, quant=quant)
+    got_bytes = arena.numel() * arena.element_size()
+    check(arena.is_cuda and tuple(arena.shape) == (bp.total_rows,
+                                                   bp.arena_rowlen)
+          and got_bytes == bp.padded_peak_bytes,
+          f"{label}: blocked arena {tuple(arena.shape)} {arena.dtype} on "
+          f"{arena.device}, expected ({bp.total_rows}, {bp.arena_rowlen})")
+    check(nbytes is None or got_bytes == nbytes,
+          f"{label}: blocked arena {got_bytes} B, expected {nbytes} B")
+    per_request, t_blk, t_flat = None, 0.0, 0.0
+    for seed in seeds:
+        inputs = (X.quant_inputs(graph, quant, seed) if quant is not None
+                  else X.random_inputs(graph, seed))
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = be.execute(cp, inputs, weights, quant=quant)
+        t_blk += time.perf_counter() - t0
+        counts = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        want = flat.execute(cp, inputs, weights, quant=quant)
+        t_flat += time.perf_counter() - t0
+        check(got.keys() == want.keys() and all(
+            np.array_equal(got[k], want[k]) for k in want),
+            f"{label} seed {seed}: blocked outputs differ from flat")
+        X.compare_outputs(X.get_backend("numpy").execute(
+            cp, inputs, weights, quant=quant), got, exact=False,
+            label=f"{label} blocks seed {seed}")
+        want_counts = {n: sum(K.KERNEL_OF[s.kind] == n for s in specs)
+                       for n in K.LAUNCHES}
+        check(counts == want_counts, f"{label}: blocked launches {counts}, "
+              f"expected {want_counts}")
+        per_request = counts
+    log(f"[blocks] {label}: {len(seeds)} request(s) bit-equal to flat and "
+        f"within tolerance of numpy, {len(specs)} launches, {bp.packing} "
+        f"arena {bp.total_rows} x {bp.arena_rowlen} = {got_bytes} B "
+        f"(flat {cp.peak_bytes} B; execute {t_blk:.2f} s, flat "
+        f"{t_flat:.2f} s)")
+    return per_request, got_bytes, t_blk, t_flat
 
 
 def refused(fn, label: str) -> str:
@@ -703,7 +858,7 @@ def main() -> int:
         requests(torch, K, X, c, label, n_specs, peak, seeds=(0,))
     phase_done("flagship slice")
 
-    # 5. this slice: resnet_50_v2 at full width, f32 and int8
+    # 5. resnet_50_v2 at full width, f32 and int8
     slice_cps = {}
     for label, graph, peak in (
             ("resnet_50_v2", zoo.resnet50_v2(224, 4), RESNET_BYTES),
@@ -768,7 +923,116 @@ def main() -> int:
         check(paths[path][name] > 0, f"{name} never launched on {path}")
     phase_done("zoo")
 
-    # 7. times
+    # 7. the row-blocked program on the same plans
+    blk = X.get_backend("cuda", layout="blocks")
+    blk_errs, blk_paths, blk_rows = {}, {}, {}
+    blk_cps = {
+        "flagship": cp,
+        "flagship f32": compile(zoo.mobilenet_v1(0.25, 128, 4),
+                                backend="cuda"),
+        "flagship batch 2": compile(flag, backend="cuda", batch=2),
+        "resnet_50_v2": slice_cps["resnet_50_v2"],
+        "resnet_50_v2 int8": slice_cps["resnet_50_v2 int8"],
+        "densenet_121": compile(zoo.densenet121(224, 4), backend="cuda"),
+        "mobilenet_v2_1.0_224": compile(
+            zoo.TABLE3_MODELS["mobilenet_v2_1.0_224"][0](), backend="cuda"),
+        "allops": compiled["allops"], "allops int8": compiled["allops int8"],
+    }
+    branches = []
+    for label, c in blk_cps.items():
+        _, br, _ = compare_program(torch, K, blk, c, label + " blocks",
+                                   blk_errs)
+        branches += br
+        counts, nbytes, t_b, t_f = blocked_requests(
+            torch, K, X, c, label, BLOCK_BYTES.get(label))
+        blk_paths[label] = counts
+        bp = blk.legalised(c.plan)
+        blk_rows[label] = {
+            "packing": bp.packing, "rows": bp.total_rows,
+            "rowlen": bp.arena_rowlen, "arena_bytes": nbytes,
+            "flat_bytes": c.peak_bytes, "launches": sum(counts.values()),
+            "execute_s": t_b, "flat_execute_s": t_f}
+    check("shared" in branches and "global" in branches,
+          "both fused scratch branches must run in the blocked program")
+    for dtype in ("f32", "i8"):
+        wt = torch.randint(-127, 128, (3, 3, 16, 16), dtype=torch.int8) \
+            if dtype == "i8" else torch.randn(3, 3, 16, 16) * 0.2
+        for rowlen in (512, 1024):
+            spec, rows = fused_demo_spec(dtype, 28, 28, 16, rowlen)
+            compare_spec(torch, K, spec, rows, [wt.cuda()], blk_errs,
+                         f"blocked fused chain with pool and elementwise "
+                         f"stages, {dtype}, rows of {rowlen}")
+    for name, path in BLOCK_KERNEL_PATH.items():
+        check(blk_paths[path][name] > 0,
+              f"{name} never launched on {path} blocks")
+    phase_done("blocks")
+
+    # 8. the standalone DMO depthwise conv through its entry point
+    from repro_torch.kernels import dmo_arena_dwconv as D
+    from repro_torch.kernels import ops as TO
+    gen = torch.Generator().manual_seed(0)
+    dmo_in = [(torch.randn(ih, iw, ch, generator=gen),
+               torch.randn(k, k, ch, generator=gen))
+              for ih, iw, ch, k, _, _ in DMO_CASES]
+    K.reset_launches()
+    dmo_out = [TO.dmo_dwconv2d(x, wt, st, pd) for (x, wt), (*_, st, pd) in
+               zip(dmo_in, DMO_CASES)]
+    torch.cuda.synchronize()
+    dmo_counts = dict(K.LAUNCHES)
+    check(dmo_counts["arena_conv"] == len(DMO_CASES)
+          and sum(dmo_counts.values()) == len(DMO_CASES),
+          f"dmo_dwconv2d: launches {dmo_counts}")
+    dmo = {"launches": len(DMO_CASES), "max_abs_err": 0.0, "ms": 0.0,
+           "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "oracle_err": 0.0, "cases": []}
+    dmo_specs = []
+    for (x, wt), out, case in zip(dmo_in, dmo_out, DMO_CASES):
+        ih, iw, ch, k, st, pd = case
+        d_rows, oh, ow = TO.dwconv_overlap_rows(*case)
+        rowlen = max(iw, ow) * ch
+        spec = D.dwconv_spec(ih=ih, iw=iw, c=ch, k=k, stride=st, pad=pd,
+                             d_rows=d_rows, oh=oh, ow=ow, rowlen=rowlen)
+        dmo_specs.append(spec)
+        arena = torch.zeros((max(d_rows + ih, oh), rowlen), device="cuda")
+        arena[d_rows:d_rows + ih, :iw * ch] = x.reshape(ih, -1).cuda()
+        w4 = wt.reshape(k, k, ch, 1).contiguous().cuda()
+        got, ref = arena.clone(), arena.clone()
+        K.arena_conv(got, spec, w4)
+        K.apply_plain(ref, spec, w4)
+        err = arena_diff(torch, got, ref, spec)
+        check(torch.equal(out, got[:oh, :ow * ch].reshape(oh, ow, ch)),
+              f"dmo_dwconv2d {case}: the entry point and its spec differ")
+        oracle = F.conv2d(
+            F.pad(x.permute(2, 0, 1)[None].cuda(), (pd, pd, pd, pd)),
+            wt.permute(2, 0, 1)[:, None].cuda(), stride=st, groups=ch)
+        oracle = oracle[0].permute(1, 2, 0)
+        o_err = (out - oracle).abs()
+        check(bool((o_err <= F32_TOL + F32_TOL * oracle.abs()).all()),
+              f"dmo_dwconv2d {case}: {o_err.max().item()} from F.conv2d")
+        a, b = arena.clone(), arena.clone()
+        ms = time_auto(torch, lambda: K.arena_conv(a, spec, w4))
+        plain = time_ms(torch, lambda: K.apply_plain(b, spec, w4), 1,
+                        warm=False)
+        lib = time_auto(torch, library_call(torch, F, spec))
+        dmo["cases"].append({"case": case, "ms": ms, "plain_ms": plain,
+                             "library_ms": lib, "bound_ms": bound_ms(spec),
+                             "max_abs_err": err,
+                             "arena_bytes": arena.numel() * 4,
+                             "two_buffer_bytes": TO.dmo_dwconv2d_footprint(
+                                 *case)[1]})
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", bound_ms(spec))):
+            dmo[key] += v
+        dmo["max_abs_err"] = max(dmo["max_abs_err"], err)
+        dmo["oracle_err"] = max(dmo["oracle_err"], o_err.max().item())
+    dmo["bound_by"] = bound_by(dmo_specs)
+    log(f"[dmo_dwconv2d] {len(DMO_CASES)} cases on the card match the plain "
+        f"version (max err {dmo['max_abs_err']:g}) and F.conv2d (max err "
+        f"{dmo['oracle_err']:g}); {dmo['launches']} launches: "
+        + json.dumps(dmo["cases"]))
+    phase_done("dmo_dwconv2d")
+
+    # 9. times
     walls = []
     c = slice_cps["resnet_50_v2"]
     w0 = X.synth_weights(c.graph, 0)
@@ -816,6 +1080,30 @@ def main() -> int:
     per["resnet_50_v2 int8"] = kernel_times(
         torch, F, K, ex, ci8, w8, X.calibrate(ci8.graph, 0, w8),
         plain_too=False)
+    per_blk = {
+        "resnet_50_v2": kernel_times(torch, F, K, blk, c, library=True),
+        "densenet_121": kernel_times(torch, F, K, blk,
+                                     blk_cps["densenet_121"], library=True,
+                                     only={"arena_concat"}),
+        "allops": kernel_times(torch, F, K, blk, compiled["allops"],
+                               library=True),
+        "flagship": kernel_times(torch, F, K, blk, cp, fw, fq),
+    }
+    blk_walls = {}
+    for label, reps, args in (("resnet_50_v2", 3, (in0, w0, None)),
+                              ("flagship", 20, (fin, fw, fq))):
+        bcp = blk_cps[label]
+        blk.execute(bcp, args[0], args[1], quant=args[2])
+        ws_ = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blk.execute(bcp, args[0], args[1], quant=args[2])
+            torch.cuda.synchronize()
+            ws_.append(1e3 * (time.perf_counter() - t0))
+        blk_walls[label] = ws_
+        log(f"[time] {label} blocked execute(): median "
+            f"{statistics.median(ws_):.3f} ms over {reps}")
     phase_done("times")
 
     rows = []
@@ -835,10 +1123,37 @@ def main() -> int:
             # int8 has no single PyTorch call (int32 accumulation plus
             # requantisation); the fused chain has none either
             "library_ms": r["library_ms"]})
+    for name, (source, replaces) in KERNELS.items():
+        path = BLOCK_KERNEL_PATH[name]
+        r = per_blk[path][name]
+        check(r["launches"] == blk_paths[path][name],
+              f"{name} blocks: {r['launches']} specs timed, "
+              f"{blk_paths[path][name]} launched")
+        rows.append({
+            "name": f"{name} [blocks]", "route": "cuda", "source": source,
+            "replaces": BLOCK_REPLACES[name], "path": f"{path} blocks",
+            "launches": blk_paths[path][name],
+            "max_abs_err": blk_errs[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    rows.append({
+        "name": "dmo_dwconv2d", "route": "cuda",
+        "source": KERNELS["arena_conv"][0],
+        "replaces": "src/repro/kernels/dmo_arena_dwconv.py:33",
+        "path": f"{len(DMO_CASES)} cases", "launches": dmo["launches"],
+        "max_abs_err": dmo["max_abs_err"], "ms": dmo["ms"],
+        "plain_ms": dmo["plain_ms"], "bound_ms": dmo["bound_ms"],
+        "bound_by": dmo["bound_by"], "library_ms": dmo["library_ms"]})
     times = {path: {name: {k: v for k, v in r.items() if k != "specs"}
                     for name, r in p.items()} for path, p in per.items()}
+    times_blk = {path: {name: {k: v for k, v in r.items() if k != "specs"}
+                        for name, r in p.items()}
+                 for path, p in per_blk.items()}
     for path, p in times.items():
         log(f"[time] per {path} forward (ms): " + json.dumps(p))
+    for path, p in times_blk.items():
+        log(f"[time] per {path} blocked forward (ms): " + json.dumps(p))
     out = ROOT / "build"
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -846,6 +1161,10 @@ def main() -> int:
          "resnet_execute_ms": resnet_exec_ms, "resnet_walls_ms": walls,
          "flagship_execute_ms": flag_exec_ms, "flagship_walls_ms": fwalls,
          "launches": paths, "zoo": zoo_rows, "errors": errs,
+         "blocks": {"graphs": blk_rows, "times": times_blk,
+                    "launches": blk_paths, "errors": blk_errs,
+                    "walls_ms": blk_walls},
+         "dmo_dwconv2d": dmo,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

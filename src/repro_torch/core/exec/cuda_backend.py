@@ -1,17 +1,31 @@
-"""CUDA arena executor: lower a plan to the flat byte program and run it in
-ONE uint8 device tensor through hand-written sm_90a kernels.
+"""CUDA arena executor: lower a plan to one of the reference's in-place
+arena programs and run it in ONE device tensor through hand-written sm_90a
+kernels.
 
-The counterpart of the reference's Pallas backend. Its flat program is the
-one this backend runs: the arena is a 1-D uint8 tensor of exactly
-``plan.peak_bytes`` (no tiling constraint on this card, so no row-blocked
-padding), operands sit at the planner's byte offsets, and each lowered
-:class:`~repro_torch.kernels.arena_ops.OpSpec` runs in place through its
-kernel wrapper in :mod:`repro_torch.kernels.arena_ops`. A fused band chain
-lowers to one spec and one launch whose chain-internal tensors live in the
-kernel's scratch, never in the arena.
+The counterpart of the reference's Pallas backend, with two of its three
+programs:
 
-The row-blocked and streaming programs of the reference are not ported yet
-(``layout="blocks"`` and ``mode="streaming"`` raise).
+- **flat** (``layout="flat"``, the default): the arena is a 1-D uint8
+  tensor of exactly ``plan.peak_bytes``, operands at the planner's byte
+  offsets. On this card nothing asks for tiles, so the flat arena is the
+  planner's peak and nothing more.
+- **row-blocked** (``layout="blocks"``): the plan is legalised by
+  :func:`~repro_torch.core.planner.legalise_for_blocks` onto the
+  reference's TPU tiles, and the arena is one typed ``(total_rows,
+  arena_rowlen)`` tensor (int8 or f32) with every operand in whole arena
+  rows, packed, spanning or one image row per arena row; the reference's
+  own main path (``PallasExecutor(layout="auto")``). Its outputs are
+  bit-equal to the flat program's: the kernels are the same, only their
+  addressing differs. ``layout="auto"`` runs it where the plan legalises
+  and the flat program elsewhere (mixed dtypes, aggregated views), as the
+  reference does; ``"blocks"`` raises there.
+
+Each lowered :class:`~repro_torch.kernels.arena_ops.OpSpec` runs in place
+through its kernel wrapper in :mod:`repro_torch.kernels.arena_ops`. A
+fused band chain lowers to one spec and one launch whose chain-internal
+tensors live in the kernel's scratch, never in the arena. The reference's
+streaming program is not ported yet (``mode="streaming"`` raises); its VMEM
+gates have no counterpart here, since the arena lives in device memory.
 
 Device: the executor runs on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel wrapper runs its plain PyTorch
@@ -29,7 +43,9 @@ import torch
 from repro_torch.core.exec import ops as X
 from repro_torch.core.exec import unwrap_plan
 from repro_torch.core.graph import Op
-from repro_torch.core.planner import Plan, fused_slots
+from repro_torch.core.planner import (BlockPlan, Plan, chain_addr_of,
+                                      chain_image_rows_of, fused_slots,
+                                      legalise_for_blocks, tile_rows)
 from repro_torch.kernels import arena_ops as K
 
 
@@ -50,6 +66,12 @@ def _fused_chains(order: Sequence[Op]) -> Dict[str, List[Op]]:
         pos[cname] = i
         chains.setdefault(cname, []).append(op)
     return chains
+
+
+def _addr_triple(lay) -> Tuple[int, int, int]:
+    """A layout's packed-addressing spec triple
+    ``(cols_per_row, row_span, image_rowlen)``."""
+    return (lay.cols_per_row, lay.row_span, lay.image_rowlen)
 
 
 def _canon_meta(op: Op) -> Tuple:
@@ -108,62 +130,52 @@ def _canon_qmeta(op: Op, q: Optional[X.OpQuant]) -> Tuple:
     return ()
 
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "the cuda backend runs on the card and no CUDA device is "
-                "visible; pass device='cpu' to run the kernels' plain "
-                "PyTorch versions instead")
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but no CUDA device is "
-                           "visible")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"the cuda backend runs on 'cuda' or 'cpu', not "
-                         f"{dev}")
-    return dev
-
-
 #: Bounds of the per-executor caches (FIFO).
 _CACHE_PLANS = 32
 _CACHE_DESCS = 512
+
+
+#: The arena programs ``layout`` selects (the reference's meaning).
+LAYOUTS = ("flat", "blocks", "auto")
 
 
 class CudaExecutor:
     """The ``cuda`` :class:`~repro_torch.core.exec.ArenaExecutor` backend.
 
     ``device``: None (the card; raises without one), ``"cuda"``/``"cuda:N"``
-    or ``"cpu"`` (every kernel's plain PyTorch version). ``layout`` and
-    ``mode`` name the reference's other programs, which are not ported
-    yet."""
+    or ``"cpu"`` (every kernel's plain PyTorch version). ``layout``:
+    ``"flat"`` (default; the arena is exactly the planner's peak),
+    ``"blocks"`` (the row-blocked program; raises on a plan that cannot
+    legalise) or ``"auto"`` (blocked where the plan legalises, else flat).
+    ``mode="streaming"`` names the reference's third program, which is not
+    ported yet."""
 
     name = "cuda"
 
     def __init__(self, device=None, layout: str = "flat",
                  mode: Optional[str] = None):
-        if layout == "blocks":
-            raise NotImplementedError(
-                "layout='blocks' (the row-blocked program) is ROADMAP queue "
-                "1, item 1: the blocked addressing, the next slice")
-        if layout != "flat":
-            raise ValueError(f"unknown cuda layout {layout!r} (expected "
-                             "'flat')")
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown cuda layout {layout!r} (expected one "
+                             f"of {LAYOUTS})")
         if mode == "streaming":
             raise NotImplementedError(
-                "mode='streaming' is ROADMAP queue 1, item 2: the streaming "
-                "kernels come after the blocked addressing")
+                "mode='streaming' is ROADMAP queue 1: the streaming kernels "
+                "are the next slice")
         if mode is not None:
             raise ValueError(f"unknown cuda mode {mode!r}")
-        self.device = _resolve_device(device)
-        #: (plan identity, quant identity) -> (plan, quant, spec tuple);
-        #: values pin the keyed objects so the id() keys stay valid
+        self.device = K.resolve_device(device)
+        self.layout = layout
+        #: (plan identity, route, quant identity) -> (plan, quant, bplan,
+        #: spec tuple); values pin the keyed objects so the id() keys stay
+        #: valid
         self._lowered: "collections.OrderedDict" = collections.OrderedDict()
+        #: plan identity -> (plan, its BlockPlan or None for flat)
+        self._legal: "collections.OrderedDict" = collections.OrderedDict()
         #: synth_weights/calibrate results per (plan identity, seed)
         self._autoparams: "collections.OrderedDict" = collections.OrderedDict()
         #: device weights per (plan, weights, quant) identity: one entry per
-        #: spec (None, a filter, or a fused chain's packed blob)
+        #: spec (None, a filter, or a fused chain's packed blob); both
+        #: programs take the same weights in the same order
         self._weights: "collections.OrderedDict" = collections.OrderedDict()
         #: device descriptor per spec (content-keyed)
         self._descs: "collections.OrderedDict" = collections.OrderedDict()
@@ -294,20 +306,203 @@ class CudaExecutor:
                 ext.append(t)
         return ext
 
+    def lower_blocks(self, bplan: BlockPlan,
+                     quant: Optional[X.QuantSpec] = None
+                     ) -> Tuple[K.OpSpec, ...]:
+        """BlockPlan -> row-blocked OpSpec sequence: arena *row* offsets and
+        ``(rows, used)`` block shapes from the legalised
+        :class:`~repro_torch.core.planner.BlockLayout` records, and on a
+        packed plan each operand's addressing triple. A fused band chain
+        lowers to ONE spec at its first member's position. Batched ops
+        expand image-minor, each per-image spec addressing image ``b``'s
+        padded sub-block."""
+        dtype = "i8" if bplan.dtype_bytes == 1 else "f32"
+        packed = bplan.packing == "packed"
+        sub = bplan.tiling[0]
+        chains = _fused_chains(bplan.order)
+        emitted: set = set()
+        specs: List[K.OpSpec] = []
+        for op in bplan.order:
+            if op.kind == "reshape":
+                continue
+            cname = op.params.get("fuse_chain")
+            if cname is not None:
+                if cname not in emitted:
+                    emitted.add(cname)
+                    specs.append(self._fused_block_spec(
+                        bplan, chains[cname], quant))
+                continue
+            if any(t.storage().kind == "weight" for t in op.inputs):
+                raise ValueError(f"{op.name}: non-arena input cannot be "
+                                 "lowered")
+            lays = [bplan.layout_of(t) for t in op.inputs]
+            out = bplan.layout_of(op.output)
+            q = X.op_quant(op, quant)
+            # legacy plans emit the reference's pre-packing specs exactly
+            extra = dict(
+                in_addr=tuple(_addr_triple(l) for l in lays),
+                out_addr=_addr_triple(out),
+                out_tile=tile_rows(out.cols_per_row, out.row_span, sub),
+            ) if packed else {}
+            for b in range(out.batch):
+                specs.append(K.OpSpec(
+                    kind=op.kind,
+                    in_off=tuple(
+                        l.image_row_offset(b if l.batch > 1 else 0)
+                        for l in lays),
+                    in_shape=tuple(tuple(t.shape) for t in op.inputs),
+                    out_off=out.image_row_offset(b),
+                    out_shape=tuple(op.output.shape),
+                    dtype=dtype,
+                    meta=_canon_meta(op),
+                    qmeta=_canon_qmeta(op, q),
+                    rowlen=bplan.arena_rowlen,
+                    in_rows=tuple((l.image_rows, l.rowlen) for l in lays),
+                    out_rows=(out.image_rows, out.rowlen),
+                    **extra))
+        return tuple(specs)
+
+    def _fused_block_spec(self, bplan: BlockPlan, members: List[Op],
+                          quant: Optional[X.QuantSpec]) -> K.OpSpec:
+        """One row-blocked spec for a fused band chain. Chain-internal
+        tensors live in scratch slots of whole rows
+        (:func:`~repro_torch.core.planner.fused_slots` over the batched
+        rows, total rounded to the sublane tile) addressed like the arena,
+        by :func:`~repro_torch.core.planner.chain_addr_of`'s geometry;
+        external operands keep their arena blocks. Stages expand op-major
+        (member-major, image-minor), the order the planner's liveness model
+        assumes."""
+        dtype = "i8" if bplan.dtype_bytes == 1 else "f32"
+        L = bplan.arena_rowlen
+        sub = bplan.tiling[0]
+        cat = members[-1]
+        B = cat.output.storage().batch
+        internal = {op.output.storage() for op in members[:-1]}
+        packed = bplan.packing == "packed"
+        irows_of = chain_image_rows_of(bplan)
+        addr_of = chain_addr_of(bplan)
+
+        def rows_of(s) -> int:
+            """Batched slot rows of one chain operand."""
+            return irows_of(s) * (s.batch if s.batch > 1 else 1)
+
+        def triple_of(s) -> Tuple[int, int, int]:
+            lay = bplan.layouts.get(s)
+            if lay is not None:
+                return _addr_triple(lay)
+            c, k = addr_of(s)
+            return (c, k, int(s.shape[-2]) * int(s.shape[-1]))
+
+        def used_of(s) -> int:
+            lay = bplan.layouts.get(s)
+            if lay is not None:
+                return lay.rowlen
+            c, k, rl = triple_of(s)
+            return L if k > 1 else c * rl
+
+        slots, total = fused_slots(members, rows_of, round_to=sub)
+        for s in internal:
+            if used_of(s) > L:
+                raise ValueError(f"scratch row of {s.name} wider than the "
+                                 "arena row")
+
+        def place(t, b: int):
+            """(offset, (rows, used), scratch?) of one stage operand for
+            image ``b``."""
+            s = t.storage()
+            if s in internal:
+                bb = b if s.batch > 1 else 0
+                return (slots[s] + bb * irows_of(s),
+                        (irows_of(s), used_of(s)), 1)
+            lay = bplan.layouts[s]
+            return (lay.image_row_offset(b if lay.batch > 1 else 0),
+                    (lay.image_rows, lay.rowlen), 0)
+
+        stages: List[K.OpSpec] = []
+        for op in members:
+            q = X.op_quant(op, quant)
+            extra = dict(
+                in_addr=tuple(triple_of(t.storage()) for t in op.inputs),
+                out_addr=triple_of(op.output.storage()),
+            ) if packed else {}
+            for b in range(B):
+                placed = [place(t, b) for t in op.inputs]
+                o_off, o_rows, o_scr = place(op.output, b)
+                stages.append(K.OpSpec(
+                    kind=op.kind,
+                    in_off=tuple(p[0] for p in placed),
+                    in_shape=tuple(tuple(t.shape) for t in op.inputs),
+                    out_off=o_off,
+                    out_shape=tuple(op.output.shape),
+                    dtype=dtype,
+                    meta=_canon_meta(op),
+                    qmeta=_canon_qmeta(op, q),
+                    rowlen=L,
+                    in_rows=tuple(p[1] for p in placed),
+                    out_rows=o_rows,
+                    in_scratch=tuple(p[2] for p in placed),
+                    out_scratch=o_scr,
+                    **extra))
+        ext = self._chain_ext_inputs(members, internal)
+        out_lay = bplan.layout_of(cat.output)
+        return K.OpSpec(
+            kind="fused",
+            in_off=tuple(bplan.layout_of(t).row_offset for t in ext),
+            in_shape=tuple(tuple(t.shape) for t in ext),
+            out_off=out_lay.row_offset,
+            out_shape=tuple(cat.output.shape),
+            dtype=dtype,
+            meta=(cat.params["fuse_chain"],),
+            rowlen=L,
+            in_rows=tuple((bplan.layout_of(t).rows,
+                           bplan.layout_of(t).rowlen) for t in ext),
+            out_rows=(out_lay.rows, out_lay.rowlen),
+            stages=tuple(stages),
+            scratch_rows=total)
+
     # -- execution ----------------------------------------------------------
 
-    def _specs(self, plan: Plan, quant) -> Tuple[K.OpSpec, ...]:
-        key = (id(plan), id(quant) if quant is not None else None)
+    def legalised(self, plan: Plan) -> Optional[BlockPlan]:
+        """The row-blocked legalisation this executor runs, or None for the
+        flat program: ``"flat"`` never legalises, ``"blocks"`` raises on a
+        plan that cannot be row-blocked (mixed dtype, aggregated views),
+        ``"auto"`` runs such a plan flat (the reference's ``_legalised``)."""
+        if self.layout == "flat":
+            return None
+        if isinstance(plan, BlockPlan):
+            return plan
+        cached = self._legal.get(id(plan))
+        if cached is not None and cached[0] is plan:
+            return cached[1]
+        try:
+            bplan = legalise_for_blocks(plan)
+        except ValueError:
+            if self.layout == "blocks":
+                raise
+            bplan = None
+        self._legal[id(plan)] = (plan, bplan)
+        while len(self._legal) > _CACHE_PLANS:
+            self._legal.popitem(last=False)
+        return bplan
+
+    def _specs(self, plan: Plan, quant
+               ) -> Tuple[Optional[BlockPlan], Tuple[K.OpSpec, ...]]:
+        """(the BlockPlan or None, the lowered specs), cached per plan,
+        route and quantisation."""
+        bplan = self.legalised(plan)
+        route = "blocks" if bplan is not None else "flat"
+        key = (id(plan), route, id(quant) if quant is not None else None)
         cached = self._lowered.get(key)
         if cached is not None and cached[0] is plan and cached[1] is quant:
             self._cache_hits += 1
-            return cached[2]
+            return cached[2], cached[3]
         self._cache_misses += 1
-        specs = self.lower(plan, quant)
-        self._lowered[key] = (plan, quant, specs)
+        specs = (self.lower_blocks(bplan, quant) if bplan is not None
+                 else self.lower(plan, quant))
+        self._lowered[key] = (plan, quant, bplan, specs)
         while len(self._lowered) > _CACHE_PLANS:
             self._lowered.popitem(last=False)
-        return specs
+        return bplan, specs
 
     def _device_weights(self, plan: Plan, specs, weights, quant) -> List:
         """Per spec: None, the op's filter, or a fused chain's packed blob,
@@ -373,11 +568,11 @@ class CudaExecutor:
                 seed: int = 0, quant=None):
         """The lowered program of one execution, ready to run: ``(specs,
         per-spec device weights, descriptors, seeded arena)``. The arena is
-        a fresh uint8 tensor of exactly ``plan.peak_bytes`` on the
-        executor's device with every model input at its planned offset;
-        descriptors are None on the CPU. Inputs, weights and quantisation
-        default to the deterministic per-seed synthesis every backend
-        shares."""
+        a fresh tensor on the executor's device with every model input in
+        place: flat, uint8 of exactly ``plan.peak_bytes``; row-blocked, a
+        typed ``(total_rows, arena_rowlen)`` tensor. Descriptors are None on
+        the CPU. Inputs, weights and quantisation default to the
+        deterministic per-seed synthesis every backend shares."""
         plan, graph = unwrap_plan(plan_or_compiled)
         reason = X.executability(graph)
         if reason is not None:
@@ -402,17 +597,20 @@ class CudaExecutor:
             inputs = (X.quant_inputs(graph, quant, seed) if quant is not None
                       else X.random_inputs(graph, seed))
 
-        specs = self._specs(plan, quant)
+        bplan, specs = self._specs(plan, quant)
         ws = self._device_weights(plan, specs, weights, quant)
         descs = ([self._descriptor(s) for s in specs]
                  if self.device.type == "cuda" else [None] * len(specs))
-        host = np.zeros(plan.peak_bytes, np.uint8)
-        for t in graph.tensors:
-            if t.kind == "input":
-                s, off = t.storage(), plan.offsets[t.storage()]
-                v = np.asarray(inputs[t.name],
-                               X.arena_dtype(s.dtype_bytes)).reshape(-1)
-                host[off:off + s.nbytes] = v.view(np.uint8)
+        if bplan is not None:
+            host = self._seed_block_arena(bplan, graph, inputs)
+        else:
+            host = np.zeros(plan.peak_bytes, np.uint8)
+            for t in graph.tensors:
+                if t.kind == "input":
+                    s, off = t.storage(), plan.offsets[t.storage()]
+                    v = np.asarray(inputs[t.name],
+                                   X.arena_dtype(s.dtype_bytes)).reshape(-1)
+                    host[off:off + s.nbytes] = v.view(np.uint8)
         return specs, ws, descs, torch.from_numpy(host).to(self.device)
 
     def execute(self, plan_or_compiled, inputs=None, weights=None, *,
@@ -423,10 +621,67 @@ class CudaExecutor:
         for spec, w, d in zip(specs, ws, descs):
             K.apply_op(arena, spec, w, d)
         out_arena = arena.cpu().numpy()
+        bplan = self.legalised(plan)
+        if bplan is not None:
+            return self._gather_block_outputs(bplan, graph, out_arena)
         outs: Dict[str, np.ndarray] = {}
         for t in graph.tensors:
             if t.kind == "output":
                 s, off = t.storage(), plan.offsets[t.storage()]
                 outs[t.name] = out_arena[off:off + s.nbytes].view(
                     X.arena_dtype(s.dtype_bytes)).reshape(X.tensor_shape(t))
+        return outs
+
+    @staticmethod
+    def _seed_block_arena(bplan: BlockPlan, graph, inputs) -> np.ndarray:
+        """A zeroed (total_rows, rowlen) typed arena with every model input
+        scattered into its block layout (row-major over the used row
+        prefix; a spanning image row column-padded over its k arena rows).
+        Batched inputs scatter image by image into their sub-blocks."""
+        dt = X.arena_dtype(bplan.dtype_bytes)
+        L = bplan.arena_rowlen
+        arena = np.zeros((bplan.total_rows, L), dt)
+        for t in graph.tensors:
+            if t.kind != "input":
+                continue
+            lay = bplan.layout_of(t)
+            ir = lay.image_rows
+            imgs = np.asarray(inputs[t.name], dt).reshape(lay.batch, -1)
+            k = lay.row_span
+            for b in range(lay.batch):
+                off = lay.row_offset + b * ir
+                flat = imgs[b]
+                if k > 1:
+                    rl, h = lay.image_rowlen, ir // k
+                    block = np.zeros((h, k * L), dt)
+                    block[:, :rl] = flat.reshape(h, rl)
+                    arena[off:off + ir, :] = block.reshape(ir, L)
+                    continue
+                block = np.zeros(ir * lay.rowlen, dt)
+                block[:flat.size] = flat
+                arena[off:off + ir, :lay.rowlen] = \
+                    block.reshape(ir, lay.rowlen)
+        return arena
+
+    @staticmethod
+    def _gather_block_outputs(bplan: BlockPlan, graph,
+                              out_arena: np.ndarray) -> Dict[str, np.ndarray]:
+        outs: Dict[str, np.ndarray] = {}
+        L = bplan.arena_rowlen
+        for t in graph.tensors:
+            if t.kind != "output":
+                continue
+            lay = bplan.layout_of(t)
+            k = lay.row_span
+            ir = lay.image_rows
+            imgs = []
+            for b in range(lay.batch):
+                off = lay.row_offset + b * ir
+                if k > 1:
+                    rl, h = lay.image_rowlen, ir // k
+                    flat = out_arena[off:off + ir, :].reshape(h, k * L)[:, :rl]
+                else:
+                    flat = out_arena[off:off + ir, :lay.rowlen]
+                imgs.append(flat.reshape(-1)[:t.image_elems])
+            outs[t.name] = np.stack(imgs).reshape(X.tensor_shape(t))
         return outs

@@ -1,9 +1,21 @@
-"""Flat-arena kernels for Hopper: one wrapper per hand-written CUDA kernel,
-each beside its plain PyTorch version.
+"""Arena kernels for Hopper: one wrapper per hand-written CUDA kernel, each
+beside its plain PyTorch version, over either of the reference's two
+in-place arena programs.
 
-The arena is ONE ``torch.uint8`` tensor of exactly the plan's peak bytes.
-Every lowered op (an :class:`OpSpec`) addresses its operands at byte
-offsets in it (f32 operands at 4-byte-aligned offsets) and runs in place:
+- **Flat** (``OpSpec.rowlen == 0``): the arena is ONE ``torch.uint8``
+  tensor of exactly the plan's peak bytes; every operand lives at a byte
+  offset (f32 operands at 4-byte-aligned offsets).
+- **Row-blocked** (``rowlen > 0``): the arena is ONE contiguous typed
+  ``(rows, rowlen)`` tensor (``torch.int8`` or ``torch.float32``, the
+  spec's tier) laid out by ``planner.legalise_for_blocks``; offsets are
+  arena rows, ``in_rows``/``out_rows`` the operands' ``(rows, used)``
+  blocks, and ``in_addr``/``out_addr`` the packed addressing triples
+  ``(cols_per_row, row_span, image_rowlen)`` (empty: one image row per
+  arena row). In every addressing one image row is contiguous: packed
+  rows sit at lane phase ``(iy % c) * rl`` of arena row ``iy // c``, a
+  spanning row covers ``k`` consecutive arena rows.
+
+Every lowered op (an :class:`OpSpec`) runs in place:
 
 ==============================  =============================================
 wrapper                         TPU kernel it replaces
@@ -18,10 +30,15 @@ wrapper                         TPU kernel it replaces
 :func:`arena_mean`              ``_mean_kernel``
 :func:`arena_fully_connected`   ``_fully_connected_kernel``
 :func:`arena_softmax`           ``_softmax_kernel``
-:func:`arena_fused_chain`       ``_fused_kernel`` with ``_RoutedFlatMem``
-                                (conv, depthwise, pool, elementwise and
-                                concat stages)
+:func:`arena_fused_chain`       ``_fused_kernel`` with ``_RoutedFlatMem`` /
+                                ``_RoutedBlockMem`` (conv, depthwise, pool,
+                                elementwise and concat stages)
 ==============================  =============================================
+
+and, for the row-blocked program, the reference's memory layer
+``_BlockMem`` with ``_dec_row``, ``_dec_block``, ``_enc_block`` and
+``_pad_cols``/``_out_block``: in the kernels that is the addressing words
+of the descriptor (``csrc/arena_common.cuh``), here :class:`_BlockMem`.
 
 A wrapper checks device, dtype, shape and contiguity, then routes on the
 arena's device alone: a CPU arena runs the plain version, a CUDA arena
@@ -35,9 +52,12 @@ workspace allocated once per spec and cached (:func:`buffer_plan`,
 :func:`workspace`); the descriptor tells the kernel where each is.
 
 The plain versions walk output rows in Python with torch ops on typed views
-of the arena bytes, in the reference's order (every read of row ``oy``
-before its store, rows ascending; whole-block ops read everything before
-writing), so they are exact on in-place and diagonally overlapped layouts.
+of the arena, in the reference's order (every read of row ``oy`` before its
+store, rows ascending; whole-block ops read everything before writing), so
+they are exact on in-place and diagonally overlapped layouts. They store as
+the reference does: a plain or spanning row store zeroes the rest of its
+arena rows, a packed one writes only its lane phase, and a whole-block op
+writes its whole padded ``(rows, rowlen)`` block, zeros in the padding.
 The CPU tests hold them against the Pallas kernels in interpret mode, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
@@ -59,13 +79,16 @@ class OpSpec:
     fields in the same order as the reference's ``OpSpec``, so the two
     compare equal under :func:`dataclasses.astuple`.
 
-    ``rowlen == 0`` selects the flat byte program (the only one this
-    package runs so far): ``in_off``/``out_off`` are byte offsets into the
-    1-D uint8 arena. The row-blocked (``rowlen > 0``) and streaming
-    (``win_rows > 0``) fields are carried so specs stay comparable. A fused
-    band chain (``kind == "fused"``) carries its member ops as ``stages``;
-    stage operands whose ``in_scratch``/``out_scratch`` flag is set address
-    the chain's scratch buffer of ``scratch_rows`` bytes."""
+    ``rowlen == 0`` selects the flat byte program: ``in_off``/``out_off``
+    are byte offsets into the 1-D uint8 arena. ``rowlen > 0`` selects the
+    row-blocked program over a typed ``(rows, rowlen)`` arena: offsets are
+    arena rows, ``in_rows``/``out_rows`` the ``(rows, used)`` blocks and
+    ``in_addr``/``out_addr`` the packed addressing triples. The streaming
+    fields (``win_rows > 0``) are carried so specs stay comparable; that
+    program is not ported yet. A fused band chain (``kind == "fused"``)
+    carries its member ops as ``stages``; stage operands whose
+    ``in_scratch``/``out_scratch`` flag is set address the chain's scratch
+    buffer of ``scratch_rows`` bytes (flat) or rows (blocked)."""
 
     kind: str
     in_off: Tuple[int, ...]
@@ -85,7 +108,7 @@ class OpSpec:
     out_addr: Tuple[int, int, int] = ()
     out_tile: int = 0
     stages: Tuple["OpSpec", ...] = ()
-    scratch_rows: int = 0              # chain scratch bytes (flat program)
+    scratch_rows: int = 0              # chain scratch: bytes (flat) | rows
     in_scratch: Tuple[int, ...] = ()
     out_scratch: int = 0
     in_slots: Tuple[int, ...] = ()
@@ -130,6 +153,10 @@ def _isz(dtype: str) -> int:
     return 1 if dtype == "i8" else 4
 
 
+#: The row-blocked arena's element type per tier.
+_TORCH_DTYPE = {"i8": torch.int8, "f32": torch.float32}
+
+
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -139,7 +166,7 @@ def _round_up(x: int, m: int) -> int:
 # holds the same word offsets)
 # ---------------------------------------------------------------------------
 
-DESC_WORDS = 128
+DESC_WORDS = 256
 MAX_CAT = 16
 MAX_DIMS = 6
 #: Dynamic shared memory one CTA can use on Hopper (227 KB).
@@ -171,6 +198,9 @@ D_MM, D_MK, D_MN = 10, 11, 12
 D_PIN0, D_PLO0, D_POUT0, D_PN = 10, 14, 18, 22
 #: Buffer placement words (flag: 1 = global workspace, then byte offset).
 BUFFER_WORD = {"stage": 120, "row": 122, "scratch": 124}
+#: Operand addressing: slot 0 is the output, slot 1 + i input i, each
+#: ADDR_WORDS words (L, c, k, rl, used, nblk) from D_ADDR on.
+D_ADDR, ADDR_WORDS = 128, 6
 
 
 def _fbits(x: float) -> int:
@@ -178,12 +208,39 @@ def _fbits(x: float) -> int:
     return struct.unpack("<i", struct.pack("<f", float(np.float32(x))))[0]
 
 
-def _check_flat(spec: OpSpec) -> None:
-    if spec.rowlen or spec.win_rows:
+def _check_program(spec: OpSpec) -> None:
+    if spec.win_rows:
         raise NotImplementedError(
-            f"{spec.kind}: only the flat byte program is ported; row-blocked "
-            "and streaming specs come with ROADMAP queue 1 (blocked "
-            "addressing, then streaming)")
+            f"{spec.kind}: the streaming program (win_rows > 0) is ROADMAP "
+            "queue 1, the next slice; the flat and row-blocked programs run")
+
+
+def _triple(spec: OpSpec, i: Optional[int]) -> Tuple[int, int, int]:
+    """Packed addressing triple ``(c, k, rl)`` of input ``i`` (None: the
+    output); ``(1, 1, 0)`` is one image row per arena row."""
+    if i is None:
+        return spec.out_addr or (1, 1, 0)
+    return spec.in_addr[i] if spec.in_addr else (1, 1, 0)
+
+
+def operand_addr(spec: OpSpec, i: Optional[int]) -> Tuple[int, ...]:
+    """``(byte offset, L, c, k, rl, used, nblk)`` of input ``i`` (None: the
+    output), the words the kernels address it by: image row ``iy`` starts
+    at element ``(iy // c) * L + (iy % c) * rl`` (packed, ``c > 1``) or
+    ``iy * k * L``; tensor element ``e`` sits at element ``(e // rl) * k *
+    L + e % rl`` (``k > 1``) or ``(e // used) * L + e % used``; a
+    whole-block write covers ``nblk`` elements. The flat program is the
+    degenerate case ``c = k = 1``, ``L = used`` = one image row, ``nblk``
+    the tensor's elements."""
+    shape = spec.out_shape if i is None else spec.in_shape[i]
+    off = spec.out_off if i is None else spec.in_off[i]
+    if not spec.rowlen:
+        row = max(1, _elems(shape[-2:]))
+        return off, row, 1, 1, 0, row, _elems(shape)
+    rows, used = spec.out_rows if i is None else spec.in_rows[i]
+    L = spec.rowlen
+    return (off * L * _isz(spec.dtype), L, *_triple(spec, i), used,
+            rows * L)
 
 
 def _row_geometry(spec: OpSpec) -> Tuple[int, ...]:
@@ -270,8 +327,14 @@ def _op_words(spec: OpSpec, woff: int = 0) -> List[int]:
     w[D_KIND] = _KIND_CODE[k]
     w[D_QUANT] = int(q)
     w[D_WOFF] = woff
-    w[D_IN_OFF] = spec.in_off[0]
-    w[D_OUT_OFF] = spec.out_off
+    addrs = [operand_addr(spec, None)] + [
+        operand_addr(spec, i) for i in range(len(spec.in_shape))]
+    if len(addrs) > MAX_CAT + 1:
+        raise ValueError(f"{k} of {len(addrs) - 1} inputs exceeds {MAX_CAT}")
+    for slot, a in enumerate(addrs):
+        w[D_ADDR + ADDR_WORDS * slot:D_ADDR + ADDR_WORDS * (slot + 1)] = a[1:]
+    w[D_IN_OFF] = addrs[1][0]
+    w[D_OUT_OFF] = addrs[0][0]
     w[D_IN_SCR] = spec.in_scratch[0] if spec.in_scratch else 0
     w[D_OUT_SCR] = spec.out_scratch
     if k in ("conv2d", "depthwise_conv2d", "pool", "fully_connected",
@@ -312,7 +375,7 @@ def _op_words(spec: OpSpec, woff: int = 0) -> List[int]:
         w[D_FN], w[D_EN], w[D_BCAST] = EW_CODE[spec.meta[0]], _elems(dims), \
             int(bcast)
         if len(spec.in_off) == 2:
-            w[D_IN2_OFF] = spec.in_off[1]
+            w[D_IN2_OFF] = addrs[2][0]
             w[D_IN2_SCR] = spec.in_scratch[1] if spec.in_scratch else 0
         w[D_EDIM0:D_EDIM0 + MAX_DIMS] = dims
         w[D_BSTR0:D_BSTR0 + MAX_DIMS] = strides
@@ -324,7 +387,7 @@ def _op_words(spec: OpSpec, woff: int = 0) -> List[int]:
             w[D_OSCALE], w[D_Y_ZP] = _fbits(ys), yzp
     elif k == "matmul":
         w[D_MM], w[D_MK], w[D_MN] = _matmul_geometry(spec)
-        w[D_IN2_OFF] = spec.in_off[1]
+        w[D_IN2_OFF] = addrs[2][0]
         if q:
             a_zp, b_zp, amult, y_zp = spec.qmeta
             w[D_X_ZP], w[D_BZP], w[D_AMULT], w[D_Y_ZP] = \
@@ -338,8 +401,6 @@ def _op_words(spec: OpSpec, woff: int = 0) -> List[int]:
             w[D_X_ZP], w[D_AMULT], w[D_Y_ZP] = x_zp, _fbits(mult), y_zp
     else:  # concat
         n = len(spec.in_shape)
-        if n > MAX_CAT:
-            raise ValueError(f"concat of {n} inputs exceeds {MAX_CAT}")
         nd = len(spec.out_shape)
         axis = spec.meta[0] % nd
         w[D_NIN] = n
@@ -349,7 +410,7 @@ def _op_words(spec: OpSpec, woff: int = 0) -> List[int]:
         if q:
             w[D_Y_ZP] = spec.qmeta[1][0]
         for i in range(n):
-            w[D_CIN_OFF + i] = spec.in_off[i]
+            w[D_CIN_OFF + i] = addrs[1 + i][0]
             w[D_CIN_SCR + i] = spec.in_scratch[i] if spec.in_scratch else 0
             w[D_CINNER + i] = _elems(spec.in_shape[i][axis:])
             w[D_CZP + i] = in_q[i][0]
@@ -389,7 +450,9 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
     if k == "softmax":
         return (("stage", 4 * _elems(spec.in_shape[0])),)
     if k == "fused":
-        return (("scratch", spec.scratch_rows),
+        scratch = spec.scratch_rows * (spec.rowlen * _isz(spec.dtype)
+                                       if spec.rowlen else 1)
+        return (("scratch", scratch),
                 ("stage", max((_elems(st.out_shape) * _isz(st.dtype)
                                for st in spec.stages
                                if st.kind not in ROW_KINDS), default=0)),
@@ -455,7 +518,7 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
     """The int32 descriptor of a lowered spec: one op's words, or for a
     fused chain a header (word 0 = stage count) and then every stage's.
     The op's words, or the header, carry the buffer placement."""
-    _check_flat(spec)
+    _check_program(spec)
     if spec.kind == "fused":
         offs, _ = weight_offsets(spec)
         head = [0] * DESC_WORDS
@@ -541,22 +604,105 @@ def _dequant(x: torch.Tensor, scale: float, zp: int) -> torch.Tensor:
     return (x.to(torch.float32) - zp) * _f32(scale)
 
 
-def _src(arena, scratch, flags, i):
-    return scratch if flags and flags[i] else arena
+class _FlatMem:
+    """The flat byte arena (the reference's ``_FlatMem``): typed views at
+    byte offsets. Given a fused chain's ``scratch``, operands whose stage
+    flag is set resolve to it (the reference's ``_RoutedFlatMem``)."""
+
+    def __init__(self, arena: torch.Tensor, spec: OpSpec,
+                 scratch: Optional[torch.Tensor] = None):
+        self.arena, self.spec, self.scratch = arena, spec, scratch
+        self.q = spec.dtype == "i8"
+
+    def _in_ref(self, i: int) -> torch.Tensor:
+        flags = self.spec.in_scratch
+        return self.scratch if flags and flags[i] else self.arena
+
+    def _out_ref(self) -> torch.Tensor:
+        return self.scratch if self.spec.out_scratch else self.arena
+
+    def read_t(self, i: int) -> torch.Tensor:
+        """A copy of input ``i`` in its view shape (whole-block ops read
+        every input before they write)."""
+        shape = self.spec.in_shape[i]
+        return _typed(self._in_ref(i), self.spec.in_off[i], _elems(shape),
+                      self.q).clone().reshape(shape)
+
+    def read_row(self, i: int, iy: int) -> torch.Tensor:
+        """Image row ``iy`` (W*C elements) of input ``i``, a view."""
+        n = _elems(self.spec.in_shape[i][-2:])
+        return _typed(self._in_ref(i),
+                      self.spec.in_off[i] + iy * n * _isz(self.spec.dtype),
+                      n, self.q)
+
+    def write(self, y: torch.Tensor) -> None:
+        _typed(self._out_ref(), self.spec.out_off, y.numel(),
+               self.q).copy_(y.reshape(-1))
+
+    def write_row(self, oy: int, y: torch.Tensor) -> None:
+        n = y.numel()
+        _typed(self._out_ref(), self.spec.out_off + oy * n
+               * _isz(self.spec.dtype), n, self.q).copy_(y.reshape(-1))
 
 
-def _read(arena, spec: OpSpec, i: int, scratch=None) -> torch.Tensor:
-    """A copy of input ``i`` in its view shape (whole-block ops read every
-    input before they write)."""
-    shape = spec.in_shape[i]
-    return _typed(_src(arena, scratch, spec.in_scratch, i), spec.in_off[i],
-                  _elems(shape), spec.dtype == "i8").clone().reshape(shape)
+class _BlockMem(_FlatMem):
+    """The typed ``(rows, rowlen)`` arena (the reference's ``_BlockMem``
+    with ``_dec_row``, ``_dec_block``, ``_enc_block`` and ``_pad_cols``;
+    routed to a fused chain's typed scratch like ``_RoutedBlockMem``)."""
+
+    def _row_slice(self, ref, row0: int, iy: int, triple, n: int):
+        """A flat view of image row ``iy``'s ``n`` elements and of the
+        arena elements its store covers (packed: just its lane phase)."""
+        c, k, rl = triple
+        L = self.spec.rowlen
+        if c > 1:
+            phase = (iy % c) * rl
+            row = ref[row0 + iy // c, phase:phase + n]
+            return row, row
+        span = ref[row0 + iy * k:row0 + (iy + 1) * k].reshape(-1)
+        return span[:n], span
+
+    def read_t(self, i: int) -> torch.Tensor:
+        spec = self.spec
+        rows, used = spec.in_rows[i]
+        shape = spec.in_shape[i]
+        block = self._in_ref(i)[spec.in_off[i]:spec.in_off[i] + rows]
+        _, k, rl = _triple(spec, i)
+        if k > 1:
+            flat = block.reshape(rows // k, k * spec.rowlen)[:, :rl]
+        else:
+            flat = block[:, :used]
+        return flat.reshape(-1)[:_elems(shape)].clone().reshape(shape)
+
+    def read_row(self, i: int, iy: int) -> torch.Tensor:
+        n = _elems(self.spec.in_shape[i][-2:])
+        return self._row_slice(self._in_ref(i), self.spec.in_off[i], iy,
+                               _triple(self.spec, i), n)[0]
+
+    def write(self, y: torch.Tensor) -> None:
+        spec = self.spec
+        rows, used = spec.out_rows
+        L = spec.rowlen
+        _, k, rl = _triple(spec, None)
+        h, w = (rows // k, rl) if k > 1 else (rows, used)
+        flat = torch.zeros(h * w, dtype=y.dtype, device=y.device)
+        flat[:y.numel()] = y.reshape(-1)
+        block = torch.zeros((h, k * L if k > 1 else L), dtype=y.dtype,
+                            device=y.device)
+        block[:, :w] = flat.reshape(h, w)
+        self._out_ref()[spec.out_off:spec.out_off + rows] = \
+            block.reshape(rows, L)
+
+    def write_row(self, oy: int, y: torch.Tensor) -> None:
+        row, span = self._row_slice(self._out_ref(), self.spec.out_off, oy,
+                                    _triple(self.spec, None), y.numel())
+        row.copy_(y.reshape(-1))
+        span[y.numel():] = 0
 
 
-def _write(arena, spec: OpSpec, y: torch.Tensor, scratch=None) -> None:
-    dst = scratch if spec.out_scratch else arena
-    _typed(dst, spec.out_off, y.numel(), spec.dtype == "i8").copy_(
-        y.reshape(-1))
+def _mem(arena: torch.Tensor, spec: OpSpec,
+         scratch: Optional[torch.Tensor] = None) -> _FlatMem:
+    return (_BlockMem if spec.rowlen else _FlatMem)(arena, spec, scratch)
 
 
 def conv_plain(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
@@ -567,9 +713,7 @@ def conv_plain(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
     ih, iw, ic, oh, ow, oc = _row_geometry(spec)
     kh, kw, sh, sw, dh, dw, ph, pw, mult = spec.meta
     q = spec.dtype == "i8"
-    isz = _isz(spec.dtype)
-    src = _src(arena, scratch, spec.in_scratch, 0)
-    dst = scratch if spec.out_scratch else arena
+    mem = _mem(arena, spec, scratch)
     wt = w.to(torch.int32) if q else w
     if q:
         x_zp, amult, y_zp = spec.qmeta
@@ -581,8 +725,7 @@ def conv_plain(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
             iy = oy * sh - ph + fy * dh
             if not 0 <= iy < ih:
                 continue
-            row = _typed(src, spec.in_off[0] + iy * iw * ic * isz, iw * ic,
-                         q).reshape(iw, ic)
+            row = mem.read_row(0, iy).reshape(iw, ic)
             if q:
                 row = row.to(torch.int32) - x_zp
             for fx in range(kw):
@@ -598,9 +741,7 @@ def conv_plain(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
                         1, dtype=torch.int32)
                 else:
                     acc += taps @ wt[fy, fx]
-        out = _requant(acc, amult, y_zp) if q else acc
-        _typed(dst, spec.out_off + oy * ow * oc * isz, ow * oc,
-               q).copy_(out.reshape(-1))
+        mem.write_row(oy, _requant(acc, amult, y_zp) if q else acc)
 
 
 def pool_plain(arena: torch.Tensor, spec: OpSpec,
@@ -612,9 +753,7 @@ def pool_plain(arena: torch.Tensor, spec: OpSpec,
     kh, kw, sh, sw, ph, pw, mode = spec.meta
     is_max = mode == "max"
     q = spec.dtype == "i8"
-    isz = _isz(spec.dtype)
-    src = _src(arena, scratch, spec.in_scratch, 0)
-    dst = scratch if spec.out_scratch else arena
+    mem = _mem(arena, spec, scratch)
     dev = arena.device
     cols = torch.arange(ow, device=dev)
     for oy in range(oh):
@@ -629,8 +768,7 @@ def pool_plain(arena: torch.Tensor, spec: OpSpec,
             iy = oy * sh - ph + fy
             if not 0 <= iy < ih:
                 continue
-            row = _typed(src, spec.in_off[0] + iy * iw * c * isz, iw * c,
-                         q).reshape(iw, c)
+            row = mem.read_row(0, iy).reshape(iw, c)
             if q:
                 row = row.to(torch.int32)
             for fx in range(kw):
@@ -650,8 +788,7 @@ def pool_plain(arena: torch.Tensor, spec: OpSpec,
             out = _requant(val, amult, y_zp)
         else:
             out = acc if is_max else acc / cnt.clamp_min(1.0)
-        _typed(dst, spec.out_off + oy * ow * c * isz, ow * c,
-               q).copy_(out.reshape(-1))
+        mem.write_row(oy, out)
 
 
 #: torch mirrors of the reference's _ELEMENTWISE table (same maths).
@@ -673,21 +810,23 @@ def elementwise_plain(arena: torch.Tensor, spec: OpSpec,
     (int8: quantised at the output's params)."""
     bcast = _ew_broadcast(spec)[0]
     q = spec.dtype == "i8"
-    xs = [_read(arena, spec, i, scratch) for i in range(len(spec.in_shape))]
+    mem = _mem(arena, spec, scratch)
+    xs = [mem.read_t(i) for i in range(len(spec.in_shape))]
     if q:
         in_q, (ys, yzp) = spec.qmeta
         xs = [_dequant(x, s, zp) for x, (s, zp) in zip(xs, in_q)]
     if bcast:
         xs[1] = torch.broadcast_to(xs[1], xs[0].shape)
     v = ELEMENTWISE_TORCH[spec.meta[0]](*xs).to(torch.float32)
-    _write(arena, spec, _quant(v, ys, yzp) if q else v, scratch)
+    mem.write(_quant(v, ys, yzp) if q else v)
 
 
 def matmul_plain(arena: torch.Tensor, spec: OpSpec) -> None:
     """(M, K) x (K, N) of two arena operands; int8 with two zero points."""
     m, k, n = _matmul_geometry(spec)
-    a = _read(arena, spec, 0).reshape(m, k)
-    b = _read(arena, spec, 1)
+    mem = _mem(arena, spec)
+    a = mem.read_t(0).reshape(m, k)
+    b = mem.read_t(1)
     if spec.dtype == "i8":
         a_zp, b_zp, amult, y_zp = spec.qmeta
         acc = ((a.to(torch.int32) - a_zp)[:, :, None]
@@ -695,7 +834,7 @@ def matmul_plain(arena: torch.Tensor, spec: OpSpec) -> None:
         y = _requant(acc, amult, y_zp)
     else:
         y = a @ b
-    _write(arena, spec, y)
+    mem.write(y)
 
 
 def pad_plain(arena: torch.Tensor, spec: OpSpec) -> None:
@@ -703,7 +842,8 @@ def pad_plain(arena: torch.Tensor, spec: OpSpec) -> None:
     padded tensor to the output's params."""
     _pad_geometry(spec)
     q = spec.dtype == "i8"
-    x = _read(arena, spec, 0)
+    mem = _mem(arena, spec)
+    x = mem.read_t(0)
     fill = spec.qmeta[0][0] if q else 0
     y = torch.full(tuple(spec.out_shape), fill, dtype=x.dtype,
                    device=arena.device)
@@ -712,13 +852,14 @@ def pad_plain(arena: torch.Tensor, spec: OpSpec) -> None:
     if q:
         (x_zp, mult), (y_zp,) = spec.qmeta
         y = _requant(y.to(torch.int32) - x_zp, mult, y_zp)
-    _write(arena, spec, y)
+    mem.write(y)
 
 
 def mean_plain(arena: torch.Tensor, spec: OpSpec) -> None:
     q = spec.dtype == "i8"
     shape = tuple(spec.in_shape[0])
-    x = _read(arena, spec, 0)
+    mem = _mem(arena, spec)
+    x = mem.read_t(0)
     axes = tuple(sorted(a % len(shape) for a in spec.meta[0]))
     if q:
         x_zp, amult, y_zp = spec.qmeta
@@ -727,14 +868,15 @@ def mean_plain(arena: torch.Tensor, spec: OpSpec) -> None:
         y = _requant(acc.to(torch.float32) / _f32(cnt) - x_zp, amult, y_zp)
     else:
         y = x.mean(dim=axes)
-    _write(arena, spec, y)
+    mem.write(y)
 
 
 def fully_connected_plain(arena: torch.Tensor, spec: OpSpec,
                           w: torch.Tensor) -> None:
     q = spec.dtype == "i8"
     idim = spec.in_shape[0][-1]
-    x = _read(arena, spec, 0).reshape(-1, idim)
+    mem = _mem(arena, spec)
+    x = mem.read_t(0).reshape(-1, idim)
     if q:
         x_zp, amult, y_zp = spec.qmeta
         acc = ((x.to(torch.int32) - x_zp)[:, :, None]
@@ -742,39 +884,50 @@ def fully_connected_plain(arena: torch.Tensor, spec: OpSpec,
         y = _requant(acc, amult, y_zp)
     else:
         y = x @ w
-    _write(arena, spec, y)
+    mem.write(y)
 
 
 def softmax_plain(arena: torch.Tensor, spec: OpSpec) -> None:
     q = spec.dtype == "i8"
     last = spec.in_shape[0][-1]
-    x = _read(arena, spec, 0).reshape(-1, last)
+    mem = _mem(arena, spec)
+    x = mem.read_t(0).reshape(-1, last)
     if q:
         (xs, xzp), (ys, yzp) = spec.qmeta
         x = _dequant(x, xs, xzp)
     e = torch.exp(x - x.max(dim=-1, keepdim=True).values)
     y = e / e.sum(dim=-1, keepdim=True)
-    _write(arena, spec, _quant(y, ys, yzp) if q else y)
+    mem.write(_quant(y, ys, yzp) if q else y)
 
 
 def concat_plain(arena: torch.Tensor, spec: OpSpec,
                  scratch: Optional[torch.Tensor] = None) -> None:
     """concat along ``meta[0]``, int8 inputs rescaled to the output's
     params; every input is read before the output is written."""
-    xs = [_read(arena, spec, i, scratch) for i in range(len(spec.in_shape))]
+    mem = _mem(arena, spec, scratch)
+    xs = [mem.read_t(i) for i in range(len(spec.in_shape))]
     if spec.dtype == "i8":
         in_q, (y_zp,) = spec.qmeta
         xs = [_requant(x.to(torch.int32) - zp, mult, y_zp)
               for x, (zp, mult) in zip(xs, in_q)]
-    _write(arena, spec, torch.cat(xs, dim=spec.meta[0]), scratch)
+    mem.write(torch.cat(xs, dim=spec.meta[0]))
+
+
+def _scratch(spec: OpSpec, device) -> torch.Tensor:
+    """A fused chain's zeroed scratch: ``scratch_rows`` bytes (flat) or a
+    typed ``(scratch_rows, rowlen)`` block (row-blocked)."""
+    if not spec.rowlen:
+        return torch.zeros(spec.scratch_rows, dtype=torch.uint8,
+                           device=device)
+    return torch.zeros((spec.scratch_rows, spec.rowlen),
+                       dtype=_TORCH_DTYPE[spec.dtype], device=device)
 
 
 def fused_chain_plain(arena: torch.Tensor, spec: OpSpec,
                       wblob: torch.Tensor) -> None:
     """Every stage in order against the arena and a scratch buffer; stage
     filters come from the packed blob (:func:`pack_weights`)."""
-    scratch = torch.zeros(spec.scratch_rows, dtype=torch.uint8,
-                          device=arena.device)
+    scratch = _scratch(spec, arena.device)
     offs, _ = weight_offsets(spec)
     for st, off in zip(spec.stages, offs):
         if st.kind == "concat":
@@ -821,12 +974,22 @@ _UNWEIGHTED_PLAIN = {"pool": pool_plain, "elementwise": elementwise_plain,
 
 def _on_card(arena: torch.Tensor, spec: OpSpec, *tensors) -> bool:
     """Check the operands; True when the kernel must launch (CUDA arena),
-    False for the plain version (CPU arena)."""
-    _check_flat(spec)
-    if arena.dtype != torch.uint8 or arena.dim() != 1 \
-            or not arena.is_contiguous():
-        raise ValueError("the arena must be a contiguous 1-D uint8 tensor")
-    if arena.numel() >= 2 ** 31:
+    False for the plain version (CPU arena). The flat program takes a
+    contiguous 1-D uint8 arena, the row-blocked one a contiguous typed
+    ``(rows, spec.rowlen)`` arena of the spec's tier."""
+    _check_program(spec)
+    if not spec.rowlen:
+        if arena.dtype != torch.uint8 or arena.dim() != 1 \
+                or not arena.is_contiguous():
+            raise ValueError("the flat arena must be a contiguous 1-D uint8 "
+                             "tensor")
+    elif arena.dtype != _TORCH_DTYPE[spec.dtype] or arena.dim() != 2 \
+            or arena.shape[1] != spec.rowlen or not arena.is_contiguous():
+        raise ValueError(
+            f"the row-blocked arena must be a contiguous (rows, "
+            f"{spec.rowlen}) {_TORCH_DTYPE[spec.dtype]} tensor, got "
+            f"{tuple(arena.shape)} {arena.dtype}")
+    if arena.numel() * arena.element_size() >= 2 ** 31:
         raise ValueError("arena offsets are int32 in the kernels")
     for t in tensors:
         if t is not None and (t.device != arena.device
@@ -838,6 +1001,27 @@ def _on_card(arena: torch.Tensor, spec: OpSpec, *tensors) -> bool:
     if arena.device.type != "cuda":
         raise ValueError(f"no arena kernels for device {arena.device}")
     return True
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU (``"cpu"``, the plain versions); None without a card
+    raises rather than fall back."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "the arena kernels run on the card and no CUDA device is "
+                "visible; pass device='cpu' to run the kernels' plain "
+                "PyTorch versions instead")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but no CUDA device is "
+                           "visible")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"the arena kernels run on 'cuda' or 'cpu', not "
+                         f"{dev}")
+    return dev
 
 
 def _expect(spec: OpSpec, name: str) -> None:
@@ -867,7 +1051,7 @@ def _launch(name: str, arena: torch.Tensor, spec: OpSpec,
 
 def arena_conv(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
                desc: Optional[torch.Tensor] = None) -> None:
-    """conv2d / depthwise_conv2d in place on the flat arena."""
+    """conv2d / depthwise_conv2d in place on the arena."""
     _expect(spec, "arena_conv")
     _check_weight(spec, w)
     if not _on_card(arena, spec, w):
@@ -878,7 +1062,7 @@ def arena_conv(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
 
 def arena_pool(arena: torch.Tensor, spec: OpSpec,
                desc: Optional[torch.Tensor] = None) -> None:
-    """max / avg pool in place on the flat arena."""
+    """max / avg pool in place on the arena."""
     _expect(spec, "arena_pool")
     if not _on_card(arena, spec):
         pool_plain(arena, spec)
@@ -888,7 +1072,7 @@ def arena_pool(arena: torch.Tensor, spec: OpSpec,
 
 def arena_elementwise(arena: torch.Tensor, spec: OpSpec,
                       desc: Optional[torch.Tensor] = None) -> None:
-    """relu, relu6, sigmoid, identity, add, mul or sub on the flat arena."""
+    """relu, relu6, sigmoid, identity, add, mul or sub on the arena."""
     _expect(spec, "arena_elementwise")
     _ew_broadcast(spec)
     if not _on_card(arena, spec):
@@ -899,7 +1083,7 @@ def arena_elementwise(arena: torch.Tensor, spec: OpSpec,
 
 def arena_matmul(arena: torch.Tensor, spec: OpSpec,
                  desc: Optional[torch.Tensor] = None) -> None:
-    """(M, K) x (K, N) of two arena operands on the flat arena."""
+    """(M, K) x (K, N) of two arena operands."""
     _expect(spec, "arena_matmul")
     _matmul_geometry(spec)
     if not _on_card(arena, spec):
@@ -910,7 +1094,7 @@ def arena_matmul(arena: torch.Tensor, spec: OpSpec,
 
 def arena_pad(arena: torch.Tensor, spec: OpSpec,
               desc: Optional[torch.Tensor] = None) -> None:
-    """Constant pad (then, int8, rescale) on the flat arena."""
+    """Constant pad (then, int8, rescale) on the arena."""
     _expect(spec, "arena_pad")
     _pad_geometry(spec)
     if not _on_card(arena, spec):
@@ -921,7 +1105,7 @@ def arena_pad(arena: torch.Tensor, spec: OpSpec,
 
 def arena_concat(arena: torch.Tensor, spec: OpSpec,
                  desc: Optional[torch.Tensor] = None) -> None:
-    """A standalone concat (int8 inputs rescaled) on the flat arena."""
+    """A standalone concat (int8 inputs rescaled) on the arena."""
     _expect(spec, "arena_concat")
     if len(spec.in_shape) > MAX_CAT:
         raise ValueError(f"concat of {len(spec.in_shape)} inputs exceeds "

@@ -1,11 +1,31 @@
-// Shared device code of the flat-arena kernels (sm_90a).
+// Shared device code of the arena kernels (sm_90a), for both of the
+// reference's in-place arena programs.
 //
-// The arena is ONE uint8 device buffer of exactly the planner's peak bytes;
-// every operand lives at a byte offset (f32 operands at 4-byte-aligned
-// offsets, which the planner guarantees). Each op is described by a
-// descriptor of DESC_WORDS int32 words built from the lowered OpSpec by
-// repro_torch/kernels/arena_ops.py (the word offsets below are mirrored
-// there; f32 constants travel as their IEEE bit patterns).
+// The arena is ONE device buffer. In the flat program it is uint8 bytes of
+// exactly the planner's peak, every operand at a byte offset (f32 operands
+// at 4-byte-aligned offsets, which the planner guarantees). In the
+// row-blocked program it is a typed (rows, L) buffer (int8 or f32) laid out
+// by the reference's legaliser: an operand's block starts at an arena row,
+// and its image rows are packed (cols_per_row c > 1 image rows per arena
+// row, at lane phase (iy % c) * rl), spanning (one image row over k > 1
+// arena rows) or plain (one per arena row). In all three one image row is
+// contiguous, so the kernels address it by one pointer (row_elem below) and
+// index columns and channels as in the flat program, which is the
+// degenerate case c = k = 1, L = used = one image row. Nothing assumes row
+// alignment beyond the element type: a row of the standalone depthwise
+// kernel is max(iw, ow) * c f32 elements, not a multiple of 16 bytes.
+//
+// Each op is described by a descriptor of DESC_WORDS int32 words built from
+// the lowered OpSpec by repro_torch/kernels/arena_ops.py (the word offsets
+// below are mirrored there; f32 constants travel as their IEEE bit
+// patterns). Operand base offsets are bytes in both programs.
+//
+// Stores follow the reference's kernels exactly, since whole arenas are
+// compared: a plain or spanning row store writes its used elements and
+// zeroes the rest of its k * L arena elements (_pad_cols); a packed row
+// store writes only its own lane phase (the reference's read-modify-write
+// of the arena row); a whole-block op writes its whole padded (rows, L)
+// block, zeros in the per-row padding and the dense tail (_enc_block).
 //
 // Paper §III.F: the planner overlaps an op's input and output diagonally
 // (safe overlap O_s), which is only safe when output rows are produced in
@@ -14,10 +34,14 @@
 // pool) walk output rows in order; threads split the columns and channels
 // of one row, stage the row's results in a row buffer, and store only after
 // a __syncthreads(); a second barrier orders the store before the next
-// row's reads. Whole-block ops read all of their input before any output
-// byte is written: mean, fully connected and softmax stage their input;
+// row's reads. In the row-blocked program the legaliser re-derives every
+// diagonal distance in whole arena rows, so the padding a row store zeroes
+// is dead. Whole-block ops read all of their input before any output
+// element is written: mean, fully connected and softmax stage their input;
 // elementwise, matmul, pad and concat compute their whole output into a
-// staging buffer, synchronise, then copy it out (read-all-before-write-all).
+// staging buffer, synchronise, then write the block out
+// (read-all-before-write-all). Staging buffers hold the decoded tensor;
+// the block encoding happens on the way out.
 //
 // Buffers (row buffer, staging buffer, a fused chain's scratch) live in
 // dynamic shared memory when they fit a CTA and otherwise in a global
@@ -33,7 +57,7 @@
 namespace arena {
 
 constexpr int NT = 512;          // threads of the one CTA
-constexpr int DESC_WORDS = 128;  // int32 words per op/stage descriptor
+constexpr int DESC_WORDS = 256;  // int32 words per op/stage descriptor
 constexpr int MAX_CAT = 16;      // concat inputs a descriptor can hold
 constexpr int MAX_DIMS = 6;      // elementwise broadcast rank
 
@@ -75,6 +99,62 @@ enum { D_PIN0 = 10, D_PLO0 = 14, D_POUT0 = 18, D_PN = 22 };
 // memory) then a byte offset; a fused chain carries them in its header
 enum { D_STAGE_G = 120, D_STAGE_OFF = 121, D_ROW_G = 122, D_ROW_OFF = 123,
        D_SCR_G = 124, D_SCR_OFF = 125 };
+// operand addressing: slot 0 = the output, slot 1 + i = input i, each
+// ADDR_WORDS words (L, c, k, rl, used, nblk)
+enum { D_ADDR = 128, ADDR_WORDS = 6 };
+
+// How one operand's tensor elements sit in the arena (see the top).
+struct Addr {
+  int L;     // arena row elements (flat: one image row)
+  int c;     // image rows packed per arena row
+  int k;     // arena rows one image row spans
+  int rl;    // elements of one image row (packed and spanning)
+  int used;  // used elements of each arena row (whole-block addressing)
+  int nblk;  // elements a whole-block write covers (rows * L; flat: n)
+};
+
+__device__ __forceinline__ Addr load_addr(const int* d, int slot) {
+  const int* a = d + D_ADDR + ADDR_WORDS * slot;
+  Addr r;
+  r.L = a[0]; r.c = a[1]; r.k = a[2]; r.rl = a[3]; r.used = a[4];
+  r.nblk = a[5];
+  return r;
+}
+
+// Element offset of image row iy's first element (_dec_row).
+__device__ __forceinline__ int row_elem(const Addr& a, int iy) {
+  if (a.c > 1) return (iy / a.c) * a.L + (iy % a.c) * a.rl;
+  return iy * a.k * a.L;
+}
+
+// Element offset of tensor element e (_dec_block).
+__device__ __forceinline__ int elem_at(const Addr& a, int e) {
+  if (a.k > 1) return (e / a.rl) * a.k * a.L + e % a.rl;
+  if (a.L == a.used) return e;
+  return (e / a.used) * a.L + e % a.used;
+}
+
+// The tensor element block element b holds, or -1 for padding
+// (_enc_block's inverse).
+__device__ __forceinline__ int elem_of(const Addr& a, int b, int n) {
+  const int r = b / a.L, j = b - r * a.L;
+  int e;
+  if (a.k > 1) {
+    const int col = (r % a.k) * a.L + j;
+    if (col >= a.rl) return -1;
+    e = (r / a.k) * a.rl + col;
+  } else {
+    if (j >= a.used) return -1;
+    e = r * a.used + j;
+  }
+  return e < n ? e : -1;
+}
+
+// Is the whole block exactly the tensor, element for element (the flat
+// program, and dense blocks without padding)?
+__device__ __forceinline__ bool dense(const Addr& a, int n) {
+  return a.k == 1 && a.L == a.used && a.nblk == n;
+}
 
 __device__ __forceinline__ float fword(const int* d, int i) {
   return __int_as_float(d[i]);
@@ -108,11 +188,17 @@ __device__ __forceinline__ float dequant(int8_t q, float scale, int zp) {
   return __fmul_rn(__fsub_rn((float)q, (float)zp), scale);
 }
 
-// Copy `nbytes` arena bytes into the staging buffer (whole-block ops that
-// stage their input).
+// Decode an n-element operand into the staging buffer (whole-block ops
+// that stage their input).
 __device__ __forceinline__ void stage_in(uint8_t* stage, const uint8_t* src,
-                                         int nbytes) {
-  for (int e = threadIdx.x; e < nbytes; e += NT) stage[e] = src[e];
+                                         const Addr& a, int n, bool q) {
+  if (q) {
+    for (int e = threadIdx.x; e < n; e += NT)
+      stage[e] = src[elem_at(a, e)];
+  } else {
+    for (int e = threadIdx.x; e < n; e += NT)
+      ((uint32_t*)stage)[e] = ((const uint32_t*)src)[elem_at(a, e)];
+  }
 }
 
 // Copy a staged whole-block result to its output, 4-byte words where both
@@ -128,10 +214,42 @@ __device__ __forceinline__ void copy_out(uint8_t* out, const uint8_t* stage,
   }
 }
 
+// Write a whole n-element output block: value(e) gives tensor element e
+// (the int8 result in the low byte, or the f32 result's bits); padding
+// gets zeros.
+template <typename V>
+__device__ __forceinline__ void write_block(uint8_t* out, const Addr& a,
+                                            int n, bool q, V value) {
+  const bool flat = dense(a, n);
+  const int nb = flat ? n : a.nblk;
+  for (int b = threadIdx.x; b < nb; b += NT) {
+    const int e = flat ? b : elem_of(a, b, n);
+    const uint32_t v = e >= 0 ? value(e) : 0u;
+    if (q) out[b] = (uint8_t)v;
+    else ((uint32_t*)out)[b] = v;
+  }
+}
+
+// Write a staged n-element result as the output's block.
+__device__ __forceinline__ void store_block(uint8_t* out, const Addr& a,
+                                            const uint8_t* stage, int n,
+                                            bool q) {
+  if (dense(a, n)) {
+    copy_out(out, stage, n * (q ? 1 : 4));
+  } else if (q) {
+    write_block(out, a, n, true,
+                [&](int e) { return (uint32_t)stage[e]; });
+  } else {
+    write_block(out, a, n, false,
+                [&](int e) { return ((const uint32_t*)stage)[e]; });
+  }
+}
+
 struct ConvP {
   int ih, iw, ic, oh, ow, oc, kh, kw, sh, sw, dh, dw, ph, pw, m;
   int x_zp, y_zp;
   float amult;
+  Addr ia, oa;  // the input's and the output's addressing
 };
 
 __device__ __forceinline__ ConvP load_conv(const int* d) {
@@ -142,6 +260,7 @@ __device__ __forceinline__ ConvP load_conv(const int* d) {
   p.dh = d[D_DH]; p.dw = d[D_DW]; p.ph = d[D_PH]; p.pw = d[D_PW];
   p.m = d[D_MULT];
   p.x_zp = d[D_X_ZP]; p.y_zp = d[D_Y_ZP]; p.amult = fword(d, D_AMULT);
+  p.ia = load_addr(d, 1); p.oa = load_addr(d, 0);
   return p;
 }
 
@@ -162,10 +281,11 @@ __device__ __forceinline__ uint32_t conv_point(const uint8_t* in,
   for (int fy = 0; fy < p.kh; ++fy) {
     const int iy = oy * p.sh - p.ph + fy * p.dh;
     if (iy < 0 || iy >= p.ih) continue;
+    const int row = row_elem(p.ia, iy);
     for (int fx = 0; fx < p.kw; ++fx) {
       const int ix = ox * p.sw - p.pw + fx * p.dw;
       if (ix < 0 || ix >= p.iw) continue;
-      const int pix = (iy * p.iw + ix) * p.ic;
+      const int pix = row + ix * p.ic;
       const int tap = fy * p.kw + fx;
       if constexpr (DW) {
         const int wi = (tap * p.ic + c0) * p.m + j;
@@ -214,10 +334,11 @@ __device__ __forceinline__ uint32_t pool_point(const uint8_t* in,
   for (int fy = 0; fy < p.kh; ++fy) {
     const int iy = oy * p.sh - p.ph + fy;
     if (iy < 0 || iy >= p.ih) continue;
+    const int row = row_elem(p.ia, iy);
     for (int fx = 0; fx < p.kw; ++fx) {
       const int ix = ox * p.sw - p.pw + fx;
       if (ix < 0 || ix >= p.iw) continue;
-      const int i = (iy * p.iw + ix) * p.ic + c;
+      const int i = row + ix * p.ic + c;
       acc_t v;
       if constexpr (Q) v = ((const int8_t*)in)[i];
       else v = ((const float*)in)[i];
@@ -245,11 +366,14 @@ __device__ __forceinline__ uint32_t pool_point(const uint8_t* in,
 // A row op over the whole output, rows ascending (see §III.F above): every
 // element of row oy goes to the row buffer, a barrier, then the row is
 // stored, then a barrier before row oy+1 is read. The row buffer holds one
-// output row (ow * oc elements), so any row width runs.
+// output row (ow * oc elements), so any row width runs. The store covers
+// the row's n elements and, plain or spanning, zeroes the rest of its
+// k * L arena elements; a packed store writes its own lane phase only.
 template <bool Q, typename Point>
 __device__ void row_walk(const ConvP& p, uint8_t* out, uint8_t* rowbuf,
                          Point point) {
   const int n = p.ow * p.oc;
+  const int span = p.oa.c > 1 ? n : p.oa.k * p.oa.L;
   for (int oy = 0; oy < p.oh; ++oy) {
     for (int e = threadIdx.x; e < n; e += NT) {
       const int ox = e / p.oc;
@@ -258,12 +382,15 @@ __device__ void row_walk(const ConvP& p, uint8_t* out, uint8_t* rowbuf,
       else ((uint32_t*)rowbuf)[e] = v;
     }
     __syncthreads();  // every read of row oy is done
+    const int r0 = row_elem(p.oa, oy);
     if constexpr (Q) {
-      for (int e = threadIdx.x; e < n; e += NT) out[oy * n + e] = rowbuf[e];
+      uint8_t* o = out + r0;
+      for (int e = threadIdx.x; e < span; e += NT)
+        o[e] = e < n ? rowbuf[e] : 0;
     } else {
-      uint32_t* o = (uint32_t*)out + oy * n;
-      for (int e = threadIdx.x; e < n; e += NT)
-        o[e] = ((const uint32_t*)rowbuf)[e];
+      uint32_t* o = (uint32_t*)out + r0;
+      for (int e = threadIdx.x; e < span; e += NT)
+        o[e] = e < n ? ((const uint32_t*)rowbuf)[e] : 0u;
     }
     __syncthreads();  // row oy is stored before row oy+1 is read
   }
@@ -314,6 +441,7 @@ __device__ void concat_op(const int* d, uint8_t* arena, uint8_t* scratch,
   for (int i = 0; i < nin; ++i) {
     const uint8_t* src = (d[D_CIN_SCR + i] ? scratch : arena)
                          + d[D_CIN_OFF + i];
+    const Addr a = load_addr(d, 1 + i);
     const int inner = d[D_CINNER + i];
     const int zp = d[D_CZP + i];
     const float mult = fword(d, D_CMULT + i);
@@ -321,18 +449,19 @@ __device__ void concat_op(const int* d, uint8_t* arena, uint8_t* scratch,
     for (int e = threadIdx.x; e < total; e += NT) {
       const int o = e / inner;
       const int dst = o * inner_out + col + (e - o * inner);
+      const int s = elem_at(a, e);
       if (q) {
         ((int8_t*)stage)[dst] =
-            requant_i((int)((const int8_t*)src)[e] - zp, mult, y_zp);
+            requant_i((int)((const int8_t*)src)[s] - zp, mult, y_zp);
       } else {
-        ((float*)stage)[dst] = ((const float*)src)[e];
+        ((float*)stage)[dst] = ((const float*)src)[s];
       }
     }
     col += inner;
   }
   __syncthreads();  // all inputs read before any output byte is written
   uint8_t* out = (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF];
-  copy_out(out, stage, outer * inner_out * (q ? 1 : 4));
+  store_block(out, load_addr(d, 0), stage, outer * inner_out, q);
   __syncthreads();
 }
 
@@ -362,9 +491,11 @@ __device__ void elementwise_op(const int* d, uint8_t* arena,
   const int a_zp = d[D_X_ZP], b_zp = d[D_BZP], y_zp = d[D_Y_ZP];
   const float as = fword(d, D_ASCALE), bs = fword(d, D_BSCALE);
   const float ys = fword(d, D_OSCALE);
+  const Addr aa = load_addr(d, 1), ba = load_addr(d, 2);
   for (int e = threadIdx.x; e < n; e += NT) {
-    const float x = q ? dequant(((const int8_t*)a)[e], as, a_zp)
-                      : ((const float*)a)[e];
+    const int ai = elem_at(aa, e);
+    const float x = q ? dequant(((const int8_t*)a)[ai], as, a_zp)
+                      : ((const float*)a)[ai];
     float y = 0.0f;
     if (binary) {
       int bi = e;
@@ -377,6 +508,7 @@ __device__ void elementwise_op(const int* d, uint8_t* arena,
           rem /= dim;
         }
       }
+      bi = elem_at(ba, bi);
       y = q ? dequant(((const int8_t*)b)[bi], bs, b_zp)
             : ((const float*)b)[bi];
     }
@@ -386,7 +518,7 @@ __device__ void elementwise_op(const int* d, uint8_t* arena,
   }
   __syncthreads();  // every operand read before any output byte is written
   uint8_t* out = (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF];
-  copy_out(out, stage, n * (q ? 1 : 4));
+  store_block(out, load_addr(d, 0), stage, n, q);
   __syncthreads();
 }
 

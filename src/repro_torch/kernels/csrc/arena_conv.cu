@@ -1,9 +1,12 @@
 // arena_conv: conv2d and depthwise conv2d (channel multiplier) in place on
-// the flat byte arena, int8 (int32 accumulation + f32 requantisation) or f32.
+// the arena (flat or row-blocked: plain, packed or spanning image rows),
+// int8 (int32 accumulation + f32 requantisation) or f32.
 //
 // Replaces the TPU kernel src/repro/kernels/arena_ops.py::_conv_kernel,
 // reached through apply_op -> _plain_kernel over _FlatMem (the flat byte
-// program of the Pallas backend).
+// program of the Pallas backend) or _BlockMem (the row-blocked program);
+// and, on one row-blocked spec, the standalone in-place depthwise conv
+// src/repro/kernels/dmo_arena_dwconv.py::dmo_dwconv2d_arena.
 //
 // Bound on this card: neither bytes nor operations. One op moves a few KB
 // to a few MB and does at most a few hundred MMACs, so the byte and

@@ -1,11 +1,12 @@
 // arena_elementwise: relu, relu6, sigmoid, identity, add, mul and sub on the
-// flat byte arena, the second operand broadcast when its element count
-// differs. int8: dequantise each operand, compute in f32, quantise at the
-// output's params (IEEE division, rintf); sigmoid uses expf and an IEEE
+// arena (flat or row-blocked), the second operand broadcast when its element
+// count differs. int8: dequantise each operand, compute in f32, quantise at
+// the output's params (IEEE division, rintf); sigmoid uses expf and an IEEE
 // divide (no fast math).
 //
 // Replaces the TPU kernel src/repro/kernels/arena_ops.py::_elementwise_kernel
-// (apply_op -> _plain_kernel over _FlatMem).
+// (apply_op -> _plain_kernel over _FlatMem, and over
+// _BlockMem in the row-blocked program).
 //
 // Bound on this card: bytes (resnet_50_v2's largest add reads two and
 // writes one 3.2 MB f32 tensor, about 3 us at 3.35 TB/s); the kernel is

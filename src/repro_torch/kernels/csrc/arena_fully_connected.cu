@@ -1,10 +1,11 @@
-// arena_fully_connected: y = x . W on the flat byte arena. int8: x and W
-// (symmetric, zero point 0) in an int32 dot of (x - x_zp) * w, then the
+// arena_fully_connected: y = x . W on the arena (flat or row-blocked). int8: x
+// and W (symmetric, zero point 0) in an int32 dot of (x - x_zp) * w, then the
 // shared requantisation; f32: an f32 dot.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/arena_ops.py::_fully_connected_kernel (apply_op ->
-// _plain_kernel over _FlatMem).
+// _plain_kernel over _FlatMem, and over _BlockMem in the row-blocked
+// program).
 //
 // Bound on this card: the weights dominate the bytes (256 x 1000 int8 on
 // the flagship, 0.26 MB: about 0.08 us at 3.35 TB/s), so by bytes it is
@@ -23,26 +24,25 @@ arena_fc_kernel(uint8_t* arena_buf, const int* d, const uint8_t* w,
   uint8_t* stage = buffer(d, D_STAGE_G, smem, gws);
   const bool q = d[D_QUANT] != 0;
   const int m = d[D_M], idim = d[D_IDIM], odim = d[D_ODIM];
-  stage_in(stage, arena_buf + d[D_IN_OFF], m * idim * (q ? 1 : 4));
+  stage_in(stage, arena_buf + d[D_IN_OFF], load_addr(d, 1), m * idim, q);
   __syncthreads();  // x is read whole before any output is written
-  uint8_t* out = arena_buf + d[D_OUT_OFF];
   const int x_zp = d[D_X_ZP];
-  for (int e = threadIdx.x; e < m * odim; e += NT) {
+  write_block(arena_buf + d[D_OUT_OFF], load_addr(d, 0), m * odim, q,
+              [&](int e) -> uint32_t {
     const int r = e / odim, o = e - r * odim;
     if (q) {
       const int8_t* x = (const int8_t*)stage + r * idim;
       int acc = 0;
       for (int i = 0; i < idim; ++i)
         acc += ((int)x[i] - x_zp) * (int)((const int8_t*)w)[i * odim + o];
-      ((int8_t*)out)[e] = requant_i(acc, fword(d, D_AMULT), d[D_Y_ZP]);
-    } else {
-      const float* x = (const float*)stage + r * idim;
-      float acc = 0.0f;
-      for (int i = 0; i < idim; ++i)
-        acc += x[i] * ((const float*)w)[i * odim + o];
-      ((float*)out)[e] = acc;
+      return (uint8_t)requant_i(acc, fword(d, D_AMULT), d[D_Y_ZP]);
     }
-  }
+    const float* x = (const float*)stage + r * idim;
+    float acc = 0.0f;
+    for (int i = 0; i < idim; ++i)
+      acc += x[i] * ((const float*)w)[i * odim + o];
+    return __float_as_uint(acc);
+  });
 }
 
 ARENA_ENTRY(arena_fully_connected, arena_fc_kernel)

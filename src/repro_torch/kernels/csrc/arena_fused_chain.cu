@@ -5,8 +5,10 @@
 // rescaled to the output's params) that alone writes the arena.
 //
 // Replaces the TPU kernels src/repro/kernels/arena_ops.py::_fused_kernel
-// with _RoutedFlatMem (the stages) and ::_concat_kernel with ::_rescale
-// (the terminal concat), reached through apply_op.
+// with _RoutedFlatMem or, in the row-blocked program, _RoutedBlockMem (the
+// stages) and ::_concat_kernel with ::_rescale (the terminal concat),
+// reached through apply_op. In the row-blocked program the scratch is a
+// typed (scratch_rows, L) block addressed like the arena.
 //
 // Three buffers, each in dynamic shared memory when it fits beside the ones
 // before it (at most 232,448 bytes in all) and otherwise in the global

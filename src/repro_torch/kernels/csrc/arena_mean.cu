@@ -1,9 +1,10 @@
 // arena_mean: mean over a set of axes (global average pool of the head), in
-// place on the flat byte arena. int8: int32 sum, (f32 sum / count) - x_zp,
-// then the shared requantisation; f32: sum / count.
+// place on the arena (flat or row-blocked). int8: int32 sum, (f32 sum /
+// count) - x_zp, then the shared requantisation; f32: sum / count.
 //
 // Replaces the TPU kernel src/repro/kernels/arena_ops.py::_mean_kernel
-// (apply_op -> _plain_kernel over _FlatMem).
+// (apply_op -> _plain_kernel over _FlatMem, and over
+// _BlockMem in the row-blocked program).
 //
 // Bound on this card: a few KB to a few hundred KB in (resnet_50_v2's
 // 7x7x2048 f32 head, 401 KB) and a few KB out, so both bounds are at most
@@ -28,11 +29,11 @@ arena_mean_kernel(uint8_t* arena_buf, const int* d, const uint8_t*,
     stride[i] = total;
     total *= dims[i];
   }
-  stage_in(stage, arena_buf + d[D_IN_OFF], total * (q ? 1 : 4));
+  stage_in(stage, arena_buf + d[D_IN_OFF], load_addr(d, 1), total, q);
   __syncthreads();  // the whole input is read before any output is written
   const int rmask = d[D_RMASK], cnt = d[D_CNT], outn = d[D_OUTN];
-  uint8_t* out = arena_buf + d[D_OUT_OFF];
-  for (int o = threadIdx.x; o < outn; o += NT) {
+  write_block(arena_buf + d[D_OUT_OFF], load_addr(d, 0), outn, q,
+              [&](int o) -> uint32_t {
     int base = 0, rem = o;
     for (int i = 3; i >= 0; --i) {  // coordinates of the kept axes
       if (rmask & (1 << i)) continue;
@@ -54,11 +55,10 @@ arena_mean_kernel(uint8_t* arena_buf, const int* d, const uint8_t*,
     if (q) {
       const float v = __fsub_rn(__fdiv_rn(__int2float_rn(iacc), (float)cnt),
                                 (float)d[D_X_ZP]);
-      ((int8_t*)out)[o] = requant_f(v, fword(d, D_AMULT), d[D_Y_ZP]);
-    } else {
-      ((float*)out)[o] = __fdiv_rn(facc, (float)cnt);
+      return (uint8_t)requant_f(v, fword(d, D_AMULT), d[D_Y_ZP]);
     }
-  }
+    return __float_as_uint(__fdiv_rn(facc, (float)cnt));
+  });
 }
 
 ARENA_ENTRY(arena_mean, arena_mean_kernel)

@@ -1,9 +1,10 @@
-// arena_pad: constant padding on the flat byte arena. f32 pads with 0;
-// int8 pads with the input's zero point and then rescales the whole padded
-// tensor to the output's params (ops.rescale_q), as the reference does.
+// arena_pad: constant padding on the arena (flat or row-blocked). f32 pads
+// with 0; int8 pads with the input's zero point and then rescales the whole
+// padded tensor to the output's params (ops.rescale_q), as the reference does.
 //
 // Replaces the TPU kernel src/repro/kernels/arena_ops.py::_pad_kernel
-// (apply_op -> _plain_kernel over _FlatMem).
+// (apply_op -> _plain_kernel over _FlatMem, and over
+// _BlockMem in the row-blocked program).
 //
 // Bound on this card: bytes (the input read once, the padded output written
 // once: a few KB on the graphs that use it), far below a microsecond; the
@@ -25,6 +26,7 @@ arena_pad_kernel(uint8_t* arena_buf, const int* d, const uint8_t*,
   const uint8_t* in = arena_buf + d[D_IN_OFF];
   const int x_zp = d[D_X_ZP], y_zp = d[D_Y_ZP];
   const float mult = fword(d, D_AMULT);
+  const Addr ia = load_addr(d, 1);
   for (int e = threadIdx.x; e < n; e += NT) {
     int rem = e, idx = 0, stride = 1;
     bool inside = true;
@@ -36,6 +38,7 @@ arena_pad_kernel(uint8_t* arena_buf, const int* d, const uint8_t*,
       idx += c * stride;
       stride *= id;
     }
+    if (inside) idx = elem_at(ia, idx);
     if (q) {
       const int x = inside ? (int)((const int8_t*)in)[idx] : x_zp;
       ((int8_t*)stage)[e] = requant_i(x - x_zp, mult, y_zp);
@@ -44,7 +47,7 @@ arena_pad_kernel(uint8_t* arena_buf, const int* d, const uint8_t*,
     }
   }
   __syncthreads();  // the input is read before any output byte is written
-  copy_out(arena_buf + d[D_OUT_OFF], stage, n * (q ? 1 : 4));
+  store_block(arena_buf + d[D_OUT_OFF], load_addr(d, 0), stage, n, q);
 }
 
 ARENA_ENTRY(arena_pad, arena_pad_kernel)

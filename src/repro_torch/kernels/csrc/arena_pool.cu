@@ -1,10 +1,11 @@
-// arena_pool: max or average pooling in place on the flat byte arena, int8
-// or f32. Average is over the valid taps of each window; int8 max
-// requantises acc - x_zp, int8 avg acc / max(cnt, 1) - x_zp (in f32), both
-// with the shared requantisation.
+// arena_pool: max or average pooling in place on the arena (flat or
+// row-blocked), int8 or f32. Average is over the valid taps of each window;
+// int8 max requantises acc - x_zp, int8 avg acc / max(cnt, 1) - x_zp (in f32),
+// both with the shared requantisation.
 //
 // Replaces the TPU kernel src/repro/kernels/arena_ops.py::_pool_kernel
-// (apply_op -> _plain_kernel over _FlatMem).
+// (apply_op -> _plain_kernel over _FlatMem, and over
+// _BlockMem in the row-blocked program).
 //
 // Bound on this card: bytes, at a few MB per op (resnet_50_v2's 3x3/2 max
 // pool reads 3.2 MB of f32), a microsecond by the byte bound; the kernel is

@@ -1,14 +1,17 @@
-// arena_softmax: softmax over the last axis on the flat byte arena. int8:
-// dequantise, subtract the row max, expf, divide by the row sum, quantise
-// (IEEE division by the output scale); f32: the same without the casts.
+// arena_softmax: softmax over the last axis on the arena (flat or
+// row-blocked). int8: dequantise, subtract the row max, expf, divide by the
+// row sum, quantise (IEEE division by the output scale); f32: the same without
+// the casts.
 //
 // Replaces the TPU kernel src/repro/kernels/arena_ops.py::_softmax_kernel
-// (apply_op -> _plain_kernel over _FlatMem).
+// (apply_op -> _plain_kernel over _FlatMem, and over
+// _BlockMem in the row-blocked program).
 //
 // Bound on this card: 1000 bytes in and out and 1000 exponentials, far
 // below a microsecond by either bound; the kernel is bound by its one CTA,
 // its block reductions and launch. The flagship runs it in place, so the
-// row is staged (as f32) before anything is written (paper §III.F).
+// input is staged (as f32) before anything is written (paper §III.F); the
+// result overwrites the staged input, then the block is written out.
 #include "arena_common.cuh"
 
 using namespace arena;
@@ -40,13 +43,15 @@ arena_softmax_kernel(uint8_t* arena_buf, const int* d, const uint8_t*,
   const int x_zp = d[D_X_ZP], y_zp = d[D_Y_ZP];
   const float xs = fword(d, D_XSCALE), ys = fword(d, D_YSCALE);
   const uint8_t* src = arena_buf + d[D_IN_OFF];
-  for (int e = threadIdx.x; e < n; e += NT)
-    x[e] = q ? dequant(((const int8_t*)src)[e], xs, x_zp)
-             : ((const float*)src)[e];
+  const Addr ia = load_addr(d, 1);
+  for (int e = threadIdx.x; e < n; e += NT) {
+    const int s = elem_at(ia, e);
+    x[e] = q ? dequant(((const int8_t*)src)[s], xs, x_zp)
+             : ((const float*)src)[s];
+  }
   __syncthreads();  // the whole input is read before any output is written
-  uint8_t* out = arena_buf + d[D_OUT_OFF];
   for (int r = 0; r < rows; ++r) {
-    const float* xr = x + r * last;
+    float* xr = x + r * last;
     float mx = __int_as_float(0xff800000);  // -inf
     for (int e = threadIdx.x; e < last; e += NT) mx = fmaxf(mx, xr[e]);
     mx = block_reduce<true>(mx, red);
@@ -54,12 +59,16 @@ arena_softmax_kernel(uint8_t* arena_buf, const int* d, const uint8_t*,
     for (int e = threadIdx.x; e < last; e += NT)
       sum += expf(__fsub_rn(xr[e], mx));
     sum = block_reduce<false>(sum, red);
-    for (int e = threadIdx.x; e < last; e += NT) {
-      const float y = __fdiv_rn(expf(__fsub_rn(xr[e], mx)), sum);
-      if (q) ((int8_t*)out)[r * last + e] = quant_f(y, ys, y_zp);
-      else ((float*)out)[r * last + e] = y;
-    }
+    // each thread overwrites only the elements it read above
+    for (int e = threadIdx.x; e < last; e += NT)
+      xr[e] = __fdiv_rn(expf(__fsub_rn(xr[e], mx)), sum);
   }
+  __syncthreads();  // every row is done before the block is written
+  write_block(arena_buf + d[D_OUT_OFF], load_addr(d, 0), n, q,
+              [&](int e) -> uint32_t {
+    return q ? (uint32_t)(uint8_t)quant_f(x[e], ys, y_zp)
+             : __float_as_uint(x[e]);
+  });
 }
 
 ARENA_ENTRY(arena_softmax, arena_softmax_kernel)

@@ -352,6 +352,12 @@ def test_descriptor_words_conv_and_fused():
     assert tuple(w[K.D_KH:K.D_MULT + 1]) == spec.meta
     assert w[K.D_AMULT:K.D_AMULT + 1].view(np.float32)[0] == \
         np.float32(QM[1])
+    # flat addressing: one image row per row (L = used), n elements
+    a = K.D_ADDR
+    assert tuple(w[a:a + K.ADDR_WORDS]) == (30, 1, 1, 0, 30, 150)
+    assert tuple(w[a + K.ADDR_WORDS:a + 2 * K.ADDR_WORDS]) == \
+        (15, 1, 1, 0, 15, 75)
+    assert K.DESC_WORDS >= K.D_ADDR + K.ADDR_WORDS * (K.MAX_CAT + 1)
     fused, _ = _flagship_fused(1)
     fw = K.descriptor_words(fused)
     assert fw.size == K.DESC_WORDS * 18 and fw[0] == 17
@@ -412,16 +418,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):          # not a byte arena
         K.arena_conv(arena.view(torch.int8), spec,
                      torch.zeros((1, 1, 2, 3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="row-blocked"):  # a byte arena
         K.arena_conv(arena, dataclasses.replace(spec, rowlen=16),
                      torch.zeros((1, 1, 2, 3)))
     pool = K.OpSpec(kind="pool", in_off=(0,), in_shape=((4, 4, 2),),
                     out_off=0, out_shape=(2, 2, 2), dtype="f32",
                     meta=(2, 2, 2, 2, 0, 0, "max"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # row-blocked
-        K.apply_op(arena, dataclasses.replace(pool, rowlen=16))
+    blocked = dataclasses.replace(pool, rowlen=16, in_rows=((4, 8),),
+                                  out_rows=((2, 4)))
+    with pytest.raises(ValueError, match="row-blocked"):  # wrong rowlen
+        K.apply_op(torch.zeros((8, 8)), blocked)
+    with pytest.raises(ValueError, match="row-blocked"):  # wrong tier
+        K.apply_op(torch.zeros((8, 16), dtype=torch.int8), blocked)
+    with pytest.raises(ValueError, match="flat"):         # a typed arena
+        K.apply_op(torch.zeros((8, 16)), pool)
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # streaming
-        K.apply_op(arena, dataclasses.replace(pool, rowlen=16, win_rows=8))
+        K.apply_op(torch.zeros((8, 16)),
+                   dataclasses.replace(blocked, win_rows=8))
     bad = K.OpSpec(kind="elementwise", in_off=(0, 64), in_shape=((2, 2, 4),
                    (4, 4, 4)), out_off=0, out_shape=(2, 2, 4),
                    meta=("add",))
@@ -457,6 +470,25 @@ def test_descriptor_words_new_kinds():
     w = K.descriptor_words(pad)
     assert tuple(w[K.D_PIN0:K.D_PN + 1]) == (1, 3, 4, 2, 0, 0, 1, 0,
                                              1, 5, 5, 3, 75)
+    # row-blocked: byte offsets of whole rows, then (L, c, k, rl, used,
+    # nblk) per operand: a packed input, a spanning output
+    blk = dataclasses.replace(pool, in_off=(3,), out_off=10, rowlen=256,
+                              in_rows=((3136, 256),), out_rows=(784, 256),
+                              in_addr=((1, 28, 7168),),
+                              out_addr=(1, 14, 3584))
+    w = K.descriptor_words(blk)
+    assert (w[K.D_IN_OFF], w[K.D_OUT_OFF]) == (3 * 256, 10 * 256)
+    a = K.D_ADDR
+    assert tuple(w[a:a + 6]) == (256, 1, 14, 3584, 256, 784 * 256)
+    assert tuple(w[a + 6:a + 12]) == (256, 1, 28, 7168, 256, 3136 * 256)
+    packed = dataclasses.replace(
+        ew, rowlen=64, in_off=(0, 4), out_off=2, dtype="f32",
+        in_rows=((2, 60), (1, 64)), out_rows=(2, 64),
+        in_addr=((2, 1, 30), (1, 1, 64)), out_addr=(1, 1, 64))
+    w = K.descriptor_words(packed)
+    assert (w[K.D_IN_OFF], w[K.D_IN2_OFF], w[K.D_OUT_OFF]) == \
+        (0, 4 * 64 * 4, 2 * 64 * 4)
+    assert tuple(w[a + 6:a + 12]) == (64, 2, 1, 30, 60, 128)
 
 
 def test_every_kernel_has_a_source_a_counter_and_a_plain_version():

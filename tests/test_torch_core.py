@@ -253,11 +253,35 @@ def test_no_silent_cpu_fallback():
         t_compile(tzoo.mobilenet_v1(0.25, 32, 1), backend="cuda")
 
 
-def test_other_programs_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CudaExecutor(device="cpu", layout="blocks")
+def test_streaming_program_raises_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CudaExecutor(device="cpu", mode="streaming")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        CudaExecutor(device="cpu", layout="blocks", mode="streaming")
+    with pytest.raises(ValueError, match="layout"):
+        CudaExecutor(device="cpu", layout="rows")
+
+
+def test_blocks_layout_raises_on_mixed_dtype_while_auto_runs_flat():
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.planner import plan_dmo
+    g = Graph("mixed")
+    a = g.tensor("a", (4, 4), 1, "input")
+    b = g.tensor("b", (4, 4), 4, "input")
+    g.op("elementwise", [a], (4, 4), dict(fn="relu"), out_kind="output")
+    g.op("elementwise", [b], (4, 4), dict(fn="relu"), name="e2",
+         out_kind="output")
+    g.validate()
+    plan = plan_dmo(g)
+    with pytest.raises(ValueError, match="mixed-dtype"):
+        CudaExecutor(device="cpu", layout="blocks").program(plan)
+    auto = CudaExecutor(device="cpu", layout="auto")
+    specs, _, _, arena = auto.program(plan)
+    assert arena.dim() == 1 and not any(s.rowlen for s in specs)
+    flat = CudaExecutor(device="cpu").execute(plan)
+    got = auto.execute(plan)
+    for k in flat:
+        np.testing.assert_array_equal(got[k], flat[k])
 
 
 def test_executor_caches_lowering_and_params():

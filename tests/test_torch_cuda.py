@@ -23,10 +23,11 @@ def card():
     return torch.device("cuda")
 
 
-def _hold_against_plain(card, cp):
+def _hold_against_plain(card, cp, layout="flat"):
     """Every spec's kernel against its plain version, on copies of the
     arena as the program reaches it."""
-    specs, ws, descs, state = CudaExecutor(device=card).program(cp)
+    specs, ws, descs, state = CudaExecutor(device=card,
+                                           layout=layout).program(cp)
     for spec, w, d in zip(specs, ws, descs):
         got, ref = state.clone(), state.clone()
         K.apply_op(got, spec, w, d)
@@ -80,3 +81,39 @@ def test_global_scratch_branch_on_the_card(card):
     assert fused and K.buffer_plan(fused[0]).on_global("scratch")
     compare_outputs(get_backend("numpy").execute(cp), cp.execute(),
                     exact=False, label="1.0_224_8bit")
+
+
+@pytest.mark.parametrize("bits", [1, 4])
+def test_blocked_kernels_match_plain_versions_on_the_card(card, bits):
+    """The row-blocked program: packed, spanning and plain operands."""
+    _hold_against_plain(card, compile(zoo.mobilenet_v1(0.25, 128, bits)),
+                        "blocks")
+    _hold_against_plain(card, compile(zoo.resnet50_v2(64, bits)), "blocks")
+
+
+@pytest.mark.parametrize("bits", [1, 4])
+def test_blocked_outputs_bit_equal_flat_on_the_card(card, bits):
+    cp = compile(zoo.mobilenet_v1(0.25, 128, bits))
+    be = CudaExecutor(device=card, layout="blocks")
+    arena = be.program(cp)[3]
+    assert arena.is_cuda and arena.numel() * arena.element_size() == \
+        (73_728 if bits == 1 else 327_680)
+    got = be.execute(cp)
+    want = CudaExecutor(device=card).execute(cp)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("ih,iw,c,k,stride,pad", [
+    (16, 16, 8, 3, 1, 1), (17, 13, 4, 3, 2, 0), (15, 15, 1, 3, 3, 1),
+    (64, 64, 8, 3, 1, 1)])
+def test_dmo_dwconv_on_the_card(card, ih, iw, c, k, stride, pad):
+    from repro_torch.kernels import ops as TO
+    g = torch.Generator().manual_seed(ih * 100 + iw)
+    x, w = torch.randn(ih, iw, c, generator=g), torch.randn(k, k, c,
+                                                             generator=g)
+    K.reset_launches()
+    got = TO.dmo_dwconv2d(x, w, stride, pad)
+    assert got.is_cuda and K.LAUNCHES["arena_conv"] == 1
+    want = TO.dmo_dwconv2d(x, w, stride, pad, device="cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
