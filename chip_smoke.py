@@ -46,12 +46,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    7,340,032 B for the flagship int8 and f32 and ``resnet_50_v2`` int8 and
    f32); and hand-built blocked fused chains with pool and elementwise
    stages (packed and spanning rows, f32 and int8);
-8. runs the standalone DMO depthwise conv ``kernels.ops.dmo_dwconv2d`` on
+8. runs the streaming program (``get_backend("cuda", mode="streaming")``)
+   on the flagship (int8, f32, batch 2), ``resnet_50_v2`` (f32, int8),
+   ``densenet_121``, ``mobilenet_v2_1.0_224`` and ``allops`` (f32, int8):
+   every streaming
+   spec's kernel (``arena_stream_roll``, ``arena_stream_stage``,
+   ``arena_stream_fused``) against its plain streaming version, one
+   request each through ``execute()`` with the launch counts reset just
+   before (29 on the flagship, 90 on ``resnet_50_v2``, 247 on
+   ``densenet_121``), outputs bit-equal to the blocked route's and within
+   tolerance of the numpy backend, the final device arena bit-equal to the
+   blocked route's on the same inputs; prints each graph's largest
+   resident window, whether it was staged in shared or global memory, and
+   the bytes each streaming form stages (a count from the specs);
+9. runs the standalone DMO depthwise conv ``kernels.ops.dmo_dwconv2d`` on
    the card on the reference's ``DWCONV_CASES`` and two real layers
    ((64, 64, 8) of the flagship, (112, 112, 32) of
    ``mobilenet_v1_1.0_224``), counting its launches, each against its
    plain version and against ``F.conv2d`` (depthwise, TF32 off);
-9. times with CUDA events, after a warm-up, every kernel per forward of the
+10. times with CUDA events, after a warm-up, every kernel per forward of the
    path that runs it (``resnet_50_v2`` f32 for conv, pool, elementwise and
    the head; ``densenet_121`` for concat; ``allops`` f32 for matmul and
    pad; the flagship for the fused chain), on both programs, its plain
@@ -61,10 +74,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``F.pad``, ``torch.mean``, ``torch.softmax``; the port never calls
    them), plus the flagship's int8 and f32 kernel times, ``resnet_50_v2``
    int8, the ``dmo_dwconv2d`` cases and both programs' execute walls;
-10. writes every number to ``build/chip_smoke.json`` and prints the
+   the streaming kernels per forward (rolling and staged on
+   ``resnet_50_v2`` f32, fused on the flagship), their plain versions and
+   the streaming ``execute()`` walls beside the blocked ones;
+11. writes every number to ``build/chip_smoke.json`` and prints the
     ``kernels`` JSON line (a ``[blocks]`` line per kernel for the
-    row-blocked program, and a ``dmo_dwconv2d`` line), the card line, and
-    as its last line the device JSON.
+    row-blocked program, the three streaming kernels, and a
+    ``dmo_dwconv2d`` line), the card line, and as its last line the
+    device JSON.
 
 Any failed check raises and the script exits non-zero. It exits 2, printing
 no result, when no CUDA device is visible or when it does not sit at the
@@ -87,6 +104,7 @@ SRC = ROOT / "src"
 FLAGSHIP_BYTES = 49_805
 RESNET_BYTES = 7_225_344
 RESNET_LAUNCHES = 90
+DENSENET_LAUNCHES = 247
 WIDE_ROW = 8_192               # rows wider need a staged row buffer
 HBM_BYTES_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 INT8_OPS_S = 1979e12           # dense int8 tensor-core peak
@@ -116,10 +134,23 @@ KERNELS = {
                       "src/repro/kernels/arena_ops.py:628"),
     "arena_fused_chain": (CSRC + "arena_fused_chain.cu",
                           "src/repro/kernels/arena_ops.py:736"),
+    "arena_stream_roll": (CSRC + "arena_stream_roll.cu",
+                          "src/repro/kernels/arena_ops.py:762"),
+    "arena_stream_stage": (CSRC + "arena_stream_stage.cu",
+                           "src/repro/kernels/arena_ops.py:817"),
+    "arena_stream_fused": (CSRC + "arena_stream_fused.cu",
+                           "src/repro/kernels/arena_ops.py:844"),
 }
+#: the kernels of the streaming program, and the path each one's line in
+#: the ``kernels`` JSON is measured on
+STREAM_KERNEL_PATH = {"arena_stream_roll": "resnet_50_v2",
+                      "arena_stream_stage": "resnet_50_v2",
+                      "arena_stream_fused": "flagship"}
+#: the kernels of the flat and row-blocked programs
+PROGRAM_KERNELS = [n for n in KERNELS if n not in STREAM_KERNEL_PATH]
 #: the reference's row-blocked memory layer each kernel now runs under
 BLOCK_REPLACES = {name: "src/repro/kernels/arena_ops.py:314"
-                  for name in KERNELS}
+                  for name in PROGRAM_KERNELS}
 BLOCK_REPLACES["arena_fused_chain"] = "src/repro/kernels/arena_ops.py:397"
 #: the blocked path each kernel's ``[blocks]`` line is measured on
 BLOCK_KERNEL_PATH = {
@@ -197,6 +228,33 @@ def allops_graph(dtype_bytes: int = 4, graph_cls=None):
     g.op("softmax", [ss], (16, 2), name="out", out_kind="output")
     g.op("elementwise", [m], (4,), dict(fn="sigmoid"), name="out2",
          out_kind="output")
+    g.validate()
+    return g
+
+
+def stream_allops_graph(dtype_bytes: int = 4, graph_cls=None):
+    """The reference's streaming test graph ``stream_allops``
+    (tests/test_streaming.py: rolling conv2d, depthwise and max pool;
+    staged add, pad, concat, mean, fully_connected and softmax), built with
+    the port's ``Graph`` unless another package's ``graph_cls`` is given;
+    ``dtype_bytes=1`` is its int8 build."""
+    if graph_cls is None:
+        from repro_torch.core.graph import Graph as graph_cls
+    g = graph_cls("stream_allops")
+    x = g.tensor("x", (16, 16, 8), dtype_bytes, "input")
+    c = g.op("conv2d", [x], (16, 16, 8),
+             dict(kernel=(3, 3), stride=(1, 1), padding="same"))
+    d = g.op("depthwise_conv2d", [c], (16, 16, 8),
+             dict(kernel=(3, 3), stride=(1, 1), padding="same"))
+    e = g.op("elementwise", [d, c], (16, 16, 8), dict(fn="add"))
+    p = g.op("pool", [e], (8, 8, 8),
+             dict(kernel=(2, 2), stride=(2, 2), padding="valid", mode="max"))
+    pd = g.op("pad", [p], (10, 10, 8),
+              dict(paddings=((1, 1), (1, 1), (0, 0))))
+    cc = g.op("concat", [pd, pd], (10, 10, 16), dict(axis=-1))
+    m = g.op("mean", [cc], (16,), dict(axes=(0, 1)))
+    f = g.op("fully_connected", [m], (12,))
+    g.op("softmax", [f], (12,), out_kind="output")
     g.validate()
     return g
 
@@ -421,6 +479,26 @@ def spec_cost(spec):
     return inb + outb, 4 * _el(spec.in_shape[0]), rate  # mean, softmax
 
 
+def staging_bytes(K, spec) -> int:
+    """Bytes a streaming spec copies beyond its op's own work: a rolling
+    op's window fetches (``win_in`` rows per tile) and its output tiles
+    (copied in and back), a staged op's or chain's blocks in and out
+    (padding rows included); 0 outside the streaming program."""
+    form = K.stream_form(spec)
+    if form is None:
+        return 0
+    rowb = spec.rowlen * (1 if spec.dtype == "i8" else 4)
+    if form == "roll":
+        tr, tile_ar = K._tile_geom(spec)
+        oh = spec.out_shape[-3]
+        rows = 0
+        for t in range(len(spec.win_starts)):
+            a0, a1 = K._tile_rows(spec, t * tr, min((t + 1) * tr, oh))
+            rows += (spec.win_rows - tile_ar) + 2 * (a1 - a0)
+        return rows * rowb
+    return (sum(r for r, _ in spec.in_rows) + spec.out_rows[0]) * rowb
+
+
 def bound_ms(spec) -> float:
     nbytes, ops, rate = spec_cost(spec)
     return 1e3 * max(nbytes / HBM_BYTES_S, ops / rate)
@@ -547,7 +625,7 @@ def compare_program(torch, K, be, cp, label: str, errs, select=None,
         ref = state.clone()
         K.apply_plain(ref, spec, w)
         torch.cuda.synchronize()
-        name = K.KERNEL_OF[spec.kind]
+        name = K.kernel_of(spec)
         errs[name] = max(errs.get(name, 0.0), arena_diff(torch, got, ref,
                                                           spec))
         state = ref
@@ -585,7 +663,7 @@ def compare_spec(torch, K, spec, nbytes: int, weights, errs, label: str,
     K.apply_op(got, spec, w)
     K.apply_plain(ref, spec, w)
     torch.cuda.synchronize()
-    name = K.KERNEL_OF[spec.kind]
+    name = K.kernel_of(spec)
     err = arena_diff(torch, got, ref, spec)
     errs[name] = max(errs.get(name, 0.0), err)
     bp = K.buffer_plan(spec)
@@ -692,6 +770,77 @@ def blocked_requests(torch, K, X, cp, label: str, nbytes=None,
     return per_request, got_bytes, t_blk, t_flat
 
 
+def run_arena(K, ex, cp, inputs, weights, quant):
+    """The final device arena of one run of ``ex``'s program."""
+    specs, ws, descs, arena = ex.program(cp, inputs, weights, quant=quant)
+    for spec, w, d in zip(specs, ws, descs):
+        K.apply_op(arena, spec, w, d)
+    return arena
+
+
+def largest_window(K, ex, cp):
+    """(bytes, op name, "shared" or "global", windows staged in global
+    memory, specs) of the streaming plan: its largest resident window and
+    where that window's staging buffer lives."""
+    bp = ex.legalised(cp.plan)
+    sched = bp.window_schedule()
+    specs = ex.program(cp)[0]
+    place = []
+    for spec in specs:
+        name = "scratch" if spec.kind == "fused" else "win"
+        place.append("global" if K.buffer_plan(spec).on_global(name)
+                     else "shared")
+    i = max(range(len(specs)),
+            key=lambda j: sched.windows[j].resident_rows)
+    return (sched.windows[i].resident_rows * sched.row_bytes,
+            sched.windows[i].op_name, place[i], place.count("global"), specs)
+
+
+def streamed_requests(torch, K, X, cp, label: str, n_launch=None):
+    """One request through ``get_backend("cuda", mode="streaming")
+    .execute()`` on the card, launch counts reset just before: every
+    launch is a streaming kernel, one per spec (``n_launch`` where given);
+    outputs bit-equal to the blocked route's and within ``compare_outputs``
+    of the numpy backend. Then the final device arenas of both programs on
+    the same inputs must be equal, element for element. Returns the
+    launches per kernel and the host seconds of the two executions."""
+    graph = cp.graph
+    weights = X.synth_weights(graph, 0)
+    quant = X.calibrate(graph, 0, weights) if X.needs_quant(graph) else None
+    inputs = (X.quant_inputs(graph, quant, 0) if quant is not None
+              else X.random_inputs(graph, 0))
+    st = X.get_backend("cuda", mode="streaming")
+    blk = X.get_backend("cuda", layout="blocks")
+    specs = st.program(cp, inputs, weights, quant=quant)[0]
+    K.reset_launches()
+    t0 = time.perf_counter()
+    got = st.execute(cp, inputs, weights, quant=quant)
+    t_st = time.perf_counter() - t0
+    counts = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    want = blk.execute(cp, inputs, weights, quant=quant)
+    t_blk = time.perf_counter() - t0
+    want_counts = {n: sum(K.kernel_of(s) == n for s in specs)
+                   for n in K.LAUNCHES}
+    check(counts == want_counts and all(
+        n.startswith("arena_stream") for n, v in counts.items() if v),
+        f"{label}: streaming launches {counts}, expected {want_counts}")
+    check(n_launch is None or sum(counts.values()) == n_launch,
+          f"{label}: {sum(counts.values())} launches, expected {n_launch}")
+    check(got.keys() == want.keys() and all(
+        np.array_equal(got[k], want[k]) for k in want),
+        f"{label}: streaming outputs differ from blocked")
+    X.compare_outputs(X.get_backend("numpy").execute(
+        cp, inputs, weights, quant=quant), got, exact=False,
+        label=f"{label} streaming")
+    a = run_arena(K, st, cp, inputs, weights, quant)
+    b = run_arena(K, blk, cp, inputs, weights, quant)
+    torch.cuda.synchronize()
+    check(a.is_cuda and torch.equal(a, b),
+          f"{label}: final streaming arena differs from the blocked one")
+    return counts, t_st, t_blk
+
+
 def refused(fn, label: str) -> str:
     """Run ``fn``; it must raise ValueError (a graph no backend executes).
     Returns the message."""
@@ -710,7 +859,7 @@ def kernel_times(torch, F, K, ex, cp, weights=None, quant=None,
     specs, ws, descs, state = ex.program(cp, None, weights, quant=quant)
     per = {}
     for spec, wt, d in zip(specs, ws, descs):
-        name = K.KERNEL_OF[spec.kind]
+        name = K.kernel_of(spec)
         if only is not None and name not in only:
             K.apply_op(state, spec, wt, d)
             continue
@@ -828,7 +977,7 @@ def main() -> int:
     check(K.buffer_plan(spec).on_global("row"), "row buffer not global")
     compare_spec(torch, K, spec, nbytes, [torch.randn(3, 3, 4, 16).cuda()],
                  errs, "conv with a 65,536-output row (global row buffer)")
-    for name in KERNELS:
+    for name in PROGRAM_KERNELS:
         check(name in errs, f"{name} was never held against its plain "
               "version")
     phase_done("kernels vs plain")
@@ -839,6 +988,10 @@ def main() -> int:
     check(cp.winner == "fuse", f"winner={cp.winner}")
     check(cp.peak_bytes == FLAGSHIP_BYTES, f"peak={cp.peak_bytes}")
     check(len(specs8) == 29, f"{len(specs8)} specs")
+    tiers = [ln for ln in cp.log if ln.startswith("verify: cuda")]
+    check(tiers and "(flat + row-blocked + streaming)" in tiers[-1],
+          f"compile's verify pass skipped a tier: {tiers}")
+    log(f"[slice] {tiers[-1]}")
     log(f"[slice] compile(flagship, backend='cuda'): verified={cp.verified} "
         f"winner={cp.winner} peak={cp.peak_bytes} B "
         f"baseline={cp.baseline_bytes} B")
@@ -967,7 +1120,53 @@ def main() -> int:
               f"{name} never launched on {path} blocks")
     phase_done("blocks")
 
-    # 8. the standalone DMO depthwise conv through its entry point
+    # 8. the streaming program on the same plans
+    stm = X.get_backend("cuda", mode="streaming")
+    st_errs, st_paths, st_rows = {}, {}, {}
+    st_cps = {label: blk_cps[label] for label in (
+        "flagship", "flagship f32", "flagship batch 2", "resnet_50_v2",
+        "resnet_50_v2 int8", "densenet_121", "mobilenet_v2_1.0_224",
+        "allops", "allops int8")}
+    for label, c in st_cps.items():
+        compare_program(torch, K, stm, c, label + " streaming", st_errs)
+        nbytes, op, where, n_global, specs = largest_window(K, stm, c)
+        n = {"flagship": 29, "resnet_50_v2": RESNET_LAUNCHES,
+             "densenet_121": DENSENET_LAUNCHES}.get(label)
+        counts, t_s, t_b = streamed_requests(torch, K, X, c, label, n)
+        st_paths[label] = counts
+        forms = [K.stream_form(sp) for sp in specs]
+        # planner counts from the specs, not measured: the bytes each form
+        # copies beyond its op's own work
+        staged = {f: sum(staging_bytes(K, sp) for sp in specs
+                         if K.stream_form(sp) == f)
+                  for f in ("roll", "stage", "fused")}
+        st_rows[label] = {
+            "specs": len(specs), "roll": forms.count("roll"),
+            "stage": forms.count("stage"), "fused": forms.count("fused"),
+            "largest_window_bytes": nbytes, "largest_window_op": op,
+            "largest_window_in": where, "windows_in_global": n_global,
+            "staging_bytes": staged,
+            "launches": sum(counts.values()), "execute_s": t_s,
+            "blocked_execute_s": t_b}
+        log(f"[streaming] {label}: {len(specs)} launches (rolling "
+            f"{forms.count('roll')}, staged {forms.count('stage')}, fused "
+            f"{forms.count('fused')}), final arena bit-equal to blocked, "
+            f"outputs within tolerance of numpy; largest resident window "
+            f"{nbytes} B ({op}) staged in {where} memory, "
+            f"{n_global} of {len(specs)} windows in global memory; "
+            f"staging bytes by form (planner count) {staged} "
+            f"(execute {t_s:.2f} s, blocked {t_b:.2f} s)")
+    check(st_rows["flagship f32"]["largest_window_in"] == "shared"
+          and st_rows["resnet_50_v2"]["windows_in_global"] > 0,
+          "the streaming windows must take both placements")
+    for name, path in STREAM_KERNEL_PATH.items():
+        check(name in st_errs, f"{name} was never held against its plain "
+              "version")
+        check(st_paths[path][name] > 0, f"{name} never launched on {path} "
+              "streaming")
+    phase_done("streaming")
+
+    # 9. the standalone DMO depthwise conv through its entry point
     from repro_torch.kernels import dmo_arena_dwconv as D
     from repro_torch.kernels import ops as TO
     gen = torch.Generator().manual_seed(0)
@@ -1032,7 +1231,7 @@ def main() -> int:
         + json.dumps(dmo["cases"]))
     phase_done("dmo_dwconv2d")
 
-    # 9. times
+    # 10. times
     walls = []
     c = slice_cps["resnet_50_v2"]
     w0 = X.synth_weights(c.graph, 0)
@@ -1089,25 +1288,40 @@ def main() -> int:
                                library=True),
         "flagship": kernel_times(torch, F, K, blk, cp, fw, fq),
     }
-    blk_walls = {}
+    per_st = {
+        "resnet_50_v2": kernel_times(
+            torch, F, K, stm, c, library=True,
+            only={"arena_stream_roll", "arena_stream_stage"}),
+        "flagship": kernel_times(torch, F, K, stm, cp, fw, fq,
+                                 only={"arena_stream_fused"}),
+    }
+    blk_walls, st_walls = {}, {}
     for label, reps, args in (("resnet_50_v2", 3, (in0, w0, None)),
                               ("flagship", 20, (fin, fw, fq))):
         bcp = blk_cps[label]
-        blk.execute(bcp, args[0], args[1], quant=args[2])
-        ws_ = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            blk.execute(bcp, args[0], args[1], quant=args[2])
-            torch.cuda.synchronize()
-            ws_.append(1e3 * (time.perf_counter() - t0))
-        blk_walls[label] = ws_
-        log(f"[time] {label} blocked execute(): median "
-            f"{statistics.median(ws_):.3f} ms over {reps}")
+        for ex_, walls_, name in ((blk, blk_walls, "blocked"),
+                                  (stm, st_walls, "streaming"),
+                                  (stm, st_walls, "streaming"),
+                                  (blk, blk_walls, "blocked")):
+            ex_.execute(bcp, args[0], args[1], quant=args[2])
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ex_.execute(bcp, args[0], args[1], quant=args[2])
+                torch.cuda.synchronize()
+                walls_.setdefault(label, []).append(
+                    1e3 * (time.perf_counter() - t0))
+        for name, walls_ in (("blocked", blk_walls),
+                             ("streaming", st_walls)):
+            log(f"[time] {label} {name} execute(): median "
+                f"{statistics.median(walls_[label]):.3f} ms over "
+                f"{len(walls_[label])} (in turns: blocked, streaming, "
+                f"streaming, blocked)")
     phase_done("times")
 
     rows = []
-    for name, (source, replaces) in KERNELS.items():
+    for name in PROGRAM_KERNELS:
+        source, replaces = KERNELS[name]
         path = KERNEL_PATH[name]
         r = per[path][name]
         check(r["launches"] == paths[path][name],
@@ -1123,7 +1337,8 @@ def main() -> int:
             # int8 has no single PyTorch call (int32 accumulation plus
             # requantisation); the fused chain has none either
             "library_ms": r["library_ms"]})
-    for name, (source, replaces) in KERNELS.items():
+    for name in PROGRAM_KERNELS:
+        source = KERNELS[name][0]
         path = BLOCK_KERNEL_PATH[name]
         r = per_blk[path][name]
         check(r["launches"] == blk_paths[path][name],
@@ -1135,6 +1350,22 @@ def main() -> int:
             "launches": blk_paths[path][name],
             "max_abs_err": blk_errs[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    for name, path in STREAM_KERNEL_PATH.items():
+        source, replaces = KERNELS[name]
+        r = per_st[path][name]
+        check(r["launches"] == st_paths[path][name],
+              f"{name}: {r['launches']} specs timed, "
+              f"{st_paths[path][name]} launched")
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "path": f"{path} streaming",
+            "launches": st_paths[path][name],
+            "max_abs_err": st_errs[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            # the bound is the op's own work (spec_cost without its
+            # window); the staging copies are the program's overhead
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
     rows.append({
@@ -1152,8 +1383,13 @@ def main() -> int:
                  for path, p in per_blk.items()}
     for path, p in times.items():
         log(f"[time] per {path} forward (ms): " + json.dumps(p))
+    times_st = {path: {name: {k: v for k, v in r.items() if k != "specs"}
+                       for name, r in p.items()}
+                for path, p in per_st.items()}
     for path, p in times_blk.items():
         log(f"[time] per {path} blocked forward (ms): " + json.dumps(p))
+    for path, p in times_st.items():
+        log(f"[time] per {path} streaming forward (ms): " + json.dumps(p))
     out = ROOT / "build"
     out.mkdir(parents=True, exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -1164,6 +1400,9 @@ def main() -> int:
          "blocks": {"graphs": blk_rows, "times": times_blk,
                     "launches": blk_paths, "errors": blk_errs,
                     "walls_ms": blk_walls},
+         "streaming": {"graphs": st_rows, "times": times_st,
+                       "launches": st_paths, "errors": st_errs,
+                       "walls_ms": st_walls},
          "dmo_dwconv2d": dmo,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},

@@ -1,0 +1,57 @@
+#!/usr/bin/env python3
+"""Time the port's row kernels (``arena_conv``, ``arena_pool`` and the
+streaming program's ``arena_stream_roll``) on the card for one source
+tree, to compare two commits inside one call.
+
+Usage, on a machine with an NVIDIA card, from the root of a checkout::
+
+    python3 scripts/torch_ab_row_kernels.py <root of the tree to time>
+
+It builds that tree's kernels (into its own ``build/repro_torch/``),
+compiles ``resnet_50_v2`` f32 (``zoo.resnet50_v2(224, 4)``) and prints one
+JSON line: the device ms of each kernel per forward, summed over its
+launches (CUDA events, ``chip_smoke.kernel_times``), on the flat, the
+row-blocked and the streaming program. Run it on the two trees in turns (parent, change,
+change, parent) within one call: times from two calls may come from two
+cards.
+"""
+import importlib.util
+import json
+import pathlib
+import sys
+
+
+def main() -> int:
+    root = pathlib.Path(sys.argv[1]).resolve()
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        print("no CUDA device is visible", file=sys.stderr)
+        return 2
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from repro_torch.core import exec as X
+    from repro_torch.core import zoo
+    from repro_torch.core.pipeline import compile
+    from repro_torch.kernels import arena_ops as K
+    from repro_torch.kernels import build
+    build.load()
+    cp = compile(zoo.resnet50_v2(224, 4), backend="numpy")
+    out = {"root": str(root), "card": torch.cuda.get_device_name(0)}
+    for program, kw in (("flat", {"layout": "flat"}),
+                        ("blocks", {"layout": "blocks"}),
+                        ("streaming", {"mode": "streaming"})):
+        ex = X.get_backend("cuda", **kw)
+        per = cs.kernel_times(torch, F, K, ex, cp, plain_too=False,
+                              only={"arena_conv", "arena_pool",
+                                    "arena_stream_roll"})
+        out[program] = {k: v["ms"] for k, v in per.items()}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

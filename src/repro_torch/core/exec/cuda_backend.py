@@ -2,7 +2,7 @@
 arena programs and run it in ONE device tensor through hand-written sm_90a
 kernels.
 
-The counterpart of the reference's Pallas backend, with two of its three
+The counterpart of the reference's Pallas backend, with its three
 programs:
 
 - **flat** (``layout="flat"``, the default): the arena is a 1-D uint8
@@ -19,13 +19,23 @@ programs:
   addressing differs. ``layout="auto"`` runs it where the plan legalises
   and the flat program elsewhere (mixed dtypes, aggregated views), as the
   reference does; ``"blocks"`` raises there.
+- **streaming** (``mode="streaming"``): the row-blocked arena and plan,
+  but each op copies only its live window
+  (:meth:`~repro_torch.core.planner.BlockPlan.window_schedule`) into a
+  staging buffer (shared memory where it fits, else a global workspace),
+  runs there and copies its output back (:meth:`CudaExecutor.lower_stream`
+  grafts the windows onto the blocked specs). Its final arena is bit-equal
+  to the row-blocked program's. It requires a row-blocked plan, and as in
+  the reference it refuses a plan whose largest resident window exceeds
+  the budget (``vmem_budget``, else ``REPRO_DMO_VMEM_BUDGET``, else
+  :data:`DEFAULT_VMEM_BUDGET`), so both packages admit the same graphs.
 
 Each lowered :class:`~repro_torch.kernels.arena_ops.OpSpec` runs in place
 through its kernel wrapper in :mod:`repro_torch.kernels.arena_ops`. A
 fused band chain lowers to one spec and one launch whose chain-internal
 tensors live in the kernel's scratch, never in the arena. The reference's
-streaming program is not ported yet (``mode="streaming"`` raises); its VMEM
-gates have no counterpart here, since the arena lives in device memory.
+compiled-mode gate (the whole arena in VMEM) has no counterpart here,
+since the arena lives in device memory.
 
 Device: the executor runs on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel wrapper runs its plain PyTorch
@@ -35,6 +45,8 @@ CUDA route falls back to a plain version.
 from __future__ import annotations
 
 import collections
+import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -138,33 +150,46 @@ _CACHE_DESCS = 512
 #: The arena programs ``layout`` selects (the reference's meaning).
 LAYOUTS = ("flat", "blocks", "auto")
 
+#: Budget of the streaming gate when neither the constructor nor the
+#: REPRO_DMO_VMEM_BUDGET env var names one (bytes; the reference's value,
+#: so both packages admit the same graphs).
+DEFAULT_VMEM_BUDGET = 16 * 1024 * 1024
+
 
 class CudaExecutor:
     """The ``cuda`` :class:`~repro_torch.core.exec.ArenaExecutor` backend.
 
     ``device``: None (the card; raises without one), ``"cuda"``/``"cuda:N"``
     or ``"cpu"`` (every kernel's plain PyTorch version). ``layout``:
-    ``"flat"`` (default; the arena is exactly the planner's peak),
-    ``"blocks"`` (the row-blocked program; raises on a plan that cannot
-    legalise) or ``"auto"`` (blocked where the plan legalises, else flat).
-    ``mode="streaming"`` names the reference's third program, which is not
-    ported yet."""
+    ``"flat"`` (the default without a mode; the arena is exactly the
+    planner's peak), ``"blocks"`` (the row-blocked program; raises on a
+    plan that cannot legalise) or ``"auto"`` (blocked where the plan
+    legalises, else flat). ``mode="streaming"`` runs the streaming program
+    over the row-blocked layouts (``layout`` defaults to ``"auto"`` there,
+    and a plan that cannot legalise raises, as in the reference);
+    ``vmem_budget`` (bytes) is its gate."""
 
     name = "cuda"
 
-    def __init__(self, device=None, layout: str = "flat",
-                 mode: Optional[str] = None):
+    def __init__(self, device=None, layout: Optional[str] = None,
+                 mode: Optional[str] = None,
+                 vmem_budget: Optional[int] = None):
+        if mode is not None and mode != "streaming":
+            raise ValueError(f"unknown cuda mode {mode!r} (expected None or "
+                             "'streaming')")
+        if layout is None:
+            layout = "auto" if mode == "streaming" else "flat"
         if layout not in LAYOUTS:
             raise ValueError(f"unknown cuda layout {layout!r} (expected one "
                              f"of {LAYOUTS})")
-        if mode == "streaming":
-            raise NotImplementedError(
-                "mode='streaming' is ROADMAP queue 1: the streaming kernels "
-                "are the next slice")
-        if mode is not None:
-            raise ValueError(f"unknown cuda mode {mode!r}")
+        if mode == "streaming" and layout == "flat":
+            raise ValueError(
+                "streaming mode requires row-blocked layouts: the flat byte "
+                "arena has no arena rows to stream windows of")
         self.device = K.resolve_device(device)
         self.layout = layout
+        self.mode = mode
+        self.vmem_budget = vmem_budget
         #: (plan identity, route, quant identity) -> (plan, quant, bplan,
         #: spec tuple); values pin the keyed objects so the id() keys stay
         #: valid
@@ -185,6 +210,14 @@ class CudaExecutor:
     def lowering_cache_info(self) -> Dict[str, int]:
         return {"hits": self._cache_hits, "misses": self._cache_misses,
                 "size": len(self._lowered), "descriptors": len(self._descs)}
+
+    def _resolve_budget(self) -> int:
+        """The streaming gate's budget in bytes: the constructor's, else
+        the REPRO_DMO_VMEM_BUDGET env var, else the default."""
+        if self.vmem_budget is not None:
+            return int(self.vmem_budget)
+        env = os.environ.get("REPRO_DMO_VMEM_BUDGET", "").strip()
+        return int(env) if env else DEFAULT_VMEM_BUDGET
 
     # -- lowering -----------------------------------------------------------
 
@@ -363,7 +396,8 @@ class CudaExecutor:
         return tuple(specs)
 
     def _fused_block_spec(self, bplan: BlockPlan, members: List[Op],
-                          quant: Optional[X.QuantSpec]) -> K.OpSpec:
+                          quant: Optional[X.QuantSpec],
+                          window=None) -> K.OpSpec:
         """One row-blocked spec for a fused band chain. Chain-internal
         tensors live in scratch slots of whole rows
         (:func:`~repro_torch.core.planner.fused_slots` over the batched
@@ -371,7 +405,12 @@ class CudaExecutor:
         by :func:`~repro_torch.core.planner.chain_addr_of`'s geometry;
         external operands keep their arena blocks. Stages expand op-major
         (member-major, image-minor), the order the planner's liveness model
-        assumes."""
+        assumes. Given the chain's
+        :class:`~repro_torch.core.planner.OpWindow`, the streaming variant:
+        every operand, external inputs and the terminal output included,
+        gets an ``include_io`` scratch slot, so the stages run entirely in
+        the scratch; the inputs are copied in up front (``in_slots``) and
+        the output copied back once (``out_slot``)."""
         dtype = "i8" if bplan.dtype_bytes == 1 else "f32"
         L = bplan.arena_rowlen
         sub = bplan.tiling[0]
@@ -379,6 +418,7 @@ class CudaExecutor:
         B = cat.output.storage().batch
         internal = {op.output.storage() for op in members[:-1]}
         packed = bplan.packing == "packed"
+        streaming = window is not None
         irows_of = chain_image_rows_of(bplan)
         addr_of = chain_addr_of(bplan)
 
@@ -400,7 +440,8 @@ class CudaExecutor:
             c, k, rl = triple_of(s)
             return L if k > 1 else c * rl
 
-        slots, total = fused_slots(members, rows_of, round_to=sub)
+        slots, total = fused_slots(members, rows_of, round_to=sub,
+                                   include_io=streaming)
         for s in internal:
             if used_of(s) > L:
                 raise ValueError(f"scratch row of {s.name} wider than the "
@@ -410,7 +451,7 @@ class CudaExecutor:
             """(offset, (rows, used), scratch?) of one stage operand for
             image ``b``."""
             s = t.storage()
-            if s in internal:
+            if s in internal or streaming:
                 bb = b if s.batch > 1 else 0
                 return (slots[s] + bb * irows_of(s),
                         (irows_of(s), used_of(s)), 1)
@@ -445,7 +486,10 @@ class CudaExecutor:
                     **extra))
         ext = self._chain_ext_inputs(members, internal)
         out_lay = bplan.layout_of(cat.output)
-        return K.OpSpec(
+        # top-level I/O covers the whole batched block of each external
+        # operand (per-image sub-blocks are contiguous), so the streaming
+        # copies stay one per tensor
+        spec = K.OpSpec(
             kind="fused",
             in_off=tuple(bplan.layout_of(t).row_offset for t in ext),
             in_shape=tuple(tuple(t.shape) for t in ext),
@@ -459,14 +503,50 @@ class CudaExecutor:
             out_rows=(out_lay.rows, out_lay.rowlen),
             stages=tuple(stages),
             scratch_rows=total)
+        if streaming:
+            if window.win_rows != total:
+                raise ValueError(f"fused window/slot mismatch: "
+                                 f"{window.win_rows} vs {total}")
+            spec = dataclasses.replace(
+                spec, win_lo=window.lo, win_rows=window.win_rows,
+                in_slots=tuple(slots[t.storage()] for t in ext),
+                out_slot=slots[cat.output.storage()])
+        return spec
+
+    def lower_stream(self, bplan: BlockPlan,
+                     quant: Optional[X.QuantSpec] = None
+                     ) -> Tuple[K.OpSpec, ...]:
+        """BlockPlan -> streaming OpSpec sequence: the row-blocked specs
+        with each op's live-window statics grafted on from the planner's
+        :class:`~repro_torch.core.planner.WindowSchedule` (one window per
+        spec: both skip reshapes and emit one entry per fused chain and per
+        image), so ``win_rows > 0`` selects the streaming kernels. Fused
+        chains are lowered again in their streaming form."""
+        specs = self.lower_blocks(bplan, quant)
+        ws = bplan.window_schedule()
+        chains = _fused_chains(bplan.order)
+        if len(specs) != len(ws.windows):
+            raise ValueError(f"spec/window mismatch: {len(specs)} vs "
+                             f"{len(ws.windows)}")
+        out: List[K.OpSpec] = []
+        for s, w in zip(specs, ws.windows):
+            if s.kind == "fused":
+                out.append(self._fused_block_spec(
+                    bplan, chains[w.op_name], quant, window=w))
+            else:
+                out.append(dataclasses.replace(
+                    s, win_lo=w.lo, win_rows=w.win_rows,
+                    win_starts=w.starts))
+        return tuple(out)
 
     # -- execution ----------------------------------------------------------
 
     def legalised(self, plan: Plan) -> Optional[BlockPlan]:
         """The row-blocked legalisation this executor runs, or None for the
-        flat program: ``"flat"`` never legalises, ``"blocks"`` raises on a
-        plan that cannot be row-blocked (mixed dtype, aggregated views),
-        ``"auto"`` runs such a plan flat (the reference's ``_legalised``)."""
+        flat program: ``"flat"`` never legalises, ``"blocks"`` (and the
+        streaming mode) raise on a plan that cannot be row-blocked (mixed
+        dtype, aggregated views), ``"auto"`` runs such a plan flat (the
+        reference's ``_legalised``)."""
         if self.layout == "flat":
             return None
         if isinstance(plan, BlockPlan):
@@ -477,7 +557,7 @@ class CudaExecutor:
         try:
             bplan = legalise_for_blocks(plan)
         except ValueError:
-            if self.layout == "blocks":
+            if self.layout == "blocks" or self.mode == "streaming":
                 raise
             bplan = None
         self._legal[id(plan)] = (plan, bplan)
@@ -490,15 +570,20 @@ class CudaExecutor:
         """(the BlockPlan or None, the lowered specs), cached per plan,
         route and quantisation."""
         bplan = self.legalised(plan)
-        route = "blocks" if bplan is not None else "flat"
+        route = ("flat" if bplan is None else
+                 "stream" if self.mode == "streaming" else "blocks")
         key = (id(plan), route, id(quant) if quant is not None else None)
         cached = self._lowered.get(key)
         if cached is not None and cached[0] is plan and cached[1] is quant:
             self._cache_hits += 1
             return cached[2], cached[3]
         self._cache_misses += 1
-        specs = (self.lower_blocks(bplan, quant) if bplan is not None
-                 else self.lower(plan, quant))
+        if route == "stream":
+            specs = self.lower_stream(bplan, quant)
+        elif route == "blocks":
+            specs = self.lower_blocks(bplan, quant)
+        else:
+            specs = self.lower(plan, quant)
         self._lowered[key] = (plan, quant, bplan, specs)
         while len(self._lowered) > _CACHE_PLANS:
             self._lowered.popitem(last=False)
@@ -569,10 +654,11 @@ class CudaExecutor:
         """The lowered program of one execution, ready to run: ``(specs,
         per-spec device weights, descriptors, seeded arena)``. The arena is
         a fresh tensor on the executor's device with every model input in
-        place: flat, uint8 of exactly ``plan.peak_bytes``; row-blocked, a
-        typed ``(total_rows, arena_rowlen)`` tensor. Descriptors are None on
-        the CPU. Inputs, weights and quantisation default to the
-        deterministic per-seed synthesis every backend shares."""
+        place: flat, uint8 of exactly ``plan.peak_bytes``; row-blocked and
+        streaming, a typed ``(total_rows, arena_rowlen)`` tensor. A
+        streaming plan over the budget raises ValueError here. Descriptors
+        are None on the CPU. Inputs, weights and quantisation default to
+        the deterministic per-seed synthesis every backend shares."""
         plan, graph = unwrap_plan(plan_or_compiled)
         reason = X.executability(graph)
         if reason is not None:
@@ -598,6 +684,15 @@ class CudaExecutor:
                       else X.random_inputs(graph, seed))
 
         bplan, specs = self._specs(plan, quant)
+        if self.mode == "streaming":
+            budget = self._resolve_budget()
+            sched = bplan.window_schedule()
+            if sched.max_resident_bytes > budget:
+                raise ValueError(
+                    f"streaming window of {graph.name!r} does not fit "
+                    f"VMEM: peak resident {sched.max_resident_bytes} bytes "
+                    f"({sched.max_window_rows} live rows) exceeds the "
+                    f"{budget}-byte budget")
         ws = self._device_weights(plan, specs, weights, quant)
         descs = ([self._descriptor(s) for s in specs]
                  if self.device.type == "cuda" else [None] * len(specs))

@@ -724,15 +724,45 @@ class VerifyPass(Pass):
                 "verify: split-band execution matches the unsplit "
                 "reference" + (" (<= 1 LSB)" if quant else " (bit-exact)"))
         if opt.backend == "cuda":
-            # the flat byte program through the hand-written kernels, on the
-            # card (the default device of the cuda backend)
+            # the three arena programs through the hand-written kernels, on
+            # the card (the default device of the cuda backend): the flat
+            # byte program, the row-blocked one and the streaming one, each
+            # against the numpy arena semantics
             got_cu = X.get_backend("cuda").execute(
                 state.plan, inputs, weights, quant=quant)
             X.compare_outputs(got_np, got_cu, exact=False,
                               label="cuda flat vs numpy")
+            tiers = "flat"
+            try:
+                got_blk = X.get_backend("cuda", layout="blocks").execute(
+                    state.plan, inputs, weights, quant=quant)
+            except ValueError:
+                # mixed-dtype plans have no single-typed row-blocked arena
+                state.log.append("verify: row-blocked tier skipped "
+                                 "(plan not legalisable)")
+            else:
+                X.compare_outputs(got_np, got_blk, exact=False,
+                                  label="cuda row-blocked vs numpy")
+                tiers = "flat + row-blocked"
+                # streaming runs the same kernel bodies over staged live
+                # windows, so it must agree with the blocked program
+                # bit-for-bit, and with numpy to fp32 tolerance
+                try:
+                    got_st = X.get_backend("cuda", mode="streaming").execute(
+                        state.plan, inputs, weights, quant=quant)
+                except ValueError as e:
+                    # live window over the budget: a refusal, not a
+                    # verification failure
+                    state.log.append(f"verify: streaming tier skipped ({e})")
+                else:
+                    X.compare_outputs(got_blk, got_st, exact=True,
+                                      label="cuda streaming vs row-blocked")
+                    X.compare_outputs(got_np, got_st, exact=False,
+                                      label="cuda streaming vs numpy")
+                    tiers += " + streaming"
             state.verified = "numeric+cuda"
             state.log.append("verify: cuda arena execution matches numpy "
-                             "backend (flat)")
+                             f"backend ({tiers})")
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Arena kernels for Hopper: one wrapper per hand-written CUDA kernel, each
-beside its plain PyTorch version, over either of the reference's two
-in-place arena programs.
+beside its plain PyTorch version, over the reference's three in-place
+arena programs.
 
 - **Flat** (``OpSpec.rowlen == 0``): the arena is ONE ``torch.uint8``
   tensor of exactly the plan's peak bytes; every operand lives at a byte
@@ -14,6 +14,15 @@ in-place arena programs.
   arena row). In every addressing one image row is contiguous: packed
   rows sit at lane phase ``(iy % c) * rl`` of arena row ``iy // c``, a
   spanning row covers ``k`` consecutive arena rows.
+- **Streaming** (``win_rows > 0`` on top of ``rowlen > 0``): the same
+  typed arena, but each op copies only its live window (the planner's
+  ``WindowSchedule``) into a staging buffer, runs there, and copies its
+  output back. Three forms, each a kernel of its own: *rolling* (conv,
+  depthwise, pool with ``win_starts``: per output-row tile ``win_in``
+  arena rows from ``win_starts[t]`` and a one-tile output slot), *staged*
+  (every other kind: operand blocks packed by ``planner.staged_slots``)
+  and *fused* (a band chain whose inputs, internals and output all live in
+  its ``include_io`` scratch slots).
 
 Every lowered op (an :class:`OpSpec`) runs in place:
 
@@ -33,6 +42,11 @@ wrapper                         TPU kernel it replaces
 :func:`arena_fused_chain`       ``_fused_kernel`` with ``_RoutedFlatMem`` /
                                 ``_RoutedBlockMem`` (conv, depthwise, pool,
                                 elementwise and concat stages)
+:func:`arena_stream_roll`       ``_stream_roll_kernel`` with
+                                ``_StreamRollMem``
+:func:`arena_stream_stage`      ``_stream_stage_kernel`` with
+                                ``_StreamStageMem``
+:func:`arena_stream_fused`      ``_stream_fused_kernel``
 ==============================  =============================================
 
 and, for the row-blocked program, the reference's memory layer
@@ -46,15 +60,18 @@ launches the kernel (built from ``csrc/`` by :mod:`.build`) or raises. A
 CUDA arena never takes the plain route. Each launch adds one to
 :data:`LAUNCHES`.
 
-A kernel's row buffer, staging buffer and (fused chain) scratch live in
-dynamic shared memory when they fit one CTA and otherwise in a global
-workspace allocated once per spec and cached (:func:`buffer_plan`,
-:func:`workspace`); the descriptor tells the kernel where each is.
+A kernel's row buffer, staging buffer, (fused chain) scratch and
+(streaming) window and output slot live in dynamic shared memory when they
+fit one CTA and otherwise in a global workspace allocated once per spec and
+cached (:func:`buffer_plan`, :func:`workspace`); the descriptor tells the
+kernel where each is.
 
 The plain versions walk output rows in Python with torch ops on typed views
 of the arena, in the reference's order (every read of row ``oy`` before its
 store, rows ascending; whole-block ops read everything before writing), so
-they are exact on in-place and diagonally overlapped layouts. They store as
+they are exact on in-place and diagonally overlapped layouts. The
+streaming ones copy the window out of the arena, run the same bodies with
+the operands rebased to it, and copy the output back. They store as
 the reference does: a plain or spanning row store zeroes the rest of its
 arena rows, a packed one writes only its lane phase, and a whole-block op
 writes its whole padded ``(rows, rowlen)`` block, zeros in the padding.
@@ -83,10 +100,13 @@ class OpSpec:
     are byte offsets into the 1-D uint8 arena. ``rowlen > 0`` selects the
     row-blocked program over a typed ``(rows, rowlen)`` arena: offsets are
     arena rows, ``in_rows``/``out_rows`` the ``(rows, used)`` blocks and
-    ``in_addr``/``out_addr`` the packed addressing triples. The streaming
-    fields (``win_rows > 0``) are carried so specs stay comparable; that
-    program is not ported yet. A fused band chain (``kind == "fused"``)
-    carries its member ops as ``stages``; stage operands whose
+    ``in_addr``/``out_addr`` the packed addressing triples. ``win_rows >
+    0`` selects the streaming program: ``win_starts`` is the planner's
+    per-output-tile fetch start table of a rolling op (empty: a staged
+    whole-block op), ``win_lo`` the window's low edge (reporting only),
+    and a streaming chain's ``in_slots``/``out_slot`` the scratch rows of
+    its external inputs and terminal output. A fused band chain (``kind ==
+    "fused"``) carries its member ops as ``stages``; stage operands whose
     ``in_scratch``/``out_scratch`` flag is set address the chain's scratch
     buffer of ``scratch_rows`` bytes (flat) or rows (blocked)."""
 
@@ -122,7 +142,7 @@ ROW_KINDS = frozenset({"conv2d", "depthwise_conv2d", "pool"})
 #: Stage kinds the fused kernel runs (the planner's FUSABLE_KINDS).
 FUSED_STAGE_KINDS = frozenset(ROW_KINDS | {"elementwise", "concat"})
 
-#: The kernel that runs each lowered op kind.
+#: The kernel that runs each lowered op kind outside the streaming program.
 KERNEL_OF = {
     "conv2d": "arena_conv", "depthwise_conv2d": "arena_conv",
     "pool": "arena_pool", "elementwise": "arena_elementwise",
@@ -130,16 +150,38 @@ KERNEL_OF = {
     "mean": "arena_mean", "fully_connected": "arena_fully_connected",
     "softmax": "arena_softmax", "fused": "arena_fused_chain",
 }
+#: The kernel that runs each form of the streaming program
+#: (:func:`stream_form`); :func:`kernel_of` consults it first.
+STREAM_KERNEL_OF = {"roll": "arena_stream_roll",
+                    "stage": "arena_stream_stage",
+                    "fused": "arena_stream_fused"}
 
 #: Launches per kernel since :func:`reset_launches`; each wrapper adds one
 #: where it launches its kernel and nowhere else.
 LAUNCHES: Dict[str, int] = {name: 0 for name in dict.fromkeys(
-    KERNEL_OF.values())}
+    [*KERNEL_OF.values(), *STREAM_KERNEL_OF.values()])}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def stream_form(spec: "OpSpec") -> Optional[str]:
+    """The streaming form of a spec: ``"roll"`` (a fetch-start table),
+    ``"fused"`` (a band chain), ``"stage"`` (any other kind), or None
+    outside the streaming program."""
+    if not spec.win_rows:
+        return None
+    if spec.win_starts:
+        return "roll"
+    return "fused" if spec.kind == "fused" else "stage"
+
+
+def kernel_of(spec: "OpSpec") -> Optional[str]:
+    """The kernel that runs a lowered spec (None for an unknown kind)."""
+    form = stream_form(spec)
+    return STREAM_KERNEL_OF[form] if form else KERNEL_OF.get(spec.kind)
 
 
 def _elems(shape: Sequence[int]) -> int:
@@ -201,6 +243,19 @@ BUFFER_WORD = {"stage": 120, "row": 122, "scratch": 124}
 #: Operand addressing: slot 0 is the output, slot 1 + i input i, each
 #: ADDR_WORDS words (L, c, k, rl, used, nblk) from D_ADDR on.
 D_ADDR, ADDR_WORDS = 128, 6
+#: A streaming descriptor's stream block (the S_* words of
+#: csrc/arena_common.cuh), then the body's descriptor at word S_BODY: the
+#: window's and the rolling slot's placement, bytes per arena row, the
+#: copy out, the rolling statics, and from S_COPY0 two lists of any
+#: length: S_NCOPY copies in (arena row, window row, rows), then S_T
+#: fetch starts.
+(S_WIN_G, S_WIN_OFF, S_SLOT_G, S_SLOT_OFF, S_ROWB, S_BODY, S_NCOPY,
+ S_OUT_WIN, S_OUT_ROW, S_OUT_ROWS, S_IN_ROW, S_WIN_IN, S_TR, S_T,
+ S_OH) = range(15)
+S_COPY0 = 16
+#: Shared memory a streaming launch leaves to static shared arrays (the
+#: staged softmax's block reduction).
+STREAM_STATIC_SMEM = 1024
 
 
 def _fbits(x: float) -> int:
@@ -208,11 +263,86 @@ def _fbits(x: float) -> int:
     return struct.unpack("<i", struct.pack("<f", float(np.float32(x))))[0]
 
 
-def _check_program(spec: OpSpec) -> None:
-    if spec.win_rows:
-        raise NotImplementedError(
-            f"{spec.kind}: the streaming program (win_rows > 0) is ROADMAP "
-            "queue 1, the next slice; the flat and row-blocked programs run")
+def _sub(dtype: str) -> int:
+    """Sublane tile rows of the arena tier (the planner's TPU tiles)."""
+    return 32 if dtype == "i8" else 8
+
+
+def _tile_geom(spec: OpSpec) -> Tuple[int, int]:
+    """(image rows, sublane-rounded arena rows) of one rolling output tile,
+    as the reference's ``_tile_geom`` and ``planner.tile_rows``/
+    ``tile_arena_rows`` give them (``out_tile`` 0: one sublane tile)."""
+    sub = _sub(spec.dtype)
+    tr = spec.out_tile or sub
+    c, k, _ = _triple(spec, None)
+    ar = (tr - 1) // c + 1 if c > 1 else tr * k
+    return tr, _round_up(ar, sub)
+
+
+def _tile_rows(spec: OpSpec, y0: int, y1: int) -> Tuple[int, int]:
+    """Output arena rows ``[a0, a1)`` (operand-relative) that image rows
+    ``[y0, y1)`` occupy."""
+    c, k, _ = _triple(spec, None)
+    if c > 1:
+        return y0 // c, (y1 - 1) // c + 1
+    return y0 * k, y1 * k
+
+
+def _staged(spec: OpSpec) -> Tuple[Tuple[int, ...], int, int]:
+    """A staged op's window slots: (input slot rows, output slot row,
+    window rows), from the planner's one packing."""
+    from repro_torch.core.planner import staged_slots
+    offs, out_slot, total = staged_slots([r for r, _ in spec.in_rows],
+                                         spec.out_rows[0], _sub(spec.dtype))
+    return offs, out_slot, max(total, spec.win_rows)
+
+
+def _stream_body(spec: OpSpec) -> OpSpec:
+    """The spec a streaming kernel's body runs: the window fields cleared;
+    a staged op's operands rebased to their window slots; a streaming
+    chain's scratch grown to its window (all its operands live there)."""
+    form = stream_form(spec)
+    body = dataclasses.replace(spec, win_lo=0, win_rows=0, win_starts=(),
+                               in_slots=(), out_slot=0)
+    if form == "stage":
+        offs, out_slot, _ = _staged(spec)
+        body = dataclasses.replace(body, in_off=offs, out_off=out_slot)
+    elif form == "fused":
+        body = dataclasses.replace(
+            body, scratch_rows=max(spec.scratch_rows, spec.win_rows))
+    return body
+
+
+def _check_stream(spec: OpSpec, rows: int) -> None:
+    """Raise ValueError on a streaming spec its kernel cannot run over an
+    arena of ``rows`` rows: not row-blocked, a rolling op that is not a
+    one-input row kind, a fetch-start table of the wrong length or
+    fetching past the arena, a staged row kind, too many copies."""
+    form = stream_form(spec)
+    if not spec.rowlen:
+        raise ValueError("the streaming program runs row-blocked specs "
+                         "(rowlen > 0)")
+    if form == "roll":
+        if spec.kind not in ROW_KINDS or len(spec.in_off) != 1:
+            raise ValueError(f"{spec.kind}: a rolling window needs a "
+                             "one-input conv, depthwise or pool")
+        tr, tile_ar = _tile_geom(spec)
+        win_in = spec.win_rows - tile_ar
+        oh = spec.out_shape[-3]
+        if win_in <= 0 or len(spec.win_starts) != -(-oh // tr):
+            raise ValueError(
+                f"{spec.kind}: {len(spec.win_starts)} fetch starts and a "
+                f"{win_in}-row window for {oh} output rows in tiles of {tr}")
+        if not all(0 <= s <= rows - win_in for s in spec.win_starts):
+            raise ValueError(f"{spec.kind}: a fetch of {win_in} rows from "
+                             f"{spec.win_starts} leaves the {rows}-row "
+                             "arena")
+        return
+    if form == "stage" and spec.kind in ROW_KINDS:
+        raise ValueError(f"{spec.kind}: a row kind streams through a "
+                         "rolling window (win_starts)")
+    if form == "fused" and len(spec.in_slots) != len(spec.in_off):
+        raise ValueError("a streaming chain needs one slot per input")
 
 
 def _triple(spec: OpSpec, i: Optional[int]) -> Tuple[int, int, int]:
@@ -441,7 +571,20 @@ def _row_bytes(spec: OpSpec) -> int:
 
 def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
     """Buffers the spec's kernel needs, in the order they claim shared
-    memory."""
+    memory. A streaming op adds its window (a rolling op also its output
+    slot); a streaming chain's window is its scratch."""
+    form = stream_form(spec)
+    if form == "roll":
+        rowb = spec.rowlen * _isz(spec.dtype)
+        _, tile_ar = _tile_geom(spec)
+        return (("win", (spec.win_rows - tile_ar) * rowb),
+                ("row", _row_bytes(spec)), ("slot", tile_ar * rowb))
+    if form == "stage":
+        rowb = spec.rowlen * _isz(spec.dtype)
+        return (("win", _staged(spec)[2] * rowb),) + _buffer_needs(
+            _stream_body(spec))
+    if form == "fused":
+        return _buffer_needs(_stream_body(spec))
     k = spec.kind
     if k in ROW_KINDS:
         return (("row", _row_bytes(spec)),)
@@ -464,13 +607,15 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
 @functools.lru_cache(maxsize=1024)
 def buffer_plan(spec: OpSpec) -> BufferPlan:
     """Each buffer takes dynamic shared memory (16-byte aligned) when it
-    fits beside the ones before it within :data:`SMEM_LIMIT`, else the
-    global workspace."""
+    fits beside the ones before it within :data:`SMEM_LIMIT` (less
+    :data:`STREAM_STATIC_SMEM` for a streaming launch), else the global
+    workspace."""
     smem = gbytes = 0
     parts = []
+    limit = SMEM_LIMIT - (STREAM_STATIC_SMEM if spec.win_rows else 0)
     for name, n in _buffer_needs(spec):
         n = _round_up(n, 16)
-        if smem + n <= SMEM_LIMIT:
+        if smem + n <= limit:
             parts.append((name, False, smem))
             smem += n
         else:
@@ -517,8 +662,48 @@ def weight_offsets(spec: OpSpec) -> Tuple[Tuple[Optional[int], ...], int]:
 def descriptor_words(spec: OpSpec) -> np.ndarray:
     """The int32 descriptor of a lowered spec: one op's words, or for a
     fused chain a header (word 0 = stage count) and then every stage's.
-    The op's words, or the header, carry the buffer placement."""
-    _check_program(spec)
+    The op's words, or the header, carry the buffer placement. A streaming
+    spec's descriptor is its stream block, then its body's descriptor."""
+    bp = buffer_plan(spec)
+    if not spec.win_rows:
+        return _body_words(spec, bp)
+    body = _body_words(_stream_body(spec), bp)
+    return np.concatenate([_stream_words(spec, bp), body])
+
+
+def _stream_words(spec: OpSpec, bp: BufferPlan) -> np.ndarray:
+    """A streaming spec's stream block (see :data:`S_COPY0`), padded to
+    whole 32-word groups; the body's descriptor follows it."""
+    form = stream_form(spec)
+    place = {name: (int(glob), off) for name, glob, off in bp.parts}
+    w = [0] * S_COPY0
+    w[S_WIN_G:S_WIN_OFF + 1] = place["scratch" if form == "fused" else "win"]
+    w[S_ROWB] = spec.rowlen * _isz(spec.dtype)
+    if form == "roll":
+        w[S_SLOT_G:S_SLOT_OFF + 1] = place["slot"]
+        tr, tile_ar = _tile_geom(spec)
+        w[S_IN_ROW], w[S_OUT_ROW] = spec.in_off[0], spec.out_off
+        w[S_WIN_IN], w[S_TR] = spec.win_rows - tile_ar, tr
+        w[S_T], w[S_OH] = len(spec.win_starts), spec.out_shape[-3]
+        w += spec.win_starts
+    else:
+        if form == "stage":
+            slots, out_slot, _ = _staged(spec)
+        else:
+            slots, out_slot = spec.in_slots, spec.out_slot
+        w[S_NCOPY] = len(slots)
+        for off, slot, (rows, _) in zip(spec.in_off, slots, spec.in_rows):
+            w += (off, slot, rows)
+        w[S_OUT_WIN], w[S_OUT_ROW], w[S_OUT_ROWS] = \
+            out_slot, spec.out_off, spec.out_rows[0]
+    w += [0] * (_round_up(len(w), 32) - len(w))
+    w[S_BODY] = len(w)
+    return np.asarray(w, np.int32)
+
+
+def _body_words(spec: OpSpec, bp: BufferPlan) -> np.ndarray:
+    """One op's or one fused chain's descriptor, with the buffer placement
+    words of ``bp``."""
     if spec.kind == "fused":
         offs, _ = weight_offsets(spec)
         head = [0] * DESC_WORDS
@@ -532,8 +717,9 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
     else:
         head = _op_words(spec)
         words = [head]
-    for name, glob, off in buffer_plan(spec).parts:
-        head[BUFFER_WORD[name]:BUFFER_WORD[name] + 2] = (int(glob), off)
+    for name, glob, off in bp.parts:
+        if name in BUFFER_WORD:
+            head[BUFFER_WORD[name]:BUFFER_WORD[name] + 2] = (int(glob), off)
     return np.asarray([x for ws in words for x in ws], np.int32)
 
 
@@ -705,22 +891,58 @@ def _mem(arena: torch.Tensor, spec: OpSpec,
     return (_BlockMem if spec.rowlen else _FlatMem)(arena, spec, scratch)
 
 
+class _WindowMem(_BlockMem):
+    """One output-row tile of a rolling streaming op (the reference's
+    ``_StreamRollMem``): input arena row ``r`` is read at row ``r - base``
+    of the fetched window, clamped into it as the reference's dynamic slice
+    clamps; output arena row ``r`` of the operand is stored at row ``r -
+    a0`` of the tile's output slot."""
+
+    def __init__(self, win: torch.Tensor, slot: torch.Tensor, spec: OpSpec,
+                 base: int, a0: int):
+        super().__init__(slot, spec)
+        self.win, self.base, self.a0 = win, base, a0
+
+    def read_row(self, i: int, iy: int) -> torch.Tensor:
+        c, k, rl = _triple(self.spec, i)
+        n = _elems(self.spec.in_shape[i][-2:])
+        span = 1 if c > 1 else k
+        r = self.spec.in_off[i] - self.base + (iy // c if c > 1 else iy * k)
+        r = min(max(r, 0), self.win.shape[0] - span)
+        if c > 1:
+            phase = (iy % c) * rl
+            return self.win[r, phase:phase + n]
+        return self.win[r:r + span].reshape(-1)[:n]
+
+    def write_row(self, oy: int, y: torch.Tensor) -> None:
+        row, span = self._row_slice(self.arena, -self.a0, oy,
+                                    _triple(self.spec, None), y.numel())
+        row.copy_(y.reshape(-1))
+        span[y.numel():] = 0
+
+
 def conv_plain(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
                scratch: Optional[torch.Tensor] = None) -> None:
     """conv2d / depthwise, rows ascending, each row's taps read before its
     store; taps at ``iy = oy*sh - ph + fy*dh`` outside the input count
     zero (after the zero-point shift in int8)."""
+    _conv_rows(_mem(arena, spec, scratch), spec, w,
+               range(spec.out_shape[-3]), arena.device)
+
+
+def _conv_rows(mem: _FlatMem, spec: OpSpec, w: torch.Tensor, rows,
+               dev: torch.device) -> None:
+    """conv_plain's output rows ``rows`` through the accessor ``mem``."""
     ih, iw, ic, oh, ow, oc = _row_geometry(spec)
     kh, kw, sh, sw, dh, dw, ph, pw, mult = spec.meta
     q = spec.dtype == "i8"
-    mem = _mem(arena, spec, scratch)
     wt = w.to(torch.int32) if q else w
     if q:
         x_zp, amult, y_zp = spec.qmeta
-    cols = torch.arange(ow, device=arena.device)
-    for oy in range(oh):
+    cols = torch.arange(ow, device=dev)
+    for oy in rows:
         acc = torch.zeros((ow, oc), dtype=torch.int32 if q else torch.float32,
-                          device=arena.device)
+                          device=dev)
         for fy in range(kh):
             iy = oy * sh - ph + fy * dh
             if not 0 <= iy < ih:
@@ -749,14 +971,18 @@ def pool_plain(arena: torch.Tensor, spec: OpSpec,
     """max pool (mode "max") or average pool (any other mode, as in the
     reference), rows ascending like conv; avg divides by the valid taps;
     ``ph``/``pw`` are the leading pads (TF SAME pads unevenly)."""
+    _pool_rows(_mem(arena, spec, scratch), spec, range(spec.out_shape[-3]),
+               arena.device)
+
+
+def _pool_rows(mem: _FlatMem, spec: OpSpec, rows, dev: torch.device) -> None:
+    """pool_plain's output rows ``rows`` through the accessor ``mem``."""
     ih, iw, c, oh, ow, _ = _row_geometry(spec)
     kh, kw, sh, sw, ph, pw, mode = spec.meta
     is_max = mode == "max"
     q = spec.dtype == "i8"
-    mem = _mem(arena, spec, scratch)
-    dev = arena.device
     cols = torch.arange(ow, device=dev)
-    for oy in range(oh):
+    for oy in rows:
         if q:
             acc = torch.full((ow, c), -2147483647 if is_max else 0,
                              dtype=torch.int32, device=dev)
@@ -927,7 +1153,11 @@ def fused_chain_plain(arena: torch.Tensor, spec: OpSpec,
                       wblob: torch.Tensor) -> None:
     """Every stage in order against the arena and a scratch buffer; stage
     filters come from the packed blob (:func:`pack_weights`)."""
-    scratch = _scratch(spec, arena.device)
+    _run_stages(arena, spec, wblob, _scratch(spec, arena.device))
+
+
+def _run_stages(arena: torch.Tensor, spec: OpSpec, wblob: torch.Tensor,
+                scratch: torch.Tensor) -> None:
     offs, _ = weight_offsets(spec)
     for st, off in zip(spec.stages, offs):
         if st.kind == "concat":
@@ -943,10 +1173,72 @@ def fused_chain_plain(arena: torch.Tensor, spec: OpSpec,
             conv_plain(arena, st, w, scratch)
 
 
+def stream_roll_plain(arena: torch.Tensor, spec: OpSpec,
+                      w: Optional[torch.Tensor] = None) -> None:
+    """A rolling streaming conv, depthwise or pool: per output-row tile
+    ``t``, ``win_in`` arena rows from ``win_starts[t]`` are copied into a
+    window and the tile's output arena rows into a slot, the tile's rows
+    ``[t*tr, min((t+1)*tr, oh))`` are computed from the window into the
+    slot, and the slot is copied back; tiles ascending."""
+    _check_stream(spec, arena.shape[0])
+    body = _stream_body(spec)
+    tr, tile_ar = _tile_geom(spec)
+    win_in = spec.win_rows - tile_ar
+    oh = spec.out_shape[-3]
+    for t, start in enumerate(spec.win_starts):
+        y0, y1 = t * tr, min((t + 1) * tr, oh)
+        a0, a1 = _tile_rows(spec, y0, y1)
+        dst = slice(spec.out_off + a0, spec.out_off + a1)
+        mem = _WindowMem(arena[start:start + win_in].clone(),
+                         arena[dst].clone(), body, start, a0)
+        if spec.kind == "pool":
+            _pool_rows(mem, body, range(y0, y1), arena.device)
+        else:
+            _conv_rows(mem, body, w, range(y0, y1), arena.device)
+        arena[dst] = mem.arena
+
+
+def stream_stage_plain(arena: torch.Tensor, spec: OpSpec,
+                       w: Optional[torch.Tensor] = None) -> None:
+    """A staged streaming op: every operand block copied into its window
+    slot (:func:`~repro_torch.core.planner.staged_slots`), the op's plain
+    version run on the window, the output block copied back."""
+    _check_stream(spec, arena.shape[0])
+    offs, out_slot, total = _staged(spec)
+    win = torch.zeros((total, spec.rowlen), dtype=arena.dtype,
+                      device=arena.device)
+    for off, slot, (rows, _) in zip(spec.in_off, offs, spec.in_rows):
+        win[slot:slot + rows] = arena[off:off + rows]
+    apply_plain(win, _stream_body(spec), w)
+    rows = spec.out_rows[0]
+    arena[spec.out_off:spec.out_off + rows] = win[out_slot:out_slot + rows]
+
+
+def stream_fused_plain(arena: torch.Tensor, spec: OpSpec,
+                       wblob: torch.Tensor) -> None:
+    """A streaming band chain: the external input blocks copied into their
+    scratch slots (``in_slots``), every stage run inside the scratch, the
+    terminal output block (``out_slot``) copied back."""
+    _check_stream(spec, arena.shape[0])
+    body = _stream_body(spec)
+    scratch = _scratch(body, arena.device)
+    for off, slot, (rows, _) in zip(spec.in_off, spec.in_slots,
+                                    spec.in_rows):
+        scratch[slot:slot + rows] = arena[off:off + rows]
+    _run_stages(scratch, body, wblob, scratch)
+    rows = spec.out_rows[0]
+    arena[spec.out_off:spec.out_off + rows] = \
+        scratch[spec.out_slot:spec.out_slot + rows]
+
+
 def apply_plain(arena: torch.Tensor, spec: OpSpec,
                 w: Optional[torch.Tensor] = None) -> None:
     """The plain version of any lowered spec, on the arena's device (the
     yardstick the card's kernels are held against)."""
+    form = stream_form(spec)
+    if form is not None:
+        _STREAM_PLAIN[form](arena, spec, w)
+        return
     k = spec.kind
     if k in ("conv2d", "depthwise_conv2d"):
         conv_plain(arena, spec, w)
@@ -964,6 +1256,8 @@ _UNWEIGHTED_PLAIN = {"pool": pool_plain, "elementwise": elementwise_plain,
                      "matmul": matmul_plain, "pad": pad_plain,
                      "concat": concat_plain, "mean": mean_plain,
                      "softmax": softmax_plain}
+_STREAM_PLAIN = {"roll": stream_roll_plain, "stage": stream_stage_plain,
+                 "fused": stream_fused_plain}
 
 
 # ---------------------------------------------------------------------------
@@ -976,9 +1270,9 @@ def _on_card(arena: torch.Tensor, spec: OpSpec, *tensors) -> bool:
     """Check the operands; True when the kernel must launch (CUDA arena),
     False for the plain version (CPU arena). The flat program takes a
     contiguous 1-D uint8 arena, the row-blocked one a contiguous typed
-    ``(rows, spec.rowlen)`` arena of the spec's tier."""
-    _check_program(spec)
-    if not spec.rowlen:
+    ``(rows, spec.rowlen)`` arena of the spec's tier; a streaming spec
+    must also fit that arena (:func:`_check_stream`)."""
+    if not spec.rowlen and not spec.win_rows:
         if arena.dtype != torch.uint8 or arena.dim() != 1 \
                 or not arena.is_contiguous():
             raise ValueError("the flat arena must be a contiguous 1-D uint8 "
@@ -989,6 +1283,8 @@ def _on_card(arena: torch.Tensor, spec: OpSpec, *tensors) -> bool:
             f"the row-blocked arena must be a contiguous (rows, "
             f"{spec.rowlen}) {_TORCH_DTYPE[spec.dtype]} tensor, got "
             f"{tuple(arena.shape)} {arena.dtype}")
+    if spec.win_rows:
+        _check_stream(spec, arena.shape[0])
     if arena.numel() * arena.element_size() >= 2 ** 31:
         raise ValueError("arena offsets are int32 in the kernels")
     for t in tensors:
@@ -1025,8 +1321,11 @@ def resolve_device(device) -> torch.device:
 
 
 def _expect(spec: OpSpec, name: str) -> None:
-    if KERNEL_OF.get(spec.kind) != name:
-        raise ValueError(f"{name} cannot run {spec.kind!r}")
+    if kernel_of(spec) != name:
+        form = stream_form(spec)
+        raise ValueError(f"{name} cannot run {spec.kind!r}"
+                         + (f" in the streaming program ({form})" if form
+                            else ""))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -1144,11 +1443,7 @@ def arena_softmax(arena: torch.Tensor, spec: OpSpec,
     _launch("arena_softmax", arena, spec, None, desc)
 
 
-def arena_fused_chain(arena: torch.Tensor, spec: OpSpec, wblob: torch.Tensor,
-                      desc: Optional[torch.Tensor] = None) -> None:
-    """A fused band chain in one launch; ``wblob`` is
-    :func:`pack_weights`' blob of the stage filters."""
-    _expect(spec, "arena_fused_chain")
+def _check_chain(spec: OpSpec, wblob: torch.Tensor) -> None:
     if wblob is None or wblob.dtype != torch.uint8 or \
             wblob.numel() != weight_offsets(spec)[1]:
         raise ValueError("wblob must be the chain's packed uint8 filters")
@@ -1158,23 +1453,80 @@ def arena_fused_chain(arena: torch.Tensor, spec: OpSpec, wblob: torch.Tensor,
                 f"fused stage kind {st.kind!r} has no CUDA routine")
         if st.kind == "elementwise":
             _ew_broadcast(st)
+
+
+def arena_fused_chain(arena: torch.Tensor, spec: OpSpec, wblob: torch.Tensor,
+                      desc: Optional[torch.Tensor] = None) -> None:
+    """A fused band chain in one launch; ``wblob`` is
+    :func:`pack_weights`' blob of the stage filters."""
+    _expect(spec, "arena_fused_chain")
+    _check_chain(spec, wblob)
     if not _on_card(arena, spec, wblob):
         fused_chain_plain(arena, spec, wblob)
         return
     _launch("arena_fused_chain", arena, spec, wblob, desc)
 
 
+def arena_stream_roll(arena: torch.Tensor, spec: OpSpec,
+                      w: Optional[torch.Tensor] = None,
+                      desc: Optional[torch.Tensor] = None) -> None:
+    """A conv2d, depthwise or pool of the streaming program, tile by tile
+    through its rolling window (``w``: the filter; None for pool)."""
+    _expect(spec, "arena_stream_roll")
+    if spec.kind != "pool":
+        _check_weight(spec, w)
+    if not _on_card(arena, spec, w):
+        stream_roll_plain(arena, spec, w)
+        return
+    _launch("arena_stream_roll", arena, spec, w, desc)
+
+
+def arena_stream_stage(arena: torch.Tensor, spec: OpSpec,
+                       w: Optional[torch.Tensor] = None,
+                       desc: Optional[torch.Tensor] = None) -> None:
+    """A whole-block op of the streaming program on its staged window
+    (``w``: a fully connected op's filter)."""
+    _expect(spec, "arena_stream_stage")
+    if spec.kind == "fully_connected":
+        _check_weight(spec, w)
+    if not _on_card(arena, spec, w):
+        stream_stage_plain(arena, spec, w)
+        return
+    _launch("arena_stream_stage", arena, spec, w, desc)
+
+
+def arena_stream_fused(arena: torch.Tensor, spec: OpSpec,
+                       wblob: torch.Tensor,
+                       desc: Optional[torch.Tensor] = None) -> None:
+    """A fused band chain of the streaming program, every stage inside its
+    scratch; ``wblob`` is :func:`pack_weights`' blob of the stage
+    filters."""
+    _expect(spec, "arena_stream_fused")
+    _check_chain(spec, wblob)
+    if not _on_card(arena, spec, wblob):
+        stream_fused_plain(arena, spec, wblob)
+        return
+    _launch("arena_stream_fused", arena, spec, wblob, desc)
+
+
 _WRAPPERS = {"pool": arena_pool, "elementwise": arena_elementwise,
              "matmul": arena_matmul, "pad": arena_pad,
              "concat": arena_concat, "mean": arena_mean,
              "softmax": arena_softmax}
+_STREAM_WRAPPERS = {"roll": arena_stream_roll, "stage": arena_stream_stage,
+                    "fused": arena_stream_fused}
 
 
 def apply_op(arena: torch.Tensor, spec: OpSpec,
              w: Optional[torch.Tensor] = None,
              desc: Optional[torch.Tensor] = None) -> None:
     """Run one lowered op in place on the arena through its wrapper. ``w``
-    is the filter of a weighted op, or a fused chain's packed blob."""
+    is the filter of a weighted op, or a fused chain's packed blob. A
+    streaming spec (``win_rows > 0``) goes to its form's wrapper."""
+    form = stream_form(spec)
+    if form is not None:
+        _STREAM_WRAPPERS[form](arena, spec, w, desc)
+        return
     k = spec.kind
     if k in ("conv2d", "depthwise_conv2d"):
         arena_conv(arena, spec, w, desc)

@@ -1,5 +1,7 @@
-// Shared device code of the arena kernels (sm_90a), for both of the
-// reference's in-place arena programs.
+// Shared device code of the arena kernels (sm_90a), for the reference's
+// three in-place arena programs: flat, row-blocked and streaming (the
+// blocked arena, each op run on a staged copy of its live window; see the
+// stream block words near the end).
 //
 // The arena is ONE device buffer. In the flat program it is uint8 bytes of
 // exactly the planner's peak, every operand at a byte offset (f32 operands
@@ -43,10 +45,11 @@
 // (read-all-before-write-all). Staging buffers hold the decoded tensor;
 // the block encoding happens on the way out.
 //
-// Buffers (row buffer, staging buffer, a fused chain's scratch) live in
-// dynamic shared memory when they fit a CTA and otherwise in a global
-// workspace the wrapper allocates once per spec; the descriptor says which
-// (words D_STAGE_G.. below). Both placements are the kernel.
+// Buffers (row buffer, staging buffer, a fused chain's scratch, a
+// streaming window and output slot) live in dynamic shared memory when
+// they fit a CTA and otherwise in a global workspace the wrapper allocates
+// once per spec; the descriptor says which (words D_STAGE_G.. and S_WIN_G..
+// below). Both placements are the kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -250,6 +253,12 @@ struct ConvP {
   int x_zp, y_zp;
   float amult;
   Addr ia, oa;  // the input's and the output's addressing
+  // Row window (the streaming program; the whole operand otherwise): the
+  // input's arena row r is read at row rbase + r of the input pointer,
+  // clamped into [rlo, rhi) as the reference's dynamic slice clamps; output
+  // rows y0 <= oy < y1 are computed and arena row r of the output is
+  // stored at row r - obase of the output pointer.
+  int rbase, rlo, rhi, y0, y1, obase;
 };
 
 __device__ __forceinline__ ConvP load_conv(const int* d) {
@@ -261,15 +270,38 @@ __device__ __forceinline__ ConvP load_conv(const int* d) {
   p.m = d[D_MULT];
   p.x_zp = d[D_X_ZP]; p.y_zp = d[D_Y_ZP]; p.amult = fword(d, D_AMULT);
   p.ia = load_addr(d, 1); p.oa = load_addr(d, 0);
+  p.rbase = 0; p.rlo = -(1 << 29); p.rhi = 1 << 29;
+  p.y0 = 0; p.y1 = p.oh; p.obase = 0;
   return p;
+}
+
+// Element offset of input image row iy (a valid row: masked taps never get
+// here) from the input pointer: _dec_row, with the arena row rebased and
+// clamped into the window, so no address leaves the staging buffer.
+__device__ __forceinline__ int in_row(const ConvP& p, int iy) {
+  const Addr& a = p.ia;
+  const bool packed = a.c > 1;
+  const int n = packed ? 1 : a.k;
+  int r = p.rbase + (packed ? iy / a.c : iy * a.k);
+  r = min(max(r, p.rlo), p.rhi - n);
+  return r * a.L + (packed ? (iy % a.c) * a.rl : 0);
+}
+
+// Arena rows [first, last) of the output that image rows [y0, y1) occupy.
+__device__ __forceinline__ int out_row_lo(const Addr& a, int y0) {
+  return a.c > 1 ? y0 / a.c : y0 * a.k;
+}
+__device__ __forceinline__ int out_row_hi(const Addr& a, int y1) {
+  return a.c > 1 ? (y1 - 1) / a.c + 1 : y1 * a.k;
 }
 
 // One output element (oy, ox, o) of conv2d / depthwise (channel multiplier
 // m: output channel = ic*m + j). Taps at iy = oy*sh - ph + fy*dh (ph may be
 // negative for a producer band); out-of-range taps contribute nothing, which
 // is the reference's clamp-and-mask (a masked int8 tap is x_zp - x_zp = 0).
-// Returns the int8 result in the low byte, or the f32 result's bits.
-template <bool Q, bool DW>
+// Returns the int8 result in the low byte, or the f32 result's bits. WIN:
+// the input is a streaming window (rows rebased and clamped by in_row).
+template <bool Q, bool DW, bool WIN>
 __device__ __forceinline__ uint32_t conv_point(const uint8_t* in,
                                                const uint8_t* w,
                                                const ConvP& p, int oy,
@@ -281,7 +313,7 @@ __device__ __forceinline__ uint32_t conv_point(const uint8_t* in,
   for (int fy = 0; fy < p.kh; ++fy) {
     const int iy = oy * p.sh - p.ph + fy * p.dh;
     if (iy < 0 || iy >= p.ih) continue;
-    const int row = row_elem(p.ia, iy);
+    const int row = WIN ? in_row(p, iy) : row_elem(p.ia, iy);
     for (int fx = 0; fx < p.kw; ++fx) {
       const int ix = ox * p.sw - p.pw + fx * p.dw;
       if (ix < 0 || ix >= p.iw) continue;
@@ -318,7 +350,7 @@ __device__ __forceinline__ uint32_t conv_point(const uint8_t* in,
 // unevenly), the average over the valid taps. int8 max starts at
 // -2147483647 and requantises acc - x_zp; int8 avg requantises
 // acc / max(cnt, 1) - x_zp in f32.
-template <bool Q, bool MAX>
+template <bool Q, bool MAX, bool WIN>
 __device__ __forceinline__ uint32_t pool_point(const uint8_t* in,
                                                const ConvP& p, int oy,
                                                int ox, int c) {
@@ -334,7 +366,7 @@ __device__ __forceinline__ uint32_t pool_point(const uint8_t* in,
   for (int fy = 0; fy < p.kh; ++fy) {
     const int iy = oy * p.sh - p.ph + fy;
     if (iy < 0 || iy >= p.ih) continue;
-    const int row = row_elem(p.ia, iy);
+    const int row = WIN ? in_row(p, iy) : row_elem(p.ia, iy);
     for (int fx = 0; fx < p.kw; ++fx) {
       const int ix = ox * p.sw - p.pw + fx;
       if (ix < 0 || ix >= p.iw) continue;
@@ -363,18 +395,21 @@ __device__ __forceinline__ uint32_t pool_point(const uint8_t* in,
   }
 }
 
-// A row op over the whole output, rows ascending (see §III.F above): every
+// A row op over its output rows, ascending (see §III.F above): every
 // element of row oy goes to the row buffer, a barrier, then the row is
 // stored, then a barrier before row oy+1 is read. The row buffer holds one
 // output row (ow * oc elements), so any row width runs. The store covers
 // the row's n elements and, plain or spanning, zeroes the rest of its
 // k * L arena elements; a packed store writes its own lane phase only.
-template <bool Q, typename Point>
+// WIN: only rows y0..y1-1, stored rebased by obase arena rows (a
+// streaming tile); else every row.
+template <bool Q, bool WIN, typename Point>
 __device__ void row_walk(const ConvP& p, uint8_t* out, uint8_t* rowbuf,
                          Point point) {
   const int n = p.ow * p.oc;
   const int span = p.oa.c > 1 ? n : p.oa.k * p.oa.L;
-  for (int oy = 0; oy < p.oh; ++oy) {
+  const int y0 = WIN ? p.y0 : 0, y1 = WIN ? p.y1 : p.oh;
+  for (int oy = y0; oy < y1; ++oy) {
     for (int e = threadIdx.x; e < n; e += NT) {
       const int ox = e / p.oc;
       const uint32_t v = point(oy, ox, e - ox * p.oc);
@@ -382,7 +417,7 @@ __device__ void row_walk(const ConvP& p, uint8_t* out, uint8_t* rowbuf,
       else ((uint32_t*)rowbuf)[e] = v;
     }
     __syncthreads();  // every read of row oy is done
-    const int r0 = row_elem(p.oa, oy);
+    const int r0 = row_elem(p.oa, oy) - (WIN ? p.obase * p.oa.L : 0);
     if constexpr (Q) {
       uint8_t* o = out + r0;
       for (int e = threadIdx.x; e < span; e += NT)
@@ -396,37 +431,45 @@ __device__ void row_walk(const ConvP& p, uint8_t* out, uint8_t* rowbuf,
   }
 }
 
-// conv2d, depthwise or pool from its descriptor (kind and tier are uniform
-// across the CTA). `scratch` routes scratch-flagged operands of a fused
-// stage; `w` is the filter (unused by pool).
-__device__ void row_op(const int* d, uint8_t* arena, uint8_t* scratch,
-                       const uint8_t* w, uint8_t* rowbuf) {
-  const ConvP p = load_conv(d);
-  const uint8_t* in = (d[D_IN_SCR] ? scratch : arena) + d[D_IN_OFF];
-  uint8_t* out = (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF];
+// conv2d, depthwise or pool of descriptor d over the geometry p, reading
+// `in` and storing to `out` (kind and tier are uniform across the CTA);
+// `w` is the filter (unused by pool). WIN: p's row window applies (a
+// streaming tile); without it the code is that of the whole-op kernels.
+template <bool WIN>
+__device__ void row_run(const int* d, const ConvP& p, const uint8_t* in,
+                        uint8_t* out, const uint8_t* w, uint8_t* rowbuf) {
   const int kind = d[D_KIND];
 #define ARENA_ROW(Q, F) \
-  row_walk<Q>(p, out, rowbuf, [&](int oy, int ox, int o) { return F; })
+  row_walk<Q, WIN>(p, out, rowbuf, [&](int oy, int ox, int o) { return F; })
   if (d[D_QUANT]) {
     if (kind == K_DEPTHWISE)
-      ARENA_ROW(true, (conv_point<true, true>(in, w, p, oy, ox, o)));
+      ARENA_ROW(true, (conv_point<true, true, WIN>(in, w, p, oy, ox, o)));
     else if (kind == K_CONV2D)
-      ARENA_ROW(true, (conv_point<true, false>(in, w, p, oy, ox, o)));
+      ARENA_ROW(true, (conv_point<true, false, WIN>(in, w, p, oy, ox, o)));
     else if (p.m)
-      ARENA_ROW(true, (pool_point<true, true>(in, p, oy, ox, o)));
+      ARENA_ROW(true, (pool_point<true, true, WIN>(in, p, oy, ox, o)));
     else
-      ARENA_ROW(true, (pool_point<true, false>(in, p, oy, ox, o)));
+      ARENA_ROW(true, (pool_point<true, false, WIN>(in, p, oy, ox, o)));
   } else {
     if (kind == K_DEPTHWISE)
-      ARENA_ROW(false, (conv_point<false, true>(in, w, p, oy, ox, o)));
+      ARENA_ROW(false, (conv_point<false, true, WIN>(in, w, p, oy, ox, o)));
     else if (kind == K_CONV2D)
-      ARENA_ROW(false, (conv_point<false, false>(in, w, p, oy, ox, o)));
+      ARENA_ROW(false, (conv_point<false, false, WIN>(in, w, p, oy, ox, o)));
     else if (p.m)
-      ARENA_ROW(false, (pool_point<false, true>(in, p, oy, ox, o)));
+      ARENA_ROW(false, (pool_point<false, true, WIN>(in, p, oy, ox, o)));
     else
-      ARENA_ROW(false, (pool_point<false, false>(in, p, oy, ox, o)));
+      ARENA_ROW(false, (pool_point<false, false, WIN>(in, p, oy, ox, o)));
   }
 #undef ARENA_ROW
+}
+
+// conv2d, depthwise or pool over its whole output from its descriptor.
+// `scratch` routes scratch-flagged operands of a fused stage.
+__device__ void row_op(const int* d, uint8_t* arena, uint8_t* scratch,
+                       const uint8_t* w, uint8_t* rowbuf) {
+  row_run<false>(d, load_conv(d),
+                 (d[D_IN_SCR] ? scratch : arena) + d[D_IN_OFF],
+                 (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF], w, rowbuf);
 }
 
 // concat along the descriptor's axis: every input is read (and, int8,
@@ -522,13 +565,301 @@ __device__ void elementwise_op(const int* d, uint8_t* arena,
   __syncthreads();
 }
 
+// The whole-block routines below read their operands at `base` + the
+// descriptor's byte offsets: the arena, or (the streaming program) the
+// staging window the operand blocks were copied into.
+
+// y = a . b, (M, K) x (K, N). int8: an int32 dot of (a - a_zp) * (b - b_zp),
+// then the shared requantisation; f32: an f32 dot. The whole output goes to
+// `stage` before any of it is written (read-all-before-write-all).
+__device__ void matmul_op(const int* d, uint8_t* base, uint8_t* stage) {
+  const bool q = d[D_QUANT] != 0;
+  const int m = d[D_MM], k = d[D_MK], n = d[D_MN];
+  const uint8_t* a = base + d[D_IN_OFF];
+  const uint8_t* b = base + d[D_IN2_OFF];
+  const int a_zp = d[D_X_ZP], b_zp = d[D_BZP], y_zp = d[D_Y_ZP];
+  const float amult = fword(d, D_AMULT);
+  const Addr aa = load_addr(d, 1), ba = load_addr(d, 2);
+  for (int e = threadIdx.x; e < m * n; e += NT) {
+    const int r = e / n, c = e - r * n;
+    if (q) {
+      int acc = 0;
+      for (int i = 0; i < k; ++i)
+        acc += ((int)((const int8_t*)a)[elem_at(aa, r * k + i)] - a_zp)
+               * ((int)((const int8_t*)b)[elem_at(ba, i * n + c)] - b_zp);
+      ((int8_t*)stage)[e] = requant_i(acc, amult, y_zp);
+    } else {
+      float acc = 0.0f;
+      for (int i = 0; i < k; ++i)
+        acc += ((const float*)a)[elem_at(aa, r * k + i)]
+               * ((const float*)b)[elem_at(ba, i * n + c)];
+      ((float*)stage)[e] = acc;
+    }
+  }
+  __syncthreads();  // both operands read before any output byte is written
+  store_block(base + d[D_OUT_OFF], load_addr(d, 0), stage, m * n, q);
+}
+
+// Mean over the axes of D_RMASK. int8: int32 sum, (f32 sum / count) -
+// x_zp, then the shared requantisation; f32: sum / count. The whole input
+// is staged before any output is written.
+__device__ void mean_op(const int* d, uint8_t* base, uint8_t* stage) {
+  const bool q = d[D_QUANT] != 0;
+  int dims[4], stride[4], total = 1;
+  for (int i = 3; i >= 0; --i) {
+    dims[i] = d[D_DIM0 + i];
+    stride[i] = total;
+    total *= dims[i];
+  }
+  stage_in(stage, base + d[D_IN_OFF], load_addr(d, 1), total, q);
+  __syncthreads();  // the whole input is read before any output is written
+  const int rmask = d[D_RMASK], cnt = d[D_CNT], outn = d[D_OUTN];
+  write_block(base + d[D_OUT_OFF], load_addr(d, 0), outn, q,
+              [&](int o) -> uint32_t {
+    int idx0 = 0, rem = o;
+    for (int i = 3; i >= 0; --i) {  // coordinates of the kept axes
+      if (rmask & (1 << i)) continue;
+      idx0 += (rem % dims[i]) * stride[i];
+      rem /= dims[i];
+    }
+    int iacc = 0;
+    float facc = 0.0f;
+    for (int r = 0; r < cnt; ++r) {  // walk the reduced axes
+      int idx = idx0, rr = r;
+      for (int i = 3; i >= 0; --i) {
+        if (!(rmask & (1 << i))) continue;
+        idx += (rr % dims[i]) * stride[i];
+        rr /= dims[i];
+      }
+      if (q) iacc += ((const int8_t*)stage)[idx];
+      else facc += ((const float*)stage)[idx];
+    }
+    if (q) {
+      const float v = __fsub_rn(__fdiv_rn(__int2float_rn(iacc), (float)cnt),
+                                (float)d[D_X_ZP]);
+      return (uint8_t)requant_f(v, fword(d, D_AMULT), d[D_Y_ZP]);
+    }
+    return __float_as_uint(__fdiv_rn(facc, (float)cnt));
+  });
+}
+
+// y = x . W. int8: an int32 dot of (x - x_zp) * w (W symmetric), then the
+// shared requantisation; f32: an f32 dot. x is staged whole before any
+// output is written.
+__device__ void fc_op(const int* d, uint8_t* base, const uint8_t* w,
+                      uint8_t* stage) {
+  const bool q = d[D_QUANT] != 0;
+  const int m = d[D_M], idim = d[D_IDIM], odim = d[D_ODIM];
+  stage_in(stage, base + d[D_IN_OFF], load_addr(d, 1), m * idim, q);
+  __syncthreads();  // x is read whole before any output is written
+  const int x_zp = d[D_X_ZP];
+  write_block(base + d[D_OUT_OFF], load_addr(d, 0), m * odim, q,
+              [&](int e) -> uint32_t {
+    const int r = e / odim, o = e - r * odim;
+    if (q) {
+      const int8_t* x = (const int8_t*)stage + r * idim;
+      int acc = 0;
+      for (int i = 0; i < idim; ++i)
+        acc += ((int)x[i] - x_zp) * (int)((const int8_t*)w)[i * odim + o];
+      return (uint8_t)requant_i(acc, fword(d, D_AMULT), d[D_Y_ZP]);
+    }
+    const float* x = (const float*)stage + r * idim;
+    float acc = 0.0f;
+    for (int i = 0; i < idim; ++i)
+      acc += x[i] * ((const float*)w)[i * odim + o];
+    return __float_as_uint(acc);
+  });
+}
+
+// Block-wide max or sum; every thread gets the result.
+template <bool MAX>
+__device__ float block_reduce(float v, float* red) {
+  for (int s = 16; s > 0; s >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, s);
+    v = MAX ? fmaxf(v, o) : v + o;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = red[0];
+  for (int i = 1; i < NT / 32; ++i) v = MAX ? fmaxf(v, red[i]) : v + red[i];
+  __syncthreads();  // red is free for the next reduction
+  return v;
+}
+
+// Softmax over the last axis. int8: dequantise, subtract the row max,
+// expf, divide by the row sum, quantise (IEEE division by the output
+// scale); f32: the same without the casts. The input is staged (as f32)
+// before anything is written; the result overwrites the staged input.
+__device__ void softmax_op(const int* d, uint8_t* base, uint8_t* stage) {
+  __shared__ float red[NT / 32];
+  float* x = (float*)stage;
+  const bool q = d[D_QUANT] != 0;
+  const int rows = d[D_ROWS], last = d[D_LAST], n = rows * last;
+  const int x_zp = d[D_X_ZP], y_zp = d[D_Y_ZP];
+  const float xs = fword(d, D_XSCALE), ys = fword(d, D_YSCALE);
+  const uint8_t* src = base + d[D_IN_OFF];
+  const Addr ia = load_addr(d, 1);
+  for (int e = threadIdx.x; e < n; e += NT) {
+    const int s = elem_at(ia, e);
+    x[e] = q ? dequant(((const int8_t*)src)[s], xs, x_zp)
+             : ((const float*)src)[s];
+  }
+  __syncthreads();  // the whole input is read before any output is written
+  for (int r = 0; r < rows; ++r) {
+    float* xr = x + r * last;
+    float mx = __int_as_float(0xff800000);  // -inf
+    for (int e = threadIdx.x; e < last; e += NT) mx = fmaxf(mx, xr[e]);
+    mx = block_reduce<true>(mx, red);
+    float sum = 0.0f;
+    for (int e = threadIdx.x; e < last; e += NT)
+      sum += expf(__fsub_rn(xr[e], mx));
+    sum = block_reduce<false>(sum, red);
+    // each thread overwrites only the elements it read above
+    for (int e = threadIdx.x; e < last; e += NT)
+      xr[e] = __fdiv_rn(expf(__fsub_rn(xr[e], mx)), sum);
+  }
+  __syncthreads();  // every row is done before the block is written
+  write_block(base + d[D_OUT_OFF], load_addr(d, 0), n, q,
+              [&](int e) -> uint32_t {
+    return q ? (uint32_t)(uint8_t)quant_f(x[e], ys, y_zp)
+             : __float_as_uint(x[e]);
+  });
+}
+
+// Constant pad: f32 pads with 0; int8 pads with the input's zero point and
+// then rescales the whole padded tensor to the output's params
+// (ops.rescale_q). The whole output goes to `stage` first.
+__device__ void pad_op(const int* d, uint8_t* base, uint8_t* stage) {
+  const bool q = d[D_QUANT] != 0;
+  const int n = d[D_PN];
+  const uint8_t* in = base + d[D_IN_OFF];
+  const int x_zp = d[D_X_ZP], y_zp = d[D_Y_ZP];
+  const float mult = fword(d, D_AMULT);
+  const Addr ia = load_addr(d, 1);
+  for (int e = threadIdx.x; e < n; e += NT) {
+    int rem = e, idx = 0, stride = 1;
+    bool inside = true;
+    for (int i = 3; i >= 0; --i) {
+      const int od = d[D_POUT0 + i], id = d[D_PIN0 + i];
+      const int c = rem % od - d[D_PLO0 + i];
+      rem /= od;
+      inside = inside && c >= 0 && c < id;
+      idx += c * stride;
+      stride *= id;
+    }
+    if (inside) idx = elem_at(ia, idx);
+    if (q) {
+      const int x = inside ? (int)((const int8_t*)in)[idx] : x_zp;
+      ((int8_t*)stage)[e] = requant_i(x - x_zp, mult, y_zp);
+    } else {
+      ((float*)stage)[e] = inside ? ((const float*)in)[idx] : 0.0f;
+    }
+  }
+  __syncthreads();  // the input is read before any output byte is written
+  store_block(base + d[D_OUT_OFF], load_addr(d, 0), stage, n, q);
+}
+
+// Any whole-block kind of descriptor d over `base`; ends with a barrier.
+__device__ void block_op(const int* d, uint8_t* base, const uint8_t* w,
+                         uint8_t* stage) {
+  switch (d[D_KIND]) {
+    case K_CONCAT: concat_op(d, base, nullptr, stage); break;
+    case K_ELEMENTWISE: elementwise_op(d, base, nullptr, stage); break;
+    case K_MATMUL: matmul_op(d, base, stage); break;
+    case K_PAD: pad_op(d, base, stage); break;
+    case K_MEAN: mean_op(d, base, stage); break;
+    case K_FC: fc_op(d, base, w, stage); break;
+    default: softmax_op(d, base, stage); break;  // K_SOFTMAX
+  }
+  __syncthreads();
+}
+
+// A fused chain's stages (header h: word 0 = stage count, one DESC_WORDS
+// descriptor per stage after it) in order against the arena and the
+// chain's scratch; every stage routine ends with a barrier.
+__device__ void chain_run(const int* h, uint8_t* arena, uint8_t* scratch,
+                          const uint8_t* wblob, uint8_t* stage,
+                          uint8_t* rowbuf) {
+  const int ns = h[0];
+  for (int s = 0; s < ns; ++s) {
+    const int* d = h + (s + 1) * DESC_WORDS;
+    const int kind = d[D_KIND];
+    if (kind == K_CONCAT) concat_op(d, arena, scratch, stage);
+    else if (kind == K_ELEMENTWISE)
+      elementwise_op(d, arena, scratch, stage);
+    else row_op(d, arena, scratch, wblob + d[D_WOFF], rowbuf);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The streaming program (arena_stream_*.cu): each op copies its live window
+// from the arena into a staging buffer, runs there and copies its output
+// back. A streaming descriptor is a stream block, then the op's descriptor
+// (or a fused chain's header and stages) at word S_BODY.
+// ---------------------------------------------------------------------------
+
+// stream block words: the window's placement (the fused chain's: its
+// scratch), the rolling output slot's, bytes of one arena row, the body's
+// word offset, the copy out and the rolling statics; from S_COPY0 two
+// lists of any length, S_NCOPY copies in (arena row, window row, rows),
+// then the planner's S_T fetch starts
+enum { S_WIN_G = 0, S_WIN_OFF = 1, S_SLOT_G = 2, S_SLOT_OFF = 3,
+       S_ROWB = 4, S_BODY = 5, S_NCOPY = 6, S_OUT_WIN = 7, S_OUT_ROW = 8,
+       S_OUT_ROWS = 9, S_IN_ROW = 10, S_WIN_IN = 11, S_TR = 12, S_T = 13,
+       S_OH = 14, S_COPY0 = 16 };
+
+// Copy n bytes, 16 bytes a thread where both ends and n allow it. The
+// caller puts the barrier after it.
+__device__ __forceinline__ void copy_bytes(uint8_t* __restrict__ dst,
+                                           const uint8_t* __restrict__ src,
+                                           long n) {
+  if ((((uintptr_t)dst | (uintptr_t)src | (uintptr_t)n) & 15) == 0) {
+    uint4* o = (uint4*)dst;
+    const uint4* s = (const uint4*)src;
+    for (long e = threadIdx.x; e < n / 16; e += NT) o[e] = s[e];
+  } else if ((((uintptr_t)dst | (uintptr_t)src | (uintptr_t)n) & 3) == 0) {
+    uint32_t* o = (uint32_t*)dst;
+    const uint32_t* s = (const uint32_t*)src;
+    for (long e = threadIdx.x; e < n / 4; e += NT) o[e] = s[e];
+  } else {
+    for (long e = threadIdx.x; e < n; e += NT) dst[e] = src[e];
+  }
+}
+
+// Every operand block of a staged op or a streaming chain, arena ->
+// window, then a barrier (all reads before the op writes anything).
+__device__ __forceinline__ void stage_blocks_in(const int* sd,
+                                                const uint8_t* arena,
+                                                uint8_t* win) {
+  const long rb = sd[S_ROWB];
+  for (int i = 0; i < sd[S_NCOPY]; ++i) {
+    const int* c = sd + S_COPY0 + 3 * i;
+    copy_bytes(win + c[1] * rb, arena + c[0] * rb, c[2] * rb);
+  }
+  __syncthreads();
+}
+
+// The output block, window -> arena, then a barrier.
+__device__ __forceinline__ void stage_block_out(const int* sd,
+                                                uint8_t* arena,
+                                                const uint8_t* win) {
+  const long rb = sd[S_ROWB];
+  copy_bytes(arena + sd[S_OUT_ROW] * rb, win + sd[S_OUT_WIN] * rb,
+             sd[S_OUT_ROWS] * rb);
+  __syncthreads();
+}
+
 }  // namespace arena
 
 // One launch configuration shared by every entry point: one CTA of NT
-// threads, `smem` bytes of dynamic shared memory (opted in above 48 KB).
+// threads, `smem` bytes of dynamic shared memory. The kernel opts in to
+// each larger size it is launched with, not only past 48 KB: a kernel
+// with static shared arrays (the staged softmax's reduction) needs the
+// opt-in below 48 KB of dynamic memory too.
 template <typename K>
 static cudaError_t set_smem(K kernel, int smem, int* configured) {
-  if (smem > 48 * 1024 && smem > *configured) {
+  if (smem > *configured) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;

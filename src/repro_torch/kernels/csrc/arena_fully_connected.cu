@@ -21,28 +21,7 @@ __global__ void __launch_bounds__(NT)
 arena_fc_kernel(uint8_t* arena_buf, const int* d, const uint8_t* w,
                 uint8_t* gws) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* stage = buffer(d, D_STAGE_G, smem, gws);
-  const bool q = d[D_QUANT] != 0;
-  const int m = d[D_M], idim = d[D_IDIM], odim = d[D_ODIM];
-  stage_in(stage, arena_buf + d[D_IN_OFF], load_addr(d, 1), m * idim, q);
-  __syncthreads();  // x is read whole before any output is written
-  const int x_zp = d[D_X_ZP];
-  write_block(arena_buf + d[D_OUT_OFF], load_addr(d, 0), m * odim, q,
-              [&](int e) -> uint32_t {
-    const int r = e / odim, o = e - r * odim;
-    if (q) {
-      const int8_t* x = (const int8_t*)stage + r * idim;
-      int acc = 0;
-      for (int i = 0; i < idim; ++i)
-        acc += ((int)x[i] - x_zp) * (int)((const int8_t*)w)[i * odim + o];
-      return (uint8_t)requant_i(acc, fword(d, D_AMULT), d[D_Y_ZP]);
-    }
-    const float* x = (const float*)stage + r * idim;
-    float acc = 0.0f;
-    for (int i = 0; i < idim; ++i)
-      acc += x[i] * ((const float*)w)[i * odim + o];
-    return __float_as_uint(acc);
-  });
+  fc_op(d, arena_buf, w, buffer(d, D_STAGE_G, smem, gws));
 }
 
 ARENA_ENTRY(arena_fully_connected, arena_fc_kernel)

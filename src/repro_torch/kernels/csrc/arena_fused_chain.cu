@@ -35,18 +35,9 @@ __global__ void __launch_bounds__(NT)
 arena_fused_chain_kernel(uint8_t* arena_buf, const int* desc,
                          const uint8_t* wblob, uint8_t* gws) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* scratch = buffer(desc, D_SCR_G, smem, gws);
-  uint8_t* stage = buffer(desc, D_STAGE_G, smem, gws);
-  uint8_t* rowbuf = buffer(desc, D_ROW_G, smem, gws);
-  const int ns = desc[0];
-  for (int s = 0; s < ns; ++s) {
-    const int* d = desc + (s + 1) * DESC_WORDS;
-    const int kind = d[D_KIND];
-    if (kind == K_CONCAT) concat_op(d, arena_buf, scratch, stage);
-    else if (kind == K_ELEMENTWISE)
-      elementwise_op(d, arena_buf, scratch, stage);
-    else row_op(d, arena_buf, scratch, wblob + d[D_WOFF], rowbuf);
-  }
+  chain_run(desc, arena_buf, buffer(desc, D_SCR_G, smem, gws), wblob,
+            buffer(desc, D_STAGE_G, smem, gws),
+            buffer(desc, D_ROW_G, smem, gws));
 }
 
 ARENA_ENTRY(arena_fused_chain, arena_fused_chain_kernel)

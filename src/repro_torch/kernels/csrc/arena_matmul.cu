@@ -20,32 +20,7 @@ __global__ void __launch_bounds__(NT)
 arena_matmul_kernel(uint8_t* arena_buf, const int* d, const uint8_t*,
                     uint8_t* gws) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* stage = buffer(d, D_STAGE_G, smem, gws);
-  const bool q = d[D_QUANT] != 0;
-  const int m = d[D_MM], k = d[D_MK], n = d[D_MN];
-  const uint8_t* a = arena_buf + d[D_IN_OFF];
-  const uint8_t* b = arena_buf + d[D_IN2_OFF];
-  const int a_zp = d[D_X_ZP], b_zp = d[D_BZP], y_zp = d[D_Y_ZP];
-  const float amult = fword(d, D_AMULT);
-  const Addr aa = load_addr(d, 1), ba = load_addr(d, 2);
-  for (int e = threadIdx.x; e < m * n; e += NT) {
-    const int r = e / n, c = e - r * n;
-    if (q) {
-      int acc = 0;
-      for (int i = 0; i < k; ++i)
-        acc += ((int)((const int8_t*)a)[elem_at(aa, r * k + i)] - a_zp)
-               * ((int)((const int8_t*)b)[elem_at(ba, i * n + c)] - b_zp);
-      ((int8_t*)stage)[e] = requant_i(acc, amult, y_zp);
-    } else {
-      float acc = 0.0f;
-      for (int i = 0; i < k; ++i)
-        acc += ((const float*)a)[elem_at(aa, r * k + i)]
-               * ((const float*)b)[elem_at(ba, i * n + c)];
-      ((float*)stage)[e] = acc;
-    }
-  }
-  __syncthreads();  // both operands read before any output byte is written
-  store_block(arena_buf + d[D_OUT_OFF], load_addr(d, 0), stage, m * n, q);
+  matmul_op(d, arena_buf, buffer(d, D_STAGE_G, smem, gws));
 }
 
 ARENA_ENTRY(arena_matmul, arena_matmul_kernel)

@@ -432,9 +432,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         K.apply_op(torch.zeros((8, 16), dtype=torch.int8), blocked)
     with pytest.raises(ValueError, match="flat"):         # a typed arena
         K.apply_op(torch.zeros((8, 16)), pool)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # streaming
-        K.apply_op(torch.zeros((8, 16)),
-                   dataclasses.replace(blocked, win_rows=8))
+    stream = dataclasses.replace(blocked, win_rows=16, win_starts=(0,))
+    with pytest.raises(ValueError, match="row-blocked"):  # wrong rowlen
+        K.apply_op(torch.zeros((8, 8)), stream)
+    with pytest.raises(ValueError, match="row-blocked"):  # a byte arena
+        K.apply_op(torch.zeros(512, dtype=torch.uint8), stream)
+    with pytest.raises(ValueError, match="leaves"):       # too few rows
+        K.apply_op(torch.zeros((4, 16)), stream)
     bad = K.OpSpec(kind="elementwise", in_off=(0, 64), in_shape=((2, 2, 4),
                    (4, 4, 4)), out_off=0, out_shape=(2, 2, 4),
                    meta=("add",))
@@ -493,8 +497,10 @@ def test_descriptor_words_new_kinds():
 
 def test_every_kernel_has_a_source_a_counter_and_a_plain_version():
     from repro_torch.kernels import build
-    assert set(build.KERNELS) == set(K.LAUNCHES) == set(K.KERNEL_OF.values())
+    assert set(build.KERNELS) == set(K.LAUNCHES) == set(
+        K.KERNEL_OF.values()) | set(K.STREAM_KERNEL_OF.values())
     assert set(CS.KERNELS) == set(K.LAUNCHES)
     for kind in K.KERNEL_OF:
         assert kind in ("conv2d", "depthwise_conv2d", "fully_connected",
                         "fused") or kind in K._UNWEIGHTED_PLAIN
+    assert set(K.STREAM_KERNEL_OF) == set(K._STREAM_PLAIN)

@@ -254,12 +254,20 @@ def test_no_silent_cpu_fallback():
 
 
 def test_streaming_program_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CudaExecutor(device="cpu", mode="streaming")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CudaExecutor(device="cpu", layout="blocks", mode="streaming")
+    """The streaming program runs now (tests/test_torch_stream.py); what
+    still raises is the mode plumbing: an unknown mode, and the flat
+    layout under streaming (it has no arena rows to stream), as the
+    reference's PallasExecutor raises."""
+    with pytest.raises(ValueError, match="unknown cuda mode"):
+        CudaExecutor(device="cpu", mode="stream")
+    with pytest.raises(ValueError, match="row-blocked"):
+        CudaExecutor(device="cpu", layout="flat", mode="streaming")
     with pytest.raises(ValueError, match="layout"):
         CudaExecutor(device="cpu", layout="rows")
+    assert CudaExecutor(device="cpu", mode="streaming").layout == "auto"
+    assert CudaExecutor(device="cpu", layout="blocks",
+                        mode="streaming").mode == "streaming"
+    assert CudaExecutor(device="cpu").layout == "flat"
 
 
 def test_blocks_layout_raises_on_mixed_dtype_while_auto_runs_flat():

@@ -23,11 +23,11 @@ def card():
     return torch.device("cuda")
 
 
-def _hold_against_plain(card, cp, layout="flat"):
+def _hold_against_plain(card, cp, layout=None, mode=None):
     """Every spec's kernel against its plain version, on copies of the
     arena as the program reaches it."""
-    specs, ws, descs, state = CudaExecutor(device=card,
-                                           layout=layout).program(cp)
+    specs, ws, descs, state = CudaExecutor(device=card, layout=layout,
+                                           mode=mode).program(cp)
     for spec, w, d in zip(specs, ws, descs):
         got, ref = state.clone(), state.clone()
         K.apply_op(got, spec, w, d)
@@ -117,3 +117,33 @@ def test_dmo_dwconv_on_the_card(card, ih, iw, c, k, stride, pad):
     assert got.is_cuda and K.LAUNCHES["arena_conv"] == 1
     want = TO.dmo_dwconv2d(x, w, stride, pad, device="cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def _final_arena(ex, cp):
+    specs, ws, descs, arena = ex.program(cp)
+    for spec, w, d in zip(specs, ws, descs):
+        K.apply_op(arena, spec, w, d)
+    torch.cuda.synchronize()
+    return arena
+
+
+@pytest.mark.parametrize("bits", [1, 4])
+def test_streaming_route_on_the_card(card, bits):
+    """The flagship's streaming route: every streaming kernel against its
+    plain version, one request of 29 launches (25 rolling, 3 staged, one
+    fused chain), outputs and the final arena bit-equal to the blocked
+    route's."""
+    cp = compile(zoo.mobilenet_v1(0.25, 128, bits))
+    _hold_against_plain(card, cp, mode="streaming")
+    st = CudaExecutor(device=card, mode="streaming")
+    blk = CudaExecutor(device=card, layout="blocks")
+    K.reset_launches()
+    got = st.execute(cp)
+    assert (K.LAUNCHES["arena_stream_roll"], K.LAUNCHES["arena_stream_stage"],
+            K.LAUNCHES["arena_stream_fused"]) == (25, 3, 1)
+    assert sum(K.LAUNCHES.values()) == 29
+    want = blk.execute(cp)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    a, b = _final_arena(st, cp), _final_arena(blk, cp)
+    assert a.is_cuda and torch.equal(a, b)

@@ -113,14 +113,17 @@ def test_port_cpu_route_matches_reference(label):
 
 
 def test_every_kernel_kind_is_on_these_paths():
-    """Between them the graphs lower to every kernel but the fused chain
-    (the flagship's, tests/test_torch_slice.py)."""
+    """Between them the graphs lower to every kernel of the flat program
+    but the fused chain (the flagship's, tests/test_torch_slice.py); the
+    streaming kernels run on the streaming route
+    (tests/test_torch_stream.py)."""
     kernels = set()
     for label in GRAPHS:
         ref, port, _, (_, tq), _ = _carried(label)
         kernels |= {K.KERNEL_OF[s.kind] for s in
                     CudaExecutor(device="cpu").lower(port.plan, tq)}
-    assert kernels == set(K.LAUNCHES) - {"arena_fused_chain"}
+    assert kernels == set(K.LAUNCHES) - {"arena_fused_chain"} - set(
+        K.STREAM_KERNEL_OF.values())
 
 
 def test_nasnet_graph_fault_is_refused_by_both_packages():
