@@ -64,7 +64,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ((64, 64, 8) of the flagship, (112, 112, 32) of
    ``mobilenet_v1_1.0_224``), counting its launches, each against its
    plain version and against ``F.conv2d`` (depthwise, TF32 off);
-10. times with CUDA events, after a warm-up, every kernel per forward of the
+10. runs the three standalone kernels through their entry points
+   (``kernels.ops.rmsnorm_residual``, ``kernels.ops.flash_attention``,
+   ``kernels.wkv_chunk.wkv_chunk_kernel``): each kernel against its plain
+   version and its oracle (``kernels/ref.py``; the sequential recurrence
+   for WKV) at the reference's test shapes, then once each at full width
+   with the launch counts reset just before (RMSNorm at 4096 tokens x
+   2048, the qwen2.5-3b width, f32 and bf16, its result x's own storage
+   and the call's rise in peak memory under x's bytes; causal attention at
+   S = T = 4096, 16 heads of 128, f32 and bf16; WKV at B = 1, S = 4096, 32
+   heads of 64, the rwkv6-1.6b width), against its plain version, timed
+   with CUDA events beside its plain version, its bound and one PyTorch
+   call (``F.rms_norm`` then ``torch.add``;
+   ``F.scaled_dot_product_attention``; none for WKV);
+11. times with CUDA events, after a warm-up, every kernel per forward of the
    path that runs it (``resnet_50_v2`` f32 for conv, pool, elementwise and
    the head; ``densenet_121`` for concat; ``allops`` f32 for matmul and
    pad; the flagship for the fused chain), on both programs, its plain
@@ -77,11 +90,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the streaming kernels per forward (rolling and staged on
    ``resnet_50_v2`` f32, fused on the flagship), their plain versions and
    the streaming ``execute()`` walls beside the blocked ones;
-11. writes every number to ``build/chip_smoke.json`` and prints the
+12. writes every number to ``build/chip_smoke.json`` and prints the
     ``kernels`` JSON line (a ``[blocks]`` line per kernel for the
-    row-blocked program, the three streaming kernels, and a
-    ``dmo_dwconv2d`` line), the card line, and as its last line the
-    device JSON.
+    row-blocked program, the three streaming kernels, a ``dmo_dwconv2d``
+    line and the three standalone kernels), the card line, and as its
+    last line the device JSON.
 
 Any failed check raises and the script exits non-zero. It exits 2, printing
 no result, when no CUDA device is visible or when it does not sit at the
@@ -109,6 +122,7 @@ WIDE_ROW = 8_192               # rows wider need a staged row buffer
 HBM_BYTES_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 INT8_OPS_S = 1979e12           # dense int8 tensor-core peak
 F32_OPS_S = 67e12              # f32 outside the tensor cores
+BF16_OPS_S = 989e12            # dense bf16 tensor-core peak
 F32_TOL = 1e-4
 
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -140,14 +154,23 @@ KERNELS = {
                            "src/repro/kernels/arena_ops.py:817"),
     "arena_stream_fused": (CSRC + "arena_stream_fused.cu",
                            "src/repro/kernels/arena_ops.py:844"),
+    "rmsnorm_inplace": (CSRC + "rmsnorm_inplace.cu",
+                        "src/repro/kernels/inplace_rmsnorm.py:28"),
+    "flash_attention": (CSRC + "flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:59"),
+    "wkv_chunk": (CSRC + "wkv_chunk.cu",
+                  "src/repro/kernels/wkv_chunk.py:67"),
 }
+#: the standalone kernels, each reached through its own entry point
+STANDALONE = ("rmsnorm_inplace", "flash_attention", "wkv_chunk")
 #: the kernels of the streaming program, and the path each one's line in
 #: the ``kernels`` JSON is measured on
 STREAM_KERNEL_PATH = {"arena_stream_roll": "resnet_50_v2",
                       "arena_stream_stage": "resnet_50_v2",
                       "arena_stream_fused": "flagship"}
 #: the kernels of the flat and row-blocked programs
-PROGRAM_KERNELS = [n for n in KERNELS if n not in STREAM_KERNEL_PATH]
+PROGRAM_KERNELS = [n for n in KERNELS
+                   if n not in STREAM_KERNEL_PATH and n not in STANDALONE]
 #: the reference's row-blocked memory layer each kernel now runs under
 BLOCK_REPLACES = {name: "src/repro/kernels/arena_ops.py:314"
                   for name in PROGRAM_KERNELS}
@@ -179,6 +202,25 @@ KERNEL_PATH = {
     "arena_concat": "densenet_121", "arena_matmul": "allops",
     "arena_pad": "allops", "arena_fused_chain": "mobilenet_v1_0.25_128_8bit",
 }
+#: the standalone kernels' checks: RMSNorm (n, d) and WKV (s, h, d, q) at
+#: the reference's test shapes (tests/test_kernels.py; WKV at batch 2),
+#: flash attention (s, t, h, d, causal) at them, its non-causal case and a
+#: causal call with T < S
+RMS_CASES = [(64, 32), (256, 64), (128, 200), (8, 8)]
+FLASH_CASES = [(128, 128, 4, 64, True), (256, 256, 2, 32, True),
+               (64, 256, 3, 16, True), (32, 32, 1, 128, True),
+               (64, 128, 2, 32, False), (64, 32, 2, 32, True)]
+WKV_CASES = [(128, 2, 64, 32), (256, 4, 64, 64), (192, 1, 64, 64)]
+#: full width, 4096 tokens: qwen2.5-3b (configs/qwen2_5_3b.py: d_model
+#: 2048, 16 heads of 128) and rwkv6-1.6b (configs/rwkv6_1_6b.py: d_model
+#: 2048, WKV heads of 64, so 32)
+RMS_FULL = (4096, 2048)
+FLASH_FULL = (4096, 4096, 16, 128)
+WKV_FULL = (1, 4096, 32, 64, 64)
+#: the reference's tolerances (atol = rtol) in f32, by kernel; bf16 5e-2
+STANDALONE_TOL = {"rmsnorm_inplace": 2e-5, "flash_attention": 2e-4,
+                  "wkv_chunk": 3e-4}
+BF16_TOL = 5e-2
 
 
 class SmokeError(RuntimeError):
@@ -508,6 +550,56 @@ def bound_by(specs) -> str:
     t_bytes = sum(spec_cost(s)[0] / HBM_BYTES_S for s in specs)
     t_ops = sum(spec_cost(s)[1] / spec_cost(s)[2] for s in specs)
     return "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rmsnorm_cost(n: int, d: int, esize: int):
+    """(bytes, operations, rate) of the in-place RMSNorm: x, r and the f32
+    g read once and x written once; 5 operations an element (square, sum,
+    two scalings, the residual add)."""
+    return (3 * n * d * esize + 4 * d, 5 * n * d, F32_OPS_S)
+
+
+def attention_cost(s: int, t: int, h: int, d: int, causal: bool,
+                   esize: int):
+    """(bytes, operations, rate) of flash attention: q, k, v read once and
+    the output written once; 4·D operations per (query, key) pair a row
+    takes part in (q·k and p·v; the exponentials are not counted). A
+    causal row sees ``min(T, qpos + 1)`` keys, and a row that sees none
+    (T < S) averages all T. bf16 at the tensor cores' peak, f32 at the FMA
+    units'."""
+    if causal:
+        off = t - s
+        pairs = sum(t if i + off < 0 else min(t, i + off + 1)
+                    for i in range(s))
+    else:
+        pairs = s * t
+    return ((2 * s + 2 * t) * h * d * esize, 4 * d * h * pairs,
+            BF16_OPS_S if esize == 2 else F32_OPS_S)
+
+
+def wkv_cost(b: int, s: int, h: int, d: int, q: int):
+    """(bytes, operations, rate) of the chunked WKV, f32: r, k, v, logw and
+    u read once, y and the final state written once. Per chunk, each exp
+    counted as one operation: 5·D per pair j < t of att (difference, exp,
+    two products, sum) and 3·D on its diagonal; 2·D per pair j <= t of
+    att @ v; per step 2·D·D for the carried state's product, 2·D for
+    r·exp(lwp), 3·D for k's decay and 2·D·D for the state update, plus
+    2·D·D for the state's decay."""
+    pairs_lt, pairs_le = q * (q - 1) // 2, q * (q + 1) // 2
+    per_chunk = (5 * d * pairs_lt + 3 * d * q + 2 * d * pairs_le
+                 + q * (4 * d * d + 5 * d) + 2 * d * d)
+    nbytes = 4 * (5 * b * s * h * d + b * h * d * d + h * d)
+    return nbytes, b * h * (s // q) * per_chunk, F32_OPS_S
+
+
+def cost_ms(cost) -> float:
+    nbytes, ops, rate = cost
+    return 1e3 * max(nbytes / HBM_BYTES_S, ops / rate)
+
+
+def cost_by(cost) -> str:
+    nbytes, ops, rate = cost
+    return "bytes" if nbytes / HBM_BYTES_S >= ops / rate else "operations"
 
 
 def time_ms(torch, fn, reps: int, warm: bool = True) -> float:
@@ -849,6 +941,232 @@ def refused(fn, label: str) -> str:
     except ValueError as e:
         return str(e).splitlines()[0]
     raise SmokeError(f"{label}: expected a ValueError")
+
+
+def close_err(torch, got, want, tol: float, label: str) -> float:
+    """Max |got - want|; raises unless every value is finite and within
+    ``tol + tol * |want|`` (the reference's assert_allclose, rtol = atol
+    = tol)."""
+    g, w = got.float(), want.float()
+    check(g.shape == w.shape, f"{label}: shape {tuple(g.shape)} against "
+          f"{tuple(w.shape)}")
+    check(bool(torch.isfinite(g).all()), f"{label}: non-finite values")
+    diff = (g - w).abs()
+    err = diff.max().item()
+    check(bool((diff <= tol + tol * w.abs()).all()),
+          f"{label}: max |err| {err:g} outside {tol:g}")
+    return err
+
+
+def wkv_sequential(torch, r, k, v, w, u):
+    """The WKV recurrence one step at a time, as the reference's
+    ``models/ssm.py::_rwkv_step``: returns (y (B, S, H, D), state)."""
+    b, s, h, d = r.shape
+    st = torch.zeros((b, h, d, d), device=r.device)
+    ys = []
+    for i in range(s):
+        kv = k[:, i, :, :, None] * v[:, i, :, None, :]
+        ys.append(torch.einsum("bhd,bhde->bhe", r[:, i],
+                               st + u[:, :, None] * kv))
+        st = w[:, i, :, :, None] * st + kv
+    return torch.stack(ys, 1), st
+
+
+def standalone_phase(torch, F):
+    """Phase 10 of the module docstring: the three standalone kernels.
+    Returns their rows of the ``kernels`` line and the ``standalone``
+    section of ``build/chip_smoke.json``."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import inplace_rmsnorm as TR
+    from repro_torch.kernels import ops as TO
+    from repro_torch.kernels import ref as TREF
+    from repro_torch.kernels import wkv_chunk as TW
+    rng = np.random.default_rng(15)
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def normal(*shape, dtype=torch.float32):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(a).cuda().to(dtype)
+
+    def tol(name, dt):
+        return BF16_TOL if dt == "bf16" else STANDALONE_TOL[name]
+
+    def wkv_inputs(b, s, h, d):
+        r, k, v, z = (normal(b, s, h, d) for _ in range(4))
+        w = torch.exp(-torch.exp(z * 0.5))
+        return r, k, v, torch.log(w), w, normal(h, d) * 0.1
+
+    errs = {(n, dt): 0.0 for n in STANDALONE for dt in types}
+    oracle = dict.fromkeys(STANDALONE, 0.0)
+
+    def hold(name, dt, got, want, ref, label):
+        errs[name, dt] = max(errs[name, dt], close_err(
+            torch, got, want, tol(name, dt), f"{label} against plain"))
+        if ref is not None:
+            oracle[name] = max(oracle[name], close_err(
+                torch, got, ref, tol(name, dt), f"{label} against oracle"))
+
+    # at the reference's test shapes
+    for n, d in RMS_CASES:
+        for dt, ty in types.items():
+            x, g, r = normal(n, d, dtype=ty), normal(d, dtype=ty), \
+                normal(n, d, dtype=ty)
+            got = TR.rmsnorm_scale_residual_inplace(x.clone(), g, r)
+            hold("rmsnorm_inplace", dt, got,
+                 TR.rmsnorm_plain(x.clone(), g, r),
+                 TREF.rmsnorm_scale_residual(x, g, r),
+                 f"rmsnorm ({n}, {d}) {dt}")
+    for s, t, h, d, causal in FLASH_CASES:
+        for dt, ty in types.items():
+            q, k, v = normal(s, h, d, dtype=ty), normal(t, h, d, dtype=ty), \
+                normal(t, h, d, dtype=ty)
+            hold("flash_attention", dt,
+                 TF.flash_attention_kernel(q, k, v, causal),
+                 TF.flash_plain(q, k, v, causal, 64, 64),
+                 TREF.attention(q, k, v, causal),
+                 f"flash ({s}, {t}, {h}, {d}, causal={causal}) {dt}")
+    for s, h, d, qc in WKV_CASES:
+        r, k, v, logw, w, u = wkv_inputs(2, s, h, d)
+        y, st = TW.wkv_chunk_kernel(r, k, v, logw, u, q=qc)
+        y0, st0 = TW.wkv_plain(r, k, v, logw, u, qc)
+        ys, sts = wkv_sequential(torch, r, k, v, w, u)
+        label = f"wkv (2, {s}, {h}, {d}, q={qc})"
+        hold("wkv_chunk", "f32", y, y0, ys, label + " y")
+        hold("wkv_chunk", "f32", st, st0, sts, label + " state")
+    torch.cuda.synchronize()
+    log(f"[standalone] reference shapes: kernels against plain versions "
+        f"{json.dumps({f'{n} {dt}': e for (n, dt), e in errs.items()})}; "
+        f"against the oracles {json.dumps(oracle)}")
+
+    # full width
+    n, d = RMS_FULL
+    rms_in = {dt: (normal(n, d, dtype=ty), normal(d, dtype=ty),
+                   normal(n, d, dtype=ty)) for dt, ty in types.items()}
+    fs, ft, fh, fd = FLASH_FULL
+    fl_in = {dt: (normal(fs, fh, fd, dtype=ty), normal(ft, fh, fd, dtype=ty),
+                  normal(ft, fh, fd, dtype=ty)) for dt, ty in types.items()}
+    wb, ws, wh, wd, wq = WKV_FULL
+    wkv_in = wkv_inputs(wb, ws, wh, wd)
+    wkv_args = wkv_in[:4] + wkv_in[5:]
+    xs = {dt: rms_in[dt][0].clone() for dt in types}
+    rises, outs = {}, {}
+    torch.cuda.synchronize()
+    # the main path: each entry point once per type, counts reset before
+    for mod in (TR, TF, TW):
+        mod.reset_launches()
+    for dt in types:
+        x = xs[dt]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = TO.rmsnorm_residual(x, *rms_in[dt][1:])
+        torch.cuda.synchronize()
+        rises[dt] = torch.cuda.max_memory_allocated() - base
+        check(out.data_ptr() == x.data_ptr(),
+              f"rmsnorm {dt}: the result is not x's storage")
+        check(rises[dt] < x.numel() * x.element_size(),
+              f"rmsnorm {dt}: peak memory rose {rises[dt]} B, x is "
+              f"{x.numel() * x.element_size()} B")
+        outs["rmsnorm_inplace", dt] = out
+    for dt in types:
+        outs["flash_attention", dt] = TO.flash_attention(*fl_in[dt])
+    outs["wkv_chunk", "f32"] = TW.wkv_chunk_kernel(*wkv_args, q=wq)
+    torch.cuda.synchronize()
+    launches = {"rmsnorm_inplace": TR.LAUNCHES,
+                "flash_attention": TF.LAUNCHES, "wkv_chunk": TW.LAUNCHES}
+    check(launches == {"rmsnorm_inplace": 2, "flash_attention": 2,
+                       "wkv_chunk": 1},
+          f"standalone full width: launches {launches}")
+    full_err = {}
+    for dt in types:
+        x0, g, r = rms_in[dt]
+        full_err["rmsnorm_inplace", dt] = close_err(
+            torch, outs["rmsnorm_inplace", dt],
+            TR.rmsnorm_plain(x0.clone(), g, r),
+            tol("rmsnorm_inplace", dt), f"rmsnorm full width {dt}")
+        full_err["flash_attention", dt] = close_err(
+            torch, outs["flash_attention", dt],
+            TF.flash_plain(*fl_in[dt], True, 128, 128),
+            tol("flash_attention", dt), f"flash full width {dt}")
+    y0, st0 = TW.wkv_plain(*wkv_args, wq)
+    y, st = outs["wkv_chunk", "f32"]
+    full_err["wkv_chunk", "f32"] = max(
+        close_err(torch, y, y0, tol("wkv_chunk", "f32"), "wkv full width y"),
+        close_err(torch, st, st0, tol("wkv_chunk", "f32"),
+                  "wkv full width state"))
+    for key, e in full_err.items():
+        errs[key] = max(errs[key], e)
+    del outs, y0, st0, y, st
+
+    # times at full width
+    timing = {}
+    for dt, ty in types.items():
+        x0, g, r = rms_in[dt]
+        esize = x0.element_size()
+        xa, xb, gf = x0.clone(), x0.clone(), g.float()
+        cost = rmsnorm_cost(n, d, esize)
+        timing["rmsnorm_inplace", dt] = {
+            # g cast to f32 once, as the wrapper does per call
+            "ms": time_auto(torch, lambda: TR.rmsnorm_scale_residual_inplace(
+                xa, gf, r)),
+            "plain_ms": time_ms(torch, lambda: TR.rmsnorm_plain(xb, g, r), 1),
+            # two calls: F.rms_norm, then the residual add
+            "library_ms": time_auto(torch, lambda: torch.add(
+                r, F.rms_norm(x0, (d,), g, 1e-6))),
+            "bound_ms": cost_ms(cost), "bound_by": cost_by(cost)}
+        q, k, v = fl_in[dt]
+        qh, kh, vh = (a.permute(1, 0, 2)[None].contiguous()
+                      for a in (q, k, v))
+        cost = attention_cost(fs, ft, fh, fd, True, esize)
+        timing["flash_attention", dt] = {
+            "ms": time_auto(torch, lambda: TF.flash_attention_kernel(
+                q, k, v, True)),
+            "plain_ms": time_ms(torch, lambda: TF.flash_plain(
+                q, k, v, True, 128, 128), 1),
+            # (1, H, S, D) copies made outside the timed call; at S = T
+            # is_causal's mask is the reference's
+            "library_ms": time_auto(torch, lambda: (
+                F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))),
+            "bound_ms": cost_ms(cost), "bound_by": cost_by(cost)}
+    cost = wkv_cost(wb, ws, wh, wd, wq)
+    timing["wkv_chunk", "f32"] = {
+        "ms": time_auto(torch, lambda: TW.wkv_chunk_kernel(*wkv_args, q=wq)),
+        "plain_ms": time_ms(torch, lambda: TW.wkv_plain(*wkv_args, wq), 1),
+        "library_ms": None, "bound_ms": cost_ms(cost),
+        "bound_by": cost_by(cost)}
+
+    paths = {"rmsnorm_inplace": f"qwen2.5-3b width: x ({n}, {d}), f32",
+             "flash_attention": f"qwen2.5-3b width: causal S = T = {fs}, "
+                                f"{fh} heads of {fd}, f32",
+             "wkv_chunk": f"rwkv6-1.6b width: B {wb}, S {ws}, {wh} heads "
+                          f"of {wd}, q {wq}, f32"}
+    rows = []
+    for name in STANDALONE:
+        source, replaces = KERNELS[name]
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "path": paths[name],
+               "launches": launches[name],
+               "max_abs_err": errs[name, "f32"],
+               **timing[name, "f32"]}
+        if (name, "bf16") in timing:
+            row["bf16"] = dict(timing[name, "bf16"],
+                               max_abs_err=errs[name, "bf16"])
+        rows.append(row)
+    section = {
+        "launches": launches, "errors": {f"{n} {dt}": e for (n, dt), e in
+                                         errs.items()},
+        "oracle_errors": oracle,
+        "full_width_errors": {f"{n} {dt}": e for (n, dt), e in
+                              full_err.items()},
+        "rmsnorm_peak_rise_bytes": rises,
+        "times": {f"{n} {dt}": v for (n, dt), v in timing.items()},
+        "shapes": {"rmsnorm": RMS_FULL, "flash_attention": FLASH_FULL,
+                   "wkv_chunk": WKV_FULL}}
+    log(f"[standalone] full width: launches {launches}, rmsnorm result is "
+        f"x's storage, peak rise {rises} B; against plain "
+        f"{json.dumps(section['full_width_errors'])}; times (ms) "
+        f"{json.dumps(section['times'])}")
+    return rows, section
 
 
 def kernel_times(torch, F, K, ex, cp, weights=None, quant=None,
@@ -1231,7 +1549,11 @@ def main() -> int:
         + json.dumps(dmo["cases"]))
     phase_done("dmo_dwconv2d")
 
-    # 10. times
+    # 10. the standalone kernels through their entry points
+    st_rows_k, standalone = standalone_phase(torch, F)
+    phase_done("standalone")
+
+    # 11. times
     walls = []
     c = slice_cps["resnet_50_v2"]
     w0 = X.synth_weights(c.graph, 0)
@@ -1376,6 +1698,7 @@ def main() -> int:
         "max_abs_err": dmo["max_abs_err"], "ms": dmo["ms"],
         "plain_ms": dmo["plain_ms"], "bound_ms": dmo["bound_ms"],
         "bound_by": dmo["bound_by"], "library_ms": dmo["library_ms"]})
+    rows.extend(st_rows_k)
     times = {path: {name: {k: v for k, v in r.items() if k != "specs"}
                     for name, r in p.items()} for path, p in per.items()}
     times_blk = {path: {name: {k: v for k, v in r.items() if k != "specs"}
@@ -1403,7 +1726,7 @@ def main() -> int:
          "streaming": {"graphs": st_rows, "times": times_st,
                        "launches": st_paths, "errors": st_errs,
                        "walls_ms": st_walls},
-         "dmo_dwconv2d": dmo,
+         "dmo_dwconv2d": dmo, "standalone": standalone,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

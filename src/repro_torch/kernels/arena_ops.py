@@ -1306,7 +1306,7 @@ def resolve_device(device) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "the arena kernels run on the card and no CUDA device is "
+                "the kernels run on the card and no CUDA device is "
                 "visible; pass device='cpu' to run the kernels' plain "
                 "PyTorch versions instead")
         return torch.device("cuda")
@@ -1315,7 +1315,7 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device {dev} requested but no CUDA device is "
                            "visible")
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"the arena kernels run on 'cuda' or 'cpu', not "
+        raise ValueError(f"the kernels run on 'cuda' or 'cpu', not "
                          f"{dev}")
     return dev
 

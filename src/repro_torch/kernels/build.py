@@ -1,4 +1,4 @@
-"""Build and load the hand-written sm_90a arena kernels.
+"""Build and load the hand-written sm_90a kernels.
 
 Every ``csrc/*.cu`` compiles with ``nvcc`` into its own shared library with
 a plain C interface (loaded with :mod:`ctypes`; no PyTorch headers, so a
@@ -39,19 +39,31 @@ LAST_BUILD_S = 0.0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: One kernel per source ``csrc/<name>.cu``, whose C entry point is
-#: ``<name>``. Each takes (arena, descriptor, weights or null, global
-#: workspace or null, dynamic shared bytes, stream) -- every pointer and the
-#: stream as c_void_p so ctypes never truncates them to 32 bits -- and
-#: returns cudaGetLastError() after its launch.
+#: ``<name>`` and returns cudaGetLastError() after its launch. Every
+#: pointer and the stream pass as c_void_p, so ctypes never truncates them
+#: to 32 bits.
 KERNELS = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+#: The arena kernels' signature: (arena, descriptor, weights or null,
+#: global workspace or null, dynamic shared bytes, stream).
 ARGTYPES = [_P, _P, _P, _P, _I, _P]
+#: The standalone kernels' own signatures, by entry point; every other
+#: entry takes :data:`ARGTYPES`.
+ARGTYPES_OF = {
+    # (x, r, g f32, n, d, bf16, eps, stream)
+    "rmsnorm_inplace": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # (q, k, v, out, s, t, h, d, causal, bf16, stream)
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (r, k, v, logw, u, y, state, b, s, h, d, q, stream)
+    "wkv_chunk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
 
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the arena kernels need the CUDA "
+        raise RuntimeError("nvcc not found: the kernels need the CUDA "
                            "toolkit (nvcc on PATH or /usr/local/cuda/bin)")
     return path
 
@@ -108,7 +120,7 @@ def load() -> Dict[str, ctypes.CDLL]:
         for name in KERNELS:
             lib = ctypes.CDLL(str(out / f"lib{name}.so"))
             fn = getattr(lib, name)
-            fn.argtypes = ARGTYPES
+            fn.argtypes = ARGTYPES_OF.get(name, ARGTYPES)
             fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return _LIBS

@@ -147,3 +147,83 @@ def test_streaming_route_on_the_card(card, bits):
         np.testing.assert_array_equal(got[k], want[k])
     a, b = _final_arena(st, cp), _final_arena(blk, cp)
     assert a.is_cuda and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the standalone kernels (rmsnorm_inplace, flash_attention, wkv_chunk)
+# ---------------------------------------------------------------------------
+
+_TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _normal(card, seed, *shape, dtype=torch.float32):
+    a = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    return torch.from_numpy(a).to(card).to(dtype)
+
+
+def _assert_close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n,d", [(64, 32), (256, 64), (128, 200), (8, 8),
+                                 (4096, 2048)])
+def test_rmsnorm_on_the_card(card, n, d, dt):
+    """Kernel against plain version; the result is x's storage and the
+    call allocates nothing but g's float32 copy (bf16 g; one 512 B block
+    of the allocator at least), well under x's bytes at full width."""
+    from repro_torch.kernels import inplace_rmsnorm as TR
+    from repro_torch.kernels import ops as TO
+    ty = _TYPES[dt]
+    x, g, r = (_normal(card, n + d + i, *s, dtype=ty)
+               for i, s in enumerate(((n, d), (d,), (n, d))))
+    want = TR.rmsnorm_plain(x.clone(), g, r)
+    TR.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = TO.rmsnorm_residual(x, g, r)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == x.data_ptr() and TR.LAUNCHES == 1
+    rise = torch.cuda.max_memory_allocated() - base
+    assert rise <= (0 if dt == "f32" else -(-4 * d // 512) * 512)
+    assert rise < x.numel() * x.element_size() or n * d < 4096
+    _assert_close(got, want, 5e-2 if dt == "bf16" else 2e-5)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("s,t,h,d,causal", [
+    (128, 128, 4, 64, True), (256, 256, 2, 32, True), (64, 256, 3, 16, True),
+    (32, 32, 1, 128, True), (64, 128, 2, 32, False), (64, 32, 2, 32, True),
+    (100, 70, 2, 24, True), (4096, 4096, 16, 128, True)])
+def test_flash_attention_on_the_card(card, s, t, h, d, causal, dt):
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import ops as TO
+    from repro_torch.kernels import ref as TREF
+    ty = _TYPES[dt]
+    q = _normal(card, s, s, h, d, dtype=ty)
+    k = _normal(card, t + 1, t, h, d, dtype=ty)
+    v = _normal(card, t + 2, t, h, d, dtype=ty)
+    TF.reset_launches()
+    got = TO.flash_attention(q, k, v, causal=causal)
+    assert got.is_cuda and got.dtype == ty and TF.LAUNCHES == 1
+    tol = 5e-2 if dt == "bf16" else 2e-4
+    _assert_close(got, TF.flash_plain(q, k, v, causal), tol)
+    if s * t <= 1 << 16:
+        _assert_close(got, TREF.attention(q, k, v, causal), tol)
+
+
+@pytest.mark.parametrize("b,s,h,d,q", [
+    (2, 128, 2, 64, 32), (2, 256, 4, 64, 64), (2, 192, 1, 64, 64),
+    (1, 4096, 32, 64, 64)])
+def test_wkv_chunk_on_the_card(card, b, s, h, d, q):
+    from repro_torch.kernels import wkv_chunk as TW
+    r, k, v, z = (_normal(card, s + i, b, s, h, d) for i in range(4))
+    logw = -torch.exp(z * 0.5)
+    u = _normal(card, s + 5, h, d) * 0.1
+    TW.reset_launches()
+    y, st = TW.wkv_chunk_kernel(r, k, v, logw, u, q=q)
+    assert y.is_cuda and TW.LAUNCHES == 1
+    y0, st0 = TW.wkv_plain(r, k, v, logw, u, q)
+    _assert_close(y, y0, 3e-4)
+    _assert_close(st, st0, 3e-4)
