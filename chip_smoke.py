@@ -17,8 +17,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    matmul and pad spec and every row op wider than 8,192 outputs of
    ``resnet_50_v2`` (f32 and int8), ``densenet_121`` and the reference's
    test graph ``allops`` (f32 and int8); a hand-built fused chain with
-   pool and elementwise stages (f32 and int8); and a hand-built conv whose
-   output row exceeds a CTA's shared memory (global row buffer);
+   pool and elementwise stages (f32 and int8); a hand-built conv whose
+   output row exceeds a CTA's shared memory (cut into column tiles), and
+   one whose input footprint exceeds the conv's shared memory budget
+   (staged in per-CTA slices of the global workspace);
 4. runs the flagship slice: ``compile(mobilenet_v1(0.25, 128, 1),
    backend="cuda")`` (verified ``numeric+cuda``, winner ``fuse``, 49,805 B)
    and three requests through ``CompiledPlan.execute``, each matching the
@@ -29,6 +31,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (``zoo.resnet50_v2(224, 4)``) and int8: ``compile(..., backend="cuda")``
    and three requests each, matching the numpy backend, 90 launches each,
    the device arena exactly ``plan.peak_bytes`` (7,225,344 B in f32);
+   then repeats the ``resnet_50_v2`` f32 and flagship int8 forwards five
+   times each on the same inputs: the final device arenas must be
+   identical, byte for byte (``arena_conv`` runs over the whole card with
+   tiles that wait on each other; a race would show here), and prints the
+   conv's order modes, tiles and the device bytes its counters take;
 6. runs every row of ``zoo.TABLE3_MODELS`` at full width once on the card
    against the numpy backend, and ``allops`` (f32 and int8); prints each
    row's winner, arena, launches and seconds. ``nasnet_mobile``'s graph
@@ -392,6 +399,20 @@ def wide_row_spec(ow: int, oc: int):
                   out_shape=(rows, ow, oc), dtype="f32",
                   meta=(3, 3, 1, 1, 1, 1, 1, 1, 1))
     return spec, max(spec.in_off[0] + in_b, out_b)
+
+
+def deep_footprint_spec():
+    """A hand-built f32 conv2d 3x3 over 6,000 input channels: one output
+    column's input footprint (3 x 3 x 6,000 f32) exceeds the conv's shared
+    memory budget, so each CTA stages it in its slice of the global
+    workspace; the output overlaps the input's first row. Returns (spec,
+    arena bytes)."""
+    from repro_torch.kernels.arena_ops import OpSpec
+    ic, oc = 6_000, 8
+    spec = OpSpec(kind="conv2d", in_off=(128,), in_shape=((3, 3, ic),),
+                  out_off=0, out_shape=(3, 3, oc), dtype="f32",
+                  meta=(3, 3, 1, 1, 1, 1, 1, 1, 1))
+    return spec, 128 + 3 * 3 * ic * 4
 
 
 def graph_fault(graph):
@@ -933,6 +954,44 @@ def streamed_requests(torch, K, X, cp, label: str, n_launch=None):
     return counts, t_st, t_blk
 
 
+def repeat_forwards(torch, K, X, cp, label: str, n: int = 5):
+    """``n`` forwards of ``cp`` on the card's flat program on the same
+    inputs; every final device arena must equal the first, byte for byte.
+    Returns the conv's order modes, tiles a spec, largest tile footprint
+    in shared memory and the workspace bytes its specs hold (counters and
+    any staging slices: the device memory the conv adds to the arena)."""
+    graph = cp.graph
+    weights = X.synth_weights(graph, 0)
+    quant = X.calibrate(graph, 0, weights) if X.needs_quant(graph) else None
+    inputs = (X.quant_inputs(graph, quant, 0) if quant is not None
+              else X.random_inputs(graph, 0))
+    ex = X.get_backend("cuda")
+    first = None
+    for _ in range(n):
+        arena = run_arena(K, ex, cp, inputs, weights, quant)
+        torch.cuda.synchronize()
+        if first is None:
+            first = arena
+        check(torch.equal(arena, first),
+              f"{label}: repeated forwards give different arenas")
+    convs = [s for s in ex.program(cp)[0] if K.kernel_of(s) == "arena_conv"]
+    tiles = [K.conv_tiling(s).ntiles for s in convs]
+    row = {"forwards": n, "arena_bytes": first.numel(),
+           "modes": [sum(K.conv_order(s) == m for s in convs)
+                     for m in (K.ORDER_DISJOINT, K.ORDER_STAGED,
+                               K.ORDER_ROWS)],
+           "tiles_min": min(tiles), "tiles_max": max(tiles),
+           "max_tile_smem": max(K.buffer_plan(s).smem for s in convs),
+           "workspace_bytes": sum(K.buffer_plan(s).gbytes for s in convs)}
+    log(f"[repeats] {label}: {n} forwards, final arenas identical "
+        f"({row['arena_bytes']} B); arena_conv: {len(convs)} specs, order "
+        f"modes (disjoint, staged, rows) {row['modes']}, {min(tiles)}-"
+        f"{max(tiles)} tiles a spec, up to {row['max_tile_smem']} B of "
+        f"shared memory a CTA (footprint and filter chunks), counters "
+        f"{row['workspace_bytes']} B of device memory beside the arena")
+    return row
+
+
 def refused(fn, label: str) -> str:
     """Run ``fn``; it must raise ValueError (a graph no backend executes).
     Returns the message."""
@@ -1292,9 +1351,15 @@ def main() -> int:
                      f"fused chain with pool and elementwise stages, "
                      f"{dtype}")
     spec, nbytes = wide_row_spec(4_096, 16)
-    check(K.buffer_plan(spec).on_global("row"), "row buffer not global")
+    check(not K.buffer_plan(spec).on_global("tile"),
+          "a wide row's tiles must stage in shared memory")
     compare_spec(torch, K, spec, nbytes, [torch.randn(3, 3, 4, 16).cuda()],
-                 errs, "conv with a 65,536-output row (global row buffer)")
+                 errs, "conv with a 65,536-output row (column tiles)")
+    spec, nbytes = deep_footprint_spec()
+    check(K.buffer_plan(spec).on_global("tile"), "footprint not global")
+    compare_spec(torch, K, spec, nbytes,
+                 [torch.randn(3, 3, 6_000, 8).cuda() * 0.02], errs,
+                 "conv with a 216,000 B footprint (global staging slices)")
     for name in PROGRAM_KERNELS:
         check(name in errs, f"{name} was never held against its plain "
               "version")
@@ -1350,6 +1415,13 @@ def main() -> int:
         check(paths["resnet_50_v2"][name] > 0,
               f"{name} never launched on resnet_50_v2")
     phase_done("resnet_50_v2 slice")
+
+    # 5b. repeated forwards give identical arenas
+    conv_rows = {}
+    for label, c in (("resnet_50_v2", slice_cps["resnet_50_v2"]),
+                     ("flagship", cp)):
+        conv_rows[label] = repeat_forwards(torch, K, X, c, label)
+    phase_done("repeats")
 
     # 6. the zoo, and allops
     zoo_rows = {}
@@ -1727,6 +1799,7 @@ def main() -> int:
                        "launches": st_paths, "errors": st_errs,
                        "walls_ms": st_walls},
          "dmo_dwconv2d": dmo, "standalone": standalone,
+         "arena_conv": conv_rows,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

@@ -8,12 +8,15 @@ Usage, on a machine with an NVIDIA card, from the root of a checkout::
     python3 scripts/torch_ab_row_kernels.py <root of the tree to time>
 
 It builds that tree's kernels (into its own ``build/repro_torch/``),
-compiles ``resnet_50_v2`` f32 (``zoo.resnet50_v2(224, 4)``) and prints one
-JSON line: the device ms of each kernel per forward, summed over its
-launches (CUDA events, ``chip_smoke.kernel_times``), on the flat, the
-row-blocked and the streaming program. Run it on the two trees in turns (parent, change,
-change, parent) within one call: times from two calls may come from two
-cards.
+compiles ``resnet_50_v2`` f32 (``zoo.resnet50_v2(224, 4)``) and the
+flagship ``mobilenet_v1_0.25_128_8bit`` and prints one JSON line: the
+device ms of each kernel per forward, summed over its launches (CUDA
+events, ``chip_smoke.kernel_times``), on the flat, the row-blocked and the
+streaming program of ``resnet_50_v2`` (with the flat program's
+``F.conv2d``/``F.max_pool2d`` yardstick, TF32 off, under ``library``) and
+``arena_conv`` on the flagship's flat and row-blocked programs. Run it on
+the two trees in turns (parent, change, change, parent) within one call:
+times from two calls may come from two cards.
 """
 import importlib.util
 import json
@@ -38,6 +41,8 @@ def main() -> int:
     from repro_torch.core.pipeline import compile
     from repro_torch.kernels import arena_ops as K
     from repro_torch.kernels import build
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     build.load()
     cp = compile(zoo.resnet50_v2(224, 4), backend="numpy")
     out = {"root": str(root), "card": torch.cuda.get_device_name(0)}
@@ -46,9 +51,20 @@ def main() -> int:
                         ("streaming", {"mode": "streaming"})):
         ex = X.get_backend("cuda", **kw)
         per = cs.kernel_times(torch, F, K, ex, cp, plain_too=False,
+                              library=program == "flat",
                               only={"arena_conv", "arena_pool",
                                     "arena_stream_roll"})
         out[program] = {k: v["ms"] for k, v in per.items()}
+        if program == "flat":
+            out["library"] = {k: v["library_ms"] for k, v in per.items()}
+    flag = compile(zoo.mobilenet_v1(0.25, 128, 1), backend="numpy")
+    w = X.synth_weights(flag.graph, 0)
+    q = X.calibrate(flag.graph, 0, w)
+    for program, kw in (("flat", {"layout": "flat"}),
+                        ("blocks", {"layout": "blocks"})):
+        per = cs.kernel_times(torch, F, K, X.get_backend("cuda", **kw), flag,
+                              w, q, plain_too=False, only={"arena_conv"})
+        out[f"flagship {program}"] = per["arena_conv"]["ms"]
     print(json.dumps(out), flush=True)
     return 0
 

@@ -64,7 +64,11 @@ A kernel's row buffer, staging buffer, (fused chain) scratch and
 (streaming) window and output slot live in dynamic shared memory when they
 fit one CTA and otherwise in a global workspace allocated once per spec and
 cached (:func:`buffer_plan`, :func:`workspace`); the descriptor tells the
-kernel where each is.
+kernel where each is. Every kernel but one runs one CTA per op; the
+standalone conv (:func:`arena_conv`) runs row tiles over the whole card
+(:func:`conv_tiling`), each tile's input footprint in its CTA's shared
+memory (or a global slice per CTA), its counters at the start of its
+workspace, and waits only where the operands overlap (:func:`conv_order`).
 
 The plain versions walk output rows in Python with torch ops on typed views
 of the arena, in the reference's order (every read of row ``oy`` before its
@@ -238,8 +242,14 @@ D_CIN_OFF, D_CIN_SCR, D_CINNER, D_CZP, D_CMULT = 16, 32, 48, 64, 80
 D_EDIM0, D_BSTR0 = 20, 26
 D_MM, D_MK, D_MN = 10, 11, 12
 D_PIN0, D_PLO0, D_POUT0, D_PN = 10, 14, 18, 22
-#: Buffer placement words (flag: 1 = global workspace, then byte offset).
-BUFFER_WORD = {"stage": 120, "row": 122, "scratch": 124}
+#: A standalone conv's tiling (:func:`conv_tiling`): its order mode
+#: (:data:`ORDER_DISJOINT` and on), then the tiling's fields in order.
+D_ORDER = 100
+D_TILING = 101
+#: Buffer placement words (flag: 1 = global workspace, then byte offset);
+#: a standalone conv's tile footprint takes the "stage" words.
+BUFFER_WORD = {"stage": 120, "row": 122, "scratch": 124, "tile": 120,
+               "wts": 122}
 #: Operand addressing: slot 0 is the output, slot 1 + i input i, each
 #: ADDR_WORDS words (L, c, k, rl, used, nblk) from D_ADDR on.
 D_ADDR, ADDR_WORDS = 128, 6
@@ -375,7 +385,8 @@ def operand_addr(spec: OpSpec, i: Optional[int]) -> Tuple[int, ...]:
 
 def _row_geometry(spec: OpSpec) -> Tuple[int, ...]:
     """(ih, iw, ic, oh, ow, oc) of a conv2d, depthwise or pool spec. Any
-    row width runs: the kernels stage one output row in a row buffer."""
+    row width runs: the row walks stage one output row in a row buffer,
+    the standalone conv cuts a row into column tiles."""
     ih, iw, ic = spec.in_shape[0][-3:]
     oh, ow, oc = spec.out_shape[-3:]
     return ih, iw, ic, oh, ow, oc
@@ -549,6 +560,259 @@ def _op_words(spec: OpSpec, woff: int = 0) -> List[int]:
 
 
 # ---------------------------------------------------------------------------
+# The standalone conv over the whole card (csrc/arena_conv.cu): output row
+# tiles, their input footprints and the order the arena's overlap needs.
+# The kernel reads the same numbers from the descriptor.
+# ---------------------------------------------------------------------------
+
+#: Threads of one conv CTA.
+CONV_THREADS = 256
+#: Shared memory a conv tile's input footprint may take; a larger one is
+#: staged in a per-CTA slice of the global workspace.
+CONV_SMEM_BUDGET = 192 * 1024
+#: Shared bytes one filter chunk of a conv2d tile may take (two are in
+#: flight).
+CONV_WCHUNK_BYTES = 16 * 1024
+#: CTAs a globally staged conv launches at most (one slice each).
+CONV_SLICES = 132
+#: SMs of the card and conv CTAs an SM holds at most (256 threads at 128
+#: registers), and the shared memory of one SM (228 KB), for the tiling's
+#: cost model.
+CONV_SMS, CONV_CTAS_PER_SM = 132, 2
+SM_SMEM = 233_472
+#: Bytes of the conv's counters at the start of its workspace before its
+#: per-row ones: the next ticket, tiles stored (two words of padding).
+CONV_COUNTER_BYTES = 16
+#: Order modes: input 0 and the output share no byte; they overlap, and no
+#: row's store meets a later row's reads (a tile stores once every tile of
+#: its row and the rows before has staged its input: a count of staged
+#: tiles per row); they overlap so that a later row reads an earlier row's
+#: store (rows also read only after every earlier row is stored: the rows
+#: run one after another).
+ORDER_DISJOINT, ORDER_STAGED, ORDER_ROWS = range(3)
+
+
+class ConvTiling(NamedTuple):
+    """A standalone conv's tiles. A tile is (output row, ``tc`` output
+    columns, ``to`` output channels); thread ``i`` of the CTA takes output
+    channels ``og*vo .. og*vo+vo-1`` (``og = i % nog``) of pixels ``slot +
+    p*(CONV_THREADS // nog)``, ``p < vp`` (``slot = i // nog``). Its input
+    footprint (``fp`` bytes, 16-aligned) is ``kh`` rows of ``fw`` columns
+    (those ``min(tc, ow)`` output columns reach) of ``ib`` channels, a
+    column every ``ps`` elements (padded so that the columns a warp reads
+    at once sit in different shared-memory banks). Tickets run row-major:
+    ``tpr = ncb * nob`` tiles a row, column block major. A conv2d with ``vo == 4`` stages its
+    filter's ``to`` columns in shared memory ``ch`` input channels at a
+    time, two chunks in flight (``ch == 0``: filter loads from global
+    memory)."""
+    vp: int
+    vo: int
+    nog: int
+    tc: int
+    to: int
+    ib: int
+    fw: int
+    ncb: int
+    nob: int
+    tpr: int
+    ntiles: int
+    fp: int
+    ch: int
+    ps: int
+
+
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _resident(spec: OpSpec, t: ConvTiling) -> int:
+    """Conv CTAs of tiling ``t`` the card holds at once, by registers and
+    shared memory."""
+    smem = (t.fp if t.fp <= CONV_SMEM_BUDGET else 0) + \
+        2 * t.ch * t.to * _isz(spec.dtype) + 1024
+    return CONV_SMS * max(1, min(CONV_CTAS_PER_SM, SM_SMEM // smem))
+
+
+def _column_stride(ib: int, isz: int) -> int:
+    """Elements from one footprint column to the next: ``ib`` rounded up
+    to 16 bytes, plus 16 where that is a multiple of 32 bytes, so eight
+    consecutive columns start in eight different 4-byte banks groups."""
+    words = _round_up(-(-ib * isz // 4), 4)
+    if words % 8 == 0:
+        words += 4
+    return words * 4 // isz
+
+
+def _tile_cycles(spec: OpSpec, t: ConvTiling) -> float:
+    """Rough cycles of one tile, to rank tilings (not a prediction): the
+    footprint's copy, then per step of a staged filter (a tap's chunk of
+    ``ch`` input channels) a barrier pair and the larger of the chunk's
+    copy and its ``ch`` iterations; without staging, every tap and input
+    channel's global filter load. An iteration costs more with more pixels
+    a thread."""
+    ic = spec.in_shape[0][-1]
+    taps = spec.meta[0] * spec.meta[1]
+    isz = _isz(spec.dtype)
+    cycles = 600 + t.fp / 32
+    if t.ch:
+        load = 600 + t.ch * t.to * isz / 32
+        work = t.ch * (8 + 4 * t.vp)
+        cycles += taps * -(-ic // t.ch) * (200 + max(load, work))
+    else:
+        reach = ic if spec.kind == "conv2d" else 1
+        cycles += taps * reach * (30 + 4 * t.vp)
+    return cycles
+
+
+@functools.lru_cache(maxsize=1024)
+def conv_tiling(spec: OpSpec) -> ConvTiling:
+    """The tiling of a standalone conv2d / depthwise spec: four output
+    channels a thread where the filter's rows allow (conv2d with ``oc %
+    4 == 0``), then the threads across the channels (a power of two up to
+    64) and the pixels a thread (4, 2 or 1) whose footprint fits
+    :data:`CONV_SMEM_BUDGET` and whose waves of resident tiles
+    (:func:`_resident`) cost least by :func:`_tile_cycles` (ties: more
+    pixels a thread, then more threads across the channels). Where no
+    footprint fits, more threads go across the channels (fewer columns a
+    tile, down to one), and the smallest footprint is staged in global
+    memory."""
+    ih, iw, ic, oh, ow, oc = _row_geometry(spec)
+    kh, kw, sh, sw, dh, dw, ph, pw, m = spec.meta
+    dwk = spec.kind == "depthwise_conv2d"
+    vo = 1 if dwk or oc % 4 else 4
+    nog0 = min(_pow2_at_least(-(-oc // vo)), 64)
+    shapes = [(nog, vp) for nog in (64, 32, 16, 8, 4) if nog <= nog0
+              for vp in (4, 2, 1)] or [(nog0, vp) for vp in (4, 2, 1)]
+    shapes += [(n, 1) for n in (128, 256) if n > nog0]
+    options = []
+    for nog, vp in shapes:
+        to = nog * vo
+        if dwk and to % m and -(-oc // to) > 1:
+            continue        # a channel block would split a multiplier
+        tc = CONV_THREADS // nog * vp
+        ib = min(ic, (to - 1) // m + 1) if dwk else ic
+        fw = (min(tc, ow) - 1) * sw + (kw - 1) * dw + 1
+        ncb, nob = -(-ow // tc), -(-oc // to)
+        ps = _column_stride(ib, _isz(spec.dtype))
+        fp = _round_up(kh * fw * ps * _isz(spec.dtype), 16)
+        ch = 0 if vo == 1 else max(1, min(
+            ic, CONV_WCHUNK_BYTES // (to * _isz(spec.dtype))))
+        options.append(ConvTiling(vp, vo, nog, tc, to, ib, fw, ncb, nob,
+                                  ncb * nob, oh * ncb * nob, fp, ch, ps))
+    base = [t for t in options if t.nog <= nog0
+            and t.fp <= CONV_SMEM_BUDGET]
+    if base:
+        return min(base, key=lambda t: (
+            -(-t.ntiles // _resident(spec, t)) * _tile_cycles(spec, t),
+            -t.vp, -t.nog))
+    for t in options:
+        if t.nog > nog0 and t.fp <= CONV_SMEM_BUDGET:
+            return t
+    return min(options, key=lambda t: t.fp)
+
+
+def conv_counter_bytes(spec: OpSpec) -> int:
+    """Bytes of a standalone conv's counters: :data:`CONV_COUNTER_BYTES`,
+    then one int32 of staged tiles per output row, 16-aligned."""
+    return _round_up(CONV_COUNTER_BYTES + 4 * spec.out_shape[-3], 16)
+
+
+def _byte_range(spec: OpSpec, i: Optional[int]) -> Tuple[int, int]:
+    """Arena bytes ``[lo, hi)`` of input ``i`` (None: the output): flat, its
+    tensor's bytes; row-blocked, its whole block of arena rows."""
+    off, L, _, _, _, _, nblk = operand_addr(spec, i)
+    return off, off + nblk * _isz(spec.dtype)
+
+
+def _row_start(addr: Tuple[int, ...], iy: int) -> int:
+    """Element offset of image row ``iy`` (``row_elem`` of the kernels)."""
+    _, L, c, k, rl, _, _ = addr
+    return (iy // c) * L + (iy % c) * rl if c > 1 else iy * k * L
+
+
+def conv_row_reads(spec: OpSpec, r: int,
+                   cols: Tuple[int, int] = None) -> List[Tuple[int, int]]:
+    """Arena byte intervals output row ``r`` reads: per valid tap row, the
+    input columns its output columns ``cols`` (default all) reach, every
+    channel."""
+    ih, iw, ic, oh, ow, oc = _row_geometry(spec)
+    kh, kw, sh, sw, dh, dw, ph, pw, _ = spec.meta
+    x0, x1 = cols or (0, ow)
+    lo_ix = max(0, x0 * sw - pw)
+    hi_ix = min(iw, (x1 - 1) * sw - pw + (kw - 1) * dw + 1)
+    if hi_ix <= lo_ix:
+        return []
+    a = operand_addr(spec, 0)
+    isz = _isz(spec.dtype)
+    out = []
+    for fy in range(kh):
+        iy = r * sh - ph + fy * dh
+        if 0 <= iy < ih:
+            e = _row_start(a, iy)
+            out.append((a[0] + (e + lo_ix * ic) * isz,
+                        a[0] + (e + hi_ix * ic) * isz))
+    return out
+
+
+def conv_row_store(spec: OpSpec, r: int,
+                   cols: Tuple[int, int] = None) -> Tuple[int, int]:
+    """Arena byte interval output row ``r``'s store covers (columns
+    ``cols``, default the whole row with, plain or spanning, the zeroed
+    rest of its ``k * L`` elements)."""
+    _, _, _, _, ow, oc = _row_geometry(spec)
+    a = operand_addr(spec, None)
+    isz = _isz(spec.dtype)
+    e = _row_start(a, r)
+    if cols is not None:
+        return (a[0] + (e + cols[0] * oc) * isz,
+                a[0] + (e + cols[1] * oc) * isz)
+    span = ow * oc if a[2] > 1 else a[3] * a[1]
+    return a[0] + e * isz, a[0] + (e + span) * isz
+
+
+def _meets(a: Tuple[int, int], b: Tuple[int, int]) -> bool:
+    return a[0] < b[1] and b[0] < a[1]
+
+
+@functools.lru_cache(maxsize=1024)
+def conv_order(spec: OpSpec) -> int:
+    """The order mode of a standalone conv (:data:`ORDER_DISJOINT`,
+    :data:`ORDER_STAGED` or :data:`ORDER_ROWS`) from the byte ranges of
+    input 0 and of the output, then from each row's store against every
+    later row's reads."""
+    if not _meets(_byte_range(spec, 0), _byte_range(spec, None)):
+        return ORDER_DISJOINT
+    oh = spec.out_shape[-3]
+    stores = [conv_row_store(spec, r) for r in range(oh)]
+    ends = np.maximum.accumulate([hi for _, hi in stores])
+    starts = [lo for lo, _ in stores]
+    for r in range(1, oh):
+        for lo, hi in conv_row_reads(spec, r):
+            # stores of rows < r that start below hi; the one of them
+            # reaching furthest up decides
+            n = min(r, int(np.searchsorted(starts[:r], hi)))
+            if n and ends[n - 1] > lo and any(
+                    _meets(stores[j], (lo, hi)) for j in range(n)):
+                return ORDER_ROWS
+    return ORDER_STAGED
+
+
+def conv_tile_geometry(spec: OpSpec, t: int) -> Tuple[int, Tuple[int, int],
+                                                      Tuple[int, int]]:
+    """(output row, output columns ``[x0, x1)``, output channels ``[o0,
+    o1)``) of ticket ``t``."""
+    _, _, _, _, ow, oc = _row_geometry(spec)
+    tl = conv_tiling(spec)
+    r, rem = divmod(t, tl.tpr)
+    cb, ob = divmod(rem, tl.nob)
+    x0, o0 = cb * tl.tc, ob * tl.to
+    return r, (x0, min(ow, x0 + tl.tc)), (o0, min(oc, o0 + tl.to))
+
+
+# ---------------------------------------------------------------------------
 # Buffers: where a kernel's row buffer, staging buffer and scratch live
 # ---------------------------------------------------------------------------
 
@@ -586,6 +850,10 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
     if form == "fused":
         return _buffer_needs(_stream_body(spec))
     k = spec.kind
+    if k in ("conv2d", "depthwise_conv2d"):
+        tl = conv_tiling(spec)
+        return (("ctr", conv_counter_bytes(spec)), ("tile", tl.fp),
+                ("wts", 2 * tl.ch * tl.to * _isz(spec.dtype)))
     if k in ROW_KINDS:
         return (("row", _row_bytes(spec)),)
     if k in ("mean", "fully_connected"):
@@ -609,13 +877,19 @@ def buffer_plan(spec: OpSpec) -> BufferPlan:
     """Each buffer takes dynamic shared memory (16-byte aligned) when it
     fits beside the ones before it within :data:`SMEM_LIMIT` (less
     :data:`STREAM_STATIC_SMEM` for a streaming launch), else the global
-    workspace."""
+    workspace. A standalone conv's counters are always global, at its
+    workspace's start; its tile footprint takes shared memory within
+    :data:`CONV_SMEM_BUDGET`, else one global slice per CTA
+    (:data:`CONV_SLICES`)."""
     smem = gbytes = 0
     parts = []
     limit = SMEM_LIMIT - (STREAM_STATIC_SMEM if spec.win_rows else 0)
     for name, n in _buffer_needs(spec):
         n = _round_up(n, 16)
-        if smem + n <= limit:
+        if name == "ctr" or (name == "tile" and n > CONV_SMEM_BUDGET):
+            parts.append((name, True, gbytes))
+            gbytes += n * (CONV_SLICES if name == "tile" else 1)
+        elif smem + n <= limit:
             parts.append((name, False, smem))
             smem += n
         else:
@@ -666,7 +940,12 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
     spec's descriptor is its stream block, then its body's descriptor."""
     bp = buffer_plan(spec)
     if not spec.win_rows:
-        return _body_words(spec, bp)
+        words = _body_words(spec, bp)
+        if kernel_of(spec) == "arena_conv":
+            words[D_ORDER] = conv_order(spec)
+            tl = conv_tiling(spec)
+            words[D_TILING:D_TILING + len(tl)] = tl
+        return words
     body = _body_words(_stream_body(spec), bp)
     return np.concatenate([_stream_words(spec, bp), body])
 
@@ -727,6 +1006,21 @@ def descriptor(spec: OpSpec, device) -> torch.Tensor:
     """The spec's descriptor uploaded to ``device`` (callers cache it per
     spec, so repeated executions upload nothing)."""
     return torch.from_numpy(descriptor_words(spec)).to(device)
+
+
+_DESCRIPTORS: "collections.OrderedDict" = collections.OrderedDict()
+
+
+def _cached_descriptor(spec: OpSpec, device) -> torch.Tensor:
+    """The descriptor of a wrapper called without one (the standalone
+    entry points), uploaded once per spec and device and cached."""
+    key = (spec, torch.device(device))
+    t = _DESCRIPTORS.get(key)
+    if t is None:
+        t = _DESCRIPTORS[key] = descriptor(spec, device)
+        while len(_DESCRIPTORS) > _WORKSPACE_CACHE:
+            _DESCRIPTORS.popitem(last=False)
+    return t
 
 
 def pack_weights(spec: OpSpec, weights: Sequence[torch.Tensor],
@@ -1333,19 +1627,33 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _launch(name: str, arena: torch.Tensor, spec: OpSpec,
-            w: Optional[torch.Tensor], desc: Optional[torch.Tensor]) -> None:
-    """Launch kernel ``name`` on the arena's current stream and count it."""
+            w: Optional[torch.Tensor], desc: Optional[torch.Tensor],
+            grid: Tuple[int, ...] = ()) -> None:
+    """Launch kernel ``name`` on the arena's current stream and count it;
+    ``grid``: the launch-shape arguments of a kernel over the whole card
+    (:data:`build.GRID_ARGTYPES`)."""
     from repro_torch.kernels import build
     if desc is None:
-        desc = descriptor(spec, arena.device)
+        desc = _cached_descriptor(spec, arena.device)
     elif desc.dtype != torch.int32 or desc.device != arena.device:
         raise ValueError("descriptor must be int32 on the arena's device")
     stream = torch.cuda.current_stream(arena.device).cuda_stream
     build.check(build.entry(name)(
         arena.data_ptr(), desc.data_ptr(), _ptr(w),
-        _ptr(workspace(spec, arena.device)), buffer_plan(spec).smem, stream),
-        name)
+        _ptr(workspace(spec, arena.device)), buffer_plan(spec).smem, *grid,
+        stream), name)
     LAUNCHES[name] += 1
+
+
+def conv_grid(spec: OpSpec) -> Tuple[int, int, int]:
+    """(CTAs to launch at most, tiles a row, counter bytes) of a standalone
+    conv: one CTA a tile, or one a global staging slice; the kernel's entry
+    point lowers the count to the CTAs the card holds at once, which must
+    cover a row's tiles, and zeroes the counters."""
+    tl = conv_tiling(spec)
+    glob = buffer_plan(spec).on_global("tile")
+    return (min(tl.ntiles, CONV_SLICES) if glob else tl.ntiles, tl.tpr,
+            conv_counter_bytes(spec))
 
 
 def arena_conv(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
@@ -1356,7 +1664,7 @@ def arena_conv(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
     if not _on_card(arena, spec, w):
         conv_plain(arena, spec, w)
         return
-    _launch("arena_conv", arena, spec, w, desc)
+    _launch("arena_conv", arena, spec, w, desc, conv_grid(spec))
 
 
 def arena_pool(arena: torch.Tensor, spec: OpSpec,

@@ -48,6 +48,10 @@ KERNELS = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 #: The arena kernels' signature: (arena, descriptor, weights or null,
 #: global workspace or null, dynamic shared bytes, stream).
 ARGTYPES = [_P, _P, _P, _P, _I, _P]
+#: Arena kernels over the whole card take three ints more before the
+#: stream: the CTAs to launch at most, the tiles of one output row and the
+#: bytes of the counters at the workspace's start.
+GRID_ARGTYPES = {"arena_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _P]}
 #: The standalone kernels' own signatures, by entry point; every other
 #: entry takes :data:`ARGTYPES`.
 ARGTYPES_OF = {
@@ -120,7 +124,8 @@ def load() -> Dict[str, ctypes.CDLL]:
         for name in KERNELS:
             lib = ctypes.CDLL(str(out / f"lib{name}.so"))
             fn = getattr(lib, name)
-            fn.argtypes = ARGTYPES_OF.get(name, ARGTYPES)
+            fn.argtypes = ARGTYPES_OF.get(name) or GRID_ARGTYPES.get(
+                name, ARGTYPES)
             fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return _LIBS

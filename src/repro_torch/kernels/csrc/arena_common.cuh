@@ -32,11 +32,15 @@
 // Paper §III.F: the planner overlaps an op's input and output diagonally
 // (safe overlap O_s), which is only safe when output rows are produced in
 // ascending order and every read of row oy happens after the row oy-1
-// store. So every op here runs in ONE CTA. Row ops (conv2d, depthwise,
-// pool) walk output rows in order; threads split the columns and channels
-// of one row, stage the row's results in a row buffer, and store only after
-// a __syncthreads(); a second barrier orders the store before the next
-// row's reads. In the row-blocked program the legaliser re-derives every
+// store. So every op here runs in ONE CTA, except the standalone conv2d /
+// depthwise (arena_conv.cu), which has its own kernel over the whole card:
+// row tiles whose stores wait, through counters in global memory, for the
+// reads of every tile of their row and the rows before (see that file).
+// Row ops here (pool; conv2d, depthwise and pool as fused or streaming
+// stages) walk output rows in order; threads split the columns and
+// channels of one row, stage the row's results in a row buffer, and store
+// only after a __syncthreads(); a second barrier orders the store before
+// the next row's reads. In the row-blocked program the legaliser re-derives every
 // diagonal distance in whole arena rows, so the padding a row store zeroes
 // is dead. Whole-block ops read all of their input before any output
 // element is written: mean, fully connected and softmax stage their input;
@@ -852,8 +856,9 @@ __device__ __forceinline__ void stage_block_out(const int* sd,
 
 }  // namespace arena
 
-// One launch configuration shared by every entry point: one CTA of NT
-// threads, `smem` bytes of dynamic shared memory. The kernel opts in to
+// The launch configuration of every one-CTA entry point (ARENA_ENTRY):
+// one CTA of NT threads, `smem` bytes of dynamic shared memory (arena_conv
+// launches a grid through its own entry). The kernel opts in to
 // each larger size it is launched with, not only past 48 KB: a kernel
 // with static shared arrays (the staged softmax's reduction) needs the
 // opt-in below 48 KB of dynamic memory too.

@@ -5,11 +5,12 @@ arena. Here the arena is one typed ``(rows, rowlen)`` f32 tensor on the
 card, with the input placed ``d_rows`` rows above the output region;
 ``d_rows`` comes from the *analytic* safe overlap ``O_s``
 (:func:`repro_torch.kernels.ops.dwconv_overlap_rows`), rounded up to whole
-rows. The kernel walks output rows in ascending order in one CTA, so the
-reads for output row ``i`` (input rows ``i*stride + d`` onward) happen
-before the store of row ``i``, and no live input value is ever clobbered:
-the op needs ``max(rows_in + d, rows_out)`` arena rows instead of
-``rows_in + rows_out``.
+rows. The kernel runs output row tiles over the whole card, and a tile
+stores only once every tile of its row and of the rows before has read its
+inputs, so the reads for output row ``i`` (input rows ``i*stride + d``
+onward) happen before the store of row ``i``, and no live input value is
+ever clobbered: the op needs ``max(rows_in + d, rows_out)`` arena rows
+instead of ``rows_in + rows_out``.
 
 The counterpart of the reference's
 ``src/repro/kernels/dmo_arena_dwconv.py::dmo_dwconv2d_arena``: one

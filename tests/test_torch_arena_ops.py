@@ -358,6 +358,31 @@ def test_descriptor_words_conv_and_fused():
     assert tuple(w[a + K.ADDR_WORDS:a + 2 * K.ADDR_WORDS]) == \
         (15, 1, 1, 0, 15, 75)
     assert K.DESC_WORDS >= K.D_ADDR + K.ADDR_WORDS * (K.MAX_CAT + 1)
+    # the standalone conv's order mode and tiling, and where its tile
+    # footprint lives: the output [30, 180) overlaps the input [8, 83)
+    tl = K.conv_tiling(spec)
+    assert w[K.D_ORDER] == K.conv_order(spec) != K.ORDER_DISJOINT
+    assert tuple(w[K.D_TILING:K.D_TILING + len(tl)]) == tuple(tl)
+    assert K.D_TILING + len(tl) <= K.BUFFER_WORD["tile"]
+    assert tl.vo == 1 and tl.ib == min(3, (tl.to - 1) // 2 + 1)
+    assert tl.ntiles == 5 * tl.tpr and tl.ps == 16
+    assert tl.fp == _round16(3 * tl.fw * tl.ps)
+    assert tuple(w[K.BUFFER_WORD["tile"]:][:2]) == (0, 0)
+    disjoint = dataclasses.replace(spec, out_off=200)
+    assert K.descriptor_words(disjoint)[K.D_ORDER] == K.ORDER_DISJOINT
+    # a wrapper called without a descriptor uploads it once per spec
+    cached = K._cached_descriptor(spec, "cpu")
+    assert cached is K._cached_descriptor(spec, "cpu")
+    assert np.array_equal(cached.numpy(), w)
+    # the streaming and fused programs' conv stages keep the row walk
+    stream = dataclasses.replace(spec, rowlen=32, in_rows=((5, 15),),
+                                 out_rows=(5, 30), win_rows=40,
+                                 win_starts=(0,), in_off=(6,), out_off=0)
+    assert K.kernel_of(stream) == "arena_stream_roll"
+    sw = K.descriptor_words(stream)
+    body = sw[sw[K.S_BODY]:]
+    assert body[K.D_ORDER] == 0
+    assert not body[K.D_TILING:K.D_TILING + len(tl)].any()
     fused, _ = _flagship_fused(1)
     fw = K.descriptor_words(fused)
     assert fw.size == K.DESC_WORDS * 18 and fw[0] == 17
@@ -368,6 +393,125 @@ def test_descriptor_words_conv_and_fused():
     assert all(o % 16 == 0 for o in offs if o is not None)
     assert total == K.pack_weights(
         fused, [torch.from_numpy(x) for x in _flagship_fused(1)[1]]).numel()
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _conv_specs(label: str, layout: str):
+    graph = {"flagship": lambda: tzoo.mobilenet_v1(0.25, 128, 1),
+             "resnet50_v2_f32": lambda: tzoo.resnet50_v2(32, 4),
+             "resnet50_v2_int8": lambda: tzoo.resnet50_v2(32, 1)}[label]()
+    specs = CudaExecutor(device="cpu", layout=layout).program(
+        t_compile(graph, backend="numpy"))[0]
+    return [s for s in specs if K.kernel_of(s) == "arena_conv"]
+
+
+def _arena_bytes(spec: K.OpSpec, i):
+    """Arena bytes [lo, hi) of input i (None: the output), from the spec's
+    fields alone."""
+    isz = 1 if spec.dtype == "i8" else 4
+    off = spec.out_off if i is None else spec.in_off[i]
+    if not spec.rowlen:
+        shape = spec.out_shape if i is None else spec.in_shape[i]
+        return off, off + K._elems(shape) * isz
+    rows = spec.out_rows[0] if i is None else spec.in_rows[i][0]
+    row_b = spec.rowlen * isz
+    return off * row_b, (off + rows) * row_b
+
+
+def _tile_conflicts(spec: K.OpSpec) -> bool:
+    """Brute force over the kernel's tiles: does any tile's store (its
+    columns and, for a row's last tile, the row's zeroed rest) meet the
+    read footprint of a tile of a later row?"""
+    tl = K.conv_tiling(spec)
+    stores, reads = [], []
+    for t in range(tl.ntiles):
+        r, cols, _ = K.conv_tile_geometry(spec, t)
+        lo, hi = K.conv_row_store(spec, r, cols)
+        if t % tl.tpr == tl.tpr - 1:
+            hi = max(hi, K.conv_row_store(spec, r)[1])
+        stores.append((r, lo, hi))
+        reads += [(r, a, b) for a, b in K.conv_row_reads(spec, r, cols)]
+    if not reads:
+        return False
+    s, rd = np.array(stores), np.array(reads)
+    meet = (s[:, None, 1] < rd[None, :, 2]) & (rd[None, :, 1] < s[:, None, 2])
+    return bool((meet & (s[:, None, 0] < rd[None, :, 0])).any())
+
+
+@pytest.mark.parametrize("layout", ["flat", "blocks"])
+@pytest.mark.parametrize("label", ["flagship", "resnet50_v2_f32",
+                                   "resnet50_v2_int8"])
+def test_conv_tiles_keep_the_row_order(label, layout):
+    """Every conv spec of the flagship and resnet50_v2(32): the disjoint
+    word is the byte ranges' disjointness; no tile's store meets the reads
+    of a tile of a later row (the invariant the kernel's waits rely on),
+    so no spec needs its rows run one after another; the tiles cover every
+    output once; every footprint fits its shared memory budget or lies in
+    per-CTA slices of the workspace, after the counters."""
+    specs = _conv_specs(label, layout)
+    assert len(specs) == (25 if label == "flagship" else 53)
+    for spec in specs:
+        (ilo, ihi), (olo, ohi) = _arena_bytes(spec, 0), \
+            _arena_bytes(spec, None)
+        words = K.descriptor_words(spec)
+        disjoint = ihi <= olo or ohi <= ilo
+        assert (words[K.D_ORDER] == K.ORDER_DISJOINT) == disjoint
+        assert not _tile_conflicts(spec)
+        assert words[K.D_ORDER] != K.ORDER_ROWS
+        tl = K.conv_tiling(spec)
+        cover = np.zeros(spec.out_shape[-3:], np.int32)
+        for t in range(tl.ntiles):
+            r, (x0, x1), (o0, o1) = K.conv_tile_geometry(spec, t)
+            cover[r, x0:x1, o0:o1] += 1
+        assert (cover == 1).all()
+        isz = 1 if spec.dtype == "i8" else 4
+        kh = spec.meta[0]
+        assert tl.fp >= kh * tl.fw * tl.ps * isz and tl.fp % 16 == 0
+        # eight consecutive footprint columns start in distinct banks
+        assert tl.ps >= tl.ib and len({(i * tl.ps * isz // 4) % 32
+                                       for i in range(8)}) == 8
+        bp = K.buffer_plan(spec)
+        assert bp.parts[0] == ("ctr", True, 0)
+        wbytes = 2 * tl.ch * tl.to * isz    # filter chunks, always shared
+        assert tl.ch == (0 if tl.vo == 1 else min(
+            spec.in_shape[0][-1], K.CONV_WCHUNK_BYTES // (tl.to * isz)))
+        if tl.fp <= K.CONV_SMEM_BUDGET:
+            assert bp.parts[1:] == (("tile", False, 0),
+                                    ("wts", False, tl.fp))
+            assert bp.smem == tl.fp + _round16(wbytes)
+        else:
+            assert bp.parts[2] == ("wts", False, 0)
+            assert bp.on_global("tile") and bp.gbytes >= \
+                K.conv_counter_bytes(spec) + K.CONV_SLICES * tl.fp
+        grid, tpr, ctr = K.conv_grid(spec)
+        assert tpr == tl.tpr <= grid <= tl.ntiles and ctr == \
+            K.conv_counter_bytes(spec) >= 16 + 4 * spec.out_shape[-3]
+
+
+@pytest.mark.parametrize("dtype", ["i8", "f32"])
+@pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
+def test_conv_order_word_covers_hand_built_overlaps(case, dtype):
+    """On hand-built specs (in place, diagonal, a wide row) the order word
+    is at least what the tiles need: rows one after another wherever a
+    later row reads an earlier row's store, else staged waits wherever the
+    operands share a byte."""
+    _, kind, in_shape, out_shape, meta, in_off, out_off = case
+    isz = 1 if dtype == "i8" else 4
+    spec = K.OpSpec(kind=kind, in_off=(in_off * isz,), in_shape=(in_shape,),
+                    out_off=out_off * isz, out_shape=out_shape, dtype=dtype,
+                    meta=meta, qmeta=QM if dtype == "i8" else ())
+    word = K.descriptor_words(spec)[K.D_ORDER]
+    (ilo, ihi), (olo, ohi) = _arena_bytes(spec, 0), _arena_bytes(spec, None)
+    assert (word == K.ORDER_DISJOINT) == (ihi <= olo or ohi <= ilo)
+    if _tile_conflicts(spec):
+        assert word == K.ORDER_ROWS
+    if case[0] == "dw_in_place":    # row 1 reads row 0's store
+        assert word == K.ORDER_ROWS
+    if case[0] == "dw_s2_in_place":  # stride 2 stays behind its reads
+        assert word == K.ORDER_STAGED
 
 
 def test_fused_scratch_branches():
@@ -391,14 +535,40 @@ def test_fused_scratch_branches():
 
 
 def test_buffer_plan_rows_and_whole_blocks():
-    """A row wider than a CTA's shared memory takes the global workspace;
-    so does a whole-block output past 227 KB (resnet_50_v2's adds)."""
+    """A pool row wider than a CTA's shared memory takes the global
+    workspace; a conv of any row width cuts its rows into column tiles
+    whose footprints stage in shared memory, and one whose footprint
+    exceeds the budget stages it in a global slice per CTA, its counters
+    first in the workspace; a whole-block output past 227 KB takes the
+    global workspace too (resnet_50_v2's adds)."""
     spec, _ = CS.wide_row_spec(4_096, 16)
-    assert K.buffer_plan(spec) == K.BufferPlan(0, 4_096 * 16 * 4,
+    pool = dataclasses.replace(spec, kind="pool", out_shape=(3, 4_096, 16),
+                               in_shape=((3, 4_096, 16),),
+                               meta=(3, 3, 1, 1, 1, 1, "max"))
+    assert K.buffer_plan(pool) == K.BufferPlan(0, 4_096 * 16 * 4,
                                                (("row", True, 0),))
-    narrow, _ = CS.wide_row_spec(130, 65)
+    narrow = dataclasses.replace(pool, out_shape=(3, 130, 65),
+                                 in_shape=((3, 130, 65),))
     assert K.buffer_plan(narrow) == K.BufferPlan(
         130 * 65 * 4 + 8, 0, (("row", False, 0),))
+    for ow, oc in ((4_096, 16), (130, 65)):
+        conv, _ = CS.wide_row_spec(ow, oc)
+        tl = K.conv_tiling(conv)
+        assert tl.ntiles == 3 * tl.tpr and tl.tc * tl.ncb >= ow
+        assert K.conv_counter_bytes(conv) == 16 + 16
+        wbytes = _round16(2 * tl.ch * tl.to * 4)
+        assert K.buffer_plan(conv) == K.BufferPlan(
+            tl.fp + wbytes, K.conv_counter_bytes(conv),
+            (("ctr", True, 0), ("tile", False, 0), ("wts", False, tl.fp)))
+    deep, _ = CS.deep_footprint_spec()
+    tl = K.conv_tiling(deep)
+    assert (tl.tc, tl.fw, tl.ps) == (1, 3, 6_004)
+    assert tl.fp == 3 * 3 * 6_004 * 4
+    assert tl.fp > K.CONV_SMEM_BUDGET
+    assert K.buffer_plan(deep) == K.BufferPlan(
+        2 * tl.ch * tl.to * 4, 32 + K.CONV_SLICES * tl.fp,
+        (("ctr", True, 0), ("tile", True, 32), ("wts", False, 0)))
+    assert K.conv_grid(deep) == (9, 3, 32)
     add = K.OpSpec(kind="elementwise", in_off=(0, 0), in_shape=((56, 56,
                    256),) * 2, out_off=0, out_shape=(56, 56, 256),
                    meta=("add",))

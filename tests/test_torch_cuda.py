@@ -119,6 +119,58 @@ def test_dmo_dwconv_on_the_card(card, ih, iw, c, k, stride, pad):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
+def _race_picks(specs, bits):
+    """Spec indices of resnet50_v2(224)'s stem (7x7/2 over its input), its
+    1x1 conv whose output starts closest below its input (252 B in f32)
+    and a 3x3 conv whose operands are disjoint."""
+    convs = [(i, s) for i, s in enumerate(specs)
+             if K.kernel_of(s) == "arena_conv"]
+    stem = next(i for i, s in convs if s.meta[0] == 7)
+    below = [(s.in_off[0] - s.out_off, i) for i, s in convs
+             if s.meta[0] == 1 and K.conv_order(s) == K.ORDER_STAGED
+             and 0 < s.in_off[0] - s.out_off]
+    gap, one = min(below)
+    assert bits == 1 or gap == 252
+    three = next(i for i, s in convs if s.meta[0] == 3
+                 and K.conv_order(s) == K.ORDER_DISJOINT)
+    assert K.conv_order(specs[stem]) == K.ORDER_STAGED
+    return {"stem": stem, "1x1 overlap": one, "3x3 disjoint": three}
+
+
+@pytest.mark.parametrize("bits", [4, 1])
+def test_conv_tiles_do_not_race_on_the_card(card, bits):
+    """Three convs of resnet50_v2(224) (``_race_picks``), 50 launches each
+    on copies of the arena the program reaches: every launch bit-equal to
+    the first, and the first equal to conv_plain (int8 bit for bit, f32
+    within 1e-4: the plain version's torch matmul sums in another
+    order)."""
+    cp = compile(zoo.resnet50_v2(224, bits), backend="numpy")
+    specs, ws, descs, state = CudaExecutor(device=card).program(cp)
+    picks = _race_picks(specs, bits)
+    checked = 0
+    for i, (spec, w, d) in enumerate(zip(specs, ws, descs)):
+        if i in picks.values():
+            ref = state.clone()
+            K.conv_plain(ref, spec, w)
+            first = None
+            for _ in range(50):
+                got = state.clone()
+                K.apply_op(got, spec, w, d)
+                torch.cuda.synchronize()
+                if first is None:
+                    first = got
+                    if bits == 1:
+                        assert torch.equal(got, ref), spec
+                    else:
+                        assert torch.allclose(got.view(torch.float32),
+                                              ref.view(torch.float32),
+                                              rtol=1e-4, atol=1e-4), spec
+                assert torch.equal(got, first), spec
+            checked += 1
+        K.apply_op(state, spec, w, d)
+    assert checked == 3
+
+
 def _final_arena(ex, cp):
     specs, ws, descs, arena = ex.program(cp)
     for spec, w, d in zip(specs, ws, descs):
