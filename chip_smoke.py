@@ -32,10 +32,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and three requests each, matching the numpy backend, 90 launches each,
    the device arena exactly ``plan.peak_bytes`` (7,225,344 B in f32);
    then repeats the ``resnet_50_v2`` f32 and flagship int8 forwards five
-   times each on the same inputs: the final device arenas must be
-   identical, byte for byte (``arena_conv`` runs over the whole card with
-   tiles that wait on each other; a race would show here), and prints the
-   conv's order modes, tiles and the device bytes its counters take;
+   times each on the same inputs, on the flat and on the streaming
+   program: the final device arenas must be identical, byte for byte
+   (``arena_conv`` and ``arena_stream_roll`` run over the whole card with
+   tiles that wait on each other; a race would show here), and prints each
+   tile kernel's order modes, tiles and the device bytes its counters
+   take;
 6. runs every row of ``zoo.TABLE3_MODELS`` at full width once on the card
    against the numpy backend, and ``allops`` (f32 and int8); prints each
    row's winner, arena, launches and seconds. ``nasnet_mobile``'s graph
@@ -64,8 +66,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``densenet_121``), outputs bit-equal to the blocked route's and within
    tolerance of the numpy backend, the final device arena bit-equal to the
    blocked route's on the same inputs; prints each graph's largest
-   resident window, whether it was staged in shared or global memory, and
-   the bytes each streaming form stages (a count from the specs);
+   resident window, whether the card stages it in shared or global memory
+   (a rolling op: its row tiles' footprints), and the bytes each streaming
+   form stages, in the TPU program and in the card's kernels (counts from
+   the specs);
 9. runs the standalone DMO depthwise conv ``kernels.ops.dmo_dwconv2d`` on
    the card on the reference's ``DWCONV_CASES`` and two real layers
    ((64, 64, 8) of the flagship, (112, 112, 32) of
@@ -542,11 +546,12 @@ def spec_cost(spec):
     return inb + outb, 4 * _el(spec.in_shape[0]), rate  # mean, softmax
 
 
-def staging_bytes(K, spec) -> int:
-    """Bytes a streaming spec copies beyond its op's own work: a rolling
-    op's window fetches (``win_in`` rows per tile) and its output tiles
-    (copied in and back), a staged op's or chain's blocks in and out
-    (padding rows included); 0 outside the streaming program."""
+def tpu_staging_bytes(K, spec) -> int:
+    """Bytes the TPU program's streaming spec copies beyond its op's own
+    work (a planner count): a rolling op's window fetches (``win_in`` rows
+    per tile) and its output tiles (copied in and back), a staged op's or
+    chain's blocks in and out (padding rows included); 0 outside the
+    streaming program."""
     form = K.stream_form(spec)
     if form is None:
         return 0
@@ -560,6 +565,18 @@ def staging_bytes(K, spec) -> int:
             rows += (spec.win_rows - tile_ar) + 2 * (a1 - a0)
         return rows * rowb
     return (sum(r for r, _ in spec.in_rows) + spec.out_rows[0]) * rowb
+
+
+def card_staging_bytes(K, spec) -> int:
+    """Bytes the card's kernel copies on its way for a streaming spec: a
+    rolling op's row tiles stage their footprints, the columns and
+    channels each tile reads through its window (the Python mirror,
+    ``arena_ops.tile_reads``), and store straight into the arena; a staged
+    op or a chain copies what the TPU program copies."""
+    if K.stream_form(spec) != "roll":
+        return tpu_staging_bytes(K, spec)
+    return sum(n for t in range(K.conv_tiling(spec).ntiles)
+               for _, _, n in K.tile_reads(spec, t))
 
 
 def bound_ms(spec) -> float:
@@ -894,15 +911,14 @@ def run_arena(K, ex, cp, inputs, weights, quant):
 def largest_window(K, ex, cp):
     """(bytes, op name, "shared" or "global", windows staged in global
     memory, specs) of the streaming plan: its largest resident window and
-    where that window's staging buffer lives."""
+    where the card stages it (a staged op's window or a chain's scratch;
+    a rolling op's row tiles' footprints, each its part of the window)."""
     bp = ex.legalised(cp.plan)
     sched = bp.window_schedule()
     specs = ex.program(cp)[0]
-    place = []
-    for spec in specs:
-        name = "scratch" if spec.kind == "fused" else "win"
-        place.append("global" if K.buffer_plan(spec).on_global(name)
-                     else "shared")
+    buf = {"roll": "tile", "stage": "win", "fused": "scratch"}
+    place = ["global" if K.buffer_plan(spec).on_global(
+        buf[K.stream_form(spec)]) else "shared" for spec in specs]
     i = max(range(len(specs)),
             key=lambda j: sched.windows[j].resident_rows)
     return (sched.windows[i].resident_rows * sched.row_bytes,
@@ -954,18 +970,20 @@ def streamed_requests(torch, K, X, cp, label: str, n_launch=None):
     return counts, t_st, t_blk
 
 
-def repeat_forwards(torch, K, X, cp, label: str, n: int = 5):
-    """``n`` forwards of ``cp`` on the card's flat program on the same
-    inputs; every final device arena must equal the first, byte for byte.
-    Returns the conv's order modes, tiles a spec, largest tile footprint
-    in shared memory and the workspace bytes its specs hold (counters and
-    any staging slices: the device memory the conv adds to the arena)."""
+def repeat_forwards(torch, K, X, cp, label: str, ex, kernel: str,
+                    n: int = 5):
+    """``n`` forwards of ``cp`` on the card through ``ex``'s program on the
+    same inputs; every final device arena must equal the first, byte for
+    byte. Returns the tile kernel ``kernel``'s (``arena_conv`` or
+    ``arena_stream_roll``) order modes, tiles a spec, largest tile
+    footprint in shared memory and the workspace bytes its specs hold
+    (counters and any staging slices: the device memory it adds to the
+    arena)."""
     graph = cp.graph
     weights = X.synth_weights(graph, 0)
     quant = X.calibrate(graph, 0, weights) if X.needs_quant(graph) else None
     inputs = (X.quant_inputs(graph, quant, 0) if quant is not None
               else X.random_inputs(graph, 0))
-    ex = X.get_backend("cuda")
     first = None
     for _ in range(n):
         arena = run_arena(K, ex, cp, inputs, weights, quant)
@@ -974,9 +992,10 @@ def repeat_forwards(torch, K, X, cp, label: str, n: int = 5):
             first = arena
         check(torch.equal(arena, first),
               f"{label}: repeated forwards give different arenas")
-    convs = [s for s in ex.program(cp)[0] if K.kernel_of(s) == "arena_conv"]
+    convs = [s for s in ex.program(cp)[0] if K.kernel_of(s) == kernel]
     tiles = [K.conv_tiling(s).ntiles for s in convs]
-    row = {"forwards": n, "arena_bytes": first.numel(),
+    row = {"forwards": n, "kernel": kernel,
+           "arena_bytes": first.numel() * first.element_size(),
            "modes": [sum(K.conv_order(s) == m for s in convs)
                      for m in (K.ORDER_DISJOINT, K.ORDER_STAGED,
                                K.ORDER_ROWS)],
@@ -984,11 +1003,12 @@ def repeat_forwards(torch, K, X, cp, label: str, n: int = 5):
            "max_tile_smem": max(K.buffer_plan(s).smem for s in convs),
            "workspace_bytes": sum(K.buffer_plan(s).gbytes for s in convs)}
     log(f"[repeats] {label}: {n} forwards, final arenas identical "
-        f"({row['arena_bytes']} B); arena_conv: {len(convs)} specs, order "
+        f"({row['arena_bytes']} B); {kernel}: {len(convs)} specs, order "
         f"modes (disjoint, staged, rows) {row['modes']}, {min(tiles)}-"
         f"{max(tiles)} tiles a spec, up to {row['max_tile_smem']} B of "
         f"shared memory a CTA (footprint and filter chunks), counters "
-        f"{row['workspace_bytes']} B of device memory beside the arena")
+        f"and slices {row['workspace_bytes']} B of device memory beside "
+        f"the arena")
     return row
 
 
@@ -1416,11 +1436,16 @@ def main() -> int:
               f"{name} never launched on resnet_50_v2")
     phase_done("resnet_50_v2 slice")
 
-    # 5b. repeated forwards give identical arenas
-    conv_rows = {}
+    # 5b. repeated forwards give identical arenas, flat and streaming
+    conv_rows, roll_rows = {}, {}
     for label, c in (("resnet_50_v2", slice_cps["resnet_50_v2"]),
                      ("flagship", cp)):
-        conv_rows[label] = repeat_forwards(torch, K, X, c, label)
+        conv_rows[label] = repeat_forwards(torch, K, X, c, label,
+                                           X.get_backend("cuda"),
+                                           "arena_conv")
+        roll_rows[label] = repeat_forwards(
+            torch, K, X, c, label + " streaming",
+            X.get_backend("cuda", mode="streaming"), "arena_stream_roll")
     phase_done("repeats")
 
     # 6. the zoo, and allops
@@ -1525,17 +1550,22 @@ def main() -> int:
         counts, t_s, t_b = streamed_requests(torch, K, X, c, label, n)
         st_paths[label] = counts
         forms = [K.stream_form(sp) for sp in specs]
-        # planner counts from the specs, not measured: the bytes each form
-        # copies beyond its op's own work
-        staged = {f: sum(staging_bytes(K, sp) for sp in specs
+        # counts from the specs, not measured: the bytes each form copies
+        # beyond its op's own work, in the TPU program (the planner's
+        # windows) and in the card's kernels (the rolling tiles'
+        # footprints)
+        staged = {f: sum(tpu_staging_bytes(K, sp) for sp in specs
                          if K.stream_form(sp) == f)
                   for f in ("roll", "stage", "fused")}
+        staged_card = {f: sum(card_staging_bytes(K, sp) for sp in specs
+                              if K.stream_form(sp) == f)
+                       for f in ("roll", "stage", "fused")}
         st_rows[label] = {
             "specs": len(specs), "roll": forms.count("roll"),
             "stage": forms.count("stage"), "fused": forms.count("fused"),
             "largest_window_bytes": nbytes, "largest_window_op": op,
             "largest_window_in": where, "windows_in_global": n_global,
-            "staging_bytes": staged,
+            "tpu_staging_bytes": staged, "card_staging_bytes": staged_card,
             "launches": sum(counts.values()), "execute_s": t_s,
             "blocked_execute_s": t_b}
         log(f"[streaming] {label}: {len(specs)} launches (rolling "
@@ -1544,7 +1574,8 @@ def main() -> int:
             f"outputs within tolerance of numpy; largest resident window "
             f"{nbytes} B ({op}) staged in {where} memory, "
             f"{n_global} of {len(specs)} windows in global memory; "
-            f"staging bytes by form (planner count) {staged} "
+            f"staging bytes by form (counts from the specs): TPU program "
+            f"{staged}, card {staged_card} "
             f"(execute {t_s:.2f} s, blocked {t_b:.2f} s)")
     check(st_rows["flagship f32"]["largest_window_in"] == "shared"
           and st_rows["resnet_50_v2"]["windows_in_global"] > 0,
@@ -1799,7 +1830,7 @@ def main() -> int:
                        "launches": st_paths, "errors": st_errs,
                        "walls_ms": st_walls},
          "dmo_dwconv2d": dmo, "standalone": standalone,
-         "arena_conv": conv_rows,
+         "arena_conv": conv_rows, "arena_stream_roll": roll_rows,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's row kernels (``arena_conv``, ``arena_pool`` and the
-streaming program's ``arena_stream_roll``) on the card for one source
-tree, to compare two commits inside one call.
+"""Time the port's row kernels (``arena_conv``, ``arena_pool``, the fused
+chain and the streaming program's ``arena_stream_roll``) on the card for
+one source tree, to compare two commits inside one call.
 
 Usage, on a machine with an NVIDIA card, from the root of a checkout::
 
@@ -13,11 +13,17 @@ flagship ``mobilenet_v1_0.25_128_8bit`` and prints one JSON line: the
 device ms of each kernel per forward, summed over its launches (CUDA
 events, ``chip_smoke.kernel_times``), on the flat, the row-blocked and the
 streaming program of ``resnet_50_v2`` (with the flat program's
-``F.conv2d``/``F.max_pool2d`` yardstick, TF32 off, under ``library``) and
-``arena_conv`` on the flagship's flat and row-blocked programs. Run it on
-the two trees in turns (parent, change, change, parent) within one call:
-times from two calls may come from two cards.
+``F.conv2d``/``F.max_pool2d`` yardstick, TF32 off, under ``library``),
+``arena_stream_roll`` on the streaming ``resnet_50_v2`` int8 forward, and
+on the flagship ``arena_conv`` and ``arena_fused_chain`` (flat and
+row-blocked) and ``arena_stream_roll``; then under ``sha256`` a digest
+of each program's final device arena after one forward of ``resnet_50_v2``
+f32 and of the flagship on seeded inputs, so two trees' outputs can be
+compared byte for byte. Run it on the two trees in turns (parent, change,
+change, parent) within one call: times from two calls may come from two
+cards.
 """
+import hashlib
 import importlib.util
 import json
 import pathlib
@@ -45,7 +51,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     build.load()
     cp = compile(zoo.resnet50_v2(224, 4), backend="numpy")
-    out = {"root": str(root), "card": torch.cuda.get_device_name(0)}
+    out = {"root": str(root), "card": torch.cuda.get_device_name(0),
+           "sha256": {}}
     for program, kw in (("flat", {"layout": "flat"}),
                         ("blocks", {"layout": "blocks"}),
                         ("streaming", {"mode": "streaming"})):
@@ -57,16 +64,38 @@ def main() -> int:
         out[program] = {k: v["ms"] for k, v in per.items()}
         if program == "flat":
             out["library"] = {k: v["library_ms"] for k, v in per.items()}
+        out["sha256"][f"resnet_50_v2 {program}"] = _digest(
+            cs, K, ex, cp, X.random_inputs(cp.graph, 0),
+            X.synth_weights(cp.graph, 0), None)
+    c8 = compile(zoo.resnet50_v2(224, 1), backend="numpy")
+    w8 = X.synth_weights(c8.graph, 0)
+    per = cs.kernel_times(torch, F, K, X.get_backend("cuda", mode="streaming"),
+                          c8, w8, X.calibrate(c8.graph, 0, w8),
+                          plain_too=False, only={"arena_stream_roll"})
+    out["resnet_50_v2 int8 streaming"] = per["arena_stream_roll"]["ms"]
     flag = compile(zoo.mobilenet_v1(0.25, 128, 1), backend="numpy")
     w = X.synth_weights(flag.graph, 0)
     q = X.calibrate(flag.graph, 0, w)
     for program, kw in (("flat", {"layout": "flat"}),
-                        ("blocks", {"layout": "blocks"})):
-        per = cs.kernel_times(torch, F, K, X.get_backend("cuda", **kw), flag,
-                              w, q, plain_too=False, only={"arena_conv"})
-        out[f"flagship {program}"] = per["arena_conv"]["ms"]
+                        ("blocks", {"layout": "blocks"}),
+                        ("streaming", {"mode": "streaming"})):
+        ex = X.get_backend("cuda", **kw)
+        per = cs.kernel_times(torch, F, K, ex, flag, w, q, plain_too=False,
+                              only={"arena_conv", "arena_fused_chain",
+                                    "arena_stream_roll"})
+        out[f"flagship {program}"] = {k: v["ms"] for k, v in per.items()}
+        out["sha256"][f"flagship {program}"] = _digest(
+            cs, K, ex, flag, X.quant_inputs(flag.graph, q, 0), w, q)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _digest(cs, K, ex, cp, inputs, weights, quant) -> str:
+    """sha256 of the program's final device arena after one forward."""
+    import torch
+    arena = cs.run_arena(K, ex, cp, inputs, weights, quant)
+    data = arena.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(data).hexdigest()[:16]
 
 
 if __name__ == "__main__":

@@ -18,8 +18,9 @@ arena programs.
   typed arena, but each op copies only its live window (the planner's
   ``WindowSchedule``) into a staging buffer, runs there, and copies its
   output back. Three forms, each a kernel of its own: *rolling* (conv,
-  depthwise, pool with ``win_starts``: per output-row tile ``win_in``
-  arena rows from ``win_starts[t]`` and a one-tile output slot), *staged*
+  depthwise, pool with ``win_starts``: output rows of streaming tile ``t``
+  read ``win_in`` arena rows from ``win_starts[t]``; the kernel reads them
+  in place and stores straight into the arena), *staged*
   (every other kind: operand blocks packed by ``planner.staged_slots``)
   and *fused* (a band chain whose inputs, internals and output all live in
   its ``include_io`` scratch slots).
@@ -61,14 +62,15 @@ CUDA arena never takes the plain route. Each launch adds one to
 :data:`LAUNCHES`.
 
 A kernel's row buffer, staging buffer, (fused chain) scratch and
-(streaming) window and output slot live in dynamic shared memory when they
-fit one CTA and otherwise in a global workspace allocated once per spec and
-cached (:func:`buffer_plan`, :func:`workspace`); the descriptor tells the
-kernel where each is. Every kernel but one runs one CTA per op; the
-standalone conv (:func:`arena_conv`) runs row tiles over the whole card
+(streaming) window live in dynamic shared memory when they fit one CTA and
+otherwise in a global workspace allocated once per spec and cached
+(:func:`buffer_plan`, :func:`workspace`); the descriptor tells the kernel
+where each is. Every kernel but two runs one CTA per op; the standalone
+conv (:func:`arena_conv`) and the rolling streaming op
+(:func:`arena_stream_roll`) run row tiles over the whole card
 (:func:`conv_tiling`), each tile's input footprint in its CTA's shared
-memory (or a global slice per CTA), its counters at the start of its
-workspace, and waits only where the operands overlap (:func:`conv_order`).
+memory (or a global slice per CTA), their counters at the start of the
+workspace, and wait only where the operands overlap (:func:`conv_order`).
 
 The plain versions walk output rows in Python with torch ops on typed views
 of the arena, in the reference's order (every read of row ``oy`` before its
@@ -242,12 +244,13 @@ D_CIN_OFF, D_CIN_SCR, D_CINNER, D_CZP, D_CMULT = 16, 32, 48, 64, 80
 D_EDIM0, D_BSTR0 = 20, 26
 D_MM, D_MK, D_MN = 10, 11, 12
 D_PIN0, D_PLO0, D_POUT0, D_PN = 10, 14, 18, 22
-#: A standalone conv's tiling (:func:`conv_tiling`): its order mode
+#: A tile kernel's tiling (:func:`conv_tiling`): its order mode
 #: (:data:`ORDER_DISJOINT` and on), then the tiling's fields in order.
 D_ORDER = 100
 D_TILING = 101
 #: Buffer placement words (flag: 1 = global workspace, then byte offset);
-#: a standalone conv's tile footprint takes the "stage" words.
+#: a tile kernel's footprint takes the "stage" words, its filter chunks the
+#: "row" words.
 BUFFER_WORD = {"stage": 120, "row": 122, "scratch": 124, "tile": 120,
                "wts": 122}
 #: Operand addressing: slot 0 is the output, slot 1 + i input i, each
@@ -255,13 +258,13 @@ BUFFER_WORD = {"stage": 120, "row": 122, "scratch": 124, "tile": 120,
 D_ADDR, ADDR_WORDS = 128, 6
 #: A streaming descriptor's stream block (the S_* words of
 #: csrc/arena_common.cuh), then the body's descriptor at word S_BODY: the
-#: window's and the rolling slot's placement, bytes per arena row, the
-#: copy out, the rolling statics, and from S_COPY0 two lists of any
-#: length: S_NCOPY copies in (arena row, window row, rows), then S_T
-#: fetch starts.
-(S_WIN_G, S_WIN_OFF, S_SLOT_G, S_SLOT_OFF, S_ROWB, S_BODY, S_NCOPY,
- S_OUT_WIN, S_OUT_ROW, S_OUT_ROWS, S_IN_ROW, S_WIN_IN, S_TR, S_T,
- S_OH) = range(15)
+#: window's placement (none for a rolling op), bytes per arena row, the
+#: copy out, the rolling statics (the input's arena row, window rows,
+#: image rows of a streaming tile, tiles, output rows), and from S_COPY0
+#: two lists of any length: S_NCOPY copies in (arena row, window row,
+#: rows), then S_T fetch starts.
+(S_WIN_G, S_WIN_OFF, S_ROWB, S_BODY, S_NCOPY, S_OUT_WIN, S_OUT_ROW,
+ S_OUT_ROWS, S_IN_ROW, S_WIN_IN, S_TR, S_T, S_OH) = range(13)
 S_COPY0 = 16
 #: Shared memory a streaming launch leaves to static shared arrays (the
 #: staged softmax's block reduction).
@@ -560,12 +563,15 @@ def _op_words(spec: OpSpec, woff: int = 0) -> List[int]:
 
 
 # ---------------------------------------------------------------------------
-# The standalone conv over the whole card (csrc/arena_conv.cu): output row
-# tiles, their input footprints and the order the arena's overlap needs.
-# The kernel reads the same numbers from the descriptor.
+# The tile kernels over the whole card (csrc/conv_tiles.cuh: arena_conv, and
+# arena_stream_roll through its window): output row tiles, their input
+# footprints and the order the arena's overlap needs. The kernels read the
+# same numbers from the descriptor.
 # ---------------------------------------------------------------------------
 
-#: Threads of one conv CTA.
+#: The kernels that run row tiles over the whole card.
+TILE_KERNELS = ("arena_conv", "arena_stream_roll")
+#: Threads of one tile CTA.
 CONV_THREADS = 256
 #: Shared memory a conv tile's input footprint may take; a larger one is
 #: staged in a per-CTA slice of the global workspace.
@@ -583,22 +589,25 @@ SM_SMEM = 233_472
 #: Bytes of the conv's counters at the start of its workspace before its
 #: per-row ones: the next ticket, tiles stored (two words of padding).
 CONV_COUNTER_BYTES = 16
-#: Order modes: input 0 and the output share no byte; they overlap, and no
-#: row's store meets a later row's reads (a tile stores once every tile of
-#: its row and the rows before has staged its input: a count of staged
-#: tiles per row); they overlap so that a later row reads an earlier row's
-#: store (rows also read only after every earlier row is stored: the rows
-#: run one after another).
+#: Order modes: no read meets a store; they meet, and no row's store meets
+#: a later row's reads (a tile stores once every tile of its row and the
+#: rows before has staged its input: a count of staged tiles per row); a
+#: later row reads an earlier row's store (groups of rows run one after
+#: another: a tile reads only after every row of the groups before is
+#: stored, and stores once every tile of its group has staged; a group is
+#: one row of a standalone conv, one streaming tile of a rolling op).
 ORDER_DISJOINT, ORDER_STAGED, ORDER_ROWS = range(3)
 
 
 class ConvTiling(NamedTuple):
-    """A standalone conv's tiles. A tile is (output row, ``tc`` output
+    """A tile kernel's tiles (a standalone conv, or a rolling conv,
+    depthwise or pool). A tile is (output row, ``tc`` output
     columns, ``to`` output channels); thread ``i`` of the CTA takes output
     channels ``og*vo .. og*vo+vo-1`` (``og = i % nog``) of pixels ``slot +
     p*(CONV_THREADS // nog)``, ``p < vp`` (``slot = i // nog``). Its input
     footprint (``fp`` bytes, 16-aligned) is ``kh`` rows of ``fw`` columns
-    (those ``min(tc, ow)`` output columns reach) of ``ib`` channels, a
+    (those ``min(tc, ow)`` output columns reach) of ``ib`` channels (every
+    input channel of a conv2d; a depthwise or pool tile's block), a
     column every ``ps`` elements (padded so that the columns a warp reads
     at once sit in different shared-memory banks). Tickets run row-major:
     ``tpr = ncb * nob`` tiles a row, column block major. A conv2d with ``vo == 4`` stages its
@@ -626,6 +635,16 @@ def _pow2_at_least(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def _conv_meta(spec: OpSpec) -> Tuple[int, ...]:
+    """``(kh, kw, sh, sw, dh, dw, ph, pw, m)`` of a conv2d, depthwise or
+    pool spec (a pool: no dilation, one output channel an input
+    channel)."""
+    if spec.kind == "pool":
+        kh, kw, sh, sw, ph, pw, _ = spec.meta
+        return kh, kw, sh, sw, 1, 1, ph, pw, 1
+    return tuple(spec.meta)
 
 
 def _resident(spec: OpSpec, t: ConvTiling) -> int:
@@ -669,10 +688,12 @@ def _tile_cycles(spec: OpSpec, t: ConvTiling) -> float:
 
 @functools.lru_cache(maxsize=1024)
 def conv_tiling(spec: OpSpec) -> ConvTiling:
-    """The tiling of a standalone conv2d / depthwise spec: four output
-    channels a thread where the filter's rows allow (conv2d with ``oc %
-    4 == 0``), then the threads across the channels (a power of two up to
-    64) and the pixels a thread (4, 2 or 1) whose footprint fits
+    """The tiling of a standalone conv2d / depthwise spec, or of a rolling
+    conv2d, depthwise or pool (a pool tiles as a depthwise with ``m =
+    1``, no filter): four output channels a thread where the filter's rows
+    allow (conv2d with ``oc % 4 == 0``), then the threads across the
+    channels (a power of two up to 64) and the pixels a thread (4, 2 or
+    1) whose footprint fits
     :data:`CONV_SMEM_BUDGET` and whose waves of resident tiles
     (:func:`_resident`) cost least by :func:`_tile_cycles` (ties: more
     pixels a thread, then more threads across the channels). Where no
@@ -680,8 +701,8 @@ def conv_tiling(spec: OpSpec) -> ConvTiling:
     tile, down to one), and the smallest footprint is staged in global
     memory."""
     ih, iw, ic, oh, ow, oc = _row_geometry(spec)
-    kh, kw, sh, sw, dh, dw, ph, pw, m = spec.meta
-    dwk = spec.kind == "depthwise_conv2d"
+    kh, kw, sh, sw, dh, dw, ph, pw, m = _conv_meta(spec)
+    dwk = spec.kind != "conv2d"
     vo = 1 if dwk or oc % 4 else 4
     nog0 = min(_pow2_at_least(-(-oc // vo)), 64)
     shapes = [(nog, vp) for nog in (64, 32, 16, 8, 4) if nog <= nog0
@@ -715,7 +736,7 @@ def conv_tiling(spec: OpSpec) -> ConvTiling:
 
 
 def conv_counter_bytes(spec: OpSpec) -> int:
-    """Bytes of a standalone conv's counters: :data:`CONV_COUNTER_BYTES`,
+    """Bytes of a tile kernel's counters: :data:`CONV_COUNTER_BYTES`,
     then one int32 of staged tiles per output row, 16-aligned."""
     return _round_up(CONV_COUNTER_BYTES + 4 * spec.out_shape[-3], 16)
 
@@ -733,13 +754,32 @@ def _row_start(addr: Tuple[int, ...], iy: int) -> int:
     return (iy // c) * L + (iy % c) * rl if c > 1 else iy * k * L
 
 
+def _read_row(spec: OpSpec, r: int, iy: int) -> int:
+    """Element offset, from input 0's first element, of input image row
+    ``iy`` as output row ``r`` reads it: ``row_elem`` of the kernels, or for
+    a rolling spec its arena row rebased on the fetch start of ``r``'s
+    streaming tile and clamped into that window (``WinRows`` of
+    csrc/arena_stream_roll.cu, ``_WindowMem.read_row`` here)."""
+    a = operand_addr(spec, 0)
+    if stream_form(spec) != "roll":
+        return _row_start(a, iy)
+    _, L, c, k, rl, _, _ = a
+    tr, tile_ar = _tile_geom(spec)
+    base = spec.win_starts[r // tr] - spec.in_off[0]
+    n = 1 if c > 1 else k
+    w = (iy // c if c > 1 else iy * k) - base
+    w = min(max(w, 0), spec.win_rows - tile_ar - n)
+    return (base + w) * L + ((iy % c) * rl if c > 1 else 0)
+
+
 def conv_row_reads(spec: OpSpec, r: int,
                    cols: Tuple[int, int] = None) -> List[Tuple[int, int]]:
-    """Arena byte intervals output row ``r`` reads: per valid tap row, the
-    input columns its output columns ``cols`` (default all) reach, every
+    """Arena byte intervals output row ``r`` reads: per valid tap row (a
+    rolling spec's through its window, :func:`_read_row`), the input
+    columns its output columns ``cols`` (default all) reach, every
     channel."""
     ih, iw, ic, oh, ow, oc = _row_geometry(spec)
-    kh, kw, sh, sw, dh, dw, ph, pw, _ = spec.meta
+    kh, kw, sh, sw, dh, dw, ph, pw, _ = _conv_meta(spec)
     x0, x1 = cols or (0, ow)
     lo_ix = max(0, x0 * sw - pw)
     hi_ix = min(iw, (x1 - 1) * sw - pw + (kw - 1) * dw + 1)
@@ -751,7 +791,7 @@ def conv_row_reads(spec: OpSpec, r: int,
     for fy in range(kh):
         iy = r * sh - ph + fy * dh
         if 0 <= iy < ih:
-            e = _row_start(a, iy)
+            e = _read_row(spec, r, iy)
             out.append((a[0] + (e + lo_ix * ic) * isz,
                         a[0] + (e + hi_ix * ic) * isz))
     return out
@@ -779,13 +819,20 @@ def _meets(a: Tuple[int, int], b: Tuple[int, int]) -> bool:
 
 @functools.lru_cache(maxsize=1024)
 def conv_order(spec: OpSpec) -> int:
-    """The order mode of a standalone conv (:data:`ORDER_DISJOINT`,
+    """The order mode of a tile kernel's spec (:data:`ORDER_DISJOINT`,
     :data:`ORDER_STAGED` or :data:`ORDER_ROWS`) from the byte ranges of
     input 0 and of the output, then from each row's store against every
-    later row's reads."""
-    if not _meets(_byte_range(spec, 0), _byte_range(spec, None)):
-        return ORDER_DISJOINT
+    later row's reads. A rolling spec's reads are the window-clamped rows
+    its tiles really read, which may leave the input's block: it is
+    disjoint when none of them meets the output's block."""
     oh = spec.out_shape[-3]
+    if stream_form(spec) == "roll":
+        out = _byte_range(spec, None)
+        if not any(_meets(iv, out) for r in range(oh)
+                   for iv in conv_row_reads(spec, r)):
+            return ORDER_DISJOINT
+    elif not _meets(_byte_range(spec, 0), _byte_range(spec, None)):
+        return ORDER_DISJOINT
     stores = [conv_row_store(spec, r) for r in range(oh)]
     ends = np.maximum.accumulate([hi for _, hi in stores])
     starts = [lo for lo, _ in stores]
@@ -812,6 +859,30 @@ def conv_tile_geometry(spec: OpSpec, t: int) -> Tuple[int, Tuple[int, int],
     return r, (x0, min(ow, x0 + tl.tc)), (o0, min(oc, o0 + tl.to))
 
 
+def tile_reads(spec: OpSpec, t: int) -> List[Tuple[int, int, int]]:
+    """What ticket ``t``'s footprint copy reads, per valid tap row: the
+    arena byte interval ``[lo, hi)`` from its first to its last byte, and
+    the bytes it copies (the columns the tile reaches, each the tile's
+    channels: every channel of a conv2d, a depthwise or pool tile's
+    block). Rows as the kernels find them (:func:`_read_row`)."""
+    ih, iw, ic, _, _, _ = _row_geometry(spec)
+    kh, _, sh, sw, dh, _, ph, pw, m = _conv_meta(spec)
+    tl = conv_tiling(spec)
+    r, (x0, _), (o0, _) = conv_tile_geometry(spec, t)
+    c_lo = 0 if spec.kind == "conv2d" else o0 // m
+    ixs, ixe = max(x0 * sw - pw, 0), min(x0 * sw - pw + tl.fw, iw)
+    chans = min(tl.ib, ic - c_lo)
+    base, isz = operand_addr(spec, 0)[0], _isz(spec.dtype)
+    out = []
+    for fy in range(kh):
+        iy = r * sh - ph + fy * dh
+        if 0 <= iy < ih and ixs < ixe:
+            lo = base + (_read_row(spec, r, iy) + ixs * ic + c_lo) * isz
+            out.append((lo, lo + ((ixe - ixs - 1) * ic + chans) * isz,
+                        (ixe - ixs) * chans * isz))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Buffers: where a kernel's row buffer, staging buffer and scratch live
 # ---------------------------------------------------------------------------
@@ -835,14 +906,14 @@ def _row_bytes(spec: OpSpec) -> int:
 
 def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
     """Buffers the spec's kernel needs, in the order they claim shared
-    memory. A streaming op adds its window (a rolling op also its output
-    slot); a streaming chain's window is its scratch."""
+    memory. A tile kernel's counters, footprint and filter chunks; a staged
+    op adds its window to its body's; a streaming chain's window is its
+    scratch."""
     form = stream_form(spec)
-    if form == "roll":
-        rowb = spec.rowlen * _isz(spec.dtype)
-        _, tile_ar = _tile_geom(spec)
-        return (("win", (spec.win_rows - tile_ar) * rowb),
-                ("row", _row_bytes(spec)), ("slot", tile_ar * rowb))
+    if kernel_of(spec) in TILE_KERNELS:
+        tl = conv_tiling(spec)
+        return (("ctr", conv_counter_bytes(spec)), ("tile", tl.fp),
+                ("wts", 2 * tl.ch * tl.to * _isz(spec.dtype)))
     if form == "stage":
         rowb = spec.rowlen * _isz(spec.dtype)
         return (("win", _staged(spec)[2] * rowb),) + _buffer_needs(
@@ -850,10 +921,6 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
     if form == "fused":
         return _buffer_needs(_stream_body(spec))
     k = spec.kind
-    if k in ("conv2d", "depthwise_conv2d"):
-        tl = conv_tiling(spec)
-        return (("ctr", conv_counter_bytes(spec)), ("tile", tl.fp),
-                ("wts", 2 * tl.ch * tl.to * _isz(spec.dtype)))
     if k in ROW_KINDS:
         return (("row", _row_bytes(spec)),)
     if k in ("mean", "fully_connected"):
@@ -877,7 +944,7 @@ def buffer_plan(spec: OpSpec) -> BufferPlan:
     """Each buffer takes dynamic shared memory (16-byte aligned) when it
     fits beside the ones before it within :data:`SMEM_LIMIT` (less
     :data:`STREAM_STATIC_SMEM` for a streaming launch), else the global
-    workspace. A standalone conv's counters are always global, at its
+    workspace. A tile kernel's counters are always global, at its
     workspace's start; its tile footprint takes shared memory within
     :data:`CONV_SMEM_BUDGET`, else one global slice per CTA
     (:data:`CONV_SLICES`)."""
@@ -937,17 +1004,21 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
     """The int32 descriptor of a lowered spec: one op's words, or for a
     fused chain a header (word 0 = stage count) and then every stage's.
     The op's words, or the header, carry the buffer placement. A streaming
-    spec's descriptor is its stream block, then its body's descriptor."""
+    spec's descriptor is its stream block, then its body's descriptor. A
+    tile kernel's (last) op descriptor carries its order mode and
+    tiling."""
     bp = buffer_plan(spec)
     if not spec.win_rows:
         words = _body_words(spec, bp)
-        if kernel_of(spec) == "arena_conv":
-            words[D_ORDER] = conv_order(spec)
-            tl = conv_tiling(spec)
-            words[D_TILING:D_TILING + len(tl)] = tl
-        return words
-    body = _body_words(_stream_body(spec), bp)
-    return np.concatenate([_stream_words(spec, bp), body])
+    else:
+        words = np.concatenate([_stream_words(spec, bp),
+                                _body_words(_stream_body(spec), bp)])
+    if kernel_of(spec) in TILE_KERNELS:
+        body = words[-DESC_WORDS:]
+        body[D_ORDER] = conv_order(spec)
+        tl = conv_tiling(spec)
+        body[D_TILING:D_TILING + len(tl)] = tl
+    return words
 
 
 def _stream_words(spec: OpSpec, bp: BufferPlan) -> np.ndarray:
@@ -956,16 +1027,16 @@ def _stream_words(spec: OpSpec, bp: BufferPlan) -> np.ndarray:
     form = stream_form(spec)
     place = {name: (int(glob), off) for name, glob, off in bp.parts}
     w = [0] * S_COPY0
-    w[S_WIN_G:S_WIN_OFF + 1] = place["scratch" if form == "fused" else "win"]
     w[S_ROWB] = spec.rowlen * _isz(spec.dtype)
     if form == "roll":
-        w[S_SLOT_G:S_SLOT_OFF + 1] = place["slot"]
         tr, tile_ar = _tile_geom(spec)
-        w[S_IN_ROW], w[S_OUT_ROW] = spec.in_off[0], spec.out_off
+        w[S_IN_ROW] = spec.in_off[0]
         w[S_WIN_IN], w[S_TR] = spec.win_rows - tile_ar, tr
         w[S_T], w[S_OH] = len(spec.win_starts), spec.out_shape[-3]
         w += spec.win_starts
     else:
+        w[S_WIN_G:S_WIN_OFF + 1] = place["scratch" if form == "fused"
+                                         else "win"]
         if form == "stage":
             slots, out_slot, _ = _staged(spec)
         else:
@@ -1646,13 +1717,18 @@ def _launch(name: str, arena: torch.Tensor, spec: OpSpec,
 
 
 def conv_grid(spec: OpSpec) -> Tuple[int, int, int]:
-    """(CTAs to launch at most, tiles a row, counter bytes) of a standalone
-    conv: one CTA a tile, or one a global staging slice; the kernel's entry
-    point lowers the count to the CTAs the card holds at once, which must
-    cover a row's tiles, and zeroes the counters."""
+    """(CTAs to launch at most, tiles that must run at once, counter bytes)
+    of a tile kernel's spec: one CTA a tile, or one a global staging
+    slice; the kernel's entry point lowers the count to the CTAs the card
+    holds at once, which must cover one row's tiles (a rolling spec of
+    order :data:`ORDER_ROWS`: one streaming tile's), and zeroes the
+    counters."""
     tl = conv_tiling(spec)
     glob = buffer_plan(spec).on_global("tile")
-    return (min(tl.ntiles, CONV_SLICES) if glob else tl.ntiles, tl.tpr,
+    group = tl.tpr
+    if stream_form(spec) == "roll" and conv_order(spec) == ORDER_ROWS:
+        group *= min(_tile_geom(spec)[0], spec.out_shape[-3])
+    return (min(tl.ntiles, CONV_SLICES) if glob else tl.ntiles, group,
             conv_counter_bytes(spec))
 
 
@@ -1778,15 +1854,16 @@ def arena_fused_chain(arena: torch.Tensor, spec: OpSpec, wblob: torch.Tensor,
 def arena_stream_roll(arena: torch.Tensor, spec: OpSpec,
                       w: Optional[torch.Tensor] = None,
                       desc: Optional[torch.Tensor] = None) -> None:
-    """A conv2d, depthwise or pool of the streaming program, tile by tile
-    through its rolling window (``w``: the filter; None for pool)."""
+    """A conv2d, depthwise or pool of the streaming program, its rows read
+    through their streaming tile's window (``w``: the filter; None for
+    pool)."""
     _expect(spec, "arena_stream_roll")
     if spec.kind != "pool":
         _check_weight(spec, w)
     if not _on_card(arena, spec, w):
         stream_roll_plain(arena, spec, w)
         return
-    _launch("arena_stream_roll", arena, spec, w, desc)
+    _launch("arena_stream_roll", arena, spec, w, desc, conv_grid(spec))
 
 
 def arena_stream_stage(arena: torch.Tensor, spec: OpSpec,

@@ -48,10 +48,12 @@ KERNELS = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 #: The arena kernels' signature: (arena, descriptor, weights or null,
 #: global workspace or null, dynamic shared bytes, stream).
 ARGTYPES = [_P, _P, _P, _P, _I, _P]
-#: Arena kernels over the whole card take three ints more before the
-#: stream: the CTAs to launch at most, the tiles of one output row and the
-#: bytes of the counters at the workspace's start.
-GRID_ARGTYPES = {"arena_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _P]}
+#: The tile kernels over the whole card (csrc/conv_tiles.cuh) take three
+#: ints more before the stream: the CTAs to launch at most, the tiles that
+#: must run at once (one output row's) and the bytes of the counters at the
+#: workspace's start.
+GRID_ARGTYPES = {name: [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+                 for name in ("arena_conv", "arena_stream_roll")}
 #: The standalone kernels' own signatures, by entry point; every other
 #: entry takes :data:`ARGTYPES`.
 ARGTYPES_OF = {

@@ -1,7 +1,7 @@
 // Shared device code of the arena kernels (sm_90a), for the reference's
 // three in-place arena programs: flat, row-blocked and streaming (the
-// blocked arena, each op run on a staged copy of its live window; see the
-// stream block words near the end).
+// blocked arena, each op run on its live window only; see the stream
+// block words near the end).
 //
 // The arena is ONE device buffer. In the flat program it is uint8 bytes of
 // exactly the planner's peak, every operand at a byte offset (f32 operands
@@ -33,11 +33,12 @@
 // (safe overlap O_s), which is only safe when output rows are produced in
 // ascending order and every read of row oy happens after the row oy-1
 // store. So every op here runs in ONE CTA, except the standalone conv2d /
-// depthwise (arena_conv.cu), which has its own kernel over the whole card:
-// row tiles whose stores wait, through counters in global memory, for the
-// reads of every tile of their row and the rows before (see that file).
-// Row ops here (pool; conv2d, depthwise and pool as fused or streaming
-// stages) walk output rows in order; threads split the columns and
+// depthwise (arena_conv.cu) and the streaming program's rolling conv,
+// depthwise and pool (arena_stream_roll.cu), which run over the whole
+// card: row tiles whose stores wait, through counters in global memory,
+// for the reads of every tile of their row and the rows before
+// (conv_tiles.cuh). Row ops here (pool; conv2d, depthwise and pool as
+// fused stages) walk output rows in order; threads split the columns and
 // channels of one row, stage the row's results in a row buffer, and store
 // only after a __syncthreads(); a second barrier orders the store before
 // the next row's reads. In the row-blocked program the legaliser re-derives every
@@ -50,10 +51,10 @@
 // the block encoding happens on the way out.
 //
 // Buffers (row buffer, staging buffer, a fused chain's scratch, a
-// streaming window and output slot) live in dynamic shared memory when
-// they fit a CTA and otherwise in a global workspace the wrapper allocates
-// once per spec; the descriptor says which (words D_STAGE_G.. and S_WIN_G..
-// below). Both placements are the kernel.
+// streaming window) live in dynamic shared memory when they fit a CTA and
+// otherwise in a global workspace the wrapper allocates once per spec; the
+// descriptor says which (words D_STAGE_G.. and S_WIN_G.. below). Both
+// placements are the kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -257,12 +258,6 @@ struct ConvP {
   int x_zp, y_zp;
   float amult;
   Addr ia, oa;  // the input's and the output's addressing
-  // Row window (the streaming program; the whole operand otherwise): the
-  // input's arena row r is read at row rbase + r of the input pointer,
-  // clamped into [rlo, rhi) as the reference's dynamic slice clamps; output
-  // rows y0 <= oy < y1 are computed and arena row r of the output is
-  // stored at row r - obase of the output pointer.
-  int rbase, rlo, rhi, y0, y1, obase;
 };
 
 __device__ __forceinline__ ConvP load_conv(const int* d) {
@@ -274,38 +269,15 @@ __device__ __forceinline__ ConvP load_conv(const int* d) {
   p.m = d[D_MULT];
   p.x_zp = d[D_X_ZP]; p.y_zp = d[D_Y_ZP]; p.amult = fword(d, D_AMULT);
   p.ia = load_addr(d, 1); p.oa = load_addr(d, 0);
-  p.rbase = 0; p.rlo = -(1 << 29); p.rhi = 1 << 29;
-  p.y0 = 0; p.y1 = p.oh; p.obase = 0;
   return p;
-}
-
-// Element offset of input image row iy (a valid row: masked taps never get
-// here) from the input pointer: _dec_row, with the arena row rebased and
-// clamped into the window, so no address leaves the staging buffer.
-__device__ __forceinline__ int in_row(const ConvP& p, int iy) {
-  const Addr& a = p.ia;
-  const bool packed = a.c > 1;
-  const int n = packed ? 1 : a.k;
-  int r = p.rbase + (packed ? iy / a.c : iy * a.k);
-  r = min(max(r, p.rlo), p.rhi - n);
-  return r * a.L + (packed ? (iy % a.c) * a.rl : 0);
-}
-
-// Arena rows [first, last) of the output that image rows [y0, y1) occupy.
-__device__ __forceinline__ int out_row_lo(const Addr& a, int y0) {
-  return a.c > 1 ? y0 / a.c : y0 * a.k;
-}
-__device__ __forceinline__ int out_row_hi(const Addr& a, int y1) {
-  return a.c > 1 ? (y1 - 1) / a.c + 1 : y1 * a.k;
 }
 
 // One output element (oy, ox, o) of conv2d / depthwise (channel multiplier
 // m: output channel = ic*m + j). Taps at iy = oy*sh - ph + fy*dh (ph may be
 // negative for a producer band); out-of-range taps contribute nothing, which
 // is the reference's clamp-and-mask (a masked int8 tap is x_zp - x_zp = 0).
-// Returns the int8 result in the low byte, or the f32 result's bits. WIN:
-// the input is a streaming window (rows rebased and clamped by in_row).
-template <bool Q, bool DW, bool WIN>
+// Returns the int8 result in the low byte, or the f32 result's bits.
+template <bool Q, bool DW>
 __device__ __forceinline__ uint32_t conv_point(const uint8_t* in,
                                                const uint8_t* w,
                                                const ConvP& p, int oy,
@@ -317,7 +289,7 @@ __device__ __forceinline__ uint32_t conv_point(const uint8_t* in,
   for (int fy = 0; fy < p.kh; ++fy) {
     const int iy = oy * p.sh - p.ph + fy * p.dh;
     if (iy < 0 || iy >= p.ih) continue;
-    const int row = WIN ? in_row(p, iy) : row_elem(p.ia, iy);
+    const int row = row_elem(p.ia, iy);
     for (int fx = 0; fx < p.kw; ++fx) {
       const int ix = ox * p.sw - p.pw + fx * p.dw;
       if (ix < 0 || ix >= p.iw) continue;
@@ -354,7 +326,7 @@ __device__ __forceinline__ uint32_t conv_point(const uint8_t* in,
 // unevenly), the average over the valid taps. int8 max starts at
 // -2147483647 and requantises acc - x_zp; int8 avg requantises
 // acc / max(cnt, 1) - x_zp in f32.
-template <bool Q, bool MAX, bool WIN>
+template <bool Q, bool MAX>
 __device__ __forceinline__ uint32_t pool_point(const uint8_t* in,
                                                const ConvP& p, int oy,
                                                int ox, int c) {
@@ -370,7 +342,7 @@ __device__ __forceinline__ uint32_t pool_point(const uint8_t* in,
   for (int fy = 0; fy < p.kh; ++fy) {
     const int iy = oy * p.sh - p.ph + fy;
     if (iy < 0 || iy >= p.ih) continue;
-    const int row = WIN ? in_row(p, iy) : row_elem(p.ia, iy);
+    const int row = row_elem(p.ia, iy);
     for (int fx = 0; fx < p.kw; ++fx) {
       const int ix = ox * p.sw - p.pw + fx;
       if (ix < 0 || ix >= p.iw) continue;
@@ -405,15 +377,12 @@ __device__ __forceinline__ uint32_t pool_point(const uint8_t* in,
 // output row (ow * oc elements), so any row width runs. The store covers
 // the row's n elements and, plain or spanning, zeroes the rest of its
 // k * L arena elements; a packed store writes its own lane phase only.
-// WIN: only rows y0..y1-1, stored rebased by obase arena rows (a
-// streaming tile); else every row.
-template <bool Q, bool WIN, typename Point>
+template <bool Q, typename Point>
 __device__ void row_walk(const ConvP& p, uint8_t* out, uint8_t* rowbuf,
                          Point point) {
   const int n = p.ow * p.oc;
   const int span = p.oa.c > 1 ? n : p.oa.k * p.oa.L;
-  const int y0 = WIN ? p.y0 : 0, y1 = WIN ? p.y1 : p.oh;
-  for (int oy = y0; oy < y1; ++oy) {
+  for (int oy = 0; oy < p.oh; ++oy) {
     for (int e = threadIdx.x; e < n; e += NT) {
       const int ox = e / p.oc;
       const uint32_t v = point(oy, ox, e - ox * p.oc);
@@ -421,7 +390,7 @@ __device__ void row_walk(const ConvP& p, uint8_t* out, uint8_t* rowbuf,
       else ((uint32_t*)rowbuf)[e] = v;
     }
     __syncthreads();  // every read of row oy is done
-    const int r0 = row_elem(p.oa, oy) - (WIN ? p.obase * p.oa.L : 0);
+    const int r0 = row_elem(p.oa, oy);
     if constexpr (Q) {
       uint8_t* o = out + r0;
       for (int e = threadIdx.x; e < span; e += NT)
@@ -437,32 +406,30 @@ __device__ void row_walk(const ConvP& p, uint8_t* out, uint8_t* rowbuf,
 
 // conv2d, depthwise or pool of descriptor d over the geometry p, reading
 // `in` and storing to `out` (kind and tier are uniform across the CTA);
-// `w` is the filter (unused by pool). WIN: p's row window applies (a
-// streaming tile); without it the code is that of the whole-op kernels.
-template <bool WIN>
+// `w` is the filter (unused by pool).
 __device__ void row_run(const int* d, const ConvP& p, const uint8_t* in,
                         uint8_t* out, const uint8_t* w, uint8_t* rowbuf) {
   const int kind = d[D_KIND];
 #define ARENA_ROW(Q, F) \
-  row_walk<Q, WIN>(p, out, rowbuf, [&](int oy, int ox, int o) { return F; })
+  row_walk<Q>(p, out, rowbuf, [&](int oy, int ox, int o) { return F; })
   if (d[D_QUANT]) {
     if (kind == K_DEPTHWISE)
-      ARENA_ROW(true, (conv_point<true, true, WIN>(in, w, p, oy, ox, o)));
+      ARENA_ROW(true, (conv_point<true, true>(in, w, p, oy, ox, o)));
     else if (kind == K_CONV2D)
-      ARENA_ROW(true, (conv_point<true, false, WIN>(in, w, p, oy, ox, o)));
+      ARENA_ROW(true, (conv_point<true, false>(in, w, p, oy, ox, o)));
     else if (p.m)
-      ARENA_ROW(true, (pool_point<true, true, WIN>(in, p, oy, ox, o)));
+      ARENA_ROW(true, (pool_point<true, true>(in, p, oy, ox, o)));
     else
-      ARENA_ROW(true, (pool_point<true, false, WIN>(in, p, oy, ox, o)));
+      ARENA_ROW(true, (pool_point<true, false>(in, p, oy, ox, o)));
   } else {
     if (kind == K_DEPTHWISE)
-      ARENA_ROW(false, (conv_point<false, true, WIN>(in, w, p, oy, ox, o)));
+      ARENA_ROW(false, (conv_point<false, true>(in, w, p, oy, ox, o)));
     else if (kind == K_CONV2D)
-      ARENA_ROW(false, (conv_point<false, false, WIN>(in, w, p, oy, ox, o)));
+      ARENA_ROW(false, (conv_point<false, false>(in, w, p, oy, ox, o)));
     else if (p.m)
-      ARENA_ROW(false, (pool_point<false, true, WIN>(in, p, oy, ox, o)));
+      ARENA_ROW(false, (pool_point<false, true>(in, p, oy, ox, o)));
     else
-      ARENA_ROW(false, (pool_point<false, false, WIN>(in, p, oy, ox, o)));
+      ARENA_ROW(false, (pool_point<false, false>(in, p, oy, ox, o)));
   }
 #undef ARENA_ROW
 }
@@ -471,9 +438,8 @@ __device__ void row_run(const int* d, const ConvP& p, const uint8_t* in,
 // `scratch` routes scratch-flagged operands of a fused stage.
 __device__ void row_op(const int* d, uint8_t* arena, uint8_t* scratch,
                        const uint8_t* w, uint8_t* rowbuf) {
-  row_run<false>(d, load_conv(d),
-                 (d[D_IN_SCR] ? scratch : arena) + d[D_IN_OFF],
-                 (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF], w, rowbuf);
+  row_run(d, load_conv(d), (d[D_IN_SCR] ? scratch : arena) + d[D_IN_OFF],
+          (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF], w, rowbuf);
 }
 
 // concat along the descriptor's axis: every input is read (and, int8,
@@ -797,21 +763,23 @@ __device__ void chain_run(const int* h, uint8_t* arena, uint8_t* scratch,
 }
 
 // ---------------------------------------------------------------------------
-// The streaming program (arena_stream_*.cu): each op copies its live window
-// from the arena into a staging buffer, runs there and copies its output
-// back. A streaming descriptor is a stream block, then the op's descriptor
-// (or a fused chain's header and stages) at word S_BODY.
+// The streaming program (arena_stream_*.cu): a staged op or a chain copies
+// its live window from the arena into a staging buffer, runs there and
+// copies its output back; a rolling op reads its window in place, tile by
+// tile (arena_stream_roll.cu). A streaming descriptor is a stream block,
+// then the op's descriptor (or a fused chain's header and stages) at word
+// S_BODY.
 // ---------------------------------------------------------------------------
 
 // stream block words: the window's placement (the fused chain's: its
-// scratch), the rolling output slot's, bytes of one arena row, the body's
-// word offset, the copy out and the rolling statics; from S_COPY0 two
-// lists of any length, S_NCOPY copies in (arena row, window row, rows),
-// then the planner's S_T fetch starts
-enum { S_WIN_G = 0, S_WIN_OFF = 1, S_SLOT_G = 2, S_SLOT_OFF = 3,
-       S_ROWB = 4, S_BODY = 5, S_NCOPY = 6, S_OUT_WIN = 7, S_OUT_ROW = 8,
-       S_OUT_ROWS = 9, S_IN_ROW = 10, S_WIN_IN = 11, S_TR = 12, S_T = 13,
-       S_OH = 14, S_COPY0 = 16 };
+// scratch; none for a rolling op), bytes of one arena row, the body's word
+// offset, the copy out and the rolling statics (the input's arena row,
+// window rows, image rows of a streaming tile, tiles, output rows); from
+// S_COPY0 two lists of any length, S_NCOPY copies in (arena row, window
+// row, rows), then the planner's S_T fetch starts
+enum { S_WIN_G = 0, S_WIN_OFF = 1, S_ROWB = 2, S_BODY = 3, S_NCOPY = 4,
+       S_OUT_WIN = 5, S_OUT_ROW = 6, S_OUT_ROWS = 7, S_IN_ROW = 8,
+       S_WIN_IN = 9, S_TR = 10, S_T = 11, S_OH = 12, S_COPY0 = 16 };
 
 // Copy n bytes, 16 bytes a thread where both ends and n allow it. The
 // caller puts the barrier after it.
@@ -858,10 +826,10 @@ __device__ __forceinline__ void stage_block_out(const int* sd,
 
 // The launch configuration of every one-CTA entry point (ARENA_ENTRY):
 // one CTA of NT threads, `smem` bytes of dynamic shared memory (arena_conv
-// launches a grid through its own entry). The kernel opts in to
-// each larger size it is launched with, not only past 48 KB: a kernel
-// with static shared arrays (the staged softmax's reduction) needs the
-// opt-in below 48 KB of dynamic memory too.
+// and arena_stream_roll launch a grid through conv_tiles.cuh's). The
+// kernel opts in to each larger size it is launched with, not only past
+// 48 KB: a kernel with static shared arrays (the staged softmax's
+// reduction) needs the opt-in below 48 KB of dynamic memory too.
 template <typename K>
 static cudaError_t set_smem(K kernel, int smem, int* configured) {
   if (smem > *configured) {

@@ -11,410 +11,30 @@
 //
 // Bound on this card: operations for the wide convs (resnet_50_v2's 3.86
 // GMAC at 67 TFLOP/s f32), bytes for the flagship's small int8 ones. The
-// design spreads an op over every SM and keeps the arena safe (§III.F):
-//
-// - A tile is (output row, a block of output columns, a block of output
-//   channels), sized by arena_ops.conv_tiling so its input footprint (kh
-//   input rows x the columns it reaches x every input channel, or the
-//   channel block of a depthwise tile) fits shared memory; a larger one
-//   is staged in the CTA's slice of the spec's global workspace. CTAs take
-//   tiles by an atomicAdd ticket in row-major order, so a CTA only ever
-//   waits on tickets running CTAs hold; the launch is cooperative, so all
-//   of them are resident, and the entry point refuses a grid smaller than
-//   one row's tiles.
-// - A tile copies its footprint in, then (op overlapping its input, order
-//   word >= 1) counts itself staged in its row's counter, computes from
-//   the copy, and stores only once every tile of its row and of the rows
-//   before has staged: the planner's overlap never lets a row's store
-//   reach a later row's reads, so that is every read the store could
-//   clobber. Where the
-//   lowering finds a later row reading an earlier row's store (order word
-//   2, only hand-built specs), a tile also reads only once every earlier
-//   row is stored, which is the one-CTA row walk's order exactly. A
-//   disjoint op (order word 0) neither publishes nor waits. The counters
-//   live at the start of the workspace and the entry point zeroes them on
-//   the stream before each launch.
-// - Each output keeps conv_point's accumulation exactly (one accumulator,
-//   fy -> fx -> c ascending, `acc += x * w`, masked taps skipped), so f32
-//   stays bit-equal to the row walk of the fused and streaming kernels. A
-//   thread holds VO output channels (one 16-byte filter load each input
-//   channel) of VP pixels in registers.
-// - Stores as before: plain or spanning rows zero the rest of their k * L
-//   elements (the row's last tile does it), packed rows write only their
-//   own lane phase.
-#include "arena_common.cuh"
+// design spreads an op over every SM in row tiles whose stores wait for
+// the reads they could clobber (§III.F), each output in conv_point's
+// order (f32 bit-equal to the fused chain's row walk); conv_tiles.cuh
+// holds it, shared with arena_stream_roll. Here a footprint row is read
+// where the operand's addressing puts it, and rows wait one at a time
+// (groups of one row) where a later row reads an earlier row's store.
+#include "conv_tiles.cuh"
 
 using namespace arena;
 
 namespace {
 
-constexpr int CT = 256;  // threads of a conv CTA (arena_ops.CONV_THREADS)
-enum { D_ORDER = 100, D_TILING = 101 };  // arena_ops.D_ORDER, D_TILING
-// counters (arena_ops.conv_counter_bytes): the next ticket, tiles stored,
-// then from word C_ROWS the tiles of each output row that have staged
-enum { C_TICKET = 0, C_STORED = 1, C_ROWS = 4 };
-
-// arena_ops.ConvTiling, field for field
-struct Tiling {
-  int vp, vo, nog, tc, to, ib, fw, ncb, nob, tpr, ntiles, fp, ch, ps;
+// arena_conv reads each footprint row where the operand addressing puts
+// it; a group (order word 2) is one output row.
+struct ArenaRows {
+  __device__ __forceinline__ int operator()(const Addr& a, int, int iy)
+      const {
+    return row_elem(a, iy);
+  }
+  __device__ __forceinline__ int first(int r) const { return r; }
+  __device__ __forceinline__ int end(int r, int) const { return r + 1; }
 };
 
-__device__ __forceinline__ Tiling load_tiling(const int* d) {
-  const int* a = d + D_TILING;
-  Tiling t;
-  t.vp = a[0]; t.vo = a[1]; t.nog = a[2]; t.tc = a[3]; t.to = a[4];
-  t.ib = a[5]; t.fw = a[6]; t.ncb = a[7]; t.nob = a[8]; t.tpr = a[9];
-  t.ntiles = a[10]; t.fp = a[11]; t.ch = a[12]; t.ps = a[13];
-  return t;
-}
-
-// Spin until counter *c reaches v; the fence (then the CTA's barrier)
-// orders what the CTA does next after what that counter published.
-__device__ __forceinline__ void wait_for(int* c, int v) {
-  while (*(volatile int*)c < v) __nanosleep(32);
-  __threadfence();
-}
-
-// `cols` columns of `n` bytes each, `sstride` bytes apart in the arena
-// and `dstride` apart in the footprint, 16, 4 or 1 bytes a copy as both
-// ends and the strides allow. The loads skip L1 (ld.global.cg): other
-// CTAs store into the arena while the kernel runs, and an order-2 tile
-// reads what they stored.
-__device__ __forceinline__ void copy_columns(uint8_t* dst,
-                                             const uint8_t* src, int cols,
-                                             int n, int sstride,
-                                             int dstride) {
-  const uintptr_t al = (uintptr_t)dst | (uintptr_t)src | (uintptr_t)n
-                       | (uintptr_t)sstride | (uintptr_t)dstride;
-  if ((al & 15) == 0) {
-    const int u = n / 16;
-    for (int e = threadIdx.x; e < cols * u; e += CT) {
-      const int c = e / u, k = e - c * u;
-      *(uint4*)(dst + c * dstride + k * 16) =
-          __ldcg((const uint4*)(src + c * sstride) + k);
-    }
-  } else if ((al & 3) == 0) {
-    const int u = n / 4;
-    for (int e = threadIdx.x; e < cols * u; e += CT) {
-      const int c = e / u, k = e - c * u;
-      *(uint32_t*)(dst + c * dstride + k * 4) =
-          __ldcg((const unsigned int*)(src + c * sstride) + k);
-    }
-  } else {
-    for (int e = threadIdx.x; e < cols * n; e += CT) {
-      const int c = e / n, k = e - c * n;
-      dst[c * dstride + k] = __ldcg(src + c * sstride + k);
-    }
-  }
-}
-
-// cp.async of `bytes` (16 or 4) global -> shared, and its groups.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(src));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-template <int VO, typename W>
-__device__ __forceinline__ void load_w(W (&wv)[VO], const W* p, bool vec) {
-  if constexpr (VO == 4) {
-    if (vec) {
-      if constexpr (sizeof(W) == 4) {
-        const float4 v = __ldg((const float4*)p);
-        wv[0] = v.x; wv[1] = v.y; wv[2] = v.z; wv[3] = v.w;
-      } else {
-        const char4 v = __ldg((const char4*)p);
-        wv[0] = v.x; wv[1] = v.y; wv[2] = v.z; wv[3] = v.w;
-      }
-      return;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < VO; ++j) wv[j] = __ldg(p + j);
-}
-
-// A conv2d tile's taps with its filter staged in shared memory: steps
-// (tap, chunk of tl.ch input channels) run fy -> fx -> c ascending, as
-// conv_point does per output; chunk st + 1 copies in (cp.async) while st
-// computes. Every thread of the CTA takes part (the barriers); inactive
-// ones only copy.
-template <bool Q, int VP>
-__device__ __forceinline__ void staged_taps(
-    const ConvP& p, const Tiling& tl, const uint8_t* wbytes,
-    const typename std::conditional<Q, int8_t, float>::type* S,
-    uint8_t* wsm, int r, int x0, int o0, int og, const int (&lx)[VP],
-    bool active,
-    typename std::conditional<Q, int, float>::type (&acc)[VP][4]) {
-  typedef typename std::conditional<Q, int8_t, float>::type T;
-  const int tid = threadIdx.x;
-  constexpr int isz = Q ? 1 : 4;
-  const int nch = (p.ic + tl.ch - 1) / tl.ch;
-  const int steps = p.kh * p.kw * nch;
-  const int tow = min(tl.to, p.oc - o0);  // a multiple of four
-  constexpr int U = Q ? 4 : 16;           // bytes a copy
-  const int upr = tow * isz / U;
-  T* wbuf = (T*)wsm;
-  auto fetch = [&](int st) {
-    const int tap = st / nch, c0 = (st - tap * nch) * tl.ch;
-    const int iy = r * p.sh - p.ph + (tap / p.kw) * p.dh;
-    if (iy < 0 || iy >= p.ih) return;
-    const int rows = min(tl.ch, p.ic - c0);
-    uint8_t* dst = (uint8_t*)(wbuf + (st & 1) * tl.ch * tl.to);
-    const uint8_t* src = wbytes
-        + ((size_t)(tap * p.ic + c0) * p.oc + o0) * isz;
-    for (int e = tid; e < rows * upr; e += CT) {
-      const int rr = e / upr, u = e - rr * upr;
-      cp_async<U>(dst + rr * tl.to * isz + u * U,
-                  src + (size_t)rr * p.oc * isz + u * U);
-    }
-  };
-  fetch(0);
-  cp_commit();
-  for (int st = 0; st < steps; ++st) {
-    if (st + 1 < steps) fetch(st + 1);
-    cp_commit();
-    cp_wait_prev();
-    __syncthreads();  // chunk st is in
-    const int tap = st / nch, c0 = (st - tap * nch) * tl.ch;
-    const int fy = tap / p.kw, fx = tap - fy * p.kw;
-    const int iy = r * p.sh - p.ph + fy * p.dh;
-    if (active && iy >= 0 && iy < p.ih) {
-      const int rows = min(tl.ch, p.ic - c0);
-      const T* srow = S + fy * tl.fw * tl.ps + c0;
-      bool ok[VP];
-      const T* xp[VP];
-#pragma unroll
-      for (int i = 0; i < VP; ++i) {
-        const int ix = (x0 + lx[i]) * p.sw - p.pw + fx * p.dw;
-        ok[i] = x0 + lx[i] < p.ow && ix >= 0 && ix < p.iw;
-        xp[i] = srow + (lx[i] * p.sw + fx * p.dw) * tl.ps;
-      }
-      const T* wr = wbuf + (st & 1) * tl.ch * tl.to + og * 4;
-#pragma unroll 8
-      for (int c = 0; c < rows; ++c) {
-        T wv[4];
-        if constexpr (Q) {
-          const char4 v = *(const char4*)(wr + c * tl.to);
-          wv[0] = v.x; wv[1] = v.y; wv[2] = v.z; wv[3] = v.w;
-        } else {
-          const float4 v = *(const float4*)(wr + c * tl.to);
-          wv[0] = v.x; wv[1] = v.y; wv[2] = v.z; wv[3] = v.w;
-        }
-#pragma unroll
-        for (int i = 0; i < VP; ++i) {
-          if (!ok[i]) continue;
-          if constexpr (Q) {
-            const int x = (int)xp[i][c] - p.x_zp;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] += x * (int)wv[j];
-          } else {
-            const float x = xp[i][c];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] += x * wv[j];
-          }
-        }
-      }
-    }
-    __syncthreads();  // chunk st is free for st + 2
-  }
-}
-
-// The tiles of one conv, ticket after ticket, until none is left.
-template <bool Q, bool DW, int VP, int VO>
-__device__ void conv_tiles(const int* d, const ConvP& p, const Tiling& tl,
-                           const uint8_t* in, uint8_t* out,
-                           const uint8_t* wbytes, uint8_t* tile,
-                           uint8_t* wsm, int* ctr) {
-  typedef typename std::conditional<Q, int8_t, float>::type T;
-  typedef typename std::conditional<Q, int, float>::type acc_t;
-  __shared__ int s_ticket;
-  const int order = d[D_ORDER];
-  const int tid = threadIdx.x;
-  const int og = tid % tl.nog, slot = tid / tl.nog, npx = CT / tl.nog;
-  const T* w = (const T*)wbytes;
-  const T* S = (const T*)tile;
-  const int isz = Q ? 1 : 4;
-  // 16-byte (int8: 4-byte) filter loads: four channels from a multiple of
-  // four, oc a multiple of four, the filter aligned
-  const bool wvec = VO == 4 && ((uintptr_t)wbytes & (4 * isz - 1)) == 0;
-  // such filters stage in shared memory, tl.ch input channels a chunk
-  const bool wstage = wvec && tl.ch > 0;
-  const int n = p.ow * p.oc;
-  int staged_rows = 0;  // rows below this have all staged (CTA-uniform)
-  for (;;) {
-    if (tid == 0) s_ticket = atomicAdd(ctr + C_TICKET, 1);
-    __syncthreads();
-    const int t = s_ticket;
-    if (t >= tl.ntiles) break;
-    const int r = t / tl.tpr, rem = t - r * tl.tpr;
-    const int cb = rem / tl.nob, ob = rem - cb * tl.nob;
-    const int x0 = cb * tl.tc, o0 = ob * tl.to;
-    const int c_lo = DW ? o0 / p.m : 0;
-    const int ix0 = x0 * p.sw - p.pw;
-    if (order == 2) {  // reads follow every earlier row's store
-      if (tid == 0) wait_for(ctr + C_STORED, r * tl.tpr);
-      __syncthreads();
-    }
-
-    // 1. stage the footprint: tap row fy, column ix - ix0 (every tl.ps
-    // elements), channel c - c_lo
-    const int ixs = max(ix0, 0), ixe = min(ix0 + tl.fw, p.iw);
-    const int pxb = min(tl.ib, p.ic - c_lo) * isz;  // bytes a column
-    for (int fy = 0; fy < p.kh; ++fy) {
-      const int iy = r * p.sh - p.ph + fy * p.dh;
-      if (iy < 0 || iy >= p.ih || ixe <= ixs) continue;
-      copy_columns(tile + (fy * tl.fw + (ixs - ix0)) * tl.ps * isz,
-                   in + (row_elem(p.ia, iy) + ixs * p.ic + c_lo) * isz,
-                   ixe - ixs, pxb, p.ic * isz, tl.ps * isz);
-    }
-    __syncthreads();  // the whole footprint is read
-    if (order >= 1 && tid == 0) {
-      __threadfence();
-      atomicAdd(ctr + C_ROWS + r, 1);
-    }
-
-    // 2. compute from the copy, conv_point's order per output
-    int lx[VP];
-#pragma unroll
-    for (int i = 0; i < VP; ++i) lx[i] = slot + i * npx;
-    const int ob0 = o0 + og * VO;  // this thread's first output channel
-    const bool active = ob0 < p.oc;
-    acc_t acc[VP][VO];
-#pragma unroll
-    for (int i = 0; i < VP; ++i)
-#pragma unroll
-      for (int j = 0; j < VO; ++j) acc[i][j] = 0;
-    if (!DW && VO == 4 && wstage) {
-      if constexpr (!DW && VO == 4)
-        staged_taps<Q, VP>(p, tl, wbytes, S, wsm, r, x0, o0, og, lx, active,
-                           acc);
-    } else if (active) {
-      int c0 = 0, jm = 0;
-      if constexpr (DW) { c0 = ob0 / p.m; jm = ob0 - c0 * p.m; }
-      for (int fy = 0; fy < p.kh; ++fy) {
-        const int iy = r * p.sh - p.ph + fy * p.dh;
-        if (iy < 0 || iy >= p.ih) continue;
-        const T* srow = S + fy * tl.fw * tl.ps;
-        for (int fx = 0; fx < p.kw; ++fx) {
-          bool ok[VP];
-          const T* xp[VP];
-#pragma unroll
-          for (int i = 0; i < VP; ++i) {
-            const int ix = (x0 + lx[i]) * p.sw - p.pw + fx * p.dw;
-            ok[i] = x0 + lx[i] < p.ow && ix >= 0 && ix < p.iw;
-            xp[i] = srow + (lx[i] * p.sw + fx * p.dw) * tl.ps;
-          }
-          const int tap = fy * p.kw + fx;
-          if constexpr (DW) {
-            const acc_t wv = w[(tap * p.ic + c0) * p.m + jm];
-#pragma unroll
-            for (int i = 0; i < VP; ++i) {
-              if (!ok[i]) continue;
-              if constexpr (Q) acc[i][0] += ((int)xp[i][c0 - c_lo] - p.x_zp)
-                                            * (int)wv;
-              else acc[i][0] += xp[i][c0 - c_lo] * wv;
-            }
-          } else {
-            const T* wr = w + tap * p.ic * p.oc + ob0;
-#pragma unroll 8
-            for (int c = 0; c < p.ic; ++c) {
-              T wv[VO];
-              load_w<VO>(wv, wr + c * p.oc, wvec);
-#pragma unroll
-              for (int i = 0; i < VP; ++i) {
-                if (!ok[i]) continue;
-                if constexpr (Q) {
-                  const int x = (int)xp[i][c] - p.x_zp;
-#pragma unroll
-                  for (int j = 0; j < VO; ++j) acc[i][j] += x * (int)wv[j];
-                } else {
-                  const float x = xp[i][c];
-#pragma unroll
-                  for (int j = 0; j < VO; ++j) acc[i][j] += x * wv[j];
-                }
-              }
-            }
-          }
-        }
-      }
-    }
-
-    // 3. store once every tile of rows <= r has staged its input (a CTA's
-    // tickets ascend, so the rows it has seen complete stay complete)
-    if (order >= 1) {
-      if (tid < 32) {  // warp 0 checks 32 rows at a time
-        for (int row = staged_rows + tid; row <= r; row += 32)
-          wait_for(ctr + C_ROWS + row, tl.tpr);
-      }
-      staged_rows = r + 1;
-      __syncthreads();
-    }
-    const int r0 = row_elem(p.oa, r);
-    if (active) {
-#pragma unroll
-      for (int i = 0; i < VP; ++i) {
-        const int ox = x0 + lx[i];
-        if (ox >= p.ow) continue;
-#pragma unroll
-        for (int j = 0; j < VO; ++j) {
-          const int o = ob0 + j;
-          if (o >= p.oc) continue;
-          const int e = r0 + ox * p.oc + o;
-          if constexpr (Q) out[e] = (uint8_t)requant_i(acc[i][j], p.amult,
-                                                       p.y_zp);
-          else ((float*)out)[e] = acc[i][j];
-        }
-      }
-    }
-    if (rem == tl.tpr - 1 && p.oa.c == 1) {  // the row's padding
-      const int span = p.oa.k * p.oa.L;
-      for (int e = n + tid; e < span; e += CT) {
-        if constexpr (Q) out[r0 + e] = 0;
-        else ((uint32_t*)out)[r0 + e] = 0u;
-      }
-    }
-    __syncthreads();  // stored; the footprint and s_ticket are free
-    if (order == 2 && tid == 0) {
-      __threadfence();
-      atomicAdd(ctr + C_STORED, 1);
-    }
-  }
-}
-
-template <bool Q, bool DW, int VO>
-__device__ void conv_vp(const int* d, const ConvP& p, const Tiling& tl,
-                        const uint8_t* in, uint8_t* out, const uint8_t* w,
-                        uint8_t* tile, uint8_t* wsm, int* ctr) {
-  if (tl.vp == 4)
-    conv_tiles<Q, DW, 4, VO>(d, p, tl, in, out, w, tile, wsm, ctr);
-  else if (tl.vp == 2)
-    conv_tiles<Q, DW, 2, VO>(d, p, tl, in, out, w, tile, wsm, ctr);
-  else
-    conv_tiles<Q, DW, 1, VO>(d, p, tl, in, out, w, tile, wsm, ctr);
-}
-
-template <bool Q>
-__device__ void conv_q(const int* d, const ConvP& p, const Tiling& tl,
-                       const uint8_t* in, uint8_t* out, const uint8_t* w,
-                       uint8_t* tile, uint8_t* wsm, int* ctr) {
-  if (d[D_KIND] == K_DEPTHWISE)
-    conv_vp<Q, true, 1>(d, p, tl, in, out, w, tile, wsm, ctr);
-  else if (tl.vo == 4)
-    conv_vp<Q, false, 4>(d, p, tl, in, out, w, tile, wsm, ctr);
-  else
-    conv_vp<Q, false, 1>(d, p, tl, in, out, w, tile, wsm, ctr);
-}
+TileLaunch launch_state;
 
 }  // namespace
 
@@ -422,57 +42,15 @@ __global__ void __launch_bounds__(CT)
 arena_conv_kernel(uint8_t* arena_buf, const int* d, const uint8_t* w,
                   uint8_t* gws) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const ConvP p = load_conv(d);
-  const Tiling tl = load_tiling(d);
-  uint8_t* tile = buffer(d, D_STAGE_G, smem, gws);
-  if (d[D_STAGE_G]) tile += (size_t)blockIdx.x * tl.fp;
-  uint8_t* wsm = smem + d[D_ROW_OFF];  // the filter chunks (shared)
-  int* ctr = (int*)gws;
-  const uint8_t* in = arena_buf + d[D_IN_OFF];
-  uint8_t* out = arena_buf + d[D_OUT_OFF];
-  if (d[D_QUANT]) conv_q<true>(d, p, tl, in, out, w, tile, wsm, ctr);
-  else conv_q<false>(d, p, tl, in, out, w, tile, wsm, ctr);
+  run_tiles<false>(arena_buf, d, w, gws, smem, ArenaRows{});
 }
 
 // (arena, descriptor, filter, workspace (counters first), dynamic shared
 // bytes, CTAs to launch at most, tiles of one output row, counter bytes,
-// stream): zeroes the counters on the stream, then launches cooperatively
-// as many CTAs as
-// the card holds at once, at most `grid`; refuses (an error code) a card
-// that cannot hold one row's tiles at once, where tiles could wait on
-// tickets no running CTA holds.
+// stream): conv_tiles.cuh's launch_tiles.
 extern "C" int arena_conv(void* arena_buf, const void* desc, const void* w,
                           void* gws, int smem, int grid, int tpr,
                           int counter_bytes, void* stream) {
-  static int configured = 0, sms = 0, occ_smem = -1, occ = 0;
-  cudaError_t e = set_smem(arena_conv_kernel, smem, &configured);
-  if (e != cudaSuccess) return (int)e;
-  if (!sms) {
-    int dev = 0;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (smem != occ_smem) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ,
-                                                      arena_conv_kernel, CT,
-                                                      smem);
-    if (e != cudaSuccess) return (int)e;
-    occ_smem = smem;
-  }
-  grid = grid < sms * occ ? grid : sms * occ;
-  if (grid < tpr || grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  cudaStream_t s = (cudaStream_t)stream;
-  e = cudaMemsetAsync(gws, 0, counter_bytes, s);
-  if (e != cudaSuccess) return (int)e;
-  uint8_t* a = (uint8_t*)arena_buf;
-  const int* dd = (const int*)desc;
-  const uint8_t* ww = (const uint8_t*)w;
-  uint8_t* g = (uint8_t*)gws;
-  void* args[] = {&a, &dd, &ww, &g};
-  e = cudaLaunchCooperativeKernel((const void*)arena_conv_kernel, grid, CT,
-                                  args, (size_t)smem, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_tiles(arena_conv_kernel, launch_state, arena_buf, desc, w,
+                      gws, smem, grid, tpr, counter_bytes, stream);
 }

@@ -374,15 +374,24 @@ def test_descriptor_words_conv_and_fused():
     cached = K._cached_descriptor(spec, "cpu")
     assert cached is K._cached_descriptor(spec, "cpu")
     assert np.array_equal(cached.numpy(), w)
-    # the streaming and fused programs' conv stages keep the row walk
+    # a streaming conv's body is a tile kernel's too: its order mode (from
+    # the window's rows) and tiling follow the stream block; the rolling
+    # kernel keeps no window or slot buffer, only counters, footprint and
+    # filter chunks
     stream = dataclasses.replace(spec, rowlen=32, in_rows=((5, 15),),
                                  out_rows=(5, 30), win_rows=40,
                                  win_starts=(0,), in_off=(6,), out_off=0)
     assert K.kernel_of(stream) == "arena_stream_roll"
     sw = K.descriptor_words(stream)
     body = sw[sw[K.S_BODY]:]
-    assert body[K.D_ORDER] == 0
-    assert not body[K.D_TILING:K.D_TILING + len(tl)].any()
+    # (its 8-row window from row 0 clamps the input's rows 6..10 into rows
+    # 6 and 7, clear of the output's rows 0..4)
+    assert body[K.D_ORDER] == K.conv_order(stream) == K.ORDER_DISJOINT
+    assert tuple(body[K.D_TILING:K.D_TILING + len(tl)]) == \
+        tuple(K.conv_tiling(stream))
+    assert [n for n, _, _ in K.buffer_plan(stream).parts] == \
+        ["ctr", "tile", "wts"]
+    assert tuple(sw[K.S_WIN_G:K.S_WIN_OFF + 1]) == (0, 0)
     fused, _ = _flagship_fused(1)
     fw = K.descriptor_words(fused)
     assert fw.size == K.DESC_WORDS * 18 and fw[0] == 17

@@ -171,6 +171,105 @@ def test_conv_tiles_do_not_race_on_the_card(card, bits):
     assert checked == 3
 
 
+def _hold_50(spec, w, d, state):
+    """50 launches of a spec's kernel on copies of ``state``: each bit-equal
+    to the first, the first equal to the plain version (int8 bit for bit,
+    f32 within 1e-4: the plain conv's torch matmul sums in another
+    order)."""
+    ref = state.clone()
+    K.apply_plain(ref, spec, w)
+    first = None
+    for _ in range(50):
+        got = state.clone()
+        K.apply_op(got, spec, w, d)
+        torch.cuda.synchronize()
+        if first is None:
+            first = got
+            if spec.dtype == "i8":
+                assert torch.equal(got, ref), spec
+            else:
+                assert torch.allclose(got, ref, rtol=1e-4, atol=1e-4), spec
+        assert torch.equal(got, first), spec
+
+
+#: hand-built rolling specs (tests/test_torch_stream.py builds the same):
+#: the clamped-stray case (a start table leaving valid taps outside the
+#: 24-row window) and an in-place depthwise conv whose streaming tiles run
+#: one after another (order word 2)
+_STRAY = K.OpSpec(
+    kind="conv2d", in_off=(0,), in_shape=((40, 6, 3),), out_off=40,
+    out_shape=(40, 6, 5), dtype="f32", meta=(3, 3, 1, 1, 1, 1, 1, 1, 1),
+    rowlen=32, in_rows=((40, 18),), out_rows=(40, 30), win_rows=32,
+    win_starts=(0,) * 5, in_addr=((1, 1, 18),), out_addr=(1, 1, 30),
+    out_tile=8)
+_IN_PLACE = {
+    "f32": K.OpSpec(
+        kind="depthwise_conv2d", in_off=(0,), in_shape=((20, 6, 4),),
+        out_off=0, out_shape=(20, 6, 4), dtype="f32",
+        meta=(3, 3, 1, 1, 1, 1, 1, 1, 1), rowlen=32, in_rows=((20, 24),),
+        out_rows=(20, 24), win_rows=32, win_starts=(0, 0, 0),
+        in_addr=((1, 1, 24),), out_addr=(1, 1, 24), out_tile=8),
+    "i8": K.OpSpec(
+        kind="depthwise_conv2d", in_off=(0,), in_shape=((20, 6, 4),),
+        out_off=0, out_shape=(20, 6, 4), dtype="i8",
+        meta=(3, 3, 1, 1, 1, 1, 1, 1, 1), qmeta=(-3, 0.0123, 5), rowlen=32,
+        in_rows=((20, 24),), out_rows=(20, 24), win_rows=64,
+        win_starts=(0,), in_addr=((1, 1, 24),), out_addr=(1, 1, 24),
+        out_tile=32),
+}
+
+
+def _hand_built(card, spec, rows, seed):
+    rng = np.random.default_rng(seed)
+    kh, kw = spec.meta[:2]
+    ic, oc = spec.in_shape[0][-1], spec.out_shape[-1]
+    wshape = (kh, kw, ic, spec.meta[8] if spec.kind == "depthwise_conv2d"
+              else oc)
+    if spec.dtype == "i8":
+        arena = rng.integers(-128, 128, (rows, spec.rowlen), dtype=np.int8)
+        w = rng.integers(-127, 128, wshape, dtype=np.int8)
+    else:
+        arena = rng.standard_normal((rows, spec.rowlen), dtype=np.float32)
+        w = rng.standard_normal(wshape, dtype=np.float32) * np.float32(0.3)
+    return torch.from_numpy(arena).to(card), torch.from_numpy(w).to(card)
+
+
+@pytest.mark.parametrize("bits", [4, 1])
+def test_roll_tiles_do_not_race_on_the_card(card, bits):
+    """Rolling specs of resnet50_v2(224)'s streaming route (the stem, the
+    max pool and a 1x1 conv whose output overlaps its input, all with
+    staged waits), the clamped-stray case and the in-place depthwise of
+    order word 2: 50 launches each on copies of the arena, each bit-equal
+    to the first, the first equal to stream_roll_plain."""
+    cp = compile(zoo.resnet50_v2(224, bits), backend="numpy")
+    specs, ws, descs, state = CudaExecutor(device=card,
+                                           mode="streaming").program(cp)
+    rolls = [i for i, s in enumerate(specs) if K.stream_form(s) == "roll"]
+    stem = next(i for i in rolls if specs[i].meta[0] == 7)
+    pool = next(i for i in rolls if specs[i].kind == "pool")
+    one = next(i for i in rolls if specs[i].kind == "conv2d"
+               and specs[i].meta[0] == 1
+               and K.conv_order(specs[i]) == K.ORDER_STAGED)
+    assert all(K.conv_order(specs[i]) == K.ORDER_STAGED
+               for i in (stem, pool, one))
+    checked = 0
+    for i, (spec, w, d) in enumerate(zip(specs, ws, descs)):
+        if i in (stem, pool, one):
+            _hold_50(spec, w, d, state)
+            checked += 1
+        K.apply_op(state, spec, w, d)
+    assert checked == 3
+    stray = _hand_built(card, _STRAY, 80, 3)
+    place = _hand_built(card, _IN_PLACE["i8" if bits == 1 else "f32"],
+                        32 if bits == 1 else 24, 4)
+    assert K.conv_order(_STRAY) == K.ORDER_DISJOINT
+    assert K.conv_order(_IN_PLACE["f32"]) == K.ORDER_ROWS
+    for spec, (arena, w) in ((_STRAY, stray),
+                             (_IN_PLACE["i8" if bits == 1 else "f32"],
+                              place)):
+        _hold_50(spec, w, None, arena)
+
+
 def _final_arena(ex, cp):
     specs, ws, descs, arena = ex.program(cp)
     for spec, w, d in zip(specs, ws, descs):

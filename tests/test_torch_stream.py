@@ -324,12 +324,130 @@ def test_long_start_table_survives_the_descriptor():
     body = words[K.S_BODY]
     assert words[K.S_T] == 40 and words[K.S_NCOPY] == 0
     assert tuple(words[K.S_COPY0:K.S_COPY0 + 40]) == spec.win_starts
-    np.testing.assert_array_equal(
-        words[body:], K._body_words(K._stream_body(spec),
-                                    K.buffer_plan(spec)))
+    # the body after the whole table: the op's words with the tile
+    # kernel's order mode and tiling
+    want = K._body_words(K._stream_body(spec), K.buffer_plan(spec))
+    tl = K.conv_tiling(spec)
+    want[K.D_ORDER] = K.conv_order(spec)
+    want[K.D_TILING:K.D_TILING + len(tl)] = tl
+    np.testing.assert_array_equal(words[body:], want)
     assert words[body + K.D_KIND] == K._KIND_CODE["conv2d"]
+    assert tl.ntiles == 40 * tl.tpr and want[K.D_TILING + 9] == tl.tpr
     _run_both(spec, _typed_arena("f32", rows, 2, 4),
               [_weight((3, 3, 4, 4), "f32", 4)], "arena_stream_roll")
+
+
+#: the streaming routes whose rolling specs the tile checks cover
+ROLL_GRAPHS = {
+    "flagship": lambda: tzoo.mobilenet_v1(0.25, 128, 1),
+    "resnet50_v2_f32": lambda: tzoo.resnet50_v2(32, 4),
+    "resnet50_v2_int8": lambda: tzoo.resnet50_v2(32, 1),
+    "stream_allops_f32": lambda: CS.stream_allops_graph(4, TGraph),
+    "stream_allops_int8": lambda: CS.stream_allops_graph(1, TGraph),
+}
+#: test_roll_window_clamps_stray_rows_into_the_window's case (f32: a
+#: 24-row window)
+STRAY = ("conv_stray_rows", "conv2d", 32, [((40, 6, 3), 0, "plain")],
+         ((40, 6, 5), 40, "plain"), CONV3, 0)
+
+
+#: a rolling depthwise conv in place: a row of streaming tile t + 1 reads
+#: a row tile t stored, so its groups of tr rows run one after another
+#: (order word 2; the planner never emits it, and the reference's
+#: prefetch of tile t + 1 before tile t's write-back would race here)
+IN_PLACE = ("dw_in_place_rows", "depthwise_conv2d", 32,
+            [((20, 6, 4), 0, "plain")], ((20, 6, 4), 0, "plain"), CONV3, 0)
+
+
+def _roll_specs(source):
+    """The rolling specs of a streaming route, or a hand-built case (the
+    stray case with a start table that leaves valid taps outside the
+    window)."""
+    if source in ROLL_GRAPHS:
+        specs = CudaExecutor(device="cpu", mode="streaming").program(
+            t_compile(ROLL_GRAPHS[source](), backend="numpy"))[0]
+        return [s for s in specs if K.stream_form(s) == "roll"]
+    name, dtype = source.rsplit("-", 1)
+    case = next(c for c in ROLL_CASES + [STRAY, IN_PLACE] if c[0] == name)
+    spec, _ = _roll_case(case, dtype)
+    if case is STRAY:
+        spec = dataclasses.replace(spec, win_starts=(0,) * len(
+            spec.win_starts))
+    return [spec]
+
+
+@pytest.mark.parametrize("source", sorted(ROLL_GRAPHS) + [
+    f"{c[0]}-{dt}" for c in ROLL_CASES + [IN_PLACE] for dt in ("i8", "f32")]
+    + [f"{STRAY[0]}-f32"])
+def test_roll_tiles_keep_the_window_and_the_row_order(source):
+    """Every rolling spec of the streaming route (or a hand-built case),
+    through the Python mirror of the tile kernel: each tile's staged rows
+    are the rows its streaming tile's window gives (rebased on the fetch
+    start, clamped into ``win_in`` rows) and lie inside that window; the
+    tiles cover every output once; and no store meets a read that the
+    order word lets run on the wrong side of it (a read of a later
+    streaming tile must follow the store, any other read must precede
+    it): brute force over every pair of tiles."""
+    specs = _roll_specs(source)
+    assert specs
+    for spec in specs:
+        tl = K.conv_tiling(spec)
+        tr, tile_ar = K._tile_geom(spec)
+        win_in = spec.win_rows - tile_ar
+        rowb = spec.rowlen * (1 if spec.dtype == "i8" else 4)
+        c, k, _ = K._triple(spec, 0)
+        ih = spec.in_shape[0][-3]
+        kh, _, sh, _, dh, _, ph, _, _ = K._conv_meta(spec)
+        order = K.descriptor_words(spec)[-K.DESC_WORDS + K.D_ORDER]
+        assert order == K.conv_order(spec)
+        cover = np.zeros(spec.out_shape[-3:], np.int32)
+        stores, reads, clamped = [], [], 0
+        for t in range(tl.ntiles):
+            r, (x0, x1), (o0, o1) = K.conv_tile_geometry(spec, t)
+            cover[r, x0:x1, o0:o1] += 1
+            start = spec.win_starts[r // tr]
+            rows = []
+            for fy in range(kh):
+                iy = r * sh - ph + fy * dh
+                if 0 <= iy < ih:
+                    ar = spec.in_off[0] + (iy // c if c > 1 else iy * k)
+                    n = 1 if c > 1 else k
+                    rows.append(start + min(max(ar - start, 0), win_in - n))
+                    clamped += rows[-1] != ar
+            got = K.tile_reads(spec, t)
+            assert not got or [lo // rowb for lo, _, _ in got] == rows
+            for lo, hi, nbytes in got:
+                assert start * rowb <= lo < hi <= (start + win_in) * rowb
+                assert 0 < nbytes <= hi - lo
+                reads.append((t, r, lo, hi))
+            lo, hi = K.conv_row_store(spec, r, (x0, x1))
+            if t % tl.tpr == tl.tpr - 1:
+                hi = max(hi, K.conv_row_store(spec, r)[1])
+            stores.append((t, r, lo, hi))
+        assert (cover == 1).all()
+        s, rd = np.array(stores), np.array(reads)
+        meet = (s[:, None, 2] < rd[None, :, 3]) & \
+            (rd[None, :, 2] < s[:, None, 3]) & \
+            (s[:, None, 0] != rd[None, :, 0])   # another tile's read
+        if order == K.ORDER_DISJOINT:
+            assert not meet.any(), spec
+        elif order == K.ORDER_STAGED:
+            # stores wait for every tile of rows <= theirs to stage: a read
+            # of a later row (in this streaming tile or a later one) races
+            assert not (meet & (rd[None, :, 1] > s[:, None, 1])).any(), spec
+        assert order in (K.ORDER_DISJOINT, K.ORDER_STAGED, K.ORDER_ROWS)
+        # the grid must hold every tile that waits on another at once
+        grid, group, ctr = K.conv_grid(spec)
+        assert group == tl.tpr * (min(tr, spec.out_shape[-3])
+                                  if order == K.ORDER_ROWS else 1)
+        assert group <= grid <= tl.ntiles
+        assert ctr == K.conv_counter_bytes(spec)
+        if source in ROLL_GRAPHS:   # the planner's specs never need groups
+            assert order != K.ORDER_ROWS
+        if source.startswith("conv_stray_rows"):  # taps outside the window
+            assert clamped > 0 and order == K.ORDER_DISJOINT
+        if source.startswith("dw_in_place_rows"):
+            assert order == K.ORDER_ROWS
 
 
 S3 = (4, 5, 6)
