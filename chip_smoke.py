@@ -34,10 +34,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    then repeats the ``resnet_50_v2`` f32 and flagship int8 forwards five
    times each on the same inputs, on the flat and on the streaming
    program: the final device arenas must be identical, byte for byte
-   (``arena_conv`` and ``arena_stream_roll`` run over the whole card with
-   tiles that wait on each other; a race would show here), and prints each
-   tile kernel's order modes, tiles and the device bytes its counters
-   take;
+   (``arena_conv``, ``arena_stream_roll``, ``arena_elementwise`` and the
+   staged elementwise bodies of ``arena_stream_stage`` run over the whole
+   card with tiles or chunks that wait on each other; a race would show
+   here), and prints each tile kernel's order modes, tiles and the device
+   bytes its counters take, and each elementwise and staged spec's order
+   word, grid and workspace bytes on the flat, blocked and streaming
+   ``resnet_50_v2`` f32 and int8;
 6. runs every row of ``zoo.TABLE3_MODELS`` at full width once on the card
    against the numpy backend, and ``allops`` (f32 and int8); prints each
    row's winner, arena, launches and seconds. ``nasnet_mobile``'s graph
@@ -572,7 +575,10 @@ def card_staging_bytes(K, spec) -> int:
     rolling op's row tiles stage their footprints, the columns and
     channels each tile reads through its window (the Python mirror,
     ``arena_ops.tile_reads``), and store straight into the arena; a staged
-    op or a chain copies what the TPU program copies."""
+    elementwise op runs in place (nothing); any other staged op or a chain
+    copies what the TPU program copies."""
+    if K.runs_ew_grid(spec):
+        return 0
     if K.stream_form(spec) != "roll":
         return tpu_staging_bytes(K, spec)
     return sum(n for t in range(K.conv_tiling(spec).ntiles)
@@ -909,16 +915,18 @@ def run_arena(K, ex, cp, inputs, weights, quant):
 
 
 def largest_window(K, ex, cp):
-    """(bytes, op name, "shared" or "global", windows staged in global
-    memory, specs) of the streaming plan: its largest resident window and
-    where the card stages it (a staged op's window or a chain's scratch;
-    a rolling op's row tiles' footprints, each its part of the window)."""
+    """(bytes, op name, "shared", "global" or "in place", windows staged
+    in global memory, specs) of the streaming plan: its largest resident
+    window and where the card stages it (a staged op's window or a chain's
+    scratch; a rolling op's row tiles' footprints, each its part of the
+    window; a staged elementwise op stages nothing)."""
     bp = ex.legalised(cp.plan)
     sched = bp.window_schedule()
     specs = ex.program(cp)[0]
     buf = {"roll": "tile", "stage": "win", "fused": "scratch"}
-    place = ["global" if K.buffer_plan(spec).on_global(
-        buf[K.stream_form(spec)]) else "shared" for spec in specs]
+    place = ["in place" if K.runs_ew_grid(spec) else "global" if
+             K.buffer_plan(spec).on_global(buf[K.stream_form(spec)])
+             else "shared" for spec in specs]
     i = max(range(len(specs)),
             key=lambda j: sched.windows[j].resident_rows)
     return (sched.windows[i].resident_rows * sched.row_bytes,
@@ -1010,6 +1018,44 @@ def repeat_forwards(torch, K, X, cp, label: str, ex, kernel: str,
         f"and slices {row['workspace_bytes']} B of device memory beside "
         f"the arena")
     return row
+
+
+def ew_rows(K, ex, cp, label: str):
+    """The elementwise grid body's specs of ``ex``'s program of ``cp``
+    (``arena_elementwise``, and ``arena_stream_stage``'s elementwise
+    bodies; the other staged specs beside them, one CTA each): per spec
+    its order word, units, grid arguments and the workspace and shared
+    bytes its buffers take, and a count of each order word. Counts from
+    the specs (``arena_ops.ew_order``, ``ew_tiling``, ``buffer_plan``)."""
+    specs = [s for s in ex.program(cp)[0]
+             if K.kernel_of(s) in ("arena_elementwise", "arena_stream_stage")]
+    rows = []
+    for s in specs:
+        bp = K.buffer_plan(s)
+        row = {"kernel": K.kernel_of(s), "fn": s.meta[0] if
+               s.kind == "elementwise" else s.kind,
+               "grid": list(K.ew_grid(s) if K.runs_ew_grid(s)
+                            else (1, 0, 0)),
+               "smem_bytes": bp.smem, "workspace_bytes": bp.gbytes}
+        if K.runs_ew_grid(s):
+            row.update(order=K.ew_order(s), tiling=list(K.ew_tiling(s)))
+        rows.append(row)
+    ew = [r for r in rows if "order" in r]
+    out = {"specs": rows,
+           "orders": [sum(r["order"] == m for r in ew)
+                      for m in (K.EW_DISJOINT, K.EW_ALIGNED, K.EW_OVERLAP)],
+           "vector_specs": sum(r["tiling"][0] > 1 for r in ew),
+           "workspace_bytes": sum(r["workspace_bytes"] for r in rows)}
+    log(f"[repeats] {label}: {len(ew)} elementwise grid specs, order words "
+        f"(disjoint, aligned, overlap) {out['orders']}, {out['vector_specs']}"
+        f" in 16-byte units, grids "
+        f"{min((r['grid'][0] for r in ew), default=0)}-"
+        f"{max((r['grid'][0] for r in ew), default=0)} CTAs; "
+        f"{len(rows) - len(ew)} other staged specs of one CTA; workspace "
+        f"{out['workspace_bytes']} B beside the arena: "
+        + json.dumps([[r["fn"], r.get("order"), r["grid"][0],
+                       r["workspace_bytes"]] for r in rows]))
+    return out
 
 
 def refused(fn, label: str) -> str:
@@ -1446,6 +1492,13 @@ def main() -> int:
         roll_rows[label] = repeat_forwards(
             torch, K, X, c, label + " streaming",
             X.get_backend("cuda", mode="streaming"), "arena_stream_roll")
+    ew_info = {}
+    for label in ("resnet_50_v2", "resnet_50_v2 int8"):
+        for program, kw in (("flat", {}), ("blocks", {"layout": "blocks"}),
+                            ("streaming", {"mode": "streaming"})):
+            ew_info[f"{label} {program}"] = ew_rows(
+                K, X.get_backend("cuda", **kw), slice_cps[label],
+                f"{label} {program}")
     phase_done("repeats")
 
     # 6. the zoo, and allops
@@ -1831,6 +1884,7 @@ def main() -> int:
                        "walls_ms": st_walls},
          "dmo_dwconv2d": dmo, "standalone": standalone,
          "arena_conv": conv_rows, "arena_stream_roll": roll_rows,
+         "arena_elementwise": ew_info,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's row kernels (``arena_conv``, ``arena_pool``, the fused
-chain and the streaming program's ``arena_stream_roll``) on the card for
-one source tree, to compare two commits inside one call.
+"""Time the port's grid kernels and their neighbours (``arena_conv``,
+``arena_pool``, ``arena_elementwise``, the fused chain and the streaming
+program's ``arena_stream_roll`` and ``arena_stream_stage``) on the card
+for one source tree, to compare two commits inside one call.
 
 Usage, on a machine with an NVIDIA card, from the root of a checkout::
 
@@ -13,13 +14,18 @@ flagship ``mobilenet_v1_0.25_128_8bit`` and prints one JSON line: the
 device ms of each kernel per forward, summed over its launches (CUDA
 events, ``chip_smoke.kernel_times``), on the flat, the row-blocked and the
 streaming program of ``resnet_50_v2`` (with the flat program's
-``F.conv2d``/``F.max_pool2d`` yardstick, TF32 off, under ``library``),
-``arena_stream_roll`` on the streaming ``resnet_50_v2`` int8 forward, and
-on the flagship ``arena_conv`` and ``arena_fused_chain`` (flat and
-row-blocked) and ``arena_stream_roll``; then under ``sha256`` a digest
-of each program's final device arena after one forward of ``resnet_50_v2``
-f32 and of the flagship on seeded inputs, so two trees' outputs can be
-compared byte for byte. Run it on the two trees in turns (parent, change,
+``F.conv2d``/``F.max_pool2d``/``torch.relu``/``torch.add`` yardstick, TF32
+off, under ``library``), ``arena_elementwise`` on the flat ``resnet_50_v2``
+int8 forward and ``arena_stream_roll`` and ``arena_stream_stage`` on the
+streaming one, and on the flagship ``arena_conv`` and
+``arena_fused_chain`` (flat and row-blocked), ``arena_stream_roll`` and
+``arena_stream_stage`` (its mean, fully connected and softmax); then under
+``sha256`` a digest of each program's final device arena after one
+forward of ``resnet_50_v2`` f32 and int8 and of the flagship on seeded
+inputs, so two trees' outputs can be compared byte for byte; and under
+``workspace`` the device bytes beside the arena that each program's
+``arena_elementwise`` and ``arena_stream_stage`` specs hold (the sum of
+``arena_ops.buffer_plan(spec).gbytes``, a count from the specs). Run it on the two trees in turns (parent, change,
 change, parent) within one call: times from two calls may come from two
 cards.
 """
@@ -52,7 +58,7 @@ def main() -> int:
     build.load()
     cp = compile(zoo.resnet50_v2(224, 4), backend="numpy")
     out = {"root": str(root), "card": torch.cuda.get_device_name(0),
-           "sha256": {}}
+           "sha256": {}, "workspace": {}}
     for program, kw in (("flat", {"layout": "flat"}),
                         ("blocks", {"layout": "blocks"}),
                         ("streaming", {"mode": "streaming"})):
@@ -60,19 +66,31 @@ def main() -> int:
         per = cs.kernel_times(torch, F, K, ex, cp, plain_too=False,
                               library=program == "flat",
                               only={"arena_conv", "arena_pool",
-                                    "arena_stream_roll"})
+                                    "arena_elementwise", "arena_stream_roll",
+                                    "arena_stream_stage"})
         out[program] = {k: v["ms"] for k, v in per.items()}
         if program == "flat":
             out["library"] = {k: v["library_ms"] for k, v in per.items()}
         out["sha256"][f"resnet_50_v2 {program}"] = _digest(
             cs, K, ex, cp, X.random_inputs(cp.graph, 0),
             X.synth_weights(cp.graph, 0), None)
+        out["workspace"][f"resnet_50_v2 {program}"] = _workspace(K, ex, cp)
     c8 = compile(zoo.resnet50_v2(224, 1), backend="numpy")
     w8 = X.synth_weights(c8.graph, 0)
-    per = cs.kernel_times(torch, F, K, X.get_backend("cuda", mode="streaming"),
-                          c8, w8, X.calibrate(c8.graph, 0, w8),
-                          plain_too=False, only={"arena_stream_roll"})
-    out["resnet_50_v2 int8 streaming"] = per["arena_stream_roll"]["ms"]
+    q8 = X.calibrate(c8.graph, 0, w8)
+    for program, kw, only in (
+            ("flat", {"layout": "flat"}, {"arena_elementwise"}),
+            ("streaming", {"mode": "streaming"},
+             {"arena_stream_roll", "arena_stream_stage"})):
+        ex = X.get_backend("cuda", **kw)
+        per = cs.kernel_times(torch, F, K, ex, c8, w8, q8, plain_too=False,
+                              only=only)
+        out[f"resnet_50_v2 int8 {program}"] = {k: v["ms"]
+                                               for k, v in per.items()}
+        out["sha256"][f"resnet_50_v2 int8 {program}"] = _digest(
+            cs, K, ex, c8, X.quant_inputs(c8.graph, q8, 0), w8, q8)
+        out["workspace"][f"resnet_50_v2 int8 {program}"] = _workspace(
+            K, ex, c8)
     flag = compile(zoo.mobilenet_v1(0.25, 128, 1), backend="numpy")
     w = X.synth_weights(flag.graph, 0)
     q = X.calibrate(flag.graph, 0, w)
@@ -82,12 +100,22 @@ def main() -> int:
         ex = X.get_backend("cuda", **kw)
         per = cs.kernel_times(torch, F, K, ex, flag, w, q, plain_too=False,
                               only={"arena_conv", "arena_fused_chain",
-                                    "arena_stream_roll"})
+                                    "arena_stream_roll",
+                                    "arena_stream_stage"})
         out[f"flagship {program}"] = {k: v["ms"] for k, v in per.items()}
         out["sha256"][f"flagship {program}"] = _digest(
             cs, K, ex, flag, X.quant_inputs(flag.graph, q, 0), w, q)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _workspace(K, ex, cp) -> dict:
+    """Global workspace bytes of the program's elementwise and staged
+    specs, by kernel."""
+    names = ("arena_elementwise", "arena_stream_stage")
+    specs = ex.program(cp)[0]
+    return {n: sum(K.buffer_plan(s).gbytes for s in specs
+                   if K.kernel_of(s) == n) for n in names}
 
 
 def _digest(cs, K, ex, cp, inputs, weights, quant) -> str:

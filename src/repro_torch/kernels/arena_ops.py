@@ -21,7 +21,8 @@ arena programs.
   depthwise, pool with ``win_starts``: output rows of streaming tile ``t``
   read ``win_in`` arena rows from ``win_starts[t]``; the kernel reads them
   in place and stores straight into the arena), *staged*
-  (every other kind: operand blocks packed by ``planner.staged_slots``)
+  (every other kind: operand blocks packed by ``planner.staged_slots``;
+  the kernel runs an elementwise op in place on the arena instead)
   and *fused* (a band chain whose inputs, internals and output all live in
   its ``include_io`` scratch slots).
 
@@ -65,12 +66,16 @@ A kernel's row buffer, staging buffer, (fused chain) scratch and
 (streaming) window live in dynamic shared memory when they fit one CTA and
 otherwise in a global workspace allocated once per spec and cached
 (:func:`buffer_plan`, :func:`workspace`); the descriptor tells the kernel
-where each is. Every kernel but two runs one CTA per op; the standalone
-conv (:func:`arena_conv`) and the rolling streaming op
-(:func:`arena_stream_roll`) run row tiles over the whole card
+where each is. The standalone conv (:func:`arena_conv`) and the rolling
+streaming op (:func:`arena_stream_roll`) run row tiles over the whole card
 (:func:`conv_tiling`), each tile's input footprint in its CTA's shared
 memory (or a global slice per CTA), their counters at the start of the
 workspace, and wait only where the operands overlap (:func:`conv_order`).
+Elementwise ops (:func:`arena_elementwise`, and the staged ones of
+:func:`arena_stream_stage`, in place on the arena) run in chunks over the
+whole card (:func:`ew_tiling`) and stage their results before one
+grid-wide barrier only where an input meets the output other than element
+for element (:func:`ew_order`). Every other kernel runs one CTA per op.
 
 The plain versions walk output rows in Python with torch ops on typed views
 of the arena, in the reference's order (every read of row ``oy`` before its
@@ -244,15 +249,16 @@ D_CIN_OFF, D_CIN_SCR, D_CINNER, D_CZP, D_CMULT = 16, 32, 48, 64, 80
 D_EDIM0, D_BSTR0 = 20, 26
 D_MM, D_MK, D_MN = 10, 11, 12
 D_PIN0, D_PLO0, D_POUT0, D_PN = 10, 14, 18, 22
-#: A tile kernel's tiling (:func:`conv_tiling`): its order mode
-#: (:data:`ORDER_DISJOINT` and on), then the tiling's fields in order.
+#: A grid kernel's order word (a tile kernel's :func:`conv_order`, an
+#: elementwise op's :func:`ew_order`), then its tiling's fields in order
+#: (:func:`conv_tiling`, :func:`ew_tiling`).
 D_ORDER = 100
 D_TILING = 101
 #: Buffer placement words (flag: 1 = global workspace, then byte offset);
-#: a tile kernel's footprint takes the "stage" words, its filter chunks the
-#: "row" words.
+#: a tile kernel's footprint and an elementwise chunk's staging take the
+#: "stage" words, a tile kernel's filter chunks the "row" words.
 BUFFER_WORD = {"stage": 120, "row": 122, "scratch": 124, "tile": 120,
-               "wts": 122}
+               "wts": 122, "chunk": 120}
 #: Operand addressing: slot 0 is the output, slot 1 + i input i, each
 #: ADDR_WORDS words (L, c, k, rl, used, nblk) from D_ADDR on.
 D_ADDR, ADDR_WORDS = 128, 6
@@ -310,13 +316,19 @@ def _staged(spec: OpSpec) -> Tuple[Tuple[int, ...], int, int]:
     return offs, out_slot, max(total, spec.win_rows)
 
 
-def _stream_body(spec: OpSpec) -> OpSpec:
-    """The spec a streaming kernel's body runs: the window fields cleared;
-    a staged op's operands rebased to their window slots; a streaming
-    chain's scratch grown to its window (all its operands live there)."""
-    form = stream_form(spec)
-    body = dataclasses.replace(spec, win_lo=0, win_rows=0, win_starts=(),
+def _blocked(spec: OpSpec) -> OpSpec:
+    """The spec with its window fields cleared: the row-blocked op."""
+    return dataclasses.replace(spec, win_lo=0, win_rows=0, win_starts=(),
                                in_slots=(), out_slot=0)
+
+
+def _stream_body(spec: OpSpec) -> OpSpec:
+    """The spec a streaming kernel's body runs on its window (the plain
+    versions' too): the window fields cleared; a staged op's operands
+    rebased to their window slots; a streaming chain's scratch grown to its
+    window (all its operands live there)."""
+    form = stream_form(spec)
+    body = _blocked(spec)
     if form == "stage":
         offs, out_slot, _ = _staged(spec)
         body = dataclasses.replace(body, in_off=offs, out_off=out_slot)
@@ -884,6 +896,130 @@ def tile_reads(spec: OpSpec, t: int) -> List[Tuple[int, int, int]]:
 
 
 # ---------------------------------------------------------------------------
+# The elementwise grid body (csrc/ew_tiles.cuh: arena_elementwise, and
+# arena_stream_stage's elementwise bodies in place on the arena): output
+# units in contiguous chunks, one chunk a CTA at a time, and the order word
+# that keeps read-all-before-write-all. The kernels read the same numbers
+# from the descriptor.
+# ---------------------------------------------------------------------------
+
+#: Threads of an elementwise CTA (arena_common.cuh's NT).
+EW_THREADS = 512
+#: Order words of an elementwise op: no input byte meets an output byte;
+#: the output meets only inputs that map each element where it does
+#: (element i of the output is exactly element i of each: a thread stores
+#: only what it has just read itself); anything else (every chunk stages
+#: its results, one grid-wide barrier, then every chunk stores).
+EW_DISJOINT, EW_ALIGNED, EW_OVERLAP = range(3)
+#: Chunks a launch of order 0 or 1 takes at most (two a SM); the entry
+#: point lowers the grid to what the card holds and a CTA then walks more
+#: than one chunk.
+EW_GRID = 2 * CONV_SMS
+#: Chunks an order-2 launch takes at most: one a SM, all resident at once.
+EW_RESIDENT = CONV_SMS
+#: Shared memory an order-2 chunk's staging may take; a larger one stages
+#: in the global workspace, one slice a chunk.
+EW_SMEM_BUDGET = 192 * 1024
+#: Bytes of an order-2 launch's barrier counter, at the workspace's start.
+EW_COUNTER_BYTES = 16
+
+
+class EwTiling(NamedTuple):
+    """The units of an elementwise op: ``vec`` output elements each (16
+    bytes' worth where every operand but a broadcast one allows 16-byte
+    loads and stores, else 1), ``units`` of them over the output's whole
+    block (padding included), ``per`` units a chunk, ``chunks`` chunks.
+    Chunk ``c`` is units ``[c*per, min((c+1)*per, units))``; a CTA's
+    threads stride over its chunk."""
+    vec: int
+    units: int
+    per: int
+    chunks: int
+
+
+def runs_ew_grid(spec: OpSpec) -> bool:
+    """Does the spec run the elementwise grid body: an elementwise op of
+    the flat or row-blocked program, or a staged one of the streaming
+    program (a fused chain's stages keep the one-CTA routine)."""
+    return spec.kind == "elementwise" and stream_form(spec) in (None,
+                                                                "stage")
+
+
+def _ew_map(spec: OpSpec, i: Optional[int]) -> Tuple[int, int, int]:
+    """How operand ``i`` (None: the output) maps tensor element ``e`` to
+    the arena (``elem_at``; ``elem_of`` inverts it over the output's
+    block): ``(byte offset, span, used)``, element ``e`` at element ``(e //
+    used) * span + e % used`` from the offset, span ``k * L`` and used
+    ``rl`` for a spanning operand; ``(offset, 0, 0)`` where that is ``e``
+    itself (no padding)."""
+    off, L, _, k, rl, used, _ = operand_addr(spec, i)
+    span, used = (k * L, rl) if k > 1 else (L, used)
+    return (off, 0, 0) if span == used else (off, span, used)
+
+
+@functools.lru_cache(maxsize=1024)
+def ew_order(spec: OpSpec) -> int:
+    """The order word of an elementwise spec from the arena byte ranges of
+    its operands (:func:`_byte_range`): :data:`EW_DISJOINT` when no input
+    meets the output; :data:`EW_ALIGNED` when every input that meets it
+    maps each element where the output does (:func:`_ew_map`) and is not
+    broadcast; else :data:`EW_OVERLAP`."""
+    out = _byte_range(spec, None)
+    met = [i for i in range(len(spec.in_off))
+           if _meets(_byte_range(spec, i), out)]
+    if not met:
+        return EW_DISJOINT
+    bcast = _ew_broadcast(spec)[0]
+    om = _ew_map(spec, None)
+    if all(_ew_map(spec, i) == om and not (i == 1 and bcast) for i in met):
+        return EW_ALIGNED
+    return EW_OVERLAP
+
+
+def _ew_vec_ok(spec: OpSpec, i: Optional[int], vec: int) -> bool:
+    """Can operand ``i`` (None: the output) move ``vec`` elements a 16-byte
+    access: its base 16-byte aligned and its rows unpadded or of
+    ``vec``-multiple spans and used lengths (:func:`_ew_map`: a unit then
+    never leaves one row's used elements or its padding)."""
+    off, span, used = _ew_map(spec, i)
+    return off % 16 == 0 and span % vec == 0 and used % vec == 0
+
+
+@functools.lru_cache(maxsize=1024)
+def ew_tiling(spec: OpSpec) -> EwTiling:
+    """The units and chunks of an elementwise spec: 16-byte units where the
+    element count, the output block and every operand that is not
+    broadcast allow them (:func:`_ew_vec_ok`), else single elements; about
+    one unit a thread, in at most :data:`EW_GRID` chunks
+    (:data:`EW_RESIDENT` for order 2, whose chunks must all run at once)."""
+    bcast, dims, _ = _ew_broadcast(spec)
+    n = _elems(dims)
+    nblk = operand_addr(spec, None)[6]
+    vec = 16 // _isz(spec.dtype)
+    ops = [None, 0] + ([1] if len(spec.in_off) == 2 and not bcast else [])
+    if n % vec or nblk % vec or not all(_ew_vec_ok(spec, i, vec)
+                                        for i in ops):
+        vec = 1
+    units = nblk // vec
+    cap = EW_RESIDENT if ew_order(spec) == EW_OVERLAP else EW_GRID
+    chunks = max(1, min(cap, -(-units // EW_THREADS)))
+    per = -(-units // chunks)
+    return EwTiling(vec, units, per, -(-units // per))
+
+
+def ew_grid(spec: OpSpec) -> Tuple[int, int, int]:
+    """(CTAs to launch at most, CTAs that must run at once, counter bytes)
+    of an elementwise spec: one CTA a chunk; order 2 needs every chunk
+    resident (a cooperative launch the entry point refuses on a card that
+    cannot hold it) and its barrier counter, which the entry point
+    zeroes."""
+    t = ew_tiling(spec)
+    if ew_order(spec) == EW_OVERLAP:
+        return t.chunks, t.chunks, EW_COUNTER_BYTES
+    return t.chunks, 0, 0
+
+
+# ---------------------------------------------------------------------------
 # Buffers: where a kernel's row buffer, staging buffer and scratch live
 # ---------------------------------------------------------------------------
 
@@ -906,14 +1042,21 @@ def _row_bytes(spec: OpSpec) -> int:
 
 def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
     """Buffers the spec's kernel needs, in the order they claim shared
-    memory. A tile kernel's counters, footprint and filter chunks; a staged
-    op adds its window to its body's; a streaming chain's window is its
-    scratch."""
+    memory. A tile kernel's counters, footprint and filter chunks; the
+    elementwise grid body nothing, or for order 2 its barrier counter and
+    one chunk's staging; a staged op adds its window to its body's; a
+    streaming chain's window is its scratch."""
     form = stream_form(spec)
     if kernel_of(spec) in TILE_KERNELS:
         tl = conv_tiling(spec)
         return (("ctr", conv_counter_bytes(spec)), ("tile", tl.fp),
                 ("wts", 2 * tl.ch * tl.to * _isz(spec.dtype)))
+    if runs_ew_grid(spec):
+        if ew_order(spec) != EW_OVERLAP:
+            return ()
+        t = ew_tiling(spec)
+        return (("ctr", EW_COUNTER_BYTES),
+                ("chunk", t.per * t.vec * _isz(spec.dtype)))
     if form == "stage":
         rowb = spec.rowlen * _isz(spec.dtype)
         return (("win", _staged(spec)[2] * rowb),) + _buffer_needs(
@@ -947,7 +1090,8 @@ def buffer_plan(spec: OpSpec) -> BufferPlan:
     workspace. A tile kernel's counters are always global, at its
     workspace's start; its tile footprint takes shared memory within
     :data:`CONV_SMEM_BUDGET`, else one global slice per CTA
-    (:data:`CONV_SLICES`)."""
+    (:data:`CONV_SLICES`); an elementwise chunk's staging likewise within
+    :data:`EW_SMEM_BUDGET`, else one global slice a chunk."""
     smem = gbytes = 0
     parts = []
     limit = SMEM_LIMIT - (STREAM_STATIC_SMEM if spec.win_rows else 0)
@@ -956,6 +1100,9 @@ def buffer_plan(spec: OpSpec) -> BufferPlan:
         if name == "ctr" or (name == "tile" and n > CONV_SMEM_BUDGET):
             parts.append((name, True, gbytes))
             gbytes += n * (CONV_SLICES if name == "tile" else 1)
+        elif name == "chunk" and n > EW_SMEM_BUDGET:
+            parts.append((name, True, gbytes))
+            gbytes += n * ew_tiling(spec).chunks
         elif smem + n <= limit:
             parts.append((name, False, smem))
             smem += n
@@ -1004,20 +1151,26 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
     """The int32 descriptor of a lowered spec: one op's words, or for a
     fused chain a header (word 0 = stage count) and then every stage's.
     The op's words, or the header, carry the buffer placement. A streaming
-    spec's descriptor is its stream block, then its body's descriptor. A
-    tile kernel's (last) op descriptor carries its order mode and
-    tiling."""
+    spec's descriptor is its stream block, then its body's descriptor (a
+    staged elementwise op's body at its arena offsets: it runs in place).
+    A tile kernel's or the elementwise grid body's (last) op descriptor
+    carries its order word and tiling."""
     bp = buffer_plan(spec)
     if not spec.win_rows:
         words = _body_words(spec, bp)
     else:
+        body = (_blocked(spec) if runs_ew_grid(spec) else
+                _stream_body(spec))
         words = np.concatenate([_stream_words(spec, bp),
-                                _body_words(_stream_body(spec), bp)])
+                                _body_words(body, bp)])
+    body = words[-DESC_WORDS:]
     if kernel_of(spec) in TILE_KERNELS:
-        body = words[-DESC_WORDS:]
         body[D_ORDER] = conv_order(spec)
         tl = conv_tiling(spec)
         body[D_TILING:D_TILING + len(tl)] = tl
+    elif runs_ew_grid(spec):
+        body[D_ORDER] = ew_order(spec)
+        body[D_TILING:D_TILING + len(EwTiling._fields)] = ew_tiling(spec)
     return words
 
 
@@ -1034,7 +1187,7 @@ def _stream_words(spec: OpSpec, bp: BufferPlan) -> np.ndarray:
         w[S_WIN_IN], w[S_TR] = spec.win_rows - tile_ar, tr
         w[S_T], w[S_OH] = len(spec.win_starts), spec.out_shape[-3]
         w += spec.win_starts
-    else:
+    elif not runs_ew_grid(spec):  # a staged elementwise op has no window
         w[S_WIN_G:S_WIN_OFF + 1] = place["scratch" if form == "fused"
                                          else "win"]
         if form == "stage":
@@ -1753,15 +1906,25 @@ def arena_pool(arena: torch.Tensor, spec: OpSpec,
     _launch("arena_pool", arena, spec, None, desc)
 
 
+def _check_ew_arena(arena: torch.Tensor) -> None:
+    """The grid body's 16-byte units need the arena at a 16-byte boundary
+    (every allocation is; a view into one need not be)."""
+    if arena.data_ptr() % 16:
+        raise ValueError("the elementwise grid body needs an arena that "
+                         "starts at a 16-byte boundary")
+
+
 def arena_elementwise(arena: torch.Tensor, spec: OpSpec,
                       desc: Optional[torch.Tensor] = None) -> None:
-    """relu, relu6, sigmoid, identity, add, mul or sub on the arena."""
+    """relu, relu6, sigmoid, identity, add, mul or sub on the arena, over
+    the whole card (:func:`ew_tiling`, :func:`ew_order`)."""
     _expect(spec, "arena_elementwise")
     _ew_broadcast(spec)
     if not _on_card(arena, spec):
         elementwise_plain(arena, spec)
         return
-    _launch("arena_elementwise", arena, spec, None, desc)
+    _check_ew_arena(arena)
+    _launch("arena_elementwise", arena, spec, None, desc, ew_grid(spec))
 
 
 def arena_matmul(arena: torch.Tensor, spec: OpSpec,
@@ -1869,15 +2032,22 @@ def arena_stream_roll(arena: torch.Tensor, spec: OpSpec,
 def arena_stream_stage(arena: torch.Tensor, spec: OpSpec,
                        w: Optional[torch.Tensor] = None,
                        desc: Optional[torch.Tensor] = None) -> None:
-    """A whole-block op of the streaming program on its staged window
-    (``w``: a fully connected op's filter)."""
+    """A whole-block op of the streaming program (``w``: a fully connected
+    op's filter): an elementwise op in place on the arena over the whole
+    card (the grid body of :func:`arena_elementwise`), any other kind on
+    its staged window in one CTA."""
     _expect(spec, "arena_stream_stage")
     if spec.kind == "fully_connected":
         _check_weight(spec, w)
     if not _on_card(arena, spec, w):
         stream_stage_plain(arena, spec, w)
         return
-    _launch("arena_stream_stage", arena, spec, w, desc)
+    if runs_ew_grid(spec):
+        _check_ew_arena(arena)
+        grid = ew_grid(spec)
+    else:
+        grid = (1, 0, 0)
+    _launch("arena_stream_stage", arena, spec, w, desc, grid)
 
 
 def arena_stream_fused(arena: torch.Tensor, spec: OpSpec,

@@ -825,8 +825,8 @@ __device__ __forceinline__ void stage_block_out(const int* sd,
 }  // namespace arena
 
 // The launch configuration of every one-CTA entry point (ARENA_ENTRY):
-// one CTA of NT threads, `smem` bytes of dynamic shared memory (arena_conv
-// and arena_stream_roll launch a grid through conv_tiles.cuh's). The
+// one CTA of NT threads, `smem` bytes of dynamic shared memory (the grid
+// kernels launch through launch_grid below). The
 // kernel opts in to each larger size it is launched with, not only past
 // 48 KB: a kernel with static shared arrays (the staged softmax's
 // reduction) needs the opt-in below 48 KB of dynamic memory too.
@@ -839,6 +839,68 @@ static cudaError_t set_smem(K kernel, int smem, int* configured) {
     *configured = smem;
   }
   return cudaSuccess;
+}
+
+// What a grid entry point keeps between calls: the kernel's shared memory
+// opt-in, the card's SMs and the kernel's CTAs an SM at the last shared
+// memory size.
+struct GridLaunch {
+  int configured = 0, sms = 0, occ_smem = -1, occ = 0;
+};
+
+// The entry point of a kernel over the whole card (conv_tiles.cuh's row
+// tiles, ew_tiles.cuh's elementwise chunks): zeroes `counter_bytes` of
+// counters at the workspace's start on the stream, then launches `kernel`
+// over as many CTAs of THREADS threads as the card holds at once, at most
+// `grid` (a one-CTA launch, `grid` 1 and `group` 0, skips the count).
+// With `group` > 0 CTAs wait on each other: the launch is cooperative (all
+// resident), and a card that cannot hold `group` CTAs at once is refused
+// with an error code, never run on fewer, where CTAs could wait on ones
+// that never run.
+template <int THREADS, typename K>
+static int launch_grid(K kernel, GridLaunch& st, void* arena_buf,
+                       const void* desc, const void* w, void* gws, int smem,
+                       int grid, int group, int counter_bytes,
+                       void* stream) {
+  cudaError_t e = set_smem(kernel, smem, &st.configured);
+  if (e != cudaSuccess) return (int)e;
+  if (grid > 1 || group > 0) {
+    if (!st.sms) {
+      int dev = 0;
+      e = cudaGetDevice(&dev);
+      if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&st.sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+      if (e != cudaSuccess) return (int)e;
+    }
+    if (smem != st.occ_smem) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&st.occ, kernel,
+                                                        THREADS, smem);
+      if (e != cudaSuccess) return (int)e;
+      st.occ_smem = smem;
+    }
+    grid = grid < st.sms * st.occ ? grid : st.sms * st.occ;
+  }
+  if (grid < group || grid < 1)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (counter_bytes) {
+    e = cudaMemsetAsync(gws, 0, counter_bytes, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  uint8_t* a = (uint8_t*)arena_buf;
+  const int* dd = (const int*)desc;
+  const uint8_t* ww = (const uint8_t*)w;
+  uint8_t* g = (uint8_t*)gws;
+  if (group > 0) {
+    void* args[] = {&a, &dd, &ww, &g};
+    e = cudaLaunchCooperativeKernel((const void*)kernel, grid, THREADS, args,
+                                    (size_t)smem, s);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    kernel<<<grid, THREADS, smem, s>>>(a, dd, ww, g);
+  }
+  return (int)cudaGetLastError();
 }
 
 // The C entry point of a one-CTA arena kernel: (arena, descriptor, weights

@@ -34,7 +34,7 @@ struct ArenaRows {
   __device__ __forceinline__ int end(int r, int) const { return r + 1; }
 };
 
-TileLaunch launch_state;
+GridLaunch launch_state;
 
 }  // namespace
 
@@ -47,10 +47,10 @@ arena_conv_kernel(uint8_t* arena_buf, const int* d, const uint8_t* w,
 
 // (arena, descriptor, filter, workspace (counters first), dynamic shared
 // bytes, CTAs to launch at most, tiles of one output row, counter bytes,
-// stream): conv_tiles.cuh's launch_tiles.
+// stream): arena_common.cuh's launch_grid.
 extern "C" int arena_conv(void* arena_buf, const void* desc, const void* w,
                           void* gws, int smem, int grid, int tpr,
                           int counter_bytes, void* stream) {
-  return launch_tiles(arena_conv_kernel, launch_state, arena_buf, desc, w,
-                      gws, smem, grid, tpr, counter_bytes, stream);
+  return launch_grid<CT>(arena_conv_kernel, launch_state, arena_buf, desc, w,
+                         gws, smem, grid, tpr, counter_bytes, stream);
 }

@@ -64,7 +64,7 @@ struct WinRows {
   }
 };
 
-TileLaunch launch_state;
+GridLaunch launch_state;
 
 }  // namespace
 
@@ -79,12 +79,12 @@ arena_stream_roll_kernel(uint8_t* arena_buf, const int* sd,
 // (arena, streaming descriptor, filter or null, workspace (counters
 // first), dynamic shared bytes, CTAs to launch at most, tiles that must
 // run at once (one row's; one streaming tile's under order word 2),
-// counter bytes, stream): conv_tiles.cuh's launch_tiles.
+// counter bytes, stream): arena_common.cuh's launch_grid.
 extern "C" int arena_stream_roll(void* arena_buf, const void* desc,
                                  const void* w, void* gws, int smem,
                                  int grid, int group, int counter_bytes,
                                  void* stream) {
-  return launch_tiles(arena_stream_roll_kernel, launch_state, arena_buf,
-                      desc, w, gws, smem, grid, group, counter_bytes,
-                      stream);
+  return launch_grid<CT>(arena_stream_roll_kernel, launch_state, arena_buf,
+                         desc, w, gws, smem, grid, group, counter_bytes,
+                         stream);
 }

@@ -1,38 +1,58 @@
 // arena_stream_stage: a whole-block op (elementwise, concat, pad, matmul,
-// mean, fully connected, softmax) in the streaming program. Every operand
-// block is copied from the arena into its packed slot of a window buffer
-// (planner.staged_slots: inputs back to back, the output last), the op runs
-// on the window with its output in the output slot, and the output block
-// is copied back to the arena in one copy.
+// mean, fully connected, softmax) in the streaming program.
 //
 // Replaces the TPU kernel src/repro/kernels/arena_ops.py::_stream_stage_kernel
-// with ::_StreamStageMem (apply_op -> _apply_stream, the staged branch):
-// its VMEM scratch is the window buffer here, in shared memory when it
-// fits beside the op's own staging buffer and otherwise in the global
-// workspace.
+// with ::_StreamStageMem (apply_op -> _apply_stream, the staged branch).
 //
-// Order: every block is read before anything is written, then the whole
-// output block is written, the blocked kernels' read-all-before-write-all,
-// so an output placed over an input behaves as in the row-blocked program.
-// The op's body is the blocked kernel's routine (block_op) with the
-// descriptor's offsets rebased to the window.
-//
-// Bound on this card: the op's own bytes are those of the blocked kernel;
-// the staging copies its operand blocks in and its output block out
-// (padding rows included). One CTA, bound by one SM's load and store rate.
-#include "arena_common.cuh"
+// - An elementwise body runs in place on the arena over the whole card
+//   (ew_tiles.cuh, arena_elementwise's grid body; its descriptor carries
+//   arena offsets and no window). The reference's window slot was written
+//   whole, padding zeroed, and copied back row for row; the in-place body
+//   writes the same padded block. Its order word, from the operands' arena
+//   byte ranges, keeps read-all-before-write-all: an output placed over an
+//   input behaves as in the row-blocked program. Bound: bytes.
+// - Any other body keeps the one-CTA staged walk: every operand block is
+//   copied from the arena into its packed slot of a window buffer
+//   (planner.staged_slots: inputs back to back, the output last; the
+//   reference's VMEM scratch, here in shared memory when it fits beside the
+//   op's own staging buffer and otherwise in the global workspace), the
+//   blocked kernel's routine (block_op) runs on the window with the
+//   descriptor's offsets rebased to it, and the output block is copied back
+//   in one copy. Every block is read before anything is written. The
+//   wrapper launches one CTA for it; it is bound by one SM's load and store
+//   rate.
+#include "ew_tiles.cuh"
 
 using namespace arena;
+
+namespace {
+GridLaunch launch_state;
+}  // namespace
 
 __global__ void __launch_bounds__(NT)
 arena_stream_stage_kernel(uint8_t* arena_buf, const int* sd,
                           const uint8_t* w, uint8_t* gws) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int* d = sd + sd[S_BODY];
+  if (d[D_KIND] == K_ELEMENTWISE) {
+    ew_grid(d, arena_buf, gws, smem);
+    return;
+  }
   uint8_t* win = buffer(sd, S_WIN_G, smem, gws);
   stage_blocks_in(sd, arena_buf, win);
   block_op(d, win, w, buffer(d, D_STAGE_G, smem, gws));
   stage_block_out(sd, arena_buf, win);
 }
 
-ARENA_ENTRY(arena_stream_stage, arena_stream_stage_kernel)
+// (arena, streaming descriptor, filter or null, workspace, dynamic shared
+// bytes, CTAs to launch at most (1 for a staged walk), CTAs that must run
+// at once (an order-2 elementwise body: all of them; else 0), counter
+// bytes, stream): arena_common.cuh's launch_grid.
+extern "C" int arena_stream_stage(void* arena_buf, const void* desc,
+                                  const void* w, void* gws, int smem,
+                                  int grid, int group, int counter_bytes,
+                                  void* stream) {
+  return launch_grid<NT>(arena_stream_stage_kernel, launch_state, arena_buf,
+                         desc, w, gws, smem, grid, group, counter_bytes,
+                         stream);
+}

@@ -503,52 +503,4 @@ __device__ __forceinline__ void run_tiles(uint8_t* arena_buf, const int* d,
     run_tiles_q<false, POOLS>(d, p, tl, in, out, w, tile, wsm, ctr, rows);
 }
 
-// What a tile kernel's entry point keeps between calls.
-struct TileLaunch {
-  int configured = 0, sms = 0, occ_smem = -1, occ = 0;
-};
-
-// A tile kernel's entry point: zeroes the counters on the stream, then
-// launches `kernel` cooperatively over as many CTAs as the card holds at
-// once, at most `grid`; refuses (an error code) a card that cannot hold
-// `group` tiles at once (one row's, or one row group's), where tiles
-// could wait on tickets no running CTA holds.
-template <typename K>
-static int launch_tiles(K kernel, TileLaunch& st, void* arena_buf,
-                        const void* desc, const void* w, void* gws, int smem,
-                        int grid, int group, int counter_bytes,
-                        void* stream) {
-  cudaError_t e = set_smem(kernel, smem, &st.configured);
-  if (e != cudaSuccess) return (int)e;
-  if (!st.sms) {
-    int dev = 0;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&st.sms, cudaDevAttrMultiProcessorCount,
-                                 dev);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (smem != st.occ_smem) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&st.occ, kernel, CT,
-                                                      smem);
-    if (e != cudaSuccess) return (int)e;
-    st.occ_smem = smem;
-  }
-  grid = grid < st.sms * st.occ ? grid : st.sms * st.occ;
-  if (grid < group || grid < 1)
-    return (int)cudaErrorCooperativeLaunchTooLarge;
-  cudaStream_t s = (cudaStream_t)stream;
-  e = cudaMemsetAsync(gws, 0, counter_bytes, s);
-  if (e != cudaSuccess) return (int)e;
-  uint8_t* a = (uint8_t*)arena_buf;
-  const int* dd = (const int*)desc;
-  const uint8_t* ww = (const uint8_t*)w;
-  uint8_t* g = (uint8_t*)gws;
-  void* args[] = {&a, &dd, &ww, &g};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, grid, CT, args,
-                                  (size_t)smem, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace arena

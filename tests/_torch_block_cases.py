@@ -121,3 +121,106 @@ def _ew_qmeta(fn: str, n_in: int):
 
 _SOFTMAX_QM = ((float(np.float32(0.05)), 3), (float(np.float32(1 / 256)),
                                               -128))
+
+
+def _elem_at(a, e):
+    """``elem_at`` of the kernels over an array of tensor elements ``e``
+    (``a``: :func:`arena_ops.operand_addr`)."""
+    _, L, _, k, rl, used, _ = a
+    if k > 1:
+        return (e // rl) * k * L + e % rl
+    return e if L == used else (e // used) * L + e % used
+
+
+def _elem_of(a, b, n):
+    """``elem_of`` of the kernels: the tensor element each output block
+    element ``b`` holds, -1 for padding."""
+    _, L, _, k, rl, used, _ = a
+    r, j = b // L, b % L
+    if k > 1:
+        col = (r % k) * L + j
+        e = np.where(col < rl, (r // k) * rl + col, -1)
+    else:
+        e = np.where(j < used, r * used + j, -1)
+    return np.where(e < n, e, -1)
+
+
+def check_ew_spec(spec: K.OpSpec) -> int:
+    """Brute force over the bytes of an elementwise spec the grid body
+    runs; returns its order word after checking it and its tiling.
+
+    - Order 0: no byte an input element is read from is written (output
+      elements and the block's padding alike).
+    - Order 1: every input element's bytes are unwritten or exactly the
+      bytes of the same output element (so one thread reads and writes
+      them); any spec that is neither has order 2.
+    - The chunks cover the output block once; a 16-byte unit holds
+      padding only or consecutive elements, each operand that is not
+      broadcast reads them from one 16-byte aligned run; order 2 takes a
+      resident grid, its counter and a chunk's staging, orders 0 and 1 no
+      buffer."""
+    assert K.runs_ew_grid(spec)
+    isz = 1 if spec.dtype == "i8" else 4
+    bcast, dims, strides = K._ew_broadcast(spec)
+    n = K._elems(dims)
+    oa = K.operand_addr(spec, None)
+    nblk = oa[6]
+    e_out = _elem_of(oa, np.arange(nblk), n)
+    lo = min([oa[0]] + list(spec.in_off))
+    hi = max(K._byte_range(spec, i)[1]
+             for i in [None] + list(range(len(spec.in_off))))
+    writer = np.full(hi - lo, -1, np.int64)     # tensor element, -2 padding
+    pos = oa[0] - lo + np.arange(nblk) * isz
+    for j in range(isz):
+        writer[pos + j] = np.where(e_out >= 0, e_out, -2)
+    e = np.arange(n)
+    reads = []                                   # (byte, element) per input
+    for i in range(len(spec.in_off)):
+        src = e
+        if i == 1 and bcast:
+            coords = np.unravel_index(e, dims)
+            src = sum(c * s for c, s in zip(coords, strides))
+        at = K.operand_addr(spec, i)
+        base = at[0] - lo + _elem_at(at, src) * isz
+        reads.append(np.stack([writer[base + j] for j in range(isz)]))
+    disjoint = all((r == -1).all() for r in reads)
+    aligned = all(((r == -1) | (r == e)).all() and
+                  ((r == -1).all(0) | (r == e).all(0)).all() for r in reads)
+    order = int(K.descriptor_words(spec)[-K.DESC_WORDS + K.D_ORDER])
+    assert order == K.ew_order(spec)
+    if order == K.EW_DISJOINT:
+        assert disjoint, spec
+    elif order == K.EW_ALIGNED:
+        assert aligned, spec
+    if not disjoint and not aligned:
+        assert order == K.EW_OVERLAP, spec
+    t = K.ew_tiling(spec)
+    words = K.descriptor_words(spec)[-K.DESC_WORDS:]
+    assert tuple(words[K.D_TILING:K.D_TILING + 4]) == tuple(t)
+    assert t.units * t.vec == nblk and t.vec in (1, 16 // isz)
+    cover = np.zeros(t.units, np.int32)
+    for c in range(t.chunks):
+        cover[c * t.per:min((c + 1) * t.per, t.units)] += 1
+    assert (cover == 1).all()
+    if t.vec > 1:
+        units = e_out.reshape(t.units, t.vec)
+        pad = (units == -1).all(1)
+        assert (pad | (units == units[:, :1] + np.arange(t.vec)).all(1)).all()
+        first = units[~pad, 0]
+        for i in [None] + list(range(len(spec.in_off))):
+            if i == 1 and bcast:
+                continue
+            at = K.operand_addr(spec, i)
+            run = _elem_at(at, first[:, None] + np.arange(t.vec))
+            assert (run == run[:, :1] + np.arange(t.vec)).all()
+            assert ((at[0] + run[:, 0] * isz) % 16 == 0).all()
+    bp = K.buffer_plan(spec)
+    grid, group, ctr = K.ew_grid(spec)
+    assert grid == t.chunks <= (K.EW_RESIDENT if order == K.EW_OVERLAP
+                                else K.EW_GRID)
+    if order == K.EW_OVERLAP:
+        assert group == grid and ctr == K.EW_COUNTER_BYTES
+        assert bp.parts[0] == ("ctr", True, 0) and bp.parts[1][0] == "chunk"
+    else:
+        assert (group, ctr) == (0, 0) and bp == K.BufferPlan(0, 0, ())
+    return order

@@ -23,6 +23,8 @@ from repro_torch.core.exec.cuda_backend import CudaExecutor
 from repro_torch.core.pipeline import compile as t_compile
 from repro_torch.kernels import arena_ops as K
 
+from _torch_block_cases import check_ew_spec
+
 ARENA = 1024      # elements of a synthetic arena (at least)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -242,17 +244,71 @@ def _ew_qmeta(fn: str, n_in: int):
             (float(np.float32(out_q[0])), out_q[1]))
 
 
-@pytest.mark.parametrize("dtype", ["i8", "f32"])
-@pytest.mark.parametrize("case", EW_CASES, ids=[c[0] for c in EW_CASES])
-def test_elementwise_plain_matches_pallas(case, dtype):
+def _ew_case_spec(case, dtype: str) -> K.OpSpec:
     _, fn, shapes, offs, ooff = case
     isz = 1 if dtype == "i8" else 4
-    spec = K.OpSpec(kind="elementwise", in_off=tuple(o * isz for o in offs),
+    return K.OpSpec(kind="elementwise", in_off=tuple(o * isz for o in offs),
                     in_shape=shapes, out_off=ooff * isz, out_shape=shapes[0],
                     dtype=dtype, meta=(fn,),
                     qmeta=_ew_qmeta(fn, len(shapes)) if dtype == "i8"
                     else ())
+
+
+@pytest.mark.parametrize("dtype", ["i8", "f32"])
+@pytest.mark.parametrize("case", EW_CASES, ids=[c[0] for c in EW_CASES])
+def test_elementwise_plain_matches_pallas(case, dtype):
+    spec = _ew_case_spec(case, dtype)
     _run_both(spec, _arena(dtype, 7, _extent(spec)), [])
+
+
+#: graphs whose elementwise specs the order-word check covers, on each
+#: route (the flagship has none outside its fused chain, whose stages keep
+#: the one-CTA routine)
+EW_GRAPHS = {
+    "flagship": lambda: tzoo.mobilenet_v1(0.25, 128, 1),
+    "resnet50_v2_f32": lambda: tzoo.resnet50_v2(32, 4),
+    "resnet50_v2_int8": lambda: tzoo.resnet50_v2(32, 1),
+    "allops_f32": lambda: CS.allops_graph(4),
+    "allops_int8": lambda: CS.allops_graph(1),
+    "stream_allops_f32": lambda: CS.stream_allops_graph(4),
+    "stream_allops_int8": lambda: CS.stream_allops_graph(1),
+}
+EW_ROUTES = {"flat": {}, "blocks": {"layout": "blocks"},
+             "streaming": {"mode": "streaming"}}
+
+
+@pytest.mark.parametrize("source", [
+    f"{g}-{r}" for g in sorted(EW_GRAPHS) for r in EW_ROUTES] + [
+    f"{c[0]}-{dt}" for c in EW_CASES for dt in ("i8", "f32")])
+def test_ew_order_word_matches_the_byte_ranges(source):
+    """Every elementwise spec of a route (or a hand-built EW_CASES spec)
+    through the brute-force byte check of its order word, units, chunks
+    and buffers (``_torch_block_cases.check_ew_spec``)."""
+    name, kind = source.rsplit("-", 1)
+    if name in EW_GRAPHS:
+        specs = CudaExecutor(device="cpu", **EW_ROUTES[kind]).program(
+            t_compile(EW_GRAPHS[name](), backend="numpy"))[0]
+        ew = [s for s in specs if s.kind == "elementwise"]
+        assert all(K.runs_ew_grid(s) for s in ew)
+        assert bool(ew) == (name != "flagship")
+    else:
+        ew = [_ew_case_spec(next(c for c in EW_CASES if c[0] == name),
+                            kind)]
+    orders = [check_ew_spec(s) for s in ew]
+    if source == "resnet50_v2_f32-flat":   # residual adds below their input
+        assert set(orders) == {K.EW_DISJOINT, K.EW_ALIGNED, K.EW_OVERLAP}
+
+
+def test_ew_cases_take_every_order_word():
+    """The hand-built elementwise cases reach all three order words in
+    both tiers: an output above its input, one in place, one apart."""
+    for dtype in ("i8", "f32"):
+        words = {c[0]: K.ew_order(_ew_case_spec(c, dtype)) for c in EW_CASES}
+        assert set(words.values()) == {K.EW_DISJOINT, K.EW_ALIGNED,
+                                       K.EW_OVERLAP}
+        assert (words["relu_overlap"], words["relu6_in_place"],
+                words["sigmoid"]) == (K.EW_OVERLAP, K.EW_ALIGNED,
+                                      K.EW_DISJOINT)
 
 
 #: (id, kind, in_shapes, out_shape, meta, in_offs, out_off, int8 qmeta)
@@ -548,8 +604,11 @@ def test_buffer_plan_rows_and_whole_blocks():
     workspace; a conv of any row width cuts its rows into column tiles
     whose footprints stage in shared memory, and one whose footprint
     exceeds the budget stages it in a global slice per CTA, its counters
-    first in the workspace; a whole-block output past 227 KB takes the
-    global workspace too (resnet_50_v2's adds)."""
+    first in the workspace. An elementwise op of order word 0 or 1 (an add
+    written over its input, resnet_50_v2's) needs no buffer at all; one of
+    order 2 (written diagonally below its input) its barrier counter, then
+    one chunk's staging in shared memory, or past the budget a global
+    slice per chunk."""
     spec, _ = CS.wide_row_spec(4_096, 16)
     pool = dataclasses.replace(spec, kind="pool", out_shape=(3, 4_096, 16),
                                in_shape=((3, 4_096, 16),),
@@ -581,10 +640,32 @@ def test_buffer_plan_rows_and_whole_blocks():
     add = K.OpSpec(kind="elementwise", in_off=(0, 0), in_shape=((56, 56,
                    256),) * 2, out_off=0, out_shape=(56, 56, 256),
                    meta=("add",))
-    assert K.buffer_plan(add).parts == (("stage", True, 0),)
+    assert K.ew_order(add) == K.EW_ALIGNED
+    assert K.buffer_plan(add) == K.BufferPlan(0, 0, ())
     w = K.descriptor_words(add)
     assert (w[K.D_KIND], w[K.D_FN], w[K.D_EN], w[K.D_BCAST]) == \
         (K.K_ELEMENTWISE, K.EW_CODE["add"], 56 * 56 * 256, 0)
+    n = 56 * 56 * 256
+    assert (w[K.D_ORDER], *w[K.D_TILING:K.D_TILING + 4]) == \
+        (K.EW_ALIGNED, 4, n // 4, -(-n // 4 // K.EW_GRID), K.EW_GRID)
+    assert K.ew_grid(add) == (K.EW_GRID, 0, 0)
+    diag = dataclasses.replace(add, in_off=(1024, 4 * n + 1024))
+    t = K.ew_tiling(diag)
+    assert K.ew_order(diag) == K.EW_OVERLAP and t.chunks == K.EW_RESIDENT
+    assert K.buffer_plan(diag) == K.BufferPlan(
+        _round16(t.per * 16), K.EW_COUNTER_BYTES,
+        (("ctr", True, 0), ("chunk", False, 0)))
+    assert K.ew_grid(diag) == (t.chunks, t.chunks, K.EW_COUNTER_BYTES)
+    big = dataclasses.replace(diag, in_shape=((224, 224, 256),) * 2,
+                              out_shape=(224, 224, 256),
+                              in_off=(1024, 16 * n + 1024))
+    t = K.ew_tiling(big)
+    assert t.per * 16 > K.EW_SMEM_BUDGET
+    assert K.buffer_plan(big) == K.BufferPlan(
+        0, K.EW_COUNTER_BYTES + t.chunks * t.per * 16,
+        (("ctr", True, 0), ("chunk", True, K.EW_COUNTER_BYTES)))
+    w = K.descriptor_words(big)
+    assert tuple(w[K.BUFFER_WORD["chunk"]:][:2]) == (1, K.EW_COUNTER_BYTES)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -643,6 +724,15 @@ def test_descriptor_words_new_kinds():
     assert w[K.D_BCAST] == 1 and w[K.D_IN2_OFF] == 400
     assert tuple(w[K.D_EDIM0:K.D_EDIM0 + 6]) == (1, 1, 1, 4, 5, 6)
     assert tuple(w[K.D_BSTR0:K.D_BSTR0 + 6]) == (0, 0, 0, 0, 1, 0)
+    # the grid body's order word (the broadcast operand [400, 420) lies
+    # under the output [0, 480)) and 16-byte units in one chunk, staged in
+    # shared memory after the barrier counter
+    assert w[K.D_ORDER] == K.ew_order(ew) == K.EW_OVERLAP
+    assert tuple(w[K.D_TILING:K.D_TILING + 4]) == tuple(K.ew_tiling(ew)) \
+        == (4, 30, 30, 1)
+    assert tuple(w[K.BUFFER_WORD["chunk"]:][:2]) == (0, 0)
+    assert K.buffer_plan(ew).parts == (("ctr", True, 0),
+                                       ("chunk", False, 0))
     mm = K.OpSpec(kind="matmul", in_off=(0, 512), in_shape=((16, 8), (8, 2)),
                   out_off=64, out_shape=(16, 2))
     w = K.descriptor_words(mm)
@@ -672,6 +762,10 @@ def test_descriptor_words_new_kinds():
     assert (w[K.D_IN_OFF], w[K.D_IN2_OFF], w[K.D_OUT_OFF]) == \
         (0, 4 * 64 * 4, 2 * 64 * 4)
     assert tuple(w[a + 6:a + 12]) == (64, 2, 1, 30, 60, 128)
+    # its output block (rows 2-3) lies clear of both inputs; rows of 60
+    # used elements in 64 still cut into whole 16-byte units
+    assert w[K.D_ORDER] == K.EW_DISJOINT
+    assert tuple(w[K.D_TILING:K.D_TILING + 4]) == (4, 32, 32, 1)
 
 
 def test_every_kernel_has_a_source_a_counter_and_a_plain_version():

@@ -270,6 +270,111 @@ def test_roll_tiles_do_not_race_on_the_card(card, bits):
         _hold_50(spec, w, None, arena)
 
 
+def _hold_ew_50(spec, d, state):
+    """50 launches of an elementwise spec's grid kernel on copies of
+    ``state``: each bit-equal to the first, the first bit-equal to the
+    plain version (int8 sigmoid within 1 LSB: expf and torch.exp differ by
+    an ulp)."""
+    ref = state.clone()
+    K.apply_plain(ref, spec)
+    first = None
+    for _ in range(50):
+        got = state.clone()
+        K.apply_op(got, spec, None, d)
+        torch.cuda.synchronize()
+        if first is None:
+            first = got
+            if spec.dtype == "i8" and spec.meta[0] == "sigmoid":
+                err = got.view(torch.int8).int() - ref.view(torch.int8).int()
+                assert err.abs().max().item() <= 1, spec
+            else:
+                assert torch.equal(got, ref), spec
+        assert torch.equal(got, first), spec
+
+
+def _ew_spec(bits, fn, shapes, in_off, out_off):
+    """A hand-built flat elementwise spec (offsets in elements)."""
+    isz = 1 if bits == 1 else 4
+    q = ()
+    if bits == 1:
+        q = (((0.05, 3), (0.07, -2))[:len(shapes)], (0.09, 1))
+    return K.OpSpec(kind="elementwise", in_off=tuple(o * isz for o in in_off),
+                    in_shape=shapes, out_off=out_off * isz,
+                    out_shape=shapes[0], dtype="i8" if bits == 1 else "f32",
+                    meta=(fn,), qmeta=q)
+
+
+@pytest.mark.parametrize("bits", [4, 1])
+def test_elementwise_tiles_do_not_race_on_the_card(card, bits):
+    """The elementwise grid body, 50 launches each (``_hold_ew_50``): every
+    diagonal add of the flat resnet50_v2(224) (order word 2), an aligned
+    in-place relu and a disjoint relu of it; a hand-built relu of 3.2 MB
+    whose output starts above its input (order 2, every SM's chunk staged
+    before the barrier); a broadcast add over its first input; and every
+    staged elementwise spec of the streaming resnet50_v2(224), in place on
+    the arena."""
+    cp = compile(zoo.resnet50_v2(224, bits), backend="numpy")
+    specs, ws, descs, state = CudaExecutor(device=card).program(cp)
+    ew = [i for i, s in enumerate(specs)
+          if K.kernel_of(s) == "arena_elementwise"]
+    diag = [i for i in ew if K.ew_order(specs[i]) == K.EW_OVERLAP]
+    relu = {K.ew_order(specs[i]): i for i in ew
+            if specs[i].meta[0] == "relu"}
+    picks = set(diag) | {relu[K.EW_ALIGNED], relu[K.EW_DISJOINT]}
+    assert diag and all(specs[i].meta[0] == "add"
+                        and specs[i].out_off < specs[i].in_off[0]
+                        for i in diag)
+    checked = 0
+    for i, (spec, w, d) in enumerate(zip(specs, ws, descs)):
+        if i in picks:
+            _hold_ew_50(spec, d, state)
+            checked += 1
+        K.apply_op(state, spec, w, d)
+    assert checked == len(picks)
+    n = 56 * 56 * 256
+    above = _ew_spec(bits, "relu", ((56, 56, 256),), (0,), 1000)
+    bcast = _ew_spec(bits, "add", ((56, 56, 256), (256,)), (0, n + 64), 0)
+    assert K.ew_order(above) == K.EW_OVERLAP
+    assert K.ew_tiling(above).chunks == K.EW_RESIDENT
+    assert K.ew_order(bcast) == K.EW_ALIGNED
+    g = torch.Generator().manual_seed(bits)
+    for spec in (above, bcast):
+        nbytes = (n + 1024) * (1 if bits == 1 else 4)
+        arena = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                              generator=g) if bits == 1 else \
+            torch.randn(nbytes // 4, generator=g).view(torch.uint8)
+        _hold_ew_50(spec, None, arena.to(card))
+    specs, ws, descs, state = CudaExecutor(
+        device=card, mode="streaming").program(cp)
+    staged = 0
+    for spec, w, d in zip(specs, ws, descs):
+        if K.stream_form(spec) == "stage" and spec.kind == "elementwise":
+            _hold_ew_50(spec, d, state)
+            staged += 1
+        K.apply_op(state, spec, w, d)
+    assert staged == 33
+
+
+def test_elementwise_refuses_a_grid_the_card_cannot_hold(card):
+    """An order-2 launch whose chunks the card cannot hold at once is
+    refused by the entry point (the wrapper's check raises) and runs
+    nothing, on no smaller grid."""
+    from repro_torch.kernels import build
+    spec = _ew_spec(4, "relu", ((56, 56, 256),), (0,), 1000)
+    _, _, ctr = K.ew_grid(spec)
+    arena = torch.randn(56 * 56 * 256 + 1024, device=card).view(torch.uint8)
+    before = arena.clone()
+    too_many = 1 << 20
+    err = build.entry("arena_elementwise")(
+        arena.data_ptr(), K.descriptor(spec, card).data_ptr(), None,
+        K.workspace(spec, card).data_ptr(), K.buffer_plan(spec).smem,
+        too_many, too_many, ctr, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="arena_elementwise"):
+        build.check(err, "arena_elementwise")
+    torch.cuda.synchronize()
+    assert torch.equal(arena, before)
+
+
 def _final_arena(ex, cp):
     specs, ws, descs, arena = ex.program(cp)
     for spec, w, d in zip(specs, ws, descs):

@@ -40,7 +40,7 @@ from repro_torch.kernels import arena_ops as K
 
 from _torch_block_cases import (CS, POOL_QM, QM, _SOFTMAX_QM, _block_spec,
                                 _compare_arena, _ew_qmeta, _ref_spec,
-                                _rows, _typed_arena, _weight)
+                                _rows, _typed_arena, _weight, check_ew_spec)
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +213,14 @@ def _run_both(spec: K.OpSpec, arena: np.ndarray, weights, kernel: str,
     # the descriptor the kernel would read builds for every case
     words = K.descriptor_words(spec)
     assert words[K.S_BODY] % 32 == 0 and len(words) > words[K.S_BODY]
-    if K.stream_form(spec) != "roll":   # one copy in per input block
+    if K.runs_ew_grid(spec):    # in place: no copy, arena offsets
+        body = words[words[K.S_BODY]:]
+        rowb = spec.rowlen * (1 if spec.dtype == "i8" else 4)
+        assert words[K.S_NCOPY] == 0 and \
+            (body[K.D_IN_OFF], body[K.D_OUT_OFF]) == \
+            (spec.in_off[0] * rowb, spec.out_off * rowb)
+        assert body[K.D_ORDER] == K.ew_order(spec)
+    elif K.stream_form(spec) != "roll":   # one copy in per input block
         n = int(words[K.S_NCOPY])
         assert n == len(spec.in_off) and \
             words[K.S_BODY] >= K.S_COPY0 + 3 * n
@@ -498,6 +505,25 @@ def test_stream_stage_plain_matches_pallas(case, dtype):
           if kind == "fully_connected" else [])
     _run_both(spec, _typed_arena(dtype, _rows(spec) + 2, L, 4), ws,
               "arena_stream_stage")
+
+
+@pytest.mark.parametrize("dtype", ["i8", "f32"])
+@pytest.mark.parametrize("case", [c for c in STAGE_CASES
+                                  if c[1] == "elementwise"],
+                         ids=[c[0] for c in STAGE_CASES
+                              if c[1] == "elementwise"])
+def test_ew_order_word_matches_the_byte_ranges(case, dtype):
+    """The staged elementwise cases run the grid body in place on the
+    arena: their order word from the arena byte ranges, brute force
+    (``_torch_block_cases.check_ew_spec``); no window is staged."""
+    _, kind, L, ins, out, meta, qm = case
+    spec = _staged(_block_spec(kind, L, ins, out, meta, dtype=dtype,
+                               qmeta=qm))
+    assert K.stream_form(spec) == "stage" and K.runs_ew_grid(spec)
+    order = check_ew_spec(spec)
+    assert order == {"add_bcast_packed_to_dense": K.EW_OVERLAP,
+                     "sigmoid_span_in_place": K.EW_ALIGNED}[case[0]]
+    assert "win" not in {n for n, _, _ in K.buffer_plan(spec).parts}
 
 
 def _flagship_stream_fused(bits: int):
