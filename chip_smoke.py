@@ -14,13 +14,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    every spec of the flagship (int8 and f32) and of
    ``mobilenet_v1_1.0_224_8bit`` (its fused chain takes the global scratch
    branch, the flagship's shared memory); every pool, elementwise, concat,
-   matmul and pad spec and every row op wider than 8,192 outputs of
-   ``resnet_50_v2`` (f32 and int8), ``densenet_121`` and the reference's
-   test graph ``allops`` (f32 and int8); a hand-built fused chain with
-   pool and elementwise stages (f32 and int8); a hand-built conv whose
-   output row exceeds a CTA's shared memory (cut into column tiles), and
-   one whose input footprint exceeds the conv's shared memory budget
-   (staged in per-CTA slices of the global workspace);
+   matmul, pad and fully connected spec and every row op wider than 8,192
+   outputs of ``resnet_50_v2`` (f32 and int8), ``densenet_121`` and the
+   reference's test graph ``allops`` (f32 and int8); a hand-built fused
+   chain with pool and elementwise stages (f32 and int8); a hand-built
+   conv whose output row exceeds a CTA's shared memory (cut into column
+   tiles), and one whose input footprint exceeds the conv's shared memory
+   budget (staged in per-CTA slices of the global workspace);
 4. runs the flagship slice: ``compile(mobilenet_v1(0.25, 128, 1),
    backend="cuda")`` (verified ``numeric+cuda``, winner ``fuse``, 49,805 B)
    and three requests through ``CompiledPlan.execute``, each matching the
@@ -34,13 +34,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    then repeats the ``resnet_50_v2`` f32 and flagship int8 forwards five
    times each on the same inputs, on the flat and on the streaming
    program: the final device arenas must be identical, byte for byte
-   (``arena_conv``, ``arena_stream_roll``, ``arena_elementwise`` and the
-   staged elementwise bodies of ``arena_stream_stage`` run over the whole
-   card with tiles or chunks that wait on each other; a race would show
-   here), and prints each tile kernel's order modes, tiles and the device
-   bytes its counters take, and each elementwise and staged spec's order
-   word, grid and workspace bytes on the flat, blocked and streaming
-   ``resnet_50_v2`` f32 and int8;
+   (``arena_conv``, ``arena_pool``, ``arena_stream_roll``,
+   ``arena_elementwise``, ``arena_fully_connected`` and the staged
+   elementwise and FC bodies of ``arena_stream_stage`` run over the whole
+   card with tiles, chunks or slices that wait on each other; a race
+   would show here), and prints each tile kernel's order modes, tiles and
+   the device bytes its counters take, each elementwise and staged spec's
+   order word, grid and workspace bytes, and each pool and fully
+   connected spec's order word, grid and workspace bytes, on the flat,
+   blocked and streaming ``resnet_50_v2`` f32 and int8;
 6. runs every row of ``zoo.TABLE3_MODELS`` at full width once on the card
    against the numpy backend, and ``allops`` (f32 and int8); prints each
    row's winner, arena, launches and seconds. ``nasnet_mobile``'s graph
@@ -575,9 +577,9 @@ def card_staging_bytes(K, spec) -> int:
     rolling op's row tiles stage their footprints, the columns and
     channels each tile reads through its window (the Python mirror,
     ``arena_ops.tile_reads``), and store straight into the arena; a staged
-    elementwise op runs in place (nothing); any other staged op or a chain
-    copies what the TPU program copies."""
-    if K.runs_ew_grid(spec):
+    elementwise or fully connected op runs in place (nothing); any other
+    staged op or a chain copies what the TPU program copies."""
+    if K.runs_in_place(spec):
         return 0
     if K.stream_form(spec) != "roll":
         return tpu_staging_bytes(K, spec)
@@ -1058,6 +1060,40 @@ def ew_rows(K, ex, cp, label: str):
     return out
 
 
+def head_rows(K, ex, cp, label: str):
+    """The pool and fully connected specs of ``ex``'s program of ``cp``
+    (``arena_pool`` and ``arena_stream_roll``'s pools on row tiles;
+    ``arena_fully_connected`` and ``arena_stream_stage``'s FC on column
+    blocks x K slices): per spec its kernel, order word, tiles or items,
+    grid arguments and the workspace and shared bytes its buffers take.
+    Counts from the specs (``arena_ops.conv_order``, ``conv_tiling``,
+    ``fc_order``, ``fc_tiling``, ``buffer_plan``)."""
+    rows = []
+    for s in ex.program(cp)[0]:
+        if s.kind not in ("pool", "fully_connected"):
+            continue
+        bp = K.buffer_plan(s)
+        row = {"kernel": K.kernel_of(s), "kind": s.kind,
+               "smem_bytes": bp.smem, "workspace_bytes": bp.gbytes}
+        if s.kind == "pool":
+            row.update(order=K.conv_order(s),
+                       grid=list(K.conv_grid(s)),
+                       tiles=K.conv_tiling(s).ntiles,
+                       tiling=list(K.conv_tiling(s)))
+        else:
+            row.update(order=K.fc_order(s), grid=list(K.fc_grid(s)),
+                       tiles=K.fc_tiling(s).ctas,
+                       tiling=list(K.fc_tiling(s)))
+        rows.append(row)
+    log(f"[repeats] {label}: pool and fully connected specs [kernel, "
+        f"order word, CTAs at most, CTAs at once, tiles or items, "
+        f"workspace B, shared B]: "
+        + json.dumps([[r["kernel"], r["order"], r["grid"][0],
+                       r["grid"][1], r["tiles"], r["workspace_bytes"],
+                       r["smem_bytes"]] for r in rows]))
+    return rows
+
+
 def refused(fn, label: str) -> str:
     """Run ``fn``; it must raise ValueError (a graph no backend executes).
     Returns the message."""
@@ -1396,7 +1432,8 @@ def main() -> int:
 
     def new_kinds(spec) -> bool:
         return spec.kind in ("pool", "elementwise", "concat", "matmul",
-                             "pad") or (spec.kind in K.ROW_KINDS and _el(
+                             "pad", "fully_connected") or (
+                                 spec.kind in K.ROW_KINDS and _el(
                                  spec.out_shape[-2:]) > WIDE_ROW)
 
     compiled = {}
@@ -1492,13 +1529,15 @@ def main() -> int:
         roll_rows[label] = repeat_forwards(
             torch, K, X, c, label + " streaming",
             X.get_backend("cuda", mode="streaming"), "arena_stream_roll")
-    ew_info = {}
+    ew_info, head_info = {}, {}
     for label in ("resnet_50_v2", "resnet_50_v2 int8"):
         for program, kw in (("flat", {}), ("blocks", {"layout": "blocks"}),
                             ("streaming", {"mode": "streaming"})):
+            ex_ = X.get_backend("cuda", **kw)
             ew_info[f"{label} {program}"] = ew_rows(
-                K, X.get_backend("cuda", **kw), slice_cps[label],
-                f"{label} {program}")
+                K, ex_, slice_cps[label], f"{label} {program}")
+            head_info[f"{label} {program}"] = head_rows(
+                K, ex_, slice_cps[label], f"{label} {program}")
     phase_done("repeats")
 
     # 6. the zoo, and allops
@@ -1884,7 +1923,7 @@ def main() -> int:
                        "walls_ms": st_walls},
          "dmo_dwconv2d": dmo, "standalone": standalone,
          "arena_conv": conv_rows, "arena_stream_roll": roll_rows,
-         "arena_elementwise": ew_info,
+         "arena_elementwise": ew_info, "pool_and_fc": head_info,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

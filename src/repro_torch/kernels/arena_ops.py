@@ -66,8 +66,9 @@ A kernel's row buffer, staging buffer, (fused chain) scratch and
 (streaming) window live in dynamic shared memory when they fit one CTA and
 otherwise in a global workspace allocated once per spec and cached
 (:func:`buffer_plan`, :func:`workspace`); the descriptor tells the kernel
-where each is. The standalone conv (:func:`arena_conv`) and the rolling
-streaming op (:func:`arena_stream_roll`) run row tiles over the whole card
+where each is. The standalone conv (:func:`arena_conv`), pool
+(:func:`arena_pool`) and the rolling streaming op
+(:func:`arena_stream_roll`) run row tiles over the whole card
 (:func:`conv_tiling`), each tile's input footprint in its CTA's shared
 memory (or a global slice per CTA), their counters at the start of the
 workspace, and wait only where the operands overlap (:func:`conv_order`).
@@ -75,7 +76,13 @@ Elementwise ops (:func:`arena_elementwise`, and the staged ones of
 :func:`arena_stream_stage`, in place on the arena) run in chunks over the
 whole card (:func:`ew_tiling`) and stage their results before one
 grid-wide barrier only where an input meets the output other than element
-for element (:func:`ew_order`). Every other kernel runs one CTA per op.
+for element (:func:`ew_order`). Fully connected ops
+(:func:`arena_fully_connected`, and the staged one of
+:func:`arena_stream_stage`, in place on the arena) cut W into column blocks
+and K slices over the whole card (:func:`fc_tiling`), sum the slices'
+partials in a fixed order, and put one grid-wide barrier before any store
+where the output meets x (:func:`fc_order`). Every other kernel runs one
+CTA per op.
 
 The plain versions walk output rows in Python with torch ops on typed views
 of the arena, in the reference's order (every read of row ``oy`` before its
@@ -148,7 +155,8 @@ class OpSpec:
 
 #: Op kinds that carry one weight operand.
 WEIGHTED_KINDS = frozenset({"conv2d", "depthwise_conv2d", "fully_connected"})
-#: Op kinds that walk output rows (a row buffer each).
+#: Op kinds that map output rows to input rows (row tiles standalone and
+#: rolling, a row buffer each as fused stages).
 ROW_KINDS = frozenset({"conv2d", "depthwise_conv2d", "pool"})
 #: Stage kinds the fused kernel runs (the planner's FUSABLE_KINDS).
 FUSED_STAGE_KINDS = frozenset(ROW_KINDS | {"elementwise", "concat"})
@@ -250,15 +258,17 @@ D_EDIM0, D_BSTR0 = 20, 26
 D_MM, D_MK, D_MN = 10, 11, 12
 D_PIN0, D_PLO0, D_POUT0, D_PN = 10, 14, 18, 22
 #: A grid kernel's order word (a tile kernel's :func:`conv_order`, an
-#: elementwise op's :func:`ew_order`), then its tiling's fields in order
-#: (:func:`conv_tiling`, :func:`ew_tiling`).
+#: elementwise op's :func:`ew_order`, a fully connected op's
+#: :func:`fc_order`), then its tiling's fields in order (:func:`conv_tiling`,
+#: :func:`ew_tiling`, :func:`fc_tiling`).
 D_ORDER = 100
 D_TILING = 101
 #: Buffer placement words (flag: 1 = global workspace, then byte offset);
-#: a tile kernel's footprint and an elementwise chunk's staging take the
-#: "stage" words, a tile kernel's filter chunks the "row" words.
+#: a tile kernel's footprint, an elementwise chunk's staging and a fully
+#: connected op's partials take the "stage" words, a tile kernel's filter
+#: chunks and a fully connected CTA's warp sums the "row" words.
 BUFFER_WORD = {"stage": 120, "row": 122, "scratch": 124, "tile": 120,
-               "wts": 122, "chunk": 120}
+               "wts": 122, "chunk": 120, "part": 120, "red": 122}
 #: Operand addressing: slot 0 is the output, slot 1 + i input i, each
 #: ADDR_WORDS words (L, c, k, rl, used, nblk) from D_ADDR on.
 D_ADDR, ADDR_WORDS = 128, 6
@@ -575,14 +585,14 @@ def _op_words(spec: OpSpec, woff: int = 0) -> List[int]:
 
 
 # ---------------------------------------------------------------------------
-# The tile kernels over the whole card (csrc/conv_tiles.cuh: arena_conv, and
-# arena_stream_roll through its window): output row tiles, their input
-# footprints and the order the arena's overlap needs. The kernels read the
-# same numbers from the descriptor.
+# The tile kernels over the whole card (csrc/conv_tiles.cuh: arena_conv,
+# arena_pool, and arena_stream_roll through its window): output row tiles,
+# their input footprints and the order the arena's overlap needs. The
+# kernels read the same numbers from the descriptor.
 # ---------------------------------------------------------------------------
 
 #: The kernels that run row tiles over the whole card.
-TILE_KERNELS = ("arena_conv", "arena_stream_roll")
+TILE_KERNELS = ("arena_conv", "arena_pool", "arena_stream_roll")
 #: Threads of one tile CTA.
 CONV_THREADS = 256
 #: Shared memory a conv tile's input footprint may take; a larger one is
@@ -612,7 +622,7 @@ ORDER_DISJOINT, ORDER_STAGED, ORDER_ROWS = range(3)
 
 
 class ConvTiling(NamedTuple):
-    """A tile kernel's tiles (a standalone conv, or a rolling conv,
+    """A tile kernel's tiles (a standalone conv or pool, or a rolling conv,
     depthwise or pool). A tile is (output row, ``tc`` output
     columns, ``to`` output channels); thread ``i`` of the CTA takes output
     channels ``og*vo .. og*vo+vo-1`` (``og = i % nog``) of pixels ``slot +
@@ -700,10 +710,10 @@ def _tile_cycles(spec: OpSpec, t: ConvTiling) -> float:
 
 @functools.lru_cache(maxsize=1024)
 def conv_tiling(spec: OpSpec) -> ConvTiling:
-    """The tiling of a standalone conv2d / depthwise spec, or of a rolling
-    conv2d, depthwise or pool (a pool tiles as a depthwise with ``m =
-    1``, no filter): four output channels a thread where the filter's rows
-    allow (conv2d with ``oc % 4 == 0``), then the threads across the
+    """The tiling of a conv2d, depthwise or pool spec, standalone or
+    rolling (a pool tiles as a depthwise with ``m = 1``, no filter): four
+    output channels a thread where the filter's rows allow (conv2d with
+    ``oc % 4 == 0``), then the threads across the
     channels (a power of two up to 64) and the pixels a thread (4, 2 or
     1) whose footprint fits
     :data:`CONV_SMEM_BUDGET` and whose waves of resident tiles
@@ -1020,6 +1030,102 @@ def ew_grid(spec: OpSpec) -> Tuple[int, int, int]:
 
 
 # ---------------------------------------------------------------------------
+# The fully connected grid body (csrc/fc_tiles.cuh: arena_fully_connected,
+# and arena_stream_stage's FC body in place on the arena): W cut into
+# column blocks x K slices, one a CTA, the slices' partials summed in a
+# fixed order, and the order word that keeps read-all-before-write-all.
+# The kernels read the same numbers from the descriptor.
+# ---------------------------------------------------------------------------
+
+#: Output columns of an FC CTA: four a lane of a warp (16-byte W loads).
+FC_COLS = 4 * 32
+#: Warps of an FC CTA; each sums ``rpt`` rows of its K slice.
+FC_WARPS = EW_THREADS // 32
+#: CTAs an FC grid takes at most, when W has enough rows: one a SM.
+FC_GRID = CONV_SMS
+#: Bytes of an FC op's counters before its per-column-block ones: the
+#: grid barrier (three words of padding).
+FC_COUNTER_BYTES = 16
+
+
+class FcTiling(NamedTuple):
+    """The items of a fully connected op: column block ``cb`` (``bo``
+    output columns from ``cb * bo``) x K slice ``ks`` (``bk = FC_WARPS *
+    rpt`` rows of W from ``ks * bk``, ``rpt`` a warp), ``ncb * nks`` of
+    them, one a CTA (``ctas``); item ``i`` is ``(i // nks, i % nks)``.
+    Every W element lies in exactly one item."""
+    bo: int
+    bk: int
+    rpt: int
+    ncb: int
+    nks: int
+    ctas: int
+
+
+def runs_fc_grid(spec: OpSpec) -> bool:
+    """Does the spec run the fully connected grid body: an FC op of the
+    flat or row-blocked program, or a staged one of the streaming
+    program."""
+    return spec.kind == "fully_connected" and stream_form(spec) in (
+        None, "stage")
+
+
+def runs_in_place(spec: OpSpec) -> bool:
+    """Does a staged streaming spec run in place on the arena (no window,
+    no copies): an elementwise or fully connected body."""
+    return runs_ew_grid(spec) or runs_fc_grid(spec)
+
+
+def _fc_geometry(spec: OpSpec) -> Tuple[int, int, int]:
+    """(m, idim, odim): x's rows and W's shape."""
+    idim, odim = _weight_shape(spec)
+    return _elems(spec.in_shape[0]) // idim, idim, odim
+
+
+@functools.lru_cache(maxsize=1024)
+def fc_tiling(spec: OpSpec) -> FcTiling:
+    """The items of a fully connected spec, from ``(m, idim, odim)`` alone
+    (the dtype, layout and offsets never enter, so the flat, blocked and
+    streaming programs sum in one order): :data:`FC_COLS` columns a block,
+    then the fewest rows a warp (``rpt``) that keep the items within
+    :data:`FC_GRID` (at least one row a warp, one slice a block)."""
+    _, idim, odim = _fc_geometry(spec)
+    ncb = -(-odim // FC_COLS)
+    rpt = -(-idim // (FC_WARPS * max(1, FC_GRID // ncb)))
+    bk = FC_WARPS * rpt
+    nks = -(-idim // bk)
+    return FcTiling(FC_COLS, bk, rpt, ncb, nks, ncb * nks)
+
+
+@functools.lru_cache(maxsize=1024)
+def fc_order(spec: OpSpec) -> int:
+    """The order word of a fully connected spec from the arena byte ranges
+    of x and of the output (:func:`_byte_range`): :data:`EW_DISJOINT` when
+    they do not meet (no CTA waits), else :data:`EW_OVERLAP` (every CTA
+    reads x before one grid-wide barrier, and stores after it)."""
+    if _meets(_byte_range(spec, 0), _byte_range(spec, None)):
+        return EW_OVERLAP
+    return EW_DISJOINT
+
+
+def fc_counter_bytes(spec: OpSpec) -> int:
+    """Bytes of an FC op's counters: :data:`FC_COUNTER_BYTES`, then one
+    int32 of finished slices per column block, 16-aligned."""
+    return _round_up(FC_COUNTER_BYTES + 4 * fc_tiling(spec).ncb, 16)
+
+
+def fc_grid(spec: OpSpec) -> Tuple[int, int, int]:
+    """(CTAs to launch at most, CTAs that must run at once, counter bytes)
+    of a fully connected spec: one CTA an item; overlap needs every item
+    resident (a cooperative launch the entry point refuses on a card that
+    cannot hold it); both words count finished slices, which the entry
+    point zeroes."""
+    t = fc_tiling(spec)
+    group = t.ctas if fc_order(spec) == EW_OVERLAP else 0
+    return t.ctas, group, fc_counter_bytes(spec)
+
+
+# ---------------------------------------------------------------------------
 # Buffers: where a kernel's row buffer, staging buffer and scratch live
 # ---------------------------------------------------------------------------
 
@@ -1044,8 +1150,10 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
     """Buffers the spec's kernel needs, in the order they claim shared
     memory. A tile kernel's counters, footprint and filter chunks; the
     elementwise grid body nothing, or for order 2 its barrier counter and
-    one chunk's staging; a staged op adds its window to its body's; a
-    streaming chain's window is its scratch."""
+    one chunk's staging; the fully connected grid body its counters, its
+    partial sums (global: other CTAs sum them) and one CTA's warp sums; a
+    staged op adds its window to its body's; a streaming chain's window is
+    its scratch."""
     form = stream_form(spec)
     if kernel_of(spec) in TILE_KERNELS:
         tl = conv_tiling(spec)
@@ -1057,6 +1165,11 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
         t = ew_tiling(spec)
         return (("ctr", EW_COUNTER_BYTES),
                 ("chunk", t.per * t.vec * _isz(spec.dtype)))
+    if runs_fc_grid(spec):   # partials: an int32 or f32 a slice and output
+        m, _, odim = _fc_geometry(spec)
+        return (("ctr", fc_counter_bytes(spec)),
+                ("part", 4 * fc_tiling(spec).nks * m * odim),
+                ("red", 4 * FC_WARPS * FC_COLS))
     if form == "stage":
         rowb = spec.rowlen * _isz(spec.dtype)
         return (("win", _staged(spec)[2] * rowb),) + _buffer_needs(
@@ -1064,9 +1177,7 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
     if form == "fused":
         return _buffer_needs(_stream_body(spec))
     k = spec.kind
-    if k in ROW_KINDS:
-        return (("row", _row_bytes(spec)),)
-    if k in ("mean", "fully_connected"):
+    if k == "mean":
         return (("stage", _elems(spec.in_shape[0]) * _isz(spec.dtype)),)
     if k == "softmax":
         return (("stage", 4 * _elems(spec.in_shape[0])),)
@@ -1087,8 +1198,9 @@ def buffer_plan(spec: OpSpec) -> BufferPlan:
     """Each buffer takes dynamic shared memory (16-byte aligned) when it
     fits beside the ones before it within :data:`SMEM_LIMIT` (less
     :data:`STREAM_STATIC_SMEM` for a streaming launch), else the global
-    workspace. A tile kernel's counters are always global, at its
-    workspace's start; its tile footprint takes shared memory within
+    workspace. A grid kernel's counters are always global, at its
+    workspace's start, and so are a fully connected op's partial sums; a
+    tile kernel's footprint takes shared memory within
     :data:`CONV_SMEM_BUDGET`, else one global slice per CTA
     (:data:`CONV_SLICES`); an elementwise chunk's staging likewise within
     :data:`EW_SMEM_BUDGET`, else one global slice a chunk."""
@@ -1097,7 +1209,8 @@ def buffer_plan(spec: OpSpec) -> BufferPlan:
     limit = SMEM_LIMIT - (STREAM_STATIC_SMEM if spec.win_rows else 0)
     for name, n in _buffer_needs(spec):
         n = _round_up(n, 16)
-        if name == "ctr" or (name == "tile" and n > CONV_SMEM_BUDGET):
+        if name in ("ctr", "part") or (name == "tile"
+                                       and n > CONV_SMEM_BUDGET):
             parts.append((name, True, gbytes))
             gbytes += n * (CONV_SLICES if name == "tile" else 1)
         elif name == "chunk" and n > EW_SMEM_BUDGET:
@@ -1152,14 +1265,15 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
     fused chain a header (word 0 = stage count) and then every stage's.
     The op's words, or the header, carry the buffer placement. A streaming
     spec's descriptor is its stream block, then its body's descriptor (a
-    staged elementwise op's body at its arena offsets: it runs in place).
-    A tile kernel's or the elementwise grid body's (last) op descriptor
-    carries its order word and tiling."""
+    staged elementwise or fully connected op's body at its arena offsets:
+    it runs in place). A tile kernel's, the elementwise or the fully
+    connected grid body's (last) op descriptor carries its order word and
+    tiling."""
     bp = buffer_plan(spec)
     if not spec.win_rows:
         words = _body_words(spec, bp)
     else:
-        body = (_blocked(spec) if runs_ew_grid(spec) else
+        body = (_blocked(spec) if runs_in_place(spec) else
                 _stream_body(spec))
         words = np.concatenate([_stream_words(spec, bp),
                                 _body_words(body, bp)])
@@ -1171,6 +1285,9 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
     elif runs_ew_grid(spec):
         body[D_ORDER] = ew_order(spec)
         body[D_TILING:D_TILING + len(EwTiling._fields)] = ew_tiling(spec)
+    elif runs_fc_grid(spec):
+        body[D_ORDER] = fc_order(spec)
+        body[D_TILING:D_TILING + len(FcTiling._fields)] = fc_tiling(spec)
     return words
 
 
@@ -1187,7 +1304,7 @@ def _stream_words(spec: OpSpec, bp: BufferPlan) -> np.ndarray:
         w[S_WIN_IN], w[S_TR] = spec.win_rows - tile_ar, tr
         w[S_T], w[S_OH] = len(spec.win_starts), spec.out_shape[-3]
         w += spec.win_starts
-    elif not runs_ew_grid(spec):  # a staged elementwise op has no window
+    elif not runs_in_place(spec):  # an in-place staged op has no window
         w[S_WIN_G:S_WIN_OFF + 1] = place["scratch" if form == "fused"
                                          else "win"]
         if form == "stage":
@@ -1898,12 +2015,13 @@ def arena_conv(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
 
 def arena_pool(arena: torch.Tensor, spec: OpSpec,
                desc: Optional[torch.Tensor] = None) -> None:
-    """max / avg pool in place on the arena."""
+    """max / avg pool in place on the arena, over the whole card in row
+    tiles (:func:`conv_tiling`, :func:`conv_order`)."""
     _expect(spec, "arena_pool")
     if not _on_card(arena, spec):
         pool_plain(arena, spec)
         return
-    _launch("arena_pool", arena, spec, None, desc)
+    _launch("arena_pool", arena, spec, None, desc, conv_grid(spec))
 
 
 def _check_ew_arena(arena: torch.Tensor) -> None:
@@ -1973,12 +2091,14 @@ def arena_mean(arena: torch.Tensor, spec: OpSpec,
 
 def arena_fully_connected(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
                           desc: Optional[torch.Tensor] = None) -> None:
+    """y = x . W on the arena, over the whole card (:func:`fc_tiling`,
+    :func:`fc_order`)."""
     _expect(spec, "arena_fully_connected")
     _check_weight(spec, w)
     if not _on_card(arena, spec, w):
         fully_connected_plain(arena, spec, w)
         return
-    _launch("arena_fully_connected", arena, spec, w, desc)
+    _launch("arena_fully_connected", arena, spec, w, desc, fc_grid(spec))
 
 
 def arena_softmax(arena: torch.Tensor, spec: OpSpec,
@@ -2033,9 +2153,10 @@ def arena_stream_stage(arena: torch.Tensor, spec: OpSpec,
                        w: Optional[torch.Tensor] = None,
                        desc: Optional[torch.Tensor] = None) -> None:
     """A whole-block op of the streaming program (``w``: a fully connected
-    op's filter): an elementwise op in place on the arena over the whole
-    card (the grid body of :func:`arena_elementwise`), any other kind on
-    its staged window in one CTA."""
+    op's filter): an elementwise or fully connected op in place on the
+    arena over the whole card (the grid bodies of :func:`arena_elementwise`
+    and :func:`arena_fully_connected`), any other kind on its staged
+    window in one CTA."""
     _expect(spec, "arena_stream_stage")
     if spec.kind == "fully_connected":
         _check_weight(spec, w)
@@ -2045,6 +2166,8 @@ def arena_stream_stage(arena: torch.Tensor, spec: OpSpec,
     if runs_ew_grid(spec):
         _check_ew_arena(arena)
         grid = ew_grid(spec)
+    elif runs_fc_grid(spec):
+        grid = fc_grid(spec)
     else:
         grid = (1, 0, 0)
     _launch("arena_stream_stage", arena, spec, w, desc, grid)

@@ -32,23 +32,27 @@
 // Paper §III.F: the planner overlaps an op's input and output diagonally
 // (safe overlap O_s), which is only safe when output rows are produced in
 // ascending order and every read of row oy happens after the row oy-1
-// store. So every op here runs in ONE CTA, except the standalone conv2d /
-// depthwise (arena_conv.cu) and the streaming program's rolling conv,
-// depthwise and pool (arena_stream_roll.cu), which run over the whole
-// card: row tiles whose stores wait, through counters in global memory,
-// for the reads of every tile of their row and the rows before
-// (conv_tiles.cuh). Row ops here (pool; conv2d, depthwise and pool as
-// fused stages) walk output rows in order; threads split the columns and
-// channels of one row, stage the row's results in a row buffer, and store
-// only after a __syncthreads(); a second barrier orders the store before
-// the next row's reads. In the row-blocked program the legaliser re-derives every
-// diagonal distance in whole arena rows, so the padding a row store zeroes
-// is dead. Whole-block ops read all of their input before any output
-// element is written: mean, fully connected and softmax stage their input;
-// elementwise, matmul, pad and concat compute their whole output into a
-// staging buffer, synchronise, then write the block out
-// (read-all-before-write-all). Staging buffers hold the decoded tensor;
-// the block encoding happens on the way out.
+// store. Kernels over the whole card keep that with counters in global
+// memory: conv2d / depthwise (arena_conv.cu), pool (arena_pool.cu) and the
+// streaming program's rolling conv, depthwise and pool
+// (arena_stream_roll.cu) run row tiles whose stores wait for the reads of
+// every tile of their row and the rows before (conv_tiles.cuh);
+// elementwise (arena_elementwise.cu, and the staged elementwise bodies of
+// arena_stream_stage.cu) and fully connected (arena_fully_connected.cu,
+// and the staged FC body of arena_stream_stage.cu) read every input their
+// output could clobber before one grid-wide barrier (grid_barrier below;
+// ew_tiles.cuh, fc_tiles.cuh). Every other op runs in ONE CTA. Row ops
+// here (conv2d, depthwise and pool as fused stages) walk output rows in
+// order; threads split the columns and channels of one row, stage the
+// row's results in a row buffer, and store only after a __syncthreads();
+// a second barrier orders the store before the next row's reads. In the
+// row-blocked program the legaliser re-derives every diagonal distance in
+// whole arena rows, so the padding a row store zeroes is dead. Whole-block
+// ops read all of their input before any output element is written: mean
+// and softmax stage their input; elementwise, matmul, pad and concat
+// compute their whole output into a staging buffer, synchronise, then
+// write the block out (read-all-before-write-all). Staging buffers hold
+// the decoded tensor; the block encoding happens on the way out.
 //
 // Buffers (row buffer, staging buffer, a fused chain's scratch, a
 // streaming window) live in dynamic shared memory when they fit a CTA and
@@ -613,34 +617,6 @@ __device__ void mean_op(const int* d, uint8_t* base, uint8_t* stage) {
   });
 }
 
-// y = x . W. int8: an int32 dot of (x - x_zp) * w (W symmetric), then the
-// shared requantisation; f32: an f32 dot. x is staged whole before any
-// output is written.
-__device__ void fc_op(const int* d, uint8_t* base, const uint8_t* w,
-                      uint8_t* stage) {
-  const bool q = d[D_QUANT] != 0;
-  const int m = d[D_M], idim = d[D_IDIM], odim = d[D_ODIM];
-  stage_in(stage, base + d[D_IN_OFF], load_addr(d, 1), m * idim, q);
-  __syncthreads();  // x is read whole before any output is written
-  const int x_zp = d[D_X_ZP];
-  write_block(base + d[D_OUT_OFF], load_addr(d, 0), m * odim, q,
-              [&](int e) -> uint32_t {
-    const int r = e / odim, o = e - r * odim;
-    if (q) {
-      const int8_t* x = (const int8_t*)stage + r * idim;
-      int acc = 0;
-      for (int i = 0; i < idim; ++i)
-        acc += ((int)x[i] - x_zp) * (int)((const int8_t*)w)[i * odim + o];
-      return (uint8_t)requant_i(acc, fword(d, D_AMULT), d[D_Y_ZP]);
-    }
-    const float* x = (const float*)stage + r * idim;
-    float acc = 0.0f;
-    for (int i = 0; i < idim; ++i)
-      acc += x[i] * ((const float*)w)[i * odim + o];
-    return __float_as_uint(acc);
-  });
-}
-
 // Block-wide max or sum; every thread gets the result.
 template <bool MAX>
 __device__ float block_reduce(float v, float* red) {
@@ -730,17 +706,30 @@ __device__ void pad_op(const int* d, uint8_t* base, uint8_t* stage) {
   store_block(base + d[D_OUT_OFF], load_addr(d, 0), stage, n, q);
 }
 
-// Any whole-block kind of descriptor d over `base`; ends with a barrier.
-__device__ void block_op(const int* d, uint8_t* base, const uint8_t* w,
-                         uint8_t* stage) {
+// A whole-block kind of descriptor d over `base` (every kind but fully
+// connected, whose body is fc_tiles.cuh's grid); ends with a barrier.
+__device__ void block_op(const int* d, uint8_t* base, uint8_t* stage) {
   switch (d[D_KIND]) {
     case K_CONCAT: concat_op(d, base, nullptr, stage); break;
     case K_ELEMENTWISE: elementwise_op(d, base, nullptr, stage); break;
     case K_MATMUL: matmul_op(d, base, stage); break;
     case K_PAD: pad_op(d, base, stage); break;
     case K_MEAN: mean_op(d, base, stage); break;
-    case K_FC: fc_op(d, base, w, stage); break;
     default: softmax_op(d, base, stage); break;  // K_SOFTMAX
+  }
+  __syncthreads();
+}
+
+// One grid-wide barrier over a resident grid (a cooperative launch): every
+// CTA's earlier reads are done, and its earlier stores visible, before any
+// CTA goes on. `ctr` is a counter the entry point zeroed before the launch.
+__device__ __forceinline__ void grid_barrier(int* ctr) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(ctr, 1);
+    while (*(volatile int*)ctr < (int)gridDim.x) __nanosleep(32);
+    __threadfence();
   }
   __syncthreads();
 }
@@ -849,7 +838,8 @@ struct GridLaunch {
 };
 
 // The entry point of a kernel over the whole card (conv_tiles.cuh's row
-// tiles, ew_tiles.cuh's elementwise chunks): zeroes `counter_bytes` of
+// tiles, ew_tiles.cuh's elementwise chunks, fc_tiles.cuh's column blocks
+// and K slices): zeroes `counter_bytes` of
 // counters at the workspace's start on the stream, then launches `kernel`
 // over as many CTAs of THREADS threads as the card holds at once, at most
 // `grid` (a one-CTA launch, `grid` 1 and `group` 0, skips the count).

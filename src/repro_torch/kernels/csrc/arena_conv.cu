@@ -22,20 +22,7 @@
 using namespace arena;
 
 namespace {
-
-// arena_conv reads each footprint row where the operand addressing puts
-// it; a group (order word 2) is one output row.
-struct ArenaRows {
-  __device__ __forceinline__ int operator()(const Addr& a, int, int iy)
-      const {
-    return row_elem(a, iy);
-  }
-  __device__ __forceinline__ int first(int r) const { return r; }
-  __device__ __forceinline__ int end(int r, int) const { return r + 1; }
-};
-
 GridLaunch launch_state;
-
 }  // namespace
 
 __global__ void __launch_bounds__(CT)

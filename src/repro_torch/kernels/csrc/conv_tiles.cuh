@@ -1,6 +1,7 @@
 // Row tiles over the whole card, shared by arena_conv (the standalone
-// conv2d / depthwise) and arena_stream_roll (conv2d, depthwise and pool of
-// the streaming program).
+// conv2d / depthwise), arena_pool (max and average pooling of the flat and
+// row-blocked programs) and arena_stream_roll (conv2d, depthwise and pool
+// of the streaming program).
 //
 // - A tile is (output row, a block of output columns, a block of output
 //   channels), sized by arena_ops.conv_tiling so its input footprint (kh
@@ -13,10 +14,10 @@
 //   than the tiles that must run at once (one row's, or one row group's).
 // - A footprint tap row is found by a row policy `rows(a, r, iy)`: the
 //   element offset, from the input pointer, of input image row iy as output
-//   row r reads it (arena_conv: row_elem; the rolling kernel: the row
-//   rebased on its streaming tile's fetch start and clamped into the
-//   window). The policy also names output row r's group of rows, [first(r),
-//   end(r, oh)), for order word 2 below.
+//   row r reads it (arena_conv and arena_pool: row_elem, ArenaRows below;
+//   the rolling kernel: the row rebased on its streaming tile's fetch
+//   start and clamped into the window). The policy also names output row
+//   r's group of rows, [first(r), end(r, oh)), for order word 2 below.
 // - A tile copies its footprint in, then (op overlapping its input, order
 //   word >= 1) counts itself staged in its row's counter, computes from
 //   the copy, and stores only once every tile of its row and of the rows
@@ -480,6 +481,17 @@ __device__ void run_tiles_q(const int* d, const ConvP& p, const Tiling& tl,
     tiles_vp<Q, B_CONV, 1>(d, p, tl, in, out, w, tile, wsm, ctr, rows);
   }
 }
+
+// The row policy of arena_conv and arena_pool: each footprint row where the
+// operand addressing puts it; a group (order word 2) is one output row.
+struct ArenaRows {
+  __device__ __forceinline__ int operator()(const Addr& a, int, int iy)
+      const {
+    return row_elem(a, iy);
+  }
+  __device__ __forceinline__ int first(int r) const { return r; }
+  __device__ __forceinline__ int end(int r, int) const { return r + 1; }
+};
 
 // A tile kernel's body: descriptor d's geometry, tiling and buffers (the
 // footprint in the "stage" words, the filter chunks in the "row" words,

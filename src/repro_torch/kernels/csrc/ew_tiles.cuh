@@ -168,19 +168,6 @@ __device__ __forceinline__ void ew_store(uint8_t* out, int u, const R& v) {
   else ((uint32_t*)out)[u] = v;
 }
 
-// One grid-wide barrier over a resident grid: every CTA's earlier reads
-// are done (their values staged) before any CTA goes on.
-__device__ __forceinline__ void grid_barrier(int* ctr) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(ctr, 1);
-    while (*(volatile int*)ctr < (int)gridDim.x) __nanosleep(32);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 template <bool Q, bool VEC>
 __device__ void ew_run(const EwP& p, const EwTiling& t, int order,
                        uint8_t* stage, int* ctr) {

@@ -224,3 +224,153 @@ def check_ew_spec(spec: K.OpSpec) -> int:
     else:
         assert (group, ctr) == (0, 0) and bp == K.BufferPlan(0, 0, ())
     return order
+
+
+def arena_bytes(spec: K.OpSpec, i):
+    """Arena bytes [lo, hi) of input i (None: the output), from the spec's
+    fields alone."""
+    isz = 1 if spec.dtype == "i8" else 4
+    off = spec.out_off if i is None else spec.in_off[i]
+    if not spec.rowlen:
+        shape = spec.out_shape if i is None else spec.in_shape[i]
+        return off, off + K._elems(shape) * isz
+    rows = spec.out_rows[0] if i is None else spec.in_rows[i][0]
+    row_b = spec.rowlen * isz
+    return off * row_b, (off + rows) * row_b
+
+
+def tile_conflicts(spec: K.OpSpec) -> bool:
+    """Brute force over a tile kernel's tiles: does any tile's store (its
+    columns and, for a row's last tile, the row's zeroed rest) meet the
+    read footprint of a tile of a later row?"""
+    tl = K.conv_tiling(spec)
+    stores, reads = [], []
+    for t in range(tl.ntiles):
+        r, cols, _ = K.conv_tile_geometry(spec, t)
+        lo, hi = K.conv_row_store(spec, r, cols)
+        if t % tl.tpr == tl.tpr - 1:
+            hi = max(hi, K.conv_row_store(spec, r)[1])
+        stores.append((r, lo, hi))
+        reads += [(r, a, b) for a, b in K.conv_row_reads(spec, r, cols)]
+    if not reads:
+        return False
+    s, rd = np.array(stores), np.array(reads)
+    meet = (s[:, None, 1] < rd[None, :, 2]) & (rd[None, :, 1] < s[:, None, 2])
+    return bool((meet & (s[:, None, 0] < rd[None, :, 0])).any())
+
+
+def check_tile_spec(spec: K.OpSpec) -> int:
+    """A conv or pool spec of the flat or row-blocked program through the
+    checks of its row tiles; returns its order word. The disjoint word is
+    the byte ranges' disjointness; no tile's store meets the reads of a
+    tile of a later row (the invariant the kernel's waits rely on), so no
+    planner spec needs its rows run one after another; the tiles cover
+    every output once; every footprint fits its shared memory budget or
+    lies in per-CTA slices of the workspace, after the counters."""
+    assert K.kernel_of(spec) in ("arena_conv", "arena_pool")
+    (ilo, ihi), (olo, ohi) = arena_bytes(spec, 0), arena_bytes(spec, None)
+    words = K.descriptor_words(spec)
+    disjoint = ihi <= olo or ohi <= ilo
+    assert (words[K.D_ORDER] == K.ORDER_DISJOINT) == disjoint
+    assert not tile_conflicts(spec)
+    assert words[K.D_ORDER] != K.ORDER_ROWS
+    tl = K.conv_tiling(spec)
+    assert tuple(words[K.D_TILING:K.D_TILING + len(tl)]) == tuple(tl)
+    cover = np.zeros(spec.out_shape[-3:], np.int32)
+    for t in range(tl.ntiles):
+        r, (x0, x1), (o0, o1) = K.conv_tile_geometry(spec, t)
+        cover[r, x0:x1, o0:o1] += 1
+    assert (cover == 1).all()
+    isz = 1 if spec.dtype == "i8" else 4
+    kh = spec.meta[0]
+    assert tl.fp >= kh * tl.fw * tl.ps * isz and tl.fp % 16 == 0
+    # eight consecutive footprint columns start in distinct banks
+    assert tl.ps >= tl.ib and len({(i * tl.ps * isz // 4) % 32
+                                   for i in range(8)}) == 8
+    bp = K.buffer_plan(spec)
+    assert bp.parts[0] == ("ctr", True, 0)
+    wbytes = 2 * tl.ch * tl.to * isz    # filter chunks, always shared
+    assert tl.ch == (0 if tl.vo == 1 else min(
+        spec.in_shape[0][-1], K.CONV_WCHUNK_BYTES // (tl.to * isz)))
+    if tl.fp <= K.CONV_SMEM_BUDGET:
+        assert bp.parts[1:] == (("tile", False, 0),
+                                ("wts", False, tl.fp))
+        assert bp.smem == tl.fp + -(-wbytes // 16) * 16
+    else:
+        assert bp.parts[2] == ("wts", False, 0)
+        assert bp.on_global("tile") and bp.gbytes >= \
+            K.conv_counter_bytes(spec) + K.CONV_SLICES * tl.fp
+    grid, tpr, ctr = K.conv_grid(spec)
+    assert tpr == tl.tpr <= grid <= tl.ntiles and ctr == \
+        K.conv_counter_bytes(spec) >= 16 + 4 * spec.out_shape[-3]
+    return int(words[K.D_ORDER])
+
+
+def fc_items(t) -> np.ndarray:
+    """How many items of FC tiling ``t`` read each W element (idim x odim
+    from the caller's slice), by the kernel's mapping: item ``i`` is column
+    block ``i // nks``, K slice ``i % nks``; warp ``w`` of it reads rows
+    ``ks * bk + w * rpt ..`` (``rpt`` of them), lane ``l`` columns ``cb *
+    bo + 4 * l ..`` (four)."""
+    rows = t.nks * t.bk
+    cols = t.ncb * t.bo
+    count = np.zeros((rows, cols), np.int32)
+    for i in range(t.ctas):
+        cb, ks = divmod(i, t.nks)
+        for w in range(K.FC_WARPS):
+            k0 = ks * t.bk + w * t.rpt
+            for lane in range(32):
+                o0 = cb * t.bo + 4 * lane
+                count[k0:k0 + t.rpt, o0:o0 + 4] += 1
+    return count
+
+
+def check_fc_spec(spec: K.OpSpec) -> int:
+    """Brute force over the bytes of a fully connected spec the grid body
+    runs; returns its order word after checking it, its tiling and its
+    buffers.
+
+    - Order 0 exactly when no byte of x lies in the output's block (its
+      elements or its padding), which the kernel may write at any time;
+      else order 2, whose every CTA reads x before the grid-wide barrier.
+    - The tiling's items read every W element exactly once, within
+      :data:`arena_ops.FC_GRID` CTAs where W has the rows for it.
+    - The descriptor carries the order word and the tiling; the workspace
+      holds the counters, then the partials (one 4-byte sum per K slice
+      and output), and a CTA's warp sums take shared memory."""
+    assert K.runs_fc_grid(spec)
+    isz = 1 if spec.dtype == "i8" else 4
+    m, idim, odim = K._fc_geometry(spec)
+    xa, oa = K.operand_addr(spec, 0), K.operand_addr(spec, None)
+    x_bytes = xa[0] + (_elem_at(xa, np.arange(m * idim))[:, None] * isz
+                       + np.arange(isz)).reshape(-1)
+    lo, hi = oa[0], oa[0] + oa[6] * isz
+    meets = bool(((x_bytes >= lo) & (x_bytes < hi)).any())
+    order = K.fc_order(spec)
+    assert order == (K.EW_OVERLAP if meets else K.EW_DISJOINT), spec
+    t = K.fc_tiling(spec)
+    count = fc_items(t)
+    assert (count[:idim, :odim] == 1).all()
+    assert t.ctas == t.ncb * t.nks and t.bo == K.FC_COLS
+    assert t.ctas <= max(K.FC_GRID, t.ncb)
+    words = K.descriptor_words(spec)
+    if spec.win_rows:    # in place: no window, no copy, arena offsets
+        assert words[K.S_NCOPY] == 0 and tuple(
+            words[K.S_WIN_G:K.S_WIN_OFF + 1]) == (0, 0)
+    body = words[-K.DESC_WORDS:]
+    assert (body[K.D_KIND], body[K.D_IN_OFF], body[K.D_OUT_OFF]) == (
+        K.K_FC, xa[0], oa[0])
+    assert (body[K.D_M], body[K.D_IDIM], body[K.D_ODIM]) == (m, idim, odim)
+    assert body[K.D_ORDER] == order
+    assert tuple(body[K.D_TILING:K.D_TILING + len(t)]) == tuple(t)
+    ctr = K.fc_counter_bytes(spec)
+    assert ctr % 16 == 0 and ctr >= 16 + 4 * t.ncb
+    part = 4 * t.nks * m * odim
+    assert K.buffer_plan(spec) == K.BufferPlan(
+        4 * K.FC_WARPS * K.FC_COLS, ctr + -(-part // 16) * 16,
+        (("ctr", True, 0), ("part", True, ctr), ("red", False, 0)))
+    assert tuple(body[K.BUFFER_WORD["part"]:][:2]) == (1, ctr)
+    assert tuple(body[K.BUFFER_WORD["red"]:][:2]) == (0, 0)
+    assert K.fc_grid(spec) == (t.ctas, t.ctas if order == K.EW_OVERLAP
+                               else 0, ctr)
+    return order

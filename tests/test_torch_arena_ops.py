@@ -23,7 +23,9 @@ from repro_torch.core.exec.cuda_backend import CudaExecutor
 from repro_torch.core.pipeline import compile as t_compile
 from repro_torch.kernels import arena_ops as K
 
-from _torch_block_cases import check_ew_spec
+from _torch_block_cases import arena_bytes as _arena_bytes
+from _torch_block_cases import check_ew_spec, check_tile_spec
+from _torch_block_cases import tile_conflicts as _tile_conflicts
 
 ARENA = 1024      # elements of a synthetic arena (at least)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -464,96 +466,36 @@ def _round16(x: int) -> int:
     return -(-x // 16) * 16
 
 
-def _conv_specs(label: str, layout: str):
+def _tile_specs(label: str, layout: str):
+    """The conv and the pool specs of a graph's program."""
     graph = {"flagship": lambda: tzoo.mobilenet_v1(0.25, 128, 1),
              "resnet50_v2_f32": lambda: tzoo.resnet50_v2(32, 4),
-             "resnet50_v2_int8": lambda: tzoo.resnet50_v2(32, 1)}[label]()
+             "resnet50_v2_int8": lambda: tzoo.resnet50_v2(32, 1),
+             "densenet121_f32": lambda: tzoo.densenet121(32, 4)}[label]()
     specs = CudaExecutor(device="cpu", layout=layout).program(
         t_compile(graph, backend="numpy"))[0]
-    return [s for s in specs if K.kernel_of(s) == "arena_conv"]
-
-
-def _arena_bytes(spec: K.OpSpec, i):
-    """Arena bytes [lo, hi) of input i (None: the output), from the spec's
-    fields alone."""
-    isz = 1 if spec.dtype == "i8" else 4
-    off = spec.out_off if i is None else spec.in_off[i]
-    if not spec.rowlen:
-        shape = spec.out_shape if i is None else spec.in_shape[i]
-        return off, off + K._elems(shape) * isz
-    rows = spec.out_rows[0] if i is None else spec.in_rows[i][0]
-    row_b = spec.rowlen * isz
-    return off * row_b, (off + rows) * row_b
-
-
-def _tile_conflicts(spec: K.OpSpec) -> bool:
-    """Brute force over the kernel's tiles: does any tile's store (its
-    columns and, for a row's last tile, the row's zeroed rest) meet the
-    read footprint of a tile of a later row?"""
-    tl = K.conv_tiling(spec)
-    stores, reads = [], []
-    for t in range(tl.ntiles):
-        r, cols, _ = K.conv_tile_geometry(spec, t)
-        lo, hi = K.conv_row_store(spec, r, cols)
-        if t % tl.tpr == tl.tpr - 1:
-            hi = max(hi, K.conv_row_store(spec, r)[1])
-        stores.append((r, lo, hi))
-        reads += [(r, a, b) for a, b in K.conv_row_reads(spec, r, cols)]
-    if not reads:
-        return False
-    s, rd = np.array(stores), np.array(reads)
-    meet = (s[:, None, 1] < rd[None, :, 2]) & (rd[None, :, 1] < s[:, None, 2])
-    return bool((meet & (s[:, None, 0] < rd[None, :, 0])).any())
+    return ([s for s in specs if K.kernel_of(s) == "arena_conv"],
+            [s for s in specs if K.kernel_of(s) == "arena_pool"])
 
 
 @pytest.mark.parametrize("layout", ["flat", "blocks"])
 @pytest.mark.parametrize("label", ["flagship", "resnet50_v2_f32",
-                                   "resnet50_v2_int8"])
+                                   "resnet50_v2_int8", "densenet121_f32"])
 def test_conv_tiles_keep_the_row_order(label, layout):
-    """Every conv spec of the flagship and resnet50_v2(32): the disjoint
-    word is the byte ranges' disjointness; no tile's store meets the reads
-    of a tile of a later row (the invariant the kernel's waits rely on),
-    so no spec needs its rows run one after another; the tiles cover every
-    output once; every footprint fits its shared memory budget or lies in
-    per-CTA slices of the workspace, after the counters."""
-    specs = _conv_specs(label, layout)
-    assert len(specs) == (25 if label == "flagship" else 53)
-    for spec in specs:
-        (ilo, ihi), (olo, ohi) = _arena_bytes(spec, 0), \
-            _arena_bytes(spec, None)
-        words = K.descriptor_words(spec)
-        disjoint = ihi <= olo or ohi <= ilo
-        assert (words[K.D_ORDER] == K.ORDER_DISJOINT) == disjoint
-        assert not _tile_conflicts(spec)
-        assert words[K.D_ORDER] != K.ORDER_ROWS
-        tl = K.conv_tiling(spec)
-        cover = np.zeros(spec.out_shape[-3:], np.int32)
-        for t in range(tl.ntiles):
-            r, (x0, x1), (o0, o1) = K.conv_tile_geometry(spec, t)
-            cover[r, x0:x1, o0:o1] += 1
-        assert (cover == 1).all()
-        isz = 1 if spec.dtype == "i8" else 4
-        kh = spec.meta[0]
-        assert tl.fp >= kh * tl.fw * tl.ps * isz and tl.fp % 16 == 0
-        # eight consecutive footprint columns start in distinct banks
-        assert tl.ps >= tl.ib and len({(i * tl.ps * isz // 4) % 32
-                                       for i in range(8)}) == 8
-        bp = K.buffer_plan(spec)
-        assert bp.parts[0] == ("ctr", True, 0)
-        wbytes = 2 * tl.ch * tl.to * isz    # filter chunks, always shared
-        assert tl.ch == (0 if tl.vo == 1 else min(
-            spec.in_shape[0][-1], K.CONV_WCHUNK_BYTES // (tl.to * isz)))
-        if tl.fp <= K.CONV_SMEM_BUDGET:
-            assert bp.parts[1:] == (("tile", False, 0),
-                                    ("wts", False, tl.fp))
-            assert bp.smem == tl.fp + _round16(wbytes)
-        else:
-            assert bp.parts[2] == ("wts", False, 0)
-            assert bp.on_global("tile") and bp.gbytes >= \
-                K.conv_counter_bytes(spec) + K.CONV_SLICES * tl.fp
-        grid, tpr, ctr = K.conv_grid(spec)
-        assert tpr == tl.tpr <= grid <= tl.ntiles and ctr == \
-            K.conv_counter_bytes(spec) >= 16 + 4 * spec.out_shape[-3]
+    """Every conv and pool spec of the flagship, resnet50_v2(32) and
+    densenet121(32) (its max pool and three average transitions) through
+    ``_torch_block_cases.check_tile_spec``: the disjoint word is the byte
+    ranges' disjointness; no tile's store meets the reads of a tile of a
+    later row (the invariant the kernel's waits rely on), so no spec needs
+    its rows run one after another; the tiles cover every output once;
+    every footprint fits its shared memory budget or lies in per-CTA
+    slices of the workspace, after the counters."""
+    convs, pools = _tile_specs(label, layout)
+    if label != "densenet121_f32":
+        assert len(convs) == (25 if label == "flagship" else 53)
+    assert len(pools) == {"flagship": 0, "densenet121_f32": 4}.get(label, 1)
+    for spec in convs + pools:
+        check_tile_spec(spec)
 
 
 @pytest.mark.parametrize("dtype", ["i8", "f32"])
@@ -600,9 +542,9 @@ def test_fused_scratch_branches():
 
 
 def test_buffer_plan_rows_and_whole_blocks():
-    """A pool row wider than a CTA's shared memory takes the global
-    workspace; a conv of any row width cuts its rows into column tiles
-    whose footprints stage in shared memory, and one whose footprint
+    """A pool or a conv of any row width cuts its rows into column tiles
+    whose footprints stage in shared memory (a pool needs no filter
+    chunks), its counters first in the workspace, and a conv whose footprint
     exceeds the budget stages it in a global slice per CTA, its counters
     first in the workspace. An elementwise op of order word 0 or 1 (an add
     written over its input, resnet_50_v2's) needs no buffer at all; one of
@@ -613,12 +555,16 @@ def test_buffer_plan_rows_and_whole_blocks():
     pool = dataclasses.replace(spec, kind="pool", out_shape=(3, 4_096, 16),
                                in_shape=((3, 4_096, 16),),
                                meta=(3, 3, 1, 1, 1, 1, "max"))
-    assert K.buffer_plan(pool) == K.BufferPlan(0, 4_096 * 16 * 4,
-                                               (("row", True, 0),))
     narrow = dataclasses.replace(pool, out_shape=(3, 130, 65),
                                  in_shape=((3, 130, 65),))
-    assert K.buffer_plan(narrow) == K.BufferPlan(
-        130 * 65 * 4 + 8, 0, (("row", False, 0),))
+    for p, ow in ((pool, 4_096), (narrow, 130)):
+        tl = K.conv_tiling(p)
+        assert K.kernel_of(p) == "arena_pool" and tl.ch == 0
+        assert tl.ntiles == 3 * tl.tpr and tl.tc * tl.ncb >= ow
+        assert tl.fp <= K.CONV_SMEM_BUDGET
+        assert K.buffer_plan(p) == K.BufferPlan(
+            tl.fp, K.conv_counter_bytes(p),
+            (("ctr", True, 0), ("tile", False, 0), ("wts", False, tl.fp)))
     for ow, oc in ((4_096, 16), (130, 65)):
         conv, _ = CS.wide_row_spec(ow, oc)
         tl = K.conv_tiling(conv)
@@ -717,7 +663,14 @@ def test_descriptor_words_new_kinds():
     assert (w[K.D_KIND], w[K.D_MULT], w[K.D_DH], w[K.D_X_ZP]) == \
         (K.K_POOL, 1, 1, -3)
     assert tuple(w[K.D_IH:K.D_OC + 1]) == (112, 112, 64, 56, 56, 64)
-    assert tuple(w[K.BUFFER_WORD["row"]:][:2]) == (0, 0)
+    # a pool runs arena_conv's row tiles: its order word (the output [0,
+    # 200704) lies over the input [8, 802824)), its tiling, the footprint
+    # in shared memory and no filter chunks
+    tl = K.conv_tiling(pool)
+    assert w[K.D_ORDER] == K.conv_order(pool) == K.ORDER_STAGED
+    assert tuple(w[K.D_TILING:K.D_TILING + len(tl)]) == tuple(tl)
+    assert tuple(w[K.BUFFER_WORD["tile"]:][:2]) == (0, 0)
+    assert tuple(w[K.BUFFER_WORD["wts"]:][:2]) == (0, tl.fp)
     ew = K.OpSpec(kind="elementwise", in_off=(0, 400), in_shape=(S3, (5, 1)),
                   out_off=0, out_shape=S3, meta=("mul",))
     w = K.descriptor_words(ew)

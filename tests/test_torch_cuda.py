@@ -375,6 +375,141 @@ def test_elementwise_refuses_a_grid_the_card_cannot_hold(card):
     assert torch.equal(arena, before)
 
 
+def _hold_exact_50(spec, w, d, state, exact: bool):
+    """50 launches of a spec's grid kernel on copies of ``state``: each
+    bit-equal to the first, the first bit-equal to the plain version
+    (``exact``) or within 1e-4 of it (f32 FC: another summation order than
+    the plain version's torch matmul)."""
+    ref = state.clone()
+    K.apply_plain(ref, spec, w)
+    first = None
+    for _ in range(50):
+        got = state.clone()
+        K.apply_op(got, spec, w, d)
+        torch.cuda.synchronize()
+        if first is None:
+            first = got
+            if exact:
+                assert torch.equal(got, ref), spec
+            else:
+                g = got.view(torch.float32)
+                r = ref.view(torch.float32)
+                assert torch.allclose(g, r, rtol=1e-4, atol=1e-4), spec
+        assert torch.equal(got, first), spec
+
+
+def _walk_holding(card, cp, pick, exact, **kw):
+    """Walk ``cp``'s program on the card; hold every spec ``pick`` selects
+    (``_hold_exact_50``) on the arena as the program reaches it. Returns
+    how many were held."""
+    specs, ws, descs, state = CudaExecutor(device=card, **kw).program(cp)
+    held = 0
+    for spec, w, d in zip(specs, ws, descs):
+        if pick(spec):
+            _hold_exact_50(spec, w, d, state, exact(spec))
+            held += 1
+        K.apply_op(state, spec, w, d)
+    return held
+
+
+def _seeded_arena(card, nbytes: int, bits: int, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    if bits == 1:
+        arena = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                              generator=g)
+    else:
+        arena = torch.randn(nbytes // 4, generator=g).view(torch.uint8)
+    return arena.to(card)
+
+
+@pytest.mark.parametrize("bits", [4, 1])
+def test_pool_tiles_do_not_race_on_the_card(card, bits):
+    """arena_pool's row tiles, 50 launches each, every launch bit-equal to
+    the first and the first bit-equal to pool_plain: resnet50_v2(224)'s
+    3x3/2 max pool (written below its input: staged waits) on the flat and
+    the row-blocked program, densenet121(224)'s first 2x2/2 average
+    transition, and a hand-built 3x3/1 SAME average pool written in place
+    over its input (row 1 reads row 0's store: rows one after another)."""
+    is_pool = lambda s: s.kind == "pool"  # noqa: E731
+    exact = lambda s: True  # noqa: E731
+    cp = compile(zoo.resnet50_v2(224, bits), backend="numpy")
+    for layout in ("flat", "blocks"):
+        assert _walk_holding(card, cp, is_pool, exact, layout=layout) == 1
+    dn = compile(zoo.densenet121(224, bits), backend="numpy")
+    first_avg = []
+
+    def avg(spec):
+        if spec.kind == "pool" and spec.meta[-1] == "avg" and not first_avg:
+            first_avg.append(spec)
+            return True
+        return False
+    assert _walk_holding(card, dn, avg, exact) == 1
+    assert K.conv_order(first_avg[0]) == K.ORDER_STAGED
+    isz = 1 if bits == 1 else 4
+    in_place = K.OpSpec(
+        kind="pool", in_off=(256 * isz,), in_shape=((56, 56, 64),),
+        out_off=256 * isz, out_shape=(56, 56, 64),
+        dtype="i8" if bits == 1 else "f32", meta=(3, 3, 1, 1, 1, 1, "avg"),
+        qmeta=(-3, 0.87, 5) if bits == 1 else ())
+    assert K.conv_order(in_place) == K.ORDER_ROWS
+    arena = _seeded_arena(card, (56 * 56 * 64 + 512) * isz, bits, 7)
+    _hold_exact_50(in_place, None, None, arena, True)
+
+
+@pytest.mark.parametrize("bits", [4, 1])
+def test_fc_grid_does_not_race_on_the_card(card, bits):
+    """The FC grid body, 50 launches each, every launch bit-equal to the
+    first, the first bit-equal to the plain version in int8 and within
+    1e-4 in f32: the flagship's and resnet50_v2(224)'s FCs on the flat
+    program (written over their input: order word 2, partials before one
+    grid-wide barrier), the row-blocked program and, staged, the streaming
+    one (in place on the arena); and a hand-built 2048 x 1000 FC apart from
+    its input (order word 0: the last slice of each column block stores)."""
+    is_fc = lambda s: s.kind == "fully_connected"  # noqa: E731
+    exact = lambda s: s.dtype == "i8"  # noqa: E731
+    for graph in (zoo.mobilenet_v1(0.25, 128, bits),
+                  zoo.resnet50_v2(224, bits)):
+        cp = compile(graph, backend="numpy")
+        specs = CudaExecutor(device=card).program(cp)[0]
+        assert [K.fc_order(s) for s in specs if is_fc(s)] == [K.EW_OVERLAP]
+        for kw in ({}, {"layout": "blocks"}, {"mode": "streaming"}):
+            assert _walk_holding(card, cp, is_fc, exact, **kw) == 1
+    isz = 1 if bits == 1 else 4
+    apart = K.OpSpec(kind="fully_connected", in_off=(0,),
+                     in_shape=((2048,),), out_off=2048 * isz,
+                     out_shape=(1000,), dtype="i8" if bits == 1 else "f32",
+                     qmeta=(4, 0.0021, -1) if bits == 1 else ())
+    assert K.fc_order(apart) == K.EW_DISJOINT
+    g = torch.Generator().manual_seed(bits)
+    w = (torch.randint(-127, 128, (2048, 1000), dtype=torch.int8, generator=g)
+         if bits == 1 else torch.randn(2048, 1000, generator=g) * 0.02)
+    arena = _seeded_arena(card, 3048 * isz, bits, 8)
+    _hold_exact_50(apart, w.to(card), None, arena, bits == 1)
+
+
+def test_fc_refuses_a_grid_the_card_cannot_hold(card):
+    """An order-2 FC launch whose CTAs the card cannot hold at once is
+    refused by the entry point (the wrapper's check raises) and runs
+    nothing, on no smaller grid."""
+    from repro_torch.kernels import build
+    spec = K.OpSpec(kind="fully_connected", in_off=(3996,),
+                    in_shape=((2048,),), out_off=0, out_shape=(1000,))
+    assert K.fc_order(spec) == K.EW_OVERLAP
+    _, _, ctr = K.fc_grid(spec)
+    arena = torch.randn(4096, device=card).view(torch.uint8)
+    w = torch.randn(2048, 1000, device=card)
+    before = arena.clone()
+    too_many = 1 << 20
+    err = build.entry("arena_fully_connected")(
+        arena.data_ptr(), K.descriptor(spec, card).data_ptr(), w.data_ptr(),
+        K.workspace(spec, card).data_ptr(), K.buffer_plan(spec).smem,
+        too_many, too_many, ctr, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="arena_fully_connected"):
+        build.check(err, "arena_fully_connected")
+    torch.cuda.synchronize()
+    assert torch.equal(arena, before)
+
+
 def _final_arena(ex, cp):
     specs, ws, descs, arena = ex.program(cp)
     for spec, w, d in zip(specs, ws, descs):

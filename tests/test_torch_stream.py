@@ -213,13 +213,14 @@ def _run_both(spec: K.OpSpec, arena: np.ndarray, weights, kernel: str,
     # the descriptor the kernel would read builds for every case
     words = K.descriptor_words(spec)
     assert words[K.S_BODY] % 32 == 0 and len(words) > words[K.S_BODY]
-    if K.runs_ew_grid(spec):    # in place: no copy, arena offsets
+    if K.runs_in_place(spec):    # in place: no copy, arena offsets
         body = words[words[K.S_BODY]:]
         rowb = spec.rowlen * (1 if spec.dtype == "i8" else 4)
         assert words[K.S_NCOPY] == 0 and \
             (body[K.D_IN_OFF], body[K.D_OUT_OFF]) == \
             (spec.in_off[0] * rowb, spec.out_off * rowb)
-        assert body[K.D_ORDER] == K.ew_order(spec)
+        assert body[K.D_ORDER] == (K.ew_order(spec) if K.runs_ew_grid(spec)
+                                   else K.fc_order(spec))
     elif K.stream_form(spec) != "roll":   # one copy in per input block
         n = int(words[K.S_NCOPY])
         assert n == len(spec.in_off) and \
