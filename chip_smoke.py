@@ -14,7 +14,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    every spec of the flagship (int8 and f32) and of
    ``mobilenet_v1_1.0_224_8bit`` (its fused chain takes the global scratch
    branch, the flagship's shared memory); every pool, elementwise, concat,
-   matmul, pad and fully connected spec and every row op wider than 8,192
+   mean, matmul, pad and fully connected spec and every row op wider than
+   8,192
    outputs of ``resnet_50_v2`` (f32 and int8), ``densenet_121`` and the
    reference's test graph ``allops`` (f32 and int8); a hand-built fused
    chain with pool and elementwise stages (f32 and int8); a hand-built
@@ -35,14 +36,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    times each on the same inputs, on the flat and on the streaming
    program: the final device arenas must be identical, byte for byte
    (``arena_conv``, ``arena_pool``, ``arena_stream_roll``,
-   ``arena_elementwise``, ``arena_fully_connected`` and the staged
-   elementwise and FC bodies of ``arena_stream_stage`` run over the whole
-   card with tiles, chunks or slices that wait on each other; a race
-   would show here), and prints each tile kernel's order modes, tiles and
-   the device bytes its counters take, each elementwise and staged spec's
-   order word, grid and workspace bytes, and each pool and fully
-   connected spec's order word, grid and workspace bytes, on the flat,
-   blocked and streaming ``resnet_50_v2`` f32 and int8;
+   ``arena_elementwise``, ``arena_concat``, ``arena_mean``,
+   ``arena_fully_connected`` and the staged elementwise, concat, mean and
+   FC bodies of ``arena_stream_stage`` run over the whole card with tiles,
+   chunks or slices that wait on each other; a race would show here), and
+   the ``densenet_121`` forward (its 58 concats) three times on each;
+   prints each tile kernel's order modes, tiles and the device bytes its
+   counters take, each elementwise and staged spec's order word, grid and
+   workspace bytes, and each pool, fully connected, concat and mean spec's
+   order word, grid, tiles or units and workspace and shared bytes, on the
+   flat, blocked and streaming ``resnet_50_v2`` f32 and int8 and
+   ``densenet_121``;
 6. runs every row of ``zoo.TABLE3_MODELS`` at full width once on the card
    against the numpy backend, and ``allops`` (f32 and int8); prints each
    row's winner, arena, launches and seconds. ``nasnet_mobile``'s graph
@@ -95,7 +99,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``F.scaled_dot_product_attention``; none for WKV);
 11. times with CUDA events, after a warm-up, every kernel per forward of the
    path that runs it (``resnet_50_v2`` f32 for conv, pool, elementwise and
-   the head; ``densenet_121`` for concat; ``allops`` f32 for matmul and
+   the head; ``densenet_121`` for concat, flat, blocked and staged in the
+   streaming program; ``allops`` f32 for matmul and
    pad; the flagship for the fused chain), on both programs, its plain
    version, and one PyTorch call per op at the same f32 shapes as the
    yardstick (``F.conv2d`` with TF32 off, ``F.max_pool2d``,
@@ -577,8 +582,9 @@ def card_staging_bytes(K, spec) -> int:
     rolling op's row tiles stage their footprints, the columns and
     channels each tile reads through its window (the Python mirror,
     ``arena_ops.tile_reads``), and store straight into the arena; a staged
-    elementwise or fully connected op runs in place (nothing); any other
-    staged op or a chain copies what the TPU program copies."""
+    elementwise, concat, mean or fully connected op runs in place
+    (nothing); any other staged op or a chain copies what the TPU program
+    copies."""
     if K.runs_in_place(spec):
         return 0
     if K.stream_form(spec) != "roll":
@@ -921,12 +927,13 @@ def largest_window(K, ex, cp):
     in global memory, specs) of the streaming plan: its largest resident
     window and where the card stages it (a staged op's window or a chain's
     scratch; a rolling op's row tiles' footprints, each its part of the
-    window; a staged elementwise op stages nothing)."""
+    window; a staged elementwise, concat, mean or fully connected op runs
+    in place and stages nothing)."""
     bp = ex.legalised(cp.plan)
     sched = bp.window_schedule()
     specs = ex.program(cp)[0]
     buf = {"roll": "tile", "stage": "win", "fused": "scratch"}
-    place = ["in place" if K.runs_ew_grid(spec) else "global" if
+    place = ["in place" if K.runs_in_place(spec) else "global" if
              K.buffer_plan(spec).on_global(buf[K.stream_form(spec)])
              else "shared" for spec in specs]
     i = max(range(len(specs)),
@@ -1025,19 +1032,19 @@ def repeat_forwards(torch, K, X, cp, label: str, ex, kernel: str,
 def ew_rows(K, ex, cp, label: str):
     """The elementwise grid body's specs of ``ex``'s program of ``cp``
     (``arena_elementwise``, and ``arena_stream_stage``'s elementwise
-    bodies; the other staged specs beside them, one CTA each): per spec
-    its order word, units, grid arguments and the workspace and shared
-    bytes its buffers take, and a count of each order word. Counts from
-    the specs (``arena_ops.ew_order``, ``ew_tiling``, ``buffer_plan``)."""
+    bodies; the other staged specs beside them): per spec its order word,
+    units, grid arguments and the workspace and shared bytes its buffers
+    take, and a count of each order word. Counts from the specs
+    (``arena_ops.ew_order``, ``ew_tiling``, ``buffer_plan``)."""
     specs = [s for s in ex.program(cp)[0]
              if K.kernel_of(s) in ("arena_elementwise", "arena_stream_stage")]
     rows = []
     for s in specs:
         bp = K.buffer_plan(s)
+        grid = (K.chunk_grid(s) if K.runs_chunk_walk(s) else
+                K.fc_grid(s) if K.runs_fc_grid(s) else (1, 0, 0))
         row = {"kernel": K.kernel_of(s), "fn": s.meta[0] if
-               s.kind == "elementwise" else s.kind,
-               "grid": list(K.ew_grid(s) if K.runs_ew_grid(s)
-                            else (1, 0, 0)),
+               s.kind == "elementwise" else s.kind, "grid": list(grid),
                "smem_bytes": bp.smem, "workspace_bytes": bp.gbytes}
         if K.runs_ew_grid(s):
             row.update(order=K.ew_order(s), tiling=list(K.ew_tiling(s)))
@@ -1053,7 +1060,7 @@ def ew_rows(K, ex, cp, label: str):
         f" in 16-byte units, grids "
         f"{min((r['grid'][0] for r in ew), default=0)}-"
         f"{max((r['grid'][0] for r in ew), default=0)} CTAs; "
-        f"{len(rows) - len(ew)} other staged specs of one CTA; workspace "
+        f"{len(rows) - len(ew)} other staged specs; workspace "
         f"{out['workspace_bytes']} B beside the arena: "
         + json.dumps([[r["fn"], r.get("order"), r["grid"][0],
                        r["workspace_bytes"]] for r in rows]))
@@ -1061,16 +1068,18 @@ def ew_rows(K, ex, cp, label: str):
 
 
 def head_rows(K, ex, cp, label: str):
-    """The pool and fully connected specs of ``ex``'s program of ``cp``
-    (``arena_pool`` and ``arena_stream_roll``'s pools on row tiles;
-    ``arena_fully_connected`` and ``arena_stream_stage``'s FC on column
-    blocks x K slices): per spec its kernel, order word, tiles or items,
-    grid arguments and the workspace and shared bytes its buffers take.
-    Counts from the specs (``arena_ops.conv_order``, ``conv_tiling``,
-    ``fc_order``, ``fc_tiling``, ``buffer_plan``)."""
+    """The pool, fully connected, concat and mean specs of ``ex``'s program
+    of ``cp`` (``arena_pool`` and ``arena_stream_roll``'s pools on row
+    tiles; ``arena_fully_connected`` and ``arena_stream_stage``'s FC on
+    column blocks x K slices; ``arena_concat``, ``arena_mean`` and
+    ``arena_stream_stage``'s concats and means on chunks of units): per
+    spec its kernel, order word, tiles, items or units, grid arguments and
+    the workspace and shared bytes its buffers take. Counts from the specs
+    (``arena_ops.conv_order``, ``conv_tiling``, ``fc_order``,
+    ``fc_tiling``, ``chunk_of``, ``buffer_plan``)."""
     rows = []
     for s in ex.program(cp)[0]:
-        if s.kind not in ("pool", "fully_connected"):
+        if s.kind not in ("pool", "fully_connected", "concat", "mean"):
             continue
         bp = K.buffer_plan(s)
         row = {"kernel": K.kernel_of(s), "kind": s.kind,
@@ -1080,15 +1089,19 @@ def head_rows(K, ex, cp, label: str):
                        grid=list(K.conv_grid(s)),
                        tiles=K.conv_tiling(s).ntiles,
                        tiling=list(K.conv_tiling(s)))
-        else:
+        elif s.kind == "fully_connected":
             row.update(order=K.fc_order(s), grid=list(K.fc_grid(s)),
                        tiles=K.fc_tiling(s).ctas,
                        tiling=list(K.fc_tiling(s)))
+        else:
+            t, order = K.chunk_of(s)
+            row.update(order=order, grid=list(K.chunk_grid(s)),
+                       tiles=t.units, tiling=list(t))
         rows.append(row)
-    log(f"[repeats] {label}: pool and fully connected specs [kernel, "
-        f"order word, CTAs at most, CTAs at once, tiles or items, "
-        f"workspace B, shared B]: "
-        + json.dumps([[r["kernel"], r["order"], r["grid"][0],
+    log(f"[repeats] {label}: pool, fully connected, concat and mean specs "
+        f"[kernel, kind, order word, CTAs at most, CTAs at once, tiles, "
+        f"items or units, workspace B, shared B]: "
+        + json.dumps([[r["kernel"], r["kind"], r["order"], r["grid"][0],
                        r["grid"][1], r["tiles"], r["workspace_bytes"],
                        r["smem_bytes"]] for r in rows]))
     return rows
@@ -1331,15 +1344,17 @@ def standalone_phase(torch, F):
 
 
 def kernel_times(torch, F, K, ex, cp, weights=None, quant=None,
-                 plain_too=True, library=False, only=None):
-    """Per kernel (of ``only``, default all) over one forward of ``cp``:
-    device ms (CUDA events), the plain version's ms, the bound, the library
-    call's ms (f32, where every op has one) and the specs."""
+                 plain_too=True, library=False, only=None, kinds=None):
+    """Per kernel (of ``only``, default all; its specs of ``kinds``,
+    default all) over one forward of ``cp``: device ms (CUDA events), the
+    plain version's ms, the bound, the library call's ms (f32, where every
+    op has one) and the specs."""
     specs, ws, descs, state = ex.program(cp, None, weights, quant=quant)
     per = {}
     for spec, wt, d in zip(specs, ws, descs):
         name = K.kernel_of(spec)
-        if only is not None and name not in only:
+        if only is not None and name not in only or \
+                kinds is not None and spec.kind not in kinds:
             K.apply_op(state, spec, wt, d)
             continue
         row = per.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
@@ -1431,8 +1446,8 @@ def main() -> int:
           "both fused scratch branches must run")
 
     def new_kinds(spec) -> bool:
-        return spec.kind in ("pool", "elementwise", "concat", "matmul",
-                             "pad", "fully_connected") or (
+        return spec.kind in ("pool", "elementwise", "concat", "mean",
+                             "matmul", "pad", "fully_connected") or (
                                  spec.kind in K.ROW_KINDS and _el(
                                  spec.out_shape[-2:]) > WIDE_ROW)
 
@@ -1521,23 +1536,27 @@ def main() -> int:
 
     # 5b. repeated forwards give identical arenas, flat and streaming
     conv_rows, roll_rows = {}, {}
-    for label, c in (("resnet_50_v2", slice_cps["resnet_50_v2"]),
-                     ("flagship", cp)):
+    for label, c, n in (("resnet_50_v2", slice_cps["resnet_50_v2"], 5),
+                        ("flagship", cp, 5),
+                        ("densenet_121", compiled["densenet_121"], 3)):
         conv_rows[label] = repeat_forwards(torch, K, X, c, label,
                                            X.get_backend("cuda"),
-                                           "arena_conv")
+                                           "arena_conv", n)
         roll_rows[label] = repeat_forwards(
             torch, K, X, c, label + " streaming",
-            X.get_backend("cuda", mode="streaming"), "arena_stream_roll")
+            X.get_backend("cuda", mode="streaming"), "arena_stream_roll", n)
     ew_info, head_info = {}, {}
-    for label in ("resnet_50_v2", "resnet_50_v2 int8"):
+    for label, c in (("resnet_50_v2", slice_cps["resnet_50_v2"]),
+                     ("resnet_50_v2 int8", slice_cps["resnet_50_v2 int8"]),
+                     ("densenet_121", compiled["densenet_121"])):
         for program, kw in (("flat", {}), ("blocks", {"layout": "blocks"}),
                             ("streaming", {"mode": "streaming"})):
             ex_ = X.get_backend("cuda", **kw)
-            ew_info[f"{label} {program}"] = ew_rows(
-                K, ex_, slice_cps[label], f"{label} {program}")
+            if label != "densenet_121":
+                ew_info[f"{label} {program}"] = ew_rows(
+                    K, ex_, c, f"{label} {program}")
             head_info[f"{label} {program}"] = head_rows(
-                K, ex_, slice_cps[label], f"{label} {program}")
+                K, ex_, c, f"{label} {program}")
     phase_done("repeats")
 
     # 6. the zoo, and allops
@@ -1811,6 +1830,10 @@ def main() -> int:
             only={"arena_stream_roll", "arena_stream_stage"}),
         "flagship": kernel_times(torch, F, K, stm, cp, fw, fq,
                                  only={"arena_stream_fused"}),
+        # the staged concats alone, in place on the arena
+        "densenet_121 concat": kernel_times(
+            torch, F, K, stm, blk_cps["densenet_121"], library=True,
+            only={"arena_stream_stage"}, kinds={"concat"}),
     }
     blk_walls, st_walls = {}, {}
     for label, reps, args in (("resnet_50_v2", 3, (in0, w0, None)),

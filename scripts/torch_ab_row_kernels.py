@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time the port's grid kernels and their neighbours (``arena_conv``,
-``arena_pool``, ``arena_elementwise``, ``arena_fully_connected``, the fused
-chain and the streaming program's ``arena_stream_roll`` and
-``arena_stream_stage``) on the card for one source tree, to compare two
-commits inside one call.
+``arena_pool``, ``arena_elementwise``, ``arena_concat``, ``arena_mean``,
+``arena_fully_connected``, the fused chain and the streaming program's
+``arena_stream_roll`` and ``arena_stream_stage``) on the card for one
+source tree, to compare two commits inside one call.
 
 Usage, on a machine with an NVIDIA card, from the root of a checkout::
 
@@ -11,23 +11,28 @@ Usage, on a machine with an NVIDIA card, from the root of a checkout::
         [--against <root of the other tree>]
 
 It builds that tree's kernels (into its own ``build/repro_torch/``),
-compiles ``resnet_50_v2`` f32 (``zoo.resnet50_v2(224, 4)``) and the
-flagship ``mobilenet_v1_0.25_128_8bit`` and prints one JSON line: the
-device ms of each kernel per forward, summed over its launches (CUDA
-events, ``chip_smoke.kernel_times``), on the flat, the row-blocked and the
+compiles ``resnet_50_v2`` f32 (``zoo.resnet50_v2(224, 4)``),
+``densenet_121`` f32 (``zoo.densenet121(224, 4)``) and the flagship
+``mobilenet_v1_0.25_128_8bit`` and prints one JSON line: the device ms of
+each kernel per forward, summed over its launches (CUDA events,
+``chip_smoke.kernel_times``), on the flat, the row-blocked and the
 streaming program of ``resnet_50_v2`` (with the flat program's
-``F.conv2d``/``F.max_pool2d``/``torch.relu``/``torch.add``/``torch.matmul``
-yardstick, TF32 off, under ``library``), ``arena_elementwise``,
-``arena_pool`` and ``arena_fully_connected`` on the flat and blocked
-``resnet_50_v2`` int8 forwards and ``arena_stream_roll`` and
-``arena_stream_stage`` on the streaming one, and on the flagship
-``arena_conv``, ``arena_fully_connected`` and ``arena_fused_chain`` (flat
-and row-blocked), ``arena_stream_roll`` and ``arena_stream_stage`` (its
-mean, fully connected and softmax); then under ``sha256`` a digest of
-each program's final device arena after one forward of ``resnet_50_v2``
-f32 and int8 and of the flagship on seeded inputs, so two trees' outputs
-can be compared byte for byte; and under ``workspace`` the device bytes
-beside the arena that each program's ``arena_elementwise``,
+``F.conv2d``/``F.max_pool2d``/``torch.relu``/``torch.add``/``torch.mean``/
+``torch.matmul`` yardstick, TF32 off, under ``library``),
+``arena_elementwise``, ``arena_pool``, ``arena_mean`` and
+``arena_fully_connected`` on the flat and blocked ``resnet_50_v2`` int8
+forwards and ``arena_stream_roll`` and ``arena_stream_stage`` on the
+streaming one, ``arena_concat`` and ``arena_mean`` on the flat and blocked
+``densenet_121`` and ``arena_stream_stage`` (its 58 concats, mean, FC and
+softmax) on the streaming one (``torch.cat`` under ``library``), and on
+the flagship ``arena_conv``, ``arena_mean``, ``arena_fully_connected``
+and ``arena_fused_chain`` (flat and row-blocked), ``arena_stream_roll``
+and ``arena_stream_stage`` (its mean, fully connected and softmax); then
+under ``sha256`` a digest of each program's final device arena after one
+forward of ``resnet_50_v2`` f32 and int8, ``densenet_121`` and the
+flagship on seeded inputs, so two trees' outputs can be compared byte for
+byte; and under ``workspace`` the device bytes beside the arena that each
+program's ``arena_elementwise``, ``arena_concat``, ``arena_mean``,
 ``arena_fully_connected`` and ``arena_stream_stage`` specs hold (the sum
 of ``arena_ops.buffer_plan(spec).gbytes``, a count from the specs).
 
@@ -92,7 +97,7 @@ def main() -> int:
         per = cs.kernel_times(torch, F, K, ex, cp, plain_too=False,
                               library=program == "flat",
                               only={"arena_conv", "arena_pool",
-                                    "arena_elementwise",
+                                    "arena_elementwise", "arena_mean",
                                     "arena_fully_connected",
                                     "arena_stream_roll",
                                     "arena_stream_stage"})
@@ -106,7 +111,8 @@ def main() -> int:
     c8 = compile(zoo.resnet50_v2(224, 1), backend="numpy")
     w8 = X.synth_weights(c8.graph, 0)
     q8 = X.calibrate(c8.graph, 0, w8)
-    heads = {"arena_elementwise", "arena_pool", "arena_fully_connected"}
+    heads = {"arena_elementwise", "arena_pool", "arena_mean",
+             "arena_fully_connected"}
     for program, kw, only in (
             ("flat", {"layout": "flat"}, heads),
             ("blocks", {"layout": "blocks"}, heads),
@@ -121,6 +127,23 @@ def main() -> int:
                X.quant_inputs(c8.graph, q8, 0), w8, q8, False)
         out["workspace"][f"resnet_50_v2 int8 {program}"] = _workspace(
             K, ex, c8)
+    dn = compile(zoo.densenet121(224, 4), backend="numpy")
+    for program, kw in (("flat", {"layout": "flat"}),
+                        ("blocks", {"layout": "blocks"}),
+                        ("streaming", {"mode": "streaming"})):
+        ex = X.get_backend("cuda", **kw)
+        per = cs.kernel_times(torch, F, K, ex, dn, plain_too=False,
+                              library=program == "flat",
+                              only={"arena_concat", "arena_mean",
+                                    "arena_stream_stage"})
+        out[f"densenet_121 {program}"] = {k: v["ms"] for k, v in per.items()}
+        if program == "flat":
+            out["densenet_121 library"] = {k: v["library_ms"]
+                                           for k, v in per.items()}
+        digest(f"densenet_121 {program}", ex, dn,
+               X.random_inputs(dn.graph, 0), X.synth_weights(dn.graph, 0),
+               None, True)
+        out["workspace"][f"densenet_121 {program}"] = _workspace(K, ex, dn)
     flag = compile(zoo.mobilenet_v1(0.25, 128, 1), backend="numpy")
     w = X.synth_weights(flag.graph, 0)
     q = X.calibrate(flag.graph, 0, w)
@@ -130,7 +153,7 @@ def main() -> int:
         ex = X.get_backend("cuda", **kw)
         per = cs.kernel_times(torch, F, K, ex, flag, w, q, plain_too=False,
                               only={"arena_conv", "arena_fused_chain",
-                                    "arena_fully_connected",
+                                    "arena_mean", "arena_fully_connected",
                                     "arena_stream_roll",
                                     "arena_stream_stage"})
         out[f"flagship {program}"] = {k: v["ms"] for k, v in per.items()}
@@ -141,10 +164,10 @@ def main() -> int:
 
 
 def _workspace(K, ex, cp) -> dict:
-    """Global workspace bytes of the program's elementwise, fully
-    connected and staged specs, by kernel."""
-    names = ("arena_elementwise", "arena_fully_connected",
-             "arena_stream_stage")
+    """Global workspace bytes of the program's elementwise, concat, mean,
+    fully connected and staged specs, by kernel."""
+    names = ("arena_elementwise", "arena_concat", "arena_mean",
+             "arena_fully_connected", "arena_stream_stage")
     specs = ex.program(cp)[0]
     return {n: sum(K.buffer_plan(s).gbytes for s in specs
                    if K.kernel_of(s) == n) for n in names}

@@ -22,7 +22,8 @@ arena programs.
   read ``win_in`` arena rows from ``win_starts[t]``; the kernel reads them
   in place and stores straight into the arena), *staged*
   (every other kind: operand blocks packed by ``planner.staged_slots``;
-  the kernel runs an elementwise op in place on the arena instead)
+  the kernel runs an elementwise, concat, mean or fully connected op in
+  place on the arena instead)
   and *fused* (a band chain whose inputs, internals and output all live in
   its ``include_io`` scratch slots).
 
@@ -72,17 +73,19 @@ where each is. The standalone conv (:func:`arena_conv`), pool
 (:func:`conv_tiling`), each tile's input footprint in its CTA's shared
 memory (or a global slice per CTA), their counters at the start of the
 workspace, and wait only where the operands overlap (:func:`conv_order`).
-Elementwise ops (:func:`arena_elementwise`, and the staged ones of
-:func:`arena_stream_stage`, in place on the arena) run in chunks over the
-whole card (:func:`ew_tiling`) and stage their results before one
-grid-wide barrier only where an input meets the output other than element
-for element (:func:`ew_order`). Fully connected ops
-(:func:`arena_fully_connected`, and the staged one of
+Elementwise, concat and mean ops (:func:`arena_elementwise`,
+:func:`arena_concat`, :func:`arena_mean`, and the staged ones of
+:func:`arena_stream_stage`, in place on the arena) run in chunks of output
+units over the whole card (:func:`ew_tiling`, :func:`concat_tiling`,
+:func:`mean_tiling`) and stage their results before one grid-wide barrier
+only where the byte ranges do not prove that no store can clobber a read
+(:func:`ew_order`, :func:`concat_order`, :func:`mean_order`). Fully
+connected ops (:func:`arena_fully_connected`, and the staged one of
 :func:`arena_stream_stage`, in place on the arena) cut W into column blocks
 and K slices over the whole card (:func:`fc_tiling`), sum the slices'
 partials in a fixed order, and put one grid-wide barrier before any store
-where the output meets x (:func:`fc_order`). Every other kernel runs one
-CTA per op.
+where the output meets x (:func:`fc_order`). Softmax, pad, matmul and the
+fused chains run one CTA per op.
 
 The plain versions walk output rows in Python with torch ops on typed views
 of the arena, in the reference's order (every read of row ``oy`` before its
@@ -257,14 +260,14 @@ D_CIN_OFF, D_CIN_SCR, D_CINNER, D_CZP, D_CMULT = 16, 32, 48, 64, 80
 D_EDIM0, D_BSTR0 = 20, 26
 D_MM, D_MK, D_MN = 10, 11, 12
 D_PIN0, D_PLO0, D_POUT0, D_PN = 10, 14, 18, 22
-#: A grid kernel's order word (a tile kernel's :func:`conv_order`, an
-#: elementwise op's :func:`ew_order`, a fully connected op's
-#: :func:`fc_order`), then its tiling's fields in order (:func:`conv_tiling`,
-#: :func:`ew_tiling`, :func:`fc_tiling`).
+#: A grid kernel's order word (a tile kernel's :func:`conv_order`, a chunk
+#: walk's :func:`ew_order`, :func:`concat_order` or :func:`mean_order`, a
+#: fully connected op's :func:`fc_order`), then its tiling's fields in
+#: order (:func:`conv_tiling`, :func:`chunk_of`, :func:`fc_tiling`).
 D_ORDER = 100
 D_TILING = 101
 #: Buffer placement words (flag: 1 = global workspace, then byte offset);
-#: a tile kernel's footprint, an elementwise chunk's staging and a fully
+#: a tile kernel's footprint, a chunk walk's staging and a fully
 #: connected op's partials take the "stage" words, a tile kernel's filter
 #: chunks and a fully connected CTA's warp sums the "row" words.
 BUFFER_WORD = {"stage": 120, "row": 122, "scratch": 124, "tile": 120,
@@ -483,6 +486,19 @@ def _pad_geometry(spec: OpSpec) -> Tuple[Tuple[int, ...], ...]:
             (1,) * lead + tuple(spec.out_shape))
 
 
+def _mean_geometry(spec: OpSpec) -> Tuple[Tuple[int, ...], int, int, int]:
+    """(input dims padded to 4 with leading 1s, reduced-axis mask: bit i =
+    axis i of those dims, elements a reduction sums, outputs) of a mean."""
+    shape = tuple(spec.in_shape[0])
+    if len(shape) > 4:
+        raise ValueError(f"mean over a {len(shape)}-d input")
+    axes = {a % len(shape) for a in spec.meta[0]}
+    pad = 4 - len(shape)
+    return ((1,) * pad + shape, sum(1 << (a + pad) for a in axes),
+            _elems(shape[a] for a in axes),
+            _elems(s for i, s in enumerate(shape) if i not in axes))
+
+
 def _op_words(spec: OpSpec, woff: int = 0) -> List[int]:
     """One op's DESC_WORDS descriptor words (buffer words excluded)."""
     w = [0] * DESC_WORDS
@@ -516,15 +532,9 @@ def _op_words(spec: OpSpec, woff: int = 0) -> List[int]:
         w[D_KH:D_MULT + 1] = (kh, kw, sh, sw, 1, 1, ph, pw,
                               int(mode == "max"))
     elif k == "mean":
-        shape = tuple(spec.in_shape[0])
-        if len(shape) > 4:
-            raise ValueError(f"mean over a {len(shape)}-d input")
-        axes = {a % len(shape) for a in spec.meta[0]}
-        pad = 4 - len(shape)
-        w[D_DIM0:D_DIM0 + 4] = (1,) * pad + shape
-        w[D_RMASK] = sum(1 << (a + pad) for a in axes)
-        w[D_CNT] = _elems(shape[a] for a in axes)
-        w[D_OUTN] = _elems(s for i, s in enumerate(shape) if i not in axes)
+        dims, rmask, cnt, outn = _mean_geometry(spec)
+        w[D_DIM0:D_DIM0 + 4] = dims
+        w[D_RMASK], w[D_CNT], w[D_OUTN] = rmask, cnt, outn
     elif k == "fully_connected":
         idim = spec.in_shape[0][-1]
         m = _elems(spec.in_shape[0]) // idim
@@ -906,20 +916,22 @@ def tile_reads(spec: OpSpec, t: int) -> List[Tuple[int, int, int]]:
 
 
 # ---------------------------------------------------------------------------
-# The elementwise grid body (csrc/ew_tiles.cuh: arena_elementwise, and
-# arena_stream_stage's elementwise bodies in place on the arena): output
-# units in contiguous chunks, one chunk a CTA at a time, and the order word
-# that keeps read-all-before-write-all. The kernels read the same numbers
-# from the descriptor.
+# The chunk walk (csrc/ew_tiles.cuh: arena_elementwise, arena_concat,
+# arena_mean, and arena_stream_stage's elementwise, concat and mean bodies
+# in place on the arena): output units in contiguous chunks, one chunk a
+# CTA at a time, and the order word that keeps read-all-before-write-all.
+# The kernels read the same numbers from the descriptor.
 # ---------------------------------------------------------------------------
 
-#: Threads of an elementwise CTA (arena_common.cuh's NT).
+#: Threads of a chunk-walk CTA (arena_common.cuh's NT).
 EW_THREADS = 512
-#: Order words of an elementwise op: no input byte meets an output byte;
-#: the output meets only inputs that map each element where it does
-#: (element i of the output is exactly element i of each: a thread stores
-#: only what it has just read itself); anything else (every chunk stages
-#: its results, one grid-wide barrier, then every chunk stores).
+#: Order words of a chunk walk: no input byte meets an output byte; for an
+#: elementwise op, the output meets only inputs that map each element
+#: where it does (element i of the output is exactly element i of each: a
+#: thread stores only what it has just read itself), for a mean, every
+#: output element's bytes hold only inputs of its own reduction (one thread
+#: reads them all, then stores it); anything else (every chunk stages its
+#: results, one grid-wide barrier, then every chunk stores).
 EW_DISJOINT, EW_ALIGNED, EW_OVERLAP = range(3)
 #: Chunks a launch of order 0 or 1 takes at most (two a SM); the entry
 #: point lowers the grid to what the card holds and a CTA then walks more
@@ -932,15 +944,18 @@ EW_RESIDENT = CONV_SMS
 EW_SMEM_BUDGET = 192 * 1024
 #: Bytes of an order-2 launch's barrier counter, at the workspace's start.
 EW_COUNTER_BYTES = 16
+#: Outputs of a mean a chunk takes, one a thread (its whole reduction):
+#: resnet_50_v2's 2,048 channels go to 16 CTAs.
+MEAN_PER = 128
 
 
 class EwTiling(NamedTuple):
-    """The units of an elementwise op: ``vec`` output elements each (16
-    bytes' worth where every operand but a broadcast one allows 16-byte
-    loads and stores, else 1), ``units`` of them over the output's whole
-    block (padding included), ``per`` units a chunk, ``chunks`` chunks.
-    Chunk ``c`` is units ``[c*per, min((c+1)*per, units))``; a CTA's
-    threads stride over its chunk."""
+    """The units of a chunk walk: ``vec`` output elements each (16 bytes'
+    worth where every operand's element map allows 16-byte loads and
+    stores, else 1; a mean's unit is one output), ``units`` of them over
+    the output's whole block (padding included), ``per`` units a chunk,
+    ``chunks`` chunks. Chunk ``c`` is units ``[c*per, min((c+1)*per,
+    units))``; a CTA's threads stride over its chunk."""
     vec: int
     units: int
     per: int
@@ -955,6 +970,15 @@ def runs_ew_grid(spec: OpSpec) -> bool:
                                                                 "stage")
 
 
+def runs_chunk_walk(spec: OpSpec) -> bool:
+    """Does the spec run a chunk walk body: an elementwise, concat or mean
+    op of the flat or row-blocked program, or a staged one of the
+    streaming program (a fused chain's stages keep the one-CTA
+    routines)."""
+    return spec.kind in ("elementwise", "concat", "mean") and \
+        stream_form(spec) in (None, "stage")
+
+
 def _ew_map(spec: OpSpec, i: Optional[int]) -> Tuple[int, int, int]:
     """How operand ``i`` (None: the output) maps tensor element ``e`` to
     the arena (``elem_at``; ``elem_of`` inverts it over the output's
@@ -965,6 +989,25 @@ def _ew_map(spec: OpSpec, i: Optional[int]) -> Tuple[int, int, int]:
     off, L, _, k, rl, used, _ = operand_addr(spec, i)
     span, used = (k * L, rl) if k > 1 else (L, used)
     return (off, 0, 0) if span == used else (off, span, used)
+
+
+def _elem_bytes(spec: OpSpec, i: int, e: np.ndarray) -> np.ndarray:
+    """Arena byte offset of tensor elements ``e`` of input ``i``."""
+    off, span, used = _ew_map(spec, i)
+    at = (e // used) * span + e % used if span else e
+    return off + at * _isz(spec.dtype)
+
+
+def _block_elems(spec: OpSpec, n: int) -> np.ndarray:
+    """The tensor element each element of the output's block holds, -1 in
+    the padding (``elem_of``)."""
+    _, span, used = _ew_map(spec, None)
+    b = np.arange(operand_addr(spec, None)[6])
+    if not span:
+        return np.where(b < n, b, -1)
+    r, j = np.divmod(b, span)
+    e = np.where(j < used, r * used + j, -1)
+    return np.where(e < n, e, -1)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -986,6 +1029,49 @@ def ew_order(spec: OpSpec) -> int:
     return EW_OVERLAP
 
 
+@functools.lru_cache(maxsize=1024)
+def concat_order(spec: OpSpec) -> int:
+    """The order word of a concat from each input's arena byte range
+    against the output's (:func:`_byte_range`): :data:`EW_DISJOINT` when
+    none meets it (every concat of the Table III zoo), else
+    :data:`EW_OVERLAP`."""
+    out = _byte_range(spec, None)
+    if any(_meets(_byte_range(spec, i), out)
+           for i in range(len(spec.in_off))):
+        return EW_OVERLAP
+    return EW_DISJOINT
+
+
+@functools.lru_cache(maxsize=1024)
+def mean_order(spec: OpSpec) -> int:
+    """The order word of a mean: :data:`EW_DISJOINT` when the input's and
+    the output's byte ranges do not meet; :data:`EW_ALIGNED` ("own") when,
+    byte for byte, every input element that lies in the output's block lies
+    in the bytes of the one output element whose reduction it belongs to
+    (never in padding), so that output's thread reads it before it stores
+    there and no other thread reads it; else :data:`EW_OVERLAP`."""
+    out = _byte_range(spec, None)
+    if not _meets(_byte_range(spec, 0), out):
+        return EW_DISJOINT
+    dims, rmask, _, outn = _mean_geometry(spec)
+    isz = _isz(spec.dtype)
+    coords = np.unravel_index(np.arange(_elems(dims)), dims)
+    kept = [i for i in range(4) if not rmask >> i & 1]
+    owner = np.ravel_multi_index([coords[i] for i in kept],
+                                 [dims[i] for i in kept]) if kept else \
+        np.zeros(_elems(dims), np.int64)
+    lo, hi = out
+    e = _block_elems(spec, outn)
+    holder = np.repeat(np.where(e >= 0, e, -2), isz)  # -2: padding
+    start = _elem_bytes(spec, 0, np.arange(_elems(dims)))
+    for j in range(isz):
+        at = start + j - lo
+        inside = (at >= 0) & (at < hi - lo)
+        if (holder[at[inside]] != owner[inside]).any():
+            return EW_OVERLAP
+    return EW_ALIGNED
+
+
 def _ew_vec_ok(spec: OpSpec, i: Optional[int], vec: int) -> bool:
     """Can operand ``i`` (None: the output) move ``vec`` elements a 16-byte
     access: its base 16-byte aligned and its rows unpadded or of
@@ -995,13 +1081,23 @@ def _ew_vec_ok(spec: OpSpec, i: Optional[int], vec: int) -> bool:
     return off % 16 == 0 and span % vec == 0 and used % vec == 0
 
 
+def _unit_tiling(units: int, vec: int, overlap: bool,
+                 per: int) -> EwTiling:
+    """``units`` in chunks of about ``per``, at most :data:`EW_GRID`
+    chunks (:data:`EW_RESIDENT` for order 2, whose chunks must all run at
+    once)."""
+    cap = EW_RESIDENT if overlap else EW_GRID
+    chunks = max(1, min(cap, -(-units // per)))
+    per = -(-units // chunks)
+    return EwTiling(vec, units, per, -(-units // per))
+
+
 @functools.lru_cache(maxsize=1024)
 def ew_tiling(spec: OpSpec) -> EwTiling:
     """The units and chunks of an elementwise spec: 16-byte units where the
     element count, the output block and every operand that is not
     broadcast allow them (:func:`_ew_vec_ok`), else single elements; about
-    one unit a thread, in at most :data:`EW_GRID` chunks
-    (:data:`EW_RESIDENT` for order 2, whose chunks must all run at once)."""
+    one unit a thread (:func:`_unit_tiling`)."""
     bcast, dims, _ = _ew_broadcast(spec)
     n = _elems(dims)
     nblk = operand_addr(spec, None)[6]
@@ -1010,21 +1106,63 @@ def ew_tiling(spec: OpSpec) -> EwTiling:
     if n % vec or nblk % vec or not all(_ew_vec_ok(spec, i, vec)
                                         for i in ops):
         vec = 1
-    units = nblk // vec
-    cap = EW_RESIDENT if ew_order(spec) == EW_OVERLAP else EW_GRID
-    chunks = max(1, min(cap, -(-units // EW_THREADS)))
-    per = -(-units // chunks)
-    return EwTiling(vec, units, per, -(-units // per))
+    return _unit_tiling(nblk // vec, vec, ew_order(spec) == EW_OVERLAP,
+                        EW_THREADS)
 
 
-def ew_grid(spec: OpSpec) -> Tuple[int, int, int]:
+def _concat_geometry(spec: OpSpec) -> Tuple[int, int, Tuple[int, ...]]:
+    """(outer, inner_out, each input's inner) of a concat: outer = the
+    product of the dims before the axis, inner the rest."""
+    axis = spec.meta[0] % len(spec.out_shape)
+    return (_elems(spec.out_shape[:axis]), _elems(spec.out_shape[axis:]),
+            tuple(_elems(s[axis:]) for s in spec.in_shape))
+
+
+@functools.lru_cache(maxsize=1024)
+def concat_tiling(spec: OpSpec) -> EwTiling:
+    """The units and chunks of a concat: 16-byte units where every input's
+    inner, the output's inner_out, the output block and every operand's
+    base and rows allow them (a unit then lies in one input's columns,
+    which that input holds as one aligned 16-byte run), else single
+    elements; about one unit a thread (:func:`_unit_tiling`)."""
+    _, inner_out, inners = _concat_geometry(spec)
+    nblk = operand_addr(spec, None)[6]
+    vec = 16 // _isz(spec.dtype)
+    if inner_out % vec or nblk % vec or any(x % vec for x in inners) or \
+            not all(_ew_vec_ok(spec, i, vec)
+                    for i in [None, *range(len(spec.in_off))]):
+        vec = 1
+    return _unit_tiling(nblk // vec, vec, concat_order(spec) == EW_OVERLAP,
+                        EW_THREADS)
+
+
+@functools.lru_cache(maxsize=1024)
+def mean_tiling(spec: OpSpec) -> EwTiling:
+    """The units and chunks of a mean: one output (of the output's block,
+    padding included) a unit and a thread, about :data:`MEAN_PER` a chunk
+    (:func:`_unit_tiling`)."""
+    return _unit_tiling(operand_addr(spec, None)[6], 1,
+                        mean_order(spec) == EW_OVERLAP, MEAN_PER)
+
+
+def chunk_of(spec: OpSpec) -> Tuple[EwTiling, int]:
+    """(tiling, order word) of a spec that runs a chunk walk
+    (:func:`runs_chunk_walk`)."""
+    if spec.kind == "elementwise":
+        return ew_tiling(spec), ew_order(spec)
+    if spec.kind == "concat":
+        return concat_tiling(spec), concat_order(spec)
+    return mean_tiling(spec), mean_order(spec)
+
+
+def chunk_grid(spec: OpSpec) -> Tuple[int, int, int]:
     """(CTAs to launch at most, CTAs that must run at once, counter bytes)
-    of an elementwise spec: one CTA a chunk; order 2 needs every chunk
+    of a chunk walk's spec: one CTA a chunk; order 2 needs every chunk
     resident (a cooperative launch the entry point refuses on a card that
     cannot hold it) and its barrier counter, which the entry point
     zeroes."""
-    t = ew_tiling(spec)
-    if ew_order(spec) == EW_OVERLAP:
+    t, order = chunk_of(spec)
+    if order == EW_OVERLAP:
         return t.chunks, t.chunks, EW_COUNTER_BYTES
     return t.chunks, 0, 0
 
@@ -1072,8 +1210,8 @@ def runs_fc_grid(spec: OpSpec) -> bool:
 
 def runs_in_place(spec: OpSpec) -> bool:
     """Does a staged streaming spec run in place on the arena (no window,
-    no copies): an elementwise or fully connected body."""
-    return runs_ew_grid(spec) or runs_fc_grid(spec)
+    no copies): an elementwise, concat, mean or fully connected body."""
+    return runs_chunk_walk(spec) or runs_fc_grid(spec)
 
 
 def _fc_geometry(spec: OpSpec) -> Tuple[int, int, int]:
@@ -1148,9 +1286,9 @@ def _row_bytes(spec: OpSpec) -> int:
 
 def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
     """Buffers the spec's kernel needs, in the order they claim shared
-    memory. A tile kernel's counters, footprint and filter chunks; the
-    elementwise grid body nothing, or for order 2 its barrier counter and
-    one chunk's staging; the fully connected grid body its counters, its
+    memory. A tile kernel's counters, footprint and filter chunks; a
+    chunk walk nothing, or for order 2 its barrier counter and one chunk's
+    staging; the fully connected grid body its counters, its
     partial sums (global: other CTAs sum them) and one CTA's warp sums; a
     staged op adds its window to its body's; a streaming chain's window is
     its scratch."""
@@ -1159,10 +1297,10 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
         tl = conv_tiling(spec)
         return (("ctr", conv_counter_bytes(spec)), ("tile", tl.fp),
                 ("wts", 2 * tl.ch * tl.to * _isz(spec.dtype)))
-    if runs_ew_grid(spec):
-        if ew_order(spec) != EW_OVERLAP:
+    if runs_chunk_walk(spec):
+        t, order = chunk_of(spec)
+        if order != EW_OVERLAP:
             return ()
-        t = ew_tiling(spec)
         return (("ctr", EW_COUNTER_BYTES),
                 ("chunk", t.per * t.vec * _isz(spec.dtype)))
     if runs_fc_grid(spec):   # partials: an int32 or f32 a slice and output
@@ -1177,8 +1315,6 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
     if form == "fused":
         return _buffer_needs(_stream_body(spec))
     k = spec.kind
-    if k == "mean":
-        return (("stage", _elems(spec.in_shape[0]) * _isz(spec.dtype)),)
     if k == "softmax":
         return (("stage", 4 * _elems(spec.in_shape[0])),)
     if k == "fused":
@@ -1202,7 +1338,7 @@ def buffer_plan(spec: OpSpec) -> BufferPlan:
     workspace's start, and so are a fully connected op's partial sums; a
     tile kernel's footprint takes shared memory within
     :data:`CONV_SMEM_BUDGET`, else one global slice per CTA
-    (:data:`CONV_SLICES`); an elementwise chunk's staging likewise within
+    (:data:`CONV_SLICES`); a chunk walk's staging likewise within
     :data:`EW_SMEM_BUDGET`, else one global slice a chunk."""
     smem = gbytes = 0
     parts = []
@@ -1215,7 +1351,7 @@ def buffer_plan(spec: OpSpec) -> BufferPlan:
             gbytes += n * (CONV_SLICES if name == "tile" else 1)
         elif name == "chunk" and n > EW_SMEM_BUDGET:
             parts.append((name, True, gbytes))
-            gbytes += n * ew_tiling(spec).chunks
+            gbytes += n * chunk_of(spec)[0].chunks
         elif smem + n <= limit:
             parts.append((name, False, smem))
             smem += n
@@ -1265,10 +1401,10 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
     fused chain a header (word 0 = stage count) and then every stage's.
     The op's words, or the header, carry the buffer placement. A streaming
     spec's descriptor is its stream block, then its body's descriptor (a
-    staged elementwise or fully connected op's body at its arena offsets:
-    it runs in place). A tile kernel's, the elementwise or the fully
-    connected grid body's (last) op descriptor carries its order word and
-    tiling."""
+    staged elementwise, concat, mean or fully connected op's body at its
+    arena offsets: it runs in place). A tile kernel's, a chunk walk's or
+    the fully connected grid body's (last) op descriptor carries its order
+    word and tiling."""
     bp = buffer_plan(spec)
     if not spec.win_rows:
         words = _body_words(spec, bp)
@@ -1282,9 +1418,9 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
         body[D_ORDER] = conv_order(spec)
         tl = conv_tiling(spec)
         body[D_TILING:D_TILING + len(tl)] = tl
-    elif runs_ew_grid(spec):
-        body[D_ORDER] = ew_order(spec)
-        body[D_TILING:D_TILING + len(EwTiling._fields)] = ew_tiling(spec)
+    elif runs_chunk_walk(spec):
+        t, body[D_ORDER] = chunk_of(spec)
+        body[D_TILING:D_TILING + len(t)] = t
     elif runs_fc_grid(spec):
         body[D_ORDER] = fc_order(spec)
         body[D_TILING:D_TILING + len(FcTiling._fields)] = fc_tiling(spec)
@@ -2025,11 +2161,11 @@ def arena_pool(arena: torch.Tensor, spec: OpSpec,
 
 
 def _check_ew_arena(arena: torch.Tensor) -> None:
-    """The grid body's 16-byte units need the arena at a 16-byte boundary
+    """A chunk walk's 16-byte units need the arena at a 16-byte boundary
     (every allocation is; a view into one need not be)."""
     if arena.data_ptr() % 16:
-        raise ValueError("the elementwise grid body needs an arena that "
-                         "starts at a 16-byte boundary")
+        raise ValueError("the chunk walk needs an arena that starts at a "
+                         "16-byte boundary")
 
 
 def arena_elementwise(arena: torch.Tensor, spec: OpSpec,
@@ -2042,7 +2178,7 @@ def arena_elementwise(arena: torch.Tensor, spec: OpSpec,
         elementwise_plain(arena, spec)
         return
     _check_ew_arena(arena)
-    _launch("arena_elementwise", arena, spec, None, desc, ew_grid(spec))
+    _launch("arena_elementwise", arena, spec, None, desc, chunk_grid(spec))
 
 
 def arena_matmul(arena: torch.Tensor, spec: OpSpec,
@@ -2069,7 +2205,8 @@ def arena_pad(arena: torch.Tensor, spec: OpSpec,
 
 def arena_concat(arena: torch.Tensor, spec: OpSpec,
                  desc: Optional[torch.Tensor] = None) -> None:
-    """A standalone concat (int8 inputs rescaled) on the arena."""
+    """A standalone concat (int8 inputs rescaled) on the arena, over the
+    whole card (:func:`concat_tiling`, :func:`concat_order`)."""
     _expect(spec, "arena_concat")
     if len(spec.in_shape) > MAX_CAT:
         raise ValueError(f"concat of {len(spec.in_shape)} inputs exceeds "
@@ -2077,16 +2214,20 @@ def arena_concat(arena: torch.Tensor, spec: OpSpec,
     if not _on_card(arena, spec):
         concat_plain(arena, spec)
         return
-    _launch("arena_concat", arena, spec, None, desc)
+    _check_ew_arena(arena)
+    _launch("arena_concat", arena, spec, None, desc, chunk_grid(spec))
 
 
 def arena_mean(arena: torch.Tensor, spec: OpSpec,
                desc: Optional[torch.Tensor] = None) -> None:
+    """A mean over axes on the arena, one output a thread over the whole
+    card (:func:`mean_tiling`, :func:`mean_order`)."""
     _expect(spec, "arena_mean")
+    _mean_geometry(spec)
     if not _on_card(arena, spec):
         mean_plain(arena, spec)
         return
-    _launch("arena_mean", arena, spec, None, desc)
+    _launch("arena_mean", arena, spec, None, desc, chunk_grid(spec))
 
 
 def arena_fully_connected(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
@@ -2153,19 +2294,20 @@ def arena_stream_stage(arena: torch.Tensor, spec: OpSpec,
                        w: Optional[torch.Tensor] = None,
                        desc: Optional[torch.Tensor] = None) -> None:
     """A whole-block op of the streaming program (``w``: a fully connected
-    op's filter): an elementwise or fully connected op in place on the
-    arena over the whole card (the grid bodies of :func:`arena_elementwise`
-    and :func:`arena_fully_connected`), any other kind on its staged
-    window in one CTA."""
+    op's filter): an elementwise, concat, mean or fully connected op in
+    place on the arena over the whole card (the grid bodies of
+    :func:`arena_elementwise`, :func:`arena_concat`, :func:`arena_mean`
+    and :func:`arena_fully_connected`), softmax, pad or matmul on its
+    staged window in one CTA."""
     _expect(spec, "arena_stream_stage")
     if spec.kind == "fully_connected":
         _check_weight(spec, w)
     if not _on_card(arena, spec, w):
         stream_stage_plain(arena, spec, w)
         return
-    if runs_ew_grid(spec):
+    if runs_chunk_walk(spec):
         _check_ew_arena(arena)
-        grid = ew_grid(spec)
+        grid = chunk_grid(spec)
     elif runs_fc_grid(spec):
         grid = fc_grid(spec)
     else:

@@ -37,22 +37,25 @@
 // streaming program's rolling conv, depthwise and pool
 // (arena_stream_roll.cu) run row tiles whose stores wait for the reads of
 // every tile of their row and the rows before (conv_tiles.cuh);
-// elementwise (arena_elementwise.cu, and the staged elementwise bodies of
-// arena_stream_stage.cu) and fully connected (arena_fully_connected.cu,
-// and the staged FC body of arena_stream_stage.cu) read every input their
-// output could clobber before one grid-wide barrier (grid_barrier below;
-// ew_tiles.cuh, fc_tiles.cuh). Every other op runs in ONE CTA. Row ops
-// here (conv2d, depthwise and pool as fused stages) walk output rows in
-// order; threads split the columns and channels of one row, stage the
-// row's results in a row buffer, and store only after a __syncthreads();
-// a second barrier orders the store before the next row's reads. In the
-// row-blocked program the legaliser re-derives every diagonal distance in
-// whole arena rows, so the padding a row store zeroes is dead. Whole-block
-// ops read all of their input before any output element is written: mean
-// and softmax stage their input; elementwise, matmul, pad and concat
-// compute their whole output into a staging buffer, synchronise, then
-// write the block out (read-all-before-write-all). Staging buffers hold
-// the decoded tensor; the block encoding happens on the way out.
+// elementwise, concat and mean (arena_elementwise.cu, arena_concat.cu,
+// arena_mean.cu, and those staged bodies of arena_stream_stage.cu) and
+// fully connected (arena_fully_connected.cu, and the staged FC body of
+// arena_stream_stage.cu) read every input their output could clobber
+// before one grid-wide barrier (grid_barrier below; ew_tiles.cuh,
+// fc_tiles.cuh), or, where the byte ranges prove it needless, never wait.
+// Softmax, pad and matmul (and their staged bodies) and the fused chains
+// run in ONE CTA. Row ops there (conv2d, depthwise and pool as fused
+// stages) walk output rows in order; threads split the columns and
+// channels of one row, stage the row's results in a row buffer, and store
+// only after a __syncthreads(); a second barrier orders the store before
+// the next row's reads. In the row-blocked program the legaliser
+// re-derives every diagonal distance in whole arena rows, so the padding
+// a row store zeroes is dead. Whole-block routines read all of their
+// input before any output element is written: softmax stages its input;
+// elementwise, matmul, pad and concat (a chain's stages) compute their
+// whole output into a staging buffer, synchronise, then write the block
+// out (read-all-before-write-all). Staging buffers hold the decoded
+// tensor; the block encoding happens on the way out.
 //
 // Buffers (row buffer, staging buffer, a fused chain's scratch, a
 // streaming window) live in dynamic shared memory when they fit a CTA and
@@ -198,19 +201,6 @@ __device__ __forceinline__ int8_t quant_f(float v, float scale, int zp) {
 
 __device__ __forceinline__ float dequant(int8_t q, float scale, int zp) {
   return __fmul_rn(__fsub_rn((float)q, (float)zp), scale);
-}
-
-// Decode an n-element operand into the staging buffer (whole-block ops
-// that stage their input).
-__device__ __forceinline__ void stage_in(uint8_t* stage, const uint8_t* src,
-                                         const Addr& a, int n, bool q) {
-  if (q) {
-    for (int e = threadIdx.x; e < n; e += NT)
-      stage[e] = src[elem_at(a, e)];
-  } else {
-    for (int e = threadIdx.x; e < n; e += NT)
-      ((uint32_t*)stage)[e] = ((const uint32_t*)src)[elem_at(a, e)];
-  }
 }
 
 // Copy a staged whole-block result to its output, 4-byte words where both
@@ -446,9 +436,10 @@ __device__ void row_op(const int* d, uint8_t* arena, uint8_t* scratch,
           (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF], w, rowbuf);
 }
 
-// concat along the descriptor's axis: every input is read (and, int8,
-// rescaled to the output's params as ops.rescale_q does) into `stage` in
-// output order, then the whole output is written.
+// concat along the descriptor's axis, a fused chain's terminal stage (a
+// standalone or staged concat runs ew_tiles.cuh's grid): every input is
+// read (and, int8, rescaled to the output's params as ops.rescale_q does)
+// into `stage` in output order, then the whole output is written.
 __device__ void concat_op(const int* d, uint8_t* arena, uint8_t* scratch,
                           uint8_t* stage) {
   const bool q = d[D_QUANT] != 0;
@@ -494,8 +485,10 @@ __device__ __forceinline__ float ew_apply(int fn, float a, float b) {
   }
 }
 
-// relu, relu6, sigmoid, identity, add, mul, sub. The second operand of a
-// binary op is broadcast (numpy rules) when its element count differs.
+// relu, relu6, sigmoid, identity, add, mul, sub, a fused chain's stage
+// (a standalone or staged elementwise op runs ew_tiles.cuh's grid). The
+// second operand of a binary op is broadcast (numpy rules) when its
+// element count differs.
 // int8: each operand dequantised at its own params, the f32 result
 // quantised at the output's (IEEE division by the scale).
 __device__ void elementwise_op(const int* d, uint8_t* arena,
@@ -572,49 +565,6 @@ __device__ void matmul_op(const int* d, uint8_t* base, uint8_t* stage) {
   }
   __syncthreads();  // both operands read before any output byte is written
   store_block(base + d[D_OUT_OFF], load_addr(d, 0), stage, m * n, q);
-}
-
-// Mean over the axes of D_RMASK. int8: int32 sum, (f32 sum / count) -
-// x_zp, then the shared requantisation; f32: sum / count. The whole input
-// is staged before any output is written.
-__device__ void mean_op(const int* d, uint8_t* base, uint8_t* stage) {
-  const bool q = d[D_QUANT] != 0;
-  int dims[4], stride[4], total = 1;
-  for (int i = 3; i >= 0; --i) {
-    dims[i] = d[D_DIM0 + i];
-    stride[i] = total;
-    total *= dims[i];
-  }
-  stage_in(stage, base + d[D_IN_OFF], load_addr(d, 1), total, q);
-  __syncthreads();  // the whole input is read before any output is written
-  const int rmask = d[D_RMASK], cnt = d[D_CNT], outn = d[D_OUTN];
-  write_block(base + d[D_OUT_OFF], load_addr(d, 0), outn, q,
-              [&](int o) -> uint32_t {
-    int idx0 = 0, rem = o;
-    for (int i = 3; i >= 0; --i) {  // coordinates of the kept axes
-      if (rmask & (1 << i)) continue;
-      idx0 += (rem % dims[i]) * stride[i];
-      rem /= dims[i];
-    }
-    int iacc = 0;
-    float facc = 0.0f;
-    for (int r = 0; r < cnt; ++r) {  // walk the reduced axes
-      int idx = idx0, rr = r;
-      for (int i = 3; i >= 0; --i) {
-        if (!(rmask & (1 << i))) continue;
-        idx += (rr % dims[i]) * stride[i];
-        rr /= dims[i];
-      }
-      if (q) iacc += ((const int8_t*)stage)[idx];
-      else facc += ((const float*)stage)[idx];
-    }
-    if (q) {
-      const float v = __fsub_rn(__fdiv_rn(__int2float_rn(iacc), (float)cnt),
-                                (float)d[D_X_ZP]);
-      return (uint8_t)requant_f(v, fword(d, D_AMULT), d[D_Y_ZP]);
-    }
-    return __float_as_uint(__fdiv_rn(facc, (float)cnt));
-  });
 }
 
 // Block-wide max or sum; every thread gets the result.
@@ -706,15 +656,13 @@ __device__ void pad_op(const int* d, uint8_t* base, uint8_t* stage) {
   store_block(base + d[D_OUT_OFF], load_addr(d, 0), stage, n, q);
 }
 
-// A whole-block kind of descriptor d over `base` (every kind but fully
-// connected, whose body is fc_tiles.cuh's grid); ends with a barrier.
+// A staged whole-block kind of descriptor d over `base`: softmax, pad or
+// matmul (the other kinds run ew_tiles.cuh's or fc_tiles.cuh's grid
+// bodies); ends with a barrier.
 __device__ void block_op(const int* d, uint8_t* base, uint8_t* stage) {
   switch (d[D_KIND]) {
-    case K_CONCAT: concat_op(d, base, nullptr, stage); break;
-    case K_ELEMENTWISE: elementwise_op(d, base, nullptr, stage); break;
     case K_MATMUL: matmul_op(d, base, stage); break;
     case K_PAD: pad_op(d, base, stage); break;
-    case K_MEAN: mean_op(d, base, stage); break;
     default: softmax_op(d, base, stage); break;  // K_SOFTMAX
   }
   __syncthreads();
@@ -838,8 +786,8 @@ struct GridLaunch {
 };
 
 // The entry point of a kernel over the whole card (conv_tiles.cuh's row
-// tiles, ew_tiles.cuh's elementwise chunks, fc_tiles.cuh's column blocks
-// and K slices): zeroes `counter_bytes` of
+// tiles, ew_tiles.cuh's elementwise, concat and mean chunks, fc_tiles.cuh's
+// column blocks and K slices): zeroes `counter_bytes` of
 // counters at the workspace's start on the stream, then launches `kernel`
 // over as many CTAs of THREADS threads as the card holds at once, at most
 // `grid` (a one-CTA launch, `grid` 1 and `group` 0, skips the count).

@@ -215,7 +215,7 @@ def check_ew_spec(spec: K.OpSpec) -> int:
             assert (run == run[:, :1] + np.arange(t.vec)).all()
             assert ((at[0] + run[:, 0] * isz) % 16 == 0).all()
     bp = K.buffer_plan(spec)
-    grid, group, ctr = K.ew_grid(spec)
+    grid, group, ctr = K.chunk_grid(spec)
     assert grid == t.chunks <= (K.EW_RESIDENT if order == K.EW_OVERLAP
                                 else K.EW_GRID)
     if order == K.EW_OVERLAP:

@@ -594,14 +594,14 @@ def test_buffer_plan_rows_and_whole_blocks():
     n = 56 * 56 * 256
     assert (w[K.D_ORDER], *w[K.D_TILING:K.D_TILING + 4]) == \
         (K.EW_ALIGNED, 4, n // 4, -(-n // 4 // K.EW_GRID), K.EW_GRID)
-    assert K.ew_grid(add) == (K.EW_GRID, 0, 0)
+    assert K.chunk_grid(add) == (K.EW_GRID, 0, 0)
     diag = dataclasses.replace(add, in_off=(1024, 4 * n + 1024))
     t = K.ew_tiling(diag)
     assert K.ew_order(diag) == K.EW_OVERLAP and t.chunks == K.EW_RESIDENT
     assert K.buffer_plan(diag) == K.BufferPlan(
         _round16(t.per * 16), K.EW_COUNTER_BYTES,
         (("ctr", True, 0), ("chunk", False, 0)))
-    assert K.ew_grid(diag) == (t.chunks, t.chunks, K.EW_COUNTER_BYTES)
+    assert K.chunk_grid(diag) == (t.chunks, t.chunks, K.EW_COUNTER_BYTES)
     big = dataclasses.replace(diag, in_shape=((224, 224, 256),) * 2,
                               out_shape=(224, 224, 256),
                               in_off=(1024, 16 * n + 1024))

@@ -361,7 +361,7 @@ def test_elementwise_refuses_a_grid_the_card_cannot_hold(card):
     nothing, on no smaller grid."""
     from repro_torch.kernels import build
     spec = _ew_spec(4, "relu", ((56, 56, 256),), (0,), 1000)
-    _, _, ctr = K.ew_grid(spec)
+    _, _, ctr = K.chunk_grid(spec)
     arena = torch.randn(56 * 56 * 256 + 1024, device=card).view(torch.uint8)
     before = arena.clone()
     too_many = 1 << 20
@@ -508,6 +508,144 @@ def test_fc_refuses_a_grid_the_card_cannot_hold(card):
         build.check(err, "arena_fully_connected")
     torch.cuda.synchronize()
     assert torch.equal(arena, before)
+
+
+def _chunk_exact(spec) -> bool:
+    """Is the chunk walk bit-equal to the plain version: a concat copies
+    (int8: the shared rescale) and an int8 mean sums exact int32s; an f32
+    mean sums in one fixed order, the plain version in torch's (within
+    1e-4)."""
+    return spec.kind == "concat" or spec.dtype == "i8"
+
+
+def _concat_overlap(bits):
+    """A hand-built flat concat of four inputs whose output starts inside
+    the first (order word 2), wide enough for many chunks; offsets in
+    elements."""
+    isz = 1 if bits == 1 else 4
+    shapes = ((56, 56, 64), (56, 56, 32), (56, 56, 32), (56, 56, 16))
+    offs, cur = [], 0
+    for sh in shapes:
+        offs.append(cur)
+        cur += 56 * 56 * sh[-1]
+    q = (tuple((zp, m) for zp, m in ((1, 0.5), (-2, 1.0), (0, 1.7),
+                                     (5, 0.9))), (-1,))
+    spec = K.OpSpec(kind="concat", in_off=tuple(o * isz for o in offs),
+                    in_shape=shapes, out_off=1000 * isz,
+                    out_shape=(56, 56, 144), dtype="i8" if bits == 1
+                    else "f32", meta=(-1,), qmeta=q if bits == 1 else ())
+    return spec, (cur + 56 * 56 * 144 + 1000) * isz
+
+
+def _mean_over_others(bits):
+    """A hand-built flat mean of a (7, 7, 2048) head whose output starts
+    five elements into its input (output o over input element 5 + o, of
+    another channel's reduction: order word 2)."""
+    isz = 1 if bits == 1 else 4
+    spec = K.OpSpec(kind="mean", in_off=(0,), in_shape=((7, 7, 2048),),
+                    out_off=5 * isz, out_shape=(2048,),
+                    dtype="i8" if bits == 1 else "f32", meta=((0, 1),),
+                    qmeta=(-3, 1.7, 2) if bits == 1 else ())
+    return spec, (7 * 7 * 2048 + 64) * isz
+
+
+def _mean_axes_apart(bits):
+    """A hand-built flat mean over two axes that are not adjacent (0 and
+    2 of (8, 7, 64)): its reduction steps the odometer, not a constant
+    stride; the output apart from the input (order word 0)."""
+    isz = 1 if bits == 1 else 4
+    spec = K.OpSpec(kind="mean", in_off=(0,), in_shape=((8, 7, 64),),
+                    out_off=8 * 7 * 64 * isz, out_shape=(7,),
+                    dtype="i8" if bits == 1 else "f32", meta=((0, 2),),
+                    qmeta=(-3, 1.7, 2) if bits == 1 else ())
+    return spec, (8 * 7 * 64 + 64) * isz
+
+
+@pytest.mark.parametrize("bits", [4, 1])
+def test_concat_and_mean_grids_do_not_race_on_the_card(card, bits):
+    """The concat and mean chunk walks, 50 launches each, every launch
+    bit-equal to the first and the first bit-equal to the plain version
+    (f32 mean: within 1e-4, another summation order): every concat of the
+    flat and the blocked densenet121(224) (order word 0) and its flat mean;
+    resnet50_v2(224)'s and the flagship's flat means, written over their
+    own inputs (order word 1), and their blocked ones (order word 0); a
+    hand-built concat and a hand-built mean whose outputs lie over other
+    elements' inputs (order word 2, every chunk staged before one
+    grid-wide barrier); a hand-built mean over two axes that are not
+    adjacent (the odometer's path)."""
+    walk = lambda s: s.kind in ("concat", "mean")  # noqa: E731
+    dn = compile(zoo.densenet121(224, bits), backend="numpy")
+    for kw in ({}, {"layout": "blocks"}):
+        specs = CudaExecutor(device=card, **kw).program(dn)[0]
+        assert {K.chunk_of(s)[1] for s in specs if s.kind == "concat"} == {
+            K.EW_DISJOINT}
+        assert _walk_holding(card, dn, walk, _chunk_exact, **kw) == 59
+    is_mean = lambda s: s.kind == "mean"  # noqa: E731
+    for graph in (zoo.resnet50_v2(224, bits),
+                  zoo.mobilenet_v1(0.25, 128, bits)):
+        cp = compile(graph, backend="numpy")
+        for kw, order in (({}, K.EW_ALIGNED),
+                          ({"layout": "blocks"}, K.EW_DISJOINT)):
+            specs = CudaExecutor(device=card, **kw).program(cp)[0]
+            assert [K.mean_order(s) for s in specs if is_mean(s)] == [order]
+            assert _walk_holding(card, cp, is_mean, _chunk_exact, **kw) == 1
+    for make in (_concat_overlap, _mean_over_others, _mean_axes_apart):
+        spec, nbytes = make(bits)
+        t, order = K.chunk_of(spec)
+        assert (order, t.chunks > 1) == ((K.EW_DISJOINT, False)
+                                         if make is _mean_axes_apart
+                                         else (K.EW_OVERLAP, True))
+        arena = _seeded_arena(card, _round_up(nbytes, 16), bits, 9)
+        _hold_exact_50(spec, None, None, arena, _chunk_exact(spec))
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@pytest.mark.parametrize("kernel", ["arena_concat", "arena_mean"])
+def test_concat_and_mean_refuse_a_grid_the_card_cannot_hold(card, kernel):
+    """An order-2 concat or mean launch whose chunks the card cannot hold
+    at once is refused by the entry point (the wrapper's check raises) and
+    runs nothing, on no smaller grid."""
+    from repro_torch.kernels import build
+    spec, nbytes = (_concat_overlap if kernel == "arena_concat"
+                    else _mean_over_others)(4)
+    assert K.chunk_of(spec)[1] == K.EW_OVERLAP
+    _, _, ctr = K.chunk_grid(spec)
+    arena = _seeded_arena(card, _round_up(nbytes, 16), 4, 10)
+    before = arena.clone()
+    too_many = 1 << 20
+    err = build.entry(kernel)(
+        arena.data_ptr(), K.descriptor(spec, card).data_ptr(), None,
+        K.workspace(spec, card).data_ptr(), K.buffer_plan(spec).smem,
+        too_many, too_many, ctr, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match=kernel):
+        build.check(err, kernel)
+    torch.cuda.synchronize()
+    assert torch.equal(arena, before)
+
+
+@pytest.mark.parametrize("bits", [4, 1])
+def test_staged_concat_and_mean_run_in_place_on_the_card(card, bits):
+    """densenet121(224)'s streaming program: its 58 staged concats and its
+    staged mean run in place on the arena (no window, no copy), each held
+    50 times against the plain streaming version; the final streaming
+    arena equals the blocked one, element for element."""
+    cp = compile(zoo.densenet121(224, bits), backend="numpy")
+
+    def staged(spec):
+        if K.stream_form(spec) != "stage" or spec.kind not in ("concat",
+                                                               "mean"):
+            return False
+        assert K.runs_in_place(spec)
+        assert "win" not in {n for n, _, _ in K.buffer_plan(spec).parts}
+        return True
+    assert _walk_holding(card, cp, staged, _chunk_exact,
+                         mode="streaming") == 59
+    st = CudaExecutor(device=card, mode="streaming")
+    blk = CudaExecutor(device=card, layout="blocks")
+    assert torch.equal(_final_arena(st, cp), _final_arena(blk, cp))
 
 
 def _final_arena(ex, cp):

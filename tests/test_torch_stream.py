@@ -219,7 +219,8 @@ def _run_both(spec: K.OpSpec, arena: np.ndarray, weights, kernel: str,
         assert words[K.S_NCOPY] == 0 and \
             (body[K.D_IN_OFF], body[K.D_OUT_OFF]) == \
             (spec.in_off[0] * rowb, spec.out_off * rowb)
-        assert body[K.D_ORDER] == (K.ew_order(spec) if K.runs_ew_grid(spec)
+        assert body[K.D_ORDER] == (K.chunk_of(spec)[1]
+                                   if K.runs_chunk_walk(spec)
                                    else K.fc_order(spec))
     elif K.stream_form(spec) != "roll":   # one copy in per input block
         n = int(words[K.S_NCOPY])
