@@ -88,7 +88,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (``kernels.ops.rmsnorm_residual``, ``kernels.ops.flash_attention``,
    ``kernels.wkv_chunk.wkv_chunk_kernel``): each kernel against its plain
    version and its oracle (``kernels/ref.py``; the sequential recurrence
-   for WKV) at the reference's test shapes, then once each at full width
+   for WKV) at the reference's test shapes (attention also at D = 96 and
+   a ragged D = 40, a decode step over 4096 keys and q x 8), then once
+   each at full width
    with the launch counts reset just before (RMSNorm at 4096 tokens x
    2048, the qwen2.5-3b width, f32 and bf16, its result x's own storage
    and the call's rise in peak memory under x's bytes; causal attention at
@@ -225,12 +227,18 @@ KERNEL_PATH = {
 }
 #: the standalone kernels' checks: RMSNorm (n, d) and WKV (s, h, d, q) at
 #: the reference's test shapes (tests/test_kernels.py; WKV at batch 2),
-#: flash attention (s, t, h, d, causal) at them, its non-causal case and a
-#: causal call with T < S
+#: flash attention (s, t, h, d, causal, q scale) at them, its non-causal
+#: case, a causal call with T < S, a padded reduction depth (D = 96) at a
+#: length no multiple of the tiles, a decode step over 4096 keys, T < S
+#: with a ragged D = 40, and q x 8 (scores of tens: the running max moves
+#: and the rescaling carries the result)
 RMS_CASES = [(64, 32), (256, 64), (128, 200), (8, 8)]
-FLASH_CASES = [(128, 128, 4, 64, True), (256, 256, 2, 32, True),
-               (64, 256, 3, 16, True), (32, 32, 1, 128, True),
-               (64, 128, 2, 32, False), (64, 32, 2, 32, True)]
+FLASH_CASES = [(128, 128, 4, 64, True, 1.0), (256, 256, 2, 32, True, 1.0),
+               (64, 256, 3, 16, True, 1.0), (32, 32, 1, 128, True, 1.0),
+               (64, 128, 2, 32, False, 1.0), (64, 32, 2, 32, True, 1.0),
+               (1000, 1000, 4, 96, True, 1.0),
+               (1, 4096, 8, 128, False, 1.0),
+               (300, 200, 2, 40, True, 1.0), (512, 512, 4, 128, True, 8.0)]
 WKV_CASES = [(128, 2, 64, 32), (256, 4, 64, 64), (192, 1, 64, 64)]
 #: full width, 4096 tokens: qwen2.5-3b (configs/qwen2_5_3b.py: d_model
 #: 2048, 16 heads of 128) and rwkv6-1.6b (configs/rwkv6_1_6b.py: d_model
@@ -242,6 +250,12 @@ WKV_FULL = (1, 4096, 32, 64, 64)
 STANDALONE_TOL = {"rmsnorm_inplace": 2e-5, "flash_attention": 2e-4,
                   "wkv_chunk": 3e-4}
 BF16_TOL = 5e-2
+#: flash attention's bf16 limit, (atol, rtol): its outputs are mostly
+#: hundredths at long walks, where 5e-2 would pass a dropped key tile. The
+#: kernel's own rounding (P to bf16 before P V, out to bf16) stays well
+#: inside this, and skipped, masked or unrescaled key tiles fall far
+#: outside it (scripts/torch_flash_faults.py)
+FLASH_BF16_TOL = (4e-3, 2e-2)
 
 
 class SmokeError(RuntimeError):
@@ -1117,18 +1131,20 @@ def refused(fn, label: str) -> str:
     raise SmokeError(f"{label}: expected a ValueError")
 
 
-def close_err(torch, got, want, tol: float, label: str) -> float:
+def close_err(torch, got, want, tol, label: str) -> float:
     """Max |got - want|; raises unless every value is finite and within
-    ``tol + tol * |want|`` (the reference's assert_allclose, rtol = atol
-    = tol)."""
+    ``atol + rtol * |want|`` (the reference's assert_allclose), where
+    ``tol`` is ``(atol, rtol)`` or one number for both."""
+    atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
     g, w = got.float(), want.float()
     check(g.shape == w.shape, f"{label}: shape {tuple(g.shape)} against "
           f"{tuple(w.shape)}")
     check(bool(torch.isfinite(g).all()), f"{label}: non-finite values")
     diff = (g - w).abs()
     err = diff.max().item()
-    check(bool((diff <= tol + tol * w.abs()).all()),
-          f"{label}: max |err| {err:g} outside {tol:g}")
+    check(bool((diff <= atol + rtol * w.abs()).all()),
+          f"{label}: max |err| {err:g} outside atol {atol:g}, rtol "
+          f"{rtol:g}")
     return err
 
 
@@ -1163,7 +1179,9 @@ def standalone_phase(torch, F):
         return torch.from_numpy(a).cuda().to(dtype)
 
     def tol(name, dt):
-        return BF16_TOL if dt == "bf16" else STANDALONE_TOL[name]
+        if dt == "f32":
+            return STANDALONE_TOL[name]
+        return FLASH_BF16_TOL if name == "flash_attention" else BF16_TOL
 
     def wkv_inputs(b, s, h, d):
         r, k, v, z = (normal(b, s, h, d) for _ in range(4))
@@ -1190,15 +1208,16 @@ def standalone_phase(torch, F):
                  TR.rmsnorm_plain(x.clone(), g, r),
                  TREF.rmsnorm_scale_residual(x, g, r),
                  f"rmsnorm ({n}, {d}) {dt}")
-    for s, t, h, d, causal in FLASH_CASES:
+    for s, t, h, d, causal, scale in FLASH_CASES:
         for dt, ty in types.items():
-            q, k, v = normal(s, h, d, dtype=ty), normal(t, h, d, dtype=ty), \
-                normal(t, h, d, dtype=ty)
+            q = (normal(s, h, d) * scale).to(ty)
+            k, v = normal(t, h, d, dtype=ty), normal(t, h, d, dtype=ty)
             hold("flash_attention", dt,
                  TF.flash_attention_kernel(q, k, v, causal),
                  TF.flash_plain(q, k, v, causal, 64, 64),
                  TREF.attention(q, k, v, causal),
-                 f"flash ({s}, {t}, {h}, {d}, causal={causal}) {dt}")
+                 f"flash ({s}, {t}, {h}, {d}, causal={causal}, q x "
+                 f"{scale:g}) {dt}")
     for s, h, d, qc in WKV_CASES:
         r, k, v, logw, w, u = wkv_inputs(2, s, h, d)
         y, st = TW.wkv_chunk_kernel(r, k, v, logw, u, q=qc)

@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Time the port's standalone kernels (``flash_attention`` f32 and bf16,
+with ``rmsnorm_inplace`` and ``wkv_chunk`` as neighbours) and SDPA on the
+card for one source tree, to compare two commits inside one call.
+
+Usage, on a machine with an NVIDIA card, from the root of a checkout::
+
+    python3 scripts/torch_ab_standalone.py <root of the tree to time> \\
+        [--against <root of the other tree>]
+
+It builds that tree's kernels (into its own ``build/repro_torch/``), makes
+the full-width inputs of ``chip_smoke.py``'s standalone phase from a seed
+(flash attention causal S = T = 4096, 16 heads of 128, f32 and bf16;
+RMSNorm x 4096 x 2048, f32 and bf16; WKV B 1, S 4096, 32 heads of 64,
+q 64) and prints one JSON line: the card's name and power limit, the
+device ms of one call of each kernel through its wrapper (CUDA events
+around 20 calls after a warm-up, ``chip_smoke.time_ms``), and of
+``F.scaled_dot_product_attention`` on the same inputs in (1, H, S, D)
+copies made outside the timed call (``library``).
+
+Each kernel's output of one call on the seeded inputs is saved under
+``<root>/build/ab_standalone/``. With ``--against``, each output is held
+against the other tree's saved output of the same name: under ``diff``
+the largest absolute difference (a kernel whose summation order changed
+differs from the other tree's in its last bits; one that did not change
+gives 0.0).
+
+Run it on the two trees in turns (parent, change, change, parent) within
+one call: times from two calls may come from two cards.
+"""
+import argparse
+import importlib.util
+import json
+import pathlib
+import subprocess
+import sys
+
+REPS = 20
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("root")
+    ap.add_argument("--against", default=None)
+    args = ap.parse_args()
+    root = pathlib.Path(args.root).resolve()
+    sys.path.insert(0, str(root / "src"))
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        print("no CUDA device is visible", file=sys.stderr)
+        return 2
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import inplace_rmsnorm as TR
+    from repro_torch.kernels import wkv_chunk as TW
+    build.load()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    rng = np.random.default_rng(22)
+
+    def normal(*shape, dtype=torch.float32):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(a).cuda().to(dtype)
+
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    fs, ft, fh, fd = 4096, 4096, 16, 128
+    n, d = 4096, 2048
+    wb, ws, wh, wd, wq = 1, 4096, 32, 64, 64
+    calls, library = {}, {}
+    for dt, ty in types.items():
+        q, k, v = (normal(m, fh, fd, dtype=ty) for m in (fs, ft, ft))
+        fl = (lambda q=q, k=k, v=v: TF.flash_attention_kernel(q, k, v, True))
+        calls[f"flash_attention {dt}"] = (fl, fl)
+        qh, kh, vh = (a.permute(1, 0, 2)[None].contiguous()
+                      for a in (q, k, v))
+        library[f"sdpa {dt}"] = (
+            lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True))
+        x, g, r = normal(n, d, dtype=ty), normal(d, dtype=ty), \
+            normal(n, d, dtype=ty)
+        gf, xa = g.float(), x.clone()
+        # in place: timed over one copy of x (g cast once, as chip_smoke.py
+        # times it), the output from a fresh copy
+        calls[f"rmsnorm_inplace {dt}"] = (
+            lambda xa=xa, gf=gf, r=r: TR.rmsnorm_scale_residual_inplace(
+                xa, gf, r),
+            lambda x=x, gf=gf, r=r: TR.rmsnorm_scale_residual_inplace(
+                x.clone(), gf, r))
+    rr, kk, vv, z = (normal(wb, ws, wh, wd) for _ in range(4))
+    logw = -torch.exp(z * 0.5)
+    u = normal(wh, wd) * 0.1
+    wkv = (lambda: TW.wkv_chunk_kernel(rr, kk, vv, logw, u, q=wq))
+    calls["wkv_chunk f32"] = (wkv, wkv)
+    torch.cuda.synchronize()
+
+    saved = root / "build" / "ab_standalone"
+    saved.mkdir(parents=True, exist_ok=True)
+    other = (pathlib.Path(args.against).resolve() / "build" / "ab_standalone"
+             if args.against else None)
+    out = {"root": str(root), "card": smi, "ms": {}, "library": {},
+           "diff": {}}
+    for name, (timed, once) in calls.items():
+        got = once()
+        torch.cuda.synchronize()
+        got = torch.cat([a.float().reshape(-1) for a in got]) \
+            if isinstance(got, tuple) else got.float().reshape(-1)
+        path = saved / (name.replace(" ", "_") + ".pt")
+        torch.save(got.cpu(), path)
+        theirs = other / path.name if other is not None else None
+        if theirs is not None and theirs.exists():
+            ref = torch.load(theirs).to(got.device)
+            out["diff"][name] = float((got - ref).abs().max().item())
+        out["ms"][name] = cs.time_ms(torch, timed, REPS)
+    for name, fn in library.items():
+        out["library"][name] = cs.time_ms(torch, fn, REPS)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

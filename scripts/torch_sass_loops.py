@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Compile arena kernel sources of one tree with ``nvcc -cubin -Xptxas -v``
-and summarise their SASS (``cuobjdump -sass``): registers, stack and
-spills per kernel, and every innermost loop (a backward branch and the
-instructions it jumps back over) with its memory operations in order and
-its arithmetic counts. It answers questions such as whether a row loop's
-loads move past its stores.
+"""Compile kernel sources of one tree with ``nvcc -cubin -Xptxas -v`` and
+summarise their SASS (``cuobjdump -sass``): registers, stack and spills
+per kernel, every innermost loop (a backward branch and the instructions
+it jumps back over) with its memory operations in order and its
+arithmetic counts, and per kernel the tensor-core products (``HMMA``) and
+matrix loads (``LDSM``) it holds, by full opcode. It answers questions
+such as whether a row loop's loads move past its stores, or whether a
+kernel runs on the tensor cores.
 
 Usage, on a machine with the CUDA toolkit (nvcc and cuobjdump on PATH or
 under /usr/local/cuda/bin), from the root of a checkout::
@@ -26,7 +28,11 @@ import sys
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-cubin", "-Xptxas", "-v"]
 MEM = re.compile(r"^(LDG|STG|LDS|STS|LD|ST|LDL|STL|ATOMG|RED|LDGSTS)\b")
-ARITH = ("FFMA", "FMUL", "FADD", "IMAD", "IADD3", "FMNMX", "IMNMX", "VIMNMX")
+#: opcodes counted over a whole kernel, by their full name (the tensor-core
+#: products and the shared-memory matrix loads that feed them)
+WHOLE = ("HMMA", "LDSM")
+ARITH = ("FFMA", "FMUL", "FADD", "IMAD", "IADD3", "FMNMX", "IMNMX",
+         "VIMNMX") + WHOLE
 
 
 def _tool(name: str) -> str:
@@ -86,6 +92,17 @@ def _loops(body):
     return out
 
 
+def _whole(body) -> dict:
+    """Counts of the :data:`WHOLE` opcodes over a kernel, by full opcode
+    (``HMMA.16816.F32.BF16``: bf16 in, f32 accumulate)."""
+    counts = {}
+    for _, ins in body:
+        op = _opcode(ins)
+        if op.startswith(WHOLE):
+            counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
 def main() -> int:
     root, out = pathlib.Path(sys.argv[1]), pathlib.Path(sys.argv[2])
     out.mkdir(parents=True, exist_ok=True)
@@ -113,7 +130,8 @@ def main() -> int:
         print(json.dumps({
             "source": name, "registers": ptxas,
             "stack_spill_stores_loads": spills,
-            "kernels": {fn: _loops(body) for fn, body in _functions(sass)}}),
+            "kernels": {fn: _loops(body) for fn, body in _functions(sass)},
+            "whole": {fn: _whole(body) for fn, body in _functions(sass)}}),
             flush=True)
     return 0
 

@@ -1,10 +1,16 @@
 """Blockwise online-softmax (flash) attention.
 
-The kernel, ``csrc/flash_attention.cu``, gives each (query tile of 64
-rows, head) one CTA, walks 64-key K/V tiles through shared memory and
-keeps the running ``(m, l, acc)`` online softmax in registers, so the
-score matrix never reaches device memory. Everything is float32 inside
-(FMA loops; no TF32), cast to q's type at the end.
+The kernel, ``csrc/flash_attention.cu``, gives each (query tile, head) one
+CTA and walks 64-key K/V tiles through shared memory in two ``cp.async``
+stages, keeping the running ``(m, l, acc)`` online softmax in registers,
+so the score matrix never reaches device memory. bfloat16 runs on the
+tensor cores (``mma.sync`` m16n8k16, bf16 products accumulated in
+float32; 128-row query tiles of 8 warps, Q held in registers, P passed
+from the score fragments to the P·V product in registers); float32 runs on
+the FMA units (no TF32; 128-row query tiles of 256 threads, each an 8 x 4
+score tile and an 8 x 8 output tile fed by float4 shared-memory loads).
+Every softmax statistic is float32; the result is cast to q's type at
+the end. q, k and v must start on 16-byte boundaries on the card.
 
 The counterpart of the reference's
 ``src/repro/kernels/flash_attention.py::flash_attention_kernel``, in its
@@ -24,6 +30,14 @@ LAUNCHES = 0
 
 _TYPES = (torch.float32, torch.bfloat16)
 
+#: The kernel's own tiles on the card (``csrc/flash_attention.cu``), one
+#: size for both types: query rows of a CTA, and keys of a K/V tile.
+TILE_Q = 128
+TILE_K = 64
+#: Bytes every q, k, v (and out) must start on: the kernel copies rows in
+#: 16-byte ``cp.async`` units.
+ALIGN = 16
+
 
 def reset_launches() -> None:
     global LAUNCHES
@@ -36,6 +50,43 @@ def _divisor_block(block: int, n: int) -> int:
     while n % b:
         b -= 1
     return b
+
+
+def tile_walk(s: int, t: int, h: int, causal: bool) -> list:
+    """The kernel's CTAs in launch order, a plain-Python mirror of
+    ``csrc/flash_attention.cu``'s grid: ``(head, q0, q1, tiles)`` for
+    query rows ``[q0, q1)`` of one head and key tiles ``0 .. tiles - 1``
+    of :data:`TILE_K` keys each (the last one masked past T). The grid is
+    (heads, query tiles) with the heads the fastest dimension and the
+    query tiles reversed, so the heaviest tiles launch first. The keys end
+    at the last one the tile's last row sees when every row sees one
+    (causal with T >= S), where a skipped key would add exactly zero;
+    else all T are walked (a row that sees no key averages them all)."""
+    bq = TILE_Q
+    nq = -(-s // bq)
+    walk = []
+    for y in range(nq):
+        q0 = (nq - 1 - y) * bq
+        q1 = min(q0 + bq, s)
+        kend = t if not causal or t < s else min(q1 + (t - s), t)
+        tiles = -(-kend // TILE_K)
+        walk.extend((head, q0, q1, tiles) for head in range(h))
+    return walk
+
+
+def check_card_inputs(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> None:
+    """What the kernel needs beyond the shapes and types: contiguous q, k,
+    v, each starting on a 16-byte boundary (:data:`ALIGN`). Raises
+    ``ValueError``; a misaligned view is refused, not copied and not
+    routed to the plain version."""
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k, v must be contiguous")
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        if a.data_ptr() % ALIGN:
+            raise ValueError(f"flash_attention: {name} must start on a "
+                             f"{ALIGN}-byte boundary, got data_ptr "
+                             f"{a.data_ptr():#x}")
 
 
 def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,8 +130,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     bfloat16 (one type for all three); D a multiple of 8 from 16 to 128.
     On the CPU this is :func:`flash_plain`, which walks ``block_q`` x
     ``block_k`` blocks as the reference does; the kernel on the card uses
-    its own 64 x 64 tiles whatever the blocks (the last key tile masked
-    past T), with the same mask and the same online softmax."""
+    its own tiles whatever the blocks (:func:`tile_walk`; the last key tile
+    masked past T), with the same mask and the same online softmax, and
+    needs contiguous q, k, v on 16-byte boundaries
+    (:func:`check_card_inputs`)."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q (S, H, D), k and v (T, H, D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -105,8 +158,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         return flash_plain(q, k, v, causal, block_q, block_k)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
+    check_card_inputs(q, k, v)
     from repro_torch.kernels import build
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream

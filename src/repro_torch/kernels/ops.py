@@ -98,10 +98,12 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
                     block_k: int = 128, device=None) -> torch.Tensor:
     """Blockwise online-softmax attention. q: (S, H, D); k, v: (T, H, D)
     with q's H (grouped-query expansion stays with the caller); float32 or
-    bfloat16, computed in float32; returns (S, H, D) in q's type on
-    ``device`` (None: the card, raising without one; ``"cpu"``: the plain
-    version, which walks ``block_q`` x ``block_k`` blocks as the reference
-    does)."""
+    bfloat16, the softmax in float32 (bfloat16's products on the card's
+    tensor cores, accumulated in float32); returns (S, H, D) in q's type
+    on ``device`` (None: the card, raising without one; ``"cpu"``: the
+    plain version, which walks ``block_q`` x ``block_k`` blocks as the
+    reference does). On the card q, k and v start on 16-byte boundaries
+    (a misaligned view raises ``ValueError``)."""
     dev = resolve_device(device)
     return flash_attention_kernel(_on(q, dev), _on(k, dev), _on(v, dev),
                                   causal=causal, block_q=block_q,

@@ -39,7 +39,14 @@ FLASH_CASES = [
     (64, 256, 3, 16, True, 64, 64), (32, 32, 1, 128, True, 64, 64),
     (64, 128, 2, 32, False, 32, 32), (64, 32, 2, 32, True, 64, 64),
     (128, 128, 4, 64, True, 32, 128), (64, 256, 3, 16, True, 128, 32),
+] + [
+    # the kernel's padded reduction depths (D = 96 and a ragged D = 40) and
+    # a length that is no multiple of its tiles; f32 and bf16 below
+    (1000, 1000, 2, 96, True, 128, 128), (300, 200, 2, 40, True, 64, 64),
+    (120, 250, 3, 40, False, 64, 64),
 ]
+#: the cases of FLASH_CASES the bfloat16 test runs too
+FLASH_BF16_CASES = FLASH_CASES[-3:]
 #: (s, h, d, q) of test_wkv_chunk_kernel_matches_sequential, batch 2
 WKV_CASES = [(128, 2, 64, 32), (256, 4, 64, 64), (192, 1, 64, 64)]
 TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -139,6 +146,129 @@ def test_flash_bf16_plain_matches_pallas():
                              block_q=64, block_k=64, device="cpu")
     assert got.dtype == torch.bfloat16
     _close(_np(got), want, 5e-2)
+
+
+@pytest.mark.parametrize("s,t,h,d,causal,bq,bk", FLASH_BF16_CASES)
+def test_flash_bf16_plain_matches_pallas_and_oracle(s, t, h, d, causal, bq,
+                                                    bk):
+    q, k, v = _normal(s + t + h + d, (s, h, d), (t, h, d), (t, h, d))
+    want = RO.flash_attention(*(jnp.asarray(a).astype(jnp.bfloat16)
+                                for a in (q, k, v)), causal=causal,
+                              block_q=bq, block_k=bk, interpret=True)
+    tq, tk, tv = (torch.tensor(a).bfloat16() for a in (q, k, v))
+    got = TO.flash_attention(tq, tk, tv, causal=causal, block_q=bq,
+                             block_k=bk, device="cpu")
+    assert got.shape == (s, h, d) and got.dtype == torch.bfloat16
+    _close(_np(got), want, 5e-2)
+    _close(_np(got), _np(TREF.attention(tq, tk, tv, causal=causal)), 5e-2)
+
+
+#: (s, t, causal): square, T > S, T < S (rows that see no key), lengths
+#: that are no multiple of either tile, a single query row, the full
+#: width, a query tile and one key more than its keys, a chunk of queries
+#: at the end of a long prompt, one key
+WALK_CASES = [(256, 256, True), (128, 320, True), (300, 200, True),
+              (1000, 1000, True), (1, 4096, False), (70, 129, False),
+              (65, 65, True), (200, 70, True), (1, 1, True),
+              (4096, 4096, True), (1000, 1000, False), (128, 64, True),
+              (127, 128, True), (257, 257, True), (2, 4097, True),
+              (129, 4096, True), (64, 4096, True), (4096, 1, False)]
+
+
+def _visible(s, t, causal):
+    """(row, key) -> takes part: causal sees kpos <= qpos + T - S, and a
+    row that sees no key averages them all."""
+    rows = np.arange(s)[:, None]
+    keys = np.arange(t)[None, :]
+    if not causal:
+        return np.ones((s, t), bool)
+    vis = keys <= rows + (t - s)
+    vis[~vis.any(axis=1)] = True
+    return vis
+
+
+@pytest.mark.parametrize("s,t,causal", WALK_CASES)
+def test_flash_tile_walk_covers_every_visible_pair(s, t, causal):
+    """The kernel's CTAs, through their plain-Python mirror (one walk for
+    both types): every query row of every head in exactly one CTA, every
+    visible (row, key) pair in a walked key tile, no visible pair in a
+    skipped one, launch order never rising in work (key tiles), and with
+    T < S every tile walked. The kernel's own walk is held by the card
+    tests (tests/test_torch_cuda.py, f32 within 2e-4 of the plain
+    version)."""
+    h = 3
+    walk = TF.tile_walk(s, t, h, causal)
+    bq, bk = TF.TILE_Q, TF.TILE_K
+    assert len(walk) == h * -(-s // bq)
+    seen = np.zeros((h, s), int)
+    vis = _visible(s, t, causal)
+    ntiles = -(-t // bk)
+    for head, q0, q1, tiles in walk:
+        assert q0 % bq == 0 and q1 == min(q0 + bq, s)
+        assert 1 <= tiles <= ntiles
+        seen[head, q0:q1] += 1
+        walked = np.zeros(t, bool)
+        walked[:tiles * bk] = True
+        rows = vis[q0:q1]
+        assert not (rows & ~walked).any(), (q0, q1, tiles)
+        # no skipped tile holds a visible pair of these rows
+        assert not rows[:, tiles * bk:].any()
+        if causal and t < s:
+            assert tiles == ntiles
+    assert (seen == 1).all()
+    work = [tiles for _, _, _, tiles in walk]
+    assert all(a >= b for a, b in zip(work, work[1:]))
+    # heads are the fastest grid dimension: a query tile's heads in a row
+    assert [w[0] for w in walk[:h]] == list(range(h))
+
+
+def test_flash_tile_walk_mirrors_the_kernel_tiles():
+    """The mirror's tiles are the kernel source's constants: bf16 warps of
+    16 query rows, the f32 query tile, the key tile."""
+    import re
+    src = (build.CSRC / "flash_attention.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert TF.TILE_Q == 16 * const("WARPS16") == const("BQ32")
+    assert TF.TILE_K == const("BK")
+
+
+def test_flash_tile_walk_skips_what_the_causal_mask_hides():
+    """Causal S = T: the query tile of rows [q0, q1) walks key tiles up to
+    q1 - 1 only, so the walk does about half the square's work."""
+    s = t = 4096
+    walk = TF.tile_walk(s, t, 1, True)
+    for _, q0, q1, tiles in walk:
+        assert tiles == -(-q1 // TF.TILE_K)
+    total = sum(w[3] for w in walk) * TF.TILE_Q * TF.TILE_K
+    assert total / (s * t) < 0.52
+    assert TF.tile_walk(s, t, 1, False)[0][3] == t // 64
+
+
+def test_flash_card_inputs_must_be_aligned():
+    """The kernel copies 16 bytes at a time: a contiguous view that does
+    not start on a 16-byte boundary is refused with ValueError, as is a
+    strided one; aligned contiguous tensors pass."""
+    for ty in (torch.float32, torch.bfloat16):
+        buf = torch.zeros(64 * 2 * 16 + 16, dtype=ty)
+        n = 64 * 2 * 16
+        good = buf[:n].view(64, 2, 16)
+        assert good.data_ptr() % 16 == 0
+        TF.check_card_inputs(good, good, good)
+        for off in (1, 2, 4):
+            bad = buf[off:off + n].view(64, 2, 16)
+            if bad.data_ptr() % 16 == 0:
+                continue
+            for args, name in (((bad, good, good), "q"),
+                               ((good, bad, good), "k"),
+                               ((good, good, bad), "v")):
+                with pytest.raises(ValueError, match=f"{name} must start "
+                                   "on a 16-byte"):
+                    TF.check_card_inputs(*args)
+        strided = torch.zeros(64, 2, 32, dtype=ty)[..., :16]
+        with pytest.raises(ValueError, match="contiguous"):
+            TF.check_card_inputs(strided, good, good)
 
 
 def test_flash_matches_model_sdpa_blockwise():
