@@ -89,13 +89,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``kernels.wkv_chunk.wkv_chunk_kernel``): each kernel against its plain
    version and its oracle (``kernels/ref.py``; the sequential recurrence
    for WKV) at the reference's test shapes (attention also at D = 96 and
-   a ragged D = 40, a decode step over 4096 keys and q x 8), then once
+   a ragged D = 40, a decode step over 4096 keys and q x 8; WKV also at a
+   ragged D = 40 with q = 24, a single chunk and strong decays, its
+   outputs finite, and no stack frame or spills in any of its three
+   kernels in the ``-Xptxas -v`` report), then once
    each at full width
    with the launch counts reset just before (RMSNorm at 4096 tokens x
    2048, the qwen2.5-3b width, f32 and bf16, its result x's own storage
    and the call's rise in peak memory under x's bytes; causal attention at
    S = T = 4096, 16 heads of 128, f32 and bf16; WKV at B = 1, S = 4096, 32
-   heads of 64, the rwkv6-1.6b width), against its plain version, timed
+   heads of 64, the rwkv6-1.6b width, three launches a call), against its
+   plain version, timed
    with CUDA events beside its plain version, its bound and one PyTorch
    call (``F.rms_norm`` then ``torch.add``;
    ``F.scaled_dot_product_attention``; none for WKV);
@@ -226,7 +230,11 @@ KERNEL_PATH = {
     "arena_pad": "allops", "arena_fused_chain": "mobilenet_v1_0.25_128_8bit",
 }
 #: the standalone kernels' checks: RMSNorm (n, d) and WKV (s, h, d, q) at
-#: the reference's test shapes (tests/test_kernels.py; WKV at batch 2),
+#: the reference's test shapes (tests/test_kernels.py; WKV at batch 2; WKV
+#: also with a ragged D and q, a single chunk, D = 7 (no multiple of 4:
+#: 4-byte copies and scalar stores), strong decays (logw = -exp(z / 2 +
+#: 3), chunk log-decays far past -88.7), and inputs one float into their
+#: storage (not 16-byte aligned: the 4-byte copies at D = 64)),
 #: flash attention (s, t, h, d, causal, q scale) at them, its non-causal
 #: case, a causal call with T < S, a padded reduction depth (D = 96) at a
 #: length no multiple of the tiles, a decode step over 4096 keys, T < S
@@ -239,7 +247,10 @@ FLASH_CASES = [(128, 128, 4, 64, True, 1.0), (256, 256, 2, 32, True, 1.0),
                (1000, 1000, 4, 96, True, 1.0),
                (1, 4096, 8, 128, False, 1.0),
                (300, 200, 2, 40, True, 1.0), (512, 512, 4, 128, True, 8.0)]
-WKV_CASES = [(128, 2, 64, 32), (256, 4, 64, 64), (192, 1, 64, 64)]
+WKV_CASES = [(128, 2, 64, 32), (256, 4, 64, 64), (192, 1, 64, 64),
+             (192, 1, 40, 24), (64, 3, 64, 64), (35, 1, 7, 5)]
+WKV_STRONG = [(256, 4, 64, 64)]
+WKV_UNALIGNED = [(256, 4, 64, 64)]
 #: full width, 4096 tokens: qwen2.5-3b (configs/qwen2_5_3b.py: d_model
 #: 2048, 16 heads of 128) and rwkv6-1.6b (configs/rwkv6_1_6b.py: d_model
 #: 2048, WKV heads of 64, so 32)
@@ -645,15 +656,27 @@ def attention_cost(s: int, t: int, h: int, d: int, causal: bool,
 
 def wkv_cost(b: int, s: int, h: int, d: int, q: int):
     """(bytes, operations, rate) of the chunked WKV, f32: r, k, v, logw and
-    u read once, y and the final state written once. Per chunk, each exp
-    counted as one operation: 5·D per pair j < t of att (difference, exp,
-    two products, sum) and 3·D on its diagonal; 2·D per pair j <= t of
-    att @ v; per step 2·D·D for the carried state's product, 2·D for
-    r·exp(lwp), 3·D for k's decay and 2·D·D for the state update, plus
-    2·D·D for the state's decay."""
+    u read once, y and the final state written once. Operations per chunk,
+    each exp counted as one, with the chunk cut into sub-chunks of 16
+    steps (the last one ragged), as the kernel computes att: 5·D per pair
+    j < t inside one sub-chunk (difference, exp, two products, sum) and
+    3·D on the diagonal; 2·D per pair below the sub-chunks (r~ k~^T), with
+    the factors r~ (3·D a step, 2·D in the first sub-chunk), k~ (3·D per
+    row before each later sub-chunk) and E (D exps per later sub-chunk,
+    D products per step of it); 2·D per pair j <= t of att @ v; per step
+    2·D·D for the carried state's product, 3·D for k's decay and 2·D·D
+    for the state update, plus 2·D·D for the state's decay."""
+    starts = range(0, q, 16)
+    lens = [min(16, q - s0) for s0 in starts]
+    pairs_in = sum(n * (n - 1) // 2 for n in lens)
     pairs_lt, pairs_le = q * (q - 1) // 2, q * (q + 1) // 2
-    per_chunk = (5 * d * pairs_lt + 3 * d * q + 2 * d * pairs_le
-                 + q * (4 * d * d + 5 * d) + 2 * d * d)
+    later = q - lens[0]                          # steps past sub-chunk 0
+    factors = (3 * d * later + 2 * d * lens[0]   # r~
+               + 3 * d * sum(starts)             # k~
+               + d * (len(lens) - 1) + d * later)  # E and r~ E
+    per_chunk = (5 * d * pairs_in + 3 * d * q + 2 * d * (pairs_lt - pairs_in)
+                 + factors + 2 * d * pairs_le
+                 + q * (4 * d * d + 3 * d) + 2 * d * d)
     nbytes = 4 * (5 * b * s * h * d + b * h * d * d + h * d)
     return nbytes, b * h * (s // q) * per_chunk, F32_OPS_S
 
@@ -1166,12 +1189,22 @@ def standalone_phase(torch, F):
     """Phase 10 of the module docstring: the three standalone kernels.
     Returns their rows of the ``kernels`` line and the ``standalone``
     section of ``build/chip_smoke.json``."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as TF
     from repro_torch.kernels import inplace_rmsnorm as TR
     from repro_torch.kernels import ops as TO
     from repro_torch.kernels import ref as TREF
     from repro_torch.kernels import wkv_chunk as TW
     rng = np.random.default_rng(15)
+
+    # the WKV phases' resources: no stack frame and no spills in any
+    wkv_res = build.ptxas_resources("wkv_chunk")
+    check(len(wkv_res) >= TW.KERNELS_PER_CALL,
+          f"wkv_chunk: {len(wkv_res)} entry functions in the ptxas report")
+    for fn, res in wkv_res.items():
+        check(res["stack"] == res["spill_stores"] == res["spill_loads"] == 0
+              and res["registers"] > 0, f"wkv_chunk {fn}: {res}")
+    log(f"[standalone] wkv_chunk ptxas: {json.dumps(wkv_res)}")
     types = {"f32": torch.float32, "bf16": torch.bfloat16}
 
     def normal(*shape, dtype=torch.float32):
@@ -1183,10 +1216,16 @@ def standalone_phase(torch, F):
             return STANDALONE_TOL[name]
         return FLASH_BF16_TOL if name == "flash_attention" else BF16_TOL
 
-    def wkv_inputs(b, s, h, d):
+    def wkv_inputs(b, s, h, d, shift=0.0):
         r, k, v, z = (normal(b, s, h, d) for _ in range(4))
-        w = torch.exp(-torch.exp(z * 0.5))
-        return r, k, v, torch.log(w), w, normal(h, d) * 0.1
+        logw = -torch.exp(z * 0.5 + shift)
+        return r, k, v, logw, torch.exp(logw), normal(h, d) * 0.1
+
+    def one_float_in(t):
+        # the same values in a view that starts one float into its storage
+        buf = torch.empty(t.numel() + 1, device=t.device)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view(t.shape)
 
     errs = {(n, dt): 0.0 for n in STANDALONE for dt in types}
     oracle = dict.fromkeys(STANDALONE, 0.0)
@@ -1218,12 +1257,20 @@ def standalone_phase(torch, F):
                  TREF.attention(q, k, v, causal),
                  f"flash ({s}, {t}, {h}, {d}, causal={causal}, q x "
                  f"{scale:g}) {dt}")
-    for s, h, d, qc in WKV_CASES:
-        r, k, v, logw, w, u = wkv_inputs(2, s, h, d)
+    for (s, h, d, qc), shift, skew in (
+            [(c, 0.0, False) for c in WKV_CASES]
+            + [(c, 3.0, False) for c in WKV_STRONG]
+            + [(c, 0.0, True) for c in WKV_UNALIGNED]):
+        r, k, v, logw, w, u = wkv_inputs(2, s, h, d, shift)
+        if skew:
+            r, k, v, logw = (one_float_in(t) for t in (r, k, v, logw))
+            check(r.data_ptr() % 16 != 0, "wkv: the skewed input is aligned")
         y, st = TW.wkv_chunk_kernel(r, k, v, logw, u, q=qc)
         y0, st0 = TW.wkv_plain(r, k, v, logw, u, qc)
         ys, sts = wkv_sequential(torch, r, k, v, w, u)
-        label = f"wkv (2, {s}, {h}, {d}, q={qc})"
+        label = (f"wkv (2, {s}, {h}, {d}, q={qc}"
+                 f"{', strong decay' if shift else ''}"
+                 f"{', one float into storage' if skew else ''})")
         hold("wkv_chunk", "f32", y, y0, ys, label + " y")
         hold("wkv_chunk", "f32", st, st0, sts, label + " state")
     torch.cuda.synchronize()
@@ -1268,7 +1315,7 @@ def standalone_phase(torch, F):
     launches = {"rmsnorm_inplace": TR.LAUNCHES,
                 "flash_attention": TF.LAUNCHES, "wkv_chunk": TW.LAUNCHES}
     check(launches == {"rmsnorm_inplace": 2, "flash_attention": 2,
-                       "wkv_chunk": 1},
+                       "wkv_chunk": TW.KERNELS_PER_CALL},
           f"standalone full width: launches {launches}")
     full_err = {}
     for dt in types:
@@ -1352,6 +1399,8 @@ def standalone_phase(torch, F):
         "full_width_errors": {f"{n} {dt}": e for (n, dt), e in
                               full_err.items()},
         "rmsnorm_peak_rise_bytes": rises,
+        "wkv_ptxas": wkv_res,
+        "wkv_workspace_bytes": 4 * TW.workspace_floats(wb, ws, wh, wd, wq),
         "times": {f"{n} {dt}": v for (n, dt), v in timing.items()},
         "shapes": {"rmsnorm": RMS_FULL, "flash_attention": FLASH_FULL,
                    "wkv_chunk": WKV_FULL}}

@@ -19,11 +19,11 @@ around 20 calls after a warm-up, ``chip_smoke.time_ms``), and of
 copies made outside the timed call (``library``).
 
 Each kernel's output of one call on the seeded inputs is saved under
-``<root>/build/ab_standalone/``. With ``--against``, each output is held
-against the other tree's saved output of the same name: under ``diff``
-the largest absolute difference (a kernel whose summation order changed
-differs from the other tree's in its last bits; one that did not change
-gives 0.0).
+``<root>/build/ab_standalone/`` (WKV's y and state apart). With
+``--against``, each output is held against the other tree's saved output
+of the same name: under ``diff`` the largest absolute difference (a kernel
+whose summation order changed differs from the other tree's in its last
+bits; one that did not change gives 0.0).
 
 Run it on the two trees in turns (parent, change, change, parent) within
 one call: times from two calls may come from two cards.
@@ -109,14 +109,16 @@ def main() -> int:
     for name, (timed, once) in calls.items():
         got = once()
         torch.cuda.synchronize()
-        got = torch.cat([a.float().reshape(-1) for a in got]) \
-            if isinstance(got, tuple) else got.float().reshape(-1)
-        path = saved / (name.replace(" ", "_") + ".pt")
-        torch.save(got.cpu(), path)
-        theirs = other / path.name if other is not None else None
-        if theirs is not None and theirs.exists():
-            ref = torch.load(theirs).to(got.device)
-            out["diff"][name] = float((got - ref).abs().max().item())
+        parts = ({f"{name} y": got[0], f"{name} state": got[1]}
+                 if isinstance(got, tuple) else {name: got})
+        for part, a in parts.items():
+            a = a.float().reshape(-1)
+            path = saved / (part.replace(" ", "_") + ".pt")
+            torch.save(a.cpu(), path)
+            theirs = other / path.name if other is not None else None
+            if theirs is not None and theirs.exists():
+                ref = torch.load(theirs).to(a.device)
+                out["diff"][part] = float((a - ref).abs().max().item())
         out["ms"][name] = cs.time_ms(torch, timed, REPS)
     for name, fn in library.items():
         out["library"][name] = cs.time_ms(torch, fn, REPS)

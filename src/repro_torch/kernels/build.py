@@ -17,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -66,8 +67,8 @@ ARGTYPES_OF = {
     "rmsnorm_inplace": [_P, _P, _P, _I, _I, _I, _F, _P],
     # (q, k, v, out, s, t, h, d, causal, bf16, stream)
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (r, k, v, logw, u, y, state, b, s, h, d, q, stream)
-    "wkv_chunk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (r, k, v, logw, u, y, state, workspace, b, s, h, d, q, stream)
+    "wkv_chunk": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -156,6 +157,24 @@ def ptxas_report() -> str:
                      if ln.strip()]
             parts.append(f"[{name}]\n" + "\n".join(lines))
     return "\n".join(parts)
+
+
+def ptxas_resources(name: str) -> Dict[str, Dict[str, int]]:
+    """Per entry function of ``csrc/<name>.cu`` in the last build, from
+    its ``-Xptxas -v`` report: registers, stack frame bytes and spill
+    store and load bytes."""
+    text = (build_dir() / f"{name}.ptxas.txt").read_text(errors="replace")
+    out = {}
+    for part in text.split("Compiling entry function '")[1:]:
+        fn = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", part)
+        out[fn] = {"registers": int(regs.group(1)) if regs else -1,
+                   **dict(zip(("stack", "spill_stores", "spill_loads"),
+                              (int(g) for g in frame.groups())
+                              if frame else (-1, -1, -1)))}
+    return out
 
 
 def check(err: int, name: str) -> None:

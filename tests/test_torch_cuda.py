@@ -794,17 +794,77 @@ def test_flash_attention_refuses_a_misaligned_view_on_the_card(card, dt):
     assert TF.LAUNCHES == 1
 
 
-@pytest.mark.parametrize("b,s,h,d,q", [
-    (2, 128, 2, 64, 32), (2, 256, 4, 64, 64), (2, 192, 1, 64, 64),
-    (1, 4096, 32, 64, 64)])
-def test_wkv_chunk_on_the_card(card, b, s, h, d, q):
+def _wkv_sequential(r, k, v, w, u):
+    """The recurrence one step at a time (the reference's _rwkv_step)."""
+    b, s, h, d = r.shape
+    st = torch.zeros((b, h, d, d), device=r.device)
+    ys = []
+    for i in range(s):
+        kv = k[:, i, :, :, None] * v[:, i, :, None, :]
+        ys.append(torch.einsum("bhd,bhde->bhe", r[:, i],
+                               st + u[:, :, None] * kv))
+        st = w[:, i, :, :, None] * st + kv
+    return torch.stack(ys, 1), st
+
+
+@pytest.mark.parametrize("b,s,h,d,q,shift", [
+    (2, 128, 2, 64, 32, 0.0), (2, 256, 4, 64, 64, 0.0),
+    (2, 192, 1, 64, 64, 0.0), (2, 192, 1, 40, 24, 0.0),
+    (2, 64, 3, 64, 64, 0.0), (2, 256, 4, 64, 64, 3.0),
+    (1, 4096, 32, 64, 64, 0.0), (2, 35, 1, 7, 5, 0.0)])
+def test_wkv_chunk_on_the_card(card, b, s, h, d, q, shift):
+    """Three launches against the plain version (made to raise during the
+    call: the card path never runs it) and, below full width, the
+    sequential recurrence; shift 3 is the strong-decay input, chunk
+    log-decays far past -88.7, and every output stays finite."""
     from repro_torch.kernels import wkv_chunk as TW
+    r, k, v, z = (_normal(card, s + i, b, s, h, d) for i in range(4))
+    logw = -torch.exp(z * 0.5 + shift)
+    u = _normal(card, s + 5, h, d) * 0.1
+    plain = TW.wkv_plain
+
+    def refuse(*a, **kw):
+        raise AssertionError("the card path reached a plain version")
+    TW.reset_launches()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TW, "wkv_plain", refuse)
+        mp.setattr(TW, "wkv_phases_plain", refuse)
+        y, st = TW.wkv_chunk_kernel(r, k, v, logw, u, q=q)
+    torch.cuda.synchronize()
+    assert y.is_cuda and TW.LAUNCHES == TW.KERNELS_PER_CALL == 3
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    y0, st0 = plain(r, k, v, logw, u, q)
+    _assert_close(y, y0, 3e-4)
+    _assert_close(st, st0, 3e-4)
+    if b * s * h <= 2048:
+        ys, sts = _wkv_sequential(r, k, v, torch.exp(logw), u)
+        _assert_close(y, ys, 3e-4)
+        _assert_close(st, sts, 3e-4)
+
+
+def test_wkv_chunk_unaligned_on_the_card(card):
+    """Inputs that start one float into their storage (not 16-byte
+    aligned) take the kernel's 4-byte copies and scalar stores at D = 64;
+    held against the plain version and the sequential recurrence."""
+    from repro_torch.kernels import wkv_chunk as TW
+    b, s, h, d, q = 2, 256, 4, 64, 64
+
+    def one_float_in(t):
+        buf = torch.empty(t.numel() + 1, device=t.device)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view(t.shape)
     r, k, v, z = (_normal(card, s + i, b, s, h, d) for i in range(4))
     logw = -torch.exp(z * 0.5)
     u = _normal(card, s + 5, h, d) * 0.1
+    r, k, v, logw = (one_float_in(t) for t in (r, k, v, logw))
+    assert r.data_ptr() % 16 != 0 and r.is_contiguous()
     TW.reset_launches()
     y, st = TW.wkv_chunk_kernel(r, k, v, logw, u, q=q)
-    assert y.is_cuda and TW.LAUNCHES == 1
+    torch.cuda.synchronize()
+    assert TW.LAUNCHES == TW.KERNELS_PER_CALL
     y0, st0 = TW.wkv_plain(r, k, v, logw, u, q)
     _assert_close(y, y0, 3e-4)
     _assert_close(st, st0, 3e-4)
+    ys, sts = _wkv_sequential(r, k, v, torch.exp(logw), u)
+    _assert_close(y, ys, 3e-4)
+    _assert_close(st, sts, 3e-4)
