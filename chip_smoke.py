@@ -11,17 +11,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    copies of the arena as the program reaches each spec, comparing the
    whole arena (int8 bit-exact except softmax and sigmoid <= 1 LSB, f32
    within 1e-4 + 1e-4 * |ref|):
-   every spec of the flagship (int8 and f32) and of
-   ``mobilenet_v1_1.0_224_8bit`` (its fused chain takes the global scratch
-   branch, the flagship's shared memory); every pool, elementwise, concat,
+   every spec of the flagship (int8, f32 and int8 at batch 2) and of
+   ``mobilenet_v1_1.0_224_8bit``; every pool, elementwise, concat,
    mean, matmul, pad and fully connected spec and every row op wider than
    8,192
    outputs of ``resnet_50_v2`` (f32 and int8), ``densenet_121`` and the
    reference's test graph ``allops`` (f32 and int8); a hand-built fused
-   chain with pool and elementwise stages (f32 and int8); a hand-built
+   chain with pool and elementwise stages (f32 and int8), and its variant
+   whose terminal concat reads the chain input it overwrites (the staged
+   last level); a hand-built chain whose conv footprint takes per-CTA
+   global slices; a hand-built
    conv whose output row exceeds a CTA's shared memory (cut into column
    tiles), and one whose input footprint exceeds the conv's shared memory
-   budget (staged in per-CTA slices of the global workspace);
+   budget (staged in per-CTA slices of the global workspace). For every
+   fused chain it prints the schedule (``[chain]`` lines: levels, stages
+   and tiles per level, the grid and its CTAs an SM, the workspace bytes
+   beside the one-CTA kernel's scratch bytes) and checks that each runs on
+   more than one CTA;
 4. runs the flagship slice: ``compile(mobilenet_v1(0.25, 128, 1),
    backend="cuda")`` (verified ``numeric+cuda``, winner ``fuse``, 49,805 B)
    and three requests through ``CompiledPlan.execute``, each matching the
@@ -63,7 +69,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``total_rows x arena_rowlen`` elements (73,728, 327,680, 1,835,008 and
    7,340,032 B for the flagship int8 and f32 and ``resnet_50_v2`` int8 and
    f32); and hand-built blocked fused chains with pool and elementwise
-   stages (packed and spanning rows, f32 and int8);
+   stages (packed and spanning rows, f32 and int8, with and without the
+   staged last level);
 8. runs the streaming program (``get_backend("cuda", mode="streaming")``)
    on the flagship (int8, f32, batch 2), ``resnet_50_v2`` (f32, int8),
    ``densenet_121``, ``mobilenet_v2_1.0_224`` and ``allops`` (f32, int8):
@@ -76,9 +83,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    tolerance of the numpy backend, the final device arena bit-equal to the
    blocked route's on the same inputs; prints each graph's largest
    resident window, whether the card stages it in shared or global memory
-   (a rolling op: its row tiles' footprints), and the bytes each streaming
-   form stages, in the TPU program and in the card's kernels (counts from
-   the specs);
+   (a rolling op: its row tiles' footprints; a fused chain and the staged
+   elementwise, concat, mean and FC bodies run in place), and the bytes
+   each streaming form stages, in the TPU program and in the card's
+   kernels (counts from the specs);
 9. runs the standalone DMO depthwise conv ``kernels.ops.dmo_dwconv2d`` on
    the card on the reference's ``DWCONV_CASES`` and two real layers
    ((64, 64, 8) of the flagship, (112, 112, 32) of
@@ -116,8 +124,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    int8, the ``dmo_dwconv2d`` cases and both programs' execute walls;
    the streaming kernels per forward (rolling and staged on
    ``resnet_50_v2`` f32, fused on the flagship), their plain versions and
-   the streaming ``execute()`` walls beside the blocked ones;
-12. writes every number to ``build/chip_smoke.json`` and prints the
+   the streaming ``execute()`` walls beside the blocked ones; and the fused
+   chains alone per forward (``arena_fused_chain`` and
+   ``arena_stream_fused``, each beside its plain version and its bound) on
+   the flagship int8, f32 and batch 2 on all three programs,
+   ``mobilenet_v1_1.0_224_8bit`` flat and ``mobilenet_v2_1.0_224`` blocked
+   and streaming;
+12. writes every number to ``build/chip_smoke.json`` (the chains'
+    schedules and times under ``chains``) and prints the
     ``kernels`` JSON line (a ``[blocks]`` line per kernel for the
     row-blocked program, the three streaming kernels, a ``dmo_dwconv2d``
     line and the three standalone kernels), the card line, and as its
@@ -129,6 +143,7 @@ root of a checkout of the repository.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -347,17 +362,19 @@ def stream_allops_graph(dtype_bytes: int = 4, graph_cls=None):
     return g
 
 
-def fused_demo_spec(dtype: str, h: int, w: int, c: int, rowlen: int = 0):
+def fused_demo_spec(dtype: str, h: int, w: int, c: int, rowlen: int = 0,
+                    arena_cat: bool = False):
     """A fused chain with every stage kind the fused kernel runs, built by
     hand (the zoo's chains are conv, depthwise and concat only): conv2d
     3x3 (arena -> scratch s0), max pool 3x3/1 (s0 -> s1), add of s1 and the
     chain input (-> s2), avg pool 3x3/1 (s2 -> s1), relu6 in place on s1,
-    then concat [s1, s0] written to the arena over the chain input; the
-    filter is (3, 3, c, c). ``rowlen == 0`` builds the flat program and
-    returns (spec, the arena bytes it needs); ``rowlen > 0`` the row-blocked
-    one over ``rowlen``-element rows, each tensor packed, plain or spanning
-    by its image row's width, and returns (spec, the arena rows it
-    needs)."""
+    then concat [s1, s0] written to the arena over the chain input
+    (``arena_cat``: concat [s1, the chain input], so the terminal stage
+    reads arena bytes it overwrites); the filter is (3, 3, c, c).
+    ``rowlen == 0`` builds the flat program and returns (spec, the arena
+    bytes it needs); ``rowlen > 0`` the row-blocked one over
+    ``rowlen``-element rows, each tensor packed, plain or spanning by its
+    image row's width, and returns (spec, the arena rows it needs)."""
     from repro_torch.kernels.arena_ops import OpSpec
     q = dtype == "i8"
     isz = 1 if q else 4
@@ -408,7 +425,8 @@ def fused_demo_spec(dtype: str, h: int, w: int, c: int, rowlen: int = 0):
            (3, 3, 1, 1, 1, 1, "avg"), pool_q),
         st("elementwise", (hw,), (s1,), (1,), s1, 1, hw,
            ("relu6",), (((0.04, -1),), (0.03, -100))),
-        st("concat", (hw, hw), (s1, s0), (1, 1), y_off, 0, hw2,
+        st("concat", (hw, hw), (s1, x_off) if arena_cat else (s1, s0),
+           (1, 0) if arena_cat else (1, 1), y_off, 0, hw2,
            (-1,), (((-100, float(np.float32(0.75))),
                     (5, float(np.float32(1.25)))), (2,))),
     )
@@ -418,8 +436,45 @@ def fused_demo_spec(dtype: str, h: int, w: int, c: int, rowlen: int = 0):
                    out_rows=addr(hw2)[0])
     spec = OpSpec(kind="fused", in_off=(x_off,), in_shape=(hw,),
                   out_off=y_off, out_shape=hw2, dtype=dtype,
-                  meta=("demo",), stages=stages, scratch_rows=3 * n, **blk)
+                  meta=("demo",) + (("arena_cat",) if arena_cat else ()),
+                  stages=stages, scratch_rows=3 * n, **blk)
     return spec, need
+
+
+def stream_chain_spec(spec):
+    """The streaming form of a hand-built row-blocked fused chain (as
+    ``CudaExecutor.lower_stream`` gives a planner's chain): every external
+    input and the terminal output get a slot of their own after the
+    chain's scratch rows, every stage operand addresses the scratch, and
+    the window is the whole scratch."""
+    from repro_torch.kernels.arena_ops import stream_form
+    cur, slots = spec.scratch_rows, []
+    for rows, _ in spec.in_rows:
+        slots.append(cur)
+        cur += rows
+    out_slot = cur
+    cur += spec.out_rows[0]
+
+    def slot_of(off, offs, rows, bases):
+        (base,) = [b + off - o for o, (r, _), b in zip(offs, rows, bases)
+                   if o <= off < o + r]
+        return base
+
+    stages = []
+    for st in spec.stages:
+        ins = tuple(off if f else slot_of(off, spec.in_off, spec.in_rows,
+                                          slots)
+                    for off, f in zip(st.in_off, st.in_scratch))
+        out = st.out_off if st.out_scratch else \
+            out_slot + st.out_off - spec.out_off
+        stages.append(dataclasses.replace(
+            st, in_off=ins, in_scratch=(1,) * len(ins), out_off=out,
+            out_scratch=1))
+    stream = dataclasses.replace(
+        spec, stages=tuple(stages), scratch_rows=cur, win_rows=cur,
+        in_slots=tuple(slots), out_slot=out_slot)
+    assert stream_form(stream) == "fused"
+    return stream
 
 
 def _round16(x: int) -> int:
@@ -452,6 +507,26 @@ def deep_footprint_spec():
                   out_off=0, out_shape=(3, 3, oc), dtype="f32",
                   meta=(3, 3, 1, 1, 1, 1, 1, 1, 1))
     return spec, 128 + 3 * 3 * ic * 4
+
+
+def deep_chain_spec():
+    """A hand-built flat f32 fused chain whose conv2d stage's footprint
+    exceeds the conv's shared memory budget (``deep_footprint_spec``'s 3x3
+    conv over 6,000 input channels, into scratch), so the chain stages each
+    footprint in its CTA's slice of the global workspace; then a concat of
+    the conv's output into the arena after the input. Returns (spec, arena
+    bytes)."""
+    from repro_torch.kernels.arena_ops import OpSpec
+    conv, nbytes = deep_footprint_spec()
+    stage = dataclasses.replace(conv, out_off=0, out_scratch=1,
+                                in_scratch=(0,))
+    cat = OpSpec(kind="concat", in_off=(0,), in_shape=((3, 3, 8),),
+                 out_off=nbytes, out_shape=(3, 3, 8), meta=(-1,),
+                 in_scratch=(1,))
+    spec = OpSpec(kind="fused", in_off=conv.in_off, in_shape=conv.in_shape,
+                  out_off=nbytes, out_shape=(3, 3, 8), meta=("deep",),
+                  stages=(stage, cat), scratch_rows=3 * 3 * 8 * 4)
+    return spec, nbytes + 3 * 3 * 8 * 4
 
 
 def graph_fault(graph):
@@ -607,10 +682,10 @@ def card_staging_bytes(K, spec) -> int:
     rolling op's row tiles stage their footprints, the columns and
     channels each tile reads through its window (the Python mirror,
     ``arena_ops.tile_reads``), and store straight into the arena; a staged
-    elementwise, concat, mean or fully connected op runs in place
-    (nothing); any other staged op or a chain copies what the TPU program
+    elementwise, concat, mean or fully connected op and a fused chain run
+    in place (nothing); any other staged op copies what the TPU program
     copies."""
-    if K.runs_in_place(spec):
+    if K.runs_in_place(spec) or spec.kind == "fused":
         return 0
     if K.stream_form(spec) != "roll":
         return tpu_staging_bytes(K, spec)
@@ -789,12 +864,47 @@ def library_call(torch, F, spec):
 # ---------------------------------------------------------------------------
 
 
+def chain_row(torch, K, spec, label: str):
+    """A fused spec's schedule on the card (``arena_ops.chain_schedule``,
+    counts from the spec): levels, stages and tiles or chunks per level,
+    the grid and the CTAs it puts on an SM, the workspace bytes beside the
+    arena (counters, regions and any global slices) and the scratch bytes
+    the one-CTA kernel it replaced held (its shared or global scratch, a
+    streaming chain's whole window). Logged and returned."""
+    s = K.chain_schedule(spec)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    unit = spec.rowlen * (1 if spec.dtype == "i8" else 4) or 1
+    row = {"label": label, "kernel": K.kernel_of(spec),
+           "stages": len(s.stages), "levels": len(s.levels),
+           "stages_per_level": [len(lv) for lv in s.levels],
+           "kinds": [sorted({s.stages[j].kind for j in lv})
+                     for lv in s.levels],
+           "tiles_per_level": [sum(s.items[j] for j in lv)
+                               for lv in s.levels],
+           "grid": s.grid, "ctas_per_sm": -(-s.grid // sms),
+           "barriers": s.n_barriers, "staged_terminal": s.staged,
+           "workspace_bytes": K.buffer_plan(spec).gbytes,
+           "regions_bytes": s.region_bytes,
+           "smem_bytes": K.buffer_plan(spec).smem,
+           "parent_scratch_bytes": max(spec.scratch_rows, spec.win_rows)
+           * unit}
+    log(f"[chain] {label}: {row['kernel']}, {row['stages']} stages in "
+        f"{row['levels']} levels {row['stages_per_level']} "
+        f"{row['kinds']}, tiles or chunks per level "
+        f"{row['tiles_per_level']}, grid {row['grid']} CTAs "
+        f"({row['ctas_per_sm']} an SM of {sms}), {row['barriers']} grid "
+        f"barriers, workspace {row['workspace_bytes']} B (regions "
+        f"{row['regions_bytes']} B) against the one-CTA kernel's scratch "
+        f"{row['parent_scratch_bytes']} B, {row['smem_bytes']} B shared")
+    return row
+
+
 def compare_program(torch, K, be, cp, label: str, errs, select=None,
                     weights=None, quant=None):
     """Kernel against plain version for every spec of a compiled plan that
     ``select`` picks (default: all), on copies of the arena as the program
     reaches it; the other specs advance the arena through their kernels.
-    Returns (specs, fused scratch branches, specs compared)."""
+    Returns (specs, the fused chains' ``chain_row``s, specs compared)."""
     specs, ws, descs, state = be.program(cp, None, weights, quant=quant)
     n = 0
     for spec, w, d in zip(specs, ws, descs):
@@ -812,11 +922,10 @@ def compare_program(torch, K, be, cp, label: str, errs, select=None,
         state = ref
         n += 1
     torch.cuda.synchronize()
-    branches = [("global" if K.buffer_plan(s).on_global("scratch")
-                 else "shared") for s in specs if s.kind == "fused"]
-    log(f"[kernels vs plain] {label}: {n} of {len(specs)} specs match "
-        f"(fused scratch: {', '.join(branches) or 'none'})")
-    return specs, branches, n
+    chains = [chain_row(torch, K, s, label) for s in specs
+              if s.kind == "fused"]
+    log(f"[kernels vs plain] {label}: {n} of {len(specs)} specs match")
+    return specs, chains, n
 
 
 def compare_spec(torch, K, spec, nbytes: int, weights, errs, label: str,
@@ -850,6 +959,8 @@ def compare_spec(torch, K, spec, nbytes: int, weights, errs, label: str,
     bp = K.buffer_plan(spec)
     log(f"[kernels vs plain] {label}: match (max err {err:g}; global "
         f"buffers: {[n for n, glob, _ in bp.parts if glob] or 'none'})")
+    if spec.kind == "fused":
+        return chain_row(torch, K, spec, label)
 
 
 def requests(torch, K, X, cp, label: str, n_launch, peak: int,
@@ -961,22 +1072,24 @@ def run_arena(K, ex, cp, inputs, weights, quant):
 
 def largest_window(K, ex, cp):
     """(bytes, op name, "shared", "global" or "in place", windows staged
-    in global memory, specs) of the streaming plan: its largest resident
-    window and where the card stages it (a staged op's window or a chain's
-    scratch; a rolling op's row tiles' footprints, each its part of the
-    window; a staged elementwise, concat, mean or fully connected op runs
-    in place and stages nothing)."""
+    in global memory, windows staged in shared memory, specs) of the
+    streaming plan: its largest resident window and where the card stages
+    it (a staged op's window; a rolling op's row tiles' footprints, each
+    its part of the window; a staged elementwise, concat, mean or fully
+    connected op and a fused chain run in place and stage nothing)."""
     bp = ex.legalised(cp.plan)
     sched = bp.window_schedule()
     specs = ex.program(cp)[0]
-    buf = {"roll": "tile", "stage": "win", "fused": "scratch"}
-    place = ["in place" if K.runs_in_place(spec) else "global" if
+    buf = {"roll": "tile", "stage": "win"}
+    place = ["in place" if K.runs_in_place(spec) or spec.kind == "fused"
+             else "global" if
              K.buffer_plan(spec).on_global(buf[K.stream_form(spec)])
              else "shared" for spec in specs]
     i = max(range(len(specs)),
             key=lambda j: sched.windows[j].resident_rows)
     return (sched.windows[i].resident_rows * sched.row_bytes,
-            sched.windows[i].op_name, place[i], place.count("global"), specs)
+            sched.windows[i].op_name, place[i], place.count("global"),
+            place.count("shared"), specs)
 
 
 def streamed_requests(torch, K, X, cp, label: str, n_launch=None):
@@ -1502,16 +1615,17 @@ def main() -> int:
     errs = {}
     flag = zoo.mobilenet_v1(0.25, 128, 1)
     cp8 = compile(flag, backend="numpy")
-    specs8, br8, _ = compare_program(torch, K, be, cp8, "flagship int8",
-                                     errs)
+    specs8, chains, _ = compare_program(torch, K, be, cp8, "flagship int8",
+                                        errs)
     cp32 = compile(zoo.mobilenet_v1(0.25, 128, 4), backend="numpy")
-    compare_program(torch, K, be, cp32, "flagship f32", errs)
+    chains += compare_program(torch, K, be, cp32, "flagship f32", errs)[1]
+    chains += compare_program(torch, K, be,
+                              compile(flag, backend="numpy", batch=2),
+                              "flagship batch 2", errs)[1]
     big = zoo.TABLE3_MODELS["mobilenet_v1_1.0_224_8bit"][0]()
     cpb = compile(big, backend="numpy")
-    _, brb, _ = compare_program(torch, K, be, cpb,
-                                "mobilenet_v1_1.0_224_8bit", errs)
-    check("shared" in br8 + brb and "global" in br8 + brb,
-          "both fused scratch branches must run")
+    chains += compare_program(torch, K, be, cpb, "mobilenet_v1_1.0_224_8bit",
+                              errs)[1]
 
     def new_kinds(spec) -> bool:
         return spec.kind in ("pool", "elementwise", "concat", "mean",
@@ -1530,12 +1644,25 @@ def main() -> int:
                                   select=new_kinds)
         check(n > 0, f"{label}: nothing compared")
     for dtype in ("f32", "i8"):
-        spec, nbytes = fused_demo_spec(dtype, 28, 28, 16)
         wt = torch.randint(-127, 128, (3, 3, 16, 16), dtype=torch.int8) \
             if dtype == "i8" else torch.randn(3, 3, 16, 16) * 0.2
-        compare_spec(torch, K, spec, nbytes, [wt.cuda()], errs,
-                     f"fused chain with pool and elementwise stages, "
-                     f"{dtype}")
+        for cat in (False, True):
+            spec, nbytes = fused_demo_spec(dtype, 28, 28, 16,
+                                           arena_cat=cat)
+            chains.append(compare_spec(
+                torch, K, spec, nbytes, [wt.cuda()], errs,
+                f"fused chain with pool and elementwise stages, {dtype}"
+                + (", its concat over the chain input it reads (staged "
+                   "terminal)" if cat else "")))
+    spec, nbytes = deep_chain_spec()
+    check(K.buffer_plan(spec).on_global("tile"), "chain footprint not global")
+    chains.append(compare_spec(
+        torch, K, spec, nbytes, [torch.randn(3, 3, 6_000, 8).cuda() * 0.02],
+        errs, "fused chain with a 216,000 B footprint (global slices)"))
+    check([r["staged_terminal"] for r in chains].count(True) == 2
+          and all(r["grid"] > 1 for r in chains),
+          "every chain runs on more than one CTA, and the staged terminal "
+          "runs")
     spec, nbytes = wide_row_spec(4_096, 16)
     check(not K.buffer_plan(spec).on_global("tile"),
           "a wide row's tiles must stage in shared memory")
@@ -1685,11 +1812,9 @@ def main() -> int:
             zoo.TABLE3_MODELS["mobilenet_v2_1.0_224"][0](), backend="cuda"),
         "allops": compiled["allops"], "allops int8": compiled["allops int8"],
     }
-    branches = []
     for label, c in blk_cps.items():
-        _, br, _ = compare_program(torch, K, blk, c, label + " blocks",
-                                   blk_errs)
-        branches += br
+        chains += compare_program(torch, K, blk, c, label + " blocks",
+                                  blk_errs)[1]
         counts, nbytes, t_b, t_f = blocked_requests(
             torch, K, X, c, label, BLOCK_BYTES.get(label))
         blk_paths[label] = counts
@@ -1699,16 +1824,18 @@ def main() -> int:
             "rowlen": bp.arena_rowlen, "arena_bytes": nbytes,
             "flat_bytes": c.peak_bytes, "launches": sum(counts.values()),
             "execute_s": t_b, "flat_execute_s": t_f}
-    check("shared" in branches and "global" in branches,
-          "both fused scratch branches must run in the blocked program")
     for dtype in ("f32", "i8"):
         wt = torch.randint(-127, 128, (3, 3, 16, 16), dtype=torch.int8) \
             if dtype == "i8" else torch.randn(3, 3, 16, 16) * 0.2
         for rowlen in (512, 1024):
-            spec, rows = fused_demo_spec(dtype, 28, 28, 16, rowlen)
-            compare_spec(torch, K, spec, rows, [wt.cuda()], blk_errs,
-                         f"blocked fused chain with pool and elementwise "
-                         f"stages, {dtype}, rows of {rowlen}")
+            for cat in (False, True):
+                spec, rows = fused_demo_spec(dtype, 28, 28, 16, rowlen,
+                                             arena_cat=cat)
+                chains.append(compare_spec(
+                    torch, K, spec, rows, [wt.cuda()], blk_errs,
+                    f"blocked fused chain with pool and elementwise "
+                    f"stages, {dtype}, rows of {rowlen}"
+                    + (", staged terminal" if cat else "")))
     for name, path in BLOCK_KERNEL_PATH.items():
         check(blk_paths[path][name] > 0,
               f"{name} never launched on {path} blocks")
@@ -1722,8 +1849,10 @@ def main() -> int:
         "resnet_50_v2 int8", "densenet_121", "mobilenet_v2_1.0_224",
         "allops", "allops int8")}
     for label, c in st_cps.items():
-        compare_program(torch, K, stm, c, label + " streaming", st_errs)
-        nbytes, op, where, n_global, specs = largest_window(K, stm, c)
+        chains += compare_program(torch, K, stm, c, label + " streaming",
+                                  st_errs)[1]
+        nbytes, op, where, n_global, n_shared, specs = largest_window(
+            K, stm, c)
         n = {"flagship": 29, "resnet_50_v2": RESNET_LAUNCHES,
              "densenet_121": DENSENET_LAUNCHES}.get(label)
         counts, t_s, t_b = streamed_requests(torch, K, X, c, label, n)
@@ -1744,6 +1873,7 @@ def main() -> int:
             "stage": forms.count("stage"), "fused": forms.count("fused"),
             "largest_window_bytes": nbytes, "largest_window_op": op,
             "largest_window_in": where, "windows_in_global": n_global,
+            "windows_in_shared": n_shared,
             "tpu_staging_bytes": staged, "card_staging_bytes": staged_card,
             "launches": sum(counts.values()), "execute_s": t_s,
             "blocked_execute_s": t_b}
@@ -1751,12 +1881,15 @@ def main() -> int:
             f"{forms.count('roll')}, staged {forms.count('stage')}, fused "
             f"{forms.count('fused')}), final arena bit-equal to blocked, "
             f"outputs within tolerance of numpy; largest resident window "
-            f"{nbytes} B ({op}) staged in {where} memory, "
-            f"{n_global} of {len(specs)} windows in global memory; "
+            f"{nbytes} B ({op}) "
+            + ("run in place, " if where == "in place"
+               else f"staged in {where} memory, ") +
+            f"{n_global} of {len(specs)} windows in global memory, "
+            f"{n_shared} in shared memory; "
             f"staging bytes by form (counts from the specs): TPU program "
             f"{staged}, card {staged_card} "
             f"(execute {t_s:.2f} s, blocked {t_b:.2f} s)")
-    check(st_rows["flagship f32"]["largest_window_in"] == "shared"
+    check(st_rows["flagship f32"]["windows_in_shared"] > 0
           and st_rows["resnet_50_v2"]["windows_in_global"] > 0,
           "the streaming windows must take both placements")
     for name, path in STREAM_KERNEL_PATH.items():
@@ -1903,6 +2036,26 @@ def main() -> int:
             torch, F, K, stm, blk_cps["densenet_121"], library=True,
             only={"arena_stream_stage"}, kinds={"concat"}),
     }
+    # the fused chains per forward on every program they run on
+    chain_cps = {"flagship": (cp, fw, fq), "flagship f32": (cp32, None, None),
+                 "flagship batch 2": (blk_cps["flagship batch 2"], None,
+                                      None),
+                 "mobilenet_v1_1.0_224_8bit": (cpb, None, None),
+                 "mobilenet_v2_1.0_224": (blk_cps["mobilenet_v2_1.0_224"],
+                                          None, None)}
+    chain_times = {}
+    for label, (c_, w_, q_) in chain_cps.items():
+        for program, ex_ in (("flat", ex), ("blocks", blk),
+                             ("streaming", stm)):
+            if label.startswith("mobilenet_v1_1.0") and program != "flat" \
+                    or label.startswith("mobilenet_v2") and program == "flat":
+                continue
+            r = kernel_times(torch, F, K, ex_, c_, w_, q_,
+                             only={"arena_fused_chain", "arena_stream_fused"})
+            chain_times[f"{label} {program}"] = {
+                name: {k: v for k, v in row.items() if k != "specs"}
+                for name, row in r.items()}
+    log("[time] fused chains per forward (ms): " + json.dumps(chain_times))
     blk_walls, st_walls = {}, {}
     for label, reps, args in (("resnet_50_v2", 3, (in0, w0, None)),
                               ("flagship", 20, (fin, fw, fq))):
@@ -2015,6 +2168,7 @@ def main() -> int:
          "dmo_dwconv2d": dmo, "standalone": standalone,
          "arena_conv": conv_rows, "arena_stream_roll": roll_rows,
          "arena_elementwise": ew_info, "pool_and_fc": head_info,
+         "chains": {"schedules": chains, "times": chain_times},
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

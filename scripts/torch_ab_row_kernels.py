@@ -26,11 +26,15 @@ streaming one, ``arena_concat`` and ``arena_mean`` on the flat and blocked
 ``densenet_121`` and ``arena_stream_stage`` (its 58 concats, mean, FC and
 softmax) on the streaming one (``torch.cat`` under ``library``), and on
 the flagship ``arena_conv``, ``arena_mean``, ``arena_fully_connected``
-and ``arena_fused_chain`` (flat and row-blocked), ``arena_stream_roll``
-and ``arena_stream_stage`` (its mean, fully connected and softmax); then
-under ``sha256`` a digest of each program's final device arena after one
-forward of ``resnet_50_v2`` f32 and int8, ``densenet_121`` and the
-flagship on seeded inputs, so two trees' outputs can be compared byte for
+and ``arena_fused_chain`` (flat and row-blocked), ``arena_stream_roll``,
+``arena_stream_stage`` (its mean, fully connected and softmax) and
+``arena_stream_fused``; then the fused chains alone (``arena_fused_chain``
+and ``arena_stream_fused``) on the flagship f32 and at batch 2 on all
+three programs, ``mobilenet_v1_1.0_224_8bit`` flat and
+``mobilenet_v2_1.0_224`` blocked and streaming; under ``sha256`` a digest
+of each program's final device arena after one forward of ``resnet_50_v2``
+f32 and int8, ``densenet_121``, the flagship and each of those chains'
+graphs on seeded inputs, so two trees' outputs can be compared byte for
 byte; and under ``workspace`` the device bytes beside the arena that each
 program's ``arena_elementwise``, ``arena_concat``, ``arena_mean``,
 ``arena_fully_connected`` and ``arena_stream_stage`` specs hold (the sum
@@ -154,11 +158,36 @@ def main() -> int:
         per = cs.kernel_times(torch, F, K, ex, flag, w, q, plain_too=False,
                               only={"arena_conv", "arena_fused_chain",
                                     "arena_mean", "arena_fully_connected",
-                                    "arena_stream_roll",
-                                    "arena_stream_stage"})
+                                    "arena_stream_roll", "arena_stream_stage",
+                                    "arena_stream_fused"})
         out[f"flagship {program}"] = {k: v["ms"] for k, v in per.items()}
         digest(f"flagship {program}", ex, flag,
                X.quant_inputs(flag.graph, q, 0), w, q, False)
+    # the fused chains alone on the other graphs that have one
+    table3 = zoo.TABLE3_MODELS
+    for label, graph, batch, programs in (
+            ("flagship f32", zoo.mobilenet_v1(0.25, 128, 4), 1,
+             ("flat", "blocks", "streaming")),
+            ("flagship batch 2", zoo.mobilenet_v1(0.25, 128, 1), 2,
+             ("flat", "blocks", "streaming")),
+            ("mobilenet_v1_1.0_224_8bit",
+             table3["mobilenet_v1_1.0_224_8bit"][0](), 1, ("flat",)),
+            ("mobilenet_v2_1.0_224", table3["mobilenet_v2_1.0_224"][0](), 1,
+             ("blocks", "streaming"))):
+        c = compile(graph, backend="numpy", batch=batch)
+        w = X.synth_weights(c.graph, 0)
+        q = X.calibrate(c.graph, 0, w) if X.needs_quant(c.graph) else None
+        inputs = (X.quant_inputs(c.graph, q, 0) if q is not None
+                  else X.random_inputs(c.graph, 0))
+        for program in programs:
+            ex = X.get_backend("cuda", **dict(
+                flat={"layout": "flat"}, blocks={"layout": "blocks"},
+                streaming={"mode": "streaming"})[program])
+            per = cs.kernel_times(torch, F, K, ex, c, w, q, plain_too=False,
+                                  only={"arena_fused_chain",
+                                        "arena_stream_fused"})
+            out[f"{label} {program}"] = {k: v["ms"] for k, v in per.items()}
+            digest(f"{label} {program}", ex, c, inputs, w, q, q is None)
     print(json.dumps(out), flush=True)
     return 0
 

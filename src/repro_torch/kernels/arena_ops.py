@@ -25,7 +25,8 @@ arena programs.
   the kernel runs an elementwise, concat, mean or fully connected op in
   place on the arena instead)
   and *fused* (a band chain whose inputs, internals and output all live in
-  its ``include_io`` scratch slots).
+  the reference's ``include_io`` scratch slots; the kernel reads the
+  inputs and writes the output in place on the arena).
 
 Every lowered op (an :class:`OpSpec`) runs in place:
 
@@ -63,11 +64,11 @@ launches the kernel (built from ``csrc/`` by :mod:`.build`) or raises. A
 CUDA arena never takes the plain route. Each launch adds one to
 :data:`LAUNCHES`.
 
-A kernel's row buffer, staging buffer, (fused chain) scratch and
-(streaming) window live in dynamic shared memory when they fit one CTA and
-otherwise in a global workspace allocated once per spec and cached
-(:func:`buffer_plan`, :func:`workspace`); the descriptor tells the kernel
-where each is. The standalone conv (:func:`arena_conv`), pool
+A kernel's staging buffer, tile footprint and (streaming) window live in
+dynamic shared memory when they fit one CTA and otherwise in a global
+workspace allocated once per spec and cached (:func:`buffer_plan`,
+:func:`workspace`); the descriptor tells the kernel where each is. The
+standalone conv (:func:`arena_conv`), pool
 (:func:`arena_pool`) and the rolling streaming op
 (:func:`arena_stream_roll`) run row tiles over the whole card
 (:func:`conv_tiling`), each tile's input footprint in its CTA's shared
@@ -84,8 +85,13 @@ connected ops (:func:`arena_fully_connected`, and the staged one of
 :func:`arena_stream_stage`, in place on the arena) cut W into column blocks
 and K slices over the whole card (:func:`fc_tiling`), sum the slices'
 partials in a fixed order, and put one grid-wide barrier before any store
-where the output meets x (:func:`fc_order`). Softmax, pad, matmul and the
-fused chains run one CTA per op.
+where the output meets x (:func:`fc_order`). The fused chains
+(:func:`arena_fused_chain`, :func:`arena_stream_fused`) give every
+chain-internal tensor a workspace region of its own and run the stages
+that do not depend on each other as one level of row tiles and chunks
+over the whole card, a grid-wide barrier between levels, the terminal
+stage last (:func:`chain_schedule`). Softmax, pad and matmul run one CTA
+per op.
 
 The plain versions walk output rows in Python with torch ops on typed views
 of the arena, in the reference's order (every read of row ``oy`` before its
@@ -104,6 +110,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import math
 import struct
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -154,6 +161,21 @@ class OpSpec:
     out_scratch: int = 0
     in_slots: Tuple[int, ...] = ()
     out_slot: int = 0
+
+    def __hash__(self) -> int:
+        """The fields' hash, computed once: the wrappers look a spec up in
+        several caches per launch, and a chain's nested stages make the
+        field tuple long. Equality stays the fields'."""
+        h = self.__dict__.get("_hash")
+        if h is None:
+            h = hash(tuple(getattr(self, f.name)
+                           for f in dataclasses.fields(self)))
+            object.__setattr__(self, "_hash", h)
+        return h
+
+    def __getstate__(self):
+        # a string's hash differs between processes: never pickle it
+        return {k: v for k, v in self.__dict__.items() if k != "_hash"}
 
 
 #: Op kinds that carry one weight operand.
@@ -269,9 +291,11 @@ D_TILING = 101
 #: Buffer placement words (flag: 1 = global workspace, then byte offset);
 #: a tile kernel's footprint, a chunk walk's staging and a fully
 #: connected op's partials take the "stage" words, a tile kernel's filter
-#: chunks and a fully connected CTA's warp sums the "row" words.
-BUFFER_WORD = {"stage": 120, "row": 122, "scratch": 124, "tile": 120,
-               "wts": 122, "chunk": 120, "part": 120, "red": 122}
+#: chunks and a fully connected CTA's warp sums the "row" words; a fused
+#: chain's header carries its footprint ("tile"), filter chunks ("wts")
+#: and staged terminal chunks ("term").
+BUFFER_WORD = {"stage": 120, "row": 122, "tile": 120, "wts": 122,
+               "chunk": 120, "part": 120, "red": 122, "term": 124}
 #: Operand addressing: slot 0 is the output, slot 1 + i input i, each
 #: ADDR_WORDS words (L, c, k, rl, used, nblk) from D_ADDR on.
 D_ADDR, ADDR_WORDS = 128, 6
@@ -965,7 +989,8 @@ class EwTiling(NamedTuple):
 def runs_ew_grid(spec: OpSpec) -> bool:
     """Does the spec run the elementwise grid body: an elementwise op of
     the flat or row-blocked program, or a staged one of the streaming
-    program (a fused chain's stages keep the one-CTA routine)."""
+    program (a fused chain runs its elementwise stages as chunks of its
+    own levels, :func:`chain_schedule`)."""
     return spec.kind == "elementwise" and stream_form(spec) in (None,
                                                                 "stage")
 
@@ -973,8 +998,8 @@ def runs_ew_grid(spec: OpSpec) -> bool:
 def runs_chunk_walk(spec: OpSpec) -> bool:
     """Does the spec run a chunk walk body: an elementwise, concat or mean
     op of the flat or row-blocked program, or a staged one of the
-    streaming program (a fused chain's stages keep the one-CTA
-    routines)."""
+    streaming program (a fused chain runs its elementwise and concat
+    stages as chunks of its own levels, :func:`chain_schedule`)."""
     return spec.kind in ("elementwise", "concat", "mean") and \
         stream_form(spec) in (None, "stage")
 
@@ -1092,22 +1117,27 @@ def _unit_tiling(units: int, vec: int, overlap: bool,
     return EwTiling(vec, units, per, -(-units // per))
 
 
-@functools.lru_cache(maxsize=1024)
-def ew_tiling(spec: OpSpec) -> EwTiling:
-    """The units and chunks of an elementwise spec: 16-byte units where the
+def _ew_vec(spec: OpSpec) -> int:
+    """Elements of an elementwise spec's unit: 16 bytes' worth where the
     element count, the output block and every operand that is not
-    broadcast allow them (:func:`_ew_vec_ok`), else single elements; about
-    one unit a thread (:func:`_unit_tiling`)."""
+    broadcast allow them (:func:`_ew_vec_ok`), else 1."""
     bcast, dims, _ = _ew_broadcast(spec)
-    n = _elems(dims)
     nblk = operand_addr(spec, None)[6]
     vec = 16 // _isz(spec.dtype)
     ops = [None, 0] + ([1] if len(spec.in_off) == 2 and not bcast else [])
-    if n % vec or nblk % vec or not all(_ew_vec_ok(spec, i, vec)
-                                        for i in ops):
-        vec = 1
-    return _unit_tiling(nblk // vec, vec, ew_order(spec) == EW_OVERLAP,
-                        EW_THREADS)
+    if _elems(dims) % vec or nblk % vec or not all(
+            _ew_vec_ok(spec, i, vec) for i in ops):
+        return 1
+    return vec
+
+
+@functools.lru_cache(maxsize=1024)
+def ew_tiling(spec: OpSpec) -> EwTiling:
+    """The units and chunks of an elementwise spec: :func:`_ew_vec`
+    elements a unit, about one unit a thread (:func:`_unit_tiling`)."""
+    vec = _ew_vec(spec)
+    return _unit_tiling(operand_addr(spec, None)[6] // vec, vec,
+                        ew_order(spec) == EW_OVERLAP, EW_THREADS)
 
 
 def _concat_geometry(spec: OpSpec) -> Tuple[int, int, Tuple[int, ...]]:
@@ -1118,22 +1148,28 @@ def _concat_geometry(spec: OpSpec) -> Tuple[int, int, Tuple[int, ...]]:
             tuple(_elems(s[axis:]) for s in spec.in_shape))
 
 
-@functools.lru_cache(maxsize=1024)
-def concat_tiling(spec: OpSpec) -> EwTiling:
-    """The units and chunks of a concat: 16-byte units where every input's
+def _concat_vec(spec: OpSpec) -> int:
+    """Elements of a concat's unit: 16 bytes' worth where every input's
     inner, the output's inner_out, the output block and every operand's
     base and rows allow them (a unit then lies in one input's columns,
-    which that input holds as one aligned 16-byte run), else single
-    elements; about one unit a thread (:func:`_unit_tiling`)."""
+    which that input holds as one aligned 16-byte run), else 1."""
     _, inner_out, inners = _concat_geometry(spec)
     nblk = operand_addr(spec, None)[6]
     vec = 16 // _isz(spec.dtype)
     if inner_out % vec or nblk % vec or any(x % vec for x in inners) or \
             not all(_ew_vec_ok(spec, i, vec)
                     for i in [None, *range(len(spec.in_off))]):
-        vec = 1
-    return _unit_tiling(nblk // vec, vec, concat_order(spec) == EW_OVERLAP,
-                        EW_THREADS)
+        return 1
+    return vec
+
+
+@functools.lru_cache(maxsize=1024)
+def concat_tiling(spec: OpSpec) -> EwTiling:
+    """The units and chunks of a concat: :func:`_concat_vec` elements a
+    unit, about one unit a thread (:func:`_unit_tiling`)."""
+    vec = _concat_vec(spec)
+    return _unit_tiling(operand_addr(spec, None)[6] // vec, vec,
+                        concat_order(spec) == EW_OVERLAP, EW_THREADS)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -1264,6 +1300,304 @@ def fc_grid(spec: OpSpec) -> Tuple[int, int, int]:
 
 
 # ---------------------------------------------------------------------------
+# The fused chains over the whole card (csrc/chain_tiles.cuh: the one
+# device routine of arena_fused_chain and arena_stream_fused): the chain's
+# own placement of its internal tensors, its stages in levels, and each
+# stage's tiles or chunks in one ticket range per level. The kernels read
+# the same numbers from the descriptor.
+# ---------------------------------------------------------------------------
+
+#: Threads of a chain CTA: the tile bodies' width, which the chunk bodies
+#: run at too (one unit a thread a chunk).
+CHAIN_THREADS = CONV_THREADS
+#: Chain CTAs an SM holds at most (at most 128 registers a thread).
+CHAIN_CTAS_PER_SM = 2
+#: A chain descriptor's header words: the stage count, the level count,
+#: the bytes of one CTA's footprint slice (global footprints) and of its
+#: staged terminal chunk's slice, then per level from H_LEVEL0 its first
+#: stage (stage descriptors follow the header in level order) and its
+#: tickets; the buffer words after.
+H_NS, H_NL, H_FP, H_TERM, H_LEVEL0 = 0, 1, 2, 3, 8
+#: Levels a header holds.
+MAX_LEVELS = (BUFFER_WORD["stage"] - H_LEVEL0) // 2
+#: A chain stage's words beside its own op's: its first ticket within its
+#: level and its tickets.
+D_T0, D_NT = 116, 117
+
+
+class ChainSchedule(NamedTuple):
+    """How the chain kernels run a fused spec (:func:`chain_schedule`).
+
+    ``stages``: the spec's stages in graph order, re-pointed to the
+    kernel's own placement: an operand flagged ``in_scratch`` /
+    ``out_scratch`` addresses the workspace, where every non-terminal
+    stage's output has a region of its own (``regions``: (stage, offset,
+    bytes), offsets in the spec's units from the workspace start: bytes
+    flat, arena rows blocked; 16-byte aligned); every input the reference
+    read from a scratch slot reads the region of the stage that last wrote
+    those bytes. In the streaming program the external inputs and the
+    terminal output address their arena rows instead (flag 0): no window.
+    ``terminal``: the stages that write the arena, all in the last level.
+    ``levels``: stage indices per level, graph order within; a stage's
+    level is one more than the highest level of the stages it depends on
+    (``edges``: (i, j, "raw" | "war" | "waw") over the new placement,
+    i < j). ``tilings``/``items``: per stage its ConvTiling and tiles (row
+    kinds, :func:`conv_tiling`) or its EwTiling and chunks (elementwise and
+    concat, one unit a thread). ``counter_bytes``: the level tickets, then
+    ``n_barriers`` grid barrier counters, at the workspace start.
+    ``region_bytes``: the regions after them. ``staged``: an arena input of
+    the last level meets an arena output of it, so its chunks stage their
+    results before one more barrier. ``grid``: CTAs, all resident."""
+    stages: Tuple[OpSpec, ...]
+    terminal: Tuple[int, ...]
+    levels: Tuple[Tuple[int, ...], ...]
+    edges: Tuple[Tuple[int, int, str], ...]
+    tilings: Tuple[NamedTuple, ...]
+    items: Tuple[int, ...]
+    regions: Tuple[Tuple[int, int, int], ...]
+    unit: int
+    counter_bytes: int
+    n_barriers: int
+    region_bytes: int
+    staged: bool
+    grid: int
+
+
+def _units_of(st: OpSpec, i: Optional[int]) -> int:
+    """Extent of operand ``i`` (None: the output) in the spec's offset
+    units: bytes of the tensor (flat), rows of its block (blocked)."""
+    nblk = operand_addr(st, i)[6]
+    return nblk // st.rowlen if st.rowlen else nblk * _isz(st.dtype)
+
+
+def _span(st: OpSpec, i: Optional[int]) -> Tuple[int, int]:
+    off = st.out_off if i is None else st.in_off[i]
+    return off, off + _units_of(st, i)
+
+
+def _chain_terminal(spec: OpSpec) -> List[int]:
+    """The stages whose output is the chain's: those that write the arena
+    (flag 0), or in the streaming program the last writers of the output
+    slot, which must tile it exactly (its copy back then moves only what
+    they wrote)."""
+    stages = spec.stages
+    if stream_form(spec) != "fused":
+        return [j for j, st in enumerate(stages) if not st.out_scratch]
+    slot = (spec.out_slot, spec.out_slot + spec.out_rows[0])
+    term = [j for j, st in enumerate(stages)
+            if _meets(_span(st, None), slot) and not any(
+                _meets(_span(stages[k], None), _span(st, None))
+                for k in range(j + 1, len(stages)))]
+    spans = sorted(_span(stages[j], None) for j in term)
+    if not spans or spans[0][0] != slot[0] or spans[-1][1] != slot[1] or \
+            any(a[1] != b[0] for a, b in zip(spans, spans[1:])):
+        raise ValueError(f"the chain's last writers {spans} do not tile its "
+                         f"output slot {slot}")
+    return term
+
+
+def _repoint(spec: OpSpec, terminal: Sequence[int],
+             region: Dict[int, int]) -> List[OpSpec]:
+    """The stages with every scratch operand re-pointed (see
+    :class:`ChainSchedule`); ``region``: each non-terminal stage's region
+    offset."""
+    stages = spec.stages
+    stream = stream_form(spec) == "fused"
+    out = []
+    for k, st in enumerate(stages):
+        offs, flags = list(st.in_off), list(st.in_scratch or
+                                             (0,) * len(st.in_off))
+        for i, flag in enumerate(flags):
+            if not flag:
+                continue
+            lo, hi = _span(st, i)
+            writers = [j for j in range(k) if (stream or
+                       stages[j].out_scratch)
+                       and _meets(_span(stages[j], None), (lo, hi))]
+            if writers:
+                j = writers[-1]
+                wlo, whi = _span(stages[j], None)
+                if j in terminal or not wlo <= lo < hi <= whi:
+                    raise ValueError(
+                        f"stage {k} reads scratch {(lo, hi)} that stage {j} "
+                        f"wrote only in part, or the chain's output")
+                offs[i], flags[i] = region[j] + lo - wlo, 1
+                continue
+            ext = [e for e, s in enumerate(spec.in_slots)
+                   if s <= lo and hi <= s + spec.in_rows[e][0]] \
+                if stream else []
+            if not ext:
+                raise ValueError(f"stage {k} reads scratch {(lo, hi)} that "
+                                 "no stage wrote")
+            e = ext[0]
+            offs[i], flags[i] = spec.in_off[e] + lo - spec.in_slots[e], 0
+        if k in terminal:
+            o_off, o_flag = (spec.out_off + st.out_off - spec.out_slot, 0) \
+                if stream else (st.out_off, 0)
+        else:
+            o_off, o_flag = region[k], 1
+        out.append(dataclasses.replace(
+            st, in_off=tuple(offs), in_scratch=tuple(flags),
+            out_off=o_off, out_scratch=o_flag))
+    return out
+
+
+def _chain_edges(stages: Sequence[OpSpec]) -> List[Tuple[int, int, str]]:
+    """(i, j, kind) for stages i < j whose byte ranges in one address space
+    (flag 1: the workspace, 0: the arena) meet: j reads what i wrote
+    ("raw"), j writes what i read ("war"), both write ("waw")."""
+    def reads(st):
+        flags = st.in_scratch or (0,) * len(st.in_off)
+        return [(f, *_span(st, i)) for i, f in enumerate(flags)]
+
+    def writes(st):
+        return [(st.out_scratch, *_span(st, None))]
+
+    def meet(xs, ys):
+        return any(a[0] == b[0] and _meets(a[1:], b[1:])
+                   for a in xs for b in ys)
+    edges = []
+    for j, b in enumerate(stages):
+        for i in range(j):
+            a = stages[i]
+            for kind, x, y in (("raw", writes(a), reads(b)),
+                               ("war", reads(a), writes(b)),
+                               ("waw", writes(a), writes(b))):
+                if meet(x, y):
+                    edges.append((i, j, kind))
+    return edges
+
+
+def _chain_chunks(st: OpSpec, cap: Optional[int] = None) -> EwTiling:
+    """A chain stage's chunks: one unit a thread (:func:`_ew_vec`,
+    :func:`_concat_vec`), at most ``cap`` chunks."""
+    vec = _ew_vec(st) if st.kind == "elementwise" else _concat_vec(st)
+    units = operand_addr(st, None)[6] // vec
+    chunks = max(1, -(-units // CHAIN_THREADS))
+    if cap is not None:
+        chunks = max(1, min(chunks, cap))
+    per = -(-units // chunks)
+    return EwTiling(vec, units, per, -(-units // per))
+
+
+@functools.lru_cache(maxsize=256)
+def chain_schedule(spec: OpSpec) -> ChainSchedule:
+    """The kernel's schedule of a fused spec, flat, blocked or streaming
+    (:class:`ChainSchedule`). Raises ValueError on a chain it cannot run:
+    a stage reading the chain's output or scratch no stage wrote, terminal
+    stages writing over each other, a row-kind terminal stage that would
+    have to stage its output, more than :data:`MAX_LEVELS` levels."""
+    if spec.kind != "fused":
+        raise ValueError(f"{spec.kind}: not a fused chain")
+    isz = _isz(spec.dtype)
+    unit = spec.rowlen * isz if spec.rowlen else 1
+    align = 16 // math.gcd(16, unit)    # units a 16-byte boundary takes
+    terminal = _chain_terminal(spec)
+    region, cur = {}, 0
+    for j, st in enumerate(spec.stages):
+        if j not in terminal:
+            region[j] = cur
+            cur = _round_up(cur + _units_of(st, None), align)
+    stages = _repoint(spec, terminal, region)
+    edges = _chain_edges(stages)
+    level = [0] * len(stages)
+    staged = False
+    for i, j, kind in edges:
+        if i in terminal and (j not in terminal or kind != "war"):
+            raise ValueError(f"stage {j} {kind} against terminal stage {i}")
+        if i in terminal:
+            staged = True
+        else:
+            level[j] = max(level[j], level[i] + 1)
+    outs = [_span(stages[t], None) for t in terminal]
+    for j in terminal:      # an arena input under a terminal output
+        st = stages[j]
+        for i, f in enumerate(st.in_scratch or (0,) * len(st.in_off)):
+            staged |= not f and any(_meets(_span(st, i), o) for o in outs)
+    last = max([level[j] + 1 for j in range(len(stages))
+                if j not in terminal] + [level[j] for j in terminal])
+    for j in terminal:
+        level[j] = last
+    levels = tuple(tuple(j for j in range(len(stages)) if level[j] == lv)
+                   for lv in range(last + 1))
+    if len(levels) > MAX_LEVELS:
+        raise ValueError(f"{len(levels)} levels exceed {MAX_LEVELS}")
+    tilings, fps, wts = [], [0], [0]
+    for j, st in enumerate(stages):
+        if st.kind in ROW_KINDS:
+            if staged and j in terminal:
+                raise ValueError(f"terminal {st.kind} over an arena input "
+                                 "it would overwrite")
+            t = conv_tiling(st)
+            fps.append(t.fp)
+            wts.append(2 * t.ch * t.to * isz)
+        else:
+            t = _chain_chunks(st)
+        tilings.append(t)
+    glob = max(fps) > CONV_SMEM_BUDGET
+    smem = (0 if glob else _round_up(max(fps), 16)) + _round_up(max(wts), 16)
+    cap = CONV_SMS * max(1, min(CHAIN_CTAS_PER_SM, SM_SMEM // (smem + 1024)))
+    if glob:
+        cap = min(cap, CONV_SLICES)
+    items = [t.ntiles if st.kind in ROW_KINDS else t.chunks
+             for st, t in zip(stages, tilings)]
+    grid = max(1, min(cap, max(sum(items[j] for j in lvl)
+                                for lvl in levels)))
+    if staged and sum(items[j] for j in terminal) > grid:
+        if len(terminal) > grid:
+            raise ValueError(f"{len(terminal)} staged terminal stages on "
+                             f"{grid} CTAs")
+        for j in terminal:    # every terminal chunk on a CTA of its own
+            tilings[j] = _chain_chunks(stages[j], grid // len(terminal))
+            items[j] = tilings[j].chunks
+    n_barriers = len(levels) - 1 + int(staged)
+    counter_bytes = _round_up(4 * (len(levels) + n_barriers), align * unit)
+    base = counter_bytes // unit
+    stages = [dataclasses.replace(
+        st, out_off=st.out_off + base if st.out_scratch else st.out_off,
+        in_off=tuple(o + base if f else o for o, f in zip(
+            st.in_off, st.in_scratch or (0,) * len(st.in_off))))
+        for st in stages]
+    regions = tuple((j, region[j] + base, _units_of(stages[j], None) * unit)
+                    for j in sorted(region))
+    return ChainSchedule(tuple(stages), tuple(terminal), levels,
+                         tuple(edges), tuple(tilings), tuple(items), regions,
+                         unit, counter_bytes, n_barriers, cur * unit, staged,
+                         grid)
+
+
+def chain_grid(spec: OpSpec) -> Tuple[int, int, int]:
+    """(CTAs, CTAs that must run at once, counter bytes) of a fused spec:
+    every CTA of the schedule's grid resident (a cooperative launch the
+    entry point refuses, never shrinks, on a card that cannot hold it)
+    and its counters, which the entry point zeroes."""
+    s = chain_schedule(spec)
+    return s.grid, s.grid, s.counter_bytes
+
+
+def chain_plain(arena: torch.Tensor, spec: OpSpec,
+                wblob: torch.Tensor) -> None:
+    """The chain run by its schedule on the kernel's placement (a mirror of
+    the kernel for the tests): levels in order, the stages of a level in
+    reverse graph order, every stage's plain version over the arena and a
+    zeroed workspace of the schedule's counters and regions; the streaming
+    program's stages address the arena directly. A missing dependency
+    between two stages of one level shows as a difference from
+    :func:`fused_chain_plain` / :func:`stream_fused_plain`."""
+    s = chain_schedule(spec)
+    n = s.counter_bytes + s.region_bytes
+    if spec.rowlen:
+        ws = torch.zeros((n // s.unit, spec.rowlen),
+                         dtype=_TORCH_DTYPE[spec.dtype], device=arena.device)
+    else:
+        ws = torch.zeros(n, dtype=torch.uint8, device=arena.device)
+    for lvl in s.levels:
+        for j in reversed(lvl):
+            _run_stage(arena, s.stages[j], wblob,
+                       weight_offsets(spec)[0][j], ws)
+
+
+# ---------------------------------------------------------------------------
 # Buffers: where a kernel's row buffer, staging buffer and scratch live
 # ---------------------------------------------------------------------------
 
@@ -1290,8 +1624,9 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
     chunk walk nothing, or for order 2 its barrier counter and one chunk's
     staging; the fully connected grid body its counters, its
     partial sums (global: other CTAs sum them) and one CTA's warp sums; a
-    staged op adds its window to its body's; a streaming chain's window is
-    its scratch."""
+    staged op adds its window to its body's; a fused chain (any program)
+    its counters, its stages' regions, the largest footprint and filter
+    chunks of its row stages and, staged, one terminal chunk a CTA."""
     form = stream_form(spec)
     if kernel_of(spec) in TILE_KERNELS:
         tl = conv_tiling(spec)
@@ -1312,20 +1647,22 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
         rowb = spec.rowlen * _isz(spec.dtype)
         return (("win", _staged(spec)[2] * rowb),) + _buffer_needs(
             _stream_body(spec))
-    if form == "fused":
-        return _buffer_needs(_stream_body(spec))
     k = spec.kind
+    if k == "fused":
+        s = chain_schedule(spec)
+        tiles = [t for st, t in zip(s.stages, s.tilings)
+                 if st.kind in ROW_KINDS]
+        needs = (("ctr", s.counter_bytes), ("regions", s.region_bytes),
+                 ("tile", max((t.fp for t in tiles), default=0)),
+                 ("wts", max((2 * t.ch * t.to * _isz(spec.dtype)
+                              for t in tiles), default=0)))
+        if not s.staged:
+            return needs
+        return needs + (("term", max(     # one staged chunk a CTA
+            s.tilings[j].per * s.tilings[j].vec
+            for j in s.terminal) * _isz(spec.dtype)),)
     if k == "softmax":
         return (("stage", 4 * _elems(spec.in_shape[0])),)
-    if k == "fused":
-        scratch = spec.scratch_rows * (spec.rowlen * _isz(spec.dtype)
-                                       if spec.rowlen else 1)
-        return (("scratch", scratch),
-                ("stage", max((_elems(st.out_shape) * _isz(st.dtype)
-                               for st in spec.stages
-                               if st.kind not in ROW_KINDS), default=0)),
-                ("row", max((_row_bytes(st) for st in spec.stages
-                             if st.kind in ROW_KINDS), default=0)))
     return (("stage", _elems(spec.out_shape) * _isz(spec.dtype)),)
 
 
@@ -1335,20 +1672,26 @@ def buffer_plan(spec: OpSpec) -> BufferPlan:
     fits beside the ones before it within :data:`SMEM_LIMIT` (less
     :data:`STREAM_STATIC_SMEM` for a streaming launch), else the global
     workspace. A grid kernel's counters are always global, at its
-    workspace's start, and so are a fully connected op's partial sums; a
-    tile kernel's footprint takes shared memory within
+    workspace's start, and so are a fully connected op's partial sums and
+    a fused chain's regions (right after its counters, where
+    :func:`chain_schedule` placed them); a tile kernel's footprint (a
+    chain's largest) takes shared memory within
     :data:`CONV_SMEM_BUDGET`, else one global slice per CTA
     (:data:`CONV_SLICES`); a chunk walk's staging likewise within
-    :data:`EW_SMEM_BUDGET`, else one global slice a chunk."""
+    :data:`EW_SMEM_BUDGET`, else one global slice a chunk; a chain's
+    staged terminal chunks one global slice a CTA."""
     smem = gbytes = 0
     parts = []
     limit = SMEM_LIMIT - (STREAM_STATIC_SMEM if spec.win_rows else 0)
     for name, n in _buffer_needs(spec):
         n = _round_up(n, 16)
-        if name in ("ctr", "part") or (name == "tile"
-                                       and n > CONV_SMEM_BUDGET):
+        if name in ("ctr", "part", "regions") or (name == "tile"
+                                                  and n > CONV_SMEM_BUDGET):
             parts.append((name, True, gbytes))
             gbytes += n * (CONV_SLICES if name == "tile" else 1)
+        elif name == "term":   # a chain's staged terminal: a slice a CTA
+            parts.append((name, True, gbytes))
+            gbytes += n * chain_schedule(spec).grid
         elif name == "chunk" and n > EW_SMEM_BUDGET:
             parts.append((name, True, gbytes))
             gbytes += n * chunk_of(spec)[0].chunks
@@ -1381,6 +1724,7 @@ def workspace(spec: OpSpec, device) -> Optional[torch.Tensor]:
     return t
 
 
+@functools.lru_cache(maxsize=1024)
 def weight_offsets(spec: OpSpec) -> Tuple[Tuple[Optional[int], ...], int]:
     """Byte offset of each fused stage's filter in the packed weight blob
     (None for stages without one; 16-byte aligned), and the blob size."""
@@ -1406,6 +1750,11 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
     the fully connected grid body's (last) op descriptor carries its order
     word and tiling."""
     bp = buffer_plan(spec)
+    if spec.kind == "fused":
+        words = _chain_words(spec, bp)
+        if spec.win_rows:
+            words = np.concatenate([_stream_words(spec, bp), words])
+        return words
     if not spec.win_rows:
         words = _body_words(spec, bp)
     else:
@@ -1440,13 +1789,10 @@ def _stream_words(spec: OpSpec, bp: BufferPlan) -> np.ndarray:
         w[S_WIN_IN], w[S_TR] = spec.win_rows - tile_ar, tr
         w[S_T], w[S_OH] = len(spec.win_starts), spec.out_shape[-3]
         w += spec.win_starts
-    elif not runs_in_place(spec):  # an in-place staged op has no window
-        w[S_WIN_G:S_WIN_OFF + 1] = place["scratch" if form == "fused"
-                                         else "win"]
-        if form == "stage":
-            slots, out_slot, _ = _staged(spec)
-        else:
-            slots, out_slot = spec.in_slots, spec.out_slot
+    elif form == "stage" and not runs_in_place(spec):
+        # a staged window; an in-place staged op or a chain has none
+        w[S_WIN_G:S_WIN_OFF + 1] = place["win"]
+        slots, out_slot, _ = _staged(spec)
         w[S_NCOPY] = len(slots)
         for off, slot, (rows, _) in zip(spec.in_off, slots, spec.in_rows):
             w += (off, slot, rows)
@@ -1458,24 +1804,49 @@ def _stream_words(spec: OpSpec, bp: BufferPlan) -> np.ndarray:
 
 
 def _body_words(spec: OpSpec, bp: BufferPlan) -> np.ndarray:
-    """One op's or one fused chain's descriptor, with the buffer placement
-    words of ``bp``."""
-    if spec.kind == "fused":
-        offs, _ = weight_offsets(spec)
-        head = [0] * DESC_WORDS
-        head[0] = len(spec.stages)
-        words = [head]
-        for st, off in zip(spec.stages, offs):
-            if st.kind not in FUSED_STAGE_KINDS:
-                raise NotImplementedError(
-                    f"fused stage kind {st.kind!r} has no CUDA routine")
-            words.append(_op_words(st, off or 0))
-    else:
-        head = _op_words(spec)
-        words = [head]
+    """One op's descriptor, with the buffer placement words of ``bp``."""
+    head = _op_words(spec)
+    _place(head, bp)
+    return np.asarray(head, np.int32)
+
+
+def _place(head: List[int], bp: BufferPlan) -> None:
     for name, glob, off in bp.parts:
         if name in BUFFER_WORD:
             head[BUFFER_WORD[name]:BUFFER_WORD[name] + 2] = (int(glob), off)
+
+
+def _chain_words(spec: OpSpec, bp: BufferPlan) -> np.ndarray:
+    """A fused chain's descriptor (:func:`chain_schedule`): a header (the
+    stage and level counts, each level's first stage and tickets, the
+    buffer placement words), then each stage's descriptor in level order,
+    graph order within a level, on the re-pointed operands, with its
+    tiling, its order word (2 for a staged terminal stage, else 0) and its
+    first ticket and tickets in its level."""
+    s = chain_schedule(spec)
+    offs, _ = weight_offsets(spec)
+    head = [0] * DESC_WORDS
+    head[H_NS], head[H_NL] = len(s.stages), len(s.levels)
+    needs = dict(_buffer_needs(spec))
+    head[H_FP] = _round_up(needs["tile"], 16)
+    head[H_TERM] = _round_up(needs.get("term", 0), 16)
+    words, first = [head], 0
+    for lv, lvl in enumerate(s.levels):
+        t0 = 0
+        for j in lvl:
+            st, t = s.stages[j], s.tilings[j]
+            if st.kind not in FUSED_STAGE_KINDS:
+                raise NotImplementedError(
+                    f"fused stage kind {st.kind!r} has no CUDA routine")
+            w = _op_words(st, offs[j] or 0)
+            w[D_ORDER] = EW_OVERLAP if s.staged and j in s.terminal else 0
+            w[D_TILING:D_TILING + len(t)] = t
+            w[D_T0], w[D_NT] = t0, s.items[j]
+            t0 += s.items[j]
+            words.append(w)
+        head[H_LEVEL0 + 2 * lv:H_LEVEL0 + 2 * lv + 2] = first, t0
+        first += len(lvl)
+    _place(head, bp)
     return np.asarray([x for ws in words for x in ws], np.int32)
 
 
@@ -1931,17 +2302,24 @@ def _run_stages(arena: torch.Tensor, spec: OpSpec, wblob: torch.Tensor,
                 scratch: torch.Tensor) -> None:
     offs, _ = weight_offsets(spec)
     for st, off in zip(spec.stages, offs):
-        if st.kind == "concat":
-            concat_plain(arena, st, scratch)
-        elif st.kind == "elementwise":
-            elementwise_plain(arena, st, scratch)
-        elif st.kind == "pool":
-            pool_plain(arena, st, scratch)
-        else:
-            shape = _weight_shape(st)
-            w = _typed(wblob, off, _elems(shape),
-                       st.dtype == "i8").reshape(shape)
-            conv_plain(arena, st, w, scratch)
+        _run_stage(arena, st, wblob, off, scratch)
+
+
+def _run_stage(arena: torch.Tensor, st: OpSpec, wblob: torch.Tensor,
+               off: Optional[int], scratch: torch.Tensor) -> None:
+    """One chain stage's plain version; its filter at byte ``off`` of the
+    blob, its flagged operands in ``scratch``."""
+    if st.kind == "concat":
+        concat_plain(arena, st, scratch)
+    elif st.kind == "elementwise":
+        elementwise_plain(arena, st, scratch)
+    elif st.kind == "pool":
+        pool_plain(arena, st, scratch)
+    else:
+        shape = _weight_shape(st)
+        w = _typed(wblob, off, _elems(shape),
+                   st.dtype == "i8").reshape(shape)
+        conv_plain(arena, st, w, scratch)
 
 
 def stream_roll_plain(arena: torch.Tensor, spec: OpSpec,
@@ -2261,18 +2639,21 @@ def _check_chain(spec: OpSpec, wblob: torch.Tensor) -> None:
                 f"fused stage kind {st.kind!r} has no CUDA routine")
         if st.kind == "elementwise":
             _ew_broadcast(st)
+    chain_schedule(spec)
 
 
 def arena_fused_chain(arena: torch.Tensor, spec: OpSpec, wblob: torch.Tensor,
                       desc: Optional[torch.Tensor] = None) -> None:
-    """A fused band chain in one launch; ``wblob`` is
-    :func:`pack_weights`' blob of the stage filters."""
+    """A fused band chain in one launch over the whole card, its stages in
+    levels (:func:`chain_schedule`); ``wblob`` is :func:`pack_weights`'
+    blob of the stage filters."""
     _expect(spec, "arena_fused_chain")
     _check_chain(spec, wblob)
     if not _on_card(arena, spec, wblob):
         fused_chain_plain(arena, spec, wblob)
         return
-    _launch("arena_fused_chain", arena, spec, wblob, desc)
+    _check_ew_arena(arena)
+    _launch("arena_fused_chain", arena, spec, wblob, desc, chain_grid(spec))
 
 
 def arena_stream_roll(arena: torch.Tensor, spec: OpSpec,
@@ -2318,15 +2699,17 @@ def arena_stream_stage(arena: torch.Tensor, spec: OpSpec,
 def arena_stream_fused(arena: torch.Tensor, spec: OpSpec,
                        wblob: torch.Tensor,
                        desc: Optional[torch.Tensor] = None) -> None:
-    """A fused band chain of the streaming program, every stage inside its
-    scratch; ``wblob`` is :func:`pack_weights`' blob of the stage
-    filters."""
+    """A fused band chain of the streaming program, on the same grid as
+    :func:`arena_fused_chain`: its external inputs read and its output
+    written in place on the arena, no window (:func:`chain_schedule`);
+    ``wblob`` is :func:`pack_weights`' blob of the stage filters."""
     _expect(spec, "arena_stream_fused")
     _check_chain(spec, wblob)
     if not _on_card(arena, spec, wblob):
         stream_fused_plain(arena, spec, wblob)
         return
-    _launch("arena_stream_fused", arena, spec, wblob, desc)
+    _check_ew_arena(arena)
+    _launch("arena_stream_fused", arena, spec, wblob, desc, chain_grid(spec))
 
 
 _WRAPPERS = {"pool": arena_pool, "elementwise": arena_elementwise,

@@ -51,15 +51,17 @@ KERNELS = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 ARGTYPES = [_P, _P, _P, _P, _I, _P]
 #: The kernels over the whole card (the row tiles of csrc/conv_tiles.cuh,
 #: the elementwise, concat and mean chunk walks of csrc/ew_tiles.cuh, the
-#: fully connected grid of csrc/fc_tiles.cuh) take three ints more before
-#: the stream: the CTAs to launch at most, the CTAs (tiles) that must run
-#: at once (one output row's tiles; every CTA of an order-2 chunk walk or
-#: FC op, else 0) and the bytes of the counters at the workspace's start.
+#: fully connected grid of csrc/fc_tiles.cuh, the fused chains' levels of
+#: csrc/chain_tiles.cuh) take three ints more before the stream: the CTAs
+#: to launch at most, the CTAs (tiles) that must run at once (one output
+#: row's tiles; every CTA of an order-2 chunk walk or FC op, or of a
+#: chain; else 0) and the bytes of the counters at the workspace's start.
 GRID_ARGTYPES = {name: [_P, _P, _P, _P, _I, _I, _I, _I, _P]
                  for name in ("arena_conv", "arena_pool", "arena_stream_roll",
                               "arena_elementwise", "arena_concat",
                               "arena_mean", "arena_fully_connected",
-                              "arena_stream_stage")}
+                              "arena_stream_stage", "arena_fused_chain",
+                              "arena_stream_fused")}
 #: The standalone kernels' own signatures, by entry point; every other
 #: entry takes :data:`ARGTYPES`.
 ARGTYPES_OF = {

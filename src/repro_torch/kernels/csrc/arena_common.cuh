@@ -42,26 +42,24 @@
 // fully connected (arena_fully_connected.cu, and the staged FC body of
 // arena_stream_stage.cu) read every input their output could clobber
 // before one grid-wide barrier (grid_barrier below; ew_tiles.cuh,
-// fc_tiles.cuh), or, where the byte ranges prove it needless, never wait.
-// Softmax, pad and matmul (and their staged bodies) and the fused chains
-// run in ONE CTA. Row ops there (conv2d, depthwise and pool as fused
-// stages) walk output rows in order; threads split the columns and
-// channels of one row, stage the row's results in a row buffer, and store
-// only after a __syncthreads(); a second barrier orders the store before
-// the next row's reads. In the row-blocked program the legaliser
-// re-derives every diagonal distance in whole arena rows, so the padding
-// a row store zeroes is dead. Whole-block routines read all of their
-// input before any output element is written: softmax stages its input;
-// elementwise, matmul, pad and concat (a chain's stages) compute their
-// whole output into a staging buffer, synchronise, then write the block
-// out (read-all-before-write-all). Staging buffers hold the decoded
-// tensor; the block encoding happens on the way out.
+// fc_tiles.cuh), or, where the byte ranges prove it needless, never wait;
+// the fused chains (arena_fused_chain.cu, arena_stream_fused.cu) run their
+// stages in levels with a grid-wide barrier between levels and write the
+// arena only in the last (chain_tiles.cuh). Softmax, pad and matmul (and
+// their staged bodies) run in ONE CTA, whole-block routines that read all
+// of their input before any output element is written: softmax stages its
+// input; matmul and pad compute their whole output into a staging buffer,
+// synchronise, then write the block out (read-all-before-write-all).
+// Staging buffers hold the decoded tensor; the block encoding happens on
+// the way out. In the row-blocked program the legaliser re-derives every
+// diagonal distance in whole arena rows, so the padding a row store zeroes
+// is dead.
 //
-// Buffers (row buffer, staging buffer, a fused chain's scratch, a
-// streaming window) live in dynamic shared memory when they fit a CTA and
-// otherwise in a global workspace the wrapper allocates once per spec; the
-// descriptor says which (words D_STAGE_G.. and S_WIN_G.. below). Both
-// placements are the kernel.
+// Buffers (a staging buffer, a tile's footprint, a streaming window) live
+// in dynamic shared memory when they fit a CTA and otherwise in a global
+// workspace the wrapper allocates once per spec; the descriptor says which
+// (words D_STAGE_G.. and S_WIN_G.. below). Both placements are the
+// kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,7 +69,7 @@
 
 namespace arena {
 
-constexpr int NT = 512;          // threads of the one CTA
+constexpr int NT = 512;          // threads of a one-CTA or chunk-walk CTA
 constexpr int DESC_WORDS = 256;  // int32 words per op/stage descriptor
 constexpr int MAX_CAT = 16;      // concat inputs a descriptor can hold
 constexpr int MAX_DIMS = 6;      // elementwise broadcast rank
@@ -112,8 +110,7 @@ enum { D_MM = 10, D_MK = 11, D_MN = 12 };
 enum { D_PIN0 = 10, D_PLO0 = 14, D_POUT0 = 18, D_PN = 22 };
 // buffer placement: a flag (1 = global workspace, 0 = dynamic shared
 // memory) then a byte offset; a fused chain carries them in its header
-enum { D_STAGE_G = 120, D_STAGE_OFF = 121, D_ROW_G = 122, D_ROW_OFF = 123,
-       D_SCR_G = 124, D_SCR_OFF = 125 };
+enum { D_STAGE_G = 120, D_STAGE_OFF = 121, D_ROW_G = 122, D_ROW_OFF = 123 };
 // operand addressing: slot 0 = the output, slot 1 + i = input i, each
 // ADDR_WORDS words (L, c, k, rl, used, nblk)
 enum { D_ADDR = 128, ADDR_WORDS = 6 };
@@ -365,114 +362,8 @@ __device__ __forceinline__ uint32_t pool_point(const uint8_t* in,
   }
 }
 
-// A row op over its output rows, ascending (see §III.F above): every
-// element of row oy goes to the row buffer, a barrier, then the row is
-// stored, then a barrier before row oy+1 is read. The row buffer holds one
-// output row (ow * oc elements), so any row width runs. The store covers
-// the row's n elements and, plain or spanning, zeroes the rest of its
-// k * L arena elements; a packed store writes its own lane phase only.
-template <bool Q, typename Point>
-__device__ void row_walk(const ConvP& p, uint8_t* out, uint8_t* rowbuf,
-                         Point point) {
-  const int n = p.ow * p.oc;
-  const int span = p.oa.c > 1 ? n : p.oa.k * p.oa.L;
-  for (int oy = 0; oy < p.oh; ++oy) {
-    for (int e = threadIdx.x; e < n; e += NT) {
-      const int ox = e / p.oc;
-      const uint32_t v = point(oy, ox, e - ox * p.oc);
-      if constexpr (Q) rowbuf[e] = (uint8_t)v;
-      else ((uint32_t*)rowbuf)[e] = v;
-    }
-    __syncthreads();  // every read of row oy is done
-    const int r0 = row_elem(p.oa, oy);
-    if constexpr (Q) {
-      uint8_t* o = out + r0;
-      for (int e = threadIdx.x; e < span; e += NT)
-        o[e] = e < n ? rowbuf[e] : 0;
-    } else {
-      uint32_t* o = (uint32_t*)out + r0;
-      for (int e = threadIdx.x; e < span; e += NT)
-        o[e] = e < n ? ((const uint32_t*)rowbuf)[e] : 0u;
-    }
-    __syncthreads();  // row oy is stored before row oy+1 is read
-  }
-}
-
-// conv2d, depthwise or pool of descriptor d over the geometry p, reading
-// `in` and storing to `out` (kind and tier are uniform across the CTA);
-// `w` is the filter (unused by pool).
-__device__ void row_run(const int* d, const ConvP& p, const uint8_t* in,
-                        uint8_t* out, const uint8_t* w, uint8_t* rowbuf) {
-  const int kind = d[D_KIND];
-#define ARENA_ROW(Q, F) \
-  row_walk<Q>(p, out, rowbuf, [&](int oy, int ox, int o) { return F; })
-  if (d[D_QUANT]) {
-    if (kind == K_DEPTHWISE)
-      ARENA_ROW(true, (conv_point<true, true>(in, w, p, oy, ox, o)));
-    else if (kind == K_CONV2D)
-      ARENA_ROW(true, (conv_point<true, false>(in, w, p, oy, ox, o)));
-    else if (p.m)
-      ARENA_ROW(true, (pool_point<true, true>(in, p, oy, ox, o)));
-    else
-      ARENA_ROW(true, (pool_point<true, false>(in, p, oy, ox, o)));
-  } else {
-    if (kind == K_DEPTHWISE)
-      ARENA_ROW(false, (conv_point<false, true>(in, w, p, oy, ox, o)));
-    else if (kind == K_CONV2D)
-      ARENA_ROW(false, (conv_point<false, false>(in, w, p, oy, ox, o)));
-    else if (p.m)
-      ARENA_ROW(false, (pool_point<false, true>(in, p, oy, ox, o)));
-    else
-      ARENA_ROW(false, (pool_point<false, false>(in, p, oy, ox, o)));
-  }
-#undef ARENA_ROW
-}
-
-// conv2d, depthwise or pool over its whole output from its descriptor.
-// `scratch` routes scratch-flagged operands of a fused stage.
-__device__ void row_op(const int* d, uint8_t* arena, uint8_t* scratch,
-                       const uint8_t* w, uint8_t* rowbuf) {
-  row_run(d, load_conv(d), (d[D_IN_SCR] ? scratch : arena) + d[D_IN_OFF],
-          (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF], w, rowbuf);
-}
-
-// concat along the descriptor's axis, a fused chain's terminal stage (a
-// standalone or staged concat runs ew_tiles.cuh's grid): every input is
-// read (and, int8, rescaled to the output's params as ops.rescale_q does)
-// into `stage` in output order, then the whole output is written.
-__device__ void concat_op(const int* d, uint8_t* arena, uint8_t* scratch,
-                          uint8_t* stage) {
-  const bool q = d[D_QUANT] != 0;
-  const int nin = d[D_NIN], outer = d[D_OUTER], inner_out = d[D_INNER_OUT];
-  const int y_zp = d[D_Y_ZP];
-  int col = 0;
-  for (int i = 0; i < nin; ++i) {
-    const uint8_t* src = (d[D_CIN_SCR + i] ? scratch : arena)
-                         + d[D_CIN_OFF + i];
-    const Addr a = load_addr(d, 1 + i);
-    const int inner = d[D_CINNER + i];
-    const int zp = d[D_CZP + i];
-    const float mult = fword(d, D_CMULT + i);
-    const int total = outer * inner;
-    for (int e = threadIdx.x; e < total; e += NT) {
-      const int o = e / inner;
-      const int dst = o * inner_out + col + (e - o * inner);
-      const int s = elem_at(a, e);
-      if (q) {
-        ((int8_t*)stage)[dst] =
-            requant_i((int)((const int8_t*)src)[s] - zp, mult, y_zp);
-      } else {
-        ((float*)stage)[dst] = ((const float*)src)[s];
-      }
-    }
-    col += inner;
-  }
-  __syncthreads();  // all inputs read before any output byte is written
-  uint8_t* out = (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF];
-  store_block(out, load_addr(d, 0), stage, outer * inner_out, q);
-  __syncthreads();
-}
-
+// relu, relu6, sigmoid, identity, add, mul, sub of operand values a and b
+// (the reference's _ELEMENTWISE table; IEEE operations, no contraction).
 __device__ __forceinline__ float ew_apply(int fn, float a, float b) {
   switch (fn) {
     case EW_RELU: return fmaxf(a, 0.0f);
@@ -483,53 +374,6 @@ __device__ __forceinline__ float ew_apply(int fn, float a, float b) {
     case EW_MUL: return __fmul_rn(a, b);
     default: return __fsub_rn(a, b);  // EW_SUB
   }
-}
-
-// relu, relu6, sigmoid, identity, add, mul, sub, a fused chain's stage
-// (a standalone or staged elementwise op runs ew_tiles.cuh's grid). The
-// second operand of a binary op is broadcast (numpy rules) when its
-// element count differs.
-// int8: each operand dequantised at its own params, the f32 result
-// quantised at the output's (IEEE division by the scale).
-__device__ void elementwise_op(const int* d, uint8_t* arena,
-                               uint8_t* scratch, uint8_t* stage) {
-  const bool q = d[D_QUANT] != 0;
-  const int fn = d[D_FN], n = d[D_EN];
-  const bool binary = fn >= EW_ADD, bcast = d[D_BCAST] != 0;
-  const uint8_t* a = (d[D_IN_SCR] ? scratch : arena) + d[D_IN_OFF];
-  const uint8_t* b = (d[D_IN2_SCR] ? scratch : arena) + d[D_IN2_OFF];
-  const int a_zp = d[D_X_ZP], b_zp = d[D_BZP], y_zp = d[D_Y_ZP];
-  const float as = fword(d, D_ASCALE), bs = fword(d, D_BSCALE);
-  const float ys = fword(d, D_OSCALE);
-  const Addr aa = load_addr(d, 1), ba = load_addr(d, 2);
-  for (int e = threadIdx.x; e < n; e += NT) {
-    const int ai = elem_at(aa, e);
-    const float x = q ? dequant(((const int8_t*)a)[ai], as, a_zp)
-                      : ((const float*)a)[ai];
-    float y = 0.0f;
-    if (binary) {
-      int bi = e;
-      if (bcast) {
-        bi = 0;
-        int rem = e;
-        for (int i = MAX_DIMS - 1; i >= 0; --i) {
-          const int dim = d[D_EDIM0 + i];
-          bi += (rem % dim) * d[D_BSTR0 + i];
-          rem /= dim;
-        }
-      }
-      bi = elem_at(ba, bi);
-      y = q ? dequant(((const int8_t*)b)[bi], bs, b_zp)
-            : ((const float*)b)[bi];
-    }
-    const float v = ew_apply(fn, x, y);
-    if (q) ((int8_t*)stage)[e] = quant_f(v, ys, y_zp);
-    else ((float*)stage)[e] = v;
-  }
-  __syncthreads();  // every operand read before any output byte is written
-  uint8_t* out = (d[D_OUT_SCR] ? scratch : arena) + d[D_OUT_OFF];
-  store_block(out, load_addr(d, 0), stage, n, q);
-  __syncthreads();
 }
 
 // The whole-block routines below read their operands at `base` + the
@@ -682,34 +526,18 @@ __device__ __forceinline__ void grid_barrier(int* ctr) {
   __syncthreads();
 }
 
-// A fused chain's stages (header h: word 0 = stage count, one DESC_WORDS
-// descriptor per stage after it) in order against the arena and the
-// chain's scratch; every stage routine ends with a barrier.
-__device__ void chain_run(const int* h, uint8_t* arena, uint8_t* scratch,
-                          const uint8_t* wblob, uint8_t* stage,
-                          uint8_t* rowbuf) {
-  const int ns = h[0];
-  for (int s = 0; s < ns; ++s) {
-    const int* d = h + (s + 1) * DESC_WORDS;
-    const int kind = d[D_KIND];
-    if (kind == K_CONCAT) concat_op(d, arena, scratch, stage);
-    else if (kind == K_ELEMENTWISE)
-      elementwise_op(d, arena, scratch, stage);
-    else row_op(d, arena, scratch, wblob + d[D_WOFF], rowbuf);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The streaming program (arena_stream_*.cu): a staged op or a chain copies
-// its live window from the arena into a staging buffer, runs there and
-// copies its output back; a rolling op reads its window in place, tile by
-// tile (arena_stream_roll.cu). A streaming descriptor is a stream block,
-// then the op's descriptor (or a fused chain's header and stages) at word
-// S_BODY.
+// The streaming program (arena_stream_*.cu): a staged softmax, pad or
+// matmul copies its live window from the arena into a staging buffer, runs
+// there and copies its output back; a rolling op reads its window in
+// place, tile by tile (arena_stream_roll.cu); the other staged bodies and
+// the fused chains run in place on the arena. A streaming descriptor is a
+// stream block, then the op's descriptor (or a fused chain's header and
+// stages) at word S_BODY.
 // ---------------------------------------------------------------------------
 
-// stream block words: the window's placement (the fused chain's: its
-// scratch; none for a rolling op), bytes of one arena row, the body's word
+// stream block words: the window's placement (none for a rolling op or a
+// body in place), bytes of one arena row, the body's word
 // offset, the copy out and the rolling statics (the input's arena row,
 // window rows, image rows of a streaming tile, tiles, output rows); from
 // S_COPY0 two lists of any length, S_NCOPY copies in (arena row, window
@@ -736,8 +564,8 @@ __device__ __forceinline__ void copy_bytes(uint8_t* __restrict__ dst,
   }
 }
 
-// Every operand block of a staged op or a streaming chain, arena ->
-// window, then a barrier (all reads before the op writes anything).
+// Every operand block of a staged op, arena -> window, then a barrier
+// (all reads before the op writes anything).
 __device__ __forceinline__ void stage_blocks_in(const int* sd,
                                                 const uint8_t* arena,
                                                 uint8_t* win) {

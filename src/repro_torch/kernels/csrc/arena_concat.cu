@@ -5,8 +5,8 @@
 //
 // Replaces the TPU kernels src/repro/kernels/arena_ops.py::_concat_kernel
 // with ::_rescale (apply_op -> _plain_kernel over _FlatMem, and over
-// _BlockMem in the row-blocked program); the one-CTA concat_op of
-// arena_common.cuh stays as the terminal stage of arena_fused_chain.
+// _BlockMem in the row-blocked program); the fused chains run the same
+// chunk body on their concat stages (chain_tiles.cuh).
 //
 // Bound on this card: bytes (densenet_121's widest concat writes 3.2 MB of
 // f32, about 2 us read and written at 3.35 TB/s). The body is

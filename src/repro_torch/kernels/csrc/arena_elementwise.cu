@@ -11,8 +11,8 @@
 // Bound on this card: bytes (resnet_50_v2's largest add reads two and
 // writes one 3.2 MB f32 tensor, about 3 us at 3.35 TB/s). The body is
 // ew_tiles.cuh's grid: 16-byte units in chunks over every SM, each element
-// as the one-CTA elementwise_op computes it. The reference writes its whole
-// output only after reading all of its operands (an add written over its
+// dequantised, computed and quantised on its own. The reference writes its
+// whole output only after reading all of its operands (an add written over its
 // own input, or diagonally below or above it); the descriptor's order word
 // keeps that: disjoint operands and an output that is its input element for
 // element store as they go, any other overlap stages every chunk's results

@@ -1,7 +1,9 @@
 // Row tiles over the whole card, shared by arena_conv (the standalone
 // conv2d / depthwise), arena_pool (max and average pooling of the flat and
-// row-blocked programs) and arena_stream_roll (conv2d, depthwise and pool
-// of the streaming program).
+// row-blocked programs), arena_stream_roll (conv2d, depthwise and pool
+// of the streaming program) and the fused chains' conv2d, depthwise and
+// pool stages (chain_tiles.cuh: one tile a ticket of its level, order
+// word 0, operands in the arena or the chain's workspace).
 //
 // - A tile is (output row, a block of output columns, a block of output
 //   channels), sized by arena_ops.conv_tiling so its input footprint (kh
@@ -255,20 +257,23 @@ __device__ __forceinline__ uint32_t finish(A acc, int cnt, const ConvP& p) {
   }
 }
 
-// The tiles of one op, ticket after ticket, until none is left; `in` and
-// `out` point at the input's and the output's first element, `rows` is
-// the footprint's row policy.
+// Tile t of one op under order word `order`; `in` and `out` point at the
+// input's and the output's first element, `rows` is the footprint's row
+// policy, `staged_rows` the rows below which every tile has staged (order
+// word >= 1: CTA-uniform, carried from tile to tile). Every thread of the
+// CTA takes part; it ends with a barrier.
 template <bool Q, int B, int VP, int VO, typename Rows>
-__device__ void conv_tiles(const int* d, const ConvP& p, const Tiling& tl,
-                           const uint8_t* in, uint8_t* out,
-                           const uint8_t* wbytes, uint8_t* tile,
-                           uint8_t* wsm, int* ctr, const Rows& rows) {
+__device__ __forceinline__ void conv_tile(const ConvP& p, const Tiling& tl,
+                                          int order, const uint8_t* in,
+                                          uint8_t* out,
+                                          const uint8_t* wbytes,
+                                          uint8_t* tile, uint8_t* wsm,
+                                          int* ctr, const Rows& rows, int t,
+                                          int& staged_rows) {
   typedef typename std::conditional<Q, int8_t, float>::type T;
   typedef typename std::conditional<Q, int, float>::type acc_t;
   constexpr bool POOL = B == B_MAX || B == B_AVG;
   constexpr bool CHB = B != B_CONV;  // one input channel an output
-  __shared__ int s_ticket;
-  const int order = d[D_ORDER];
   const int tid = threadIdx.x;
   const int og = tid % tl.nog, slot = tid / tl.nog, npx = CT / tl.nog;
   const int m = B == B_DW ? p.m : 1;  // a pool's D_MULT is its mode
@@ -281,168 +286,180 @@ __device__ void conv_tiles(const int* d, const ConvP& p, const Tiling& tl,
   // such filters stage in shared memory, tl.ch input channels a chunk
   const bool wstage = wvec && tl.ch > 0;
   const int n = p.ow * p.oc;
-  int staged_rows = 0;  // rows below this have all staged (CTA-uniform)
-  for (;;) {
-    if (tid == 0) s_ticket = atomicAdd(ctr + C_TICKET, 1);
+  const int r = t / tl.tpr, rem = t - r * tl.tpr;
+  const int cb = rem / tl.nob, ob = rem - cb * tl.nob;
+  const int x0 = cb * tl.tc, o0 = ob * tl.to;
+  const int c_lo = CHB ? o0 / m : 0;
+  const int ix0 = x0 * p.sw - p.pw;
+  if (order == 2) {  // reads follow every earlier group's store
+    if (tid == 0) wait_for(ctr + C_STORED, rows.first(r) * tl.tpr);
     __syncthreads();
-    const int t = s_ticket;
-    if (t >= tl.ntiles) break;
-    const int r = t / tl.tpr, rem = t - r * tl.tpr;
-    const int cb = rem / tl.nob, ob = rem - cb * tl.nob;
-    const int x0 = cb * tl.tc, o0 = ob * tl.to;
-    const int c_lo = CHB ? o0 / m : 0;
-    const int ix0 = x0 * p.sw - p.pw;
-    if (order == 2) {  // reads follow every earlier group's store
-      if (tid == 0) wait_for(ctr + C_STORED, rows.first(r) * tl.tpr);
-      __syncthreads();
-    }
+  }
 
-    // 1. stage the footprint: tap row fy, column ix - ix0 (every tl.ps
-    // elements), channel c - c_lo
-    const int ixs = max(ix0, 0), ixe = min(ix0 + tl.fw, p.iw);
-    const int pxb = min(tl.ib, p.ic - c_lo) * isz;  // bytes a column
-    for (int fy = 0; fy < p.kh; ++fy) {
-      const int iy = r * p.sh - p.ph + fy * p.dh;
-      if (iy < 0 || iy >= p.ih || ixe <= ixs) continue;
-      copy_columns(tile + (fy * tl.fw + (ixs - ix0)) * tl.ps * isz,
-                   in + (rows(p.ia, r, iy) + ixs * p.ic + c_lo) * isz,
-                   ixe - ixs, pxb, p.ic * isz, tl.ps * isz);
-    }
-    __syncthreads();  // the whole footprint is read
-    if (order >= 1 && tid == 0) {
-      __threadfence();
-      atomicAdd(ctr + C_ROWS + r, 1);
-    }
+  // 1. stage the footprint: tap row fy, column ix - ix0 (every tl.ps
+  // elements), channel c - c_lo
+  const int ixs = max(ix0, 0), ixe = min(ix0 + tl.fw, p.iw);
+  const int pxb = min(tl.ib, p.ic - c_lo) * isz;  // bytes a column
+  for (int fy = 0; fy < p.kh; ++fy) {
+    const int iy = r * p.sh - p.ph + fy * p.dh;
+    if (iy < 0 || iy >= p.ih || ixe <= ixs) continue;
+    copy_columns(tile + (fy * tl.fw + (ixs - ix0)) * tl.ps * isz,
+                 in + (rows(p.ia, r, iy) + ixs * p.ic + c_lo) * isz,
+                 ixe - ixs, pxb, p.ic * isz, tl.ps * isz);
+  }
+  __syncthreads();  // the whole footprint is read
+  if (order >= 1 && tid == 0) {
+    __threadfence();
+    atomicAdd(ctr + C_ROWS + r, 1);
+  }
 
-    // 2. compute from the copy, conv_point's or pool_point's order per
-    // output
-    int lx[VP];
+  // 2. compute from the copy, conv_point's or pool_point's order per
+  // output
+  int lx[VP];
 #pragma unroll
-    for (int i = 0; i < VP; ++i) lx[i] = slot + i * npx;
-    const int ob0 = o0 + og * VO;  // this thread's first output channel
-    const bool active = ob0 < p.oc;
-    acc_t acc[VP][VO];
-    int cnt[VP];
+  for (int i = 0; i < VP; ++i) lx[i] = slot + i * npx;
+  const int ob0 = o0 + og * VO;  // this thread's first output channel
+  const bool active = ob0 < p.oc;
+  acc_t acc[VP][VO];
+  int cnt[VP];
 #pragma unroll
-    for (int i = 0; i < VP; ++i) {
-      cnt[i] = 0;
+  for (int i = 0; i < VP; ++i) {
+    cnt[i] = 0;
 #pragma unroll
-      for (int j = 0; j < VO; ++j) {
-        if constexpr (B == B_MAX) {
-          if constexpr (Q) acc[i][j] = -2147483647;
-          else acc[i][j] = __int_as_float(0xff800000);  // -inf
-        } else {
-          acc[i][j] = 0;
-        }
+    for (int j = 0; j < VO; ++j) {
+      if constexpr (B == B_MAX) {
+        if constexpr (Q) acc[i][j] = -2147483647;
+        else acc[i][j] = __int_as_float(0xff800000);  // -inf
+      } else {
+        acc[i][j] = 0;
       }
     }
-    if (B == B_CONV && VO == 4 && wstage) {
-      if constexpr (B == B_CONV && VO == 4)
-        staged_taps<Q, VP>(p, tl, wbytes, S, wsm, r, x0, o0, og, lx, active,
-                           acc);
-    } else if (active) {
-      int c0 = 0, jm = 0;
-      if constexpr (CHB) { c0 = ob0 / m; jm = ob0 - c0 * m; }
-      for (int fy = 0; fy < p.kh; ++fy) {
-        const int iy = r * p.sh - p.ph + fy * p.dh;
-        if (iy < 0 || iy >= p.ih) continue;
-        const T* srow = S + fy * tl.fw * tl.ps;
-        for (int fx = 0; fx < p.kw; ++fx) {
-          bool ok[VP];
-          const T* xp[VP];
+  }
+  if (B == B_CONV && VO == 4 && wstage) {
+    if constexpr (B == B_CONV && VO == 4)
+      staged_taps<Q, VP>(p, tl, wbytes, S, wsm, r, x0, o0, og, lx, active,
+                         acc);
+  } else if (active) {
+    int c0 = 0, jm = 0;
+    if constexpr (CHB) { c0 = ob0 / m; jm = ob0 - c0 * m; }
+    for (int fy = 0; fy < p.kh; ++fy) {
+      const int iy = r * p.sh - p.ph + fy * p.dh;
+      if (iy < 0 || iy >= p.ih) continue;
+      const T* srow = S + fy * tl.fw * tl.ps;
+      for (int fx = 0; fx < p.kw; ++fx) {
+        bool ok[VP];
+        const T* xp[VP];
+#pragma unroll
+        for (int i = 0; i < VP; ++i) {
+          const int ix = (x0 + lx[i]) * p.sw - p.pw + fx * p.dw;
+          ok[i] = x0 + lx[i] < p.ow && ix >= 0 && ix < p.iw;
+          xp[i] = srow + (lx[i] * p.sw + fx * p.dw) * tl.ps;
+        }
+        const int tap = fy * p.kw + fx;
+        if constexpr (POOL) {
 #pragma unroll
           for (int i = 0; i < VP; ++i) {
-            const int ix = (x0 + lx[i]) * p.sw - p.pw + fx * p.dw;
-            ok[i] = x0 + lx[i] < p.ow && ix >= 0 && ix < p.iw;
-            xp[i] = srow + (lx[i] * p.sw + fx * p.dw) * tl.ps;
+            if (!ok[i]) continue;
+            acc_t v;
+            if constexpr (Q) v = (int)xp[i][c0 - c_lo];
+            else v = xp[i][c0 - c_lo];
+            if constexpr (B == B_MAX && Q) acc[i][0] = max(acc[i][0], v);
+            else if constexpr (B == B_MAX) acc[i][0] = fmaxf(acc[i][0], v);
+            else acc[i][0] += v;
+            ++cnt[i];
           }
-          const int tap = fy * p.kw + fx;
-          if constexpr (POOL) {
+        } else if constexpr (B == B_DW) {
+          const acc_t wv = w[(tap * p.ic + c0) * m + jm];
 #pragma unroll
-            for (int i = 0; i < VP; ++i) {
-              if (!ok[i]) continue;
-              acc_t v;
-              if constexpr (Q) v = (int)xp[i][c0 - c_lo];
-              else v = xp[i][c0 - c_lo];
-              if constexpr (B == B_MAX && Q) acc[i][0] = max(acc[i][0], v);
-              else if constexpr (B == B_MAX) acc[i][0] = fmaxf(acc[i][0], v);
-              else acc[i][0] += v;
-              ++cnt[i];
-            }
-          } else if constexpr (B == B_DW) {
-            const acc_t wv = w[(tap * p.ic + c0) * m + jm];
-#pragma unroll
-            for (int i = 0; i < VP; ++i) {
-              if (!ok[i]) continue;
-              if constexpr (Q) acc[i][0] += ((int)xp[i][c0 - c_lo] - p.x_zp)
-                                            * (int)wv;
-              else acc[i][0] += xp[i][c0 - c_lo] * wv;
-            }
-          } else {
-            const T* wr = w + tap * p.ic * p.oc + ob0;
+          for (int i = 0; i < VP; ++i) {
+            if (!ok[i]) continue;
+            if constexpr (Q) acc[i][0] += ((int)xp[i][c0 - c_lo] - p.x_zp)
+                                          * (int)wv;
+            else acc[i][0] += xp[i][c0 - c_lo] * wv;
+          }
+        } else {
+          const T* wr = w + tap * p.ic * p.oc + ob0;
 #pragma unroll 8
-            for (int c = 0; c < p.ic; ++c) {
-              T wv[VO];
-              load_w<VO>(wv, wr + c * p.oc, wvec);
+          for (int c = 0; c < p.ic; ++c) {
+            T wv[VO];
+            load_w<VO>(wv, wr + c * p.oc, wvec);
 #pragma unroll
-              for (int i = 0; i < VP; ++i) {
-                if (!ok[i]) continue;
-                if constexpr (Q) {
-                  const int x = (int)xp[i][c] - p.x_zp;
+            for (int i = 0; i < VP; ++i) {
+              if (!ok[i]) continue;
+              if constexpr (Q) {
+                const int x = (int)xp[i][c] - p.x_zp;
 #pragma unroll
-                  for (int j = 0; j < VO; ++j) acc[i][j] += x * (int)wv[j];
-                } else {
-                  const float x = xp[i][c];
+                for (int j = 0; j < VO; ++j) acc[i][j] += x * (int)wv[j];
+              } else {
+                const float x = xp[i][c];
 #pragma unroll
-                  for (int j = 0; j < VO; ++j) acc[i][j] += x * wv[j];
-                }
+                for (int j = 0; j < VO; ++j) acc[i][j] += x * wv[j];
               }
             }
           }
         }
       }
     }
+  }
 
-    // 3. store once every tile of rows < hi has staged its input (a CTA's
-    // tickets ascend, so the rows it has seen complete stay complete)
-    if (order >= 1) {
-      const int hi = order == 2 ? rows.end(r, p.oh) : r + 1;
-      if (tid < 32) {  // warp 0 checks 32 rows at a time
-        for (int row = staged_rows + tid; row < hi; row += 32)
-          wait_for(ctr + C_ROWS + row, tl.tpr);
-      }
-      staged_rows = hi;
-      __syncthreads();
+  // 3. store once every tile of rows < hi has staged its input (a CTA's
+  // tickets ascend, so the rows it has seen complete stay complete)
+  if (order >= 1) {
+    const int hi = order == 2 ? rows.end(r, p.oh) : r + 1;
+    if (tid < 32) {  // warp 0 checks 32 rows at a time
+      for (int row = staged_rows + tid; row < hi; row += 32)
+        wait_for(ctr + C_ROWS + row, tl.tpr);
     }
-    const int r0 = row_elem(p.oa, r);
-    if (active) {
+    staged_rows = hi;
+    __syncthreads();
+  }
+  const int r0 = row_elem(p.oa, r);
+  if (active) {
 #pragma unroll
-      for (int i = 0; i < VP; ++i) {
-        const int ox = x0 + lx[i];
-        if (ox >= p.ow) continue;
+    for (int i = 0; i < VP; ++i) {
+      const int ox = x0 + lx[i];
+      if (ox >= p.ow) continue;
 #pragma unroll
-        for (int j = 0; j < VO; ++j) {
-          const int o = ob0 + j;
-          if (o >= p.oc) continue;
-          const int e = r0 + ox * p.oc + o;
-          const uint32_t v = finish<Q, B>(acc[i][j], cnt[i], p);
-          if constexpr (Q) out[e] = (uint8_t)v;
-          else ((uint32_t*)out)[e] = v;
-        }
+      for (int j = 0; j < VO; ++j) {
+        const int o = ob0 + j;
+        if (o >= p.oc) continue;
+        const int e = r0 + ox * p.oc + o;
+        const uint32_t v = finish<Q, B>(acc[i][j], cnt[i], p);
+        if constexpr (Q) out[e] = (uint8_t)v;
+        else ((uint32_t*)out)[e] = v;
       }
     }
-    if (rem == tl.tpr - 1 && p.oa.c == 1) {  // the row's padding
-      const int span = p.oa.k * p.oa.L;
-      for (int e = n + tid; e < span; e += CT) {
-        if constexpr (Q) out[r0 + e] = 0;
-        else ((uint32_t*)out)[r0 + e] = 0u;
-      }
+  }
+  if (rem == tl.tpr - 1 && p.oa.c == 1) {  // the row's padding
+    const int span = p.oa.k * p.oa.L;
+    for (int e = n + tid; e < span; e += CT) {
+      if constexpr (Q) out[r0 + e] = 0;
+      else ((uint32_t*)out)[r0 + e] = 0u;
     }
-    __syncthreads();  // stored; the footprint and s_ticket are free
-    if (order == 2 && tid == 0) {
-      __threadfence();
-      atomicAdd(ctr + C_STORED, 1);
-    }
+  }
+  __syncthreads();  // stored; the footprint and the ticket are free
+  if (order == 2 && tid == 0) {
+    __threadfence();
+    atomicAdd(ctr + C_STORED, 1);
+  }
+}
+
+// The tiles of one op, ticket after ticket, until none is left.
+template <bool Q, int B, int VP, int VO, typename Rows>
+__device__ void conv_tiles(const int* d, const ConvP& p, const Tiling& tl,
+                           const uint8_t* in, uint8_t* out,
+                           const uint8_t* wbytes, uint8_t* tile,
+                           uint8_t* wsm, int* ctr, const Rows& rows) {
+  __shared__ int s_ticket;
+  const int order = d[D_ORDER];
+  int staged_rows = 0;  // rows below this have all staged (CTA-uniform)
+  for (;;) {
+    if (threadIdx.x == 0) s_ticket = atomicAdd(ctr + C_TICKET, 1);
+    __syncthreads();
+    const int t = s_ticket;
+    if (t >= tl.ntiles) break;
+    conv_tile<Q, B, VP, VO>(p, tl, order, in, out, wbytes, tile, wsm, ctr,
+                            rows, t, staged_rows);
   }
 }
 

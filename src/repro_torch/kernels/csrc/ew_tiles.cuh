@@ -2,10 +2,10 @@
 // on it: elementwise, concat and mean. arena_elementwise, arena_concat and
 // arena_mean run them on an op of the flat or row-blocked program, and
 // arena_stream_stage on a staged op of the streaming program, in place on
-// the arena (its descriptor carries arena offsets and no window). They
-// replace the one-CTA elementwise_op and concat_op of arena_common.cuh on
-// those paths; the fused chains' elementwise and concat stages keep those
-// routines. Through the entry points they replace the TPU kernels
+// the arena (its descriptor carries arena offsets and no window); the
+// fused chains (chain_tiles.cuh) run the elementwise and concat bodies one
+// chunk a ticket, their operands in the arena or the chain's workspace.
+// Through the entry points they replace the TPU kernels
 // src/repro/kernels/arena_ops.py::_elementwise_kernel, ::_concat_kernel
 // with ::_rescale and ::_mean_kernel, and those bodies of
 // ::_stream_stage_kernel (with ::_StreamStageMem).
@@ -17,14 +17,15 @@
 //   unit is always one output); units go to contiguous chunks, a CTA's
 //   threads stride over a chunk, and a CTA walks chunks blockIdx.x,
 //   blockIdx.x + gridDim.x, ... (chunk_walk). Padding units get zeros.
-// - Each element is computed as the one-CTA routines compute it, so
-//   results do not depend on the mapping:
-//   elementwise: elementwise_op's addressing (elem_at, elem_of),
+// - Each element is computed the same way whatever the mapping, so
+//   results do not depend on it:
+//   elementwise: the operands' addressing (elem_at, elem_of), the
 //   broadcast index, dequant, ew_apply and quant_f (a pointwise map:
 //   element i reads element i of each operand only);
 //   concat: output element e is column e % inner_out of outer row
 //   e / inner_out, read from the input whose column range holds it and,
-//   int8, rescaled as concat_op rescales (requant_i of x - zp_i);
+//   int8, rescaled to the output's params (requant_i of x - zp_i, as
+//   ops.rescale_q);
 //   mean: one thread sums one output's reduction in one fixed order (r
 //   ascending, the reduced axes' coordinates last axis fastest: the order
 //   of the one-CTA mean this grid replaced), loads issued MEAN_BATCH at a
@@ -69,7 +70,9 @@ struct EwTiling {
   int vec, units, per, chunks;
 };
 
-// An elementwise descriptor's operands and parameters.
+// An elementwise descriptor's operands and parameters; with a fused
+// chain's workspace `ws`, each operand whose scratch word is set lies
+// there (else in the arena).
 struct EwP {
   static constexpr bool kVec = true;  // 16-byte units where allowed
   const uint8_t* a;
@@ -83,11 +86,17 @@ struct EwP {
   bool flat;  // the output block is the tensor, element for element
 };
 
-__device__ __forceinline__ EwP load_ew(const int* d, uint8_t* arena) {
+__device__ __forceinline__ uint8_t* routed(const int* d, int flag,
+                                           uint8_t* arena, uint8_t* ws) {
+  return ws && d[flag] ? ws : arena;
+}
+
+__device__ __forceinline__ EwP load_ew(const int* d, uint8_t* arena,
+                                       uint8_t* ws = nullptr) {
   EwP p;
-  p.a = arena + d[D_IN_OFF];
-  p.b = arena + d[D_IN2_OFF];
-  p.out = arena + d[D_OUT_OFF];
+  p.a = routed(d, D_IN_SCR, arena, ws) + d[D_IN_OFF];
+  p.b = routed(d, D_IN2_SCR, arena, ws) + d[D_IN2_OFF];
+  p.out = routed(d, D_OUT_SCR, arena, ws) + d[D_OUT_OFF];
   p.aa = load_addr(d, 1); p.ba = load_addr(d, 2); p.oa = load_addr(d, 0);
   p.fn = d[D_FN]; p.n = d[D_EN];
   p.binary = p.fn >= EW_ADD; p.bcast = d[D_BCAST] != 0;
@@ -102,8 +111,8 @@ __device__ __forceinline__ EwP load_ew(const int* d, uint8_t* arena) {
   return p;
 }
 
-// The second operand's element offset for output element e (elementwise_op's
-// broadcast index, then its addressing).
+// The second operand's element offset for output element e (its broadcast
+// index, then its addressing).
 __device__ __forceinline__ int ew_b_at(const EwP& p, int e) {
   int bi = e;
   if (p.bcast) {
@@ -117,7 +126,7 @@ __device__ __forceinline__ int ew_b_at(const EwP& p, int e) {
   return elem_at(p.ba, bi);
 }
 
-// elementwise_op's result for element e from its operand values.
+// The stored bits of an elementwise result from its operand values.
 template <bool Q>
 __device__ __forceinline__ uint32_t ew_finish(const EwP& p, float x,
                                               float y) {
@@ -184,22 +193,26 @@ __device__ __forceinline__ uint4 ew_vec(const EwP& p, int u) {
 }
 
 // A concat descriptor's output and parameters (inputs are read through
-// the descriptor's per-input words).
+// the descriptor's per-input words: input i in a fused chain's workspace
+// `ws` where its scratch word is set, else in the arena).
 struct CatP {
   static constexpr bool kVec = true;
   const int* d;
   uint8_t* arena;
+  uint8_t* ws;
   uint8_t* out;
   Addr oa;
   int nin, inner_out, n, y_zp;
   bool flat;
 };
 
-__device__ __forceinline__ CatP load_cat(const int* d, uint8_t* arena) {
+__device__ __forceinline__ CatP load_cat(const int* d, uint8_t* arena,
+                                         uint8_t* ws = nullptr) {
   CatP p;
   p.d = d;
   p.arena = arena;
-  p.out = arena + d[D_OUT_OFF];
+  p.ws = ws;
+  p.out = routed(d, D_OUT_SCR, arena, ws) + d[D_OUT_OFF];
   p.oa = load_addr(d, 0);
   p.nin = d[D_NIN];
   p.inner_out = d[D_INNER_OUT];
@@ -224,7 +237,12 @@ __device__ __forceinline__ int cat_src(const CatP& p, int e, int& s) {
   return i;
 }
 
-// concat_op's rescale of input i's int8 x to the output's params.
+// Input i's first byte.
+__device__ __forceinline__ const uint8_t* cat_in(const CatP& p, int i) {
+  return routed(p.d, D_CIN_SCR + i, p.arena, p.ws) + p.d[D_CIN_OFF + i];
+}
+
+// The rescale of input i's int8 x to the output's params.
 __device__ __forceinline__ uint32_t cat_rescale(const CatP& p, int i,
                                                 int8_t x) {
   return (uint32_t)(uint8_t)requant_i((int)x - p.d[D_CZP + i],
@@ -238,7 +256,7 @@ __device__ __forceinline__ uint32_t cat_elem(const CatP& p, int u) {
   if (e < 0) return 0u;
   int s;
   const int i = cat_src(p, e, s);
-  const uint8_t* src = p.arena + p.d[D_CIN_OFF + i];
+  const uint8_t* src = cat_in(p, i);
   if constexpr (Q) return cat_rescale(p, i, ((const int8_t*)src)[s]);
   else return ((const uint32_t*)src)[s];
 }
@@ -254,8 +272,7 @@ __device__ __forceinline__ uint4 cat_vec(const CatP& p, int u) {
   if (e0 < 0) return r;
   int s;
   const int i = cat_src(p, e0, s);
-  const uint4 v = *(const uint4*)(p.arena + p.d[D_CIN_OFF + i]
-                                  + s * (Q ? 1 : 4));
+  const uint4 v = *(const uint4*)(cat_in(p, i) + s * (Q ? 1 : 4));
   if constexpr (!Q) return v;
   uint32_t* rw = (uint32_t*)&r;
   const uint32_t* vw = (const uint32_t*)&v;
@@ -397,17 +414,24 @@ __device__ __forceinline__ void ew_store(uint8_t* out, int u, const R& v) {
   else ((uint32_t*)out)[u] = v;
 }
 
+// Chunk c of tiling t, each unit computed by the body of p and stored as
+// it goes, a CTA of THREADS threads striding over it.
+template <bool Q, bool VEC, int THREADS = NT, typename P>
+__device__ __forceinline__ void chunk_store(const P& p, const EwTiling& t,
+                                            int c) {
+  const int end = min((c + 1) * t.per, t.units);
+  for (int u = c * t.per + threadIdx.x; u < end; u += THREADS)
+    ew_store<Q, VEC>(p.out, u, unit_of<Q, VEC>(p, u));
+}
+
 // The chunks of tiling t under order word `order` (see the top), each
 // unit computed by the body of p.
 template <bool Q, bool VEC, typename P>
 __device__ void chunk_walk(const P& p, const EwTiling& t, int order,
                            uint8_t* stage, int* ctr) {
   if (order != EW_OVERLAP) {
-    for (int c = blockIdx.x; c < t.chunks; c += gridDim.x) {
-      const int end = min((c + 1) * t.per, t.units);
-      for (int u = c * t.per + threadIdx.x; u < end; u += NT)
-        ew_store<Q, VEC>(p.out, u, unit_of<Q, VEC>(p, u));
-    }
+    for (int c = blockIdx.x; c < t.chunks; c += gridDim.x)
+      chunk_store<Q, VEC>(p, t, c);
     return;
   }
   // order 2: one chunk a CTA (the entry point launches exactly t.chunks,

@@ -522,23 +522,41 @@ def test_conv_order_word_covers_hand_built_overlaps(case, dtype):
 
 
 def test_fused_scratch_branches():
+    """A chain's buffers: its counters (a ticket word a level, a word a
+    barrier) and the regions of its non-terminal stages (16 on the
+    flagship, 89,088 B int8) in the global workspace, cached per spec; each
+    tile's footprint and filter chunks in shared memory, or past the
+    conv's budget one global footprint slice a CTA, the grid then capped
+    at the slices."""
     spec, _ = _flagship_fused(1)
-    row = max(K._row_bytes(st) for st in spec.stages
-              if st.kind in K.ROW_KINDS)
+    s = K.chain_schedule(spec)
+    tiles = [t for st, t in zip(s.stages, s.tilings)
+             if st.kind in K.ROW_KINDS]
+    fp, wts = max(t.fp for t in tiles), max(2 * t.ch * t.to for t in tiles)
+    assert (s.counter_bytes, s.region_bytes) == (32, 89_088)
+    assert s.n_barriers == 2 and len(s.regions) == 16
     bp = K.buffer_plan(spec)
-    assert bp.parts == (("scratch", False, 0), ("stage", False, 25_600),
-                        ("row", False, 25_600 + 32 * 32 * 16))
-    assert (bp.smem, bp.gbytes) == (25_600 + 32 * 32 * 16 + row, 0)
-    big = dataclasses.replace(spec, scratch_rows=308_224)
-    bp = K.buffer_plan(big)
-    assert bp.on_global("scratch") and not bp.on_global("stage")
-    assert (bp.smem, bp.gbytes) == (32 * 32 * 16 + row, 308_224)
-    words = K.descriptor_words(big)
-    assert tuple(words[K.BUFFER_WORD["scratch"]:][:2]) == (1, 0)
-    assert tuple(words[K.BUFFER_WORD["stage"]:][:2]) == (0, 0)
-    assert K.workspace(big, "cpu").numel() == 308_224
-    assert K.workspace(big, "cpu") is K.workspace(big, "cpu")
-    assert K.workspace(spec, "cpu") is None
+    assert bp.parts == (("ctr", True, 0), ("regions", True, 32),
+                        ("tile", False, 0), ("wts", False, fp))
+    assert (bp.smem, bp.gbytes) == (fp + _round16(wts), 32 + 89_088)
+    words = K.descriptor_words(spec)
+    assert tuple(words[K.BUFFER_WORD["tile"]:][:2]) == (0, 0)
+    assert tuple(words[K.BUFFER_WORD["wts"]:][:2]) == (0, fp)
+    assert K.workspace(spec, "cpu").numel() == 32 + 89_088
+    assert K.workspace(spec, "cpu") is K.workspace(spec, "cpu")
+    deep, _ = CS.deep_chain_spec()
+    ds = K.chain_schedule(deep)
+    (dt,) = [t for st, t in zip(ds.stages, ds.tilings)
+             if st.kind == "conv2d"]
+    assert dt.fp > K.CONV_SMEM_BUDGET and ds.grid <= K.CONV_SLICES
+    bp = K.buffer_plan(deep)
+    assert bp.on_global("tile") and not bp.on_global("wts")
+    assert bp.gbytes == ds.counter_bytes + ds.region_bytes + \
+        K.CONV_SLICES * dt.fp
+    words = K.descriptor_words(deep)
+    assert words[K.H_FP] == dt.fp and \
+        tuple(words[K.BUFFER_WORD["tile"]:][:2]) == (
+            1, ds.counter_bytes + ds.region_bytes)
 
 
 def test_buffer_plan_rows_and_whole_blocks():

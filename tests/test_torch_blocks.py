@@ -110,9 +110,16 @@ def test_block_specs_equal(label):
         (fused,) = [s for s in got if s.kind == "fused"]
         assert len(fused.stages) == 17
         assert fused.scratch_rows == (64 if label == "flagship_int8" else 32)
-        assert K.buffer_plan(fused).parts[0] == ("scratch", False, 0)
-        assert K._buffer_needs(fused)[0][1] == (
-            49_152 if label == "flagship_int8" else 131_072)
+        # the card's placement: counters (one arena row's bytes), then a
+        # region of whole rows for each of the 16 non-terminal stages
+        sched = K.chain_schedule(fused)
+        row = fused.rowlen * (1 if label == "flagship_int8" else 4)
+        assert K.buffer_plan(fused).parts[:2] == (
+            ("ctr", True, 0), ("regions", True, sched.counter_bytes))
+        assert sched.counter_bytes == (row if label == "flagship_int8"
+                                       else 4096)
+        assert dict(K._buffer_needs(fused))["regions"] == (
+            133_632 if label == "flagship_int8" else 356_352)
 
 
 # ---------------------------------------------------------------------------

@@ -73,12 +73,16 @@ def test_slice_on_the_card(card):
 
 
 def test_global_scratch_branch_on_the_card(card):
+    """mobilenet_v1_1.0_224_8bit's chain (1,053,696 B of regions, its
+    stages' outputs, in the global workspace) on a grid of every SM."""
     g = zoo.TABLE3_MODELS["mobilenet_v1_1.0_224_8bit"][0]()
     cp = compile(g, backend="cuda")
     assert cp.peak_bytes == 517_052
     fused = [s for s in CudaExecutor(device=card).program(cp)[0]
              if s.kind == "fused"]
-    assert fused and K.buffer_plan(fused[0]).on_global("scratch")
+    assert fused and K.buffer_plan(fused[0]).on_global("regions")
+    assert K.chain_schedule(fused[0]).region_bytes == 1_053_696
+    assert K.chain_grid(fused[0])[0] > 132
     compare_outputs(get_backend("numpy").execute(cp), cp.execute(),
                     exact=False, label="1.0_224_8bit")
 
@@ -676,6 +680,138 @@ def test_streaming_route_on_the_card(card, bits):
         np.testing.assert_array_equal(got[k], want[k])
     a, b = _final_arena(st, cp), _final_arena(blk, cp)
     assert a.is_cuda and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the fused chains' grid (arena_fused_chain, arena_stream_fused)
+# ---------------------------------------------------------------------------
+
+_PROGRAMS = {"flat": {}, "blocks": {"layout": "blocks"},
+             "streaming": {"mode": "streaming"}}
+
+
+def _chip_smoke():
+    """The chip script as a module (its hand-built chains)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _chain_state(card, cp, program):
+    """(fused spec, blob, descriptor, the arena as the program reaches the
+    chain) of a compiled plan's program."""
+    specs, ws, descs, state = CudaExecutor(
+        device=card, **_PROGRAMS[program]).program(cp)
+    for spec, w, d in zip(specs, ws, descs):
+        if spec.kind == "fused":
+            return spec, w, d, state
+        K.apply_op(state, spec, w, d)
+    raise AssertionError("no fused chain")
+
+
+def _hold_chain(spec, got, ref):
+    if spec.dtype == "i8":
+        assert torch.equal(got, ref)
+    else:
+        g, r = (t.view(torch.float32) for t in (got, ref))
+        assert torch.allclose(g, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("program", ["flat", "blocks", "streaming"])
+@pytest.mark.parametrize("bits,batch", [(1, 1), (4, 1), (1, 2)])
+def test_chain_grid_matches_plain_on_the_card(card, bits, batch, program):
+    """The flagship's chain (int8, f32, int8 at batch 2) on each program:
+    one launch of a cooperative grid of more than one CTA, against the
+    plain version (int8 bit-exact, f32 within 1e-4)."""
+    cp = compile(zoo.mobilenet_v1(0.25, 128, bits), batch=batch)
+    spec, w, d, state = _chain_state(card, cp, program)
+    assert K.chain_grid(spec)[0] > 1
+    got, ref = state.clone(), state.clone()
+    K.reset_launches()
+    K.apply_op(got, spec, w, d)
+    assert sum(K.LAUNCHES.values()) == 1
+    K.apply_plain(ref, spec, w)
+    torch.cuda.synchronize()
+    _hold_chain(spec, got, ref)
+
+
+@pytest.mark.parametrize("rowlen,stream", [(0, False), (512, False),
+                                           (512, True)])
+@pytest.mark.parametrize("dtype", ["i8", "f32"])
+def test_staged_terminal_chain_on_the_card(card, dtype, rowlen, stream):
+    """A hand-built chain whose terminal concat reads the chain input it
+    overwrites in the arena (flat, blocked and streaming): every chunk of
+    the last level stages its results before one more grid barrier; held
+    against the plain version, and 20 launches bit-equal to the first."""
+    CS = _chip_smoke()
+    spec, n = CS.fused_demo_spec(dtype, 28, 28, 16, rowlen, arena_cat=True)
+    if stream:
+        spec = CS.stream_chain_spec(spec)
+    assert K.chain_schedule(spec).staged
+    g = torch.Generator().manual_seed(3)
+    wt = (torch.randint(-127, 128, (3, 3, 16, 16), dtype=torch.int8,
+                        generator=g) if dtype == "i8" else
+          torch.randn(3, 3, 16, 16, generator=g) * 0.2)
+    blob = K.pack_weights(spec, [wt.to(card)])
+    if rowlen:
+        shape = (n, rowlen)
+        state = (torch.randn(shape, generator=g) if dtype == "f32" else
+                 torch.randint(-128, 128, shape, dtype=torch.int8,
+                               generator=g)).to(card)
+    else:
+        state = torch.randint(0, 256, (n,), dtype=torch.uint8,
+                              generator=g).to(card)
+        if dtype == "f32":
+            state = torch.randn(n // 4, generator=g).view(
+                torch.uint8).to(card)
+    ref = state.clone()
+    K.apply_plain(ref, spec, blob)
+    first = None
+    for _ in range(20):
+        got = state.clone()
+        K.apply_op(got, spec, blob)
+        torch.cuda.synchronize()
+        first = got if first is None else first
+        assert torch.equal(got, first)
+    _hold_chain(spec, first, ref)
+
+
+@pytest.mark.parametrize("program", ["flat", "streaming"])
+def test_chain_repeats_are_identical_on_the_card(card, program):
+    """Five launches of the flagship int8 chain on the same arena give
+    byte-identical arenas (a missing level barrier would show here)."""
+    cp = compile(zoo.mobilenet_v1(0.25, 128, 1))
+    spec, w, d, state = _chain_state(card, cp, program)
+    outs = []
+    for _ in range(5):
+        got = state.clone()
+        K.apply_op(got, spec, w, d)
+        outs.append(got)
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_chain_refuses_a_grid_the_card_cannot_hold(card):
+    """A chain launch asking for more resident CTAs than the card holds is
+    refused by the entry point and runs nothing, on no smaller grid."""
+    from repro_torch.kernels import build
+    cp = compile(zoo.mobilenet_v1(0.25, 128, 1))
+    spec, w, d, state = _chain_state(card, cp, "flat")
+    _, _, ctr = K.chain_grid(spec)
+    before = state.clone()
+    too_many = 1 << 20
+    err = build.entry("arena_fused_chain")(
+        state.data_ptr(), d.data_ptr(), w.data_ptr(),
+        K.workspace(spec, card).data_ptr(), K.buffer_plan(spec).smem,
+        too_many, too_many, ctr, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="arena_fused_chain"):
+        build.check(err, "arena_fused_chain")
+    torch.cuda.synchronize()
+    assert torch.equal(state, before)
 
 
 # ---------------------------------------------------------------------------

@@ -222,6 +222,11 @@ def _run_both(spec: K.OpSpec, arena: np.ndarray, weights, kernel: str,
         assert body[K.D_ORDER] == (K.chunk_of(spec)[1]
                                    if K.runs_chunk_walk(spec)
                                    else K.fc_order(spec))
+    elif spec.kind == "fused":   # in place on the arena: no window, no copy
+        assert words[K.S_NCOPY] == 0 and words[K.S_WIN_G] == 0
+        body = words[words[K.S_BODY]:]
+        assert body[K.H_NS] == len(spec.stages) and \
+            body[K.H_NL] == len(K.chain_schedule(spec).levels)
     elif K.stream_form(spec) != "roll":   # one copy in per input block
         n = int(words[K.S_NCOPY])
         assert n == len(spec.in_off) and \
@@ -546,18 +551,19 @@ def _flagship_stream_fused(bits: int):
 @pytest.mark.parametrize("bits", [1, 4])
 def test_stream_fused_plain_matches_pallas(bits):
     """The flagship's band chain in its streaming form (17 stages, every
-    operand scratch-resident) on a seeded full-size arena; its window is
-    the include_io scratch (98,304 B int8, 229,376 B f32)."""
+    operand scratch-resident) on a seeded full-size arena; the reference's
+    window is the include_io scratch (98,304 B int8, 229,376 B f32). The
+    card's kernel keeps no window: its counters and the stages' regions
+    take the global workspace, each tile's footprint and filter chunks
+    shared memory."""
     spec, ws, bplan = _flagship_stream_fused(bits)
     assert len(spec.stages) == 17 and spec.win_rows == spec.scratch_rows
     assert all(all(st.in_scratch) and st.out_scratch for st in spec.stages)
     row_bytes = bplan.arena_rowlen * (1 if bits == 1 else 4)
     assert spec.win_rows * row_bytes == (98_304 if bits == 1 else 229_376)
-    # f32: the scratch takes shared memory, the stage and row buffers
-    # the global workspace
     parts = {n: g for n, g, _ in K.buffer_plan(spec).parts}
-    assert parts["scratch"] is False
-    assert parts["row"] is (bits == 4)
+    assert parts == {"ctr": True, "regions": True, "tile": False,
+                     "wts": False}
     dtype = "i8" if bits == 1 else "f32"
     _run_both(spec, _typed_arena(dtype, bplan.total_rows,
                                  bplan.arena_rowlen, 5), ws,
