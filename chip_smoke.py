@@ -23,11 +23,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    global slices; a hand-built
    conv whose output row exceeds a CTA's shared memory (cut into column
    tiles), and one whose input footprint exceeds the conv's shared memory
-   budget (staged in per-CTA slices of the global workspace). For every
-   fused chain it prints the schedule (``[chain]`` lines: levels, stages
-   and tiles per level, the grid and its CTAs an SM, the workspace bytes
-   beside the one-CTA kernel's scratch bytes) and checks that each runs on
-   more than one CTA;
+   budget (staged in per-CTA slices of the global workspace); hand-built
+   softmaxes over 1,024 rows x 1,000 (f32 and int8; in place, order word
+   1, and shifted five elements over the next row, order word 2), over one
+   row of 65,536 (a CTA row staged in the workspace) and matmuls (1024,
+   1024, 1024) with the output apart (order word 0) and over a (order word
+   2). For every fused chain it prints the schedule (``[chain]`` lines:
+   levels, stages and tiles per level, the grid and its CTAs an SM, the
+   workspace bytes beside the one-CTA kernel's scratch bytes) and checks
+   that each runs on more than one CTA; for every hand-built softmax and
+   matmul a ``[softmax]`` or ``[matmul]`` line (order word, tiling, grid,
+   CTAs an SM, workspace and shared bytes), and checks that each runs on
+   more than one CTA where its rows allow;
 4. runs the flagship slice: ``compile(mobilenet_v1(0.25, 128, 1),
    backend="cuda")`` (verified ``numeric+cuda``, winner ``fuse``, 49,805 B)
    and three requests through ``CompiledPlan.execute``, each matching the
@@ -83,10 +90,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    tolerance of the numpy backend, the final device arena bit-equal to the
    blocked route's on the same inputs; prints each graph's largest
    resident window, whether the card stages it in shared or global memory
-   (a rolling op: its row tiles' footprints; a fused chain and the staged
-   elementwise, concat, mean and FC bodies run in place), and the bytes
+   (a rolling op: its row tiles' footprints; a fused chain and every
+   staged body but a pad's run in place), and the bytes
    each streaming form stages, in the TPU program and in the card's
-   kernels (counts from the specs);
+   kernels (counts from the specs); then a hand-built streaming pad whose
+   window exceeds shared memory (the staged walk, only a pad's now, takes
+   both placements: ``allops``' window in shared memory, this one in the
+   global workspace) against its plain version;
 9. runs the standalone DMO depthwise conv ``kernels.ops.dmo_dwconv2d`` on
    the card on the reference's ``DWCONV_CASES`` and two real layers
    ((64, 64, 8) of the flagship, (112, 112, 32) of
@@ -129,7 +139,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``arena_stream_fused``, each beside its plain version and its bound) on
    the flagship int8, f32 and batch 2 on all three programs,
    ``mobilenet_v1_1.0_224_8bit`` flat and ``mobilenet_v2_1.0_224`` blocked
-   and streaming;
+   and streaming; the softmax alone on the flagship int8 at batch 1, 2
+   and 8 (one a sample, a ``[softmax]`` line each) and the matmul and
+   softmax of ``allops`` int8, beside their plain versions; the
+   hand-built softmaxes and matmuls beside their plain versions, bounds
+   and ``torch.softmax``/``torch.matmul`` (f32, TF32 off); and the launch
+   floor, an empty kernel through the same launcher (one CTA, a
+   cooperative grid of one CTA an SM, two CTAs an SM), under
+   ``softmax_matmul`` in the JSON;
 12. writes every number to ``build/chip_smoke.json`` (the chains'
     schedules and times under ``chains``) and prints the
     ``kernels`` JSON line (a ``[blocks]`` line per kernel for the
@@ -529,6 +546,77 @@ def deep_chain_spec():
     return spec, nbytes + 3 * 3 * 8 * 4
 
 
+#: int8 params of the hand-built softmax ((x scale, x_zp), (y scale,
+#: y_zp)) and matmul (a_zp, b_zp, multiplier, y_zp)
+SOFTMAX_QM = ((float(np.float32(0.05)), 3),
+              (float(np.float32(1 / 256)), -128))
+MATMUL_QM = (3, -2, float(np.float32(0.0002)), 1)
+#: where a hand-built softmax's output lies, in elements past its input's
+#: start: over it (each row over its own input: order word 1), five
+#: elements on (a row's last outputs over the next row's first inputs:
+#: order word 2), after it (order word 0)
+SOFTMAX_PLACES = ("aligned", "shifted", "disjoint")
+
+
+def softmax_spec(dtype: str, rows: int, last: int, place: str):
+    """A hand-built flat softmax over ``rows`` rows of ``last``, its output
+    placed by ``place`` (``SOFTMAX_PLACES``). Returns (spec, arena
+    bytes)."""
+    from repro_torch.kernels.arena_ops import OpSpec
+    isz = 1 if dtype == "i8" else 4
+    n = rows * last
+    out = {"aligned": 0, "shifted": 5, "disjoint": n}[place]
+    spec = OpSpec(kind="softmax", in_off=(0,), in_shape=((rows, last),),
+                  out_off=out * isz, out_shape=(rows, last), dtype=dtype,
+                  qmeta=SOFTMAX_QM if dtype == "i8" else ())
+    return spec, _round16((out + n) * isz)
+
+
+def matmul_spec(dtype: str, m: int, k: int, n: int, place: str):
+    """A hand-built flat matmul (m, k) x (k, n): a at byte 0, b after it
+    at a 16-byte boundary, the output after both (``place`` "disjoint":
+    order word 0) or over a from its first byte ("over_a": order word 2).
+    Returns (spec, arena bytes)."""
+    from repro_torch.kernels.arena_ops import OpSpec
+    isz = 1 if dtype == "i8" else 4
+    b_off = _round16(m * k * isz)
+    out = 0 if place == "over_a" else _round16(b_off + k * n * isz)
+    spec = OpSpec(kind="matmul", in_off=(0, b_off),
+                  in_shape=((m, k), (k, n)), out_off=out, out_shape=(m, n),
+                  dtype=dtype, qmeta=MATMUL_QM if dtype == "i8" else ())
+    return spec, _round16(max(b_off + k * n * isz, out + m * n * isz))
+
+
+def stream_pad_spec():
+    """A hand-built f32 pad of the streaming program, (64, 64, 16) -> (66,
+    66, 16) on rows of 1,024 (its output rows span two arena rows): its
+    staged window (the input block and the output block, 819,200 B)
+    exceeds a CTA's shared memory, so the staged walk copies it through
+    the global workspace. Returns (spec, arena rows)."""
+    from repro_torch.core.planner import staged_slots
+    from repro_torch.kernels.arena_ops import OpSpec
+    spec = OpSpec(kind="pad", in_off=(0,), in_shape=((64, 64, 16),),
+                  out_off=64, out_shape=(66, 66, 16), dtype="f32",
+                  meta=(((1, 1), (1, 1), (0, 0)),), rowlen=1024,
+                  in_rows=((64, 1024),), out_rows=(132, 1024),
+                  in_addr=((1, 1, 1024),), out_addr=(1, 2, 1056))
+    win = staged_slots([64], 132, 8)[2]
+    return dataclasses.replace(spec, win_rows=win), 64 + 132
+
+
+#: the hand-built specs timed where the work shows: (label, maker, args)
+HAND_SOFTMAX = [(f"softmax 1024 x 1000 {dt} {pl}", softmax_spec,
+                 (dt, 1024, 1000, pl))
+                for dt in ("f32", "i8") for pl in ("aligned", "shifted")]
+HAND_MATMUL = [(f"matmul 1024^3 {dt} {pl}", matmul_spec,
+                (dt, 1024, 1024, 1024, pl))
+               for dt in ("f32", "i8") for pl in ("disjoint", "over_a")]
+#: checked only, not timed: one row past a CTA's registers and shared
+#: memory (a slice of the workspace a CTA)
+LONG_SOFTMAX = [(f"softmax 1 x 65536 {dt} disjoint", softmax_spec,
+                 (dt, 1, 65_536, "disjoint")) for dt in ("f32", "i8")]
+
+
 def graph_fault(graph):
     """The first binary elementwise op whose second operand does not
     broadcast to the first (numpy rules), as (name, shapes), or None."""
@@ -681,10 +769,9 @@ def card_staging_bytes(K, spec) -> int:
     """Bytes the card's kernel copies on its way for a streaming spec: a
     rolling op's row tiles stage their footprints, the columns and
     channels each tile reads through its window (the Python mirror,
-    ``arena_ops.tile_reads``), and store straight into the arena; a staged
-    elementwise, concat, mean or fully connected op and a fused chain run
-    in place (nothing); any other staged op copies what the TPU program
-    copies."""
+    ``arena_ops.tile_reads``), and store straight into the arena; a fused
+    chain and every staged op but a pad run in place (nothing); a staged
+    pad copies what the TPU program copies."""
     if K.runs_in_place(spec) or spec.kind == "fused":
         return 0
     if K.stream_form(spec) != "roll":
@@ -899,6 +986,37 @@ def chain_row(torch, K, spec, label: str):
     return row
 
 
+def grid_row(torch, K, spec, label: str):
+    """A softmax or matmul spec's grid on the card (counts from the spec,
+    ``arena_ops.softmax_order``/``softmax_tiling``/``softmax_grid`` or
+    ``matmul_order``/``fc_tiling``/``fc_grid``): its order word, tiling,
+    the CTAs it launches and puts on an SM, whether they must all be
+    resident, and the workspace and shared bytes. Logged as a
+    ``[softmax]`` or ``[matmul]`` line and returned."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bp = K.buffer_plan(spec)
+    if spec.kind == "softmax":
+        order, t, grid = (K.softmax_order(spec), K.softmax_tiling(spec),
+                          K.softmax_grid(spec))
+        shape = "%d x %d" % K._softmax_geometry(spec)
+    else:
+        order, t, grid = (K.matmul_order(spec), K.fc_tiling(spec),
+                          K.fc_grid(spec))
+        shape = "(%d, %d) x (%d, %d)" % (K._matmul_geometry(spec)[:2]
+                                         + K._matmul_geometry(spec)[1:])
+    row = {"label": label, "kernel": K.kernel_of(spec), "shape": shape,
+           "dtype": spec.dtype, "order": order, "tiling": list(t),
+           "grid": grid[0], "cooperative": grid[1] > 0,
+           "ctas_per_sm": -(-grid[0] // sms),
+           "workspace_bytes": bp.gbytes, "smem_bytes": bp.smem}
+    log(f"[{spec.kind}] {label}: {row['kernel']} {shape} {spec.dtype}, "
+        f"order word {order}, tiling {row['tiling']}, grid {grid[0]} CTAs "
+        f"({row['ctas_per_sm']} an SM of {sms}"
+        + (", all resident" if grid[1] else "") +
+        f"), workspace {bp.gbytes} B, shared {bp.smem} B")
+    return row
+
+
 def compare_program(torch, K, be, cp, label: str, errs, select=None,
                     weights=None, quant=None):
     """Kernel against plain version for every spec of a compiled plan that
@@ -928,22 +1046,33 @@ def compare_program(torch, K, be, cp, label: str, errs, select=None,
     return specs, chains, n
 
 
+def seeded_state(torch, spec, nbytes: int, seed: int = 0):
+    """A seeded random arena on the card of ``nbytes`` (flat) or ``nbytes``
+    rows (row-blocked): f32 standard normal, int8 uniform. A flat f32
+    matmul's b is scaled by 1 / sqrt(k), so its outputs stay near 1 and
+    the 1e-4 limit measures the summation, not the operands' size."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if spec.rowlen:
+        shape = (nbytes, spec.rowlen)
+        return (torch.randn(shape, generator=g) if spec.dtype == "f32" else
+                torch.randint(-128, 128, shape, dtype=torch.int8,
+                              generator=g)).cuda()
+    if spec.dtype != "f32":
+        return torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                             generator=g).cuda()
+    x = torch.randn(-(-nbytes // 4), generator=g)
+    if spec.kind == "matmul":
+        k = spec.in_shape[0][-1]
+        b0 = spec.in_off[1] // 4
+        x[b0:b0 + _el(spec.in_shape[1])] /= k ** 0.5
+    return x.view(torch.uint8)[:nbytes].cuda()
+
+
 def compare_spec(torch, K, spec, nbytes: int, weights, errs, label: str,
                  seed: int = 0):
     """Kernel against plain version on one hand-built spec over a seeded
     random arena of ``nbytes`` (flat) or ``nbytes`` rows (row-blocked)."""
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    if spec.rowlen:
-        shape = (nbytes, spec.rowlen)
-        state = (torch.randn(shape, generator=g) if spec.dtype == "f32" else
-                 torch.randint(-128, 128, shape, dtype=torch.int8,
-                               generator=g)).cuda()
-    elif spec.dtype == "f32":
-        state = torch.randn(-(-nbytes // 4), generator=g).view(
-            torch.uint8)[:nbytes].cuda()
-    else:
-        state = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
-                              generator=g).cuda()
+    state = seeded_state(torch, spec, nbytes, seed)
     w = weights
     if spec.kind == "fused":
         w = K.pack_weights(spec, weights, device="cuda")
@@ -1074,9 +1203,9 @@ def largest_window(K, ex, cp):
     """(bytes, op name, "shared", "global" or "in place", windows staged
     in global memory, windows staged in shared memory, specs) of the
     streaming plan: its largest resident window and where the card stages
-    it (a staged op's window; a rolling op's row tiles' footprints, each
-    its part of the window; a staged elementwise, concat, mean or fully
-    connected op and a fused chain run in place and stage nothing)."""
+    it (a staged pad's window; a rolling op's row tiles' footprints, each
+    its part of the window; every other staged op and a fused chain run in
+    place and stage nothing)."""
     bp = ex.legalised(cp.plan)
     sched = bp.window_schedule()
     specs = ex.program(cp)[0]
@@ -1192,7 +1321,8 @@ def ew_rows(K, ex, cp, label: str):
     for s in specs:
         bp = K.buffer_plan(s)
         grid = (K.chunk_grid(s) if K.runs_chunk_walk(s) else
-                K.fc_grid(s) if K.runs_fc_grid(s) else (1, 0, 0))
+                K.fc_grid(s) if K.runs_product_grid(s) else
+                K.softmax_grid(s) if K.runs_softmax_grid(s) else (1, 0, 0))
         row = {"kernel": K.kernel_of(s), "fn": s.meta[0] if
                s.kind == "elementwise" else s.kind, "grid": list(grid),
                "smem_bytes": bp.smem, "workspace_bytes": bp.gbytes}
@@ -1565,6 +1695,72 @@ def kernel_times(torch, F, K, ex, cp, weights=None, quant=None,
     return per
 
 
+def launch_floor_ms(torch, build) -> dict:
+    """Device ms of one launch of an empty kernel through the arena
+    kernels' launcher (``build.entry("launch_floor")``, on the current
+    stream, CUDA events over 200 launches): one CTA, a cooperative grid of
+    one CTA an SM, and a grid of two CTAs an SM."""
+    fn = build.entry("launch_floor")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def launch(grid: int, group: int) -> None:
+        build.check(fn(None, None, None, None, 0, grid, group, 0,
+                       torch.cuda.current_stream().cuda_stream),
+                    "launch_floor")
+    return {"one_cta_ms": time_ms(torch, lambda: launch(1, 0), 200),
+            "cooperative_grid_ms": time_ms(torch, lambda: launch(sms, sms),
+                                           200),
+            "two_an_sm_ms": time_ms(torch, lambda: launch(2 * sms, 0), 200),
+            "sms": sms}
+
+
+def softmax_matmul_times(torch, F, K, X, build, ex, compile, flag, cp, fw,
+                         fq, compiled):
+    """The softmax and matmul grids timed (CUDA events, after a warm-up):
+    on the flagship int8 at batch 1, 2 and 8 (one softmax a sample) and
+    ``allops`` int8 (``kernel_times``, beside the plain versions); on the
+    hand-built specs (``HAND_SOFTMAX``, ``HAND_MATMUL``) beside the plain
+    version, the bound and, f32, ``torch.softmax`` or ``torch.matmul``
+    (TF32 off); and the launch floor. A ``[softmax]``/``[matmul]`` line
+    per zoo spec timed. Returns the numbers."""
+    out = {"zoo": {}, "hand_built": {}, "grids": []}
+    for batch in (1, 2, 8):
+        c, w, q = cp, fw, fq
+        if batch > 1:
+            c = compile(flag, backend="numpy", batch=batch)
+            w = X.synth_weights(c.graph, 0)
+            q = X.calibrate(c.graph, 0, w)
+        r = kernel_times(torch, F, K, ex, c, w, q,
+                         only={"arena_softmax"})["arena_softmax"]
+        label = f"flagship int8 batch {batch}"
+        out["grids"] += [grid_row(torch, K, sp, f"{label} #{i}")
+                         for i, sp in enumerate(r.pop("specs"))]
+        out["zoo"][label] = r
+    r = kernel_times(torch, F, K, ex, compiled["allops int8"],
+                     only={"arena_matmul", "arena_softmax"})
+    for name, row in r.items():
+        out["grids"] += [grid_row(torch, K, sp, f"allops int8 {name}")
+                         for sp in row.pop("specs")]
+        out["zoo"][f"allops int8 {name}"] = row
+    for label, make, args in HAND_SOFTMAX + HAND_MATMUL:
+        spec, nbytes = make(*args)
+        state = seeded_state(torch, spec, nbytes)
+        a, b = state.clone(), state.clone()
+        row = {"ms": time_auto(torch, lambda: K.apply_op(a, spec)),
+               "plain_ms": time_ms(torch, lambda: K.apply_plain(b, spec), 1,
+                                   warm=False),
+               "bound_ms": bound_ms(spec), "bound_by": bound_by([spec]),
+               "library_ms": None}
+        if spec.dtype == "f32":
+            row["library_ms"] = time_auto(torch,
+                                          library_call(torch, F, spec))
+        out["hand_built"][label] = row
+    out["launch_floor"] = launch_floor_ms(torch, build)
+    log("[time] softmax and matmul (ms): " + json.dumps(
+        {k: v for k, v in out.items() if k != "grids"}))
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from the root of a checkout of the repository "
@@ -1673,6 +1869,23 @@ def main() -> int:
     compare_spec(torch, K, spec, nbytes,
                  [torch.randn(3, 3, 6_000, 8).cuda() * 0.02], errs,
                  "conv with a 216,000 B footprint (global staging slices)")
+    # the softmax and matmul grids on hand-built specs where the work
+    # shows: a [softmax] or [matmul] line each, more than one CTA wherever
+    # the rows, row blocks or column blocks allow
+    sm_grids = []
+    for label, make, args in HAND_SOFTMAX + LONG_SOFTMAX + HAND_MATMUL:
+        spec, nbytes = make(*args)
+        compare_spec(torch, K, spec, nbytes, None, errs, label)
+        r = grid_row(torch, K, spec, label)
+        check(r["grid"] > 1 or spec.in_shape[0][0] == 1,
+              f"{label}: one CTA for {r['shape']}")
+        sm_grids.append(r)
+    check({r["order"] for r in sm_grids if r["kernel"] == "arena_softmax"}
+          == {K.EW_ALIGNED, K.EW_OVERLAP, K.EW_DISJOINT}
+          and {r["order"] for r in sm_grids
+               if r["kernel"] == "arena_matmul"}
+          == {K.EW_DISJOINT, K.EW_OVERLAP},
+          "the hand-built softmaxes and matmuls take every order word")
     for name in PROGRAM_KERNELS:
         check(name in errs, f"{name} was never held against its plain "
               "version")
@@ -1848,11 +2061,16 @@ def main() -> int:
         "flagship", "flagship f32", "flagship batch 2", "resnet_50_v2",
         "resnet_50_v2 int8", "densenet_121", "mobilenet_v2_1.0_224",
         "allops", "allops int8")}
+    walk_places = set()  # the staged walk's windows (pads only)
     for label, c in st_cps.items():
         chains += compare_program(torch, K, stm, c, label + " streaming",
                                   st_errs)[1]
         nbytes, op, where, n_global, n_shared, specs = largest_window(
             K, stm, c)
+        walk_places |= {"global" if K.buffer_plan(sp).on_global("win")
+                        else "shared" for sp in specs
+                        if K.stream_form(sp) == "stage"
+                        and not K.runs_in_place(sp)}
         n = {"flagship": 29, "resnet_50_v2": RESNET_LAUNCHES,
              "densenet_121": DENSENET_LAUNCHES}.get(label)
         counts, t_s, t_b = streamed_requests(torch, K, X, c, label, n)
@@ -1889,9 +2107,17 @@ def main() -> int:
             f"staging bytes by form (counts from the specs): TPU program "
             f"{staged}, card {staged_card} "
             f"(execute {t_s:.2f} s, blocked {t_b:.2f} s)")
-    check(st_rows["flagship f32"]["windows_in_shared"] > 0
-          and st_rows["resnet_50_v2"]["windows_in_global"] > 0,
-          "the streaming windows must take both placements")
+    # only a pad still takes the staged walk: allops' window in shared
+    # memory, and a hand-built one past it in the global workspace
+    spec, rows = stream_pad_spec()
+    check(K.buffer_plan(spec).on_global("win"), "the pad's window is not "
+          "global")
+    compare_spec(torch, K, spec, rows, None, st_errs,
+                 "streaming pad with a 819,200 B window (global)")
+    walk_places.add("global")
+    check(walk_places == {"shared", "global"}
+          and st_rows["flagship f32"]["windows_in_shared"] > 0,
+          "the staged windows must take both placements")
     for name, path in STREAM_KERNEL_PATH.items():
         check(name in st_errs, f"{name} was never held against its plain "
               "version")
@@ -2056,6 +2282,14 @@ def main() -> int:
                 name: {k: v for k, v in row.items() if k != "specs"}
                 for name, row in r.items()}
     log("[time] fused chains per forward (ms): " + json.dumps(chain_times))
+    sm_out = softmax_matmul_times(torch, F, K, X, build, ex, compile, flag,
+                                  cp, fw, fq, compiled)
+    sm_out["grids"] = sm_grids + sm_out["grids"] + [
+        grid_row(torch, K, sp, f"{label} {k}")
+        for label, path in (("resnet_50_v2", per["resnet_50_v2"]),
+                            ("allops", per["allops"]))
+        for k in ("arena_softmax", "arena_matmul") if k in path
+        for sp in path[k]["specs"]]
     blk_walls, st_walls = {}, {}
     for label, reps, args in (("resnet_50_v2", 3, (in0, w0, None)),
                               ("flagship", 20, (fin, fw, fq))):
@@ -2169,6 +2403,7 @@ def main() -> int:
          "arena_conv": conv_rows, "arena_stream_roll": roll_rows,
          "arena_elementwise": ew_info, "pool_and_fc": head_info,
          "chains": {"schedules": chains, "times": chain_times},
+         "softmax_matmul": sm_out,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

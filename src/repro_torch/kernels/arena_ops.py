@@ -22,8 +22,8 @@ arena programs.
   read ``win_in`` arena rows from ``win_starts[t]``; the kernel reads them
   in place and stores straight into the arena), *staged*
   (every other kind: operand blocks packed by ``planner.staged_slots``;
-  the kernel runs an elementwise, concat, mean or fully connected op in
-  place on the arena instead)
+  the kernel runs every staged kind but pad in place on the arena
+  instead)
   and *fused* (a band chain whose inputs, internals and output all live in
   the reference's ``include_io`` scratch slots; the kernel reads the
   inputs and writes the output in place on the arena).
@@ -85,20 +85,28 @@ connected ops (:func:`arena_fully_connected`, and the staged one of
 :func:`arena_stream_stage`, in place on the arena) cut W into column blocks
 and K slices over the whole card (:func:`fc_tiling`), sum the slices'
 partials in a fixed order, and put one grid-wide barrier before any store
-where the output meets x (:func:`fc_order`). The fused chains
+where the output meets x (:func:`fc_order`); a matmul
+(:func:`arena_matmul`, and the staged one) runs the same grid with b in the
+arena, adding row blocks where a has many rows (:func:`matmul_order`).
+Softmax (:func:`arena_softmax`, and the staged one) gives a few rows a CTA
+each and many rows a warp each over the whole card
+(:func:`softmax_tiling`) and stages every result before one grid-wide
+barrier only where an input lies in another row's output or the padding
+(:func:`softmax_order`). The fused chains
 (:func:`arena_fused_chain`, :func:`arena_stream_fused`) give every
 chain-internal tensor a workspace region of its own and run the stages
 that do not depend on each other as one level of row tiles and chunks
 over the whole card, a grid-wide barrier between levels, the terminal
-stage last (:func:`chain_schedule`). Softmax, pad and matmul run one CTA
-per op.
+stage last (:func:`chain_schedule`). Pad runs one CTA per op.
 
 The plain versions walk output rows in Python with torch ops on typed views
 of the arena, in the reference's order (every read of row ``oy`` before its
 store, rows ascending; whole-block ops read everything before writing), so
 they are exact on in-place and diagonally overlapped layouts. The
 streaming ones copy the window out of the arena, run the same bodies with
-the operands rebased to it, and copy the output back. They store as
+the operands rebased to it, and copy the output back; a staged op the
+card runs in place runs its blocked plain version on the arena. They
+store as
 the reference does: a plain or spanning row store zeroes the rest of its
 arena rows, a packed one writes only its lane phase, and a whole-block op
 writes its whole padded ``(rows, rowlen)`` block, zeros in the padding.
@@ -284,18 +292,22 @@ D_MM, D_MK, D_MN = 10, 11, 12
 D_PIN0, D_PLO0, D_POUT0, D_PN = 10, 14, 18, 22
 #: A grid kernel's order word (a tile kernel's :func:`conv_order`, a chunk
 #: walk's :func:`ew_order`, :func:`concat_order` or :func:`mean_order`, a
-#: fully connected op's :func:`fc_order`), then its tiling's fields in
-#: order (:func:`conv_tiling`, :func:`chunk_of`, :func:`fc_tiling`).
+#: product's :func:`fc_order` or :func:`matmul_order`, a softmax's
+#: :func:`softmax_order`), then its tiling's fields in order
+#: (:func:`conv_tiling`, :func:`chunk_of`, :func:`fc_tiling`,
+#: :func:`softmax_tiling`).
 D_ORDER = 100
 D_TILING = 101
 #: Buffer placement words (flag: 1 = global workspace, then byte offset);
-#: a tile kernel's footprint, a chunk walk's staging and a fully
-#: connected op's partials take the "stage" words, a tile kernel's filter
-#: chunks and a fully connected CTA's warp sums the "row" words; a fused
+#: a tile kernel's footprint, a chunk walk's staging, a product's partials
+#: and a softmax's order-2 results take the "stage" words, a tile kernel's
+#: filter chunks, a product CTA's warp sums and a softmax's staged row the
+#: "row" words; a fused
 #: chain's header carries its footprint ("tile"), filter chunks ("wts")
 #: and staged terminal chunks ("term").
 BUFFER_WORD = {"stage": 120, "row": 122, "tile": 120, "wts": 122,
-               "chunk": 120, "part": 120, "red": 122, "term": 124}
+               "chunk": 120, "part": 120, "red": 122, "term": 124,
+               "results": 120, "rowbuf": 122}
 #: Operand addressing: slot 0 is the output, slot 1 + i input i, each
 #: ADDR_WORDS words (L, c, k, rl, used, nblk) from D_ADDR on.
 D_ADDR, ADDR_WORDS = 128, 6
@@ -309,8 +321,8 @@ D_ADDR, ADDR_WORDS = 128, 6
 (S_WIN_G, S_WIN_OFF, S_ROWB, S_BODY, S_NCOPY, S_OUT_WIN, S_OUT_ROW,
  S_OUT_ROWS, S_IN_ROW, S_WIN_IN, S_TR, S_T, S_OH) = range(13)
 S_COPY0 = 16
-#: Shared memory a streaming launch leaves to static shared arrays (the
-#: staged softmax's block reduction).
+#: Shared memory a streaming launch leaves to static shared arrays (a
+#: softmax CTA row's reduction, a product CTA's last-slice flag).
 STREAM_STATIC_SMEM = 1024
 
 
@@ -1204,50 +1216,71 @@ def chunk_grid(spec: OpSpec) -> Tuple[int, int, int]:
 
 
 # ---------------------------------------------------------------------------
-# The fully connected grid body (csrc/fc_tiles.cuh: arena_fully_connected,
-# and arena_stream_stage's FC body in place on the arena): W cut into
-# column blocks x K slices, one a CTA, the slices' partials summed in a
-# fixed order, and the order word that keeps read-all-before-write-all.
-# The kernels read the same numbers from the descriptor.
+# The product grid body (csrc/fc_tiles.cuh: arena_fully_connected,
+# arena_matmul, and arena_stream_stage's FC and matmul bodies in place on
+# the arena): b cut into column blocks x K slices (x row blocks of a's many
+# rows), one item a CTA, the slices' partials summed in a fixed order, and
+# the order word that keeps read-all-before-write-all. The kernels read the
+# same numbers from the descriptor.
 # ---------------------------------------------------------------------------
 
-#: Output columns of an FC CTA: four a lane of a warp (16-byte W loads).
+#: Output columns of a product CTA: four a lane of a warp (16-byte b loads).
 FC_COLS = 4 * 32
-#: Warps of an FC CTA; each sums ``rpt`` rows of its K slice.
+#: Warps of a product CTA; with few rows each sums ``rpt`` rows of its K
+#: slice, with many rows ``rm`` rows of a over the whole slice.
 FC_WARPS = EW_THREADS // 32
-#: CTAs an FC grid takes at most, when W has enough rows: one a SM.
+#: CTAs a product grid takes at most, when b has enough rows: one a SM
+#: (an order-2 grid: all of them resident, walking every item).
 FC_GRID = CONV_SMS
-#: Bytes of an FC op's counters before its per-column-block ones: the
-#: grid barrier (three words of padding).
+#: Bytes of a product op's counters before its per-tile ones: the grid
+#: barrier (three words of padding).
 FC_COUNTER_BYTES = 16
+#: Rows of a a warp of a matmul's row block sums over its whole K slice
+#: in registers (an FC's rows, a batch of a few, take no row blocks: its
+#: warps split the slice and meet in shared memory).
+MM_RM = 4
+#: Rows of b a row-block item's K slice takes at least.
+MM_MIN_BK = 64
+#: A matmul descriptor's word: 1 when b's four columns of a lane are one
+#: aligned run in the arena (one 16-byte load; int8: 4-byte), else 0.
+D_VECB = 112
 
 
 class FcTiling(NamedTuple):
-    """The items of a fully connected op: column block ``cb`` (``bo``
-    output columns from ``cb * bo``) x K slice ``ks`` (``bk = FC_WARPS *
-    rpt`` rows of W from ``ks * bk``, ``rpt`` a warp), ``ncb * nks`` of
-    them, one a CTA (``ctas``); item ``i`` is ``(i // nks, i % nks)``.
-    Every W element lies in exactly one item."""
+    """The items of a product ``y = a . b`` (a fully connected op, b = W;
+    a matmul, b in the arena): column block ``cb`` (``bo`` output columns
+    from ``cb * bo``) x K slice ``ks`` (``bk`` rows of b from ``ks * bk``)
+    x row block ``rb`` (``bm`` rows of a from ``rb * bm``), ``nrb * ncb *
+    nks`` of them, one a CTA (``ctas``); item ``i`` is ``ks = i % nks``,
+    ``cb = i // nks % ncb``, ``rb = i // (nks * ncb)``. An FC (``rm`` 0:
+    one row block of every row) splits a slice over the warps, ``rpt = bk
+    / FC_WARPS`` rows of W each; a matmul's warp ``w`` takes rows ``rb *
+    bm + w * rm ..`` (``rm`` of them) over the whole slice (``rpt =
+    bk``). Every b element lies in exactly one item a row block."""
     bo: int
     bk: int
     rpt: int
     ncb: int
     nks: int
     ctas: int
+    bm: int
+    nrb: int
+    rm: int
 
 
-def runs_fc_grid(spec: OpSpec) -> bool:
-    """Does the spec run the fully connected grid body: an FC op of the
-    flat or row-blocked program, or a staged one of the streaming
-    program."""
-    return spec.kind == "fully_connected" and stream_form(spec) in (
-        None, "stage")
+def runs_product_grid(spec: OpSpec) -> bool:
+    """Does the spec run the product grid body: a fully connected op or a
+    matmul of the flat or row-blocked program, or a staged one of the
+    streaming program."""
+    return spec.kind in ("fully_connected", "matmul") and stream_form(
+        spec) in (None, "stage")
 
 
-def runs_in_place(spec: OpSpec) -> bool:
-    """Does a staged streaming spec run in place on the arena (no window,
-    no copies): an elementwise, concat, mean or fully connected body."""
-    return runs_chunk_walk(spec) or runs_fc_grid(spec)
+def _product_geometry(spec: OpSpec) -> Tuple[int, int, int]:
+    """(m, k, n) of a product: a's rows and b's shape."""
+    if spec.kind == "matmul":
+        return _matmul_geometry(spec)
+    return _fc_geometry(spec)
 
 
 def _fc_geometry(spec: OpSpec) -> Tuple[int, int, int]:
@@ -1257,18 +1290,36 @@ def _fc_geometry(spec: OpSpec) -> Tuple[int, int, int]:
 
 
 @functools.lru_cache(maxsize=1024)
+def product_tiling(m: int, k: int, n: int, rows: bool) -> FcTiling:
+    """The items of ``(m, k) x (k, n)``: :data:`FC_COLS` columns a block;
+    without ``rows`` (an FC) one row block, and the fewest rows a warp
+    (``rpt``) that keep the items within :data:`FC_GRID` (at least one row
+    a warp, one slice a block); with them (a matmul) row blocks of
+    ``FC_WARPS * MM_RM`` rows and as many K slices (of :data:`MM_MIN_BK`
+    rows at least) as keep the items within :data:`FC_GRID`."""
+    ncb = -(-n // FC_COLS)
+    if not rows:
+        rpt = -(-k // (FC_WARPS * max(1, FC_GRID // ncb)))
+        bk = FC_WARPS * rpt
+        nks = -(-k // bk)
+        return FcTiling(FC_COLS, bk, rpt, ncb, nks, ncb * nks, m, 1, 0)
+    bm = FC_WARPS * MM_RM
+    nrb = -(-m // bm)
+    nks = max(1, min(FC_GRID // (nrb * ncb), -(-k // MM_MIN_BK)))
+    bk = -(-k // nks)
+    nks = -(-k // bk)
+    return FcTiling(FC_COLS, bk, bk, ncb, nks, nrb * ncb * nks, bm, nrb,
+                    MM_RM)
+
+
+@functools.lru_cache(maxsize=1024)
 def fc_tiling(spec: OpSpec) -> FcTiling:
-    """The items of a fully connected spec, from ``(m, idim, odim)`` alone
-    (the dtype, layout and offsets never enter, so the flat, blocked and
-    streaming programs sum in one order): :data:`FC_COLS` columns a block,
-    then the fewest rows a warp (``rpt``) that keep the items within
-    :data:`FC_GRID` (at least one row a warp, one slice a block)."""
-    _, idim, odim = _fc_geometry(spec)
-    ncb = -(-odim // FC_COLS)
-    rpt = -(-idim // (FC_WARPS * max(1, FC_GRID // ncb)))
-    bk = FC_WARPS * rpt
-    nks = -(-idim // bk)
-    return FcTiling(FC_COLS, bk, rpt, ncb, nks, ncb * nks)
+    """The items of a fully connected or matmul spec, from ``(m, k, n)``
+    and its kind alone (:func:`product_tiling`, row blocks for a matmul
+    only: the dtype, layout and offsets never enter, so the flat, blocked
+    and streaming programs sum in one order)."""
+    return product_tiling(*_product_geometry(spec),
+                          rows=spec.kind == "matmul")
 
 
 @functools.lru_cache(maxsize=1024)
@@ -1282,21 +1333,175 @@ def fc_order(spec: OpSpec) -> int:
     return EW_DISJOINT
 
 
+@functools.lru_cache(maxsize=1024)
+def matmul_order(spec: OpSpec) -> int:
+    """The order word of a matmul from the arena byte ranges of a, b and
+    the output (:func:`_byte_range`): :data:`EW_DISJOINT` when neither
+    operand meets the output, else :data:`EW_OVERLAP` (every CTA reads its
+    rows of a and b before one grid-wide barrier, and stores after it)."""
+    out = _byte_range(spec, None)
+    if any(_meets(_byte_range(spec, i), out) for i in (0, 1)):
+        return EW_OVERLAP
+    return EW_DISJOINT
+
+
+def product_order(spec: OpSpec) -> int:
+    """:func:`fc_order` or :func:`matmul_order`, by the spec's kind."""
+    return matmul_order(spec) if spec.kind == "matmul" else fc_order(spec)
+
+
+def _mm_vec_b(spec: OpSpec) -> bool:
+    """Does a matmul's b hold each lane's four columns as one aligned run
+    (:func:`_ew_map`: n and b's rows multiples of four, its base at a
+    16-byte (int8: 4-byte) boundary of the arena)?"""
+    _, _, n = _matmul_geometry(spec)
+    off, span, used = _ew_map(spec, 1)
+    return n % 4 == 0 and off % (4 * _isz(spec.dtype)) == 0 and \
+        span % 4 == 0 and used % 4 == 0
+
+
+def mm_direct(spec: OpSpec) -> bool:
+    """Do a matmul's row blocks store their sums straight from their
+    registers: one K slice and order 0 (no partials, no counters)?"""
+    return spec.kind == "matmul" and fc_tiling(spec).nks == 1 and \
+        product_order(spec) != EW_OVERLAP
+
+
 def fc_counter_bytes(spec: OpSpec) -> int:
-    """Bytes of an FC op's counters: :data:`FC_COUNTER_BYTES`, then one
-    int32 of finished slices per column block, 16-aligned."""
-    return _round_up(FC_COUNTER_BYTES + 4 * fc_tiling(spec).ncb, 16)
+    """Bytes of a product op's counters: :data:`FC_COUNTER_BYTES`, then one
+    int32 of finished slices per (row block, column block), 16-aligned;
+    none where nothing counts (order 0 with one K slice: every item is its
+    tile's last, and the entry point sets no memset before the launch)."""
+    t = fc_tiling(spec)
+    if t.nks == 1 and product_order(spec) != EW_OVERLAP:
+        return 0
+    return _round_up(FC_COUNTER_BYTES + 4 * t.nrb * t.ncb, 16)
 
 
 def fc_grid(spec: OpSpec) -> Tuple[int, int, int]:
     """(CTAs to launch at most, CTAs that must run at once, counter bytes)
-    of a fully connected spec: one CTA an item; overlap needs every item
-    resident (a cooperative launch the entry point refuses on a card that
-    cannot hold it); both words count finished slices, which the entry
-    point zeroes."""
+    of a fully connected or matmul spec: one CTA an item; overlap needs a
+    resident grid (a cooperative launch the entry point refuses on a card
+    that cannot hold it): an FC's of one CTA an item, a matmul's of at
+    most :data:`FC_GRID`, each CTA walking its items before the barrier;
+    both count finished slices, which the entry point zeroes."""
     t = fc_tiling(spec)
-    group = t.ctas if fc_order(spec) == EW_OVERLAP else 0
-    return t.ctas, group, fc_counter_bytes(spec)
+    if product_order(spec) == EW_OVERLAP:
+        g = min(t.ctas, FC_GRID) if spec.kind == "matmul" else t.ctas
+        return g, g, fc_counter_bytes(spec)
+    return t.ctas, 0, fc_counter_bytes(spec)
+
+
+# ---------------------------------------------------------------------------
+# The softmax grid body (csrc/softmax_tiles.cuh: arena_softmax, and
+# arena_stream_stage's softmax body in place on the arena): rows over the
+# card, a CTA a row for a few rows, a warp a row for many, and the order
+# word that keeps read-all-before-write-all. The kernels read the same
+# numbers from the descriptor.
+# ---------------------------------------------------------------------------
+
+#: Row policies: a warp a row, its values in registers; a CTA a row, a
+#: column a thread, its values through a buffer (shared memory, or past
+#: :data:`EW_SMEM_BUDGET` a workspace slice a CTA).
+SM_WARP, SM_CTA = range(2)
+#: Values a lane of a warp row holds at most (a warp row: 1,024 values).
+SM_WARP_VALS = 32
+#: Rows a softmax gives a CTA each at most: as many as one grid takes. A
+#: few rows are bound by one row's latency, which a CTA's 512 threads cut
+#: and a warp's 32 do not (a 1,000-class f32 row on an H100: 11.6 us on a
+#: warp, 3.6 on a CTA, ``scripts/torch_softmax_matmul_variants.py``); many
+#: rows fill the card on warps.
+SM_FEW_ROWS = EW_GRID
+
+
+class SoftmaxTiling(NamedTuple):
+    """A softmax's row policy (:data:`SM_WARP`, :data:`SM_CTA`), the
+    columns of a thread's group (a warp row's 16 bytes' worth: 4 f32, 16
+    int8; a CTA row's one) and the groups a thread takes (``per``): thread
+    ``t`` of a row's ``T`` (32, or :data:`EW_THREADS`) holds columns ``(t +
+    T * j) * vec + i``, and sums them ``j`` then ``i`` ascending."""
+    mode: int
+    vec: int
+    per: int
+
+
+def runs_softmax_grid(spec: OpSpec) -> bool:
+    """Does the spec run the softmax grid body: a softmax of the flat or
+    row-blocked program, or a staged one of the streaming program."""
+    return spec.kind == "softmax" and stream_form(spec) in (None, "stage")
+
+
+def _softmax_geometry(spec: OpSpec) -> Tuple[int, int]:
+    """(rows, last): the product of the leading dims, and the softmax
+    axis."""
+    last = spec.in_shape[0][-1]
+    n = _elems(spec.in_shape[0])
+    if _elems(spec.out_shape) != n or not last:
+        raise ValueError(f"softmax: {spec.in_shape} -> {spec.out_shape}")
+    return n // last, last
+
+
+@functools.lru_cache(maxsize=1024)
+def softmax_tiling(spec: OpSpec) -> SoftmaxTiling:
+    """The row policy of a softmax from ``(rows, last)`` and the element
+    type alone (the layout and offsets never enter, so the flat, blocked
+    and streaming programs sum in one order): more than
+    :data:`SM_FEW_ROWS` rows of at most ``32 * SM_WARP_VALS`` values a warp
+    a row; else a CTA a row, a column a thread, through a buffer."""
+    rows, last = _softmax_geometry(spec)
+    if rows > SM_FEW_ROWS and last <= 32 * SM_WARP_VALS:
+        vec = 16 // _isz(spec.dtype)
+        return SoftmaxTiling(SM_WARP, vec, -(-last // (32 * vec)))
+    return SoftmaxTiling(SM_CTA, 1, -(-last // EW_THREADS))
+
+
+@functools.lru_cache(maxsize=1024)
+def softmax_order(spec: OpSpec) -> int:
+    """The order word of a softmax: :data:`EW_DISJOINT` when the input's
+    and the output's byte ranges do not meet; :data:`EW_ALIGNED` when,
+    byte for byte, every input element that lies in the output's block
+    lies in an output element of its own row (never in padding), so that
+    row's owner reads it before it stores there and no other warp or CTA
+    reads it (the flagship's in-place softmax); else :data:`EW_OVERLAP`."""
+    out = _byte_range(spec, None)
+    if not _meets(_byte_range(spec, 0), out):
+        return EW_DISJOINT
+    rows, last = _softmax_geometry(spec)
+    n = rows * last
+    isz = _isz(spec.dtype)
+    lo, hi = out
+    e = _block_elems(spec, n)
+    holder = np.repeat(np.where(e >= 0, e // last, -2), isz)  # -2: padding
+    start = _elem_bytes(spec, 0, np.arange(n))
+    row = np.arange(n) // last
+    for j in range(isz):
+        at = start + j - lo
+        inside = (at >= 0) & (at < hi - lo)
+        if (holder[at[inside]] != row[inside]).any():
+            return EW_OVERLAP
+    return EW_ALIGNED
+
+
+def softmax_grid(spec: OpSpec) -> Tuple[int, int, int]:
+    """(CTAs to launch at most, CTAs that must run at once, counter bytes)
+    of a softmax: a CTA a row (a warp row's CTA takes the rows of its
+    warps), at most :data:`EW_GRID`; order 2 at most :data:`EW_RESIDENT`,
+    all resident (a cooperative launch the entry point refuses on a card
+    that cannot hold it), and its barrier counter, which the entry point
+    zeroes."""
+    rows, _ = _softmax_geometry(spec)
+    if softmax_order(spec) == EW_OVERLAP:
+        g = min(rows, EW_RESIDENT)
+        return g, g, EW_COUNTER_BYTES
+    return min(rows, EW_GRID), 0, 0
+
+
+def runs_in_place(spec: OpSpec) -> bool:
+    """Does a staged streaming spec run in place on the arena (no window,
+    no copies): an elementwise, concat, mean, fully connected, matmul or
+    softmax body (every staged kind but pad)."""
+    return runs_chunk_walk(spec) or runs_product_grid(spec) or \
+        runs_softmax_grid(spec)
 
 
 # ---------------------------------------------------------------------------
@@ -1622,11 +1827,13 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
     """Buffers the spec's kernel needs, in the order they claim shared
     memory. A tile kernel's counters, footprint and filter chunks; a
     chunk walk nothing, or for order 2 its barrier counter and one chunk's
-    staging; the fully connected grid body its counters, its
-    partial sums (global: other CTAs sum them) and one CTA's warp sums; a
-    staged op adds its window to its body's; a fused chain (any program)
-    its counters, its stages' regions, the largest footprint and filter
-    chunks of its row stages and, staged, one terminal chunk a CTA."""
+    staging; the product grid body its counters, its partial sums
+    (global: other CTAs sum them; none for a matmul's row blocks of one
+    slice) and, an FC, one CTA's warp sums; a softmax, for order 2, its
+    counter and every result, and for a CTA row its buffer; a staged pad
+    adds its window to its body's; a fused chain (any program) its
+    counters, its stages' regions, the largest footprint and filter chunks
+    of its row stages and, staged, one terminal chunk a CTA."""
     form = stream_form(spec)
     if kernel_of(spec) in TILE_KERNELS:
         tl = conv_tiling(spec)
@@ -1638,11 +1845,21 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
             return ()
         return (("ctr", EW_COUNTER_BYTES),
                 ("chunk", t.per * t.vec * _isz(spec.dtype)))
-    if runs_fc_grid(spec):   # partials: an int32 or f32 a slice and output
-        m, _, odim = _fc_geometry(spec)
-        return (("ctr", fc_counter_bytes(spec)),
-                ("part", 4 * fc_tiling(spec).nks * m * odim),
-                ("red", 4 * FC_WARPS * FC_COLS))
+    if runs_product_grid(spec):  # partials: an int32 or f32 a slice, output
+        m, _, n = _product_geometry(spec)
+        t = fc_tiling(spec)
+        part = 0 if mm_direct(spec) else 4 * t.nks * m * n
+        return (("ctr", fc_counter_bytes(spec)), ("part", part)) + (
+            (("red", 4 * FC_WARPS * FC_COLS),) if not t.rm else ())
+    if runs_softmax_grid(spec):
+        rows, last = _softmax_geometry(spec)
+        needs = ()
+        if softmax_order(spec) == EW_OVERLAP:
+            needs = (("ctr", EW_COUNTER_BYTES),
+                     ("results", rows * last * _isz(spec.dtype)))
+        if softmax_tiling(spec).mode == SM_CTA:
+            needs += (("rowbuf", 4 * last),)
+        return needs
     if form == "stage":
         rowb = spec.rowlen * _isz(spec.dtype)
         return (("win", _staged(spec)[2] * rowb),) + _buffer_needs(
@@ -1661,9 +1878,7 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
         return needs + (("term", max(     # one staged chunk a CTA
             s.tilings[j].per * s.tilings[j].vec
             for j in s.terminal) * _isz(spec.dtype)),)
-    if k == "softmax":
-        return (("stage", 4 * _elems(spec.in_shape[0])),)
-    return (("stage", _elems(spec.out_shape) * _isz(spec.dtype)),)
+    return (("stage", _elems(spec.out_shape) * _isz(spec.dtype)),)  # pad
 
 
 @functools.lru_cache(maxsize=1024)
@@ -1672,21 +1887,22 @@ def buffer_plan(spec: OpSpec) -> BufferPlan:
     fits beside the ones before it within :data:`SMEM_LIMIT` (less
     :data:`STREAM_STATIC_SMEM` for a streaming launch), else the global
     workspace. A grid kernel's counters are always global, at its
-    workspace's start, and so are a fully connected op's partial sums and
-    a fused chain's regions (right after its counters, where
-    :func:`chain_schedule` placed them); a tile kernel's footprint (a
-    chain's largest) takes shared memory within
+    workspace's start, and so are a product's partial sums, a softmax's
+    order-2 results and a fused chain's regions (right after its counters,
+    where :func:`chain_schedule` placed them); a tile kernel's footprint
+    (a chain's largest) takes shared memory within
     :data:`CONV_SMEM_BUDGET`, else one global slice per CTA
     (:data:`CONV_SLICES`); a chunk walk's staging likewise within
-    :data:`EW_SMEM_BUDGET`, else one global slice a chunk; a chain's
-    staged terminal chunks one global slice a CTA."""
+    :data:`EW_SMEM_BUDGET`, else one global slice a chunk, and a softmax's
+    staged row one global slice a CTA; a chain's staged terminal chunks one
+    global slice a CTA."""
     smem = gbytes = 0
     parts = []
     limit = SMEM_LIMIT - (STREAM_STATIC_SMEM if spec.win_rows else 0)
     for name, n in _buffer_needs(spec):
         n = _round_up(n, 16)
-        if name in ("ctr", "part", "regions") or (name == "tile"
-                                                  and n > CONV_SMEM_BUDGET):
+        if name in ("ctr", "part", "regions", "results") or (
+                name == "tile" and n > CONV_SMEM_BUDGET):
             parts.append((name, True, gbytes))
             gbytes += n * (CONV_SLICES if name == "tile" else 1)
         elif name == "term":   # a chain's staged terminal: a slice a CTA
@@ -1695,6 +1911,9 @@ def buffer_plan(spec: OpSpec) -> BufferPlan:
         elif name == "chunk" and n > EW_SMEM_BUDGET:
             parts.append((name, True, gbytes))
             gbytes += n * chunk_of(spec)[0].chunks
+        elif name == "rowbuf" and n > EW_SMEM_BUDGET:  # a slice a CTA
+            parts.append((name, True, gbytes))
+            gbytes += n * softmax_grid(spec)[0]
         elif smem + n <= limit:
             parts.append((name, False, smem))
             smem += n
@@ -1745,10 +1964,10 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
     fused chain a header (word 0 = stage count) and then every stage's.
     The op's words, or the header, carry the buffer placement. A streaming
     spec's descriptor is its stream block, then its body's descriptor (a
-    staged elementwise, concat, mean or fully connected op's body at its
-    arena offsets: it runs in place). A tile kernel's, a chunk walk's or
-    the fully connected grid body's (last) op descriptor carries its order
-    word and tiling."""
+    staged op's body at its arena offsets, in place; a staged pad's
+    rebased to its window). A tile kernel's, a chunk walk's, the product's
+    or the softmax grid body's (last) op descriptor carries its order word
+    and tiling."""
     bp = buffer_plan(spec)
     if spec.kind == "fused":
         words = _chain_words(spec, bp)
@@ -1770,9 +1989,15 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
     elif runs_chunk_walk(spec):
         t, body[D_ORDER] = chunk_of(spec)
         body[D_TILING:D_TILING + len(t)] = t
-    elif runs_fc_grid(spec):
-        body[D_ORDER] = fc_order(spec)
+    elif runs_product_grid(spec):
+        body[D_ORDER] = product_order(spec)
         body[D_TILING:D_TILING + len(FcTiling._fields)] = fc_tiling(spec)
+        if spec.kind == "matmul":
+            body[D_VECB] = int(_mm_vec_b(spec))
+    elif runs_softmax_grid(spec):
+        body[D_ORDER] = softmax_order(spec)
+        t = softmax_tiling(spec)
+        body[D_TILING:D_TILING + len(t)] = t
     return words
 
 
@@ -2349,10 +2574,16 @@ def stream_roll_plain(arena: torch.Tensor, spec: OpSpec,
 
 def stream_stage_plain(arena: torch.Tensor, spec: OpSpec,
                        w: Optional[torch.Tensor] = None) -> None:
-    """A staged streaming op: every operand block copied into its window
-    slot (:func:`~repro_torch.core.planner.staged_slots`), the op's plain
-    version run on the window, the output block copied back."""
+    """A staged streaming op. One that runs in place on the card
+    (:func:`runs_in_place`: every kind but pad) runs its blocked plain
+    version on the arena, as the kernel does; a pad copies every operand
+    block into its window slot
+    (:func:`~repro_torch.core.planner.staged_slots`), runs its plain
+    version on the window and copies the output block back."""
     _check_stream(spec, arena.shape[0])
+    if runs_in_place(spec):
+        apply_plain(arena, _blocked(spec), w)
+        return
     offs, out_slot, total = _staged(spec)
     win = torch.zeros((total, spec.rowlen), dtype=arena.dtype,
                       device=arena.device)
@@ -2539,11 +2770,12 @@ def arena_pool(arena: torch.Tensor, spec: OpSpec,
 
 
 def _check_ew_arena(arena: torch.Tensor) -> None:
-    """A chunk walk's 16-byte units need the arena at a 16-byte boundary
-    (every allocation is; a view into one need not be)."""
+    """A chunk walk's 16-byte units and a matmul's 16-byte loads of b need
+    the arena at a 16-byte boundary (every allocation is; a view into one
+    need not be)."""
     if arena.data_ptr() % 16:
-        raise ValueError("the chunk walk needs an arena that starts at a "
-                         "16-byte boundary")
+        raise ValueError("the chunk walk and the matmul need an arena that "
+                         "starts at a 16-byte boundary")
 
 
 def arena_elementwise(arena: torch.Tensor, spec: OpSpec,
@@ -2561,13 +2793,15 @@ def arena_elementwise(arena: torch.Tensor, spec: OpSpec,
 
 def arena_matmul(arena: torch.Tensor, spec: OpSpec,
                  desc: Optional[torch.Tensor] = None) -> None:
-    """(M, K) x (K, N) of two arena operands."""
+    """(M, K) x (K, N) of two arena operands, over the whole card on the
+    fully connected grid (:func:`fc_tiling`, :func:`matmul_order`)."""
     _expect(spec, "arena_matmul")
     _matmul_geometry(spec)
     if not _on_card(arena, spec):
         matmul_plain(arena, spec)
         return
-    _launch("arena_matmul", arena, spec, None, desc)
+    _check_ew_arena(arena)
+    _launch("arena_matmul", arena, spec, None, desc, fc_grid(spec))
 
 
 def arena_pad(arena: torch.Tensor, spec: OpSpec,
@@ -2622,11 +2856,14 @@ def arena_fully_connected(arena: torch.Tensor, spec: OpSpec, w: torch.Tensor,
 
 def arena_softmax(arena: torch.Tensor, spec: OpSpec,
                   desc: Optional[torch.Tensor] = None) -> None:
+    """Softmax over the last axis on the arena, its rows over the whole
+    card (:func:`softmax_tiling`, :func:`softmax_order`)."""
     _expect(spec, "arena_softmax")
+    _softmax_geometry(spec)
     if not _on_card(arena, spec):
         softmax_plain(arena, spec)
         return
-    _launch("arena_softmax", arena, spec, None, desc)
+    _launch("arena_softmax", arena, spec, None, desc, softmax_grid(spec))
 
 
 def _check_chain(spec: OpSpec, wblob: torch.Tensor) -> None:
@@ -2675,22 +2912,26 @@ def arena_stream_stage(arena: torch.Tensor, spec: OpSpec,
                        w: Optional[torch.Tensor] = None,
                        desc: Optional[torch.Tensor] = None) -> None:
     """A whole-block op of the streaming program (``w``: a fully connected
-    op's filter): an elementwise, concat, mean or fully connected op in
-    place on the arena over the whole card (the grid bodies of
-    :func:`arena_elementwise`, :func:`arena_concat`, :func:`arena_mean`
-    and :func:`arena_fully_connected`), softmax, pad or matmul on its
-    staged window in one CTA."""
+    op's filter): an elementwise, concat, mean, fully connected, matmul or
+    softmax op in place on the arena over the whole card (the grid bodies
+    of :func:`arena_elementwise`, :func:`arena_concat`,
+    :func:`arena_mean`, :func:`arena_fully_connected`,
+    :func:`arena_matmul` and :func:`arena_softmax`), a pad on its staged
+    window in one CTA."""
     _expect(spec, "arena_stream_stage")
     if spec.kind == "fully_connected":
         _check_weight(spec, w)
     if not _on_card(arena, spec, w):
         stream_stage_plain(arena, spec, w)
         return
-    if runs_chunk_walk(spec):
+    if runs_chunk_walk(spec) or spec.kind == "matmul":
         _check_ew_arena(arena)
+    if runs_chunk_walk(spec):
         grid = chunk_grid(spec)
-    elif runs_fc_grid(spec):
+    elif runs_product_grid(spec):
         grid = fc_grid(spec)
+    elif runs_softmax_grid(spec):
+        grid = softmax_grid(spec)
     else:
         grid = (1, 0, 0)
     _launch("arena_stream_stage", arena, spec, w, desc, grid)

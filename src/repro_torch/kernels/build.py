@@ -51,17 +51,24 @@ KERNELS = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 ARGTYPES = [_P, _P, _P, _P, _I, _P]
 #: The kernels over the whole card (the row tiles of csrc/conv_tiles.cuh,
 #: the elementwise, concat and mean chunk walks of csrc/ew_tiles.cuh, the
-#: fully connected grid of csrc/fc_tiles.cuh, the fused chains' levels of
-#: csrc/chain_tiles.cuh) take three ints more before the stream: the CTAs
-#: to launch at most, the CTAs (tiles) that must run at once (one output
-#: row's tiles; every CTA of an order-2 chunk walk or FC op, or of a
-#: chain; else 0) and the bytes of the counters at the workspace's start.
+#: softmax rows of csrc/softmax_tiles.cuh, the fully connected and matmul
+#: grid of csrc/fc_tiles.cuh, the fused chains' levels of
+#: csrc/chain_tiles.cuh; and the empty launch_floor) take three ints more
+#: before the stream: the CTAs to launch at most, the CTAs (tiles) that
+#: must run at once (one output row's tiles; every CTA of an order-2 chunk
+#: walk, softmax, FC or matmul op, or of a chain; else 0) and the bytes of
+#: the counters at the workspace's start.
 GRID_ARGTYPES = {name: [_P, _P, _P, _P, _I, _I, _I, _I, _P]
                  for name in ("arena_conv", "arena_pool", "arena_stream_roll",
                               "arena_elementwise", "arena_concat",
                               "arena_mean", "arena_fully_connected",
+                              "arena_matmul", "arena_softmax",
                               "arena_stream_stage", "arena_fused_chain",
-                              "arena_stream_fused")}
+                              "arena_stream_fused", "launch_floor")}
+#: Entry points beside a kernel's own, by name: the library they live in
+#: (``launch_floor``: an empty grid kernel through the arena kernels'
+#: launcher, an instrument that ports nothing).
+EXTRA_ENTRIES = {"launch_floor": "arena_softmax"}
 #: The standalone kernels' own signatures, by entry point; every other
 #: entry takes :data:`ARGTYPES`.
 ARGTYPES_OF = {
@@ -138,12 +145,17 @@ def load() -> Dict[str, ctypes.CDLL]:
                 name, ARGTYPES)
             fn.restype = ctypes.c_int
             _LIBS[name] = lib
+        for name, lib in EXTRA_ENTRIES.items():
+            fn = getattr(_LIBS[lib], name)
+            fn.argtypes = GRID_ARGTYPES[name]
+            fn.restype = ctypes.c_int
         return _LIBS
 
 
 def entry(name: str):
-    """The ctypes function of one kernel's C entry point."""
-    return getattr(load()[name], name)
+    """The ctypes function of one kernel's C entry point (or of an
+    :data:`EXTRA_ENTRIES` entry, in its library)."""
+    return getattr(load()[EXTRA_ENTRIES.get(name, name)], name)
 
 
 def ptxas_report() -> str:

@@ -38,22 +38,21 @@
 // (arena_stream_roll.cu) run row tiles whose stores wait for the reads of
 // every tile of their row and the rows before (conv_tiles.cuh);
 // elementwise, concat and mean (arena_elementwise.cu, arena_concat.cu,
-// arena_mean.cu, and those staged bodies of arena_stream_stage.cu) and
-// fully connected (arena_fully_connected.cu, and the staged FC body of
-// arena_stream_stage.cu) read every input their output could clobber
-// before one grid-wide barrier (grid_barrier below; ew_tiles.cuh,
+// arena_mean.cu, and those staged bodies of arena_stream_stage.cu), softmax
+// (arena_softmax.cu, and the staged softmax body), fully connected and
+// matmul (arena_fully_connected.cu, arena_matmul.cu, and their staged
+// bodies) read every input their output could clobber before one
+// grid-wide barrier (grid_barrier below; ew_tiles.cuh, softmax_tiles.cuh,
 // fc_tiles.cuh), or, where the byte ranges prove it needless, never wait;
 // the fused chains (arena_fused_chain.cu, arena_stream_fused.cu) run their
 // stages in levels with a grid-wide barrier between levels and write the
-// arena only in the last (chain_tiles.cuh). Softmax, pad and matmul (and
-// their staged bodies) run in ONE CTA, whole-block routines that read all
-// of their input before any output element is written: softmax stages its
-// input; matmul and pad compute their whole output into a staging buffer,
-// synchronise, then write the block out (read-all-before-write-all).
-// Staging buffers hold the decoded tensor; the block encoding happens on
-// the way out. In the row-blocked program the legaliser re-derives every
-// diagonal distance in whole arena rows, so the padding a row store zeroes
-// is dead.
+// arena only in the last (chain_tiles.cuh). Pad (and its staged body) runs
+// in ONE CTA, a whole-block routine that computes its whole output into a
+// staging buffer, synchronises, then writes the block out
+// (read-all-before-write-all). The staging buffer holds the decoded
+// tensor; the block encoding happens on the way out. In the row-blocked
+// program the legaliser re-derives every diagonal distance in whole arena
+// rows, so the padding a row store zeroes is dead.
 //
 // Buffers (a staging buffer, a tile's footprint, a streaming window) live
 // in dynamic shared memory when they fit a CTA and otherwise in a global
@@ -376,96 +375,9 @@ __device__ __forceinline__ float ew_apply(int fn, float a, float b) {
   }
 }
 
-// The whole-block routines below read their operands at `base` + the
+// The whole-block routine below reads its operands at `base` + the
 // descriptor's byte offsets: the arena, or (the streaming program) the
 // staging window the operand blocks were copied into.
-
-// y = a . b, (M, K) x (K, N). int8: an int32 dot of (a - a_zp) * (b - b_zp),
-// then the shared requantisation; f32: an f32 dot. The whole output goes to
-// `stage` before any of it is written (read-all-before-write-all).
-__device__ void matmul_op(const int* d, uint8_t* base, uint8_t* stage) {
-  const bool q = d[D_QUANT] != 0;
-  const int m = d[D_MM], k = d[D_MK], n = d[D_MN];
-  const uint8_t* a = base + d[D_IN_OFF];
-  const uint8_t* b = base + d[D_IN2_OFF];
-  const int a_zp = d[D_X_ZP], b_zp = d[D_BZP], y_zp = d[D_Y_ZP];
-  const float amult = fword(d, D_AMULT);
-  const Addr aa = load_addr(d, 1), ba = load_addr(d, 2);
-  for (int e = threadIdx.x; e < m * n; e += NT) {
-    const int r = e / n, c = e - r * n;
-    if (q) {
-      int acc = 0;
-      for (int i = 0; i < k; ++i)
-        acc += ((int)((const int8_t*)a)[elem_at(aa, r * k + i)] - a_zp)
-               * ((int)((const int8_t*)b)[elem_at(ba, i * n + c)] - b_zp);
-      ((int8_t*)stage)[e] = requant_i(acc, amult, y_zp);
-    } else {
-      float acc = 0.0f;
-      for (int i = 0; i < k; ++i)
-        acc += ((const float*)a)[elem_at(aa, r * k + i)]
-               * ((const float*)b)[elem_at(ba, i * n + c)];
-      ((float*)stage)[e] = acc;
-    }
-  }
-  __syncthreads();  // both operands read before any output byte is written
-  store_block(base + d[D_OUT_OFF], load_addr(d, 0), stage, m * n, q);
-}
-
-// Block-wide max or sum; every thread gets the result.
-template <bool MAX>
-__device__ float block_reduce(float v, float* red) {
-  for (int s = 16; s > 0; s >>= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, s);
-    v = MAX ? fmaxf(v, o) : v + o;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = red[0];
-  for (int i = 1; i < NT / 32; ++i) v = MAX ? fmaxf(v, red[i]) : v + red[i];
-  __syncthreads();  // red is free for the next reduction
-  return v;
-}
-
-// Softmax over the last axis. int8: dequantise, subtract the row max,
-// expf, divide by the row sum, quantise (IEEE division by the output
-// scale); f32: the same without the casts. The input is staged (as f32)
-// before anything is written; the result overwrites the staged input.
-__device__ void softmax_op(const int* d, uint8_t* base, uint8_t* stage) {
-  __shared__ float red[NT / 32];
-  float* x = (float*)stage;
-  const bool q = d[D_QUANT] != 0;
-  const int rows = d[D_ROWS], last = d[D_LAST], n = rows * last;
-  const int x_zp = d[D_X_ZP], y_zp = d[D_Y_ZP];
-  const float xs = fword(d, D_XSCALE), ys = fword(d, D_YSCALE);
-  const uint8_t* src = base + d[D_IN_OFF];
-  const Addr ia = load_addr(d, 1);
-  for (int e = threadIdx.x; e < n; e += NT) {
-    const int s = elem_at(ia, e);
-    x[e] = q ? dequant(((const int8_t*)src)[s], xs, x_zp)
-             : ((const float*)src)[s];
-  }
-  __syncthreads();  // the whole input is read before any output is written
-  for (int r = 0; r < rows; ++r) {
-    float* xr = x + r * last;
-    float mx = __int_as_float(0xff800000);  // -inf
-    for (int e = threadIdx.x; e < last; e += NT) mx = fmaxf(mx, xr[e]);
-    mx = block_reduce<true>(mx, red);
-    float sum = 0.0f;
-    for (int e = threadIdx.x; e < last; e += NT)
-      sum += expf(__fsub_rn(xr[e], mx));
-    sum = block_reduce<false>(sum, red);
-    // each thread overwrites only the elements it read above
-    for (int e = threadIdx.x; e < last; e += NT)
-      xr[e] = __fdiv_rn(expf(__fsub_rn(xr[e], mx)), sum);
-  }
-  __syncthreads();  // every row is done before the block is written
-  write_block(base + d[D_OUT_OFF], load_addr(d, 0), n, q,
-              [&](int e) -> uint32_t {
-    return q ? (uint32_t)(uint8_t)quant_f(x[e], ys, y_zp)
-             : __float_as_uint(x[e]);
-  });
-}
 
 // Constant pad: f32 pads with 0; int8 pads with the input's zero point and
 // then rescales the whole padded tensor to the output's params
@@ -500,18 +412,6 @@ __device__ void pad_op(const int* d, uint8_t* base, uint8_t* stage) {
   store_block(base + d[D_OUT_OFF], load_addr(d, 0), stage, n, q);
 }
 
-// A staged whole-block kind of descriptor d over `base`: softmax, pad or
-// matmul (the other kinds run ew_tiles.cuh's or fc_tiles.cuh's grid
-// bodies); ends with a barrier.
-__device__ void block_op(const int* d, uint8_t* base, uint8_t* stage) {
-  switch (d[D_KIND]) {
-    case K_MATMUL: matmul_op(d, base, stage); break;
-    case K_PAD: pad_op(d, base, stage); break;
-    default: softmax_op(d, base, stage); break;  // K_SOFTMAX
-  }
-  __syncthreads();
-}
-
 // One grid-wide barrier over a resident grid (a cooperative launch): every
 // CTA's earlier reads are done, and its earlier stores visible, before any
 // CTA goes on. `ctr` is a counter the entry point zeroed before the launch.
@@ -527,11 +427,11 @@ __device__ __forceinline__ void grid_barrier(int* ctr) {
 }
 
 // ---------------------------------------------------------------------------
-// The streaming program (arena_stream_*.cu): a staged softmax, pad or
-// matmul copies its live window from the arena into a staging buffer, runs
-// there and copies its output back; a rolling op reads its window in
-// place, tile by tile (arena_stream_roll.cu); the other staged bodies and
-// the fused chains run in place on the arena. A streaming descriptor is a
+// The streaming program (arena_stream_*.cu): a staged pad copies its live
+// window from the arena into a staging buffer, runs there and copies its
+// output back; a rolling op reads its window in place, tile by tile
+// (arena_stream_roll.cu); the other staged bodies and the fused chains run
+// in place on the arena. A streaming descriptor is a
 // stream block, then the op's descriptor (or a fused chain's header and
 // stages) at word S_BODY.
 // ---------------------------------------------------------------------------
@@ -593,8 +493,8 @@ __device__ __forceinline__ void stage_block_out(const int* sd,
 // one CTA of NT threads, `smem` bytes of dynamic shared memory (the grid
 // kernels launch through launch_grid below). The
 // kernel opts in to each larger size it is launched with, not only past
-// 48 KB: a kernel with static shared arrays (the staged softmax's
-// reduction) needs the opt-in below 48 KB of dynamic memory too.
+// 48 KB: a kernel with static shared arrays (a CTA row's reduction) needs
+// the opt-in below 48 KB of dynamic memory too.
 template <typename K>
 static cudaError_t set_smem(K kernel, int smem, int* configured) {
   if (smem > *configured) {
@@ -614,9 +514,10 @@ struct GridLaunch {
 };
 
 // The entry point of a kernel over the whole card (conv_tiles.cuh's row
-// tiles, ew_tiles.cuh's elementwise, concat and mean chunks, fc_tiles.cuh's
-// column blocks and K slices): zeroes `counter_bytes` of
-// counters at the workspace's start on the stream, then launches `kernel`
+// tiles, ew_tiles.cuh's elementwise, concat and mean chunks,
+// softmax_tiles.cuh's rows, fc_tiles.cuh's column blocks and K slices):
+// zeroes `counter_bytes` of counters at the workspace's start on the
+// stream, then launches `kernel`
 // over as many CTAs of THREADS threads as the card holds at once, at most
 // `grid` (a one-CTA launch, `grid` 1 and `group` 0, skips the count).
 // With `group` > 0 CTAs wait on each other: the launch is cooperative (all

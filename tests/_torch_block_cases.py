@@ -338,7 +338,7 @@ def check_fc_spec(spec: K.OpSpec) -> int:
     - The descriptor carries the order word and the tiling; the workspace
       holds the counters, then the partials (one 4-byte sum per K slice
       and output), and a CTA's warp sums take shared memory."""
-    assert K.runs_fc_grid(spec)
+    assert K.runs_product_grid(spec) and spec.kind == "fully_connected"
     isz = 1 if spec.dtype == "i8" else 4
     m, idim, odim = K._fc_geometry(spec)
     xa, oa = K.operand_addr(spec, 0), K.operand_addr(spec, None)
@@ -364,7 +364,8 @@ def check_fc_spec(spec: K.OpSpec) -> int:
     assert body[K.D_ORDER] == order
     assert tuple(body[K.D_TILING:K.D_TILING + len(t)]) == tuple(t)
     ctr = K.fc_counter_bytes(spec)
-    assert ctr % 16 == 0 and ctr >= 16 + 4 * t.ncb
+    assert ctr % 16 == 0 and (ctr >= 16 + 4 * t.ncb or (
+        ctr == 0 and t.nks == 1 and order == K.EW_DISJOINT))
     part = 4 * t.nks * m * odim
     assert K.buffer_plan(spec) == K.BufferPlan(
         4 * K.FC_WARPS * K.FC_COLS, ctr + -(-part // 16) * 16,

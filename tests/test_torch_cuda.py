@@ -4,6 +4,8 @@ Run on a machine with an NVIDIA Hopper card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py``.
 Without a card each test skips with its reason (decided in the fixture).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -658,6 +660,152 @@ def _final_arena(ex, cp):
         K.apply_op(arena, spec, w, d)
     torch.cuda.synchronize()
     return arena
+
+
+# ---------------------------------------------------------------------------
+# the softmax grid, and the matmul on the product grid
+# ---------------------------------------------------------------------------
+
+def _hold_50_within(spec, state):
+    """50 launches of a softmax or matmul grid on copies of ``state``: each
+    bit-equal to the first, the first within the plain version's limit
+    (softmax int8 1 LSB, matmul int8 bit for bit, f32 1e-4)."""
+    ref = state.clone()
+    K.apply_plain(ref, spec)
+    first = None
+    for _ in range(50):
+        got = state.clone()
+        K.apply_op(got, spec)
+        torch.cuda.synchronize()
+        if first is None:
+            first = got
+            if spec.dtype == "i8":
+                d = (got.view(torch.int8).int() - ref.view(torch.int8).int())
+                assert d.abs().max().item() <= int(spec.kind == "softmax"), \
+                    spec
+            else:
+                assert torch.allclose(got.view(torch.float32),
+                                      ref.view(torch.float32), rtol=1e-4,
+                                      atol=1e-4), spec
+        assert torch.equal(got, first), spec
+
+
+def _hand_softmax_and_matmul(bits):
+    """The chip script's hand-built softmaxes (1,024 rows x 1,000 on every
+    placement; one row of 65,536) and matmuls (1024^3 apart from and over
+    a; (40, 70) x (70, 130) over b; a few rows, (3, 16) x (16, 5))."""
+    cs = _chip_smoke()
+    dt = "i8" if bits == 1 else "f32"
+    out = [cs.softmax_spec(dt, 1024, 1000, pl) for pl in cs.SOFTMAX_PLACES]
+    out.append(cs.softmax_spec(dt, 1, 65_536, "disjoint"))
+    out += [cs.matmul_spec(dt, 1024, 1024, 1024, pl)
+            for pl in ("disjoint", "over_a")]
+    spec, nbytes = cs.matmul_spec(dt, 40, 70, 130, "disjoint")
+    out.append((dataclasses.replace(spec, out_off=spec.in_off[1]), nbytes))
+    out.append(cs.matmul_spec(dt, 3, 16, 5, "over_a"))
+    return cs, out
+
+
+@pytest.mark.parametrize("bits", [4, 1])
+def test_softmax_and_matmul_grids_do_not_race_on_the_card(card, bits):
+    """The softmax and product grids, 50 launches each, every launch
+    bit-equal to the first and the first within the plain version's limit:
+    the flagship's softmax (in place, order word 1) and resnet50_v2(224)'s
+    on the flat and blocked programs, allops' softmax and matmul, and the
+    hand-built specs on every placement (order words 0, 1 and 2; a CTA row
+    staged in the workspace; row blocks, a few rows)."""
+    pick = lambda s: s.kind in ("softmax", "matmul")  # noqa: E731
+    for graph, n in ((zoo.mobilenet_v1(0.25, 128, bits), 1),
+                     (zoo.resnet50_v2(224, bits), 1)):
+        cp = compile(graph, backend="numpy")
+        for kw in ({}, {"layout": "blocks"}):
+            specs, ws, descs, state = CudaExecutor(device=card,
+                                                   **kw).program(cp)
+            held = 0
+            for spec, w, d in zip(specs, ws, descs):
+                if pick(spec):
+                    _hold_50_within(spec, state)
+                    held += 1
+                K.apply_op(state, spec, w, d)
+            assert held == n
+    cs, hand = _hand_softmax_and_matmul(bits)
+    allops = compile(cs.allops_graph(bits), backend="numpy")
+    specs, ws, descs, state = CudaExecutor(device=card).program(allops)
+    for spec, w, d in zip(specs, ws, descs):
+        if pick(spec):
+            _hold_50_within(spec, state)
+        K.apply_op(state, spec, w, d)
+    orders = set()
+    for spec, nbytes in hand:
+        orders.add((spec.kind, K.softmax_order(spec) if spec.kind ==
+                    "softmax" else K.matmul_order(spec)))
+        _hold_50_within(spec, cs.seeded_state(torch, spec, nbytes, 5))
+    assert orders == {("softmax", K.EW_DISJOINT), ("softmax", K.EW_ALIGNED),
+                      ("softmax", K.EW_OVERLAP), ("matmul", K.EW_DISJOINT),
+                      ("matmul", K.EW_OVERLAP)}
+
+
+@pytest.mark.parametrize("kernel", ["arena_softmax", "arena_matmul"])
+def test_softmax_and_matmul_refuse_a_grid_the_card_cannot_hold(card,
+                                                               kernel):
+    """An order-2 softmax or matmul launch whose CTAs the card cannot hold
+    at once is refused by the entry point (the wrapper's check raises) and
+    runs nothing, on no smaller grid."""
+    from repro_torch.kernels import build
+    cs = _chip_smoke()
+    spec, nbytes = (cs.softmax_spec("f32", 1024, 1000, "shifted")
+                    if kernel == "arena_softmax" else
+                    cs.matmul_spec("f32", 1024, 1024, 1024, "over_a"))
+    _, group, ctr = (K.softmax_grid if kernel == "arena_softmax"
+                     else K.fc_grid)(spec)
+    assert group > 0
+    arena = cs.seeded_state(torch, spec, nbytes, 6)
+    before = arena.clone()
+    too_many = 1 << 20
+    err = build.entry(kernel)(
+        arena.data_ptr(), K.descriptor(spec, card).data_ptr(), None,
+        K.workspace(spec, card).data_ptr(), K.buffer_plan(spec).smem,
+        too_many, too_many, ctr, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match=kernel):
+        build.check(err, kernel)
+    torch.cuda.synchronize()
+    assert torch.equal(arena, before)
+
+
+@pytest.mark.parametrize("bits", [4, 1])
+def test_staged_softmax_and_matmul_run_in_place_on_the_card(card, bits):
+    """The streaming program of allops (a staged matmul and softmax), the
+    reference's stream_allops and the flagship: every staged softmax and
+    matmul runs in place on the arena (no window, no copy), held 50 times
+    against the plain streaming version; five forwards give identical
+    final arenas, each equal to the blocked program's."""
+    cs = _chip_smoke()
+
+    def staged(spec):
+        if K.stream_form(spec) != "stage" or spec.kind not in ("softmax",
+                                                               "matmul"):
+            return False
+        assert K.runs_in_place(spec)
+        assert "win" not in {n for n, _, _ in K.buffer_plan(spec).parts}
+        return True
+    for graph in (cs.allops_graph(bits), cs.stream_allops_graph(bits),
+                  zoo.mobilenet_v1(0.25, 128, bits)):
+        cp = compile(graph, backend="numpy")
+        specs, ws, descs, state = CudaExecutor(
+            device=card, mode="streaming").program(cp)
+        held = 0
+        for spec, w, d in zip(specs, ws, descs):
+            if staged(spec):
+                _hold_50_within(spec, state)
+                held += 1
+            K.apply_op(state, spec, w, d)
+        assert held >= 1
+        st = CudaExecutor(device=card, mode="streaming")
+        blk = CudaExecutor(device=card, layout="blocks")
+        first = _final_arena(st, cp)
+        for _ in range(4):
+            assert torch.equal(_final_arena(st, cp), first)
+        assert torch.equal(first, _final_arena(blk, cp))
 
 
 @pytest.mark.parametrize("bits", [1, 4])

@@ -219,9 +219,10 @@ def _run_both(spec: K.OpSpec, arena: np.ndarray, weights, kernel: str,
         assert words[K.S_NCOPY] == 0 and \
             (body[K.D_IN_OFF], body[K.D_OUT_OFF]) == \
             (spec.in_off[0] * rowb, spec.out_off * rowb)
-        assert body[K.D_ORDER] == (K.chunk_of(spec)[1]
-                                   if K.runs_chunk_walk(spec)
-                                   else K.fc_order(spec))
+        assert body[K.D_ORDER] == (
+            K.chunk_of(spec)[1] if K.runs_chunk_walk(spec)
+            else K.softmax_order(spec) if K.runs_softmax_grid(spec)
+            else K.product_order(spec))
     elif spec.kind == "fused":   # in place on the arena: no window, no copy
         assert words[K.S_NCOPY] == 0 and words[K.S_WIN_G] == 0
         body = words[words[K.S_BODY]:]
