@@ -26,15 +26,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    budget (staged in per-CTA slices of the global workspace); hand-built
    softmaxes over 1,024 rows x 1,000 (f32 and int8; in place, order word
    1, and shifted five elements over the next row, order word 2), over one
-   row of 65,536 (a CTA row staged in the workspace) and matmuls (1024,
+   row of 65,536 (a CTA row staged in the workspace), matmuls (1024,
    1024, 1024) with the output apart (order word 0) and over a (order word
-   2). For every fused chain it prints the schedule (``[chain]`` lines:
-   levels, stages and tiles per level, the grid and its CTAs an SM, the
-   workspace bytes beside the one-CTA kernel's scratch bytes) and checks
-   that each runs on more than one CTA; for every hand-built softmax and
-   matmul a ``[softmax]`` or ``[matmul]`` line (order word, tiling, grid,
-   CTAs an SM, workspace and shared bytes), and checks that each runs on
-   more than one CTA where its rows allow;
+   2) and pads (112, 112, 64) -> (114, 114, 64) (ResNet50's stem pad, f32
+   and int8) with the output apart (order word 0) and over the input
+   (order word 2). For every fused chain it prints the schedule
+   (``[chain]`` lines: levels, stages and tiles per level, the grid and
+   its CTAs an SM, the workspace bytes beside the one-CTA kernel's scratch
+   bytes) and checks that each runs on more than one CTA; for every
+   hand-built softmax, matmul and pad a ``[softmax]``, ``[matmul]`` or
+   ``[pad]`` line (order word, tiling, grid, CTAs an SM, workspace and
+   shared bytes), and checks that each runs on more than one CTA where its
+   rows allow;
 4. runs the flagship slice: ``compile(mobilenet_v1(0.25, 128, 1),
    backend="cuda")`` (verified ``numeric+cuda``, winner ``fuse``, 49,805 B)
    and three requests through ``CompiledPlan.execute``, each matching the
@@ -91,12 +94,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    blocked route's on the same inputs; prints each graph's largest
    resident window, whether the card stages it in shared or global memory
    (a rolling op: its row tiles' footprints; a fused chain and every
-   staged body but a pad's run in place), and the bytes
-   each streaming form stages, in the TPU program and in the card's
-   kernels (counts from the specs); then a hand-built streaming pad whose
-   window exceeds shared memory (the staged walk, only a pad's now, takes
-   both placements: ``allops``' window in shared memory, this one in the
-   global workspace) against its plain version;
+   staged body run in place), and the bytes each streaming form stages, in
+   the TPU program and in the card's kernels (counts from the specs), and
+   checks that no staged spec of any graph takes a window (the card stages
+   0 B for the staged form); then a hand-built streaming pad whose TPU
+   window (819,200 B) exceeds a CTA's shared memory runs in place against
+   its plain version;
 9. runs the standalone DMO depthwise conv ``kernels.ops.dmo_dwconv2d`` on
    the card on the reference's ``DWCONV_CASES`` and two real layers
    ((64, 64, 8) of the flagship, (112, 112, 32) of
@@ -142,8 +145,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and streaming; the softmax alone on the flagship int8 at batch 1, 2
    and 8 (one a sample, a ``[softmax]`` line each) and the matmul and
    softmax of ``allops`` int8, beside their plain versions; the
-   hand-built softmaxes and matmuls beside their plain versions, bounds
-   and ``torch.softmax``/``torch.matmul`` (f32, TF32 off); and the launch
+   hand-built softmaxes, matmuls and pads beside their plain versions,
+   bounds and ``torch.softmax``/``torch.matmul``/``F.pad`` (f32, TF32
+   off); and the launch
    floor, an empty kernel through the same launcher (one CTA, a
    cooperative grid of one CTA an SM, two CTAs an SM), under
    ``softmax_matmul`` in the JSON;
@@ -589,10 +593,10 @@ def matmul_spec(dtype: str, m: int, k: int, n: int, place: str):
 
 def stream_pad_spec():
     """A hand-built f32 pad of the streaming program, (64, 64, 16) -> (66,
-    66, 16) on rows of 1,024 (its output rows span two arena rows): its
-    staged window (the input block and the output block, 819,200 B)
-    exceeds a CTA's shared memory, so the staged walk copies it through
-    the global workspace. Returns (spec, arena rows)."""
+    66, 16) on rows of 1,024 (its output rows span two arena rows): the
+    TPU program's staged window for it (the input block and the output
+    block, 819,200 B) exceeds a CTA's shared memory; the card runs it in
+    place on the arena. Returns (spec, arena rows)."""
     from repro_torch.core.planner import staged_slots
     from repro_torch.kernels.arena_ops import OpSpec
     spec = OpSpec(kind="pad", in_off=(0,), in_shape=((64, 64, 16),),
@@ -611,6 +615,33 @@ HAND_SOFTMAX = [(f"softmax 1024 x 1000 {dt} {pl}", softmax_spec,
 HAND_MATMUL = [(f"matmul 1024^3 {dt} {pl}", matmul_spec,
                 (dt, 1024, 1024, 1024, pl))
                for dt in ("f32", "i8") for pl in ("disjoint", "over_a")]
+#: int8 params of the hand-built pads ((x_zp, multiplier), (y_zp,)), and
+#: where a pad's output lies: after its input (order word 0) or from its
+#: input's first byte, over it (order word 2)
+PAD_QM = ((-3, float(np.float32(0.9))), (4,))
+PAD_PLACES = ("apart", "over")
+
+
+def pad_spec(dtype: str, h: int, w: int, c: int, place: str):
+    """A hand-built flat pad (h, w, c) -> (h + 2, w + 2, c), a row and a
+    column on each side, its output placed by ``place`` (``PAD_PLACES``).
+    At (112, 112, 64) it is Keras's ResNet50 ``pool1_pad``
+    (ZeroPadding2D((1, 1), (1, 1)) before the stem's max pool). Returns
+    (spec, arena bytes)."""
+    from repro_torch.kernels.arena_ops import OpSpec
+    isz = 1 if dtype == "i8" else 4
+    n_in, n_out = h * w * c * isz, (h + 2) * (w + 2) * c * isz
+    out = 0 if place == "over" else _round16(n_in)
+    spec = OpSpec(kind="pad", in_off=(0,), in_shape=((h, w, c),),
+                  out_off=out, out_shape=(h + 2, w + 2, c), dtype=dtype,
+                  meta=(((1, 1), (1, 1), (0, 0)),),
+                  qmeta=PAD_QM if dtype == "i8" else ())
+    return spec, _round16(max(n_in, out + n_out))
+
+
+HAND_PAD = [(f"pad 112 x 112 x 64 {dt} {pl}", pad_spec,
+             (dt, 112, 112, 64, pl))
+            for dt in ("f32", "i8") for pl in PAD_PLACES]
 #: checked only, not timed: one row past a CTA's registers and shared
 #: memory (a slice of the workspace a CTA)
 LONG_SOFTMAX = [(f"softmax 1 x 65536 {dt} disjoint", softmax_spec,
@@ -770,12 +801,9 @@ def card_staging_bytes(K, spec) -> int:
     rolling op's row tiles stage their footprints, the columns and
     channels each tile reads through its window (the Python mirror,
     ``arena_ops.tile_reads``), and store straight into the arena; a fused
-    chain and every staged op but a pad run in place (nothing); a staged
-    pad copies what the TPU program copies."""
-    if K.runs_in_place(spec) or spec.kind == "fused":
-        return 0
+    chain and every staged op run in place (nothing)."""
     if K.stream_form(spec) != "roll":
-        return tpu_staging_bytes(K, spec)
+        return 0
     return sum(n for t in range(K.conv_tiling(spec).ntiles)
                for _, _, n in K.tile_reads(spec, t))
 
@@ -987,23 +1015,27 @@ def chain_row(torch, K, spec, label: str):
 
 
 def grid_row(torch, K, spec, label: str):
-    """A softmax or matmul spec's grid on the card (counts from the spec,
-    ``arena_ops.softmax_order``/``softmax_tiling``/``softmax_grid`` or
-    ``matmul_order``/``fc_tiling``/``fc_grid``): its order word, tiling,
-    the CTAs it launches and puts on an SM, whether they must all be
-    resident, and the workspace and shared bytes. Logged as a
-    ``[softmax]`` or ``[matmul]`` line and returned."""
+    """A softmax, matmul or pad spec's grid on the card (counts from the
+    spec, ``arena_ops.softmax_order``/``softmax_tiling``/``softmax_grid``,
+    ``matmul_order``/``fc_tiling``/``fc_grid`` or ``chunk_of``/
+    ``chunk_grid``): its order word, tiling, the CTAs it launches and puts
+    on an SM, whether they must all be resident, and the workspace and
+    shared bytes. Logged as a ``[softmax]``, ``[matmul]`` or ``[pad]`` line
+    and returned."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     bp = K.buffer_plan(spec)
     if spec.kind == "softmax":
         order, t, grid = (K.softmax_order(spec), K.softmax_tiling(spec),
                           K.softmax_grid(spec))
         shape = "%d x %d" % K._softmax_geometry(spec)
-    else:
+    elif spec.kind == "matmul":
         order, t, grid = (K.matmul_order(spec), K.fc_tiling(spec),
                           K.fc_grid(spec))
         shape = "(%d, %d) x (%d, %d)" % (K._matmul_geometry(spec)[:2]
                                          + K._matmul_geometry(spec)[1:])
+    else:
+        (t, order), grid = K.chunk_of(spec), K.chunk_grid(spec)
+        shape = f"{spec.in_shape[0]} -> {spec.out_shape}"
     row = {"label": label, "kernel": K.kernel_of(spec), "shape": shape,
            "dtype": spec.dtype, "order": order, "tiling": list(t),
            "grid": grid[0], "cooperative": grid[1] > 0,
@@ -1203,16 +1235,13 @@ def largest_window(K, ex, cp):
     """(bytes, op name, "shared", "global" or "in place", windows staged
     in global memory, windows staged in shared memory, specs) of the
     streaming plan: its largest resident window and where the card stages
-    it (a staged pad's window; a rolling op's row tiles' footprints, each
-    its part of the window; every other staged op and a fused chain run in
-    place and stage nothing)."""
+    it (a rolling op's row tiles' footprints, each its part of the window;
+    every staged op and a fused chain run in place and stage nothing)."""
     bp = ex.legalised(cp.plan)
     sched = bp.window_schedule()
     specs = ex.program(cp)[0]
-    buf = {"roll": "tile", "stage": "win"}
-    place = ["in place" if K.runs_in_place(spec) or spec.kind == "fused"
-             else "global" if
-             K.buffer_plan(spec).on_global(buf[K.stream_form(spec)])
+    place = ["in place" if K.stream_form(spec) != "roll"
+             else "global" if K.buffer_plan(spec).on_global("tile")
              else "shared" for spec in specs]
     i = max(range(len(specs)),
             key=lambda j: sched.windows[j].resident_rows)
@@ -1719,10 +1748,11 @@ def softmax_matmul_times(torch, F, K, X, build, ex, compile, flag, cp, fw,
     """The softmax and matmul grids timed (CUDA events, after a warm-up):
     on the flagship int8 at batch 1, 2 and 8 (one softmax a sample) and
     ``allops`` int8 (``kernel_times``, beside the plain versions); on the
-    hand-built specs (``HAND_SOFTMAX``, ``HAND_MATMUL``) beside the plain
-    version, the bound and, f32, ``torch.softmax`` or ``torch.matmul``
-    (TF32 off); and the launch floor. A ``[softmax]``/``[matmul]`` line
-    per zoo spec timed. Returns the numbers."""
+    hand-built specs (``HAND_SOFTMAX``, ``HAND_MATMUL``, and the pads of
+    ``HAND_PAD``) beside the plain version, the bound and, f32,
+    ``torch.softmax``, ``torch.matmul`` or ``F.pad`` (TF32 off); and the
+    launch floor. A ``[softmax]``/``[matmul]`` line per zoo spec timed.
+    Returns the numbers."""
     out = {"zoo": {}, "hand_built": {}, "grids": []}
     for batch in (1, 2, 8):
         c, w, q = cp, fw, fq
@@ -1742,7 +1772,7 @@ def softmax_matmul_times(torch, F, K, X, build, ex, compile, flag, cp, fw,
         out["grids"] += [grid_row(torch, K, sp, f"allops int8 {name}")
                          for sp in row.pop("specs")]
         out["zoo"][f"allops int8 {name}"] = row
-    for label, make, args in HAND_SOFTMAX + HAND_MATMUL:
+    for label, make, args in HAND_SOFTMAX + HAND_MATMUL + HAND_PAD:
         spec, nbytes = make(*args)
         state = seeded_state(torch, spec, nbytes)
         a, b = state.clone(), state.clone()
@@ -1869,11 +1899,12 @@ def main() -> int:
     compare_spec(torch, K, spec, nbytes,
                  [torch.randn(3, 3, 6_000, 8).cuda() * 0.02], errs,
                  "conv with a 216,000 B footprint (global staging slices)")
-    # the softmax and matmul grids on hand-built specs where the work
-    # shows: a [softmax] or [matmul] line each, more than one CTA wherever
-    # the rows, row blocks or column blocks allow
+    # the softmax, matmul and pad grids on hand-built specs where the work
+    # shows: a [softmax], [matmul] or [pad] line each, more than one CTA
+    # wherever the rows, row blocks, column blocks or units allow
     sm_grids = []
-    for label, make, args in HAND_SOFTMAX + LONG_SOFTMAX + HAND_MATMUL:
+    for label, make, args in (HAND_SOFTMAX + LONG_SOFTMAX + HAND_MATMUL
+                              + HAND_PAD):
         spec, nbytes = make(*args)
         compare_spec(torch, K, spec, nbytes, None, errs, label)
         r = grid_row(torch, K, spec, label)
@@ -1884,8 +1915,11 @@ def main() -> int:
           == {K.EW_ALIGNED, K.EW_OVERLAP, K.EW_DISJOINT}
           and {r["order"] for r in sm_grids
                if r["kernel"] == "arena_matmul"}
+          == {K.EW_DISJOINT, K.EW_OVERLAP}
+          and {r["order"] for r in sm_grids if r["kernel"] == "arena_pad"}
           == {K.EW_DISJOINT, K.EW_OVERLAP},
-          "the hand-built softmaxes and matmuls take every order word")
+          "the hand-built softmaxes, matmuls and pads take every order "
+          "word")
     for name in PROGRAM_KERNELS:
         check(name in errs, f"{name} was never held against its plain "
               "version")
@@ -2061,16 +2095,21 @@ def main() -> int:
         "flagship", "flagship f32", "flagship batch 2", "resnet_50_v2",
         "resnet_50_v2 int8", "densenet_121", "mobilenet_v2_1.0_224",
         "allops", "allops int8")}
-    walk_places = set()  # the staged walk's windows (pads only)
     for label, c in st_cps.items():
         chains += compare_program(torch, K, stm, c, label + " streaming",
                                   st_errs)[1]
         nbytes, op, where, n_global, n_shared, specs = largest_window(
             K, stm, c)
-        walk_places |= {"global" if K.buffer_plan(sp).on_global("win")
-                        else "shared" for sp in specs
-                        if K.stream_form(sp) == "stage"
-                        and not K.runs_in_place(sp)}
+        # no staged spec takes a window: each runs in place, its stream
+        # block only the body's offset (no copy list), its body at its
+        # arena offsets
+        for sp in specs:
+            if K.stream_form(sp) == "stage":
+                words = K.descriptor_words(sp)
+                check(K.runs_in_place(sp) and words[K.S_BODY] == 32
+                      and words[-K.DESC_WORDS + K.D_OUT_OFF]
+                      == K.operand_addr(sp, None)[0],
+                      f"{label}: staged {sp.kind} takes a window")
         n = {"flagship": 29, "resnet_50_v2": RESNET_LAUNCHES,
              "densenet_121": DENSENET_LAUNCHES}.get(label)
         counts, t_s, t_b = streamed_requests(torch, K, X, c, label, n)
@@ -2095,6 +2134,8 @@ def main() -> int:
             "tpu_staging_bytes": staged, "card_staging_bytes": staged_card,
             "launches": sum(counts.values()), "execute_s": t_s,
             "blocked_execute_s": t_b}
+        check(staged_card["stage"] == 0, f"{label}: the card stages "
+              f"{staged_card['stage']} B for the staged form")
         log(f"[streaming] {label}: {len(specs)} launches (rolling "
             f"{forms.count('roll')}, staged {forms.count('stage')}, fused "
             f"{forms.count('fused')}), final arena bit-equal to blocked, "
@@ -2107,17 +2148,15 @@ def main() -> int:
             f"staging bytes by form (counts from the specs): TPU program "
             f"{staged}, card {staged_card} "
             f"(execute {t_s:.2f} s, blocked {t_b:.2f} s)")
-    # only a pad still takes the staged walk: allops' window in shared
-    # memory, and a hand-built one past it in the global workspace
+    # a staged pad whose TPU window (819,200 B) exceeds a CTA's shared
+    # memory runs in place too, its chunks over the card
     spec, rows = stream_pad_spec()
-    check(K.buffer_plan(spec).on_global("win"), "the pad's window is not "
-          "global")
+    check(K.runs_in_place(spec) and card_staging_bytes(K, spec) == 0
+          and K.descriptor_words(spec)[K.S_BODY] == 32
+          and K.chunk_grid(spec)[0] > 1,
+          "the streaming pad does not run in place over the card")
     compare_spec(torch, K, spec, rows, None, st_errs,
-                 "streaming pad with a 819,200 B window (global)")
-    walk_places.add("global")
-    check(walk_places == {"shared", "global"}
-          and st_rows["flagship f32"]["windows_in_shared"] > 0,
-          "the staged windows must take both placements")
+                 "streaming pad (TPU window 819,200 B) in place")
     for name, path in STREAM_KERNEL_PATH.items():
         check(name in st_errs, f"{name} was never held against its plain "
               "version")

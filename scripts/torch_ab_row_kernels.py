@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the port's grid kernels and their neighbours (``arena_conv``,
 ``arena_pool``, ``arena_elementwise``, ``arena_concat``, ``arena_mean``,
-``arena_fully_connected``, ``arena_softmax``, ``arena_matmul``, the fused
-chain and the streaming program's ``arena_stream_roll`` and
+``arena_fully_connected``, ``arena_softmax``, ``arena_matmul``,
+``arena_pad``, the fused chain and the streaming program's
+``arena_stream_roll`` and
 ``arena_stream_stage``) on the card for one source tree, to compare two
 commits inside one call.
 
@@ -30,11 +31,13 @@ the flagship ``arena_conv``, ``arena_mean``, ``arena_fully_connected``
 and ``arena_fused_chain`` (flat and row-blocked), ``arena_stream_roll``,
 ``arena_stream_stage`` (its mean, fully connected and softmax) and
 ``arena_stream_fused``; the flagship's softmaxes alone at batch 1, 2 and 8
-(flat and staged); the softmax and matmul of ``allops`` and
+(flat and staged); the softmax, matmul and pad of ``allops`` and
 ``stream_allops`` (f32 and int8) on all three programs; the hand-built
 softmaxes (1,024 rows x 1,000, in place and shifted five elements over the
-next row) and matmuls ((1024, 1024, 1024), the output apart and over a),
-f32 and int8, one launch each on a seeded arena, under ``hand_built``;
+next row), matmuls ((1024, 1024, 1024), the output apart and over a) and
+pads ((112, 112, 64) -> (114, 114, 64), the output apart and over the
+input), f32 and int8, and the chip script's streaming pad (its TPU window
+819,200 B), one launch each on a seeded arena, under ``hand_built``;
 the launch floor (an empty kernel through the same launcher, one CTA and
 full grids) where the tree has it; then the fused chains alone
 (``arena_fused_chain`` and ``arena_stream_fused``) on the flagship f32 and
@@ -210,14 +213,15 @@ def main() -> int:
             ex = X.get_backend("cuda", **kw)
             per = cs.kernel_times(torch, F, K, ex, c, w, q, plain_too=False,
                                   only={"arena_softmax", "arena_matmul",
-                                        "arena_stream_stage"},
-                                  kinds={"softmax", "matmul"})
+                                        "arena_pad", "arena_stream_stage"},
+                                  kinds={"softmax", "matmul", "pad"})
             out[f"{label} {program}"] = {k: v["ms"] for k, v in per.items()}
             digest(f"{label} {program}", ex, c, inputs, w, q, q is None)
     # the hand-built shapes where the work shows, one launch each on a
     # seeded arena (digests of the arena after it), and the launch floor
     out["hand_built"] = {}
-    for label, spec, nbytes in _hand_built(K):
+    for label, spec, nbytes in _hand_built(K) + [
+            ("streaming pad", *cs.stream_pad_spec())]:
         state = cs.seeded_state(torch, spec, nbytes, 0) \
             if hasattr(cs, "seeded_state") else _seeded(torch, spec, nbytes)
         a = state.clone()
@@ -296,11 +300,12 @@ def _save(arena, saved, other, label, dtype, f32_diffs, i8_diffs) -> str:
 
 
 def _hand_built(K):
-    """(label, spec, arena bytes) of the hand-built softmax and matmul
-    specs, built here from the tree's ``OpSpec`` (the older tree's chip
+    """(label, spec, arena bytes) of the hand-built softmax, matmul and pad
+    specs, built here from the tree's ``OpSpec`` (an older tree's chip
     script has no makers for them): 1,024 rows x 1,000 classes in place
     and with the output five elements on, (1024, 1024, 1024) with the
-    output apart and over a; f32 and int8."""
+    output apart and over a, (112, 112, 64) -> (114, 114, 64) with the
+    output after the input and from its first byte; f32 and int8."""
     out = []
     for dt in ("f32", "i8"):
         isz = 1 if dt == "i8" else 4
@@ -322,6 +327,15 @@ def _hand_built(K):
                             qmeta=(3, -2, 0.0002, 1) if q else ())
             out.append((f"matmul 1024^3 {dt} {place}", spec,
                         max(b_off + k * n3 * isz, o + m * n3 * isz)))
+        n_in, n_out = 112 * 112 * 64 * isz, 114 * 114 * 64 * isz
+        for place, o in (("apart", n_in), ("over", 0)):
+            spec = K.OpSpec(kind="pad", in_off=(0,),
+                            in_shape=((112, 112, 64),), out_off=o,
+                            out_shape=(114, 114, 64), dtype=dt,
+                            meta=(((1, 1), (1, 1), (0, 0)),),
+                            qmeta=((-3, 0.9), (4,)) if q else ())
+            out.append((f"pad 112 x 112 x 64 {dt} {place}", spec,
+                        o + n_out))
     return out
 
 

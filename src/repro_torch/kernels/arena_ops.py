@@ -15,18 +15,17 @@ arena programs.
   rows sit at lane phase ``(iy % c) * rl`` of arena row ``iy // c``, a
   spanning row covers ``k`` consecutive arena rows.
 - **Streaming** (``win_rows > 0`` on top of ``rowlen > 0``): the same
-  typed arena, but each op copies only its live window (the planner's
-  ``WindowSchedule``) into a staging buffer, runs there, and copies its
-  output back. Three forms, each a kernel of its own: *rolling* (conv,
-  depthwise, pool with ``win_starts``: output rows of streaming tile ``t``
-  read ``win_in`` arena rows from ``win_starts[t]``; the kernel reads them
-  in place and stores straight into the arena), *staged*
-  (every other kind: operand blocks packed by ``planner.staged_slots``;
-  the kernel runs every staged kind but pad in place on the arena
-  instead)
-  and *fused* (a band chain whose inputs, internals and output all live in
-  the reference's ``include_io`` scratch slots; the kernel reads the
-  inputs and writes the output in place on the arena).
+  typed arena, but in the reference each op copies only its live window
+  (the planner's ``WindowSchedule``) into a staging buffer, runs there,
+  and copies its output back. Three forms, each a kernel of its own:
+  *rolling* (conv, depthwise, pool with ``win_starts``: output rows of
+  streaming tile ``t`` read ``win_in`` arena rows from ``win_starts[t]``;
+  the kernel reads them in place and stores straight into the arena),
+  *staged* (every other kind: operand blocks packed by
+  ``planner.staged_slots``; the kernel runs every staged kind in place on
+  the arena instead) and *fused* (a band chain whose inputs, internals and
+  output all live in the reference's ``include_io`` scratch slots; the
+  kernel reads the inputs and writes the output in place on the arena).
 
 Every lowered op (an :class:`OpSpec`) runs in place:
 
@@ -64,7 +63,7 @@ launches the kernel (built from ``csrc/`` by :mod:`.build`) or raises. A
 CUDA arena never takes the plain route. Each launch adds one to
 :data:`LAUNCHES`.
 
-A kernel's staging buffer, tile footprint and (streaming) window live in
+A kernel's staged results, tile footprint and row buffers live in
 dynamic shared memory when they fit one CTA and otherwise in a global
 workspace allocated once per spec and cached (:func:`buffer_plan`,
 :func:`workspace`); the descriptor tells the kernel where each is. The
@@ -74,13 +73,14 @@ standalone conv (:func:`arena_conv`), pool
 (:func:`conv_tiling`), each tile's input footprint in its CTA's shared
 memory (or a global slice per CTA), their counters at the start of the
 workspace, and wait only where the operands overlap (:func:`conv_order`).
-Elementwise, concat and mean ops (:func:`arena_elementwise`,
-:func:`arena_concat`, :func:`arena_mean`, and the staged ones of
-:func:`arena_stream_stage`, in place on the arena) run in chunks of output
-units over the whole card (:func:`ew_tiling`, :func:`concat_tiling`,
-:func:`mean_tiling`) and stage their results before one grid-wide barrier
-only where the byte ranges do not prove that no store can clobber a read
-(:func:`ew_order`, :func:`concat_order`, :func:`mean_order`). Fully
+Elementwise, concat, mean and pad ops (:func:`arena_elementwise`,
+:func:`arena_concat`, :func:`arena_mean`, :func:`arena_pad`, and the
+staged ones of :func:`arena_stream_stage`, in place on the arena) run in
+chunks of output units over the whole card (:func:`ew_tiling`,
+:func:`concat_tiling`, :func:`mean_tiling`, :func:`pad_tiling`) and stage
+their results before one grid-wide barrier only where the byte ranges do
+not prove that no store can clobber a read (:func:`ew_order`,
+:func:`concat_order`, :func:`mean_order`, :func:`pad_order`). Fully
 connected ops (:func:`arena_fully_connected`, and the staged one of
 :func:`arena_stream_stage`, in place on the arena) cut W into column blocks
 and K slices over the whole card (:func:`fc_tiling`), sum the slices'
@@ -97,17 +97,16 @@ barrier only where an input lies in another row's output or the padding
 chain-internal tensor a workspace region of its own and run the stages
 that do not depend on each other as one level of row tiles and chunks
 over the whole card, a grid-wide barrier between levels, the terminal
-stage last (:func:`chain_schedule`). Pad runs one CTA per op.
+stage last (:func:`chain_schedule`).
 
 The plain versions walk output rows in Python with torch ops on typed views
 of the arena, in the reference's order (every read of row ``oy`` before its
 store, rows ascending; whole-block ops read everything before writing), so
 they are exact on in-place and diagonally overlapped layouts. The
-streaming ones copy the window out of the arena, run the same bodies with
-the operands rebased to it, and copy the output back; a staged op the
-card runs in place runs its blocked plain version on the arena. They
-store as
-the reference does: a plain or spanning row store zeroes the rest of its
+rolling and fused streaming ones copy the window out of the arena, run the
+same bodies with the operands rebased to it, and copy the output back; a
+staged op runs its blocked plain version on the arena, in place as the
+kernel does. They store as the reference does: a plain or spanning row store zeroes the rest of its
 arena rows, a packed one writes only its lane phase, and a whole-block op
 writes its whole padded ``(rows, rowlen)`` block, zeros in the padding.
 The CPU tests hold them against the Pallas kernels in interpret mode, and
@@ -291,7 +290,8 @@ D_EDIM0, D_BSTR0 = 20, 26
 D_MM, D_MK, D_MN = 10, 11, 12
 D_PIN0, D_PLO0, D_POUT0, D_PN = 10, 14, 18, 22
 #: A grid kernel's order word (a tile kernel's :func:`conv_order`, a chunk
-#: walk's :func:`ew_order`, :func:`concat_order` or :func:`mean_order`, a
+#: walk's :func:`ew_order`, :func:`concat_order`, :func:`mean_order` or
+#: :func:`pad_order`, a
 #: product's :func:`fc_order` or :func:`matmul_order`, a softmax's
 #: :func:`softmax_order`), then its tiling's fields in order
 #: (:func:`conv_tiling`, :func:`chunk_of`, :func:`fc_tiling`,
@@ -313,14 +313,11 @@ BUFFER_WORD = {"stage": 120, "row": 122, "tile": 120, "wts": 122,
 D_ADDR, ADDR_WORDS = 128, 6
 #: A streaming descriptor's stream block (the S_* words of
 #: csrc/arena_common.cuh), then the body's descriptor at word S_BODY: the
-#: window's placement (none for a rolling op), bytes per arena row, the
-#: copy out, the rolling statics (the input's arena row, window rows,
-#: image rows of a streaming tile, tiles, output rows), and from S_COPY0
-#: two lists of any length: S_NCOPY copies in (arena row, window row,
-#: rows), then S_T fetch starts.
-(S_WIN_G, S_WIN_OFF, S_ROWB, S_BODY, S_NCOPY, S_OUT_WIN, S_OUT_ROW,
- S_OUT_ROWS, S_IN_ROW, S_WIN_IN, S_TR, S_T, S_OH) = range(13)
-S_COPY0 = 16
+#: body's word offset, the rolling statics (the input's arena row, window
+#: rows, image rows of a streaming tile, tiles, output rows), and from
+#: S_COPY0 a rolling op's S_T fetch starts.
+S_BODY, S_IN_ROW, S_WIN_IN, S_TR, S_T, S_OH = range(6)
+S_COPY0 = 8
 #: Shared memory a streaming launch leaves to static shared arrays (a
 #: softmax CTA row's reduction, a product CTA's last-slice flag).
 STREAM_STATIC_SMEM = 1024
@@ -356,15 +353,6 @@ def _tile_rows(spec: OpSpec, y0: int, y1: int) -> Tuple[int, int]:
     return y0 * k, y1 * k
 
 
-def _staged(spec: OpSpec) -> Tuple[Tuple[int, ...], int, int]:
-    """A staged op's window slots: (input slot rows, output slot row,
-    window rows), from the planner's one packing."""
-    from repro_torch.core.planner import staged_slots
-    offs, out_slot, total = staged_slots([r for r, _ in spec.in_rows],
-                                         spec.out_rows[0], _sub(spec.dtype))
-    return offs, out_slot, max(total, spec.win_rows)
-
-
 def _blocked(spec: OpSpec) -> OpSpec:
     """The spec with its window fields cleared: the row-blocked op."""
     return dataclasses.replace(spec, win_lo=0, win_rows=0, win_starts=(),
@@ -372,16 +360,12 @@ def _blocked(spec: OpSpec) -> OpSpec:
 
 
 def _stream_body(spec: OpSpec) -> OpSpec:
-    """The spec a streaming kernel's body runs on its window (the plain
-    versions' too): the window fields cleared; a staged op's operands
-    rebased to their window slots; a streaming chain's scratch grown to its
-    window (all its operands live there)."""
-    form = stream_form(spec)
+    """The spec a streaming kernel's body runs (the plain versions' too):
+    the window fields cleared (a rolling or staged op: its arena offsets);
+    a streaming chain's scratch grown to its window (all its operands live
+    there)."""
     body = _blocked(spec)
-    if form == "stage":
-        offs, out_slot, _ = _staged(spec)
-        body = dataclasses.replace(body, in_off=offs, out_off=out_slot)
-    elif form == "fused":
+    if stream_form(spec) == "fused":
         body = dataclasses.replace(
             body, scratch_rows=max(spec.scratch_rows, spec.win_rows))
     return body
@@ -953,9 +937,10 @@ def tile_reads(spec: OpSpec, t: int) -> List[Tuple[int, int, int]]:
 
 # ---------------------------------------------------------------------------
 # The chunk walk (csrc/ew_tiles.cuh: arena_elementwise, arena_concat,
-# arena_mean, and arena_stream_stage's elementwise, concat and mean bodies
-# in place on the arena): output units in contiguous chunks, one chunk a
-# CTA at a time, and the order word that keeps read-all-before-write-all.
+# arena_mean, arena_pad, and arena_stream_stage's elementwise, concat, mean
+# and pad bodies in place on the arena): output units in contiguous
+# chunks, one chunk a CTA at a time, and the order word that keeps
+# read-all-before-write-all.
 # The kernels read the same numbers from the descriptor.
 # ---------------------------------------------------------------------------
 
@@ -1008,11 +993,11 @@ def runs_ew_grid(spec: OpSpec) -> bool:
 
 
 def runs_chunk_walk(spec: OpSpec) -> bool:
-    """Does the spec run a chunk walk body: an elementwise, concat or mean
-    op of the flat or row-blocked program, or a staged one of the
+    """Does the spec run a chunk walk body: an elementwise, concat, mean or
+    pad op of the flat or row-blocked program, or a staged one of the
     streaming program (a fused chain runs its elementwise and concat
     stages as chunks of its own levels, :func:`chain_schedule`)."""
-    return spec.kind in ("elementwise", "concat", "mean") and \
+    return spec.kind in ("elementwise", "concat", "mean", "pad") and \
         stream_form(spec) in (None, "stage")
 
 
@@ -1066,17 +1051,30 @@ def ew_order(spec: OpSpec) -> int:
     return EW_OVERLAP
 
 
-@functools.lru_cache(maxsize=1024)
-def concat_order(spec: OpSpec) -> int:
-    """The order word of a concat from each input's arena byte range
-    against the output's (:func:`_byte_range`): :data:`EW_DISJOINT` when
-    none meets it (every concat of the Table III zoo), else
-    :data:`EW_OVERLAP`."""
+def _inputs_order(spec: OpSpec) -> int:
+    """:data:`EW_DISJOINT` when no input's arena byte range meets the
+    output's (:func:`_byte_range`), else :data:`EW_OVERLAP`."""
     out = _byte_range(spec, None)
     if any(_meets(_byte_range(spec, i), out)
            for i in range(len(spec.in_off))):
         return EW_OVERLAP
     return EW_DISJOINT
+
+
+@functools.lru_cache(maxsize=1024)
+def concat_order(spec: OpSpec) -> int:
+    """The order word of a concat from each input's arena byte range
+    against the output's: :data:`EW_DISJOINT` when none meets it (every
+    concat of the Table III zoo), else :data:`EW_OVERLAP`."""
+    return _inputs_order(spec)
+
+
+@functools.lru_cache(maxsize=1024)
+def pad_order(spec: OpSpec) -> int:
+    """The order word of a pad from the input's arena byte range against
+    the output's: :data:`EW_DISJOINT` when they do not meet (every pad the
+    port's programs lower), else :data:`EW_OVERLAP`."""
+    return _inputs_order(spec)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -1184,6 +1182,31 @@ def concat_tiling(spec: OpSpec) -> EwTiling:
                         concat_order(spec) == EW_OVERLAP, EW_THREADS)
 
 
+def _pad_vec(spec: OpSpec) -> int:
+    """Elements of a pad's unit: 16 bytes' worth where the innermost
+    axis's input and output lengths and leading pad are multiples of them
+    (a unit then lies in one innermost row, wholly inside or wholly
+    outside the input's box, on an aligned run of the input's elements),
+    the output block allows them and both operands' bases and rows do
+    (:func:`_ew_vec_ok`), else 1."""
+    ind, lo, outd = _pad_geometry(spec)
+    nblk = operand_addr(spec, None)[6]
+    vec = 16 // _isz(spec.dtype)
+    if ind[3] % vec or lo[3] % vec or outd[3] % vec or nblk % vec or \
+            not (_ew_vec_ok(spec, None, vec) and _ew_vec_ok(spec, 0, vec)):
+        return 1
+    return vec
+
+
+@functools.lru_cache(maxsize=1024)
+def pad_tiling(spec: OpSpec) -> EwTiling:
+    """The units and chunks of a pad: :func:`_pad_vec` elements a unit,
+    about one unit a thread (:func:`_unit_tiling`)."""
+    vec = _pad_vec(spec)
+    return _unit_tiling(operand_addr(spec, None)[6] // vec, vec,
+                        pad_order(spec) == EW_OVERLAP, EW_THREADS)
+
+
 @functools.lru_cache(maxsize=1024)
 def mean_tiling(spec: OpSpec) -> EwTiling:
     """The units and chunks of a mean: one output (of the output's block,
@@ -1200,6 +1223,8 @@ def chunk_of(spec: OpSpec) -> Tuple[EwTiling, int]:
         return ew_tiling(spec), ew_order(spec)
     if spec.kind == "concat":
         return concat_tiling(spec), concat_order(spec)
+    if spec.kind == "pad":
+        return pad_tiling(spec), pad_order(spec)
     return mean_tiling(spec), mean_order(spec)
 
 
@@ -1498,8 +1523,8 @@ def softmax_grid(spec: OpSpec) -> Tuple[int, int, int]:
 
 def runs_in_place(spec: OpSpec) -> bool:
     """Does a staged streaming spec run in place on the arena (no window,
-    no copies): an elementwise, concat, mean, fully connected, matmul or
-    softmax body (every staged kind but pad)."""
+    no copies): an elementwise, concat, mean, pad, fully connected, matmul
+    or softmax body (every staged kind)."""
     return runs_chunk_walk(spec) or runs_product_grid(spec) or \
         runs_softmax_grid(spec)
 
@@ -1830,11 +1855,10 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
     staging; the product grid body its counters, its partial sums
     (global: other CTAs sum them; none for a matmul's row blocks of one
     slice) and, an FC, one CTA's warp sums; a softmax, for order 2, its
-    counter and every result, and for a CTA row its buffer; a staged pad
-    adds its window to its body's; a fused chain (any program) its
-    counters, its stages' regions, the largest footprint and filter chunks
-    of its row stages and, staged, one terminal chunk a CTA."""
-    form = stream_form(spec)
+    counter and every result, and for a CTA row its buffer; a fused chain
+    (any program) its counters, its stages' regions, the largest footprint
+    and filter chunks of its row stages and, staged, one terminal chunk a
+    CTA."""
     if kernel_of(spec) in TILE_KERNELS:
         tl = conv_tiling(spec)
         return (("ctr", conv_counter_bytes(spec)), ("tile", tl.fp),
@@ -1860,25 +1884,20 @@ def _buffer_needs(spec: OpSpec) -> Tuple[Tuple[str, int], ...]:
         if softmax_tiling(spec).mode == SM_CTA:
             needs += (("rowbuf", 4 * last),)
         return needs
-    if form == "stage":
-        rowb = spec.rowlen * _isz(spec.dtype)
-        return (("win", _staged(spec)[2] * rowb),) + _buffer_needs(
-            _stream_body(spec))
-    k = spec.kind
-    if k == "fused":
-        s = chain_schedule(spec)
-        tiles = [t for st, t in zip(s.stages, s.tilings)
-                 if st.kind in ROW_KINDS]
-        needs = (("ctr", s.counter_bytes), ("regions", s.region_bytes),
-                 ("tile", max((t.fp for t in tiles), default=0)),
-                 ("wts", max((2 * t.ch * t.to * _isz(spec.dtype)
-                              for t in tiles), default=0)))
-        if not s.staged:
-            return needs
-        return needs + (("term", max(     # one staged chunk a CTA
-            s.tilings[j].per * s.tilings[j].vec
-            for j in s.terminal) * _isz(spec.dtype)),)
-    return (("stage", _elems(spec.out_shape) * _isz(spec.dtype)),)  # pad
+    if spec.kind != "fused":
+        raise NotImplementedError(f"{spec.kind} has no grid kernel here")
+    s = chain_schedule(spec)
+    tiles = [t for st, t in zip(s.stages, s.tilings)
+             if st.kind in ROW_KINDS]
+    needs = (("ctr", s.counter_bytes), ("regions", s.region_bytes),
+             ("tile", max((t.fp for t in tiles), default=0)),
+             ("wts", max((2 * t.ch * t.to * _isz(spec.dtype)
+                          for t in tiles), default=0)))
+    if not s.staged:
+        return needs
+    return needs + (("term", max(     # one staged chunk a CTA
+        s.tilings[j].per * s.tilings[j].vec
+        for j in s.terminal) * _isz(spec.dtype)),)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -1964,23 +1983,21 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
     fused chain a header (word 0 = stage count) and then every stage's.
     The op's words, or the header, carry the buffer placement. A streaming
     spec's descriptor is its stream block, then its body's descriptor (a
-    staged op's body at its arena offsets, in place; a staged pad's
-    rebased to its window). A tile kernel's, a chunk walk's, the product's
+    rolling or staged op's body at its arena offsets). A tile kernel's, a
+    chunk walk's, the product's
     or the softmax grid body's (last) op descriptor carries its order word
     and tiling."""
     bp = buffer_plan(spec)
     if spec.kind == "fused":
         words = _chain_words(spec, bp)
         if spec.win_rows:
-            words = np.concatenate([_stream_words(spec, bp), words])
+            words = np.concatenate([_stream_words(spec), words])
         return words
     if not spec.win_rows:
         words = _body_words(spec, bp)
     else:
-        body = (_blocked(spec) if runs_in_place(spec) else
-                _stream_body(spec))
-        words = np.concatenate([_stream_words(spec, bp),
-                                _body_words(body, bp)])
+        words = np.concatenate([_stream_words(spec),
+                                _body_words(_stream_body(spec), bp)])
     body = words[-DESC_WORDS:]
     if kernel_of(spec) in TILE_KERNELS:
         body[D_ORDER] = conv_order(spec)
@@ -2001,28 +2018,17 @@ def descriptor_words(spec: OpSpec) -> np.ndarray:
     return words
 
 
-def _stream_words(spec: OpSpec, bp: BufferPlan) -> np.ndarray:
+def _stream_words(spec: OpSpec) -> np.ndarray:
     """A streaming spec's stream block (see :data:`S_COPY0`), padded to
-    whole 32-word groups; the body's descriptor follows it."""
-    form = stream_form(spec)
-    place = {name: (int(glob), off) for name, glob, off in bp.parts}
+    whole 32-word groups; the body's descriptor follows it. A staged op or
+    a chain runs in place: its block holds only the body's offset."""
     w = [0] * S_COPY0
-    w[S_ROWB] = spec.rowlen * _isz(spec.dtype)
-    if form == "roll":
+    if stream_form(spec) == "roll":
         tr, tile_ar = _tile_geom(spec)
         w[S_IN_ROW] = spec.in_off[0]
         w[S_WIN_IN], w[S_TR] = spec.win_rows - tile_ar, tr
         w[S_T], w[S_OH] = len(spec.win_starts), spec.out_shape[-3]
         w += spec.win_starts
-    elif form == "stage" and not runs_in_place(spec):
-        # a staged window; an in-place staged op or a chain has none
-        w[S_WIN_G:S_WIN_OFF + 1] = place["win"]
-        slots, out_slot, _ = _staged(spec)
-        w[S_NCOPY] = len(slots)
-        for off, slot, (rows, _) in zip(spec.in_off, slots, spec.in_rows):
-            w += (off, slot, rows)
-        w[S_OUT_WIN], w[S_OUT_ROW], w[S_OUT_ROWS] = \
-            out_slot, spec.out_off, spec.out_rows[0]
     w += [0] * (_round_up(len(w), 32) - len(w))
     w[S_BODY] = len(w)
     return np.asarray(w, np.int32)
@@ -2574,24 +2580,14 @@ def stream_roll_plain(arena: torch.Tensor, spec: OpSpec,
 
 def stream_stage_plain(arena: torch.Tensor, spec: OpSpec,
                        w: Optional[torch.Tensor] = None) -> None:
-    """A staged streaming op. One that runs in place on the card
-    (:func:`runs_in_place`: every kind but pad) runs its blocked plain
-    version on the arena, as the kernel does; a pad copies every operand
-    block into its window slot
-    (:func:`~repro_torch.core.planner.staged_slots`), runs its plain
-    version on the window and copies the output block back."""
+    """A staged streaming op: its blocked plain version on the arena, in
+    place as the kernel runs it (:func:`runs_in_place`). The reference
+    copies every operand block into its window slot
+    (:func:`~repro_torch.core.planner.staged_slots`), runs there and copies
+    the output block back; every block is read before the output is
+    written in both, so the arenas agree."""
     _check_stream(spec, arena.shape[0])
-    if runs_in_place(spec):
-        apply_plain(arena, _blocked(spec), w)
-        return
-    offs, out_slot, total = _staged(spec)
-    win = torch.zeros((total, spec.rowlen), dtype=arena.dtype,
-                      device=arena.device)
-    for off, slot, (rows, _) in zip(spec.in_off, offs, spec.in_rows):
-        win[slot:slot + rows] = arena[off:off + rows]
-    apply_plain(win, _stream_body(spec), w)
-    rows = spec.out_rows[0]
-    arena[spec.out_off:spec.out_off + rows] = win[out_slot:out_slot + rows]
+    apply_plain(arena, _blocked(spec), w)
 
 
 def stream_fused_plain(arena: torch.Tensor, spec: OpSpec,
@@ -2714,7 +2710,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _launch(name: str, arena: torch.Tensor, spec: OpSpec,
             w: Optional[torch.Tensor], desc: Optional[torch.Tensor],
-            grid: Tuple[int, ...] = ()) -> None:
+            grid: Tuple[int, int, int]) -> None:
     """Launch kernel ``name`` on the arena's current stream and count it;
     ``grid``: the launch-shape arguments of a kernel over the whole card
     (:data:`build.GRID_ARGTYPES`)."""
@@ -2806,13 +2802,15 @@ def arena_matmul(arena: torch.Tensor, spec: OpSpec,
 
 def arena_pad(arena: torch.Tensor, spec: OpSpec,
               desc: Optional[torch.Tensor] = None) -> None:
-    """Constant pad (then, int8, rescale) on the arena."""
+    """Constant pad (then, int8, rescale) on the arena, over the whole
+    card (:func:`pad_tiling`, :func:`pad_order`)."""
     _expect(spec, "arena_pad")
     _pad_geometry(spec)
     if not _on_card(arena, spec):
         pad_plain(arena, spec)
         return
-    _launch("arena_pad", arena, spec, None, desc)
+    _check_ew_arena(arena)
+    _launch("arena_pad", arena, spec, None, desc, chunk_grid(spec))
 
 
 def arena_concat(arena: torch.Tensor, spec: OpSpec,
@@ -2912,12 +2910,10 @@ def arena_stream_stage(arena: torch.Tensor, spec: OpSpec,
                        w: Optional[torch.Tensor] = None,
                        desc: Optional[torch.Tensor] = None) -> None:
     """A whole-block op of the streaming program (``w``: a fully connected
-    op's filter): an elementwise, concat, mean, fully connected, matmul or
-    softmax op in place on the arena over the whole card (the grid bodies
-    of :func:`arena_elementwise`, :func:`arena_concat`,
-    :func:`arena_mean`, :func:`arena_fully_connected`,
-    :func:`arena_matmul` and :func:`arena_softmax`), a pad on its staged
-    window in one CTA."""
+    op's filter) in place on the arena over the whole card: the grid
+    bodies of :func:`arena_elementwise`, :func:`arena_concat`,
+    :func:`arena_mean`, :func:`arena_pad`, :func:`arena_fully_connected`,
+    :func:`arena_matmul` and :func:`arena_softmax`."""
     _expect(spec, "arena_stream_stage")
     if spec.kind == "fully_connected":
         _check_weight(spec, w)
@@ -2930,10 +2926,8 @@ def arena_stream_stage(arena: torch.Tensor, spec: OpSpec,
         grid = chunk_grid(spec)
     elif runs_product_grid(spec):
         grid = fc_grid(spec)
-    elif runs_softmax_grid(spec):
-        grid = softmax_grid(spec)
     else:
-        grid = (1, 0, 0)
+        grid = softmax_grid(spec)
     _launch("arena_stream_stage", arena, spec, w, desc, grid)
 
 

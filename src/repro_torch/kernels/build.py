@@ -46,31 +46,30 @@ _F = ctypes.c_float
 #: pointer and the stream pass as c_void_p, so ctypes never truncates them
 #: to 32 bits.
 KERNELS = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
-#: The arena kernels' signature: (arena, descriptor, weights or null,
-#: global workspace or null, dynamic shared bytes, stream).
-ARGTYPES = [_P, _P, _P, _P, _I, _P]
-#: The kernels over the whole card (the row tiles of csrc/conv_tiles.cuh,
-#: the elementwise, concat and mean chunk walks of csrc/ew_tiles.cuh, the
-#: softmax rows of csrc/softmax_tiles.cuh, the fully connected and matmul
-#: grid of csrc/fc_tiles.cuh, the fused chains' levels of
-#: csrc/chain_tiles.cuh; and the empty launch_floor) take three ints more
-#: before the stream: the CTAs to launch at most, the CTAs (tiles) that
-#: must run at once (one output row's tiles; every CTA of an order-2 chunk
-#: walk, softmax, FC or matmul op, or of a chain; else 0) and the bytes of
-#: the counters at the workspace's start.
+#: The arena kernels, every one over the whole card (the row tiles of
+#: csrc/conv_tiles.cuh, the elementwise, concat, mean and pad chunk walks
+#: of csrc/ew_tiles.cuh, the softmax rows of csrc/softmax_tiles.cuh, the
+#: fully connected and matmul grid of csrc/fc_tiles.cuh, the fused chains'
+#: levels of csrc/chain_tiles.cuh; and the empty launch_floor), take
+#: (arena, descriptor, weights or null, global workspace or null, dynamic
+#: shared bytes, the CTAs to launch at most, the CTAs (tiles) that must
+#: run at once (one output row's tiles; every CTA of an order-2 chunk
+#: walk, softmax, FC or matmul op, or of a chain; else 0), the bytes of
+#: the counters at the workspace's start, stream).
 GRID_ARGTYPES = {name: [_P, _P, _P, _P, _I, _I, _I, _I, _P]
                  for name in ("arena_conv", "arena_pool", "arena_stream_roll",
                               "arena_elementwise", "arena_concat",
-                              "arena_mean", "arena_fully_connected",
-                              "arena_matmul", "arena_softmax",
-                              "arena_stream_stage", "arena_fused_chain",
-                              "arena_stream_fused", "launch_floor")}
+                              "arena_mean", "arena_pad",
+                              "arena_fully_connected", "arena_matmul",
+                              "arena_softmax", "arena_stream_stage",
+                              "arena_fused_chain", "arena_stream_fused",
+                              "launch_floor")}
 #: Entry points beside a kernel's own, by name: the library they live in
 #: (``launch_floor``: an empty grid kernel through the arena kernels'
 #: launcher, an instrument that ports nothing).
 EXTRA_ENTRIES = {"launch_floor": "arena_softmax"}
 #: The standalone kernels' own signatures, by entry point; every other
-#: entry takes :data:`ARGTYPES`.
+#: entry takes its :data:`GRID_ARGTYPES`.
 ARGTYPES_OF = {
     # (x, r, g f32, n, d, bf16, eps, stream)
     "rmsnorm_inplace": [_P, _P, _P, _I, _I, _I, _F, _P],
@@ -141,8 +140,7 @@ def load() -> Dict[str, ctypes.CDLL]:
         for name in KERNELS:
             lib = ctypes.CDLL(str(out / f"lib{name}.so"))
             fn = getattr(lib, name)
-            fn.argtypes = ARGTYPES_OF.get(name) or GRID_ARGTYPES.get(
-                name, ARGTYPES)
+            fn.argtypes = ARGTYPES_OF.get(name) or GRID_ARGTYPES[name]
             fn.restype = ctypes.c_int
             _LIBS[name] = lib
         for name, lib in EXTRA_ENTRIES.items():

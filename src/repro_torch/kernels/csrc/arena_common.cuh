@@ -37,28 +37,24 @@
 // streaming program's rolling conv, depthwise and pool
 // (arena_stream_roll.cu) run row tiles whose stores wait for the reads of
 // every tile of their row and the rows before (conv_tiles.cuh);
-// elementwise, concat and mean (arena_elementwise.cu, arena_concat.cu,
-// arena_mean.cu, and those staged bodies of arena_stream_stage.cu), softmax
-// (arena_softmax.cu, and the staged softmax body), fully connected and
-// matmul (arena_fully_connected.cu, arena_matmul.cu, and their staged
-// bodies) read every input their output could clobber before one
-// grid-wide barrier (grid_barrier below; ew_tiles.cuh, softmax_tiles.cuh,
-// fc_tiles.cuh), or, where the byte ranges prove it needless, never wait;
-// the fused chains (arena_fused_chain.cu, arena_stream_fused.cu) run their
-// stages in levels with a grid-wide barrier between levels and write the
-// arena only in the last (chain_tiles.cuh). Pad (and its staged body) runs
-// in ONE CTA, a whole-block routine that computes its whole output into a
-// staging buffer, synchronises, then writes the block out
-// (read-all-before-write-all). The staging buffer holds the decoded
-// tensor; the block encoding happens on the way out. In the row-blocked
-// program the legaliser re-derives every diagonal distance in whole arena
-// rows, so the padding a row store zeroes is dead.
+// elementwise, concat, mean and pad (arena_elementwise.cu,
+// arena_concat.cu, arena_mean.cu, arena_pad.cu, and those staged bodies of
+// arena_stream_stage.cu), softmax (arena_softmax.cu, and the staged
+// softmax body), fully connected and matmul (arena_fully_connected.cu,
+// arena_matmul.cu, and their staged bodies) read every input their output
+// could clobber before one grid-wide barrier (grid_barrier below;
+// ew_tiles.cuh, softmax_tiles.cuh, fc_tiles.cuh), or, where the byte
+// ranges prove it needless, never wait; the fused chains
+// (arena_fused_chain.cu, arena_stream_fused.cu) run their stages in levels
+// with a grid-wide barrier between levels and write the arena only in the
+// last (chain_tiles.cuh). In the row-blocked program the legaliser
+// re-derives every diagonal distance in whole arena rows, so the padding a
+// row store zeroes is dead.
 //
-// Buffers (a staging buffer, a tile's footprint, a streaming window) live
-// in dynamic shared memory when they fit a CTA and otherwise in a global
+// Buffers (a grid's staged results, a tile's footprint, a row) live in
+// dynamic shared memory when they fit a CTA and otherwise in a global
 // workspace the wrapper allocates once per spec; the descriptor says which
-// (words D_STAGE_G.. and S_WIN_G.. below). Both placements are the
-// kernel.
+// (words D_STAGE_G.. below). Both placements are the kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -68,7 +64,7 @@
 
 namespace arena {
 
-constexpr int NT = 512;          // threads of a one-CTA or chunk-walk CTA
+constexpr int NT = 512;          // threads of a chunk-walk CTA
 constexpr int DESC_WORDS = 256;  // int32 words per op/stage descriptor
 constexpr int MAX_CAT = 16;      // concat inputs a descriptor can hold
 constexpr int MAX_DIMS = 6;      // elementwise broadcast rank
@@ -197,50 +193,6 @@ __device__ __forceinline__ int8_t quant_f(float v, float scale, int zp) {
 
 __device__ __forceinline__ float dequant(int8_t q, float scale, int zp) {
   return __fmul_rn(__fsub_rn((float)q, (float)zp), scale);
-}
-
-// Copy a staged whole-block result to its output, 4-byte words where both
-// ends allow it.
-__device__ __forceinline__ void copy_out(uint8_t* out, const uint8_t* stage,
-                                         int nbytes) {
-  if ((((uintptr_t)out | (uintptr_t)stage | (uintptr_t)nbytes) & 3) == 0) {
-    uint32_t* o = (uint32_t*)out;
-    const uint32_t* s = (const uint32_t*)stage;
-    for (int e = threadIdx.x; e < nbytes / 4; e += NT) o[e] = s[e];
-  } else {
-    for (int e = threadIdx.x; e < nbytes; e += NT) out[e] = stage[e];
-  }
-}
-
-// Write a whole n-element output block: value(e) gives tensor element e
-// (the int8 result in the low byte, or the f32 result's bits); padding
-// gets zeros.
-template <typename V>
-__device__ __forceinline__ void write_block(uint8_t* out, const Addr& a,
-                                            int n, bool q, V value) {
-  const bool flat = dense(a, n);
-  const int nb = flat ? n : a.nblk;
-  for (int b = threadIdx.x; b < nb; b += NT) {
-    const int e = flat ? b : elem_of(a, b, n);
-    const uint32_t v = e >= 0 ? value(e) : 0u;
-    if (q) out[b] = (uint8_t)v;
-    else ((uint32_t*)out)[b] = v;
-  }
-}
-
-// Write a staged n-element result as the output's block.
-__device__ __forceinline__ void store_block(uint8_t* out, const Addr& a,
-                                            const uint8_t* stage, int n,
-                                            bool q) {
-  if (dense(a, n)) {
-    copy_out(out, stage, n * (q ? 1 : 4));
-  } else if (q) {
-    write_block(out, a, n, true,
-                [&](int e) { return (uint32_t)stage[e]; });
-  } else {
-    write_block(out, a, n, false,
-                [&](int e) { return ((const uint32_t*)stage)[e]; });
-  }
 }
 
 struct ConvP {
@@ -375,43 +327,6 @@ __device__ __forceinline__ float ew_apply(int fn, float a, float b) {
   }
 }
 
-// The whole-block routine below reads its operands at `base` + the
-// descriptor's byte offsets: the arena, or (the streaming program) the
-// staging window the operand blocks were copied into.
-
-// Constant pad: f32 pads with 0; int8 pads with the input's zero point and
-// then rescales the whole padded tensor to the output's params
-// (ops.rescale_q). The whole output goes to `stage` first.
-__device__ void pad_op(const int* d, uint8_t* base, uint8_t* stage) {
-  const bool q = d[D_QUANT] != 0;
-  const int n = d[D_PN];
-  const uint8_t* in = base + d[D_IN_OFF];
-  const int x_zp = d[D_X_ZP], y_zp = d[D_Y_ZP];
-  const float mult = fword(d, D_AMULT);
-  const Addr ia = load_addr(d, 1);
-  for (int e = threadIdx.x; e < n; e += NT) {
-    int rem = e, idx = 0, stride = 1;
-    bool inside = true;
-    for (int i = 3; i >= 0; --i) {
-      const int od = d[D_POUT0 + i], id = d[D_PIN0 + i];
-      const int c = rem % od - d[D_PLO0 + i];
-      rem /= od;
-      inside = inside && c >= 0 && c < id;
-      idx += c * stride;
-      stride *= id;
-    }
-    if (inside) idx = elem_at(ia, idx);
-    if (q) {
-      const int x = inside ? (int)((const int8_t*)in)[idx] : x_zp;
-      ((int8_t*)stage)[e] = requant_i(x - x_zp, mult, y_zp);
-    } else {
-      ((float*)stage)[e] = inside ? ((const float*)in)[idx] : 0.0f;
-    }
-  }
-  __syncthreads();  // the input is read before any output byte is written
-  store_block(base + d[D_OUT_OFF], load_addr(d, 0), stage, n, q);
-}
-
 // One grid-wide barrier over a resident grid (a cooperative launch): every
 // CTA's earlier reads are done, and its earlier stores visible, before any
 // CTA goes on. `ctr` is a counter the entry point zeroed before the launch.
@@ -427,74 +342,25 @@ __device__ __forceinline__ void grid_barrier(int* ctr) {
 }
 
 // ---------------------------------------------------------------------------
-// The streaming program (arena_stream_*.cu): a staged pad copies its live
-// window from the arena into a staging buffer, runs there and copies its
-// output back; a rolling op reads its window in place, tile by tile
-// (arena_stream_roll.cu); the other staged bodies and the fused chains run
-// in place on the arena. A streaming descriptor is a
+// The streaming program (arena_stream_*.cu): a rolling op reads its window
+// in place, tile by tile (arena_stream_roll.cu); the staged bodies and the
+// fused chains run in place on the arena. A streaming descriptor is a
 // stream block, then the op's descriptor (or a fused chain's header and
 // stages) at word S_BODY.
 // ---------------------------------------------------------------------------
 
-// stream block words: the window's placement (none for a rolling op or a
-// body in place), bytes of one arena row, the body's word
-// offset, the copy out and the rolling statics (the input's arena row,
-// window rows, image rows of a streaming tile, tiles, output rows); from
-// S_COPY0 two lists of any length, S_NCOPY copies in (arena row, window
-// row, rows), then the planner's S_T fetch starts
-enum { S_WIN_G = 0, S_WIN_OFF = 1, S_ROWB = 2, S_BODY = 3, S_NCOPY = 4,
-       S_OUT_WIN = 5, S_OUT_ROW = 6, S_OUT_ROWS = 7, S_IN_ROW = 8,
-       S_WIN_IN = 9, S_TR = 10, S_T = 11, S_OH = 12, S_COPY0 = 16 };
-
-// Copy n bytes, 16 bytes a thread where both ends and n allow it. The
-// caller puts the barrier after it.
-__device__ __forceinline__ void copy_bytes(uint8_t* __restrict__ dst,
-                                           const uint8_t* __restrict__ src,
-                                           long n) {
-  if ((((uintptr_t)dst | (uintptr_t)src | (uintptr_t)n) & 15) == 0) {
-    uint4* o = (uint4*)dst;
-    const uint4* s = (const uint4*)src;
-    for (long e = threadIdx.x; e < n / 16; e += NT) o[e] = s[e];
-  } else if ((((uintptr_t)dst | (uintptr_t)src | (uintptr_t)n) & 3) == 0) {
-    uint32_t* o = (uint32_t*)dst;
-    const uint32_t* s = (const uint32_t*)src;
-    for (long e = threadIdx.x; e < n / 4; e += NT) o[e] = s[e];
-  } else {
-    for (long e = threadIdx.x; e < n; e += NT) dst[e] = src[e];
-  }
-}
-
-// Every operand block of a staged op, arena -> window, then a barrier
-// (all reads before the op writes anything).
-__device__ __forceinline__ void stage_blocks_in(const int* sd,
-                                                const uint8_t* arena,
-                                                uint8_t* win) {
-  const long rb = sd[S_ROWB];
-  for (int i = 0; i < sd[S_NCOPY]; ++i) {
-    const int* c = sd + S_COPY0 + 3 * i;
-    copy_bytes(win + c[1] * rb, arena + c[0] * rb, c[2] * rb);
-  }
-  __syncthreads();
-}
-
-// The output block, window -> arena, then a barrier.
-__device__ __forceinline__ void stage_block_out(const int* sd,
-                                                uint8_t* arena,
-                                                const uint8_t* win) {
-  const long rb = sd[S_ROWB];
-  copy_bytes(arena + sd[S_OUT_ROW] * rb, win + sd[S_OUT_WIN] * rb,
-             sd[S_OUT_ROWS] * rb);
-  __syncthreads();
-}
+// stream block words: the body's word offset and the rolling statics (the
+// input's arena row, window rows, image rows of a streaming tile, tiles,
+// output rows); from S_COPY0 the planner's S_T fetch starts
+enum { S_BODY = 0, S_IN_ROW = 1, S_WIN_IN = 2, S_TR = 3, S_T = 4, S_OH = 5,
+       S_COPY0 = 8 };
 
 }  // namespace arena
 
-// The launch configuration of every one-CTA entry point (ARENA_ENTRY):
-// one CTA of NT threads, `smem` bytes of dynamic shared memory (the grid
-// kernels launch through launch_grid below). The
-// kernel opts in to each larger size it is launched with, not only past
-// 48 KB: a kernel with static shared arrays (a CTA row's reduction) needs
-// the opt-in below 48 KB of dynamic memory too.
+// The kernel opts in to each larger dynamic shared memory size it is
+// launched with, not only past 48 KB: a kernel with static shared arrays
+// (a CTA row's reduction) needs the opt-in below 48 KB of dynamic memory
+// too.
 template <typename K>
 static cudaError_t set_smem(K kernel, int smem, int* configured) {
   if (smem > *configured) {
@@ -514,7 +380,7 @@ struct GridLaunch {
 };
 
 // The entry point of a kernel over the whole card (conv_tiles.cuh's row
-// tiles, ew_tiles.cuh's elementwise, concat and mean chunks,
+// tiles, ew_tiles.cuh's elementwise, concat, mean and pad chunks,
 // softmax_tiles.cuh's rows, fc_tiles.cuh's column blocks and K slices):
 // zeroes `counter_bytes` of counters at the workspace's start on the
 // stream, then launches `kernel`
@@ -569,18 +435,3 @@ static int launch_grid(K kernel, GridLaunch& st, void* arena_buf,
   }
   return (int)cudaGetLastError();
 }
-
-// The C entry point of a one-CTA arena kernel: (arena, descriptor, weights
-// or null, global workspace or null, dynamic shared bytes, stream); returns
-// cudaGetLastError() after the launch.
-#define ARENA_ENTRY(NAME, KERNEL)                                            \
-  extern "C" int NAME(void* arena_buf, const void* desc, const void* w,     \
-                      void* gws, int smem, void* stream) {                   \
-    static int configured = 0;                                               \
-    cudaError_t e = set_smem(KERNEL, smem, &configured);                     \
-    if (e != cudaSuccess) return (int)e;                                     \
-    KERNEL<<<1, arena::NT, smem, (cudaStream_t)stream>>>(                    \
-        (uint8_t*)arena_buf, (const int*)desc, (const uint8_t*)w,            \
-        (uint8_t*)gws);                                                      \
-    return (int)cudaGetLastError();                                          \
-  }

@@ -27,9 +27,9 @@
 // - Every output is computed as the standalone kernels compute it
 //   (conv_point's and pool_point's accumulation order, the elementwise and
 //   concat maps), so f32 results are bit-equal to the one-CTA row walks
-//   this replaced, and stores follow write_block / store_block: a packed
-//   row writes its own lane phase, plain and spanning rows and whole
-//   blocks zero their padding.
+//   this replaced, and stores follow the reference's: a packed row writes
+//   its own lane phase, plain and spanning rows and whole blocks zero
+//   their padding.
 // - The launch is cooperative: every CTA resident, refused (never shrunk)
 //   by launch_grid on a card that cannot hold the grid. The counters (one
 //   ticket word a level, one word a barrier) sit at the workspace's start

@@ -1,22 +1,23 @@
-// The chunk walk over the whole card, and the three grid bodies that run
-// on it: elementwise, concat and mean. arena_elementwise, arena_concat and
-// arena_mean run them on an op of the flat or row-blocked program, and
-// arena_stream_stage on a staged op of the streaming program, in place on
-// the arena (its descriptor carries arena offsets and no window); the
-// fused chains (chain_tiles.cuh) run the elementwise and concat bodies one
-// chunk a ticket, their operands in the arena or the chain's workspace.
-// Through the entry points they replace the TPU kernels
-// src/repro/kernels/arena_ops.py::_elementwise_kernel, ::_concat_kernel
-// with ::_rescale and ::_mean_kernel, and those bodies of
-// ::_stream_stage_kernel (with ::_StreamStageMem).
+// The chunk walk over the whole card, and the four grid bodies that run
+// on it: elementwise, concat, mean and pad. arena_elementwise,
+// arena_concat, arena_mean and arena_pad run them on an op of the flat or
+// row-blocked program, and arena_stream_stage on a staged op of the
+// streaming program, in place on the arena (its descriptor carries arena
+// offsets and no window); the fused chains (chain_tiles.cuh) run the
+// elementwise and concat bodies one chunk a ticket, their operands in the
+// arena or the chain's workspace. Through the entry points they replace
+// the TPU kernels src/repro/kernels/arena_ops.py::_elementwise_kernel,
+// ::_concat_kernel with ::_rescale, ::_mean_kernel and ::_pad_kernel, and
+// those bodies of ::_stream_stage_kernel (with ::_StreamStageMem).
 //
-// - Units and chunks: the output's whole block (padding included, as
-//   write_block writes it) is cut into units, 16 bytes of elements each
-//   where the element map of every operand allows a 16-byte access
-//   (arena_ops.ew_tiling, concat_tiling), else one element each (a mean's
-//   unit is always one output); units go to contiguous chunks, a CTA's
-//   threads stride over a chunk, and a CTA walks chunks blockIdx.x,
-//   blockIdx.x + gridDim.x, ... (chunk_walk). Padding units get zeros.
+// - Units and chunks: the output's whole block (padding included: zeros
+//   in each row's padding and the dense tail) is cut into units, 16 bytes
+//   of elements each where the element map of every operand allows a
+//   16-byte access (arena_ops.ew_tiling, concat_tiling, pad_tiling), else
+//   one element each (a mean's unit is always one output); units go to
+//   contiguous chunks, a CTA's threads stride over a chunk, and a CTA
+//   walks chunks blockIdx.x, blockIdx.x + gridDim.x, ... (chunk_walk).
+//   Padding units get zeros.
 // - Each element is computed the same way whatever the mapping, so
 //   results do not depend on it:
 //   elementwise: the operands' addressing (elem_at, elem_of), the
@@ -26,6 +27,12 @@
 //   e / inner_out, read from the input whose column range holds it and,
 //   int8, rescaled to the output's params (requant_i of x - zp_i, as
 //   ops.rescale_q);
+//   pad: output element e at coordinate x reads the input element at x
+//   less the leading pads where that lies inside the input's box, else
+//   takes the pad value (f32 0; int8 x_zp); int8 then rescales it to the
+//   output's params (requant_i of x - x_zp), the padded tensor's rescale
+//   of the reference. A 16-byte unit lies wholly inside or wholly
+//   outside the box (arena_ops.pad_tiling);
 //   mean: one thread sums one output's reduction in one fixed order (r
 //   ascending, the reduced axes' coordinates last axis fastest: the order
 //   of the one-CTA mean this grid replaced), loads issued MEAN_BATCH at a
@@ -33,8 +40,8 @@
 //   f32 results are the same on the flat, blocked and streaming programs.
 // - Bound: bytes (each operand read once, the output block written once).
 // - Paper §III.F, read-all-before-write-all, by the descriptor's order word
-//   (arena_ops.ew_order, concat_order, mean_order, from the operands'
-//   byte ranges):
+//   (arena_ops.ew_order, concat_order, pad_order, mean_order, from the
+//   operands' byte ranges):
 //   0, disjoint: no input byte meets an output byte; chunks store as they
 //   go, no waits.
 //   1, aligned (elementwise): the output meets only inputs that map each
@@ -46,9 +53,9 @@
 //   thread that owns o reads all of them before it stores o. Nothing
 //   waits.
 //   2, overlap (anything else: an output below or above its input, a
-//   broadcast operand under the output, a concat or mean written over
-//   other elements' inputs): every chunk computes its units into staging
-//   (shared memory, or its slice of the global workspace past the
+//   broadcast operand under the output, a concat, pad or mean written
+//   over other elements' inputs): every chunk computes its units into
+//   staging (shared memory, or its slice of the global workspace past the
 //   budget), then one grid-wide barrier (a counter at the workspace's
 //   start, zeroed by the entry point before the launch; every chunk
 //   resident at once, a cooperative launch the entry point refuses on a
@@ -283,6 +290,102 @@ __device__ __forceinline__ uint4 cat_vec(const CatP& p, int u) {
   return r;
 }
 
+// A pad descriptor's operands and parameters: the input's dims, the
+// leading pads and the output's dims, each padded to 4 with leading 1s
+// (0s for the pads).
+struct PadP {
+  static constexpr bool kVec = true;
+  const uint8_t* in;
+  uint8_t* out;
+  Addr ia, oa;
+  int pin[4], plo[4], pout[4];
+  int n, x_zp, y_zp;
+  float mult;
+  bool flat;
+};
+
+__device__ __forceinline__ PadP load_pad(const int* d, uint8_t* arena) {
+  PadP p;
+  p.in = arena + d[D_IN_OFF];
+  p.out = arena + d[D_OUT_OFF];
+  p.ia = load_addr(d, 1); p.oa = load_addr(d, 0);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    p.pin[i] = d[D_PIN0 + i];
+    p.plo[i] = d[D_PLO0 + i];
+    p.pout[i] = d[D_POUT0 + i];
+  }
+  p.n = d[D_PN];
+  p.x_zp = d[D_X_ZP]; p.y_zp = d[D_Y_ZP]; p.mult = fword(d, D_AMULT);
+  p.flat = dense(p.oa, p.n);
+  return p;
+}
+
+// The input's element offset (elem_at) that output element e < n reads,
+// or -1 where e lies outside the input's box (the pad value). The
+// outermost coordinate is what the inner axes leave: no division.
+__device__ __forceinline__ int pad_src(const PadP& p, int e) {
+  int rem = e, idx = 0, stride = 1;
+#pragma unroll
+  for (int i = 3; i >= 1; --i) {
+    const int c = rem % p.pout[i] - p.plo[i];
+    rem /= p.pout[i];
+    if (c < 0 || c >= p.pin[i]) return -1;
+    idx += c * stride;
+    stride *= p.pin[i];
+  }
+  const int c = rem - p.plo[0];
+  if (c < 0 || c >= p.pin[0]) return -1;
+  return elem_at(p.ia, idx + c * stride);
+}
+
+// int8: x (an input value, or x_zp outside the box) rescaled to the
+// output's params (ops.rescale_q).
+__device__ __forceinline__ uint32_t pad_rescale(const PadP& p, int x) {
+  return (uint32_t)(uint8_t)requant_i(x - p.x_zp, p.mult, p.y_zp);
+}
+
+// One element unit: output block element u (0 in the padding).
+template <bool Q>
+__device__ __forceinline__ uint32_t pad_elem(const PadP& p, int u) {
+  const int e = p.flat ? u : elem_of(p.oa, u, p.n);
+  if (e < 0) return 0u;
+  const int s = pad_src(p, e);
+  if constexpr (Q)
+    return pad_rescale(p, s >= 0 ? (int)((const int8_t*)p.in)[s] : p.x_zp);
+  else
+    return s >= 0 ? ((const uint32_t*)p.in)[s] : 0u;
+}
+
+// One 16-byte unit: output block elements [u * V, u * V + V), padding
+// only, or consecutive elements of one innermost row wholly outside the
+// input's box (pad values), or wholly inside it, where the input holds
+// them as one aligned 16-byte run (arena_ops.pad_tiling).
+template <bool Q>
+__device__ __forceinline__ uint4 pad_vec(const PadP& p, int u) {
+  constexpr int V = Q ? 16 : 4;
+  const int e0 = p.flat ? u * V : elem_of(p.oa, u * V, p.n);
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if (e0 < 0) return r;
+  const int s = pad_src(p, e0);
+  if constexpr (!Q) {
+    return s >= 0 ? *(const uint4*)(p.in + s * 4) : r;
+  } else {
+    if (s < 0) {
+      const uint32_t f = pad_rescale(p, p.x_zp) * 0x01010101u;
+      return make_uint4(f, f, f, f);
+    }
+    const uint4 v = *(const uint4*)(p.in + s);
+    uint32_t* rw = (uint32_t*)&r;
+    const uint32_t* vw = (const uint32_t*)&v;
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      rw[j / 4] |= pad_rescale(p, (int8_t)(vw[j / 4] >> (8 * (j % 4))))
+                   << (8 * (j % 4));
+    return r;
+  }
+}
+
 // A mean descriptor's operands and parameters: dims padded to 4 with
 // leading 1s, their strides, bit i of rmask = axis i reduced.
 struct MeanP {
@@ -400,6 +503,12 @@ __device__ __forceinline__ auto unit_of(const CatP& p, int u) {
 }
 
 template <bool Q, bool VEC>
+__device__ __forceinline__ auto unit_of(const PadP& p, int u) {
+  if constexpr (VEC) return pad_vec<Q>(p, u);
+  else return pad_elem<Q>(p, u);
+}
+
+template <bool Q, bool VEC>
 __device__ __forceinline__ uint32_t unit_of(const MeanP& p, int u) {
   static_assert(!VEC, "a mean's unit is one output");
   return mean_elem<Q>(p, u);
@@ -477,8 +586,8 @@ __device__ __forceinline__ void chunk_grid(const int* d, const P& p,
   }
 }
 
-// The grid bodies of an elementwise, concat or mean descriptor d on the
-// arena.
+// The grid bodies of an elementwise, concat, mean or pad descriptor d on
+// the arena.
 __device__ __forceinline__ void ew_grid(const int* d, uint8_t* arena,
                                         uint8_t* gws, uint8_t* smem) {
   chunk_grid(d, load_ew(d, arena), gws, smem);
@@ -492,6 +601,11 @@ __device__ __forceinline__ void cat_grid(const int* d, uint8_t* arena,
 __device__ __forceinline__ void mean_grid(const int* d, uint8_t* arena,
                                           uint8_t* gws, uint8_t* smem) {
   chunk_grid(d, load_mean(d, arena), gws, smem);
+}
+
+__device__ __forceinline__ void pad_grid(const int* d, uint8_t* arena,
+                                         uint8_t* gws, uint8_t* smem) {
+  chunk_grid(d, load_pad(d, arena), gws, smem);
 }
 
 }  // namespace arena

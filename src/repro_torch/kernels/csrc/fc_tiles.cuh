@@ -46,8 +46,8 @@
 //   barrier (every CTA resident: a cooperative launch the entry point
 //   refuses, never shrinks, on a card that cannot hold it), then the CTAs
 //   sum and store the output's whole block between them.
-// - Stores: the output's whole block, as write_block writes it (block
-//   padding zeroed, each tensor element at elem_at).
+// - Stores: the output's whole block (block padding zeroed, each tensor
+//   element at elem_at).
 #pragma once
 
 #include "arena_common.cuh"

@@ -226,6 +226,36 @@ def check_ew_spec(spec: K.OpSpec) -> int:
     return order
 
 
+def check_grid_words(spec: K.OpSpec, order: int, t) -> None:
+    """The descriptor, buffers and grid of a chunk-walk spec: the order
+    word and the tiling in the (last) op descriptor, a streaming spec in
+    place (no window, no copy, arena offsets); the chunks cover every unit
+    once; orders 0 and 1 need no buffer and no waits, order 2 a resident
+    grid, its counter and one chunk's staging."""
+    words = K.descriptor_words(spec)
+    body = words[-K.DESC_WORDS:]
+    assert body[K.D_ORDER] == order
+    assert tuple(body[K.D_TILING:K.D_TILING + 4]) == tuple(t)
+    assert (body[K.D_IN_OFF], body[K.D_OUT_OFF]) == (
+        K.operand_addr(spec, 0)[0], K.operand_addr(spec, None)[0])
+    if spec.win_rows:
+        assert K.kernel_of(spec) == "arena_stream_stage"
+        assert words[K.S_BODY] == 32   # the stream block: no copy list
+    cover = np.zeros(t.units, np.int32)
+    for c in range(t.chunks):
+        cover[c * t.per:min((c + 1) * t.per, t.units)] += 1
+    assert (cover == 1).all()
+    bp = K.buffer_plan(spec)
+    grid, group, ctr = K.chunk_grid(spec)
+    assert grid == t.chunks <= (K.EW_RESIDENT if order == K.EW_OVERLAP
+                                else K.EW_GRID)
+    if order == K.EW_OVERLAP:
+        assert (group, ctr) == (grid, K.EW_COUNTER_BYTES)
+        assert bp.parts[0] == ("ctr", True, 0) and bp.parts[1][0] == "chunk"
+    else:
+        assert (group, ctr) == (0, 0) and bp == K.BufferPlan(0, 0, ())
+
+
 def arena_bytes(spec: K.OpSpec, i):
     """Arena bytes [lo, hi) of input i (None: the output), from the spec's
     fields alone."""
@@ -355,8 +385,7 @@ def check_fc_spec(spec: K.OpSpec) -> int:
     assert t.ctas <= max(K.FC_GRID, t.ncb)
     words = K.descriptor_words(spec)
     if spec.win_rows:    # in place: no window, no copy, arena offsets
-        assert words[K.S_NCOPY] == 0 and tuple(
-            words[K.S_WIN_G:K.S_WIN_OFF + 1]) == (0, 0)
+        assert words[K.S_BODY] == 32   # the stream block: no copy list
     body = words[-K.DESC_WORDS:]
     assert (body[K.D_KIND], body[K.D_IN_OFF], body[K.D_OUT_OFF]) == (
         K.K_FC, xa[0], oa[0])

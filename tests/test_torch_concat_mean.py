@@ -27,7 +27,7 @@ from repro_torch.kernels import arena_ops as K
 
 from _torch_block_cases import (_block_spec, _elem_at, _elem_of,
                                 _ref_spec, _rows, _typed_arena,
-                                arena_bytes)
+                                arena_bytes, check_grid_words)
 
 ROUTES = {"flat": {}, "blocks": {"layout": "blocks"},
           "streaming": {"mode": "streaming"}}
@@ -55,37 +55,6 @@ def _in_bytes(spec: K.OpSpec, i: int, e: np.ndarray) -> np.ndarray:
     """First arena byte of tensor elements ``e`` of input ``i``."""
     a = K.operand_addr(spec, i)
     return a[0] + _elem_at(a, e) * _isz(spec)
-
-
-def _check_grid_words(spec: K.OpSpec, order: int, t) -> None:
-    """The descriptor, buffers and grid of a chunk-walk spec: the order
-    word and the tiling in the (last) op descriptor, a streaming spec in
-    place (no window, no copy, arena offsets); the chunks cover every unit
-    once; orders 0 and 1 need no buffer and no waits, order 2 a resident
-    grid, its counter and one chunk's staging."""
-    words = K.descriptor_words(spec)
-    body = words[-K.DESC_WORDS:]
-    assert body[K.D_ORDER] == order
-    assert tuple(body[K.D_TILING:K.D_TILING + 4]) == tuple(t)
-    assert (body[K.D_IN_OFF], body[K.D_OUT_OFF]) == (
-        K.operand_addr(spec, 0)[0], K.operand_addr(spec, None)[0])
-    if spec.win_rows:
-        assert K.kernel_of(spec) == "arena_stream_stage"
-        assert words[K.S_NCOPY] == 0 and tuple(
-            words[K.S_WIN_G:K.S_WIN_OFF + 1]) == (0, 0)
-    cover = np.zeros(t.units, np.int32)
-    for c in range(t.chunks):
-        cover[c * t.per:min((c + 1) * t.per, t.units)] += 1
-    assert (cover == 1).all()
-    bp = K.buffer_plan(spec)
-    grid, group, ctr = K.chunk_grid(spec)
-    assert grid == t.chunks <= (K.EW_RESIDENT if order == K.EW_OVERLAP
-                                else K.EW_GRID)
-    if order == K.EW_OVERLAP:
-        assert (group, ctr) == (grid, K.EW_COUNTER_BYTES)
-        assert bp.parts[0] == ("ctr", True, 0) and bp.parts[1][0] == "chunk"
-    else:
-        assert (group, ctr) == (0, 0) and bp == K.BufferPlan(0, 0, ())
 
 
 def check_concat_spec(spec: K.OpSpec) -> int:
@@ -135,7 +104,7 @@ def check_concat_spec(spec: K.OpSpec) -> int:
                            el[:, None] + np.arange(t.vec))
             assert (run == run[:, :1] + np.arange(t.vec)).all()
             assert (_in_bytes(spec, i, el) % 16 == 0).all()
-    _check_grid_words(spec, order, t)
+    check_grid_words(spec, order, t)
     return order
 
 
@@ -183,7 +152,7 @@ def check_mean_spec(spec: K.OpSpec) -> int:
     assert tuple(words[K.D_DIM0:K.D_DIM0 + 4]) == dims
     assert (words[K.D_RMASK], words[K.D_CNT], words[K.D_OUTN]) == (
         rmask, cnt, outn)
-    _check_grid_words(spec, order, t)
+    check_grid_words(spec, order, t)
     return order
 
 

@@ -831,6 +831,129 @@ def test_streaming_route_on_the_card(card, bits):
 
 
 # ---------------------------------------------------------------------------
+# the pad's chunk walk (arena_pad, and the staged pad of arena_stream_stage)
+# ---------------------------------------------------------------------------
+
+def _blocked_pad(bits, streaming):
+    """A hand-built row-blocked pad (4, 4, 4) -> (6, 6, 4) on rows of 32,
+    its input packed two image rows an arena row at row 0, its output one
+    image row an arena row from row 1, over the input (order word 2); in
+    the streaming program (``streaming``) it is staged. Returns (spec,
+    arena rows)."""
+    from repro_torch.core.planner import staged_slots
+    dt = "i8" if bits == 1 else "f32"
+    spec = K.OpSpec(kind="pad", in_off=(0,), in_shape=((4, 4, 4),),
+                    out_off=1, out_shape=(6, 6, 4), dtype=dt,
+                    meta=(((1, 1), (1, 1), (0, 0)),),
+                    qmeta=((-3, 0.9), (4,)) if bits == 1 else (),
+                    rowlen=32, in_rows=((2, 32),), out_rows=(6, 24),
+                    in_addr=((2, 1, 16),), out_addr=(1, 1, 24))
+    if streaming:
+        spec = dataclasses.replace(
+            spec, win_rows=staged_slots([2], 6, K._sub(dt))[2])
+    return spec, 16
+
+
+def _typed_state(card, spec, rows, seed):
+    g = torch.Generator().manual_seed(seed)
+    shape = (rows, spec.rowlen)
+    t = (torch.randint(-128, 128, shape, dtype=torch.int8, generator=g)
+         if spec.dtype == "i8" else torch.randn(shape, generator=g))
+    return t.to(card)
+
+
+@pytest.mark.parametrize("bits", [4, 1])
+def test_pad_grid_does_not_race_on_the_card(card, bits):
+    """The pad's chunk walk, 50 launches each, every launch bit-equal to
+    the first and the first bit-equal to the plain version: the pads of
+    allops and stream_allops on the flat and blocked programs (order word
+    0), the chip script's ResNet50 stem pads (112, 112, 64) -> (114, 114,
+    64) with the output apart (0) and over the input (2, every chunk
+    staged before one grid-wide barrier), and a hand-built blocked pad
+    over its packed input (2)."""
+    cs = _chip_smoke()
+    is_pad = lambda s: s.kind == "pad"  # noqa: E731
+    exact = lambda s: True  # noqa: E731
+    for build in (cs.allops_graph, cs.stream_allops_graph):
+        cp = compile(build(bits), backend="numpy")
+        for kw in ({}, {"layout": "blocks"}):
+            specs = CudaExecutor(device=card, **kw).program(cp)[0]
+            assert [K.pad_order(s) for s in specs if is_pad(s)] == [
+                K.EW_DISJOINT]
+            assert _walk_holding(card, cp, is_pad, exact, **kw) == 1
+    dt = "i8" if bits == 1 else "f32"
+    orders = set()
+    for place in cs.PAD_PLACES:
+        spec, nbytes = cs.pad_spec(dt, 112, 112, 64, place)
+        t, order = K.chunk_of(spec)
+        assert t.vec > 1 and t.chunks > 1
+        orders.add(order)
+        _hold_exact_50(spec, None, None,
+                       cs.seeded_state(torch, spec, nbytes, 12), True)
+    assert orders == {K.EW_DISJOINT, K.EW_OVERLAP}
+    spec, rows = _blocked_pad(bits, False)
+    assert K.pad_order(spec) == K.EW_OVERLAP
+    _hold_exact_50(spec, None, None, _typed_state(card, spec, rows, 13),
+                   True)
+
+
+def test_pad_refuses_a_grid_the_card_cannot_hold(card):
+    """An order-2 pad launch whose chunks the card cannot hold at once is
+    refused by the entry point (the wrapper's check raises) and runs
+    nothing, on no smaller grid."""
+    from repro_torch.kernels import build
+    cs = _chip_smoke()
+    spec, nbytes = cs.pad_spec("f32", 112, 112, 64, "over")
+    _, group, ctr = K.chunk_grid(spec)
+    assert group > 0
+    arena = cs.seeded_state(torch, spec, nbytes, 14)
+    before = arena.clone()
+    too_many = 1 << 20
+    ws = K.workspace(spec, card)
+    err = build.entry("arena_pad")(
+        arena.data_ptr(), K.descriptor(spec, card).data_ptr(), None,
+        ws.data_ptr(), K.buffer_plan(spec).smem, too_many, too_many, ctr,
+        torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="arena_pad"):
+        build.check(err, "arena_pad")
+    torch.cuda.synchronize()
+    assert torch.equal(arena, before)
+
+
+@pytest.mark.parametrize("bits", [4, 1])
+def test_staged_pad_runs_in_place_on_the_card(card, bits):
+    """The streaming program of allops and stream_allops: the staged pad
+    runs in place on the arena (no window, no copy), held 50 times against
+    the plain streaming version, and the final streaming arena equals the
+    blocked one; the chip script's streaming pad (its TPU window 819,200
+    B, f32) and a hand-built staged pad over its packed input (order word
+    2) in place, 50 times each."""
+    cs = _chip_smoke()
+
+    def staged(spec):
+        if K.stream_form(spec) != "stage" or spec.kind != "pad":
+            return False
+        assert K.runs_in_place(spec)
+        assert cs.card_staging_bytes(K, spec) == 0
+        assert K.descriptor_words(spec)[K.S_BODY] == 32
+        return True
+    for build in (cs.allops_graph, cs.stream_allops_graph):
+        cp = compile(build(bits), backend="numpy")
+        assert _walk_holding(card, cp, staged, lambda s: True,
+                             mode="streaming") == 1
+        st = CudaExecutor(device=card, mode="streaming")
+        blk = CudaExecutor(device=card, layout="blocks")
+        assert torch.equal(_final_arena(st, cp), _final_arena(blk, cp))
+    hand = [_blocked_pad(bits, True)]
+    if bits == 4:
+        hand.append(cs.stream_pad_spec())
+    for spec, rows in hand:
+        assert staged(spec)
+        _hold_exact_50(spec, None, None, _typed_state(card, spec, rows, 15),
+                       True)
+
+
+# ---------------------------------------------------------------------------
 # the fused chains' grid (arena_fused_chain, arena_stream_fused)
 # ---------------------------------------------------------------------------
 

@@ -65,8 +65,7 @@ def _check_in_place(spec: K.OpSpec, words: np.ndarray) -> None:
     if spec.win_rows:
         assert K.kernel_of(spec) == "arena_stream_stage"
         assert K.runs_in_place(spec)
-        assert words[K.S_NCOPY] == 0 and tuple(
-            words[K.S_WIN_G:K.S_WIN_OFF + 1]) == (0, 0)
+        assert words[K.S_BODY] == 32   # the stream block: no copy list
         assert "win" not in {n for n, _, _ in K.buffer_plan(spec).parts}
         assert CS.card_staging_bytes(K, spec) == 0
     body = words[-K.DESC_WORDS:]
@@ -648,10 +647,9 @@ STREAM_GRAPHS = {
 
 @pytest.mark.parametrize("label", sorted(STREAM_GRAPHS))
 def test_streaming_final_arena_equals_blocked_in_place(label):
-    """The CPU route of the streaming program: every staged softmax and
-    matmul runs in place (no window, no copies: ``card_staging_bytes`` 0),
-    only a pad still stages, and the final arena is bit-equal to the
-    blocked program's on the same inputs."""
+    """The CPU route of the streaming program: every staged spec runs in
+    place (no window, no copies: ``card_staging_bytes`` 0), and the final
+    arena is bit-equal to the blocked program's on the same inputs."""
     from repro_torch.core import exec as X
     cp = _compiled(STREAM_GRAPHS[label])
     st = CudaExecutor(device="cpu", mode="streaming")
@@ -668,8 +666,8 @@ def test_streaming_final_arena_equals_blocked_in_place(label):
         finals.append(arena.numpy())
         if ex is st:
             staged = [s for s in specs if K.stream_form(s) == "stage"]
-            assert {s.kind for s in staged
-                    if not K.runs_in_place(s)} <= {"pad"}
+            assert all(K.runs_in_place(s) for s in staged)
+            assert sum(CS.card_staging_bytes(K, s) for s in staged) == 0
             for s in staged:
                 if s.kind in ("softmax", "matmul"):
                     _check_in_place(s, K.descriptor_words(s))
