@@ -124,6 +124,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    with CUDA events beside its plain version, its bound and one PyTorch
    call (``F.rms_norm`` then ``torch.add``;
    ``F.scaled_dot_product_attention``; none for WKV);
+10b. runs the plan-routed serving runtime on the card (``serve`` phase):
+   ``PlanServer`` with no device, so each flush is one batch variant's
+   flat arena program through the kernels. Server A: the flagship int8
+   at batches 1, 2, 4, 8 (arenas 49,805, 98,957, 197,261 and 393,869 B);
+   Server B: the same with a 200,000 B budget, which must reject batch 8;
+   Server C: the f32 flagship at batches 1, 2, 4; each a closed loop of 64
+   float requests and a tail of 7 (flushed 4 + 2 + 1), every flush with
+   the launch counts reset just before and read just after (one launch a
+   spec of its variant, kernel for kernel) and a device arena of exactly
+   its variant's peak; and a server over A's variants without batch 1,
+   whose tail of 3 forces a padded flush. Every spec of every variant is
+   held against its plain version at the server's calibration, and every
+   request against ``FastExec`` on that request alone
+   (``compare_outputs``). ``[serve]`` lines give each server's variants,
+   peaks, rejections, ``batches_run``, inferences a second and mean queue
+   wait, and per batch the median ``execute_s`` beside the device ms of
+   one flush's launches;
 11. times with CUDA events, after a warm-up, every kernel per forward of the
    path that runs it (``resnet_50_v2`` f32 for conv, pool, elementwise and
    the head; ``densenet_121`` for concat, flat, blocked and staged in the
@@ -152,7 +169,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    cooperative grid of one CTA an SM, two CTAs an SM), under
    ``softmax_matmul`` in the JSON;
 12. writes every number to ``build/chip_smoke.json`` (the chains'
-    schedules and times under ``chains``) and prints the
+    schedules and times under ``chains``, the serving runtime under
+    ``serve``) and prints the
     ``kernels`` JSON line (a ``[blocks]`` line per kernel for the
     row-blocked program, the three streaming kernels, a ``dmo_dwconv2d``
     line and the three standalone kernels), the card line, and as its
@@ -303,6 +321,15 @@ BF16_TOL = 5e-2
 #: inside this, and skipped, masked or unrescaled key tiles fall far
 #: outside it (scripts/torch_flash_faults.py)
 FLASH_BF16_TOL = (4e-3, 2e-2)
+
+#: the serve phase: the flagship's batch variants and their arena peaks (the
+#: port's compile), Server B's budget, and the closed loop's requests: 64
+#: in full flushes of the largest variant, then a tail of 7 the forced
+#: drain serves as 4 + 2 + 1, so every variant flushes
+SERVE_PEAKS = {1: 49_805, 2: 98_957, 4: 197_261, 8: 393_869}
+SERVE_BUDGET = 200_000
+SERVE_REQUESTS = 64
+SERVE_TAIL = 7
 
 
 class SmokeError(RuntimeError):
@@ -666,11 +693,13 @@ def graph_fault(graph):
 # ---------------------------------------------------------------------------
 
 
-def out_range(spec):
-    """Byte range of the arena a spec writes (a fused chain: its terminal
-    stage's output)."""
+def out_ranges(spec):
+    """Byte ranges of the arena a spec writes: its output, or a fused
+    chain's terminal stage's, one range an image where the chain is
+    batched (the spec's ``out_shape`` is one image's)."""
     isz = 1 if spec.dtype == "i8" else 4
-    return spec.out_off, spec.out_off + _el(spec.out_shape) * isz
+    outs = [st for st in spec.stages if not st.out_scratch] or [spec]
+    return [(o.out_off, o.out_off + _el(o.out_shape) * isz) for o in outs]
 
 
 def lsb_limit(spec) -> int:
@@ -688,20 +717,23 @@ def arena_diff(torch, got, ref, spec) -> float:
     output block (row-blocked), must be equal."""
     if spec.rowlen:
         return _block_diff(torch, got, ref, spec)
-    lo, hi = out_range(spec)
+    ranges = out_ranges(spec)
     outside = torch.ones(got.numel(), dtype=torch.bool, device=got.device)
-    outside[lo:hi] = False
+    for lo, hi in ranges:
+        outside[lo:hi] = False
     check(torch.equal(got[outside], ref[outside]),
           f"{spec.kind}: bytes outside its output differ")
+    got = torch.cat([got[lo:hi] for lo, hi in ranges])
+    ref = torch.cat([ref[lo:hi] for lo, hi in ranges])
     if spec.dtype == "i8":
-        g = got[lo:hi].view(torch.int8).to(torch.int32)
-        r = ref[lo:hi].view(torch.int8).to(torch.int32)
-        err = (g - r).abs().max().item() if hi > lo else 0
+        g = got.view(torch.int8).to(torch.int32)
+        r = ref.view(torch.int8).to(torch.int32)
+        err = (g - r).abs().max().item() if g.numel() else 0
         limit = lsb_limit(spec)
         check(err <= limit, f"{spec.kind}: int8 max error {err} > {limit}")
         return float(err)
-    g = got[lo:hi].view(torch.float32)
-    r = ref[lo:hi].view(torch.float32)
+    g = got.view(torch.float32)
+    r = ref.view(torch.float32)
     err = (g - r).abs()
     check(bool(torch.isfinite(g).all()), f"{spec.kind}: non-finite output")
     check(bool((err <= F32_TOL + F32_TOL * r.abs()).all()),
@@ -897,6 +929,34 @@ def time_ms(torch, fn, reps: int, warm: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(torch, fn, n_launch: int, reps: int = 3) -> float:
+    """Device ms of one ``fn()`` that makes ``n_launch`` launches, the
+    median of ``reps``: CUDA events around one call queued behind a sleep
+    kernel long enough that the host has queued every launch before the
+    first one starts (checked), so the host's launch time does not show.
+    One call a sleep: the device's queue of pending launches is finite,
+    and a host that fills it waits for the sleep to end. A warm-up call
+    first."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(20_000_000 + 400_000 * n_launch)
+        marks[1].record()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        marks[2].record()
+        torch.cuda.synchronize()
+        check(host_ms < marks[0].elapsed_time(marks[1]),
+              f"{n_launch} launches took {host_ms:.3f} ms to queue, longer "
+              "than the sleep ahead of them")
+        times.append(marks[1].elapsed_time(marks[2]))
+    return statistics.median(times)
 
 
 def time_auto(torch, fn, budget_ms: float = 40.0, max_reps: int = 20):
@@ -1455,6 +1515,169 @@ def wkv_sequential(torch, r, k, v, w, u):
                                st + u[:, :, None] * kv))
         st = w[:, i, :, :, None] * st + kv
     return torch.stack(ys, 1), st
+
+
+def serve_loop(torch, K, X, srv, label: str, n: int, tail: int,
+               seed0: int = 0) -> dict:
+    """A closed loop of ``n`` float requests (seeds ``seed0`` on), each
+    submitted then ``step()``ped, then a ``tail`` drained by forced
+    flushes. Every flush runs with the launch counts reset just before and
+    read just after: one launch a spec of its variant, kernel for kernel,
+    and a device arena of exactly the variant's ``peak_bytes``. Every
+    request's output must be within ``compare_outputs`` of ``FastExec.run``
+    on that request alone. Returns the server's stats, its flushes and the
+    seconds the loop took."""
+    graph = srv.graph
+    imgs = [X.random_inputs(graph, seed=seed0 + i) for i in range(n + tail)]
+    want = {}
+    for b, cp in srv.variants.items():
+        specs = srv._runner.program(cp, None, srv.params[b][0],
+                                    quant=srv.params[b][1])[0]
+        want[b] = {name: sum(K.kernel_of(sp) == name for sp in specs)
+                   for name in K.LAUNCHES}
+
+    def flush(force: bool) -> int:
+        K.reset_launches()
+        served = srv.step(force=force)
+        counts = dict(K.LAUNCHES)
+        if served:
+            f = srv.flushes[-1]
+            check(counts == want[f.batch] and sum(counts.values()) == f.specs,
+                  f"{label}: batch {f.batch} flush launched {counts}, "
+                  f"expected {want[f.batch]}")
+            check(f.arena_bytes == srv.variants[f.batch].peak_bytes,
+                  f"{label}: batch {f.batch} flush arena {f.arena_bytes} B, "
+                  f"expected {srv.variants[f.batch].peak_bytes} B")
+        else:
+            check(not any(counts.values()), f"{label}: launches without a "
+                  "flush")
+        return served
+
+    t0 = time.perf_counter()
+    for im in imgs[:n]:
+        srv.submit(im)
+        flush(False)
+    for im in imgs[n:]:
+        srv.submit(im)
+    while srv.queue:
+        flush(True)
+    loop_s = time.perf_counter() - t0
+    check(len(srv.done) == n + tail, f"{label}: served {len(srv.done)} of "
+          f"{n + tail}")
+    for r in srv.done:
+        got = r.output
+        ref = srv._exec.run({k: v[None] for k, v in imgs[r.rid].items()})
+        X.compare_outputs({k: v[0] for k, v in ref.items()}, got,
+                          exact=False, label=f"{label} request {r.rid}")
+        for k, v in got.items():
+            check(bool(np.isfinite(v.astype(np.float64)).all()),
+                  f"{label}: non-finite output {k}")
+    # each flush's (assembly start, execute start, done), ms from the
+    # first submit: where the loop's time goes beside execute
+    timeline = sorted({tuple(1e3 * (t - srv._t0) for t in
+                             (r.t_batch, r.t_exec0, r.t_done))
+                       for r in srv.done})
+    return {"stats": srv.stats(), "loop_s": loop_s, "timeline_ms": timeline,
+            "assemble_s": sum(e - a for a, e, _ in timeline) / 1e3,
+            "flushes": [dataclasses.asdict(f) for f in srv.flushes]}
+
+
+def serve_phase(torch, K, X, zoo) -> dict:
+    """The plan-routed serving runtime on the card: three servers over the
+    flagship's batch variants, every flush one variant's flat arena program
+    through the kernels (``PlanServer`` with no device). Server A: int8 at
+    batches 1, 2, 4, 8, no budget; Server B: the same with a 200,000 B
+    budget, which must reject batch 8; Server C: the f32 flagship at
+    batches 1, 2, 4; and a server over A's variants without batch 1, whose
+    odd tail forces a padded flush. Every spec of every variant is held
+    against its plain version at the server's calibration
+    (``compare_program``); each batch's median ``execute_s`` (host: upload,
+    kernels, download) beside the device ms of one flush's launches (CUDA
+    events, ``queued_ms``). ``[serve]`` lines per server."""
+    from repro_torch.serve import PlanServer
+    out = {"servers": {}, "errors": {}}
+    flag = zoo.mobilenet_v1(0.25, 128, 1)
+    servers = (
+        ("A int8", flag, dict(batches=(1, 2, 4, 8))),
+        ("B int8 budget", flag, dict(batches=(1, 2, 4, 8),
+                                     arena_budget=SERVE_BUDGET)),
+        ("C f32", zoo.mobilenet_v1(0.25, 128, 4), dict(batches=(1, 2, 4))))
+    for i, (label, graph, kw) in enumerate(servers):
+        srv = PlanServer(graph, max_delay_s=10.0, **kw)
+        check(srv.device.type == "cuda", f"{label}: server on {srv.device}")
+        peaks = srv.stats()["per_batch_peak_bytes"]
+        if label.startswith(("A", "B")):
+            check(all(peaks[b] == SERVE_PEAKS[b] for b in peaks),
+                  f"{label}: peaks {peaks}, expected {SERVE_PEAKS}")
+        if label.startswith("B"):
+            check(sorted(srv.variants) == [1, 2, 4]
+                  and srv.rejected == {8: SERVE_PEAKS[8]},
+                  f"{label}: admitted {sorted(srv.variants)}, rejected "
+                  f"{srv.rejected}")
+        errs = out["errors"].setdefault(label, {})
+        n_specs = {}
+        for b, cp in srv.variants.items():
+            w, q = srv.params[b]
+            _, _, n_specs[b] = compare_program(
+                torch, K, srv._runner, cp, f"serve {label} batch {b}", errs,
+                weights=w, quant=q)
+        row = serve_loop(torch, K, X, srv, label, SERVE_REQUESTS,
+                         SERVE_TAIL, seed0=1000 * i)
+        st = row["stats"]
+        check(all(st["batches_run"][b] > 0 for b in srv.variants),
+              f"{label}: a variant never flushed: {st['batches_run']}")
+        per_batch = {}
+        for b, cp in srv.variants.items():
+            w, q = srv.params[b]
+            inputs = srv._stack([srv.done[0]] * b, b)
+            specs, ws, descs, arena = srv._runner.program(cp, inputs, w,
+                                                          quant=q)
+            check(len(specs) == n_specs[b], f"{label}: batch {b} specs")
+
+            def run(specs=specs, ws=ws, descs=descs, arena=arena):
+                for sp, wt, d in zip(specs, ws, descs):
+                    K.apply_op(arena, sp, wt, d)
+            ex_s = [f["execute_s"] for f in row["flushes"]
+                    if f["batch"] == b]
+            per_batch[b] = {
+                "peak_bytes": cp.peak_bytes, "launches": len(specs),
+                "flushes": len(ex_s),
+                "median_execute_ms": 1e3 * statistics.median(ex_s),
+                "max_execute_ms": 1e3 * max(ex_s),
+                "kernel_ms": queued_ms(torch, run, len(specs))}
+        row["per_batch"] = per_batch
+        out["servers"][label] = row
+        log(f"[serve] {label}: variants {sorted(srv.variants)} peaks "
+            f"{json.dumps(peaks)} rejected {json.dumps(st['rejected_batches'])}"
+            f" batches_run {json.dumps(st['batches_run'])}; "
+            f"{st['requests_served']} requests within tolerance of FastExec; "
+            f"{st['throughput_inf_s']} inf/s, mean queue wait "
+            f"{st['mean_queue_wait_ms']} ms; max err vs plain "
+            f"{json.dumps(errs)}")
+        row["execute_s"] = sum(f["execute_s"] for f in row["flushes"])
+        log(f"[serve] {label}: the loop {1e3 * row['loop_s']:.3f} ms, "
+            f"flushes' execute {1e3 * row['execute_s']:.3f} ms, assembly "
+            f"{1e3 * row['assemble_s']:.3f} ms; flushes (ms from the first "
+            "submit: assembly, execute, done) " + json.dumps(
+                [[round(t, 3) for t in f] for f in row["timeline_ms"]]))
+        for b, r in per_batch.items():
+            log(f"[serve] {label} batch {b}: arena {r['peak_bytes']} B, "
+                f"{r['launches']} launches, execute median "
+                f"{r['median_execute_ms']:.3f} ms (max "
+                f"{r['max_execute_ms']:.3f}) over {r['flushes']} "
+                f"flush(es), kernels {r['kernel_ms']:.4f} ms a flush")
+    label = "A int8 padded tail"
+    srv = PlanServer(flag, batches=(2, 4, 8), max_delay_s=10.0)
+    row = serve_loop(torch, K, X, srv, label, 0, 3, seed0=5000)
+    padded = [f for f in row["flushes"] if f["requests"] < f["batch"]]
+    check(row["stats"]["batches_run"] == {2: 2, 4: 0, 8: 0}
+          and len(padded) == 1,
+          f"{label}: flushes {row['flushes']}, expected 2 then a padded 2")
+    out["servers"][label] = row
+    log(f"[serve] {label}: 3 requests as a flush of 2 and a padded flush "
+        f"of 2 ({padded[0]['requests']} request), within tolerance of "
+        "FastExec")
+    return out
 
 
 def standalone_phase(torch, F):
@@ -2233,6 +2456,10 @@ def main() -> int:
     st_rows_k, standalone = standalone_phase(torch, F)
     phase_done("standalone")
 
+    # 10b. the plan-routed serving runtime on the card
+    serve = serve_phase(torch, K, X, zoo)
+    phase_done("serve")
+
     # 11. times
     walls = []
     c = slice_cps["resnet_50_v2"]
@@ -2442,7 +2669,7 @@ def main() -> int:
          "arena_conv": conv_rows, "arena_stream_roll": roll_rows,
          "arena_elementwise": ew_info, "pool_and_fc": head_info,
          "chains": {"schedules": chains, "times": chain_times},
-         "softmax_matmul": sm_out,
+         "softmax_matmul": sm_out, "serve": serve,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

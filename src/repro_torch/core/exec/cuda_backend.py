@@ -715,6 +715,13 @@ class CudaExecutor:
             plan, inputs, weights, seed=seed, quant=quant)
         for spec, w, d in zip(specs, ws, descs):
             K.apply_op(arena, spec, w, d)
+        return self.outputs(plan, arena)
+
+    def outputs(self, plan_or_compiled,
+                arena: torch.Tensor) -> Dict[str, np.ndarray]:
+        """The model outputs held in a run program's arena, copied to the
+        host (which waits for the device), keyed by tensor name."""
+        plan, graph = unwrap_plan(plan_or_compiled)
         out_arena = arena.cpu().numpy()
         bplan = self.legalised(plan)
         if bplan is not None:

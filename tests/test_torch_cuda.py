@@ -10,11 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_serve_cases import alone, band_graph
 from repro_torch.core import zoo
-from repro_torch.core.exec import compare_outputs, get_backend
+from repro_torch.core.exec import compare_outputs, get_backend, random_inputs
 from repro_torch.core.exec.cuda_backend import CudaExecutor
 from repro_torch.core.pipeline import compile
 from repro_torch.kernels import arena_ops as K
+from repro_torch.serve import PlanServer
 
 pytestmark = pytest.mark.gpu
 
@@ -1275,3 +1277,34 @@ def test_wkv_chunk_unaligned_on_the_card(card):
     ys, sts = _wkv_sequential(r, k, v, torch.exp(logw), u)
     _assert_close(y, ys, 3e-4)
     _assert_close(st, sts, 3e-4)
+
+
+#: label -> port graph builder of the serving tests on the card
+SERVE_GRAPHS = {
+    "band_graph_f32": band_graph,
+    "band_graph_8bit": lambda: band_graph(db=1),
+    "mobilenet_v1_0.25_32_8bit": lambda: zoo.mobilenet_v1(0.25, 32, 1),
+}
+
+
+@pytest.mark.parametrize("label", sorted(SERVE_GRAPHS))
+def test_plan_server_on_the_card(card, label):
+    """A PlanServer with no device runs every flush on the card: batches
+    (1, 2, 4, 8) each once over 15 float requests, each flush's device
+    arena its variant's peak_bytes and one launch a spec, every request
+    within compare_outputs of FastExec on that request alone."""
+    graph = SERVE_GRAPHS[label]()
+    srv = PlanServer(graph, batches=(1, 2, 4, 8), max_delay_s=10.0)
+    assert srv.device.type == "cuda"
+    imgs = [random_inputs(graph, seed=i) for i in range(15)]
+    for im in imgs:
+        srv.submit(im)
+    K.reset_launches()
+    assert srv.drain() == 15
+    assert [f.batch for f in srv.flushes] == [8, 4, 2, 1]
+    assert sum(K.LAUNCHES.values()) == sum(f.specs for f in srv.flushes)
+    for f in srv.flushes:
+        assert f.arena_bytes == srv.variants[f.batch].peak_bytes
+    for r in srv.done:
+        compare_outputs(alone(srv._exec, imgs[r.rid]), r.output,
+                        exact=False, label=f"request {r.rid}")
