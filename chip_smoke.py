@@ -141,6 +141,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    peaks, rejections, ``batches_run``, inferences a second and mean queue
    wait, and per batch the median ``execute_s`` beside the device ms of
    one flush's launches;
+10c. runs the decoder models and the decode engines at full width
+   (``models`` phase), on weights drawn from a seed: ``qwen2.5-3b`` (36
+   layers, d 2048, 16 heads x 128 on 2 kv heads) and ``rwkv6-1.6b`` (24
+   layers, d 2048, 32 WKV heads of 64). In float32 (TF32 off), for each:
+   ``forward_train`` over S + extra tokens (4096 + 4 for qwen, whose
+   causal attention then runs ``flash_attention``; 4096 + 64 for rwkv, a
+   multiple of the WKV chunk, so ``wkv_chunk`` runs), then ``prefill`` of
+   S tokens and four ``decode_step``s, each step's logits within the
+   reference's 2e-3 of the full pass; the launch counts reset just before
+   and read just after that prefill (36 flash launches, one a layer; 72
+   WKV launches, three a layer) and layer 0's kernel call held against
+   its plain version (the ``standalone`` phase's tolerances). For qwen,
+   ``ContinuousEngine`` on 4 slots, ``cache_len`` 512, six requests of 37
+   to 300 tokens and 8 new tokens each: every request's tokens equal to a
+   single-request ``Engine`` on the card. Then in bfloat16,
+   ``Engine.generate`` at batch 4, prompt 4096, 32 new tokens, greedy:
+   the launches of one generate (the prefill's only), three timed runs
+   (CUDA events around the prefill and each decode step: medians of the
+   prefill ms and the decode ms a token, tok/s, and the device ms of the
+   kernel's launches within one prefill); layer 0's bf16 call against
+   its plain version, timed beside it, SDPA (flash) and its bound (the
+   kernel's row is one call's numbers: its ms the prefill's device ms
+   over its calls, plain and library ms layer 0's call); and
+   one decode step after a prefill, which must leave every stacked cache
+   tensor in its storage and raise the peak memory by less than the
+   cache's bytes. ``[models]`` lines;
 11. times with CUDA events, after a warm-up, every kernel per forward of the
    path that runs it (``resnet_50_v2`` f32 for conv, pool, elementwise and
    the head; ``densenet_121`` for concat, flat, blocked and staged in the
@@ -170,11 +196,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``softmax_matmul`` in the JSON;
 12. writes every number to ``build/chip_smoke.json`` (the chains'
     schedules and times under ``chains``, the serving runtime under
-    ``serve``) and prints the
+    ``serve``, the models under ``models``) and prints the
     ``kernels`` JSON line (a ``[blocks]`` line per kernel for the
     row-blocked program, the three streaming kernels, a ``dmo_dwconv2d``
-    line and the three standalone kernels), the card line, and as its
-    last line the device JSON.
+    line, the three standalone kernels and ``flash_attention`` and
+    ``wkv_chunk`` on the models' prefill), the card line, and as its last
+    line the device JSON.
 
 Any failed check raises and the script exits non-zero. It exits 2, printing
 no result, when no CUDA device is visible or when it does not sit at the
@@ -330,6 +357,24 @@ SERVE_PEAKS = {1: 49_805, 2: 98_957, 4: 197_261, 8: 393_869}
 SERVE_BUDGET = 200_000
 SERVE_REQUESTS = 64
 SERVE_TAIL = 7
+
+#: the models phase: two decoder models at full width (configs/: qwen2.5-3b
+#: 36 layers, d 2048, 16 heads x 128 on 2 kv heads, d_ff 11008, vocab
+#: 151,936; rwkv6-1.6b 24 layers, d 2048, 32 WKV heads of 64, d_ff 7168,
+#: vocab 65,536), weights drawn from a seed. (arch, prompt S, extra tokens
+#: of the float32 full pass): qwen's both passes past FLASH_THRESHOLD, and
+#: rwkv's 4160 a multiple of the WKV chunk, so both stay on the kernels
+MODEL_RUNS = (("qwen2.5-3b", 4096, 4), ("rwkv6-1.6b", 4096, 64))
+MODEL_STEPS = 4
+#: the reference's decode-against-forward tolerance (tests/test_models.py)
+MODEL_TOL = 2e-3
+#: the bf16 serving run: Engine.generate, batch, prompt, new tokens, greedy
+MODEL_SERVE = (4, 4096, 32)
+MODEL_SERVE_REPS = 3
+#: continuous batching (qwen, float32): slots, cache length, new tokens,
+#: and the six requests' prompt lengths
+CONT = (4, 512, 8)
+CONT_PROMPTS = (37, 300, 120, 64, 211, 150)
 
 
 class SmokeError(RuntimeError):
@@ -1680,6 +1725,324 @@ def serve_phase(torch, K, X, zoo) -> dict:
     return out
 
 
+class KernelCalls:
+    """Wraps the model path's two kernel entry points for one pass
+    (``kernels.ops.flash_attention``, which ``models/layers.py`` calls,
+    and ``kernels.wkv_chunk.wkv_chunk_kernel``, which ``models/ssm.py``
+    calls): keeps the first call's inputs and outputs (layer 0's) and,
+    with ``timed``, CUDA events around every call. The kernels' own
+    launch counters are untouched."""
+
+    def __init__(self, torch, timed: bool = False):
+        from repro_torch.kernels import ops as TO
+        from repro_torch.kernels import wkv_chunk as TW
+        self.torch, self.timed = torch, timed
+        #: kernel name -> (module, entry point)
+        self.mods = {"flash_attention": (TO, "flash_attention"),
+                     "wkv_chunk": (TW, "wkv_chunk_kernel")}
+        self.first, self.events = {}, {}
+
+    def _wrap(self, name, fn):
+        def run(*args, **kw):
+            ev = None
+            if self.timed:
+                ev = [self.torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                ev[0].record()
+            out = fn(*args, **kw)
+            if ev:
+                ev[1].record()
+                self.events.setdefault(name, []).append(ev)
+            self.first.setdefault(name, (args, kw, out))
+            return out
+        return run
+
+    def __enter__(self):
+        self.real = {k: getattr(m, n) for k, (m, n) in self.mods.items()}
+        for k, (m, n) in self.mods.items():
+            setattr(m, n, self._wrap(k, self.real[k]))
+        return self
+
+    def __exit__(self, *exc):
+        for k, (m, n) in self.mods.items():
+            setattr(m, n, self.real[k])
+
+    def device_ms(self, name) -> float:
+        """Device ms of every timed call of ``name`` (synchronises)."""
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events.get(name, []))
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def model_kernel_check(torch, calls: KernelCalls, name: str, tol) -> float:
+    """Layer 0's kernel call of the pass ``calls`` recorded, held against
+    the kernel's plain version on the same inputs."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import wkv_chunk as TW
+    args, kw, out = calls.first[name]
+    if name == "flash_attention":
+        q, k, v = args
+        return close_err(torch, out, TF.flash_plain(q, k, v, True, 128, 128),
+                         tol, "flash layer 0 against plain")
+    y0, st0 = TW.wkv_plain(*args, kw["q"])
+    return max(close_err(torch, out[0], y0, tol, "wkv layer 0 y"),
+               close_err(torch, out[1], st0, tol, "wkv layer 0 state"))
+
+
+def models_phase(torch, F) -> tuple:
+    """Phase 10c of the module docstring: the decoder models and the decode
+    engines at full width. Returns the model path's rows of the ``kernels``
+    line and the ``models`` section of ``build/chip_smoke.json``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import wkv_chunk as TW
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (ContinuousConfig, ContinuousEngine,
+                                   Engine, Request, ServeConfig)
+    kernel_of = {"attention": "flash_attention", "rwkv": "wkv_chunk"}
+    out, rows = {}, []
+    for arch, s, extra in MODEL_RUNS:
+        base = get_arch(arch)
+        fam = "rwkv" if base.attention == "none" else "attention"
+        kname = kernel_of[fam]
+        per_call = TW.KERNELS_PER_CALL if kname == "wkv_chunk" else 1
+        want_launches = base.num_layers * per_call
+        rec = out[arch] = {"layers": base.num_layers, "kernel": kname}
+        rng = np.random.default_rng(28)
+        gen = torch.Generator(device="cuda")
+
+        # 1-2. float32: decode against the full pass; one prefill's launches
+        cfg = dataclasses.replace(base, dtype="float32")
+        params = T.init_params(cfg, gen.manual_seed(0))
+        rec["f32_param_bytes"] = _tree_bytes(params)
+        toks = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (1, s + extra)).astype(np.int32)).cuda()
+        with torch.inference_mode():
+            full, _ = T.forward_train(cfg, params, toks)
+            want = full[0, s - 1:s + MODEL_STEPS].clone()
+            del full
+            TF.reset_launches()
+            TW.reset_launches()
+            with KernelCalls(torch) as calls:
+                logits, cache = T.prefill(cfg, params, toks[:, :s],
+                                          s + extra)
+            torch.cuda.synchronize()
+            launches = {"flash_attention": TF.LAUNCHES,
+                        "wkv_chunk": TW.LAUNCHES}
+            check(launches[kname] == want_launches and sum(
+                launches.values()) == want_launches,
+                f"{arch} f32 prefill: launches {launches}, expected "
+                f"{want_launches} of {kname}")
+            rec["f32_prefill_launches"] = launches
+            rec["f32_kernel_vs_plain"] = model_kernel_check(
+                torch, calls, kname, STANDALONE_TOL[kname])
+            del calls
+            errs = [close_err(torch, logits[0, 0], want[0], MODEL_TOL,
+                              f"{arch} f32 prefill against the full pass")]
+            for i in range(MODEL_STEPS):
+                logits, cache = T.decode_step(cfg, params, cache,
+                                              toks[:, s + i:s + i + 1], s + i)
+                errs.append(close_err(
+                    torch, logits[0, 0], want[i + 1], MODEL_TOL,
+                    f"{arch} f32 decode step {i} against the full pass"))
+        rec["f32_decode_vs_full"] = errs
+        del cache, logits, want
+        log(f"[models] {arch} f32: full pass over {s + extra} tokens; "
+            f"prefill {s} + {MODEL_STEPS} decode steps within "
+            f"{max(errs):.3g} of it (limit {MODEL_TOL}); one prefill "
+            f"{json.dumps(launches)} launches, layer 0's {kname} within "
+            f"{rec['f32_kernel_vs_plain']:.3g} of its plain version")
+
+        # 5. continuous batching against single-request engines (qwen)
+        if fam == "attention":
+            slots, clen, new = CONT
+            eng = ContinuousEngine(cfg, params, ContinuousConfig(
+                slots=slots, cache_len=clen))
+            single = Engine(cfg, params, ServeConfig(cache_len=clen,
+                                                     max_new_tokens=new))
+            prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                       for n in CONT_PROMPTS]
+            reqs = [Request(i, p, max_new_tokens=new)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            t0 = time.perf_counter()
+            eng.run(max_steps=200)
+            torch.cuda.synchronize()
+            cont_s = time.perf_counter() - t0
+            for r, p in zip(reqs, prompts):
+                alone = single.generate(p[None])[0].tolist()
+                check(r.done and r.out == alone,
+                      f"{arch} continuous request {r.rid} ({len(p)} "
+                      f"tokens): {r.out}, alone {alone}")
+            rec["continuous"] = {
+                "slots": slots, "cache_len": clen, "new_tokens": new,
+                "prompts": list(CONT_PROMPTS), "wall_s": cont_s,
+                "tokens": [r.out for r in reqs]}
+            log(f"[models] {arch} continuous f32: {len(reqs)} requests "
+                f"({min(CONT_PROMPTS)}-{max(CONT_PROMPTS)} tokens) on "
+                f"{slots} slots, cache {clen}, {new} new each, in "
+                f"{cont_s:.3f} s (host clock); every request equal to a "
+                "single-request Engine on the card")
+            del eng, single
+        del params
+        torch.cuda.empty_cache()
+
+        # 3. bfloat16 serving through Engine.generate
+        b, sp, new = MODEL_SERVE
+        cfg = base
+        params = T.init_params(cfg, gen.manual_seed(0))
+        rec["bf16_param_bytes"] = _tree_bytes(params)
+        eng = Engine(cfg, params, ServeConfig(cache_len=sp + new,
+                                              max_new_tokens=new))
+        prompts = rng.integers(0, cfg.vocab_size, (b, sp)).astype(np.int32)
+        TF.reset_launches()
+        TW.reset_launches()
+        first = eng.generate(prompts)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": TF.LAUNCHES, "wkv_chunk": TW.LAUNCHES}
+        check(launches[kname] == want_launches
+              and sum(launches.values()) == want_launches,
+              f"{arch} bf16 generate: launches {launches}, expected "
+              f"{want_launches} of {kname} (prefill only)")
+        rec["bf16_generate_launches"] = launches
+        marks = {"prefill": [], "decode": []}
+
+        def timed(fn, kind):
+            def run(*args):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                res = fn(*args)
+                ev[1].record()
+                marks[kind].append(ev)
+                return res
+            return run
+        eng._prefill = timed(eng._prefill, "prefill")
+        eng._decode = timed(eng._decode, "decode")
+        walls, same, kernel_ms = [], True, []
+        for _ in range(MODEL_SERVE_REPS):
+            with KernelCalls(torch, timed=True) as calls:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = eng.generate(prompts)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            kernel_ms.append(calls.device_ms(kname))
+            same &= bool((got == first).all())
+        pre = [a.elapsed_time(z) for a, z in marks["prefill"]]
+        dec = [a.elapsed_time(z) for a, z in marks["decode"]]
+        wall = statistics.median(walls)
+        serve = {
+            "batch": b, "prompt": sp, "new_tokens": new,
+            "reps": MODEL_SERVE_REPS,
+            "prefill_ms": statistics.median(pre), "prefill_ms_all": pre,
+            "decode_ms": statistics.median(dec),
+            "decode_ms_max": max(dec), "decode_steps": len(dec),
+            "generate_wall_s": walls,
+            "tok_s": b * new / wall,
+            "decode_tok_s": 1e3 * b / statistics.median(dec),
+            "kernel_ms_in_prefill": statistics.median(kernel_ms),
+            "kernel_ms_all": kernel_ms,
+            "greedy_tokens_repeat": same}
+        rec["bf16_serve"] = serve
+        log(f"[models] {arch} bf16 Engine.generate, batch {b}, prompt "
+            f"{sp}, {new} new, greedy ({MODEL_SERVE_REPS} runs, CUDA "
+            f"events, medians): prefill {serve['prefill_ms']:.3f} ms, "
+            f"decode {serve['decode_ms']:.4f} ms a token (max "
+            f"{serve['decode_ms_max']:.4f}), {serve['tok_s']:.1f} tok/s "
+            f"end to end (host wall {wall:.3f} s, prefill included), "
+            f"{serve['decode_tok_s']:.1f} tok/s in decode; {kname} "
+            f"{want_launches} launches a prefill, "
+            f"{serve['kernel_ms_in_prefill']:.4f} device ms of them; "
+            f"tokens equal across runs: {same}")
+
+        # the kernel's row: layer 0's bf16 call against its plain version,
+        # its per-launch times beside the plain version, library, bound
+        args, kw, res = calls.first[kname]
+        if kname == "flash_attention":
+            q, k, v = args
+            err = close_err(torch, res, TF.flash_plain(q, k, v, True, 128,
+                                                       128),
+                            FLASH_BF16_TOL, f"{arch} bf16 flash layer 0")
+            sq, bh, d = q.shape
+            qh, kh, vh = (a.permute(1, 0, 2)[None].contiguous()
+                          for a in (q, k, v))
+            one = {
+                "ms": time_auto(torch, lambda: TF.flash_attention_kernel(
+                    q, k, v, True)),
+                "plain_ms": time_ms(torch, lambda: TF.flash_plain(
+                    q, k, v, True, 128, 128), 1),
+                "library_ms": time_auto(torch, lambda: (
+                    F.scaled_dot_product_attention(qh, kh, vh,
+                                                   is_causal=True)))}
+            cost = attention_cost(sq, sq, bh, d, True, q.element_size())
+            path = (f"{arch} bf16 prefill: B·H = {bh}, S = T = {sq}, D = "
+                    f"{d}, {want_launches} a prefill")
+            del qh, kh, vh
+        else:
+            err = model_kernel_check(torch, calls, kname,
+                                     STANDALONE_TOL[kname])
+            bb, sw, hh, dd = args[0].shape
+            one = {
+                "ms": time_auto(torch, lambda: TW.wkv_chunk_kernel(
+                    *args, **kw)),
+                "plain_ms": time_ms(torch, lambda: TW.wkv_plain(
+                    *args, kw["q"]), 1),
+                "library_ms": None}
+            cost = wkv_cost(bb, sw, hh, dd, kw["q"])
+            path = (f"{arch} bf16 prefill: B {bb}, S {sw}, {hh} heads of "
+                    f"{dd}, q {kw['q']}, f32 inside, 3 x {base.num_layers}")
+        # every number of the row is one call's: ms the served prefill's
+        # calls (CUDA events around each, all of one shape) over their
+        # count; plain and library ms measured on layer 0's call
+        calls_n = base.num_layers
+        rows.append({
+            "name": f"{kname} [{arch} prefill]", "route": "cuda",
+            "source": KERNELS[kname][0], "replaces": KERNELS[kname][1],
+            "path": path + "; every time one call's",
+            "launches": launches[kname], "max_abs_err": err,
+            "ms": serve["kernel_ms_in_prefill"] / calls_n,
+            "plain_ms": one["plain_ms"],
+            "bound_ms": cost_ms(cost), "bound_by": cost_by(cost),
+            "library_ms": one["library_ms"],
+            "calls_a_prefill": calls_n,
+            "prefill_device_ms": serve["kernel_ms_in_prefill"],
+            "layer0_call_ms": one["ms"]})
+        del calls, args, kw, res
+
+        # 4. one decode step updates the stacked cache in place
+        with torch.inference_mode():
+            logits, cache = eng._prefill(eng.params, prompts)
+            tok = torch.argmax(logits[:, -1].float(), -1)[:, None]
+            ptrs = {n: t.data_ptr() for n, t in cache.items()}
+            cache_bytes = _tree_bytes(cache)
+            del logits
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            logits, cache = eng._decode(eng.params, cache, tok, sp)
+            torch.cuda.synchronize()
+            rise = torch.cuda.max_memory_allocated() - base_mem
+        check({n: t.data_ptr() for n, t in cache.items()} == ptrs,
+              f"{arch}: a decode step moved the cache")
+        check(rise < cache_bytes, f"{arch}: one decode step's peak memory "
+              f"rose {rise} B, the stacked cache is {cache_bytes} B")
+        rec["decode_step_peak_rise_bytes"] = rise
+        rec["cache_bytes"] = cache_bytes
+        log(f"[models] {arch} bf16 decode step in place: peak memory rose "
+            f"{rise} B against the stacked cache's {cache_bytes} B; every "
+            f"cache tensor kept its storage; {kname} row: "
+            + json.dumps(rows[-1]))
+        del eng, params, cache, logits
+        torch.cuda.empty_cache()
+    return rows, out
+
+
 def standalone_phase(torch, F):
     """Phase 10 of the module docstring: the three standalone kernels.
     Returns their rows of the ``kernels`` line and the ``standalone``
@@ -2460,6 +2823,10 @@ def main() -> int:
     serve = serve_phase(torch, K, X, zoo)
     phase_done("serve")
 
+    # 10c. the decoder models and the decode engines at full width
+    model_rows, models = models_phase(torch, F)
+    phase_done("models")
+
     # 11. times
     walls = []
     c = slice_cps["resnet_50_v2"]
@@ -2638,6 +3005,7 @@ def main() -> int:
         "plain_ms": dmo["plain_ms"], "bound_ms": dmo["bound_ms"],
         "bound_by": dmo["bound_by"], "library_ms": dmo["library_ms"]})
     rows.extend(st_rows_k)
+    rows.extend(model_rows)
     times = {path: {name: {k: v for k, v in r.items() if k != "specs"}
                     for name, r in p.items()} for path, p in per.items()}
     times_blk = {path: {name: {k: v for k, v in r.items() if k != "specs"}
@@ -2669,7 +3037,7 @@ def main() -> int:
          "arena_conv": conv_rows, "arena_stream_roll": roll_rows,
          "arena_elementwise": ew_info, "pool_and_fc": head_info,
          "chains": {"schedules": chains, "times": chain_times},
-         "softmax_matmul": sm_out, "serve": serve,
+         "softmax_matmul": sm_out, "serve": serve, "models": models,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

@@ -1308,3 +1308,168 @@ def test_plan_server_on_the_card(card, label):
     for r in srv.done:
         compare_outputs(alone(srv._exec, imgs[r.rid]), r.output,
                         exact=False, label=f"request {r.rid}")
+
+
+
+# ---------------------------------------------------------------------------
+# the decoder models and the decode engines on the card
+# ---------------------------------------------------------------------------
+
+
+def _model(arch, dtype="float32", **kw):
+    """A reduced arch and its weights drawn on the CPU from a seed, on the
+    CPU and on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype=dtype, **kw)
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return cfg, cpu, T.tree_map(lambda t: t.cuda(), cpu)
+
+
+def _refuse(*a, **kw):
+    raise AssertionError("the card path reached a plain version")
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm3-4b"])
+def test_flash_route_on_the_card(card, arch):
+    """Causal prefill attention past FLASH_THRESHOLD (S = 2112, batch 2)
+    through the flash kernel: one launch, with its plain version made to
+    raise, against the CPU route (the plain version) within 2e-4; GQA on
+    2 kv heads and MLA's folded D = 48."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg, cpu, dev = _model(arch)
+    fwd = L.mla_forward if cfg.attention == "mla" else L.attn_forward
+    x = _normal(card, 9, 2, 2112, cfg.d_model)
+    want, wcache = fwd(T.layer(cpu["blocks"], 0)["attn"], x.cpu(), cfg)
+    TF.reset_launches()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TF, "flash_plain", _refuse)
+        got, gcache = fwd(T.layer(dev["blocks"], 0)["attn"], x, cfg)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES == 1 and got.is_cuda
+    _assert_close(got.cpu(), want, 2e-4)
+    for name, w in wcache.items():
+        _assert_close(gcache[name].cpu(), w, 2e-4)
+
+
+def test_wkv_route_on_the_card(card):
+    """RWKV's chunked time mixing at S = 256, batch 2, through the WKV
+    kernel: three launches, with its plain versions made to raise, against
+    the CPU route within 3e-4 (output and state)."""
+    from repro_torch.kernels import wkv_chunk as TW
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    cfg, cpu, dev = _model("rwkv6-1.6b")
+    x = _normal(card, 10, 2, 256, cfg.d_model)
+    want, wst = S.rwkv_forward(T.layer(cpu["blocks"], 0)["rwkv"], x.cpu(),
+                               cfg)
+    TW.reset_launches()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TW, "wkv_plain", _refuse)
+        mp.setattr(TW, "wkv_phases_plain", _refuse)
+        got, gst = S.rwkv_forward(T.layer(dev["blocks"], 0)["rwkv"], x, cfg)
+    torch.cuda.synchronize()
+    assert TW.LAUNCHES == TW.KERNELS_PER_CALL and got.is_cuda
+    _assert_close(got.cpu(), want, 3e-4)
+    _assert_close(gst["wkv"].cpu(), wst["wkv"], 3e-4)
+
+
+@pytest.mark.parametrize("arch,s", [("qwen2.5-3b", 2112),
+                                    ("minicpm3-4b", 2112),
+                                    ("rwkv6-1.6b", 256)])
+def test_prefill_and_decode_on_the_card(card, arch, s):
+    """A reduced model's prefill (on the kernels: one flash launch or
+    three WKV launches a layer) and four decode steps on the card, each
+    within 2e-3 of the CPU route."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import wkv_chunk as TW
+    from repro_torch.models import transformer as T
+    cfg, cpu, dev = _model(arch)
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (2, s + 4)).astype(np.int32))
+    want, wcache = T.prefill(cfg, cpu, toks[:, :s], s + 4)
+    TF.reset_launches()
+    TW.reset_launches()
+    got, gcache = T.prefill(cfg, dev, toks[:, :s].cuda(), s + 4)
+    torch.cuda.synchronize()
+    per_layer = TW.KERNELS_PER_CALL if cfg.attention == "none" else 1
+    assert TF.LAUNCHES + TW.LAUNCHES == per_layer * cfg.num_layers
+    _assert_close(got.cpu(), want, 2e-3)
+    for i in range(4):
+        tok = toks[:, s + i:s + i + 1]
+        want, wcache = T.decode_step(cfg, cpu, wcache, tok, s + i)
+        got, gcache = T.decode_step(cfg, dev, gcache, tok.cuda(), s + i)
+        _assert_close(got.cpu(), want, 2e-3)
+    for name, w in wcache.items():
+        _assert_close(gcache[name].cpu(), w, 2e-3)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "rwkv6-1.6b"])
+def test_decode_step_is_in_place_on_the_card(card, arch):
+    """One decode step after a prefill keeps every stacked cache tensor in
+    its storage and raises the peak memory by less than the cache's
+    bytes (a copy of the cache would not fit). 16 layers: a step's own
+    temporaries are one layer's (its cache slice read in float32), which
+    at the reduced width's 2 layers would already match the whole bf16
+    cache."""
+    from repro_torch.models import transformer as T
+    cfg, _, dev = _model(arch, dtype="bfloat16", num_layers=16)
+    toks = torch.as_tensor(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (4, 513)).astype(np.int32)).cuda()
+    with torch.inference_mode():
+        _, cache = T.prefill(cfg, dev, toks[:, :512], 513)
+        ptrs = {k: v.data_ptr() for k, v in cache.items()}
+        nbytes = sum(v.numel() * v.element_size() for v in cache.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, cache = T.decode_step(cfg, dev, cache, toks[:, 512:], 512)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
+    assert {k: v.data_ptr() for k, v in cache.items()} == ptrs
+    assert rise < nbytes, (rise, nbytes)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm3-4b",
+                                  "rwkv6-1.6b"])
+def test_decode_step_never_waits_for_the_card(card, arch):
+    """A decode step at an int position issues no operation that makes the
+    host wait for the card (``torch.cuda.set_sync_debug_mode`` raises on
+    one), so the host can queue the next layers while the card runs."""
+    from repro_torch.models import transformer as T
+    cfg, _, dev = _model(arch, dtype="bfloat16")
+    toks = torch.as_tensor(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (2, 65)).astype(np.int32)).cuda()
+    with torch.inference_mode():
+        _, cache = T.prefill(cfg, dev, toks[:, :64], 80)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            T.decode_step(cfg, dev, cache, toks[:, 64:], 64)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def test_engines_on_the_card(card):
+    """``Engine`` and ``ContinuousEngine`` with no device run on the card:
+    three ragged requests on two slots equal single-request engines."""
+    from repro_torch.serve import (ContinuousConfig, ContinuousEngine,
+                                   Engine, Request, ServeConfig)
+    cfg, _, dev = _model("qwen2.5-3b")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (37, 90, 12)]
+    eng = ContinuousEngine(cfg, dev, ContinuousConfig(slots=2,
+                                                      cache_len=128))
+    assert eng.device.type == "cuda" and eng.cache["k"].is_cuda
+    reqs = [Request(i, p, max_new_tokens=5) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run(max_steps=40)
+    single = Engine(cfg, dev, ServeConfig(cache_len=128, max_new_tokens=5))
+    assert single.device.type == "cuda"
+    for r, p in zip(reqs, prompts):
+        assert r.done and r.out == single.generate(p[None])[0].tolist()
