@@ -123,7 +123,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    plain version, timed
    with CUDA events beside its plain version, its bound and one PyTorch
    call (``F.rms_norm`` then ``torch.add``;
-   ``F.scaled_dot_product_attention``; none for WKV);
+   ``F.scaled_dot_product_attention``; none for WKV); then the flash
+   backward (``csrc/flash_attention_bwd.cu``, two launches a call) at the
+   same full width in f32 and bf16: ``ops.flash_attention`` under autograd
+   once per type with the counts reset just before, each call's dq, dk,
+   dv against ``flash_backward_plain`` on the forward's own output and
+   lse (``FLASH_BWD_TOL``), a second call bit-equal, timed beside its
+   plain version, its bound (the backward's five products) and SDPA's
+   backward (a timed ``torch.autograd.grad`` minus its forward);
 10b. runs the plan-routed serving runtime on the card (``serve`` phase):
    ``PlanServer`` with no device, so each flush is one batch variant's
    flat arena program through the kernels. Server A: the flagship int8
@@ -167,6 +174,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    one decode step after a prefill, which must leave every stacked cache
    tensor in its storage and raise the peak memory by less than the
    cache's bytes. ``[models]`` lines;
+10d. trains at full width (``train`` phase): ``qwen2.5-3b`` in bf16 on
+   seeded weights, the port's ``SyntheticCorpus`` at batch 2 x 4096 (the
+   reference's ``train_4k`` length) in ``default_microbatches`` = 2
+   microbatches, remat on, three ``make_train_step`` steps, each with
+   the counts reset just before: every loss and gradient norm finite, 144
+   flash forward launches (36 layers x 2 with remat x 2 microbatches) and
+   144 backward launches a step, every param, m and v leaf in its storage
+   after each update; the update's peak-memory rise under the largest
+   leaf's f32 bytes (3.25 GB) and the step's peak against the state's
+   bytes; step ms (CUDA events), tokens/s and the flash forward and
+   backward device ms within a step (``KernelCalls``); layer 0's forward
+   and backward calls of the last step against their plain versions,
+   timed beside them, their bounds and SDPA. Then a gradient check: 2
+   layers at full width in f32 over 4096 tokens, every gradient leaf of
+   the loss on the kernels within ``TRAIN_GRAD_TOL`` of the same loss
+   with attention from ``flash_plain_lse`` and ``flash_backward_plain``
+   called directly (``plain_attention``), wq, wk, wv non-zero; and the
+   refusal: ``rwkv6-1.6b`` (2 layers, 256 tokens) under grad on the card
+   raises, the WKV kernel having no backward yet. ``[train]`` lines;
 11. times with CUDA events, after a warm-up, every kernel per forward of the
    path that runs it (``resnet_50_v2`` f32 for conv, pool, elementwise and
    the head; ``densenet_121`` for concat, flat, blocked and staged in the
@@ -196,12 +222,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``softmax_matmul`` in the JSON;
 12. writes every number to ``build/chip_smoke.json`` (the chains'
     schedules and times under ``chains``, the serving runtime under
-    ``serve``, the models under ``models``) and prints the
+    ``serve``, the models under ``models``, training under ``train``) and
+    prints the
     ``kernels`` JSON line (a ``[blocks]`` line per kernel for the
     row-blocked program, the three streaming kernels, a ``dmo_dwconv2d``
-    line, the three standalone kernels and ``flash_attention`` and
-    ``wkv_chunk`` on the models' prefill), the card line, and as its last
-    line the device JSON.
+    line, the three standalone kernels, ``flash_attention_bwd`` and
+    ``flash_attention`` and ``wkv_chunk`` on the models' prefill and
+    ``flash_attention`` and ``flash_attention_bwd`` in the train step),
+    the card line, and as its last line the device JSON.
 
 Any failed check raises and the script exits non-zero. It exits 2, printing
 no result, when no CUDA device is visible or when it does not sit at the
@@ -266,11 +294,17 @@ KERNELS = {
                         "src/repro/kernels/inplace_rmsnorm.py:28"),
     "flash_attention": (CSRC + "flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:59"),
+    # the backward of row 14, which the TPU kernel never had (the
+    # reference's training attends blockwise through XLA)
+    "flash_attention_bwd": (CSRC + "flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:59"),
     "wkv_chunk": (CSRC + "wkv_chunk.cu",
                   "src/repro/kernels/wkv_chunk.py:67"),
 }
 #: the standalone kernels, each reached through its own entry point
 STANDALONE = ("rmsnorm_inplace", "flash_attention", "wkv_chunk")
+#: the kernels only training reaches (through autograd)
+TRAIN_KERNELS = ("flash_attention_bwd",)
 #: the kernels of the streaming program, and the path each one's line in
 #: the ``kernels`` JSON is measured on
 STREAM_KERNEL_PATH = {"arena_stream_roll": "resnet_50_v2",
@@ -278,7 +312,8 @@ STREAM_KERNEL_PATH = {"arena_stream_roll": "resnet_50_v2",
                       "arena_stream_fused": "flagship"}
 #: the kernels of the flat and row-blocked programs
 PROGRAM_KERNELS = [n for n in KERNELS
-                   if n not in STREAM_KERNEL_PATH and n not in STANDALONE]
+                   if n not in STREAM_KERNEL_PATH and n not in STANDALONE
+                   and n not in TRAIN_KERNELS]
 #: the reference's row-blocked memory layer each kernel now runs under
 BLOCK_REPLACES = {name: "src/repro/kernels/arena_ops.py:314"
                   for name in PROGRAM_KERNELS}
@@ -348,6 +383,26 @@ BF16_TOL = 5e-2
 #: inside this, and skipped, masked or unrescaled key tiles fall far
 #: outside it (scripts/torch_flash_faults.py)
 FLASH_BF16_TOL = (4e-3, 2e-2)
+
+#: the flash backward's limits against flash_backward_plain, (atol, rtol)
+#: with atol scaled by the plain version's largest entry: f32 1e-4 (sums
+#: in other orders); bf16 the forward's FLASH_BF16_TOL, since both compute
+#: in f32 from the same bf16 inputs and round dq, dk, dv at the end
+FLASH_BWD_TOL = {"f32": (1e-4, 0.0), "bf16": FLASH_BF16_TOL}
+
+#: the train phase: qwen2.5-3b at full width, bf16, seeded weights; (batch,
+#: seq) of a step, the reference's train_4k length; steps; remat
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_BATCH = (2, 4096)
+TRAIN_STEPS = 3
+#: the gradient check: layers of the float32 model, tokens, and the limit
+#: of every gradient leaf against the same loss with attention from the
+#: plain versions, (atol, rtol) with atol scaled by the leaf's largest
+#: entry (the kernels sum in other orders; 2 layers of float32)
+TRAIN_CHECK = (2, 4096)
+TRAIN_GRAD_TOL = (2e-4, 1e-3)
+#: the refusal check: rwkv6-1.6b with 2 layers, 256 tokens (chunked WKV)
+REFUSE_ARCH = ("rwkv6-1.6b", 2, 256)
 
 #: the serve phase: the flagship's batch variants and their arena peaks (the
 #: port's compile), Server B's budget, and the closed loop's requests: 64
@@ -919,6 +974,19 @@ def attention_cost(s: int, t: int, h: int, d: int, causal: bool,
         pairs = s * t
     return ((2 * s + 2 * t) * h * d * esize, 4 * d * h * pairs,
             BF16_OPS_S if esize == 2 else F32_OPS_S)
+
+
+def attention_bwd_cost(s: int, t: int, h: int, d: int, causal: bool,
+                       esize: int):
+    """(bytes, operations, rate) of the flash backward: q, k, v, out and
+    its gradient and the f32 lse read once, dq, dk, dv written once; the
+    backward's five products (q·k, do·v, dS·k, dS·q, p·do), 10·D
+    operations per visible (query, key) pair, not the kernel's
+    recomputation of q·k and do·v in its second launch. The pairs as
+    :func:`attention_cost` counts them."""
+    nbytes, ops, rate = attention_cost(s, t, h, d, causal, esize)
+    return ((4 * s + 4 * t) * h * d * esize + 4 * s * h, ops * 10 // 4,
+            rate)
 
 
 def wkv_cost(b: int, s: int, h: int, d: int, q: int):
@@ -1521,14 +1589,14 @@ def head_rows(K, ex, cp, label: str):
     return rows
 
 
-def refused(fn, label: str) -> str:
-    """Run ``fn``; it must raise ValueError (a graph no backend executes).
-    Returns the message."""
+def refused(fn, label: str, exc=ValueError) -> str:
+    """Run ``fn``; it must raise ``exc`` (a ValueError: a graph no backend
+    executes). Returns the message."""
     try:
         fn()
-    except ValueError as e:
+    except exc as e:
         return str(e).splitlines()[0]
-    raise SmokeError(f"{label}: expected a ValueError")
+    raise SmokeError(f"{label}: expected a {exc.__name__}")
 
 
 def close_err(torch, got, want, tol, label: str) -> float:
@@ -1546,6 +1614,124 @@ def close_err(torch, got, want, tol, label: str) -> float:
           f"{label}: max |err| {err:g} outside atol {atol:g}, rtol "
           f"{rtol:g}")
     return err
+
+
+def grads_close(torch, got, want, tol, label: str) -> float:
+    """The backward's (dq, dk, dv) against the plain version's, each
+    within ``(atol, rtol)`` with atol scaled by the largest entry of the
+    plain version's tensor. Returns the largest |error|."""
+    atol, rtol = tol
+    return max(close_err(torch, g, w, (atol * w.float().abs().max().item(),
+                                       rtol), f"{label} {name}")
+               for name, g, w in zip(("dq", "dk", "dv"), got, want))
+
+
+def plain_attention(torch):
+    """``ops.flash_attention``'s signature with its gradient from the plain
+    versions, called directly: the forward ``flash_plain_lse``, the
+    backward ``flash_backward_plain``. The train phase's gradient check
+    puts it in the model's place for one loss."""
+    from repro_torch.kernels import flash_attention as TF
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal):
+            out, lse = TF.flash_plain_lse(q, k, v, causal)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.causal = causal
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, out, lse = ctx.saved_tensors
+            return (*TF.flash_backward_plain(q, k, v, out, do.contiguous(),
+                                             lse, ctx.causal), None)
+
+    def attend(q, k, v, causal=True, block_q=128, block_k=128, device=None):
+        return PlainFlash.apply(q, k, v, causal)
+    return attend
+
+
+def sdpa_backward_ms(torch, F, q, k, v, do) -> dict:
+    """SDPA's backward at (1, H, S, D) copies of (S, H, D) inputs, causal:
+    a timed ``torch.autograd.grad`` of its forward minus the forward
+    (grad enabled), TF32 off. The port never calls it."""
+    qh, kh, vh = (a.detach().permute(1, 0, 2)[None].contiguous()
+                  .requires_grad_() for a in (q, k, v))
+    doh = do.permute(1, 0, 2)[None].contiguous()
+
+    def fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    fwd_ms = time_auto(torch, fwd)
+    both_ms = time_auto(torch, lambda: torch.autograd.grad(
+        fwd(), (qh, kh, vh), doh))
+    return {"library_ms": both_ms - fwd_ms, "library_fwd_bwd_ms": both_ms,
+            "library_fwd_ms": fwd_ms}
+
+
+def flash_bwd_standalone(torch, F, normal) -> tuple:
+    """The standalone phase's backward row: causal S = T = 4096, 16 heads
+    of 128, f32 and bf16. The main path: ``ops.flash_attention`` under
+    autograd once per type, the counts reset just before (one forward
+    and one backward call each). Then each backward against
+    ``flash_backward_plain`` on the forward's own output and lse, a second
+    call bit-equal, and its device ms beside the plain version, its bound
+    and SDPA's backward. Returns (row, section)."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import ops as TO
+    fs, ft, fh, fd = FLASH_FULL
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    ins = {dt: [normal(n, fh, fd, dtype=ty) for n in (fs, ft, ft, fs)]
+           for dt, ty in types.items()}
+    torch.cuda.synchronize()
+    TF.reset_launches()
+    grads = {}
+    for dt in types:
+        q, k, v, do = ins[dt]
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+        grads[dt] = torch.autograd.grad(TO.flash_attention(*leaves), leaves,
+                                        do)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": TF.LAUNCHES,
+                "flash_attention_bwd": TF.BWD_LAUNCHES}
+    check(launches == {"flash_attention": 2, "flash_attention_bwd":
+                       2 * TF.BWD_KERNELS_PER_CALL},
+          f"flash backward full width: launches {launches}")
+    errs, timing = {}, {}
+    for dt in types:
+        q, k, v, do = ins[dt]
+        out, lse = TF._forward(q, k, v, True, 128, 128, True)
+        want = TF.flash_backward_plain(q, k, v, out, do, lse, True)
+        label = f"flash backward full width {dt}"
+        errs[dt] = grads_close(torch, grads[dt], want, FLASH_BWD_TOL[dt],
+                               label)
+        again = TF.flash_backward_kernel(q, k, v, out, do, lse, True)
+        check(all(bool(torch.equal(a, b)) for a, b in zip(again, grads[dt])),
+              f"{label}: a second call is not bit-equal to the first")
+        del want, again
+        cost = attention_bwd_cost(fs, ft, fh, fd, True, q.element_size())
+        timing[dt] = {
+            "ms": time_auto(torch, lambda: TF.flash_backward_kernel(
+                q, k, v, out, do, lse, True)),
+            "plain_ms": time_ms(torch, lambda: TF.flash_backward_plain(
+                q, k, v, out, do, lse, True), 1),
+            **sdpa_backward_ms(torch, F, q, k, v, do),
+            "bound_ms": cost_ms(cost), "bound_by": cost_by(cost)}
+    source, replaces = KERNELS["flash_attention_bwd"]
+    row = {"name": "flash_attention_bwd", "route": "cuda", "source": source,
+           "replaces": replaces,
+           "path": f"qwen2.5-3b width: causal S = T = {fs}, {fh} heads of "
+                   f"{fd}, f32; the backward of ops.flash_attention under "
+                   f"autograd, {TF.BWD_KERNELS_PER_CALL} launches a call",
+           "launches": launches["flash_attention_bwd"],
+           "max_abs_err": errs["f32"], **timing["f32"],
+           "bf16": dict(timing["bf16"], max_abs_err=errs["bf16"])}
+    section = {"launches": launches, "errors": errs, "times": timing,
+               "bit_equal_repeat": True}
+    log(f"[standalone] flash backward at full width: launches {launches}, "
+        f"against plain {json.dumps(errs)}, a second call bit-equal; "
+        f"times (ms) {json.dumps(timing)}")
+    return row, section
 
 
 def wkv_sequential(torch, r, k, v, w, u):
@@ -1726,21 +1912,25 @@ def serve_phase(torch, K, X, zoo) -> dict:
 
 
 class KernelCalls:
-    """Wraps the model path's two kernel entry points for one pass
+    """Wraps the model path's kernel entry points for one pass
     (``kernels.ops.flash_attention``, which ``models/layers.py`` calls,
-    and ``kernels.wkv_chunk.wkv_chunk_kernel``, which ``models/ssm.py``
-    calls): keeps the first call's inputs and outputs (layer 0's) and,
-    with ``timed``, CUDA events around every call. The kernels' own
-    launch counters are untouched."""
+    ``kernels.wkv_chunk.wkv_chunk_kernel``, which ``models/ssm.py``
+    calls, and ``kernels.flash_attention.flash_backward_kernel``, which
+    the ``FlashAttention`` Function's backward calls): keeps the first
+    call's inputs and outputs (layer 0's in a forward) and the last's
+    (layer 0's in a backward) and, with ``timed``, CUDA events around
+    every call. The kernels' own launch counters are untouched."""
 
     def __init__(self, torch, timed: bool = False):
+        from repro_torch.kernels import flash_attention as TF
         from repro_torch.kernels import ops as TO
         from repro_torch.kernels import wkv_chunk as TW
         self.torch, self.timed = torch, timed
         #: kernel name -> (module, entry point)
         self.mods = {"flash_attention": (TO, "flash_attention"),
-                     "wkv_chunk": (TW, "wkv_chunk_kernel")}
-        self.first, self.events = {}, {}
+                     "wkv_chunk": (TW, "wkv_chunk_kernel"),
+                     "flash_attention_bwd": (TF, "flash_backward_kernel")}
+        self.first, self.last, self.events = {}, {}, {}
 
     def _wrap(self, name, fn):
         def run(*args, **kw):
@@ -1754,6 +1944,7 @@ class KernelCalls:
                 ev[1].record()
                 self.events.setdefault(name, []).append(ev)
             self.first.setdefault(name, (args, kw, out))
+            self.last[name] = (args, kw, out)
             return out
         return run
 
@@ -1771,6 +1962,19 @@ class KernelCalls:
         """Device ms of every timed call of ``name`` (synchronises)."""
         self.torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in self.events.get(name, []))
+
+    def calls(self, name) -> int:
+        """Timed calls of ``name``."""
+        return len(self.events.get(name, []))
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """The '/'-joined names of a tree's leaves in ``adamw.tree_leaves``
+    order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
 
 
 def _tree_bytes(tree) -> int:
@@ -2043,6 +2247,260 @@ def models_phase(torch, F) -> tuple:
     return rows, out
 
 
+def train_phase(torch, F) -> tuple:
+    """Phase 10d of the module docstring: training at full width. Returns
+    the training path's rows of the ``kernels`` line and the ``train``
+    section of ``build/chip_smoke.json``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
+                                           shard_batch)
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import ops as TO
+    from repro_torch.kernels import wkv_chunk as TW
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as TS
+    cfg = get_arch(TRAIN_ARCH)
+    b, s = TRAIN_BATCH
+    mbs = TS.default_microbatches(cfg, b, s, 1)
+    check(mbs == 2, f"default_microbatches gives {mbs}, expected 2")
+    opt = TS.opt_config_for(cfg)
+    # a step: each microbatch runs every layer's forward twice (remat) and
+    # one backward call a layer
+    want = {"flash_attention": 2 * cfg.num_layers * mbs,
+            "flash_attention_bwd": TF.BWD_KERNELS_PER_CALL * cfg.num_layers
+            * mbs}
+    gen = torch.Generator(device="cuda")
+    state = TS.init_state(cfg, gen.manual_seed(0), opt)
+    parts = {"p": state["params"], "m": state["opt"]["m"],
+             "v": state["opt"]["v"]}
+    ptrs = {k: [t.data_ptr() for t in adamw.tree_leaves(v)]
+            for k, v in parts.items()}
+    nbytes = {k: _tree_bytes(v) for k, v in parts.items()}
+    largest = max(t.numel() for t in adamw.tree_leaves(state["params"]))
+    data = SyntheticCorpus(DataConfig(cfg.vocab_size, s, b,
+                                      seed=29)).packed_batches()
+    step = TS.make_train_step(cfg, opt, remat=True, microbatches=mbs)
+    rec = {"arch": TRAIN_ARCH, "batch": b, "seq": s, "microbatches": mbs,
+           "remat": True, "steps": TRAIN_STEPS, "opt": dataclasses.asdict(
+               opt), "state_bytes": nbytes,
+           "largest_leaf_elements": largest, "launches_a_step": [],
+           "loss": [], "grad_norm": [], "step_ms": [], "step_wall_s": []}
+    real_update = adamw.update
+    mem = {}
+
+    def measured_update(*args, **kw):
+        # step 0 only: the step's peak so far, then the update's own rise
+        torch.cuda.synchronize()
+        mem["before_update_peak"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = real_update(*args, **kw)
+        torch.cuda.synchronize()
+        mem["update_peak"] = torch.cuda.max_memory_allocated()
+        mem["update_rise"] = mem["update_peak"] - base
+        return out
+
+    upd_events = []
+
+    def timed_update(*args, **kw):
+        # steps 1 on: CUDA events around the update, no wait
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_update(*args, **kw)
+        ev[1].record()
+        upd_events.append(ev)
+        return out
+
+    timed = []
+    for i in range(TRAIN_STEPS):
+        batch = shard_batch(next(data), "cuda")
+        TF.reset_launches()
+        TW.reset_launches()
+        adamw.update = measured_update if i == 0 else timed_update
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        try:
+            with KernelCalls(torch, timed=i > 0) as calls:
+                ev[0].record()
+                state, m = step(state, batch)
+                ev[1].record()
+                torch.cuda.synchronize()
+        finally:
+            adamw.update = real_update
+        rec["step_wall_s"].append(time.perf_counter() - t0)
+        rec["step_ms"].append(ev[0].elapsed_time(ev[1]))
+        launches = {"flash_attention": TF.LAUNCHES,
+                    "flash_attention_bwd": TF.BWD_LAUNCHES,
+                    "wkv_chunk": TW.LAUNCHES}
+        rec["launches_a_step"].append(launches)
+        check(launches == dict(want, wkv_chunk=0),
+              f"train step {i}: launches {launches}, expected {want}")
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        rec["loss"].append(loss)
+        rec["grad_norm"].append(gnorm)
+        check(np.isfinite(loss) and np.isfinite(gnorm),
+              f"train step {i}: loss {loss}, grad norm {gnorm}")
+        check({k: [t.data_ptr() for t in adamw.tree_leaves(v)]
+               for k, v in parts.items()} == ptrs,
+              f"train step {i}: a param, m or v leaf moved")
+        if i > 0:
+            timed.append({name: (calls.device_ms(name), calls.calls(name))
+                          for name in ("flash_attention",
+                                       "flash_attention_bwd")})
+        log(f"[train] step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
+            f"{rec['step_ms'][-1]:.1f} device ms (CUDA events), launches "
+            f"{json.dumps(launches)}")
+    check(int(state["opt"]["step"]) == TRAIN_STEPS, "the step count")
+    check(mem["update_rise"] < 4 * largest,
+          f"the update's peak memory rose {mem['update_rise']} B, the "
+          f"largest leaf is {4 * largest} B in f32")
+    rec.update(mem)
+    rec["step_peak"] = max(mem["before_update_peak"], mem["update_peak"])
+    rec["step_peak_over_state"] = rec["step_peak"] / sum(nbytes.values())
+    step_ms = statistics.median(rec["step_ms"][1:])
+    rec["step_ms_median"] = step_ms
+    rec["tokens_s"] = 1e3 * b * s / step_ms
+    per = {name: statistics.median(t[name][0] for t in timed)
+           for name in ("flash_attention", "flash_attention_bwd")}
+    rec["kernel_ms_in_step"] = per
+    rec["kernel_calls_a_step"] = {name: timed[-1][name][1] for name in per}
+    rec["update_ms"] = statistics.median(a.elapsed_time(z)
+                                         for a, z in upd_events)
+
+    # layer 0's calls of the last step against the plain versions
+    q, k, v = calls.first["flash_attention"][0][:3]
+    y = calls.first["flash_attention"][2]
+    bargs, _, bout = calls.last["flash_attention_bwd"]
+    bargs = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                  for a in bargs)
+    with torch.no_grad():
+        fwd_err = close_err(torch, y, TF.flash_plain(q, k, v, True, 128,
+                                                     128),
+                            FLASH_BF16_TOL, "train layer 0 forward")
+        bwd_err = grads_close(torch, bout, TF.flash_backward_plain(*bargs),
+                              FLASH_BWD_TOL["bf16"],
+                              "train layer 0 backward")
+    rec["layer0_errors"] = {"flash_attention": fwd_err,
+                            "flash_attention_bwd": bwd_err}
+    sq, bh, d = q.shape
+    fcost = attention_cost(sq, sq, bh, d, True, q.element_size())
+    bcost = attention_bwd_cost(sq, sq, bh, d, True, q.element_size())
+    q, k, v = (a.detach() for a in (q, k, v))
+    qh, kh, vh = (a.permute(1, 0, 2)[None].contiguous() for a in (q, k, v))
+    fwd_lib = time_auto(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True))
+    del qh, kh, vh
+    path = (f"{TRAIN_ARCH} bf16 train step, batch {b} x {s} in {mbs} "
+            f"microbatches, remat: B·H = {bh}, S = T = {sq}, D = {d}")
+    n_fwd, n_bwd = (rec["kernel_calls_a_step"][n] for n in per)
+    rows = [
+        {"name": f"flash_attention [{TRAIN_ARCH} train]", "route": "cuda",
+         "source": KERNELS["flash_attention"][0],
+         "replaces": KERNELS["flash_attention"][1],
+         "path": path + f"; {n_fwd} calls a step; every time one call's",
+         "launches": want["flash_attention"], "max_abs_err": fwd_err,
+         "ms": per["flash_attention"] / n_fwd,
+         "plain_ms": time_ms(torch, lambda: TF.flash_plain(
+             q.detach(), k.detach(), v.detach(), True, 128, 128), 1),
+         "bound_ms": cost_ms(fcost), "bound_by": cost_by(fcost),
+         "library_ms": fwd_lib, "step_device_ms": per["flash_attention"]},
+        {"name": f"flash_attention_bwd [{TRAIN_ARCH} train]",
+         "route": "cuda", "source": KERNELS["flash_attention_bwd"][0],
+         "replaces": KERNELS["flash_attention_bwd"][1],
+         "path": path + f"; {n_bwd} calls a step; every time one call's",
+         "launches": want["flash_attention_bwd"], "max_abs_err": bwd_err,
+         "ms": per["flash_attention_bwd"] / n_bwd,
+         "plain_ms": time_ms(torch, lambda: TF.flash_backward_plain(
+             *bargs), 1),
+         "bound_ms": cost_ms(bcost), "bound_by": cost_by(bcost),
+         **sdpa_backward_ms(torch, F, *bargs[:3], bargs[4]),
+         "step_device_ms": per["flash_attention_bwd"]}]
+    log(f"[train] {TRAIN_ARCH} bf16 at full width, batch {b} x {s} in "
+        f"{mbs} microbatches, remat, {TRAIN_STEPS} steps: losses "
+        f"{rec['loss']}, grad norms {rec['grad_norm']}; step "
+        f"{step_ms:.1f} device ms (median of steps 1-{TRAIN_STEPS - 1}), "
+        f"{rec['tokens_s']:.0f} tokens/s; flash {per['flash_attention']:.1f}"
+        f" ms forward ({n_fwd} calls) and {per['flash_attention_bwd']:.1f} "
+        f"ms backward ({n_bwd} calls) a step, the update "
+        f"{rec['update_ms']:.1f} ms; the update's peak rise "
+        f"{mem['update_rise']} B (largest leaf {4 * largest} B in f32), the "
+        f"step's peak {rec['step_peak']} B against the state's "
+        f"{sum(nbytes.values())} B; p, m, v in place; layer 0 against "
+        f"plain {json.dumps(rec['layer0_errors'])}")
+    del state, parts, calls, m, batch, q, k, v, y, bargs, bout
+    torch.cuda.empty_cache()
+
+    # the gradient check: 2 layers in float32, every leaf against the same
+    # loss with attention from the plain versions
+    layers, cs = TRAIN_CHECK
+    cfg2 = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    params = T.init_params(cfg2, gen.manual_seed(1))
+    batch = shard_batch(next(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, cs, 1, seed=30)).packed_batches()), "cuda")
+    leaves = adamw.tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+
+    def grads():
+        loss, _ = TS.loss_fn(cfg2, params, batch, remat=True)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+    TF.reset_launches()
+    kl, kg = grads()
+    torch.cuda.synchronize()
+    check((TF.LAUNCHES, TF.BWD_LAUNCHES) == (2 * layers, 2 * layers),
+          f"gradient check: launches {TF.LAUNCHES}, {TF.BWD_LAUNCHES}")
+    real_attention = TO.flash_attention
+    TO.flash_attention = plain_attention(torch)
+    try:
+        pl, pg = grads()
+    finally:
+        TO.flash_attention = real_attention
+    torch.cuda.synchronize()
+    check((TF.LAUNCHES, TF.BWD_LAUNCHES) == (2 * layers, 2 * layers),
+          "gradient check: the plain run launched a kernel")
+    atol, rtol = TRAIN_GRAD_TOL
+    errs = [close_err(torch, g, w, (atol * w.abs().max().item(), rtol),
+                      f"gradient check leaf {i}")
+            for i, (g, w) in enumerate(zip(kg, pg))]
+    names = _leaf_names(params)
+    attn = [i for i, n in enumerate(names)
+            if any(f"attn/{w}/" in n for w in ("wq", "wk", "wv"))]
+    check(len(attn) == 6 and all(kg[i].abs().max().item() > 0
+                                 for i in attn),
+          f"gradient check: {[names[i] for i in attn]} get no gradient")
+    rec["grad_check"] = {"layers": layers, "tokens": cs, "loss": float(kl),
+                         "plain_loss": float(pl), "max_abs_err": max(errs),
+                         "leaves": len(errs), "tol": TRAIN_GRAD_TOL}
+    log(f"[train] gradient check, {layers} layers in f32 at {cs} tokens: "
+        f"loss {float(kl):.6f} (plain attention {float(pl):.6f}); "
+        f"{len(errs)} gradient leaves within {max(errs):.3g} of the "
+        f"plain-attention loss's (limit {TRAIN_GRAD_TOL})")
+    del params, leaves, kg, pg, batch
+    torch.cuda.empty_cache()
+
+    # the refusal: RWKV's chunked WKV has no backward kernel yet
+    arch, layers, rs = REFUSE_ARCH
+    rcfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+    params = T.init_params(rcfg, gen.manual_seed(2))
+    for t in adamw.tree_leaves(params):
+        t.requires_grad_()
+    batch = shard_batch(next(SyntheticCorpus(DataConfig(
+        rcfg.vocab_size, rs, 1, seed=31)).packed_batches()), "cuda")
+    TW.reset_launches()
+    rec["wkv_refusal"] = refused(lambda: TS.loss_fn(rcfg, params, batch),
+                                 f"{arch} loss under grad", RuntimeError)
+    check("no backward kernel" in rec["wkv_refusal"] and TW.LAUNCHES == 0,
+          f"{arch}: {rec['wkv_refusal']}")
+    log(f"[train] {arch} ({layers} layers, {rs} tokens) loss under grad on "
+        f"the card: refused ({rec['wkv_refusal'][:60]}...)")
+    del params, batch
+    torch.cuda.empty_cache()
+    return rows, rec
+
+
 def standalone_phase(torch, F):
     """Phase 10 of the module docstring: the three standalone kernels.
     Returns their rows of the ``kernels`` line and the ``standalone``
@@ -2266,6 +2724,10 @@ def standalone_phase(torch, F):
         f"x's storage, peak rise {rises} B; against plain "
         f"{json.dumps(section['full_width_errors'])}; times (ms) "
         f"{json.dumps(section['times'])}")
+    del rms_in, fl_in, wkv_in, wkv_args, xs
+    row, section["flash_attention_bwd"] = flash_bwd_standalone(torch, F,
+                                                               normal)
+    rows.append(row)
     return rows, section
 
 
@@ -2825,7 +3287,12 @@ def main() -> int:
 
     # 10c. the decoder models and the decode engines at full width
     model_rows, models = models_phase(torch, F)
+    torch.cuda.empty_cache()
     phase_done("models")
+
+    # 10d. training at full width
+    train_rows, train = train_phase(torch, F)
+    phase_done("train")
 
     # 11. times
     walls = []
@@ -3006,6 +3473,7 @@ def main() -> int:
         "bound_by": dmo["bound_by"], "library_ms": dmo["library_ms"]})
     rows.extend(st_rows_k)
     rows.extend(model_rows)
+    rows.extend(train_rows)
     times = {path: {name: {k: v for k, v in r.items() if k != "specs"}
                     for name, r in p.items()} for path, p in per.items()}
     times_blk = {path: {name: {k: v for k, v in r.items() if k != "specs"}
@@ -3038,6 +3506,7 @@ def main() -> int:
          "arena_elementwise": ew_info, "pool_and_fc": head_info,
          "chains": {"schedules": chains, "times": chain_times},
          "softmax_matmul": sm_out, "serve": serve, "models": models,
+         "train": train,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

@@ -18,6 +18,10 @@
 // 67 TFLOP/s of f32 outside the tensor cores, 0.069 ms at the 989 TFLOP/s
 // of the bf16 tensor cores, 0.040 ms by bytes. Two bodies, one per type:
 //
+// With a non-null `lse` both bodies also write each row's logsumexp of its
+// scaled scores, m + log l in natural units (f32, (S, H)), for the
+// backward (csrc/flash_attention_bwd.cu); serving passes null.
+//
 // bf16 on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate).
 // One CTA of 8 warps per (query tile of 128 rows, head); each warp owns 16
 // query rows. Q moves once through shared memory into registers (ldmatrix)
@@ -180,7 +184,7 @@ __global__ void __launch_bounds__(NT16, 1)
 flash_bf16(const __nv_bfloat16* __restrict__ q,
            const __nv_bfloat16* __restrict__ k,
            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-           int s, int t, int h, int d, int causal) {
+           float* __restrict__ lse, int s, int t, int h, int d, int causal) {
   constexpr int LD = DP + 8;   // row stride of a shared tile (elements)
   constexpr int TILE = BK * LD;
   constexpr int CH = DP / 8;   // 16-byte copies a row
@@ -323,8 +327,15 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  const float den0 = fmaxf(quad_sum(l0), 1e-30f);
-  const float den1 = fmaxf(quad_sum(l1), 1e-30f);
+  const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+  const float den0 = fmaxf(sum0, 1e-30f), den1 = fmaxf(sum1, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {
+    // m is in log2 units of the scaled score: lse = (m + log2 l) ln 2
+    constexpr float LN2 = 0.6931471805599453f;
+    if (row0 < s) lse[(long)row0 * h + head] = (m0 + log2f(sum0)) * LN2;
+    if (row0 + 8 < s)
+      lse[(long)(row0 + 8) * h + head] = (m1 + log2f(sum1)) * LN2;
+  }
 #pragma unroll
   for (int n = 0; n < NV; ++n) {
     const int c = n * 8 + tig2;
@@ -343,8 +354,8 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
 template <int NC>
 __global__ void __launch_bounds__(NT32, 1)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int s, int t,
-          int h, int d, int causal) {
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, int s, int t, int h, int d, int causal) {
   constexpr int W = 64 * NC;  // columns of a shared Q or V row (D padded)
   constexpr int LDK = W + 4;  // K's row stride
   constexpr int CH = W / 4;   // 16-byte copies a row
@@ -502,8 +513,11 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const float den = fmaxf(half_sum(l[i]), 1e-30f);
+    const float sum = half_sum(l[i]);
+    const float den = fmaxf(sum, 1e-30f);
     const int row = q0 + ty + 16 * i;
+    if (lse != nullptr && tx == 0 && row < s)
+      lse[(long)row * h + head] = m[i] + logf(sum);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = 4 * tx + 64 * c;
@@ -519,8 +533,8 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <typename K, typename T>
 cudaError_t launch(K kernel, int bq, int threads, size_t smem, const void* q,
-                   const void* k, const void* v, void* o, int s, int t,
-                   int h, int d, int causal, cudaStream_t stream) {
+                   const void* k, const void* v, void* o, float* lse, int s,
+                   int t, int h, int d, int causal, cudaStream_t stream) {
   // opt in to this launch's size every time (a size at or under 48 KB
   // needs none, but asking is harmless)
   cudaError_t e = cudaFuncSetAttribute(
@@ -529,56 +543,67 @@ cudaError_t launch(K kernel, int bq, int threads, size_t smem, const void* q,
   const int tiles = (s + bq - 1) / bq;
   if (tiles > 65535) return cudaErrorInvalidValue;
   kernel<<<dim3(h, tiles), threads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, s, t, h, d, causal);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, s, t, h, d, causal);
   return cudaGetLastError();
 }
 
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int s, int t, int h, int d, int causal,
+                        float* lse, int s, int t, int h, int d, int causal,
                         cudaStream_t stream) {
   const size_t smem = 4 * BK * (DP + 8) * sizeof(__nv_bfloat16);
   return launch<decltype(&flash_bf16<DP>), __nv_bfloat16>(
-      flash_bf16<DP>, BQ16, NT16, smem, q, k, v, o, s, t, h, d, causal,
+      flash_bf16<DP>, BQ16, NT16, smem, q, k, v, o, lse, s, t, h, d, causal,
       stream);
 }
 
 template <int NC>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int s, int t, int h, int d, int causal,
+                       float* lse, int s, int t, int h, int d, int causal,
                        cudaStream_t stream) {
   constexpr int W = 64 * NC;
   const size_t smem = sizeof(float) * ((size_t)BQ32 * W +
                                        2 * BK * (W + 4) + 2 * BK * W +
                                        (size_t)BQ32 * BK);
   return launch<decltype(&flash_f32<NC>), float>(
-      flash_f32<NC>, BQ32, NT32, smem, q, k, v, o, s, t, h, d, causal,
+      flash_f32<NC>, BQ32, NT32, smem, q, k, v, o, lse, s, t, h, d, causal,
       stream);
 }
 
 }  // namespace
 
-// (q, k, v, out, s, t, h, d, causal, bf16, stream); returns
-// cudaGetLastError() after the launch.
+// (q, k, v, out, lse or null, s, t, h, d, causal, bf16, stream); returns
+// cudaGetLastError() after the launch. With lse non-null, each row's f32
+// logsumexp of its scaled scores (m + log l, natural units) is written to
+// lse[row * h + head], an (S, H) tensor, for the backward.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int s, int t, int h, int d,
-                               int causal, int bf16, void* stream) {
+                               void* o, void* lse_p, int s, int t, int h,
+                               int d, int causal, int bf16, void* stream) {
   if (s <= 0 || t <= 0 || h <= 0 || d < 16 || d > 128 || d % 8 ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  float* lse = (float*)lse_p;
   if (!bf16)
-    return (int)(d <= 64 ? launch_f32<1>(q, k, v, o, s, t, h, d, causal, st)
-                         : launch_f32<2>(q, k, v, o, s, t, h, d, causal, st));
+    return (int)(d <= 64
+                     ? launch_f32<1>(q, k, v, o, lse, s, t, h, d, causal, st)
+                     : launch_f32<2>(q, k, v, o, lse, s, t, h, d, causal, st));
   switch ((d + 15) / 16) {
-    case 1: return (int)launch_bf16<16>(q, k, v, o, s, t, h, d, causal, st);
-    case 2: return (int)launch_bf16<32>(q, k, v, o, s, t, h, d, causal, st);
-    case 3: return (int)launch_bf16<48>(q, k, v, o, s, t, h, d, causal, st);
-    case 4: return (int)launch_bf16<64>(q, k, v, o, s, t, h, d, causal, st);
-    case 5: return (int)launch_bf16<80>(q, k, v, o, s, t, h, d, causal, st);
-    case 6: return (int)launch_bf16<96>(q, k, v, o, s, t, h, d, causal, st);
-    case 7: return (int)launch_bf16<112>(q, k, v, o, s, t, h, d, causal, st);
+    case 1:
+      return (int)launch_bf16<16>(q, k, v, o, lse, s, t, h, d, causal, st);
+    case 2:
+      return (int)launch_bf16<32>(q, k, v, o, lse, s, t, h, d, causal, st);
+    case 3:
+      return (int)launch_bf16<48>(q, k, v, o, lse, s, t, h, d, causal, st);
+    case 4:
+      return (int)launch_bf16<64>(q, k, v, o, lse, s, t, h, d, causal, st);
+    case 5:
+      return (int)launch_bf16<80>(q, k, v, o, lse, s, t, h, d, causal, st);
+    case 6:
+      return (int)launch_bf16<96>(q, k, v, o, lse, s, t, h, d, causal, st);
+    case 7:
+      return (int)launch_bf16<112>(q, k, v, o, lse, s, t, h, d, causal, st);
     default:
-      return (int)launch_bf16<128>(q, k, v, o, s, t, h, d, causal, st);
+      return (int)launch_bf16<128>(q, k, v, o, lse, s, t, h, d, causal, st);
   }
 }

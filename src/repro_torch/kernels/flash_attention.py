@@ -15,6 +15,17 @@ the end. q, k and v must start on 16-byte boundaries on the card.
 The counterpart of the reference's
 ``src/repro/kernels/flash_attention.py::flash_attention_kernel``, in its
 layout: q (S, H, D), k and v (T, H, D) with q's H, out (S, H, D).
+
+**Training.** Where grad is enabled and an input requires it, the call
+goes through :class:`FlashAttention`, an autograd Function: its forward
+also writes each row's logsumexp (``lse``, (S, H) float32), and its
+backward is ``csrc/flash_attention_bwd.cu`` on the card (two launches:
+dQ over query tiles, dK and dV over key tiles, recomputing P from
+``lse``) and :func:`flash_backward_plain` on the CPU. The reference never
+differentiates its Pallas kernel (its training attends blockwise through
+XLA); the port's long causal attention runs this kernel in training too,
+so it has a backward. Under ``inference_mode`` or ``no_grad`` the forward
+writes no ``lse`` and saves nothing.
 """
 from __future__ import annotations
 
@@ -39,9 +50,20 @@ TILE_K = 64
 ALIGN = 16
 
 
+#: Launches of ``csrc/flash_attention_bwd.cu`` since :func:`reset_launches`
+#: (:data:`BWD_KERNELS_PER_CALL` a backward call).
+BWD_LAUNCHES = 0
+BWD_KERNELS_PER_CALL = 2
+#: The backward's tiles (``csrc/flash_attention_bwd.cu``): query rows of a
+#: dQ CTA's tile, keys of a dK/dV CTA's tile, for both types.
+BWD_TILE_Q = 64
+BWD_TILE_K = 64
+
+
 def reset_launches() -> None:
-    global LAUNCHES
+    global LAUNCHES, BWD_LAUNCHES
     LAUNCHES = 0
+    BWD_LAUNCHES = 0
 
 
 def _divisor_block(block: int, n: int) -> int:
@@ -74,15 +96,47 @@ def tile_walk(s: int, t: int, h: int, causal: bool) -> list:
     return walk
 
 
+def bwd_tile_walk(s: int, t: int, h: int, causal: bool) -> tuple:
+    """The backward's two grids in launch order, a plain-Python mirror of
+    ``csrc/flash_attention_bwd.cu``: ``(dq, dkv)``. ``dq`` lists the dQ
+    CTAs as ``(head, q0, q1, tiles)``: query rows ``[q0, q1)`` of one head
+    (tiles of :data:`BWD_TILE_Q`, heaviest first, heads the fastest grid
+    dimension) and key tiles ``0 .. tiles - 1`` of :data:`BWD_TILE_K`,
+    ending where the forward's walk ends. ``dkv`` lists the dK/dV CTAs as
+    ``(head, k0, k1, first, last)``: keys ``[k0, k1)`` (the first key
+    tiles first) and query tiles ``first .. last - 1``, from the first
+    one holding a row that sees key ``k0``. Causal with T >= S or
+    non-causal, the backward's domain."""
+    bq, bk = BWD_TILE_Q, BWD_TILE_K
+    nq, nk = -(-s // bq), -(-t // bk)
+    dq = []
+    for y in range(nq):
+        q0 = (nq - 1 - y) * bq
+        q1 = min(q0 + bq, s)
+        kend = min(q1 + (t - s), t) if causal else t
+        dq.extend((head, q0, q1, -(-kend // bk)) for head in range(h))
+    dkv = []
+    for y in range(nk):
+        k0 = y * bk
+        first = max(0, k0 - (t - s)) // bq if causal else 0
+        dkv.extend((head, k0, min(k0 + bk, t), first, nq)
+                   for head in range(h))
+    return dq, dkv
+
+
 def check_card_inputs(q: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor) -> None:
-    """What the kernel needs beyond the shapes and types: contiguous q, k,
-    v, each starting on a 16-byte boundary (:data:`ALIGN`). Raises
-    ``ValueError``; a misaligned view is refused, not copied and not
-    routed to the plain version."""
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
-    for name, a in (("q", q), ("k", k), ("v", v)):
+                      v: torch.Tensor, *more: torch.Tensor) -> None:
+    """What the kernels need beyond the shapes and types: contiguous q, k,
+    v (and, for the backward, out and its gradient), each starting on a
+    16-byte boundary (:data:`ALIGN`). Raises ``ValueError``; a misaligned
+    view is refused, not copied and not routed to the plain version."""
+    named = [("q", q), ("k", k), ("v", v)] + list(zip(("out", "dout"),
+                                                       more))
+    if not all(a.is_contiguous() for _, a in named):
+        raise ValueError(f"flash_attention: "
+                         f"{', '.join(n for n, _ in named)} must be "
+                         f"contiguous")
+    for name, a in named:
         if a.data_ptr() % ALIGN:
             raise ValueError(f"flash_attention: {name} must start on a "
                              f"{ALIGN}-byte boundary, got data_ptr "
@@ -95,6 +149,15 @@ def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The plain PyTorch version: the reference's blocks (each shrunk to a
     divisor of S or T) and online softmax, all heads and query blocks at
     once (the reference's parallel grid), one key block at a time."""
+    return flash_plain_lse(q, k, v, causal, block_q, block_k)[0]
+
+
+def flash_plain_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128):
+    """:func:`flash_plain` and, from the same online softmax, each row's
+    float32 logsumexp of its scaled scores, ``m + log l`` as an (S, H)
+    tensor: what the kernel writes for the backward."""
     s, h, d = q.shape
     t = k.shape[0]
     bq, bk = _divisor_block(block_q, s), _divisor_block(block_k, t)
@@ -119,21 +182,58 @@ def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * corr[..., None] + torch.einsum("hnqk,hkd->hnqd", p, vb)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(h, s, d).permute(1, 0, 2).contiguous().to(q.dtype)
+    lse = (m + torch.log(l)).reshape(h, s).T.contiguous()
+    return (out.reshape(h, s, d).permute(1, 0, 2).contiguous().to(q.dtype),
+            lse)
 
 
-def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, causal: bool = True,
-                           block_q: int = 128,
-                           block_k: int = 128) -> torch.Tensor:
-    """q: (S, H, D); k, v: (T, H, D) -> (S, H, D) in q's type. float32 or
-    bfloat16 (one type for all three); D a multiple of 8 from 16 to 128.
-    On the CPU this is :func:`flash_plain`, which walks ``block_q`` x
-    ``block_k`` blocks as the reference does; the kernel on the card uses
-    its own tiles whatever the blocks (:func:`tile_walk`; the last key tile
-    masked past T), with the same mask and the same online softmax, and
-    needs contiguous q, k, v on 16-byte boundaries
-    (:func:`check_card_inputs`)."""
+def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         o: torch.Tensor, do: torch.Tensor,
+                         lse: torch.Tensor, causal: bool = True,
+                         block: int = 512):
+    """The backward's plain PyTorch version, the kernel's recomputation in
+    float32: ``P = exp(q k^T / sqrt(D) - lse)`` under the forward's mask,
+    ``D = rowsum(do o)``, ``dS = P (do v^T - D)``; returns ``(dq, dk,
+    dv)`` in the inputs' types. For bfloat16 inputs P and dS are rounded
+    to bfloat16 before the products that take them (``dv = P^T do``,
+    ``dq = dS k``, ``dk = dS^T q``), where the kernel rounds them for its
+    tensor cores; float32 rounds nothing. Query rows go ``block`` at a
+    time, so the score matrix never exceeds (H, block, T). Causal with
+    T >= S or non-causal."""
+    s, h, d = q.shape
+    t = k.shape[0]
+    if causal and t < s:
+        raise ValueError(f"flash_attention: the backward takes causal "
+                         f"T >= S, got S = {s}, T = {t}")
+    root = d ** 0.5
+    kf = k.float().permute(1, 0, 2)
+    vf = v.float().permute(1, 0, 2)
+    delta = (do.float() * o.float()).sum(-1)                    # (S, H)
+    dq = torch.empty((s, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((h, t, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    kpos = torch.arange(t, device=q.device)
+    for r0 in range(0, s, block):
+        r1 = min(r0 + block, s)
+        qb = (q[r0:r1].float() / root).permute(1, 0, 2)         # (H, b, D)
+        dob = do[r0:r1].float().permute(1, 0, 2)
+        p = torch.exp(qb @ kf.transpose(1, 2) - lse[r0:r1].T[..., None])
+        if causal:
+            qpos = (t - s) + torch.arange(r0, r1, device=q.device)
+            p = torch.where(kpos[None, :] <= qpos[:, None], p,
+                            torch.zeros((), device=q.device))
+        ds = p * (dob @ vf.transpose(1, 2) - delta[r0:r1].T[..., None])
+        if q.dtype == torch.bfloat16:
+            p, ds = p.bfloat16().float(), ds.bfloat16().float()
+        dq[r0:r1] = ((ds @ kf) / root).permute(1, 0, 2)
+        dk += (ds.transpose(1, 2) @ q[r0:r1].float().permute(1, 0, 2)
+               ) / root
+        dv += p.transpose(1, 2) @ dob
+    return (dq.to(q.dtype), dk.permute(1, 0, 2).to(k.dtype),
+            dv.permute(1, 0, 2).to(v.dtype))
+
+
+def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q (S, H, D), k and v (T, H, D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -154,19 +254,119 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("flash_attention: empty sequence")
     if q.device != k.device or q.device != v.device:
         raise ValueError("flash_attention: q, k, v must be on one device")
-    if q.device.type == "cpu":
-        return flash_plain(q, k, v, causal, block_q, block_k)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def _forward(q, k, v, causal: bool, block_q: int, block_k: int,
+             with_lse: bool):
+    """(out, lse or None): the plain version on the CPU, else one launch
+    of the kernel, which writes ``lse`` only when asked."""
+    if q.device.type == "cpu":
+        out, lse = flash_plain_lse(q, k, v, causal, block_q, block_k)
+        return out, (lse if with_lse else None)
     check_card_inputs(q, k, v)
     from repro_torch.kernels import build
+    s, h, d = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((s, h), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(build.entry("flash_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), s, t, h, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), s, k.shape[0], h, d,
         int(causal), int(q.dtype == torch.bfloat16), stream),
         "flash_attention")
     global LAUNCHES
     LAUNCHES += 1
-    return out
+    return out, lse
 
+
+def flash_backward_kernel(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, o: torch.Tensor,
+                          do: torch.Tensor, lse: torch.Tensor,
+                          causal: bool = True):
+    """(dq, dk, dv) of attention from the forward's output ``o``, its
+    ``lse`` ((S, H) float32) and the output's gradient ``do``. On the CPU
+    :func:`flash_backward_plain`; on the card the two launches of
+    ``csrc/flash_attention_bwd.cu``, which need the forward's domain with
+    causal T >= S, and contiguous q, k, v, o, do on 16-byte boundaries."""
+    _check_args(q, k, v)
+    s, h, d = q.shape
+    t = k.shape[0]
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention: out and its gradient must be "
+                         f"q's {tuple(q.shape)} {q.dtype}; got "
+                         f"{tuple(o.shape)} {o.dtype}, {tuple(do.shape)} "
+                         f"{do.dtype}")
+    if lse.shape != (s, h) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention: lse must be ({s}, {h}) float32,"
+                         f" got {tuple(lse.shape)} {lse.dtype}")
+    if causal and t < s:
+        raise ValueError(f"flash_attention: the backward takes causal "
+                         f"T >= S, got S = {s}, T = {t}")
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, o, do, lse, causal)
+    check_card_inputs(q, k, v, o, do)
+    from repro_torch.kernels import build
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((s, h), dtype=torch.float32, device=q.device)
+    lse = lse.contiguous()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    build.check(build.entry("flash_attention_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), s, t, h, d, int(causal),
+        int(q.dtype == torch.bfloat16), stream), "flash_attention_bwd")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += BWD_KERNELS_PER_CALL
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the kernel's own backward: the forward keeps q, k,
+    v, the output and its ``lse``; the backward is
+    :func:`flash_backward_kernel` (the kernel on the card, the plain
+    version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, block_q: int, block_k: int):
+        out, lse = _forward(q, k, v, causal, block_q, block_k, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = dout.contiguous()
+        if do.device.type == "cuda" and do.data_ptr() % ALIGN:
+            do = do.clone()
+        dq, dk, dv = flash_backward_kernel(q, k, v, out, do, lse, ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, causal: bool = True,
+                           block_q: int = 128,
+                           block_k: int = 128) -> torch.Tensor:
+    """q: (S, H, D); k, v: (T, H, D) -> (S, H, D) in q's type. float32 or
+    bfloat16 (one type for all three); D a multiple of 8 from 16 to 128.
+    On the CPU this is :func:`flash_plain`, which walks ``block_q`` x
+    ``block_k`` blocks as the reference does; the kernel on the card uses
+    its own tiles whatever the blocks (:func:`tile_walk`; the last key tile
+    masked past T), with the same mask and the same online softmax, and
+    needs contiguous q, k, v on 16-byte boundaries
+    (:func:`check_card_inputs`). With grad enabled and an input that
+    requires it, the call is differentiable through :class:`FlashAttention`
+    (causal T >= S or non-causal)."""
+    _check_args(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if causal and k.shape[0] < q.shape[0]:
+            raise ValueError(f"flash_attention: the backward takes causal "
+                             f"T >= S, got S = {q.shape[0]}, T = "
+                             f"{k.shape[0]}")
+        return FlashAttention.apply(q, k, v, causal, block_q, block_k)
+    return _forward(q, k, v, causal, block_q, block_k, False)[0]

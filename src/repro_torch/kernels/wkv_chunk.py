@@ -154,7 +154,8 @@ def wkv_chunk_kernel(r, k, v, logw, u, q: int = 64, device=None):
     (y (B, S, H, D) float32, final state (B, H, D, D) float32) on
     ``device`` (None: the card, raising without one; ``"cpu"``: the plain
     version). S must be a multiple of q; on the card D and q are at most
-    64."""
+    64. On the card it raises ``RuntimeError`` when grad is enabled and an
+    input requires it: the kernel has no backward yet."""
     dev = resolve_device(device)
     r, k, v, logw = (torch.as_tensor(t).to(dev, torch.float32).contiguous()
                      for t in (r, k, v, logw))
@@ -170,6 +171,15 @@ def wkv_chunk_kernel(r, k, v, logw, u, q: int = 64, device=None):
         raise ValueError(f"wkv_chunk: S = {s} is not a multiple of q = {q}")
     if dev.type == "cpu":
         return wkv_plain(r, k, v, logw, u, q)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, logw, u)):
+        # the kernel writes y and the state through ctypes, which carries
+        # no autograd graph: refuse rather than drop the gradient
+        raise RuntimeError(
+            "wkv_chunk: no backward kernel for the chunked WKV on the card "
+            "yet (csrc/wkv_chunk.cu is forward only), so it cannot train; "
+            "call it under torch.no_grad() or inference_mode, or train on "
+            "the CPU, whose plain version is differentiable")
     if d > MAX_D or q > MAX_Q or min(b, s, h, d) == 0:
         raise ValueError(f"wkv_chunk: the kernel takes 0 < D, q <= 64 and a "
                          f"non-empty input; got D = {d}, q = {q}, shape "

@@ -7,8 +7,9 @@ place, on random weights drawn from ``--seed``.
         --reduced --device cpu --batch 4 --prompt-len 64 --max-new 32
 
 Without ``--device`` it runs on the card and raises without one;
-``--device cpu`` runs the kernels' plain versions. Loading a checkpoint
-(the reference's ``--ckpt``) waits for the port's checkpoint store.
+``--device cpu`` runs the kernels' plain versions. ``--ckpt`` loads the
+params of a training checkpoint (``launch/train.py --ckpt-dir``, or the
+reference's of the same arch) in place of the random weights.
 """
 from __future__ import annotations
 
@@ -19,9 +20,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.configs import get_arch
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
 from repro_torch.serve.engine import Engine, ServeConfig
 
 
@@ -33,6 +36,7 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--window", type=int, default=0)
+    ap.add_argument("--ckpt", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain versions; default: the card")
@@ -44,6 +48,12 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
         cfg = cfg.reduced()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(cfg, gen, dev)
+    if args.ckpt:
+        # the optimiser's state stays on the meta device, unread
+        meta = T.tree_map(lambda t: t.to("meta"), params)
+        params = store.restore(args.ckpt, {"params": params,
+                                           "opt": adamw.init(meta)},
+                               device=dev)["params"]
 
     scfg = ServeConfig(cache_len=args.prompt_len + args.max_new,
                        window=args.window, max_new_tokens=args.max_new)

@@ -1,11 +1,14 @@
 """Config-driven decoder stack covering all assigned families.
 
-The counterpart of the reference's ``src/repro/models/transformer.py``, for
-inference. Layers keep the stacked layout (a leading ``L`` dim on every
-block tensor) and are walked by a Python loop over the views ``t[l]``.
+The counterpart of the reference's ``src/repro/models/transformer.py``.
+Layers keep the stacked layout (a leading ``L`` dim on every block tensor)
+and are walked by a Python loop: the full passes over ``torch.unbind`` of
+each stacked tensor (one view a layer, whose backward is one ``stack`` a
+tensor), prefill and decode over the views ``t[l]``.
 
 Entry points:
-  forward_train(cfg, params, inputs)            -> logits, aux
+  forward_hidden(cfg, params, inputs, remat)    -> hidden, aux
+  forward_train(cfg, params, inputs, remat)     -> logits, aux
   prefill(cfg, params, inputs, cache_len)       -> logits, cache
   decode_step(cfg, params, cache, tokens, pos)  -> logits, cache
 
@@ -19,17 +22,26 @@ they lie: on the card, long causal prefill attention is the
 cache in place, with no copy of the stack: the port's counterpart of the
 reference's donated scan carry, the serving side's ``O_s = |out|`` case.
 
-Not here: the reference's ``remat`` argument and ``identity_barrier``
-(training), and its ``repro.sharding.constrain`` calls (one card has no
+``remat`` is the reference's ``jax.checkpoint`` of the scan body:
+``torch.utils.checkpoint`` (non-reentrant) over each group of
+:data:`REMAT_GROUP` layers (one layer below
+:data:`REMAT_GROUP_MIN_LAYERS`), applied only while grad is enabled, so
+serving under ``inference_mode`` is unchanged. Each group's forward runs
+again in the backward, the flash kernel's launches with it.
+
+Not here: the reference's ``identity_barrier``, an XLA scheduling fence
+whose value and gradient are the identity (nothing to fence in eager
+PyTorch), and its ``repro.sharding.constrain`` calls (one card has no
 mesh).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import layers as L
@@ -127,6 +139,17 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 def layer(blocks: Params, l: int) -> Params:
     """Layer ``l``'s parameters: views ``t[l]`` of the stacked tensors."""
     return tree_map(lambda t: t[l], blocks)
+
+
+def unbind_layers(blocks: Params, n: int) -> List[Params]:
+    """Every layer's parameters from one ``torch.unbind`` of each stacked
+    tensor. In training this is the walk to take: autograd's backward of
+    ``unbind`` is one ``stack`` a tensor, where each view ``t[l]`` would
+    add a zero tensor the size of the whole stack."""
+    if isinstance(blocks, dict):
+        parts = {k: unbind_layers(v, n) for k, v in blocks.items()}
+        return [{k: p[l] for k, p in parts.items()} for l in range(n)]
+    return list(torch.unbind(blocks, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -227,21 +250,52 @@ def unembed(cfg: ArchConfig, params: Params, x: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def forward_hidden(cfg: ArchConfig, params: Params, inputs: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final hidden states (B,S,d) pre-norm/head, moe aux loss)."""
-    x = embed(cfg, params, inputs)
+#: layers per remat group: the backward saves one residual a group, so
+#: grouping halves (G=2) the saved residuals at the cost of one extra
+#: in-group forward during backprop; only for deep stacks (the reference's
+#: values)
+REMAT_GROUP = 2
+REMAT_GROUP_MIN_LAYERS = 48
+
+
+def _group_seq(cfg: ArchConfig, group: List[Params], x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A group of full-sequence blocks: (x, the sum of their aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l in range(cfg.num_layers):
-        x, _, a = _block_seq(cfg, layer(params["blocks"], l), x, window=0)
+    for bp in group:
+        x, _, a = _block_seq(cfg, bp, x, window=0)
         aux = aux + a
-    return x, aux / cfg.num_layers
+    return x, aux
 
 
-def forward_train(cfg: ArchConfig, params: Params, inputs: torch.Tensor
+def forward_hidden(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
+                   remat: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (final hidden states (B,S,d) pre-norm/head, moe aux loss) —
+    callers that want a memory-bounded loss apply the head per seq chunk.
+    With ``remat`` and grad enabled, each group of layers is recomputed in
+    the backward instead of keeping its activations."""
+    x = embed(cfg, params, inputs)
+    n = cfg.num_layers
+    g = REMAT_GROUP if (remat and n % REMAT_GROUP == 0
+                        and n >= REMAT_GROUP_MIN_LAYERS) else 1
+    layers = unbind_layers(params["blocks"], n)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for l0 in range(0, n, g):
+        group = layers[l0:l0 + g]
+        if remat and torch.is_grad_enabled():
+            x, a = checkpoint(_group_seq, cfg, group, x, use_reentrant=False)
+        else:
+            x, a = _group_seq(cfg, group, x)
+        aux = aux + a
+    return x, aux / n
+
+
+def forward_train(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
+                  remat: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B,S,V), moe aux loss)."""
-    x, aux = forward_hidden(cfg, params, inputs)
+    x, aux = forward_hidden(cfg, params, inputs, remat=remat)
     return unembed(cfg, params, x), aux
 
 

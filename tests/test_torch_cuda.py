@@ -1203,6 +1203,78 @@ def test_flash_attention_refuses_a_misaligned_view_on_the_card(card, dt):
     assert TF.LAUNCHES == 1
 
 
+#: the backward's limits against its plain version, (atol, rtol), both
+#: scaled by the largest entry of the plain version's gradient: f32 1e-4
+#: (the two sum in other orders); bf16 the forward's (4e-3, 2e-2), since
+#: both compute in f32 from the same bf16 inputs and round dq, dk, dv to
+#: bf16 at the end, where the two may land one bf16 step apart
+FLASH_BWD_TOL = {"f32": (1e-4, 0.0), "bf16": (4e-3, 2e-2)}
+
+
+def _hold_grads(got, want, dt, label=""):
+    atol, rtol = FLASH_BWD_TOL[dt]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        top = w.float().abs().max().item()
+        torch.testing.assert_close(g.float(), w.float(), atol=atol * top,
+                                   rtol=rtol, msg=f"{label} {name}")
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("s,t,h,d,causal", [
+    (64, 64, 2, 32, True), (130, 130, 3, 64, True), (256, 256, 2, 128, True),
+    (64, 200, 2, 16, True), (100, 60, 2, 40, False), (300, 300, 2, 48, True),
+    (4096, 4096, 16, 128, True)])
+def test_flash_backward_on_the_card(card, s, t, h, d, causal, dt):
+    """The two backward launches (the dQ grid over query tiles, the dK/dV
+    grid over key tiles) against ``flash_backward_plain`` on the forward
+    kernel's own output and lse, with the lse against the plain forward's;
+    a second call bit-equal to the first; the Function's gradients equal
+    to the direct call's."""
+    from repro_torch.kernels import flash_attention as TF
+    ty = _TYPES[dt]
+    q = _normal(card, s + 3, s, h, d, dtype=ty)
+    k = _normal(card, t + 4, t, h, d, dtype=ty)
+    v = _normal(card, t + 5, t, h, d, dtype=ty)
+    do = _normal(card, s + 6, s, h, d, dtype=ty)
+    TF.reset_launches()
+    out, lse = TF._forward(q, k, v, causal, 128, 128, True)
+    _, want_lse = TF.flash_plain_lse(q, k, v, causal)
+    torch.testing.assert_close(lse, want_lse, atol=2e-4, rtol=2e-4)
+    got = TF.flash_backward_kernel(q, k, v, out, do, lse, causal)
+    again = TF.flash_backward_kernel(q, k, v, out, do, lse, causal)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES == 1 and TF.BWD_LAUNCHES == 2 * TF.BWD_KERNELS_PER_CALL
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = TF.flash_backward_plain(q, k, v, out, do, lse, causal)
+    _hold_grads(got, want, dt, f"({s}, {t}, {h}, {d}, {causal}) {dt}")
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    y = TF.flash_attention_kernel(*leaves, causal)
+    grads = torch.autograd.grad(y, leaves, do)
+    assert TF.LAUNCHES == 2 and TF.BWD_LAUNCHES == 6
+    assert torch.equal(y, out)
+    for a, b in zip(grads, got):
+        assert torch.equal(a, b)
+
+
+def test_flash_backward_refuses_what_it_cannot_take_on_the_card(card):
+    """Causal T < S (a row that sees no key has no finite lse) and a
+    misaligned view raise; nothing launches."""
+    from repro_torch.kernels import flash_attention as TF
+    q = _normal(card, 1, 64, 2, 32).requires_grad_()
+    k = _normal(card, 2, 32, 2, 32)
+    TF.reset_launches()
+    with pytest.raises(ValueError, match="T >= S"):
+        TF.flash_attention_kernel(q, k, k, True)
+    buf = _normal(card, 3, 64 * 2 * 32 + 4)
+    bad = buf[1:1 + 64 * 2 * 32].view(64, 2, 32)
+    x = _normal(card, 4, 64, 2, 32)
+    lse = torch.zeros((64, 2), device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        TF.flash_backward_kernel(x, x, x, x, bad, lse, True)
+    assert TF.LAUNCHES == 0 and TF.BWD_LAUNCHES == 0
+
+
 def _wkv_sequential(r, k, v, w, u):
     """The recurrence one step at a time (the reference's _rwkv_step)."""
     b, s, h, d = r.shape
@@ -1473,3 +1545,69 @@ def test_engines_on_the_card(card):
     assert single.device.type == "cuda"
     for r, p in zip(reqs, prompts):
         assert r.done and r.out == single.generate(p[None])[0].tolist()
+
+
+def _train_batch(cfg, s, seed, b=1):
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    return {"inputs": torch.as_tensor(toks[:, :-1]),
+            "targets": torch.as_tensor(toks[:, 1:])}
+
+
+def test_train_step_on_the_card(card):
+    """A reduced qwen2.5-3b (float32, 2 layers) train step at S = 2112
+    with remat on the card: two flash forwards a layer (the forward and
+    its recomputation) and one backward call (two launches) a layer, the
+    plain versions made to raise; gradients, loss, grad norm and the state
+    after the step against the same step on the CPU; every param, m and v
+    leaf kept in its storage."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as TS
+    cfg, cpu, dev = _model("qwen2.5-3b")
+    batch = _train_batch(cfg, 2112, 15)
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    (wl, _), wg = TS.value_and_grad(cfg, cpu, batch, remat=True)
+    TF.reset_launches()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TF, "flash_plain", _refuse)
+        mp.setattr(TF, "flash_plain_lse", _refuse)
+        mp.setattr(TF, "flash_backward_plain", _refuse)
+        (gl, _), gg = TS.value_and_grad(cfg, dev, gbatch, remat=True)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES == 2 * cfg.num_layers
+    assert TF.BWD_LAUNCHES == TF.BWD_KERNELS_PER_CALL * cfg.num_layers
+    _assert_close(gl.cpu(), wl, 1e-5)
+    for w, g in zip(adamw.tree_leaves(wg), adamw.tree_leaves(gg)):
+        top = w.abs().max().item()
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4 * top, rtol=0)
+    opt = adamw.OptConfig()
+    cstate = {"params": cpu, "opt": adamw.init(cpu)}
+    gstate = {"params": dev, "opt": adamw.init(dev)}
+    ptrs = [t.data_ptr() for t in adamw.tree_leaves(gstate)]
+    cstate, cm = TS.train_step(cfg, opt, cstate, batch)
+    gstate, gm = TS.train_step(cfg, opt, gstate, gbatch)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in adamw.tree_leaves(gstate)] == ptrs
+    for k in ("loss", "grad_norm", "lr"):
+        _assert_close(gm[k].cpu(), cm[k], 1e-5)
+    for w, g in zip(adamw.tree_leaves(cstate), adamw.tree_leaves(gstate)):
+        _assert_close(g.cpu(), w, 1e-5)
+
+
+def test_wkv_refuses_to_train_on_the_card(card):
+    """RWKV's chunked WKV has no backward kernel yet: a loss under grad on
+    the card raises rather than drop the gradient; the same loss under
+    no_grad runs the kernel."""
+    from repro_torch.kernels import wkv_chunk as TW
+    from repro_torch.train import steps as TS
+    cfg, _, dev = _model("rwkv6-1.6b")
+    batch = {k: v.cuda() for k, v in _train_batch(cfg, 128, 16).items()}
+    TW.reset_launches()
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        TS.value_and_grad(cfg, dev, batch, remat=False)
+    assert TW.LAUNCHES == 0
+    with torch.no_grad():
+        loss, _ = TS.loss_fn(cfg, dev, batch, remat=False)
+    assert TW.LAUNCHES == TW.KERNELS_PER_CALL * cfg.num_layers
+    assert torch.isfinite(loss)

@@ -225,12 +225,18 @@ def test_launch_serve_on_the_cpu(capsys):
     assert "seq1:" in text
 
 
-def test_launch_serve_refuses_ckpt_and_needs_a_card(monkeypatch, capsys):
-    """``--ckpt`` is not offered yet; without ``--device`` it runs on the
-    card and raises without one."""
-    with pytest.raises(SystemExit):
-        launch_serve.main(["--arch", "yi-6b", "--reduced", "--ckpt", "x"])
-    assert "unrecognized arguments: --ckpt" in capsys.readouterr().err
+def test_launch_serve_refuses_ckpt_and_needs_a_card(monkeypatch, tmp_path):
+    """``--ckpt`` refuses a checkpoint of another arch (its keys differ
+    from the state's); without ``--device`` it runs on the card and
+    raises without one."""
+    from repro_torch.checkpoint import store
+    from repro_torch.train import steps as TS
+    other = TS.init_state(reduced(tconfigs, "tiny qwen"),
+                          torch.Generator().manual_seed(0), device="cpu")
+    path = store.save(str(tmp_path / "qwen.npz"), other)
+    with pytest.raises(ValueError, match="checkpoint keys mismatch"):
+        launch_serve.main(["--arch", "yi-6b", "--reduced", "--device",
+                           "cpu", "--ckpt", path])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--arch", "yi-6b", "--reduced"])

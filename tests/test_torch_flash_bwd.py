@@ -1,0 +1,214 @@
+"""The flash-attention backward on the CPU: ``flash_backward_plain`` (the
+recomputation the card's ``csrc/flash_attention_bwd.cu`` runs) against
+``torch.autograd`` of ``flash_plain`` and ``jax.vjp`` of the reference's
+oracle ``repro.kernels.ref.attention``; the ``FlashAttention`` Function's
+gradients; the backward's two grids through their Python mirror
+(``bwd_tile_walk``); and one training step on the flash route (S = 2112)
+whose attention-projection gradients match the reference's.
+
+Inputs are made with numpy from seeds and cross the packages as arrays.
+"""
+import dataclasses
+import pathlib
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as rconfigs
+from repro.kernels import ref as RREF
+from repro.models import transformer as RT
+from repro.train import steps as RS
+
+from repro_torch import configs as tconfigs
+from repro_torch.kernels import flash_attention as TF
+from repro_torch.kernels import ops as TO
+from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TT
+from repro_torch.train import steps as TS
+
+#: (atol, rtol) of the gradients, both scaled by the largest entry of the
+#: gradient held against: f32 1e-4 (sums in other orders); bf16 the
+#: rounding of bf16 inputs and outputs of a float32 computation
+TOL = {"f32": (1e-4, 0.0), "bf16": (2e-2, 2e-2)}
+_TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+#: causal S = T at every length and width, causal T > S and non-causal
+SHAPES = ([(n, n, 2, d, True) for n in (64, 130, 256) for d in (32, 64, 128)]
+          + [(64, 200, 2, 32, True), (130, 256, 3, 128, True),
+             (130, 96, 2, 64, False), (256, 256, 1, 32, False)])
+
+
+def _inputs(s, t, h, d, dt, seed):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((s, h, d), (t, h, d), (t, h, d), (s, h, d))]
+    if dt == "bf16":  # values bf16 holds exactly, for both packages
+        arrs = [torch.from_numpy(a).bfloat16().float().numpy() for a in arrs]
+    return arrs
+
+
+def _hold(got, want, dt, label=""):
+    atol, rtol = TOL[dt]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = np.asarray(g, np.float32), np.asarray(w, np.float32)
+        np.testing.assert_allclose(g, w, rtol=rtol,
+                                   atol=atol * np.abs(w).max(),
+                                   err_msg=f"{label} {name}")
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("s,t,h,d,causal", SHAPES)
+def test_backward_plain_matches_autograd_and_the_reference(s, t, h, d,
+                                                           causal, dt):
+    q, k, v, do = _inputs(s, t, h, d, dt, s * 7 + t + d)
+    ty = _TYPES[dt]
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(ty) for a in (q, k, v, do))
+    out, lse = TF.flash_plain_lse(tq, tk, tv, causal)
+    got = TF.flash_backward_plain(tq, tk, tv, out, tdo, lse, causal)
+    assert [g.dtype for g in got] == [ty] * 3
+    # torch.autograd through the plain forward, in float32
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    y = TF.flash_plain(*leaves, causal)
+    auto = torch.autograd.grad(y, leaves, torch.from_numpy(do))
+    _hold([g.float() for g in got], auto, dt, "autograd")
+    # jax.vjp of the reference's oracle, in float32
+    _, vjp = jax.vjp(lambda a, b, c: RREF.attention(a, b, c, causal),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(do))
+    _hold([g.float() for g in got], ref, dt, "jax.vjp")
+
+
+def test_lse_is_the_rows_logsumexp():
+    q, k, v, _ = _inputs(130, 160, 2, 32, "f32", 3)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    _, lse = TF.flash_plain_lse(tq, tk, tv, True)
+    sc = torch.einsum("shd,thd->sht", tq.double(), tk.double()) / 32 ** 0.5
+    mask = torch.arange(160)[None, :] <= torch.arange(130)[:, None] + 30
+    sc = sc.masked_fill(~mask[:, None, :], -float("inf"))
+    torch.testing.assert_close(lse.double(), torch.logsumexp(sc, -1),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_function_gradients_on_the_cpu(causal):
+    """``ops.flash_attention`` with inputs that require grad goes through
+    ``FlashAttention``: its gradients are ``flash_backward_plain``'s on
+    its own output and lse, and match autograd of the plain version."""
+    q, k, v, do = _inputs(96, 128, 2, 64, "f32", 5)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    y = TO.flash_attention(*leaves, causal=causal, device="cpu")
+    assert y.grad_fn is not None and "FlashAttention" in type(
+        y.grad_fn).__name__
+    got = torch.autograd.grad(y, leaves, torch.from_numpy(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = TF.flash_plain_lse(tq, tk, tv, causal)
+    want = TF.flash_backward_plain(tq, tk, tv, out, tdo, lse, causal)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with torch.no_grad():
+        assert TO.flash_attention(*leaves, causal=causal,
+                                  device="cpu").grad_fn is None
+
+
+def test_backward_refuses_causal_rows_that_see_no_key():
+    q, k, v, _ = _inputs(64, 32, 2, 32, "f32", 6)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    with pytest.raises(ValueError, match="T >= S"):
+        TF.flash_attention_kernel(*leaves, True)
+    with torch.no_grad():  # the forward alone still takes T < S
+        TF.flash_attention_kernel(*leaves, True)
+
+
+@pytest.mark.parametrize("s,t,causal", [
+    (64, 64, True), (130, 130, True), (100, 260, True), (200, 77, False),
+    (4096, 4096, True), (1, 300, True), (257, 257, False)])
+def test_bwd_tile_walk_visits_every_pair_once(s, t, causal):
+    """Brute force over (query, key) pairs: each grid of the backward
+    covers every pair a row sees exactly once a head, and its walked
+    tiles hold no pair outside the sequences; the dQ grid launches the
+    heaviest tiles first, the dK/dV grid the first key tiles first."""
+    h = 2
+    dq, dkv = TF.bwd_tile_walk(s, t, h, causal)
+    seen = np.zeros((s, t), bool)
+    if causal:
+        seen = np.arange(t)[None, :] <= np.arange(s)[:, None] + (t - s)
+    else:
+        seen[:] = True
+    for grid, name in ((dq, "dq"), (dkv, "dkv")):
+        count = np.zeros((h, s, t), np.int32)
+        for cta in grid:
+            if name == "dq":
+                head, q0, q1, tiles = cta
+                k0, k1 = 0, min(tiles * TF.BWD_TILE_K, t)
+            else:
+                head, k0, k1, first, last = cta
+                q0, q1 = first * TF.BWD_TILE_Q, min(last * TF.BWD_TILE_Q, s)
+            count[head, q0:q1, k0:k1] += 1
+        assert ((count == 1) | ~seen[None]).all(), name
+        assert (count <= 1).all(), name
+        assert len(grid) == h * -(-(s if name == "dq" else t)
+                                  // TF.BWD_TILE_Q)
+    work = [c[3] for c in dq[::h]]
+    assert work == sorted(work, reverse=True)
+    assert [c[1] for c in dkv[::h]] == sorted(c[1] for c in dkv[::h])
+    src = (pathlib.Path(TF.__file__).parent / "csrc" /
+           "flash_attention_bwd.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert (TF.BWD_TILE_Q, TF.BWD_TILE_K) == (const("BQ"), const("BK"))
+
+
+def _tiny(case="qwen2.5-3b", **kw):
+    """The reference's and the port's tiny configs (tests/test_system.py's
+    tiny_cfg), float32."""
+    out = []
+    for m in (rconfigs, tconfigs):
+        r = m.get_arch(case).reduced()
+        out.append(dataclasses.replace(r, vocab_size=128, d_ff=128,
+                                       num_heads=2, num_kv_heads=1,
+                                       d_model=64, head_dim=32, **kw))
+    return out
+
+
+def test_flash_route_step_gives_the_attention_projections_grads():
+    """One loss at S = 2112, past ``FLASH_THRESHOLD``: the port's
+    attention runs ``ops.flash_attention`` (the kernel's route; its plain
+    version here) under autograd, and wq, wk, wv with their biases get
+    gradients equal to the reference's (blockwise attention through XLA)
+    within 1e-4, none of them zero."""
+    rcfg, tcfg = _tiny(num_layers=1)
+    s = 2112
+    assert s > TL.FLASH_THRESHOLD
+    rp = RT.init_params(rcfg, jax.random.PRNGKey(4))
+    tp = TT.params_from_reference(jax.device_get(rp), device="cpu")
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, rcfg.vocab_size, (1, s + 1)).astype(np.int32)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    (rl, _), rg = jax.value_and_grad(
+        lambda p: RS.loss_fn(rcfg, p, batch, remat=False), has_aux=True)(rp)
+    calls = []
+    real = TO.flash_attention
+
+    def counted(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TO, "flash_attention", counted)
+        (tl, _), tg = TS.value_and_grad(
+            tcfg, tp, {k: torch.as_tensor(v) for k, v in batch.items()},
+            remat=False)
+    assert len(calls) == 1
+    np.testing.assert_allclose(float(tl), float(rl), rtol=1e-5)
+    for name in ("wq", "wk", "wv"):
+        for leaf in ("w", "b"):
+            got = tg["blocks"]["attn"][name][leaf].numpy()
+            want = np.asarray(rg["blocks"]["attn"][name][leaf])
+            assert np.abs(got).max() > 0, (name, leaf)
+            np.testing.assert_allclose(got, want, rtol=1e-4,
+                                       atol=1e-4 * np.abs(want).max(),
+                                       err_msg=f"{name}/{leaf}")

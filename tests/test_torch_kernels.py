@@ -400,19 +400,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 def test_each_standalone_kernel_has_a_source_a_counter_and_a_plain_version():
     """Every entry with a signature of its own is a source in csrc/ and a
     module with a launch counter and a plain version; on the CPU the
-    wrappers run the plain version and count nothing."""
-    modules = {"rmsnorm_inplace": (TR, TR.rmsnorm_plain),
-               "flash_attention": (TF, TF.flash_plain),
-               "wkv_chunk": (TW, TW.wkv_plain)}
+    wrappers run the plain version and count nothing (the flash backward
+    too, under autograd)."""
+    modules = {"rmsnorm_inplace": (TR, "LAUNCHES", TR.rmsnorm_plain),
+               "flash_attention": (TF, "LAUNCHES", TF.flash_plain),
+               "flash_attention_bwd": (TF, "BWD_LAUNCHES",
+                                       TF.flash_backward_plain),
+               "wkv_chunk": (TW, "LAUNCHES", TW.wkv_plain)}
     assert set(build.ARGTYPES_OF) == set(modules) <= set(build.KERNELS)
-    for mod, plain in modules.values():
+    for mod, counter, plain in modules.values():
         mod.reset_launches()
-        assert mod.LAUNCHES == 0 and callable(plain)
+        assert getattr(mod, counter) == 0 and callable(plain)
     TO.rmsnorm_residual(np.ones((2, 8), np.float32), np.ones(8, np.float32),
                         np.ones((2, 8), np.float32), device="cpu")
     q = np.ones((16, 1, 16), np.float32)
     TO.flash_attention(q, q, q, device="cpu")
+    qg = torch.ones((16, 1, 16), requires_grad=True)
+    TO.flash_attention(qg, qg, qg, device="cpu").sum().backward()
+    assert qg.grad is not None
     r = np.ones((1, 16, 1, 8), np.float32)
     TW.wkv_chunk_kernel(r, r, r, -r, np.ones((1, 8), np.float32), q=16,
                         device="cpu")
-    assert [m.LAUNCHES for m, _ in modules.values()] == [0, 0, 0]
+    assert [getattr(m, c) for m, c, _ in modules.values()] == [0, 0, 0, 0]
