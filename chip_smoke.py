@@ -130,7 +130,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    dv against ``flash_backward_plain`` on the forward's own output and
    lse (``FLASH_BWD_TOL``), a second call bit-equal, timed beside its
    plain version, its bound (the backward's five products) and SDPA's
-   backward (a timed ``torch.autograd.grad`` minus its forward);
+   backward (a timed ``torch.autograd.grad`` minus its forward); then
+   the WKV backward (``csrc/wkv_chunk_bwd.cu``, four launches a call):
+   no stack frame or spills in its four kernels, on ``WKV_CASES``,
+   strong decays and unaligned inputs against ``wkv_backward_plain``
+   (``WKV_BWD_TOL``), then ``wkv_chunk_kernel`` under autograd once at
+   ``WKV_FULL`` with the counts reset just before (three forward and
+   four backward launches), its dr, dk, dv, dlogw, du against the plain
+   version, a second call bit-equal, timed beside the plain version and
+   its bound (``wkv_bwd_cost``; no PyTorch call computes it);
 10b. runs the plan-routed serving runtime on the card (``serve`` phase):
    ``PlanServer`` with no device, so each flush is one batch variant's
    flat arena program through the kernels. Server A: the flagship int8
@@ -190,9 +198,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    layers at full width in f32 over 4096 tokens, every gradient leaf of
    the loss on the kernels within ``TRAIN_GRAD_TOL`` of the same loss
    with attention from ``flash_plain_lse`` and ``flash_backward_plain``
-   called directly (``plain_attention``), wq, wk, wv non-zero; and the
-   refusal: ``rwkv6-1.6b`` (2 layers, 256 tokens) under grad on the card
-   raises, the WKV kernel having no backward yet. ``[train]`` lines;
+   called directly (``plain_attention``), wq, wk, wv non-zero. Then RWKV:
+   the same gradient check on ``rwkv6-1.6b`` (2 f32 layers, 4096
+   tokens; six forward and four backward WKV launches a layer, against
+   the WKV from ``wkv_plain`` and ``wkv_backward_plain`` called directly,
+   ``plain_wkv``; wr, wk, wv, wd and u non-zero), then ``rwkv6-1.6b`` at
+   full width in bf16 (24 layers, d 2048, 32 WKV heads of 64) with the
+   same batch, microbatches, remat and steps: 288 forward and 192
+   backward WKV launches a step (``csrc/wkv_chunk_bwd.cu``, four a
+   call), step ms, tokens/s, peak against the state's bytes, the WKV
+   forward and backward device ms a step and layer 0's calls against
+   their plain versions. Every train run also logs the step's model
+   FLOPs (``repro_torch.roofline.model_flops_for``) and their share of
+   the bf16 peak at the step's ms. ``[train]`` lines;
 11. times with CUDA events, after a warm-up, every kernel per forward of the
    path that runs it (``resnet_50_v2`` f32 for conv, pool, elementwise and
    the head; ``densenet_121`` for concat, flat, blocked and staged in the
@@ -227,8 +245,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     ``kernels`` JSON line (a ``[blocks]`` line per kernel for the
     row-blocked program, the three streaming kernels, a ``dmo_dwconv2d``
     line, the three standalone kernels, ``flash_attention_bwd`` and
-    ``flash_attention`` and ``wkv_chunk`` on the models' prefill and
-    ``flash_attention`` and ``flash_attention_bwd`` in the train step),
+    ``wkv_chunk_bwd``, ``flash_attention`` and ``wkv_chunk`` on the
+    models' prefill, ``flash_attention`` and ``flash_attention_bwd`` in
+    qwen's train step and ``wkv_chunk`` and ``wkv_chunk_bwd`` in rwkv's),
     the card line, and as its last line the device JSON.
 
 Any failed check raises and the script exits non-zero. It exits 2, printing
@@ -300,11 +319,15 @@ KERNELS = {
                             "src/repro/kernels/flash_attention.py:59"),
     "wkv_chunk": (CSRC + "wkv_chunk.cu",
                   "src/repro/kernels/wkv_chunk.py:67"),
+    # the backward of row 15, which the TPU kernel never had (the
+    # reference trains RWKV through its chunked form in XLA)
+    "wkv_chunk_bwd": (CSRC + "wkv_chunk_bwd.cu",
+                      "src/repro/kernels/wkv_chunk.py:67"),
 }
 #: the standalone kernels, each reached through its own entry point
 STANDALONE = ("rmsnorm_inplace", "flash_attention", "wkv_chunk")
 #: the kernels only training reaches (through autograd)
-TRAIN_KERNELS = ("flash_attention_bwd",)
+TRAIN_KERNELS = ("flash_attention_bwd", "wkv_chunk_bwd")
 #: the kernels of the streaming program, and the path each one's line in
 #: the ``kernels`` JSON is measured on
 STREAM_KERNEL_PATH = {"arena_stream_roll": "resnet_50_v2",
@@ -401,8 +424,16 @@ TRAIN_STEPS = 3
 #: entry (the kernels sum in other orders; 2 layers of float32)
 TRAIN_CHECK = (2, 4096)
 TRAIN_GRAD_TOL = (2e-4, 1e-3)
-#: the refusal check: rwkv6-1.6b with 2 layers, 256 tokens (chunked WKV)
-REFUSE_ARCH = ("rwkv6-1.6b", 2, 256)
+#: RWKV's training: rwkv6-1.6b at full width in bf16 with TRAIN_BATCH in
+#: the default microbatches and remat, TRAIN_STEPS steps; its gradient
+#: check, 2 float32 layers over 4096 tokens, against the same loss with
+#: the WKV from its plain versions (``plain_wkv``), TRAIN_GRAD_TOL
+RWKV_TRAIN_ARCH = "rwkv6-1.6b"
+RWKV_CHECK = (2, 4096)
+#: the WKV backward's limit against wkv_backward_plain, (atol, rtol) with
+#: atol scaled by the plain version's largest entry of each gradient: the
+#: forward's STANDALONE_TOL (sums in other orders, exps by exp2f)
+WKV_BWD_TOL = (3e-4, 3e-4)
 
 #: the serve phase: the flagship's batch variants and their arena peaks (the
 #: port's compile), Server B's budget, and the closed loop's requests: 64
@@ -1016,6 +1047,43 @@ def wkv_cost(b: int, s: int, h: int, d: int, q: int):
     return nbytes, b * h * (s // q) * per_chunk, F32_OPS_S
 
 
+def wkv_bwd_cost(b: int, s: int, h: int, d: int, q: int,
+                 state_grad: bool = True):
+    """(bytes, operations, rate) of the chunked WKV's backward, f32: r, k,
+    v, logw, dy, u and the state's gradient (where there is one) read
+    once, dr, dk, dv, dlogw and du written once. Operations per chunk,
+    each exp counted as one, once each however the kernel repeats them,
+    with att, dr and dk cut into sub-chunks of 16 steps as
+    :func:`wkv_cost` cuts att: inside one sub-chunk, per pair j < t, 5·D
+    for att (difference, exp, two products, sum) and 3·D each for dr and
+    dk (the decay shared with att); below the sub-chunks 2·D per pair
+    each for att (r~ k~^T), dr (datt k~) and dk (datt^T r~), with the
+    factors r~ and k~ as :func:`wkv_cost` counts them, D a step to carry
+    dr~ back through r~'s factor and 2·D per row before each later
+    sub-chunk to carry dk~ back through k~'s. Per step and per chunk as
+    the kernel's phases need: the states' part (r 2^lwp, a D x D product,
+    3·D + 2·D·D a step; the reverse scan, 2·D·D); 3·D a step for u in
+    att and datt (2·D per pair j <= t); dv (2·D per pair j <= t, 2·D·D
+    + 3·D a step for k's decay and G_c); dr and dk's state part, decay
+    and u (2·D·D + 5·D and 2·D·D + 6·D a step); dlogw (6·D a step, 2·D·D
+    for the state's decay); du (3·D a step)."""
+    starts = range(0, q, 16)
+    lens = [min(16, q - s0) for s0 in starts]
+    pairs_in = sum(n * (n - 1) // 2 for n in lens)
+    pairs_lt, pairs_le = q * (q - 1) // 2, q * (q + 1) // 2
+    later = q - lens[0]                          # steps past sub-chunk 0
+    factors = (3 * d * later + 2 * d * lens[0]   # r~
+               + 3 * d * sum(starts)             # k~
+               + d * later                       # dr~ back through r~
+               + 2 * d * sum(starts))            # dk~ back through k~
+    per_chunk = (11 * d * pairs_in + 6 * d * (pairs_lt - pairs_in)
+                 + factors + 4 * d * pairs_le
+                 + q * (8 * d * d + 29 * d) + 4 * d * d)
+    nbytes = 4 * (9 * b * s * h * d + 2 * h * d
+                  + state_grad * b * h * d * d)
+    return nbytes, b * h * (s // q) * per_chunk, F32_OPS_S
+
+
 def cost_ms(cost) -> float:
     nbytes, ops, rate = cost
     return 1e3 * max(nbytes / HBM_BYTES_S, ops / rate)
@@ -1616,14 +1684,44 @@ def close_err(torch, got, want, tol, label: str) -> float:
     return err
 
 
-def grads_close(torch, got, want, tol, label: str) -> float:
-    """The backward's (dq, dk, dv) against the plain version's, each
-    within ``(atol, rtol)`` with atol scaled by the largest entry of the
-    plain version's tensor. Returns the largest |error|."""
+def grads_close(torch, got, want, tol, label: str,
+                names=("dq", "dk", "dv")) -> float:
+    """A backward's gradients (the flash backward's dq, dk, dv) against
+    the plain version's, each within ``(atol, rtol)`` with atol scaled by
+    the largest entry of the plain version's tensor. Returns the largest
+    |error|."""
     atol, rtol = tol
     return max(close_err(torch, g, w, (atol * w.float().abs().max().item(),
                                        rtol), f"{label} {name}")
-               for name, g, w in zip(("dq", "dk", "dv"), got, want))
+               for name, g, w in zip(names, got, want))
+
+
+#: the WKV backward's gradients, in its return order
+WKV_GRADS = ("dr", "dk", "dv", "dlogw", "du")
+
+
+def plain_wkv(torch):
+    """``wkv_chunk.wkv_chunk_kernel``'s signature with the WKV from the
+    plain versions called directly: the forward ``wkv_plain``, the
+    backward ``wkv_backward_plain``. The train phase's RWKV gradient check
+    puts it in the model's place for one loss."""
+    from repro_torch.kernels import wkv_chunk as TW
+
+    class PlainWkv(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, r, k, v, logw, u, q):
+            ctx.save_for_backward(r, k, v, logw, u)
+            ctx.q = q
+            return TW.wkv_plain(r, k, v, logw, u, q)
+
+        @staticmethod
+        def backward(ctx, dy, dstate):
+            return (*TW.wkv_backward_plain(*ctx.saved_tensors, dy, dstate,
+                                           ctx.q), None)
+
+    def wkv(r, k, v, logw, u, q=64, device=None):
+        return PlainWkv.apply(r, k, v, logw, u, q)
+    return wkv
 
 
 def plain_attention(torch):
@@ -1731,6 +1829,95 @@ def flash_bwd_standalone(torch, F, normal) -> tuple:
     log(f"[standalone] flash backward at full width: launches {launches}, "
         f"against plain {json.dumps(errs)}, a second call bit-equal; "
         f"times (ms) {json.dumps(timing)}")
+    return row, section
+
+
+def wkv_bwd_standalone(torch, normal, wkv_inputs, one_float_in) -> tuple:
+    """The standalone phase's WKV backward row: no stack frame or spills
+    in its four kernels (``-Xptxas -v``); on ``WKV_CASES``, strong decays
+    and inputs one float into their storage (no state gradient there),
+    ``wkv_backward_kernel`` on the forward kernel's workspace against
+    ``wkv_backward_plain`` (``WKV_BWD_TOL``). The main path at full width
+    (``WKV_FULL``): ``wkv_chunk_kernel`` under autograd once, the counts
+    reset just before (three forward and four backward launches), its
+    gradients for a random dy and state gradient against the plain
+    version, a second call bit-equal, and its device ms beside the plain
+    version and its bound (no PyTorch call computes it). Returns (row,
+    section)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import wkv_chunk as TW
+    res = build.ptxas_resources("wkv_chunk_bwd")
+    check(len(res) >= TW.BWD_KERNELS_PER_CALL,
+          f"wkv_chunk_bwd: {len(res)} entry functions in the ptxas report")
+    for fn, r in res.items():
+        check(r["stack"] == r["spill_stores"] == r["spill_loads"] == 0
+              and r["registers"] > 0, f"wkv_chunk_bwd {fn}: {r}")
+    log(f"[standalone] wkv_chunk_bwd ptxas: {json.dumps(res)}")
+    err = 0.0
+    for (s, h, d, qc), shift, skew in (
+            [(c, 0.0, False) for c in WKV_CASES]
+            + [(c, 3.0, False) for c in WKV_STRONG]
+            + [(c, 0.0, True) for c in WKV_UNALIGNED]):
+        r, k, v, logw, _, u = wkv_inputs(2, s, h, d, shift)
+        dy, dst = normal(2, s, h, d), None if skew else normal(2, h, d, d)
+        if skew:
+            r, k, v, logw, dy = (one_float_in(t) for t in (r, k, v, logw, dy))
+            check(r.data_ptr() % 16 != 0, "wkv: the skewed input is aligned")
+        _, _, ws = TW.wkv_forward_saved(r, k, v, logw, u, qc)
+        got = TW.wkv_backward_kernel(r, k, v, logw, u, dy, dst, qc, ws)
+        label = (f"wkv backward (2, {s}, {h}, {d}, q={qc}"
+                 f"{', strong decay' if shift else ''}"
+                 f"{', one float into storage, no state gradient' if skew else ''})")
+        err = max(err, grads_close(
+            torch, got, TW.wkv_backward_plain(r, k, v, logw, u, dy, dst, qc),
+            WKV_BWD_TOL, label, WKV_GRADS))
+    wb, sq, wh, wd, wq = WKV_FULL
+    r, k, v, logw, _, u = wkv_inputs(wb, sq, wh, wd)
+    dy, dst = normal(wb, sq, wh, wd), normal(wb, wh, wd, wd)
+    torch.cuda.synchronize()
+    TW.reset_launches()
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, logw, u)]
+    y, st = TW.wkv_chunk_kernel(*leaves, q=wq)
+    grads = torch.autograd.grad((y, st), leaves, (dy, dst))
+    torch.cuda.synchronize()
+    launches = {"wkv_chunk": TW.LAUNCHES, "wkv_chunk_bwd": TW.BWD_LAUNCHES}
+    check(launches == {"wkv_chunk": TW.KERNELS_PER_CALL,
+                       "wkv_chunk_bwd": TW.BWD_KERNELS_PER_CALL},
+          f"wkv backward full width: launches {launches}")
+    del leaves, y, st
+    full_err = grads_close(
+        torch, grads, TW.wkv_backward_plain(r, k, v, logw, u, dy, dst, wq),
+        WKV_BWD_TOL, "wkv backward full width", WKV_GRADS)
+    _, _, saved = TW.wkv_forward_saved(r, k, v, logw, u, wq)
+    again = TW.wkv_backward_kernel(r, k, v, logw, u, dy, dst, wq, saved)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(again, grads)),
+          "wkv backward full width: a second call is not bit-equal to the "
+          "first")
+    del again, grads
+    cost = wkv_bwd_cost(wb, sq, wh, wd, wq)
+    timing = {
+        "ms": time_auto(torch, lambda: TW.wkv_backward_kernel(
+            r, k, v, logw, u, dy, dst, wq, saved)),
+        "plain_ms": time_ms(torch, lambda: TW.wkv_backward_plain(
+            r, k, v, logw, u, dy, dst, wq), 1),
+        "library_ms": None, "bound_ms": cost_ms(cost),
+        "bound_by": cost_by(cost)}
+    source, replaces = KERNELS["wkv_chunk_bwd"]
+    row = {"name": "wkv_chunk_bwd", "route": "cuda", "source": source,
+           "replaces": replaces,
+           "path": f"rwkv6-1.6b width: B {wb}, S {sq}, {wh} heads of {wd}, "
+                   f"q {wq}, f32; the backward of wkv_chunk_kernel under "
+                   f"autograd, {TW.BWD_KERNELS_PER_CALL} launches a call",
+           "launches": launches["wkv_chunk_bwd"],
+           "max_abs_err": max(err, full_err), **timing}
+    section = {"launches": launches,
+               "errors": {"reference_shapes": err, "full_width": full_err},
+               "times": timing, "ptxas": res, "bit_equal_repeat": True,
+               "workspace_bytes": 4 * TW.workspace_floats(wb, sq, wh, wd,
+                                                          wq)}
+    log(f"[standalone] wkv backward: launches {launches}, against plain "
+        f"{json.dumps(section['errors'])}, a second call bit-equal; times "
+        f"(ms) {json.dumps(timing)}")
     return row, section
 
 
@@ -1915,8 +2102,10 @@ class KernelCalls:
     """Wraps the model path's kernel entry points for one pass
     (``kernels.ops.flash_attention``, which ``models/layers.py`` calls,
     ``kernels.wkv_chunk.wkv_chunk_kernel``, which ``models/ssm.py``
-    calls, and ``kernels.flash_attention.flash_backward_kernel``, which
-    the ``FlashAttention`` Function's backward calls): keeps the first
+    calls, ``kernels.flash_attention.flash_backward_kernel``, which
+    the ``FlashAttention`` Function's backward calls, and
+    ``kernels.wkv_chunk.wkv_backward_kernel``, which ``WkvChunk``'s
+    backward calls): keeps the first
     call's inputs and outputs (layer 0's in a forward) and the last's
     (layer 0's in a backward) and, with ``timed``, CUDA events around
     every call. The kernels' own launch counters are untouched."""
@@ -1929,7 +2118,8 @@ class KernelCalls:
         #: kernel name -> (module, entry point)
         self.mods = {"flash_attention": (TO, "flash_attention"),
                      "wkv_chunk": (TW, "wkv_chunk_kernel"),
-                     "flash_attention_bwd": (TF, "flash_backward_kernel")}
+                     "flash_attention_bwd": (TF, "flash_backward_kernel"),
+                     "wkv_chunk_bwd": (TW, "wkv_backward_kernel")}
         self.first, self.last, self.events = {}, {}, {}
 
     def _wrap(self, name, fn):
@@ -2247,31 +2437,36 @@ def models_phase(torch, F) -> tuple:
     return rows, out
 
 
-def train_phase(torch, F) -> tuple:
-    """Phase 10d of the module docstring: training at full width. Returns
-    the training path's rows of the ``kernels`` line and the ``train``
-    section of ``build/chip_smoke.json``."""
+def train_steps(torch, arch: str, seed: int, want: dict, timed) -> tuple:
+    """``TRAIN_STEPS`` ``make_train_step`` steps of ``arch`` at full width
+    in bf16 on weights drawn from ``seed``, ``TRAIN_BATCH`` of the port's
+    ``SyntheticCorpus`` in ``default_microbatches`` (2) with remat, each
+    with the launch counts reset just before and read just after: finite
+    losses and grad norms, ``want`` launches a step (kernel for kernel),
+    every param, m and v leaf in its storage after each update, the
+    update's peak rise under the largest leaf's f32 bytes (step 0);
+    step ms (CUDA events), each step's host wall and allocator counts
+    (cudaMalloc calls, retries), tokens/s, the device ms a step of the
+    kernels named in ``timed`` (``KernelCalls``, steps 1 on), the update's ms, the
+    step's peak against the state's bytes, and the step's model FLOPs
+    (``roofline.model_flops_for``) with their share of the bf16 peak.
+    Returns (the record, the last step's ``KernelCalls``)."""
+    from repro_torch import roofline as RL
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
                                            shard_batch)
     from repro_torch.kernels import flash_attention as TF
-    from repro_torch.kernels import ops as TO
     from repro_torch.kernels import wkv_chunk as TW
-    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
     from repro_torch.optim import adamw
     from repro_torch.train import steps as TS
-    cfg = get_arch(TRAIN_ARCH)
+    cfg = get_arch(arch)
     b, s = TRAIN_BATCH
     mbs = TS.default_microbatches(cfg, b, s, 1)
-    check(mbs == 2, f"default_microbatches gives {mbs}, expected 2")
+    check(mbs == 2, f"{arch}: default_microbatches gives {mbs}, expected 2")
     opt = TS.opt_config_for(cfg)
-    # a step: each microbatch runs every layer's forward twice (remat) and
-    # one backward call a layer
-    want = {"flash_attention": 2 * cfg.num_layers * mbs,
-            "flash_attention_bwd": TF.BWD_KERNELS_PER_CALL * cfg.num_layers
-            * mbs}
     gen = torch.Generator(device="cuda")
-    state = TS.init_state(cfg, gen.manual_seed(0), opt)
+    state = TS.init_state(cfg, gen.manual_seed(seed), opt)
     parts = {"p": state["params"], "m": state["opt"]["m"],
              "v": state["opt"]["v"]}
     ptrs = {k: [t.data_ptr() for t in adamw.tree_leaves(v)]
@@ -2279,9 +2474,9 @@ def train_phase(torch, F) -> tuple:
     nbytes = {k: _tree_bytes(v) for k, v in parts.items()}
     largest = max(t.numel() for t in adamw.tree_leaves(state["params"]))
     data = SyntheticCorpus(DataConfig(cfg.vocab_size, s, b,
-                                      seed=29)).packed_batches()
+                                      seed=seed)).packed_batches()
     step = TS.make_train_step(cfg, opt, remat=True, microbatches=mbs)
-    rec = {"arch": TRAIN_ARCH, "batch": b, "seq": s, "microbatches": mbs,
+    rec = {"arch": arch, "batch": b, "seq": s, "microbatches": mbs,
            "remat": True, "steps": TRAIN_STEPS, "opt": dataclasses.asdict(
                opt), "state_bytes": nbytes,
            "largest_leaf_elements": largest, "launches_a_step": [],
@@ -2312,7 +2507,13 @@ def train_phase(torch, F) -> tuple:
         upd_events.append(ev)
         return out
 
-    timed = []
+    per_step = []
+    rec["allocator_a_step"] = []
+
+    def alloc_counts():
+        st = torch.cuda.memory_stats()
+        return {k: st.get(k, 0) for k in ("num_alloc_retries",
+                                          "num_device_alloc")}
     for i in range(TRAIN_STEPS):
         batch = shard_batch(next(data), "cuda")
         TF.reset_launches()
@@ -2321,6 +2522,7 @@ def train_phase(torch, F) -> tuple:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        a0 = alloc_counts()
         t0 = time.perf_counter()
         try:
             with KernelCalls(torch, timed=i > 0) as calls:
@@ -2332,43 +2534,157 @@ def train_phase(torch, F) -> tuple:
             adamw.update = real_update
         rec["step_wall_s"].append(time.perf_counter() - t0)
         rec["step_ms"].append(ev[0].elapsed_time(ev[1]))
+        rec["allocator_a_step"].append({k: v - a0[k] for k, v in
+                                        alloc_counts().items()})
         launches = {"flash_attention": TF.LAUNCHES,
                     "flash_attention_bwd": TF.BWD_LAUNCHES,
-                    "wkv_chunk": TW.LAUNCHES}
+                    "wkv_chunk": TW.LAUNCHES,
+                    "wkv_chunk_bwd": TW.BWD_LAUNCHES}
         rec["launches_a_step"].append(launches)
-        check(launches == dict(want, wkv_chunk=0),
-              f"train step {i}: launches {launches}, expected {want}")
+        check(launches == want,
+              f"{arch} train step {i}: launches {launches}, expected {want}")
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         rec["loss"].append(loss)
         rec["grad_norm"].append(gnorm)
         check(np.isfinite(loss) and np.isfinite(gnorm),
-              f"train step {i}: loss {loss}, grad norm {gnorm}")
+              f"{arch} train step {i}: loss {loss}, grad norm {gnorm}")
         check({k: [t.data_ptr() for t in adamw.tree_leaves(v)]
                for k, v in parts.items()} == ptrs,
-              f"train step {i}: a param, m or v leaf moved")
+              f"{arch} train step {i}: a param, m or v leaf moved")
         if i > 0:
-            timed.append({name: (calls.device_ms(name), calls.calls(name))
-                          for name in ("flash_attention",
-                                       "flash_attention_bwd")})
-        log(f"[train] step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
-            f"{rec['step_ms'][-1]:.1f} device ms (CUDA events), launches "
-            f"{json.dumps(launches)}")
-    check(int(state["opt"]["step"]) == TRAIN_STEPS, "the step count")
+            per_step.append({name: (calls.device_ms(name), calls.calls(name))
+                             for name in timed})
+        log(f"[train] {arch} step {i}: loss {loss:.4f}, grad norm "
+            f"{gnorm:.4f}, {rec['step_ms'][-1]:.1f} device ms (CUDA "
+            f"events), wall {rec['step_wall_s'][-1]:.3f} s, launches "
+            f"{json.dumps(launches)}, allocator "
+            f"{json.dumps(rec['allocator_a_step'][-1])}"
+            + (f", kernels (ms, calls) {json.dumps(per_step[-1])}"
+               if i > 0 else ""))
+    check(int(state["opt"]["step"]) == TRAIN_STEPS, f"{arch}: step count")
     check(mem["update_rise"] < 4 * largest,
-          f"the update's peak memory rose {mem['update_rise']} B, the "
-          f"largest leaf is {4 * largest} B in f32")
+          f"{arch}: the update's peak memory rose {mem['update_rise']} B, "
+          f"the largest leaf is {4 * largest} B in f32")
     rec.update(mem)
     rec["step_peak"] = max(mem["before_update_peak"], mem["update_peak"])
     rec["step_peak_over_state"] = rec["step_peak"] / sum(nbytes.values())
     step_ms = statistics.median(rec["step_ms"][1:])
     rec["step_ms_median"] = step_ms
     rec["tokens_s"] = 1e3 * b * s / step_ms
-    per = {name: statistics.median(t[name][0] for t in timed)
-           for name in ("flash_attention", "flash_attention_bwd")}
-    rec["kernel_ms_in_step"] = per
-    rec["kernel_calls_a_step"] = {name: timed[-1][name][1] for name in per}
+    rec["kernel_ms_in_step"] = {name: statistics.median(
+        t[name][0] for t in per_step) for name in timed}
+    rec["kernel_calls_a_step"] = {name: per_step[-1][name][1]
+                                  for name in timed}
+    rec["kernel_ms_each_step"] = per_step
     rec["update_ms"] = statistics.median(a.elapsed_time(z)
                                          for a, z in upd_events)
+    flops = RL.model_flops_for(cfg, ShapeConfig(f"{arch} train", s, b,
+                                                "train"))
+    rec["model_flops"] = flops
+    rec["model_flops_share_of_bf16_peak"] = flops / (step_ms * 1e-3) \
+        / BF16_OPS_S
+    log(f"[train] {arch} bf16 at full width, batch {b} x {s} in {mbs} "
+        f"microbatches, remat, {TRAIN_STEPS} steps: losses {rec['loss']}, "
+        f"grad norms {rec['grad_norm']}; step {step_ms:.1f} device ms "
+        f"(median of steps 1-{TRAIN_STEPS - 1}), {rec['tokens_s']:.0f} "
+        f"tokens/s; kernels a step (ms, calls) "
+        f"{json.dumps({n: (rec['kernel_ms_in_step'][n], rec['kernel_calls_a_step'][n]) for n in timed})}"
+        f", the update {rec['update_ms']:.1f} ms; the update's peak rise "
+        f"{mem['update_rise']} B (largest leaf {4 * largest} B in f32), the "
+        f"step's peak {rec['step_peak']} B against the state's "
+        f"{sum(nbytes.values())} B; p, m, v in place; model FLOPs of the "
+        f"step {flops:.4g} (roofline.model_flops_for), "
+        f"{100 * rec['model_flops_share_of_bf16_peak']:.1f} % of the bf16 "
+        f"peak at the step's ms")
+    del state, parts, m, batch
+    return rec, calls
+
+
+def grad_check(torch, arch: str, seed: int, route: tuple) -> dict:
+    """Every gradient leaf of a 2-layer float32 ``arch`` at full width over
+    4096 tokens (remat), the loss on the kernels against the same loss with
+    one kernel's entry point ``route`` = (module, name, plain stand-in,
+    launch counter names, launches of the kernel route) swapped for its
+    plain versions called directly, within ``TRAIN_GRAD_TOL`` (atol
+    scaled by the leaf's largest entry). Returns the record, with the
+    names of the leaves whose gradient is zero."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
+                                           shard_batch)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as TS
+    mod, name, stand_in, counters, want = route
+    layers, cs = TRAIN_CHECK
+    cfg = get_arch(arch)
+    cfg2 = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    params = T.init_params(cfg2, torch.Generator(device="cuda")
+                           .manual_seed(seed))
+    batch = shard_batch(next(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, cs, 1, seed=seed)).packed_batches()), "cuda")
+    leaves = adamw.tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+
+    def grads():
+        loss, _ = TS.loss_fn(cfg2, params, batch, remat=True)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def counts():
+        return tuple(getattr(m, c) for m, c in counters)
+    for m, _ in counters:
+        m.reset_launches()
+    kl, kg = grads()
+    torch.cuda.synchronize()
+    check(counts() == want, f"{arch} gradient check: launches {counts()}, "
+          f"expected {want}")
+    real = getattr(mod, name)
+    setattr(mod, name, stand_in)
+    try:
+        pl, pg = grads()
+    finally:
+        setattr(mod, name, real)
+    torch.cuda.synchronize()
+    check(counts() == want,
+          f"{arch} gradient check: the plain run launched a kernel")
+    atol, rtol = TRAIN_GRAD_TOL
+    errs = [close_err(torch, g, w, (atol * w.abs().max().item(), rtol),
+                      f"{arch} gradient check leaf {i}")
+            for i, (g, w) in enumerate(zip(kg, pg))]
+    names = _leaf_names(params)
+    rec = {"layers": layers, "tokens": cs, "loss": float(kl),
+           "plain_loss": float(pl), "max_abs_err": max(errs),
+           "leaves": len(errs), "tol": TRAIN_GRAD_TOL,
+           "zero": [n for n, g in zip(names, kg) if g.abs().max().item()
+                    == 0], "names": names}
+    log(f"[train] {arch} gradient check, {layers} layers in f32 at {cs} "
+        f"tokens: loss {float(kl):.6f} (plain {float(pl):.6f}); "
+        f"{len(errs)} gradient leaves within {max(errs):.3g} of the plain "
+        f"route's (limit {TRAIN_GRAD_TOL})")
+    del params, leaves, kg, pg, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_phase(torch, F) -> tuple:
+    """Phase 10d of the module docstring: training at full width. Returns
+    the training path's rows of the ``kernels`` line and the ``train``
+    section of ``build/chip_smoke.json``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import ops as TO
+    from repro_torch.kernels import wkv_chunk as TW
+    cfg = get_arch(TRAIN_ARCH)
+    # a step: each microbatch runs every layer's forward twice (remat) and
+    # one backward call a layer
+    mbs = 2
+    want = {"flash_attention": 2 * cfg.num_layers * mbs,
+            "flash_attention_bwd": TF.BWD_KERNELS_PER_CALL * cfg.num_layers
+            * mbs, "wkv_chunk": 0, "wkv_chunk_bwd": 0}
+    rec, calls = train_steps(torch, TRAIN_ARCH, 29,
+                             want, ("flash_attention", "flash_attention_bwd"))
+    b, s = TRAIN_BATCH
+    per, ncalls = rec["kernel_ms_in_step"], rec["kernel_calls_a_step"]
 
     # layer 0's calls of the last step against the plain versions
     q, k, v = calls.first["flash_attention"][0][:3]
@@ -2395,7 +2711,8 @@ def train_phase(torch, F) -> tuple:
     del qh, kh, vh
     path = (f"{TRAIN_ARCH} bf16 train step, batch {b} x {s} in {mbs} "
             f"microbatches, remat: B·H = {bh}, S = T = {sq}, D = {d}")
-    n_fwd, n_bwd = (rec["kernel_calls_a_step"][n] for n in per)
+    n_fwd, n_bwd = (ncalls[n] for n in ("flash_attention",
+                                        "flash_attention_bwd"))
     rows = [
         {"name": f"flash_attention [{TRAIN_ARCH} train]", "route": "cuda",
          "source": KERNELS["flash_attention"][0],
@@ -2406,7 +2723,10 @@ def train_phase(torch, F) -> tuple:
          "plain_ms": time_ms(torch, lambda: TF.flash_plain(
              q.detach(), k.detach(), v.detach(), True, 128, 128), 1),
          "bound_ms": cost_ms(fcost), "bound_by": cost_by(fcost),
-         "library_ms": fwd_lib, "step_device_ms": per["flash_attention"]},
+         "library_ms": fwd_lib, "step_device_ms": per["flash_attention"],
+         "model_flops": rec["model_flops"],
+         "model_flops_share_of_bf16_peak":
+             rec["model_flops_share_of_bf16_peak"]},
         {"name": f"flash_attention_bwd [{TRAIN_ARCH} train]",
          "route": "cuda", "source": KERNELS["flash_attention_bwd"][0],
          "replaces": KERNELS["flash_attention_bwd"][1],
@@ -2417,86 +2737,102 @@ def train_phase(torch, F) -> tuple:
              *bargs), 1),
          "bound_ms": cost_ms(bcost), "bound_by": cost_by(bcost),
          **sdpa_backward_ms(torch, F, *bargs[:3], bargs[4]),
-         "step_device_ms": per["flash_attention_bwd"]}]
-    log(f"[train] {TRAIN_ARCH} bf16 at full width, batch {b} x {s} in "
-        f"{mbs} microbatches, remat, {TRAIN_STEPS} steps: losses "
-        f"{rec['loss']}, grad norms {rec['grad_norm']}; step "
-        f"{step_ms:.1f} device ms (median of steps 1-{TRAIN_STEPS - 1}), "
-        f"{rec['tokens_s']:.0f} tokens/s; flash {per['flash_attention']:.1f}"
-        f" ms forward ({n_fwd} calls) and {per['flash_attention_bwd']:.1f} "
-        f"ms backward ({n_bwd} calls) a step, the update "
-        f"{rec['update_ms']:.1f} ms; the update's peak rise "
-        f"{mem['update_rise']} B (largest leaf {4 * largest} B in f32), the "
-        f"step's peak {rec['step_peak']} B against the state's "
-        f"{sum(nbytes.values())} B; p, m, v in place; layer 0 against "
-        f"plain {json.dumps(rec['layer0_errors'])}")
-    del state, parts, calls, m, batch, q, k, v, y, bargs, bout
+         "step_device_ms": per["flash_attention_bwd"],
+         "model_flops": rec["model_flops"],
+         "model_flops_share_of_bf16_peak":
+             rec["model_flops_share_of_bf16_peak"]}]
+    log(f"[train] {TRAIN_ARCH}: layer 0 against plain "
+        f"{json.dumps(rec['layer0_errors'])}")
+    del calls, q, k, v, y, bargs, bout
     torch.cuda.empty_cache()
 
     # the gradient check: 2 layers in float32, every leaf against the same
     # loss with attention from the plain versions
-    layers, cs = TRAIN_CHECK
-    cfg2 = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
-    params = T.init_params(cfg2, gen.manual_seed(1))
-    batch = shard_batch(next(SyntheticCorpus(DataConfig(
-        cfg.vocab_size, cs, 1, seed=30)).packed_batches()), "cuda")
-    leaves = adamw.tree_leaves(params)
-    for t in leaves:
-        t.requires_grad_()
-
-    def grads():
-        loss, _ = TS.loss_fn(cfg2, params, batch, remat=True)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
-    TF.reset_launches()
-    kl, kg = grads()
-    torch.cuda.synchronize()
-    check((TF.LAUNCHES, TF.BWD_LAUNCHES) == (2 * layers, 2 * layers),
-          f"gradient check: launches {TF.LAUNCHES}, {TF.BWD_LAUNCHES}")
-    real_attention = TO.flash_attention
-    TO.flash_attention = plain_attention(torch)
-    try:
-        pl, pg = grads()
-    finally:
-        TO.flash_attention = real_attention
-    torch.cuda.synchronize()
-    check((TF.LAUNCHES, TF.BWD_LAUNCHES) == (2 * layers, 2 * layers),
-          "gradient check: the plain run launched a kernel")
-    atol, rtol = TRAIN_GRAD_TOL
-    errs = [close_err(torch, g, w, (atol * w.abs().max().item(), rtol),
-                      f"gradient check leaf {i}")
-            for i, (g, w) in enumerate(zip(kg, pg))]
-    names = _leaf_names(params)
-    attn = [i for i, n in enumerate(names)
+    layers = TRAIN_CHECK[0]
+    gc = grad_check(torch, TRAIN_ARCH, 30, (
+        TO, "flash_attention", plain_attention(torch),
+        ((TF, "LAUNCHES"), (TF, "BWD_LAUNCHES")), (2 * layers, 2 * layers)))
+    attn = [n for n in gc["names"]
             if any(f"attn/{w}/" in n for w in ("wq", "wk", "wv"))]
-    check(len(attn) == 6 and all(kg[i].abs().max().item() > 0
-                                 for i in attn),
-          f"gradient check: {[names[i] for i in attn]} get no gradient")
-    rec["grad_check"] = {"layers": layers, "tokens": cs, "loss": float(kl),
-                         "plain_loss": float(pl), "max_abs_err": max(errs),
-                         "leaves": len(errs), "tol": TRAIN_GRAD_TOL}
-    log(f"[train] gradient check, {layers} layers in f32 at {cs} tokens: "
-        f"loss {float(kl):.6f} (plain attention {float(pl):.6f}); "
-        f"{len(errs)} gradient leaves within {max(errs):.3g} of the "
-        f"plain-attention loss's (limit {TRAIN_GRAD_TOL})")
-    del params, leaves, kg, pg, batch
-    torch.cuda.empty_cache()
+    check(len(attn) == 6 and not set(attn) & set(gc["zero"]),
+          f"gradient check: {attn} get no gradient")
+    rec["grad_check"] = {k: v for k, v in gc.items() if k != "names"}
 
-    # the refusal: RWKV's chunked WKV has no backward kernel yet
-    arch, layers, rs = REFUSE_ARCH
-    rcfg = dataclasses.replace(get_arch(arch), num_layers=layers)
-    params = T.init_params(rcfg, gen.manual_seed(2))
-    for t in adamw.tree_leaves(params):
-        t.requires_grad_()
-    batch = shard_batch(next(SyntheticCorpus(DataConfig(
-        rcfg.vocab_size, rs, 1, seed=31)).packed_batches()), "cuda")
-    TW.reset_launches()
-    rec["wkv_refusal"] = refused(lambda: TS.loss_fn(rcfg, params, batch),
-                                 f"{arch} loss under grad", RuntimeError)
-    check("no backward kernel" in rec["wkv_refusal"] and TW.LAUNCHES == 0,
-          f"{arch}: {rec['wkv_refusal']}")
-    log(f"[train] {arch} ({layers} layers, {rs} tokens) loss under grad on "
-        f"the card: refused ({rec['wkv_refusal'][:60]}...)")
-    del params, batch
+    # RWKV: its gradient check (2 float32 layers, the WKV from its plain
+    # versions), then training at full width in bf16
+    rwkv = get_arch(RWKV_TRAIN_ARCH)
+    layers = RWKV_CHECK[0]
+    gc = grad_check(torch, RWKV_TRAIN_ARCH, 31, (
+        TW, "wkv_chunk_kernel", plain_wkv(torch),
+        ((TW, "LAUNCHES"), (TW, "BWD_LAUNCHES")),
+        (2 * TW.KERNELS_PER_CALL * layers,
+         TW.BWD_KERNELS_PER_CALL * layers)))
+    mixes = [n for n in gc["names"] if any(
+        n.endswith(f"rwkv/{w}") for w in ("wr/w", "wk/w", "wv/w", "wd/w",
+                                          "u"))]
+    check(len(mixes) == 5 and not set(mixes) & set(gc["zero"]),
+          f"{RWKV_TRAIN_ARCH} gradient check: {mixes} (zero: {gc['zero']})")
+    rwant = {"flash_attention": 0, "flash_attention_bwd": 0,
+             "wkv_chunk": 2 * TW.KERNELS_PER_CALL * rwkv.num_layers * mbs,
+             "wkv_chunk_bwd": TW.BWD_KERNELS_PER_CALL * rwkv.num_layers
+             * mbs}
+    rrec, calls = train_steps(torch, RWKV_TRAIN_ARCH, 32, rwant,
+                              ("wkv_chunk", "wkv_chunk_bwd"))
+    rrec["grad_check"] = {k: v for k, v in gc.items() if k != "names"}
+    per, ncalls = rrec["kernel_ms_in_step"], rrec["kernel_calls_a_step"]
+    fargs, fkw, fout = calls.first["wkv_chunk"]
+    bargs, _, bout = calls.last["wkv_chunk_bwd"]
+    fargs = tuple(a.detach() for a in fargs)
+    with torch.no_grad():
+        y0, st0 = TW.wkv_plain(*fargs, fkw["q"])
+        fwd_err = max(close_err(torch, fout[0], y0, STANDALONE_TOL[
+            "wkv_chunk"], "rwkv train layer 0 y"), close_err(
+            torch, fout[1], st0, STANDALONE_TOL["wkv_chunk"],
+            "rwkv train layer 0 state"))
+        del y0, st0
+        bwd_err = grads_close(torch, bout, TW.wkv_backward_plain(
+            *bargs[:8]), WKV_BWD_TOL, "rwkv train layer 0 backward",
+            WKV_GRADS)
+    rrec["layer0_errors"] = {"wkv_chunk": fwd_err, "wkv_chunk_bwd": bwd_err}
+    wb, ws, wh, wd = fargs[0].shape
+    wq = fkw["q"]
+    fcost = wkv_cost(wb, ws, wh, wd, wq)
+    bcost = wkv_bwd_cost(wb, ws, wh, wd, wq, bargs[6] is not None)
+    path = (f"{RWKV_TRAIN_ARCH} bf16 train step (f32 inside the WKV), "
+            f"batch {b} x {s} in {mbs} microbatches, remat: B {wb}, S {ws}, "
+            f"{wh} heads of {wd}, q {wq}")
+    n_fwd, n_bwd = ncalls["wkv_chunk"], ncalls["wkv_chunk_bwd"]
+    rows += [
+        {"name": f"wkv_chunk [{RWKV_TRAIN_ARCH} train]", "route": "cuda",
+         "source": KERNELS["wkv_chunk"][0],
+         "replaces": KERNELS["wkv_chunk"][1],
+         "path": path + f"; {n_fwd} calls a step; every time one call's",
+         "launches": rwant["wkv_chunk"], "max_abs_err": fwd_err,
+         "ms": per["wkv_chunk"] / n_fwd,
+         "plain_ms": time_ms(torch, lambda: TW.wkv_plain(*fargs, wq), 1),
+         "bound_ms": cost_ms(fcost), "bound_by": cost_by(fcost),
+         "library_ms": None, "step_device_ms": per["wkv_chunk"],
+         "model_flops": rrec["model_flops"],
+         "model_flops_share_of_bf16_peak":
+             rrec["model_flops_share_of_bf16_peak"]},
+        {"name": f"wkv_chunk_bwd [{RWKV_TRAIN_ARCH} train]",
+         "route": "cuda", "source": KERNELS["wkv_chunk_bwd"][0],
+         "replaces": KERNELS["wkv_chunk_bwd"][1],
+         "path": path + f"; {n_bwd} calls a step; every time one call's",
+         "launches": rwant["wkv_chunk_bwd"], "max_abs_err": bwd_err,
+         "ms": per["wkv_chunk_bwd"] / n_bwd,
+         "plain_ms": time_ms(torch, lambda: TW.wkv_backward_plain(
+             *bargs[:8]), 1),
+         "bound_ms": cost_ms(bcost), "bound_by": cost_by(bcost),
+         "library_ms": None, "step_device_ms": per["wkv_chunk_bwd"],
+         "model_flops": rrec["model_flops"],
+         "model_flops_share_of_bf16_peak":
+             rrec["model_flops_share_of_bf16_peak"]}]
+    log(f"[train] {RWKV_TRAIN_ARCH}: layer 0 against plain "
+        f"{json.dumps(rrec['layer0_errors'])}; WKV backward "
+        f"{per['wkv_chunk_bwd']:.2f} ms a step ({n_bwd} calls)")
+    rec["rwkv"] = rrec
+    del calls, fargs, fout, bargs, bout
     torch.cuda.empty_cache()
     return rows, rec
 
@@ -2727,6 +3063,9 @@ def standalone_phase(torch, F):
     del rms_in, fl_in, wkv_in, wkv_args, xs
     row, section["flash_attention_bwd"] = flash_bwd_standalone(torch, F,
                                                                normal)
+    rows.append(row)
+    row, section["wkv_chunk_bwd"] = wkv_bwd_standalone(
+        torch, normal, wkv_inputs, one_float_in)
     rows.append(row)
     return rows, section
 

@@ -2677,8 +2677,9 @@ def _on_card(arena: torch.Tensor, spec: OpSpec, *tensors) -> bool:
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
-    for the CPU (``"cpu"``, the plain versions); None without a card
-    raises rather than fall back."""
+    for the CPU (``"cpu"``, the plain versions) or for ``"meta"`` (shapes
+    only, the dry run's: the plain versions on tensors without data);
+    None without a card raises rather than fall back."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -2690,8 +2691,8 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but no CUDA device is "
                            "visible")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"the kernels run on 'cuda' or 'cpu', not "
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"the kernels run on 'cuda', 'cpu' or 'meta', not "
                          f"{dev}")
     return dev
 

@@ -80,6 +80,9 @@ ARGTYPES_OF = {
     "flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
     # (r, k, v, logw, u, y, state, workspace, b, s, h, d, q, stream)
     "wkv_chunk": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (r, k, v, logw, u, dy, dstate or null, the forward's workspace,
+    # workspace, dr, dk, dv, dlogw, du, b, s, h, d, q, stream)
+    "wkv_chunk_bwd": [_P] * 14 + [_I] * 5 + [_P],
 }
 
 

@@ -42,7 +42,10 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 def randn(gen: torch.Generator, shape, dtype: torch.dtype,
           device: torch.device, scale: float = 1.0) -> torch.Tensor:
     """Normal draws from ``gen`` (on the generator's own device, float32),
-    scaled, then cast and moved to ``device``."""
+    scaled, then cast and moved to ``device``. On the meta device (the
+    dry run's shapes) nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (t * scale).to(device=device, dtype=dtype)
@@ -50,6 +53,8 @@ def randn(gen: torch.Generator, shape, dtype: torch.dtype,
 
 def uniform(gen: torch.Generator, shape, dtype: torch.dtype,
             device: torch.device) -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.rand(shape, generator=gen, device=gen.device,
                    dtype=torch.float32)
     return t.to(device=device, dtype=dtype)
@@ -201,7 +206,10 @@ def _flash_prefill(q: torch.Tensor, k: torch.Tensor,
     the grouped k/v heads expanded to q's H (head ``h`` reads kv head
     ``h // g``, the reference's ``reshape(b, s, kv, g, d)``).
     q:(B,S,H,D), k/v:(B,S,KV,D) -> (B,S,H,D). A shape outside the kernel's
-    domain raises."""
+    domain raises. On the meta device (the dry run's count) the same work
+    in the reference's blockwise form."""
+    if q.device.type == "meta":
+        return _sdpa_blockwise(q, k, v, offset=0, window=0)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh

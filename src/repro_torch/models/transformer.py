@@ -29,10 +29,11 @@ reference's donated scan carry, the serving side's ``O_s = |out|`` case.
 serving under ``inference_mode`` is unchanged. Each group's forward runs
 again in the backward, the flash kernel's launches with it.
 
-Not here: the reference's ``identity_barrier``, an XLA scheduling fence
-whose value and gradient are the identity (nothing to fence in eager
-PyTorch), and its ``repro.sharding.constrain`` calls (one card has no
-mesh).
+The reference's four ``repro.sharding.constrain`` calls stand at the same
+places (each block's two residual sums, the embedding, the logits) as
+``repro_torch.sharding.constrain``, the identity on one card. Not here:
+the reference's ``identity_barrier``, an XLA scheduling fence whose value
+and gradient are the identity (nothing to fence in eager PyTorch).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ArchConfig
+from repro_torch.sharding import constrain
 
 Params = Dict[str, Any]
 
@@ -175,7 +177,7 @@ def _block_seq(cfg: ArchConfig, bp: Params, x: torch.Tensor, window: int
         cache = {**ca, **cm}
     else:  # rwkv
         y, cache = S.rwkv_forward(bp["rwkv"], h, cfg)
-    x = x + y
+    x = constrain(x + y, "batch", None, None)
     h = L.rms_norm(bp["norm2"], x)
     if cfg.attention == "none":
         hp = F.pad(h, (0, 0, 1, 0))[:, :-1]
@@ -185,7 +187,7 @@ def _block_seq(cfg: ArchConfig, bp: Params, x: torch.Tensor, window: int
         y, aux = M.moe_ffn(bp["moe"], h, cfg)
     else:
         y = L.mlp(bp["mlp"], h, cfg)
-    return x + y, cache, aux
+    return constrain(x + y, "batch", None, None), cache, aux
 
 
 def _block_dec(cfg: ArchConfig, bp: Params, x: torch.Tensor, cache: Params,
@@ -233,16 +235,17 @@ def _block_dec(cfg: ArchConfig, bp: Params, x: torch.Tensor, cache: Params,
 def embed(cfg: ArchConfig, params: Params, inputs: torch.Tensor
           ) -> torch.Tensor:
     if not inputs.is_floating_point():
-        return params["embed"][inputs.long()]
-    # frontend stub already produced embeddings
-    return inputs.to(L.dtype_of(cfg))
+        x = params["embed"][inputs.long()]
+    else:  # frontend stub already produced embeddings
+        x = inputs.to(L.dtype_of(cfg))
+    return constrain(x, "batch", None, None)
 
 
 def unembed(cfg: ArchConfig, params: Params, x: torch.Tensor
             ) -> torch.Tensor:
     x = L.rms_norm(params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    return constrain(x @ head, "batch", None, "model")
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ and moments over the old: the ``O_s = |out|`` case), the callable of
 Gradients come from ``torch.autograd.grad`` on aliases of the params that
 require grad (the params themselves never do). On the card the long
 causal attention of a forward runs the flash kernel and its backward
-(``kernels/flash_attention.py::FlashAttention``); RWKV's chunked WKV has
-no backward kernel yet and refuses to train there.
+(``kernels/flash_attention.py::FlashAttention``), and RWKV's chunked WKV
+runs the WKV kernel and its backward (``kernels/wkv_chunk.py::WkvChunk``).
 """
 from __future__ import annotations
 

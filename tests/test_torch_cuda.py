@@ -1595,19 +1595,116 @@ def test_train_step_on_the_card(card):
         _assert_close(g.cpu(), w, 1e-5)
 
 
-def test_wkv_refuses_to_train_on_the_card(card):
-    """RWKV's chunked WKV has no backward kernel yet: a loss under grad on
-    the card raises rather than drop the gradient; the same loss under
-    no_grad runs the kernel."""
+def test_wkv_trains_on_the_card(card):
+    """A 2-layer rwkv6-1.6b (reduced, float32) loss under grad at 256
+    tokens on the card: each layer's chunked WKV runs the forward kernel
+    and, in the backward, ``csrc/wkv_chunk_bwd.cu`` (every plain version
+    made to raise); the loss and every gradient leaf within
+    ``chip_smoke.TRAIN_GRAD_TOL`` of the same loss on the CPU's plain
+    route, and wr, wk, wv, wd and u with non-zero gradients."""
     from repro_torch.kernels import wkv_chunk as TW
+    from repro_torch.optim import adamw
     from repro_torch.train import steps as TS
-    cfg, _, dev = _model("rwkv6-1.6b")
-    batch = {k: v.cuda() for k, v in _train_batch(cfg, 128, 16).items()}
+    cs = _chip_smoke()
+    cfg, cpu, dev = _model("rwkv6-1.6b")
+    assert cfg.num_layers == 2
+    batch = _train_batch(cfg, 256, 16)
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    (wl, _), wg = TS.value_and_grad(cfg, cpu, batch, remat=False)
     TW.reset_launches()
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        TS.value_and_grad(cfg, dev, batch, remat=False)
-    assert TW.LAUNCHES == 0
-    with torch.no_grad():
-        loss, _ = TS.loss_fn(cfg, dev, batch, remat=False)
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("wkv_plain", "wkv_phases_plain", "wkv_backward_plain",
+                     "wkv_backward_phases_plain"):
+            mp.setattr(TW, name, _refuse)
+        (gl, _), gg = TS.value_and_grad(cfg, dev, gbatch, remat=False)
+    torch.cuda.synchronize()
     assert TW.LAUNCHES == TW.KERNELS_PER_CALL * cfg.num_layers
-    assert torch.isfinite(loss)
+    assert TW.BWD_LAUNCHES == TW.BWD_KERNELS_PER_CALL * cfg.num_layers
+    atol, rtol = cs.TRAIN_GRAD_TOL
+    torch.testing.assert_close(gl.cpu(), wl, atol=atol * abs(float(wl)),
+                               rtol=rtol)
+    names = cs._leaf_names(cpu)
+    for name, w, g in zip(names, adamw.tree_leaves(wg),
+                          adamw.tree_leaves(gg)):
+        top = w.abs().max().item()
+        torch.testing.assert_close(g.cpu(), w, atol=atol * top, rtol=rtol,
+                                   msg=name)
+    grads = dict(zip(names, adamw.tree_leaves(gg)))
+    for leaf in ("wr/w", "wk/w", "wv/w", "wd/w", "u"):
+        hit = [n for n in names if n.endswith(f"rwkv/{leaf}")]
+        assert hit and all(grads[n].abs().max().item() > 0 for n in hit), \
+            leaf
+
+
+def _hold_wkv_grads(got, want, tol=3e-4):
+    """dr, dk, dv, dlogw, du within ``tol`` (the forward's
+    STANDALONE_TOL["wkv_chunk"]) scaled by each leaf's largest entry, and
+    ``tol`` relative."""
+    for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        top = w.abs().max().item()
+        torch.testing.assert_close(g, w, atol=tol * top, rtol=tol, msg=name)
+
+
+@pytest.mark.parametrize("b,s,h,d,q,shift,skew", [
+    (2, 128, 2, 64, 32, 0.0, False), (2, 256, 4, 64, 64, 0.0, False),
+    (2, 192, 1, 64, 64, 0.0, False), (2, 192, 1, 40, 24, 0.0, False),
+    (2, 64, 3, 64, 64, 0.0, False), (2, 35, 1, 7, 5, 0.0, False),
+    (2, 256, 4, 64, 64, 3.0, False), (2, 256, 4, 64, 64, 0.0, True),
+    (1, 4096, 32, 64, 64, 0.0, False)])
+def test_wkv_backward_on_the_card(card, b, s, h, d, q, shift, skew):
+    """The four launches of ``csrc/wkv_chunk_bwd.cu`` on the forward
+    kernel's workspace, every plain version made to raise during the
+    call, against ``wkv_backward_plain``; a random state gradient, none
+    (zero, as in training) on the inputs one float into their storage
+    (4-byte copies at D = 64); a second call bit-equal (no atomics) and
+    the ``WkvChunk`` Function's gradients equal to the direct call's."""
+    from repro_torch.kernels import wkv_chunk as TW
+    r, k, v, z, dy = (_normal(card, s + i, b, s, h, d) for i in range(5))
+    logw = -torch.exp(z * 0.5 + shift)
+    u = _normal(card, s + 5, h, d) * 0.1
+    dst = None if skew else _normal(card, s + 6, b, h, d, d)
+    if skew:
+        def one_float_in(t):
+            buf = torch.empty(t.numel() + 1, device=t.device)
+            buf[1:].copy_(t.reshape(-1))
+            return buf[1:].view(t.shape)
+        r, k, v, logw, dy = (one_float_in(t) for t in (r, k, v, logw, dy))
+        assert r.data_ptr() % 16 != 0 and r.is_contiguous()
+    plain = TW.wkv_backward_plain
+    TW.reset_launches()
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("wkv_plain", "wkv_phases_plain", "wkv_backward_plain",
+                     "wkv_backward_phases_plain"):
+            mp.setattr(TW, name, _refuse)
+        _, _, ws = TW.wkv_forward_saved(r, k, v, logw, u, q)
+        got = TW.wkv_backward_kernel(r, k, v, logw, u, dy, dst, q, ws)
+        again = TW.wkv_backward_kernel(r, k, v, logw, u, dy, dst, q, ws)
+        leaves = [t.clone().requires_grad_() for t in (r, k, v, logw, u)]
+        y, st = TW.wkv_chunk_kernel(*leaves, q=q)
+        outs, grads_in = (y, st), (dy, dst)
+        if dst is None:
+            outs, grads_in = (y,), (dy,)
+        viaf = torch.autograd.grad(outs, leaves, grads_in)
+    torch.cuda.synchronize()
+    assert TW.LAUNCHES == 2 * TW.KERNELS_PER_CALL
+    assert TW.BWD_LAUNCHES == 3 * TW.BWD_KERNELS_PER_CALL
+    _hold_wkv_grads(got, plain(r, k, v, logw, u, dy, dst, q))
+    assert all(bool(torch.equal(a, c)) for a, c in zip(got, again))
+    assert all(bool(torch.equal(a, c)) for a, c in zip(got, viaf))
+
+
+def test_wkv_backward_refuses_what_it_cannot_take_on_the_card(card):
+    """D past 64 and a backward without the forward's workspace raise
+    before any launch."""
+    from repro_torch.kernels import wkv_chunk as TW
+    r = _normal(card, 1, 1, 64, 1, 72)
+    u = _normal(card, 2, 1, 72)
+    TW.reset_launches()
+    with pytest.raises(ValueError, match="D, q <= 64"):
+        TW.wkv_backward_kernel(r, r, r, -r.abs(), u, r, None, 64,
+                               torch.empty(0, device=card))
+    r, u = r[..., :64].contiguous(), u[:, :64].contiguous()
+    with pytest.raises(ValueError, match="workspace"):
+        TW.wkv_backward_kernel(r, r, r, -r.abs(), u, r, None, 64, None)
+    assert TW.LAUNCHES == 0 and TW.BWD_LAUNCHES == 0

@@ -400,13 +400,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 def test_each_standalone_kernel_has_a_source_a_counter_and_a_plain_version():
     """Every entry with a signature of its own is a source in csrc/ and a
     module with a launch counter and a plain version; on the CPU the
-    wrappers run the plain version and count nothing (the flash backward
-    too, under autograd)."""
+    wrappers run the plain version and count nothing (the flash and WKV
+    backwards too, under autograd)."""
     modules = {"rmsnorm_inplace": (TR, "LAUNCHES", TR.rmsnorm_plain),
                "flash_attention": (TF, "LAUNCHES", TF.flash_plain),
                "flash_attention_bwd": (TF, "BWD_LAUNCHES",
                                        TF.flash_backward_plain),
-               "wkv_chunk": (TW, "LAUNCHES", TW.wkv_plain)}
+               "wkv_chunk": (TW, "LAUNCHES", TW.wkv_plain),
+               "wkv_chunk_bwd": (TW, "BWD_LAUNCHES",
+                                 TW.wkv_backward_plain)}
     assert set(build.ARGTYPES_OF) == set(modules) <= set(build.KERNELS)
     for mod, counter, plain in modules.values():
         mod.reset_launches()
@@ -421,4 +423,9 @@ def test_each_standalone_kernel_has_a_source_a_counter_and_a_plain_version():
     r = np.ones((1, 16, 1, 8), np.float32)
     TW.wkv_chunk_kernel(r, r, r, -r, np.ones((1, 8), np.float32), q=16,
                         device="cpu")
-    assert [getattr(m, c) for m, c, _ in modules.values()] == [0, 0, 0, 0]
+    rg = torch.ones((1, 16, 1, 8), requires_grad=True)
+    y, _ = TW.wkv_chunk_kernel(rg, rg, rg, -rg, torch.ones((1, 8)), q=16,
+                               device="cpu")
+    y.sum().backward()
+    assert rg.grad is not None
+    assert [getattr(m, c) for m, c, _ in modules.values()] == [0] * 5

@@ -276,10 +276,11 @@ def test_loss_and_grads_match_the_reference(arch):
 
 
 def test_chunked_wkv_grads_match_the_reference():
-    """RWKV at S = 128, where both packages take the chunked WKV: on the
-    CPU the port's ``wkv_chunk_kernel`` is its plain version, which
-    autograd differentiates (the card refuses, having no backward kernel
-    yet); every gradient leaf against the reference's."""
+    """RWKV at S = 128, where both packages take the chunked WKV: under
+    grad the port's ``wkv_chunk_kernel`` goes through the ``WkvChunk``
+    Function, whose backward on the CPU is ``wkv_backward_plain`` (on the
+    card ``csrc/wkv_chunk_bwd.cu``); every gradient leaf against the
+    reference's."""
     rcfg, tcfg = _arch_cfgs("rwkv6-1.6b")
     rp = RT.init_params(rcfg, jax.random.PRNGKey(7))
     rng = np.random.default_rng(7)
