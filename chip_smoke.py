@@ -124,7 +124,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    with CUDA events beside its plain version, its bound and one PyTorch
    call (``F.rms_norm`` then ``torch.add``;
    ``F.scaled_dot_product_attention``; none for WKV); then the flash
-   backward (``csrc/flash_attention_bwd.cu``, two launches a call) at the
+   backward (``csrc/flash_attention_bwd.cu``, two launches a call; no
+   stack frame or spills in its bf16 body's wgmma kernels) at the
    same full width in f32 and bf16: ``ops.flash_attention`` under autograd
    once per type with the counts reset just before, each call's dq, dk,
    dv against ``flash_backward_plain`` on the forward's own output and
@@ -1774,9 +1775,21 @@ def flash_bwd_standalone(torch, F, normal) -> tuple:
     and one backward call each). Then each backward against
     ``flash_backward_plain`` on the forward's own output and lse, a second
     call bit-equal, and its device ms beside the plain version, its bound
-    and SDPA's backward. Returns (row, section)."""
+    and SDPA's backward. The bf16 body's two wgmma kernels (both slab
+    counts) have no stack frame or spills (``-Xptxas -v``). Returns (row,
+    section)."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as TF
     from repro_torch.kernels import ops as TO
+    res = build.ptxas_resources("flash_attention_bwd")
+    wg = {fn: r for fn, r in res.items()
+          if "bwd_dq_wg" in fn or "bwd_dkv_wg" in fn}
+    check(len(wg) == 4, f"flash_attention_bwd: {len(wg)} wgmma kernels in "
+          f"the ptxas report")
+    for fn, r in wg.items():
+        check(r["stack"] == r["spill_stores"] == r["spill_loads"] == 0
+              and r["registers"] > 0, f"flash_attention_bwd {fn}: {r}")
+    log(f"[standalone] flash_attention_bwd ptxas: {json.dumps(res)}")
     fs, ft, fh, fd = FLASH_FULL
     types = {"f32": torch.float32, "bf16": torch.bfloat16}
     ins = {dt: [normal(n, fh, fd, dtype=ty) for n in (fs, ft, ft, fs)]
@@ -1825,7 +1838,7 @@ def flash_bwd_standalone(torch, F, normal) -> tuple:
            "max_abs_err": errs["f32"], **timing["f32"],
            "bf16": dict(timing["bf16"], max_abs_err=errs["bf16"])}
     section = {"launches": launches, "errors": errs, "times": timing,
-               "bit_equal_repeat": True}
+               "bit_equal_repeat": True, "ptxas": res}
     log(f"[standalone] flash backward at full width: launches {launches}, "
         f"against plain {json.dumps(errs)}, a second call bit-equal; "
         f"times (ms) {json.dumps(timing)}")

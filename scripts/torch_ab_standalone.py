@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Time the port's standalone kernels (``flash_attention`` f32 and bf16,
-with ``rmsnorm_inplace`` and ``wkv_chunk`` as neighbours) and SDPA on the
-card for one source tree, to compare two commits inside one call.
+"""Time the port's standalone kernels (``flash_attention`` f32 and bf16
+and its backward ``flash_attention_bwd``, with ``rmsnorm_inplace`` and
+``wkv_chunk`` as neighbours) and SDPA on the card for one source tree, to
+compare two commits inside one call.
 
 Usage, on a machine with an NVIDIA card, from the root of a checkout::
 
     python3 scripts/torch_ab_standalone.py <root of the tree to time> \\
-        [--against <root of the other tree>]
+        [--against <root of the other tree>] [--train]
 
 It builds that tree's kernels (into its own ``build/repro_torch/``), makes
 the full-width inputs of ``chip_smoke.py``'s standalone phase from a seed
@@ -16,7 +17,17 @@ q 64) and prints one JSON line: the card's name and power limit, the
 device ms of one call of each kernel through its wrapper (CUDA events
 around 20 calls after a warm-up, ``chip_smoke.time_ms``), and of
 ``F.scaled_dot_product_attention`` on the same inputs in (1, H, S, D)
-copies made outside the timed call (``library``).
+copies made outside the timed call (``library``). The flash backward
+goes through ``flash_attention_bwd.flash_backward_kernel`` on the forward
+kernel's own output and lse (f32 and bf16, the same shapes, a seeded
+output gradient), beside SDPA's backward (``chip_smoke.sdpa_backward_ms``:
+a timed ``torch.autograd.grad`` minus its forward); ``launch_ms`` gives
+each of its two launches' device ms a call, from ``torch.profiler``
+kernel events over ten calls ("not measured" where the trace holds no
+device time). With ``--train`` it then runs ``chip_smoke.train_steps``
+for qwen2.5-3b (bf16 at full width, 2 x 4096 tokens in 2 microbatches,
+remat, three steps) and adds each step's device ms and the flash
+kernels' ms a step under ``train``.
 
 Each kernel's output of one call on the seeded inputs is saved under
 ``<root>/build/ab_standalone/`` (WKV's y and state apart). With
@@ -32,6 +43,7 @@ import argparse
 import importlib.util
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -42,6 +54,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root")
     ap.add_argument("--against", default=None)
+    ap.add_argument("--train", action="store_true")
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
     sys.path.insert(0, str(root / "src"))
@@ -93,6 +106,14 @@ def main() -> int:
                 xa, gf, r),
             lambda x=x, gf=gf, r=r: TR.rmsnorm_scale_residual_inplace(
                 x.clone(), gf, r))
+    backward, bwd_inputs = {}, {}
+    for dt, ty in types.items():
+        q, k, v, do = (normal(m, fh, fd, dtype=ty) for m in (fs, ft, ft, fs))
+        out, lse = TF._forward(q, k, v, True, 128, 128, True)
+        bwd_inputs[dt] = (q, k, v, do)
+        backward[f"flash_attention_bwd {dt}"] = (
+            lambda q=q, k=k, v=v, out=out, do=do, lse=lse:
+            TF.flash_backward_kernel(q, k, v, out, do, lse, True))
     rr, kk, vv, z = (normal(wb, ws, wh, wd) for _ in range(4))
     logw = -torch.exp(z * 0.5)
     u = normal(wh, wd) * 0.1
@@ -105,12 +126,14 @@ def main() -> int:
     other = (pathlib.Path(args.against).resolve() / "build" / "ab_standalone"
              if args.against else None)
     out = {"root": str(root), "card": smi, "ms": {}, "library": {},
-           "diff": {}}
+           "launch_ms": {}, "diff": {}}
+    calls.update({name: (fn, fn) for name, fn in backward.items()})
     for name, (timed, once) in calls.items():
         got = once()
         torch.cuda.synchronize()
-        parts = ({f"{name} y": got[0], f"{name} state": got[1]}
-                 if isinstance(got, tuple) else {name: got})
+        parts = ({f"{name} {part}": a for part, a in zip(
+            ("dq", "dk", "dv") if "bwd" in name else ("y", "state"), got)}
+            if isinstance(got, tuple) else {name: got})
         for part, a in parts.items():
             a = a.float().reshape(-1)
             path = saved / (part.replace(" ", "_") + ".pt")
@@ -122,6 +145,34 @@ def main() -> int:
         out["ms"][name] = cs.time_ms(torch, timed, REPS)
     for name, fn in library.items():
         out["library"][name] = cs.time_ms(torch, fn, REPS)
+    for dt, (q, k, v, do) in bwd_inputs.items():
+        out["library"][f"sdpa_bwd {dt}"] = cs.sdpa_backward_ms(
+            torch, F, q, k, v, do)["library_ms"]
+    from torch.profiler import ProfilerActivity, profile
+    for name, fn in backward.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        out["launch_ms"][name] = {
+            re.search(r"(\w*bwd\w*(<\d+>)?)", ev.key).group(1): (
+                getattr(ev, "device_time_total", 0.0) / 1e3 / 10
+                or "not measured")
+            for ev in prof.key_averages() if "bwd" in ev.key}
+    if args.train:
+        del calls, backward, bwd_inputs, library
+        torch.cuda.empty_cache()
+        from repro_torch.configs import get_arch
+        cfg = get_arch("qwen2.5-3b")
+        n = TF.BWD_KERNELS_PER_CALL * cfg.num_layers * 2
+        want = {"flash_attention": 2 * cfg.num_layers * 2,
+                "flash_attention_bwd": n, "wkv_chunk": 0,
+                "wkv_chunk_bwd": 0}
+        rec, _ = cs.train_steps(torch, "qwen2.5-3b", 29, want,
+                                ("flash_attention", "flash_attention_bwd"))
+        out["train"] = {key: rec[key] for key in (
+            "step_ms", "step_ms_median", "tokens_s", "kernel_ms_in_step",
+            "kernel_calls_a_step", "update_ms")}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -75,8 +75,8 @@ ARGTYPES_OF = {
     "rmsnorm_inplace": [_P, _P, _P, _I, _I, _I, _F, _P],
     # (q, k, v, out, lse or null, s, t, h, d, causal, bf16, stream)
     "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (q, k, v, out, dout, lse, delta, dq, dk, dv, s, t, h, d, causal, bf16,
-    # stream)
+    # (q, k, v, out, dout, lse, workspace, dq, dk, dv, s, t, h, d, causal,
+    # bf16, stream)
     "flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
     # (r, k, v, logw, u, y, state, workspace, b, s, h, d, q, stream)
     "wkv_chunk": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

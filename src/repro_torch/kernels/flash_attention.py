@@ -21,7 +21,8 @@ goes through :class:`FlashAttention`, an autograd Function: its forward
 also writes each row's logsumexp (``lse``, (S, H) float32), and its
 backward is ``csrc/flash_attention_bwd.cu`` on the card (two launches:
 dQ over query tiles, dK and dV over key tiles, recomputing P from
-``lse``) and :func:`flash_backward_plain` on the CPU. The reference never
+``lse``; bfloat16 on ``wgmma`` fed by a TMA tile ring) and
+:func:`flash_backward_plain` on the CPU. The reference never
 differentiates its Pallas kernel (its training attends blockwise through
 XLA); the port's long causal attention runs this kernel in training too,
 so it has a backward. Under ``inference_mode`` or ``no_grad`` the forward
@@ -54,10 +55,16 @@ ALIGN = 16
 #: (:data:`BWD_KERNELS_PER_CALL` a backward call).
 BWD_LAUNCHES = 0
 BWD_KERNELS_PER_CALL = 2
-#: The backward's tiles (``csrc/flash_attention_bwd.cu``): query rows of a
-#: dQ CTA's tile, keys of a dK/dV CTA's tile, for both types.
-BWD_TILE_Q = 64
-BWD_TILE_K = 64
+#: The backward's tiles by type (``csrc/flash_attention_bwd.cu``): query
+#: rows of a dQ CTA, keys of the key tiles it walks, keys of a dK/dV CTA,
+#: rows of the query tiles it walks. float32 ``BQ``/``BK``; bfloat16
+#: ``DQ_ROWS``, ``DQ_KEYS``, ``DKV_KEYS``, ``DKV_ROWS`` (two warpgroups of
+#: 64 rows or keys a CTA, each walked tile through the ring).
+BWD_TILES = {torch.float32: (64, 64, 64, 64),
+             torch.bfloat16: (128, 64, 128, 64)}
+#: The workspace's rows are S rounded up to this: the bf16 body keeps each
+#: row's lse·log2(e) and D there in (H, S_pad) order.
+BWD_PAD_ROWS = 128
 
 
 def reset_launches() -> None:
@@ -96,32 +103,41 @@ def tile_walk(s: int, t: int, h: int, causal: bool) -> list:
     return walk
 
 
-def bwd_tile_walk(s: int, t: int, h: int, causal: bool) -> tuple:
-    """The backward's two grids in launch order, a plain-Python mirror of
-    ``csrc/flash_attention_bwd.cu``: ``(dq, dkv)``. ``dq`` lists the dQ
-    CTAs as ``(head, q0, q1, tiles)``: query rows ``[q0, q1)`` of one head
-    (tiles of :data:`BWD_TILE_Q`, heaviest first, heads the fastest grid
-    dimension) and key tiles ``0 .. tiles - 1`` of :data:`BWD_TILE_K`,
-    ending where the forward's walk ends. ``dkv`` lists the dK/dV CTAs as
-    ``(head, k0, k1, first, last)``: keys ``[k0, k1)`` (the first key
-    tiles first) and query tiles ``first .. last - 1``, from the first
-    one holding a row that sees key ``k0``. Causal with T >= S or
-    non-causal, the backward's domain."""
-    bq, bk = BWD_TILE_Q, BWD_TILE_K
-    nq, nk = -(-s // bq), -(-t // bk)
+def bwd_tile_walk(s: int, t: int, h: int, causal: bool,
+                  dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """The backward's two grids in launch order for one type, a
+    plain-Python mirror of ``csrc/flash_attention_bwd.cu`` with the tiles
+    of :data:`BWD_TILES`: ``(dq, dkv)``. ``dq`` lists the dQ CTAs as
+    ``(head, q0, q1, tiles)``: query rows ``[q0, q1)`` of one head
+    (heaviest first, heads the fastest grid dimension) and key tiles ``0
+    .. tiles - 1``, ending where the forward's walk ends for the CTA's
+    last row. ``dkv`` lists the dK/dV CTAs as ``(head, k0, k1, first,
+    last)``: keys ``[k0, k1)`` (the first key tiles first) and query tiles
+    ``first .. last - 1``, from the first one holding a row that sees key
+    ``k0``. Causal with T >= S or non-causal, the backward's domain."""
+    rows_q, keys_q, keys_kv, rows_kv = BWD_TILES[dtype]
+    nq, nk = -(-s // rows_q), -(-t // keys_kv)
     dq = []
     for y in range(nq):
-        q0 = (nq - 1 - y) * bq
-        q1 = min(q0 + bq, s)
+        q0 = (nq - 1 - y) * rows_q
+        q1 = min(q0 + rows_q, s)
         kend = min(q1 + (t - s), t) if causal else t
-        dq.extend((head, q0, q1, -(-kend // bk)) for head in range(h))
+        dq.extend((head, q0, q1, -(-kend // keys_q)) for head in range(h))
     dkv = []
     for y in range(nk):
-        k0 = y * bk
-        first = max(0, k0 - (t - s)) // bq if causal else 0
-        dkv.extend((head, k0, min(k0 + bk, t), first, nq)
+        k0 = y * keys_kv
+        first = max(0, k0 - (t - s)) // rows_kv if causal else 0
+        dkv.extend((head, k0, min(k0 + keys_kv, t), first, -(-s // rows_kv))
                    for head in range(h))
     return dq, dkv
+
+
+def bwd_workspace_floats(s: int, h: int) -> int:
+    """Floats of the backward's workspace: 2·H·S_pad (S rounded up to
+    :data:`BWD_PAD_ROWS`). The bf16 body writes each row's lse·log2(e)
+    and D there in (H, S_pad) order; the f32 body uses its first S·H
+    floats for D in (S, H) order."""
+    return 2 * h * (-(-s // BWD_PAD_ROWS) * BWD_PAD_ROWS)
 
 
 def check_card_inputs(q: torch.Tensor, k: torch.Tensor,
@@ -311,12 +327,13 @@ def flash_backward_kernel(q: torch.Tensor, k: torch.Tensor,
     check_card_inputs(q, k, v, o, do)
     from repro_torch.kernels import build
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((s, h), dtype=torch.float32, device=q.device)
+    work = torch.empty(bwd_workspace_floats(s, h), dtype=torch.float32,
+                       device=q.device)
     lse = lse.contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(build.entry("flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), s, t, h, d, int(causal),
         int(q.dtype == torch.bfloat16), stream), "flash_attention_bwd")
     global BWD_LAUNCHES

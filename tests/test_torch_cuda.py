@@ -1223,7 +1223,11 @@ def _hold_grads(got, want, dt, label=""):
 @pytest.mark.parametrize("s,t,h,d,causal", [
     (64, 64, 2, 32, True), (130, 130, 3, 64, True), (256, 256, 2, 128, True),
     (64, 200, 2, 16, True), (100, 60, 2, 40, False), (300, 300, 2, 48, True),
-    (4096, 4096, 16, 128, True)])
+    (4096, 4096, 16, 128, True),
+    # one past a 128-row (bf16 CTA) tile, and D at each other D_pad
+    (129, 129, 2, 128, True), (257, 257, 2, 64, True),
+    (200, 200, 2, 24, True), (200, 200, 2, 56, True), (200, 200, 2, 80, True),
+    (200, 200, 2, 96, True), (200, 200, 2, 112, True)])
 def test_flash_backward_on_the_card(card, s, t, h, d, causal, dt):
     """The two backward launches (the dQ grid over query tiles, the dK/dV
     grid over key tiles) against ``flash_backward_plain`` on the forward
@@ -1255,6 +1259,39 @@ def test_flash_backward_on_the_card(card, s, t, h, d, causal, dt):
     assert torch.equal(y, out)
     for a, b in zip(grads, got):
         assert torch.equal(a, b)
+
+
+def test_flash_backward_bf16_runs_on_wgmma_and_tma_on_the_card(card):
+    """The built ``flash_attention_bwd`` library: each bf16 kernel (the dQ
+    and dK/dV launches, both slab counts) holds wgmma (``HGMMA``), TMA loads
+    (``UTMALDG``) and mbarrier operations (``SYNCS``) and no ``mma.sync``
+    (``HMMA``) in its SASS (``cuobjdump -sass``), and ``-Xptxas -v`` reports
+    no stack and no spills for them at D_pad 128 (two 64-column slabs)."""
+    import shutil
+    import subprocess
+    from repro_torch.kernels import build
+    build.load()
+    lib = build.build_dir() / "libflash_attention_bwd.so"
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = {}
+    for part in sass.split("Function : ")[1:]:
+        funcs[part.split(None, 1)[0]] = part
+    bf16 = {name: body for name, body in funcs.items()
+            if "bwd_dq_wg" in name or "bwd_dkv_wg" in name}
+    assert len(bf16) == 4, sorted(funcs)
+    for name, body in bf16.items():
+        assert "HGMMA" in body and "UTMALDG" in body and "SYNCS" in body, \
+            name
+        assert "HMMA" not in body, name
+    res = build.ptxas_resources("flash_attention_bwd")
+    wide = {fn: r for fn, r in res.items()
+            if ("bwd_dq_wg" in fn or "bwd_dkv_wg" in fn) and "ILi2E" in fn}
+    assert len(wide) == 2, sorted(res)
+    for fn, r in wide.items():
+        assert r["stack"] == r["spill_stores"] == r["spill_loads"] == 0, \
+            (fn, r)
 
 
 def test_flash_backward_refuses_what_it_cannot_take_on_the_card(card):

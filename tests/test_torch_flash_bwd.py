@@ -123,16 +123,30 @@ def test_backward_refuses_causal_rows_that_see_no_key():
         TF.flash_attention_kernel(*leaves, True)
 
 
-@pytest.mark.parametrize("s,t,causal", [
-    (64, 64, True), (130, 130, True), (100, 260, True), (200, 77, False),
-    (4096, 4096, True), (1, 300, True), (257, 257, False)])
-def test_bwd_tile_walk_visits_every_pair_once(s, t, causal):
-    """Brute force over (query, key) pairs: each grid of the backward
-    covers every pair a row sees exactly once a head, and its walked
-    tiles hold no pair outside the sequences; the dQ grid launches the
-    heaviest tiles first, the dK/dV grid the first key tiles first."""
+_WALKS = [(64, 64, True), (130, 130, True), (100, 260, True),
+          (200, 77, False), (4096, 4096, True), (1, 300, True),
+          (257, 257, False)]
+_BF16_WALKS = _WALKS + [(129, 129, True), (257, 257, True),
+                        (128, 384, True), (300, 200, False)]
+
+
+@pytest.mark.parametrize("s,t,causal,dtype", [
+    pytest.param(s, t, c, torch.float32, id=f"{s}-{t}-{c}")
+    for s, t, c in _WALKS] + [
+    pytest.param(s, t, c, torch.bfloat16, id=f"bf16-{s}-{t}-{c}")
+    for s, t, c in _BF16_WALKS])
+def test_bwd_tile_walk_visits_every_pair_once(s, t, causal, dtype):
+    """Brute force over (query, key) pairs, with each type's tiles (f32:
+    64-row and 64-key CTAs walking 64-key and 64-row tiles; bf16: 128-row
+    and 128-key CTAs of two warpgroups walking 64-key and 64-row tiles):
+    each grid of the backward covers every pair a row sees exactly once a
+    head, its walked tiles hold no pair outside the sequences, and none
+    lies wholly past the causal edge; the dQ grid launches the heaviest
+    tiles first, the dK/dV grid the first key tiles first. The tiles
+    equal the constants of ``csrc/flash_attention_bwd.cu``."""
     h = 2
-    dq, dkv = TF.bwd_tile_walk(s, t, h, causal)
+    rows_q, keys_q, keys_kv, rows_kv = TF.BWD_TILES[dtype]
+    dq, dkv = TF.bwd_tile_walk(s, t, h, causal, dtype)
     seen = np.zeros((s, t), bool)
     if causal:
         seen = np.arange(t)[None, :] <= np.arange(s)[:, None] + (t - s)
@@ -143,15 +157,21 @@ def test_bwd_tile_walk_visits_every_pair_once(s, t, causal):
         for cta in grid:
             if name == "dq":
                 head, q0, q1, tiles = cta
-                k0, k1 = 0, min(tiles * TF.BWD_TILE_K, t)
+                k0, k1 = 0, min(tiles * keys_q, t)
+                walked = [(q0, q1, j * keys_q, min((j + 1) * keys_q, t))
+                          for j in range(tiles)]
             else:
                 head, k0, k1, first, last = cta
-                q0, q1 = first * TF.BWD_TILE_Q, min(last * TF.BWD_TILE_Q, s)
+                q0, q1 = first * rows_kv, min(last * rows_kv, s)
+                walked = [(i * rows_kv, min((i + 1) * rows_kv, s), k0, k1)
+                          for i in range(first, last)]
             count[head, q0:q1, k0:k1] += 1
+            for a0, a1, b0, b1 in walked:
+                assert seen[a0:a1, b0:b1].any(), (name, cta, a0, b0)
         assert ((count == 1) | ~seen[None]).all(), name
         assert (count <= 1).all(), name
         assert len(grid) == h * -(-(s if name == "dq" else t)
-                                  // TF.BWD_TILE_Q)
+                                  // (rows_q if name == "dq" else keys_kv))
     work = [c[3] for c in dq[::h]]
     assert work == sorted(work, reverse=True)
     assert [c[1] for c in dkv[::h]] == sorted(c[1] for c in dkv[::h])
@@ -160,7 +180,9 @@ def test_bwd_tile_walk_visits_every_pair_once(s, t, causal):
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
-    assert (TF.BWD_TILE_Q, TF.BWD_TILE_K) == (const("BQ"), const("BK"))
+    names = (("BQ", "BK", "BK", "BQ") if dtype == torch.float32 else
+             ("DQ_ROWS", "DQ_KEYS", "DKV_KEYS", "DKV_ROWS"))
+    assert TF.BWD_TILES[dtype] == tuple(const(n) for n in names)
 
 
 def _tiny(case="qwen2.5-3b", **kw):
