@@ -133,8 +133,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    plain version, its bound (the backward's five products) and SDPA's
    backward (a timed ``torch.autograd.grad`` minus its forward); then
    the WKV backward (``csrc/wkv_chunk_bwd.cu``, four launches a call):
-   no stack frame or spills in its four kernels, on ``WKV_CASES``,
-   strong decays and unaligned inputs against ``wkv_backward_plain``
+   no stack frame or spills in its four kernels, each launch's CTAs an
+   SM by the card's occupancy calculator (C' at least 16 warps), on
+   ``WKV_CASES``, strong decays, unaligned inputs and ``WKV_BWD_SUB``
+   (three sub-chunks, the last ragged) against ``wkv_backward_plain``
    (``WKV_BWD_TOL``), then ``wkv_chunk_kernel`` under autograd once at
    ``WKV_FULL`` with the counts reset just before (three forward and
    four backward launches), its dr, dk, dv, dlogw, du against the plain
@@ -391,6 +393,11 @@ WKV_CASES = [(128, 2, 64, 32), (256, 4, 64, 64), (192, 1, 64, 64),
              (192, 1, 40, 24), (64, 3, 64, 64), (35, 1, 7, 5)]
 WKV_STRONG = [(256, 4, 64, 64)]
 WKV_UNALIGNED = [(256, 4, 64, 64)]
+#: the WKV backward's sub-chunk cases, (b, s, h, d, q, shift): q = 48 (three
+#: sub-chunks) and q = 40 (the third ragged) with D = 12 and strong decays
+WKV_BWD_SUB = [(1, 96, 2, 64, 48, 0.0), (1, 80, 3, 12, 40, 3.0)]
+#: the least warps an SM of the WKV backward's C' (chunk_grads)
+WKV_BWD_MIN_WARPS = 16
 #: full width, 4096 tokens: qwen2.5-3b (configs/qwen2_5_3b.py: d_model
 #: 2048, 16 heads of 128) and rwkv6-1.6b (configs/rwkv6_1_6b.py: d_model
 #: 2048, WKV heads of 64, so 32)
@@ -1847,10 +1854,13 @@ def flash_bwd_standalone(torch, F, normal) -> tuple:
 
 def wkv_bwd_standalone(torch, normal, wkv_inputs, one_float_in) -> tuple:
     """The standalone phase's WKV backward row: no stack frame or spills
-    in its four kernels (``-Xptxas -v``); on ``WKV_CASES``, strong decays
-    and inputs one float into their storage (no state gradient there),
-    ``wkv_backward_kernel`` on the forward kernel's workspace against
-    ``wkv_backward_plain`` (``WKV_BWD_TOL``). The main path at full width
+    in its four kernels (``-Xptxas -v``); each launch's CTAs an SM and
+    warps an SM (``wkv_chunk.bwd_occupancy``), C' at least
+    ``WKV_BWD_MIN_WARPS``; on ``WKV_CASES``, strong decays, inputs one
+    float into their storage (no state gradient there) and
+    ``WKV_BWD_SUB``, ``wkv_backward_kernel`` on the forward kernel's
+    workspace against ``wkv_backward_plain`` (``WKV_BWD_TOL``). The main
+    path at full width
     (``WKV_FULL``): ``wkv_chunk_kernel`` under autograd once, the counts
     reset just before (three forward and four backward launches), its
     gradients for a random dy and state gradient against the plain
@@ -1866,19 +1876,27 @@ def wkv_bwd_standalone(torch, normal, wkv_inputs, one_float_in) -> tuple:
         check(r["stack"] == r["spill_stores"] == r["spill_loads"] == 0
               and r["registers"] > 0, f"wkv_chunk_bwd {fn}: {r}")
     log(f"[standalone] wkv_chunk_bwd ptxas: {json.dumps(res)}")
+    occ = TW.bwd_occupancy()
+    log("[standalone] wkv_chunk_bwd CTAs an SM: " + ", ".join(
+        f"{name} {o['ctas_an_sm']} of {o['threads']} threads "
+        f"({o['warps_an_sm']} warps)" for name, o in occ.items()))
+    check(occ["chunk_grads"]["warps_an_sm"] >= WKV_BWD_MIN_WARPS
+          and all(o["ctas_an_sm"] >= 1 for o in occ.values()),
+          f"wkv_chunk_bwd: occupancy {occ}")
     err = 0.0
-    for (s, h, d, qc), shift, skew in (
-            [(c, 0.0, False) for c in WKV_CASES]
-            + [(c, 3.0, False) for c in WKV_STRONG]
-            + [(c, 0.0, True) for c in WKV_UNALIGNED]):
-        r, k, v, logw, _, u = wkv_inputs(2, s, h, d, shift)
-        dy, dst = normal(2, s, h, d), None if skew else normal(2, h, d, d)
+    for (b, s, h, d, qc), shift, skew in (
+            [((2, *c), 0.0, False) for c in WKV_CASES]
+            + [((2, *c), 3.0, False) for c in WKV_STRONG]
+            + [((2, *c), 0.0, True) for c in WKV_UNALIGNED]
+            + [(c[:5], c[5], False) for c in WKV_BWD_SUB]):
+        r, k, v, logw, _, u = wkv_inputs(b, s, h, d, shift)
+        dy, dst = normal(b, s, h, d), None if skew else normal(b, h, d, d)
         if skew:
             r, k, v, logw, dy = (one_float_in(t) for t in (r, k, v, logw, dy))
             check(r.data_ptr() % 16 != 0, "wkv: the skewed input is aligned")
         _, _, ws = TW.wkv_forward_saved(r, k, v, logw, u, qc)
         got = TW.wkv_backward_kernel(r, k, v, logw, u, dy, dst, qc, ws)
-        label = (f"wkv backward (2, {s}, {h}, {d}, q={qc}"
+        label = (f"wkv backward ({b}, {s}, {h}, {d}, q={qc}"
                  f"{', strong decay' if shift else ''}"
                  f"{', one float into storage, no state gradient' if skew else ''})")
         err = max(err, grads_close(
@@ -1925,7 +1943,8 @@ def wkv_bwd_standalone(torch, normal, wkv_inputs, one_float_in) -> tuple:
            "max_abs_err": max(err, full_err), **timing}
     section = {"launches": launches,
                "errors": {"reference_shapes": err, "full_width": full_err},
-               "times": timing, "ptxas": res, "bit_equal_repeat": True,
+               "times": timing, "ptxas": res, "occupancy": occ,
+               "bit_equal_repeat": True,
                "workspace_bytes": 4 * TW.workspace_floats(wb, sq, wh, wd,
                                                           wq)}
     log(f"[standalone] wkv backward: launches {launches}, against plain "

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Time the port's standalone kernels (``flash_attention`` f32 and bf16
-and its backward ``flash_attention_bwd``, with ``rmsnorm_inplace`` and
-``wkv_chunk`` as neighbours) and SDPA on the card for one source tree, to
-compare two commits inside one call.
+and its backward ``flash_attention_bwd``, ``wkv_chunk`` and its backward
+``wkv_chunk_bwd``, with ``rmsnorm_inplace`` as a neighbour) and SDPA on
+the card for one source tree, to compare two commits inside one call.
 
 Usage, on a machine with an NVIDIA card, from the root of a checkout::
 
     python3 scripts/torch_ab_standalone.py <root of the tree to time> \\
-        [--against <root of the other tree>] [--train]
+        [--against <root of the other tree>] [--train] \\
+        [--arch qwen2.5-3b|rwkv6-1.6b]
 
 It builds that tree's kernels (into its own ``build/repro_torch/``), makes
 the full-width inputs of ``chip_smoke.py``'s standalone phase from a seed
@@ -21,16 +22,24 @@ copies made outside the timed call (``library``). The flash backward
 goes through ``flash_attention_bwd.flash_backward_kernel`` on the forward
 kernel's own output and lse (f32 and bf16, the same shapes, a seeded
 output gradient), beside SDPA's backward (``chip_smoke.sdpa_backward_ms``:
-a timed ``torch.autograd.grad`` minus its forward); ``launch_ms`` gives
-each of its two launches' device ms a call, from ``torch.profiler``
-kernel events over ten calls ("not measured" where the trace holds no
-device time). With ``--train`` it then runs ``chip_smoke.train_steps``
-for qwen2.5-3b (bf16 at full width, 2 x 4096 tokens in 2 microbatches,
-remat, three steps) and adds each step's device ms and the flash
-kernels' ms a step under ``train``.
+a timed ``torch.autograd.grad`` minus its forward). The WKV backward goes
+through ``wkv_chunk.wkv_backward_kernel`` on the forward kernel's own
+workspace at ``chip_smoke.WKV_FULL`` (a seeded output gradient and final
+state gradient); no PyTorch call computes it. ``launch_ms`` gives each
+backward's launches' device ms a call (the flash backward's two, the
+WKV backward's ``grad_parts``, ``grad_scan``, ``chunk_grads`` and
+``du_sum``), from ``torch.profiler`` kernel events over ten calls ("not
+measured" where the trace holds no device time), and ``ptxas`` the two
+backwards' registers, stack and spills (``build.ptxas_resources``).
+With ``--train`` it then runs ``chip_smoke.train_steps`` for ``--arch``
+(qwen2.5-3b, the default, or rwkv6-1.6b; bf16 at full width, 2 x 4096
+tokens in 2 microbatches, remat, three steps) and adds each step's
+device ms and its kernels' ms a step under ``train`` (the flash forward
+and backward for qwen, the WKV forward and backward for rwkv).
 
 Each kernel's output of one call on the seeded inputs is saved under
-``<root>/build/ab_standalone/`` (WKV's y and state apart). With
+``<root>/build/ab_standalone/`` (WKV's y and state apart, and its
+backward's five gradients). With
 ``--against``, each output is held against the other tree's saved output
 of the same name: under ``diff`` the largest absolute difference (a kernel
 whose summation order changed differs from the other tree's in its last
@@ -48,6 +57,12 @@ import subprocess
 import sys
 
 REPS = 20
+#: each backward's launches in a profiler trace, by kernel name
+LAUNCH_NAMES = {"flash_attention_bwd": r"(\w*bwd\w*(<\d+>)?)",
+                "wkv_chunk_bwd": r"(grad_parts|grad_scan|chunk_grads|du_sum)"}
+#: the kernels timed within a train step, by architecture
+TRAIN_KERNELS = {"qwen2.5-3b": ("flash_attention", "flash_attention_bwd"),
+                 "rwkv6-1.6b": ("wkv_chunk", "wkv_chunk_bwd")}
 
 
 def main() -> int:
@@ -55,6 +70,7 @@ def main() -> int:
     ap.add_argument("root")
     ap.add_argument("--against", default=None)
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--arch", default="qwen2.5-3b", choices=TRAIN_KERNELS)
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
     sys.path.insert(0, str(root / "src"))
@@ -85,7 +101,7 @@ def main() -> int:
     types = {"f32": torch.float32, "bf16": torch.bfloat16}
     fs, ft, fh, fd = 4096, 4096, 16, 128
     n, d = 4096, 2048
-    wb, ws, wh, wd, wq = 1, 4096, 32, 64, 64
+    wb, ws, wh, wd, wq = cs.WKV_FULL
     calls, library = {}, {}
     for dt, ty in types.items():
         q, k, v = (normal(m, fh, fd, dtype=ty) for m in (fs, ft, ft))
@@ -119,6 +135,11 @@ def main() -> int:
     u = normal(wh, wd) * 0.1
     wkv = (lambda: TW.wkv_chunk_kernel(rr, kk, vv, logw, u, q=wq))
     calls["wkv_chunk f32"] = (wkv, wkv)
+    wdy, wds = normal(wb, ws, wh, wd), normal(wb, wh, wd, wd)
+    _, _, wws = TW.wkv_forward_saved(rr, kk, vv, logw, u, wq)
+    backward["wkv_chunk_bwd f32"] = (
+        lambda: TW.wkv_backward_kernel(rr, kk, vv, logw, u, wdy, wds, wq,
+                                       wws))
     torch.cuda.synchronize()
 
     saved = root / "build" / "ab_standalone"
@@ -126,14 +147,17 @@ def main() -> int:
     other = (pathlib.Path(args.against).resolve() / "build" / "ab_standalone"
              if args.against else None)
     out = {"root": str(root), "card": smi, "ms": {}, "library": {},
-           "launch_ms": {}, "diff": {}}
+           "launch_ms": {}, "diff": {},
+           "ptxas": {n: build.ptxas_resources(n) for n in LAUNCH_NAMES}}
     calls.update({name: (fn, fn) for name, fn in backward.items()})
     for name, (timed, once) in calls.items():
         got = once()
         torch.cuda.synchronize()
-        parts = ({f"{name} {part}": a for part, a in zip(
-            ("dq", "dk", "dv") if "bwd" in name else ("y", "state"), got)}
-            if isinstance(got, tuple) else {name: got})
+        names = (("dr", "dk", "dv", "dlogw", "du") if "wkv_chunk_bwd" in name
+                 else ("dq", "dk", "dv") if "bwd" in name
+                 else ("y", "state"))
+        parts = ({f"{name} {part}": a for part, a in zip(names, got)}
+                 if isinstance(got, tuple) else {name: got})
         for part, a in parts.items():
             a = a.float().reshape(-1)
             path = saved / (part.replace(" ", "_") + ".pt")
@@ -154,25 +178,37 @@ def main() -> int:
             for _ in range(10):
                 fn()
             torch.cuda.synchronize()
+        pat = re.compile(LAUNCH_NAMES[name.split()[0]])
         out["launch_ms"][name] = {
-            re.search(r"(\w*bwd\w*(<\d+>)?)", ev.key).group(1): (
+            pat.search(ev.key).group(1): (
                 getattr(ev, "device_time_total", 0.0) / 1e3 / 10
                 or "not measured")
-            for ev in prof.key_averages() if "bwd" in ev.key}
+            for ev in prof.key_averages() if pat.search(ev.key)}
     if args.train:
-        del calls, backward, bwd_inputs, library
+        del calls, backward, bwd_inputs, library, wws
         torch.cuda.empty_cache()
         from repro_torch.configs import get_arch
-        cfg = get_arch("qwen2.5-3b")
-        n = TF.BWD_KERNELS_PER_CALL * cfg.num_layers * 2
-        want = {"flash_attention": 2 * cfg.num_layers * 2,
-                "flash_attention_bwd": n, "wkv_chunk": 0,
-                "wkv_chunk_bwd": 0}
-        rec, _ = cs.train_steps(torch, "qwen2.5-3b", 29, want,
-                                ("flash_attention", "flash_attention_bwd"))
-        out["train"] = {key: rec[key] for key in (
+        cfg = get_arch(args.arch)
+        mbs = 2   # chip_smoke.train_steps checks default_microbatches
+        zero = {"flash_attention": 0, "flash_attention_bwd": 0,
+                "wkv_chunk": 0, "wkv_chunk_bwd": 0}
+        if args.arch == "qwen2.5-3b":   # remat: two forwards a layer
+            want = {**zero,
+                    "flash_attention": 2 * cfg.num_layers * mbs,
+                    "flash_attention_bwd":
+                        TF.BWD_KERNELS_PER_CALL * cfg.num_layers * mbs}
+        else:
+            want = {**zero,
+                    "wkv_chunk": 2 * TW.KERNELS_PER_CALL * cfg.num_layers
+                    * mbs,
+                    "wkv_chunk_bwd": TW.BWD_KERNELS_PER_CALL
+                    * cfg.num_layers * mbs}
+        rec, _ = cs.train_steps(torch, args.arch, 29, want,
+                                TRAIN_KERNELS[args.arch])
+        out["train"] = {"arch": args.arch}
+        out["train"].update({key: rec[key] for key in (
             "step_ms", "step_ms_median", "tokens_s", "kernel_ms_in_step",
-            "kernel_calls_a_step", "update_ms")}
+            "kernel_calls_a_step", "update_ms")})
     print(json.dumps(out), flush=True)
     return 0
 

@@ -66,8 +66,13 @@ GRID_ARGTYPES = {name: [_P, _P, _P, _P, _I, _I, _I, _I, _P]
                               "launch_floor")}
 #: Entry points beside a kernel's own, by name: the library they live in
 #: (``launch_floor``: an empty grid kernel through the arena kernels'
-#: launcher, an instrument that ports nothing).
-EXTRA_ENTRIES = {"launch_floor": "arena_softmax"}
+#: launcher; ``wkv_chunk_bwd_occupancy``: each WKV backward launch's CTAs
+#: an SM and threads a CTA; instruments that port nothing).
+EXTRA_ENTRIES = {"launch_floor": "arena_softmax",
+                 "wkv_chunk_bwd_occupancy": "wkv_chunk_bwd"}
+#: Their signatures where they are not :data:`GRID_ARGTYPES`' (an int
+#: array of 8 to fill)
+EXTRA_ARGTYPES = {"wkv_chunk_bwd_occupancy": [_P]}
 #: The standalone kernels' own signatures, by entry point; every other
 #: entry takes its :data:`GRID_ARGTYPES`.
 ARGTYPES_OF = {
@@ -151,7 +156,7 @@ def load() -> Dict[str, ctypes.CDLL]:
             _LIBS[name] = lib
         for name, lib in EXTRA_ENTRIES.items():
             fn = getattr(_LIBS[lib], name)
-            fn.argtypes = GRID_ARGTYPES[name]
+            fn.argtypes = EXTRA_ARGTYPES.get(name) or GRID_ARGTYPES[name]
             fn.restype = ctypes.c_int
         return _LIBS
 

@@ -40,45 +40,86 @@
 //   B' (grad_scan): one thread per state element (b, h, i, e) walks the
 //      chunks from the last: G = dS, then for c = nc - 1 .. 0 it writes
 //      G_c over A'_c and takes G = w_c[i] G + A'_c.
-//   C' (chunk_grads): per (b, h, chunk), from r, k, v, logw, dy, S_c, G_c
-//      in shared memory: att and datt by pairs (the pairwise exps of the
-//      reference's chunk body, no sub-chunk factors), then dv and dr in
-//      one pass, then dk, each thread owning rows tr + 16a and columns
-//      tc + 16m (a, m < 4: the loads of a warp fall on distinct banks or
-//      broadcast), then one thread a column sums the gradient of lwc from
-//      the last step into dlogw, and the chunk's share of du.
+//   C' (chunk_grads): per (b, h, chunk), a CTA of 512 threads (16 warps)
+//      over r, k, v, logw, dy, S_c and G_c in shared memory, cut into
+//      sub-chunks of 16 steps as the forward's phase C cuts att, in five
+//      steps between barriers:
+//      1. the scan into lwc, then the factors, one exp each: r~ = r
+//         2^(lwp - ref_a) (ref_a = lwc at the step before sub-chunk a,
+//         s_a its first step; 0 for the first), k's decay 2^(last - lwc),
+//         k~_a = k 2^(ref_a - lwc) on the rows before s_a, E_a = 2^ref_a;
+//      2. att: below the diagonal blocks r~_a k~_a^T (warps 0-5, the
+//         forward's product, a lane pair a 4 x 4 tile), on them pairwise
+//         with u at j = t (warps 8-15, the forward's sub-tiles and
+//         shuffles); the last step's state term (warps 6-7);
+//      3. dv = att^T dy + (k 2^(last - lwc)) G_c (warps 0-7) beside
+//         datt = dy v^T (warps 8-15);
+//      4. d^r (warps 0-7) and d^k (warps 8-15), a thread rows x0 .. x0 + 3
+//         of one sub-chunk and columns cb + 16m:
+//           d^r_t = 2^(lwp_t - ref_a) (E_a (S_c dy_t) + datt[t, :s_a] k~_a)
+//                   + sum_{s_a <= j < t} datt[t][j] k_j 2^(lwp_t - lwc_j)
+//           d^k_j = 2^(last - lwc_j) (G_c v_j)
+//                   + sum_{a > sub(j)} 2^(ref_a - lwc_j)
+//                                      (datt[s_a .. s_a + 15, j]^T r~_a)
+//                   + sum_{j < t in sub(j)} datt[t][j] r_t 2^(lwp_t - lwc_j)
+//         (2^lwp_t = 2^(lwp_t - ref_a) E_a, as the forward's cross-chunk
+//         term); the state products read both operands along their rows
+//         by float4, consecutive lanes on consecutive rows of S_c or G_c,
+//         so no tile is copied transposed;
+//      5. the gradient of lwc summed from the last step into dlogw (a
+//         thread 8 rows of a column, then the totals of the segments
+//         after it, in order), and the chunk's share of du.
+//      The products run on 4 x 4 FMA register tiles fed by float4 loads.
 //   D' (du_sum): one thread per (h, i) sums the shares over the batch,
 //      then the chunks, in order.
 // 0 < D <= 64 and 0 < q <= 64 (ragged q and D included: tiles zero-padded
-// to q rounded up to 16 rows and D to 4 columns), as the forward.
+// to q rounded up to 16 rows and D to 4 columns, and padded rows add
+// nothing), as the forward.
+//
+// The exps, at q = D = 64. The pairwise form takes D exps per pair j < t
+// and per pass, 3 x 129,024 a chunk for att, dr and dk. Here only pairs
+// inside one sub-chunk keep the pairwise decay, and each of att, d^r and
+// d^k takes its own: 3 x 30,720. The factors: r~'s 4,096 twice (step 1
+// and d^r), k's decay 4,096 once (dv and d^k share it), k~'s 6,144 twice
+// (step 1 and d^k), E 192 and the state term's 64: 116,992 a chunk in C',
+// and 4,096 in A'. Each is one exp2f (precise; no fast-math intrinsics:
+// dw = dlogw / w magnifies rounding).
+//
+// Why nothing overflows: the forward's argument, carried to d^r and d^k.
+// logw <= 0, so lwc falls monotonically over a chunk, and rounding and the
+// segmented scan keep that order. Every exp takes a later cumulative sum
+// minus an earlier one: lwp_t - ref_a (t >= s_a), ref_a - lwc_j (j <
+// s_a), last - lwc_j, lwp_t - lwc_j (j < t), ref_a, last. So every factor
+// lies in [0, 1], and a factor that underflows marks a term below f32's
+// range anyway (the exact product of two factors is no larger than
+// either).
 //
 // Bound on this card: operations. At B = 1, S = 4096, H = 32, D = q = 64
 // (rwkv6-1.6b) the backward reads r, k, v, logw, dy and writes dr, dk,
 // dv, dlogw (302 MB, 0.090 ms) and needs about 7.7 G operations of f32
 // work, each exp counted as one and att, dr and dk cut into sub-chunks of
-// 16 steps as the forward cuts att (chip_smoke.py::wkv_bwd_cost): 0.114
-// ms at 67 TFLOP/s. This first kernel computes each pair's decay afresh in
-// three passes (att, dr, dk: 3 x 129,024 exps a chunk) and recomputes
-// dv's k decays per column group, on one CTA an SM (its 176 KB of
-// shared memory); the forward's sub-chunk factors, which turn most pairs
-// into products on register tiles, and a second CTA an SM are later
-// work.
+// 16 steps (chip_smoke.py::wkv_bwd_cost): 0.114 ms at 67 TFLOP/s.
 //
-// Shared memory: A' 53,248 B (r, dy and logw tiles and the scan's
-// totals, as phase A); C' 175,616 B: ten tiles of 64 rows of 68 floats
-// (r, k, v, lwc, dy, G_c, G_c^T, S_c^T, att, datt; dy's tile later holds
-// k * the state part of d^k, S_c^T's k * d^k, att's r * d^r), u, the last
-// step's state term and the scan's totals. The workspace `gws` holds
-// B * H * (S / q) * (D * D + D) floats: G_c per task, then each task's
-// share of du.
+// Shared memory and occupancy: A' 53,248 B (r, dy and logw tiles and the
+// scan's totals, as phase A), 3 CTAs of 8 warps an SM by its 80
+// registers. C' 227,328 B: eleven tiles of 64 rows of 68 floats (r, k,
+// lwc, v, dy, S_c, G_c, att then r * d^r, datt, r~, k's decay then
+// k * d^k), k~'s 96 rows, u, E, the state terms and the scans' totals;
+// one CTA of 16 warps an SM, at most 128 registers a thread by its launch
+// bounds (wkv_chunk_bwd_occupancy reports each launch's CTAs an SM). The
+// workspace `gws` holds B * H * (S / q) * (D * D + D) floats: G_c per
+// task, then each task's share of du.
 #include "wkv_tiles.cuh"
 
 namespace {
 
 using namespace wkv;
 
-constexpr int SMEM_GA = 4 * (3 * MAXD * LD + 4 * MAXD);
-constexpr int SMEM_GC = 4 * (10 * MAXD * LD + 6 * MAXD);
+constexpr int NTC = 2 * NT;        // threads of a C' CTA: 16 warps
+constexpr int TILE = MAXD * LD;    // floats of a 64-row tile
+constexpr int KT_ROWS = 6 * SUB;   // k~ rows of sub-chunks 1, 2 and 3
+constexpr int SMEM_GA = 4 * (3 * TILE + 4 * MAXD);
+constexpr int SMEM_GC = 4 * (11 * TILE + KT_ROWS * LD + 38 * MAXD);
 
 // Phase A' for one task: (r * 2^lwp)^T dy of the chunk into gs.
 __device__ void grad_part(const Shape& sh, long task,
@@ -169,8 +210,8 @@ __device__ __forceinline__ void grad_element(const Shape& sh, long idx,
   }
 }
 
-// Phase C' for one task: dr, dk, dv and dlogw of the chunk, and its share
-// of du, from S_c (ss) and G_c (gs).
+// Phase C' for one task, by a CTA of NTC threads: dr, dk, dv and dlogw of
+// the chunk, and its share of du, from S_c (ss) and G_c (gs).
 __device__ void chunk_grad(const Shape& sh, long task,
                            const float* __restrict__ r,
                            const float* __restrict__ k,
@@ -184,265 +225,543 @@ __device__ void chunk_grad(const Shape& sh, long task,
                            float* __restrict__ dv, float* __restrict__ dlw,
                            float* __restrict__ dup, float* sm) {
   float* R = sm;
-  float* K = R + MAXD * LD;
-  float* V = K + MAXD * LD;
-  float* L = V + MAXD * LD;    // logw, then lwc
-  float* Y = L + MAXD * LD;    // dy, then k * the state part of d^k
-  float* G = Y + MAXD * LD;    // G_c
-  float* GT = G + MAXD * LD;   // G_c^T
-  float* ST = GT + MAXD * LD;  // S_c^T, then k * d^k
-  float* A = ST + MAXD * LD;   // S_c as loaded, then att, then r * d^r
-  float* DA = A + MAXD * LD;   // datt
-  float* U = DA + MAXD * LD;
-  float* X = U + MAXD;         // the last step's state term per column
-  float* tot = X + MAXD;
-  const int tid = threadIdx.x, d = sh.d, q = sh.q, qp = sh.qp, dp = sh.dp;
+  float* K = R + TILE;
+  float* L = K + TILE;      // logw, then lwc
+  float* V = L + TILE;
+  float* Y = V + TILE;      // dy
+  float* S = Y + TILE;      // S_c
+  float* G = S + TILE;      // G_c
+  float* A = G + TILE;      // att, then r * d^r
+  float* DA = A + TILE;     // datt
+  float* RT = DA + TILE;    // r~
+  float* KD = RT + TILE;    // k's decay 2^(last - lwc), then k * d^k
+  float* KT = KD + TILE;    // k~ of sub-chunk a at row 8 a (a - 1)
+  float* U = KT + KT_ROWS * LD;
+  float* E = U + MAXD;      // E_a, 4 x 64
+  float* X = E + 4 * MAXD;  // 2^last sum_e G_c S_c, by column
+  float* WP = X + MAXD;     // sum_j k_dec (G_c v_j) by 4-row block, 16 x 64
+  float* SEG = WP + 16 * MAXD;  // the scan's totals, then dlwc's, 8 x 64
+  float* DUS = SEG + 8 * MAXD;  // du's shares by 8-row segment, 8 x 64
+  const int tid = threadIdx.x, d = sh.d, q = sh.q, qp = sh.qp, na = sh.na,
+            dp = sh.dp;
   int chunk, head;
   const long g0 = task_rows(sh, task, &chunk, &head);
   const long rs = (long)sh.h * d;
   const long dd = (long)d * d;
 
-  load_rows(R, r + g0, rs, q, d, sh.vec);
-  load_rows(K, k + g0, rs, q, d, sh.vec);
-  load_rows(V, v + g0, rs, q, d, sh.vec);
-  load_rows(L, lw + g0, rs, q, d, sh.vec);
-  load_rows(Y, dy + g0, rs, q, d, sh.vec);
-  load_rows(A, ss + task * dd, d, d, d, sh.vec);
-  load_rows(G, gs + task * dd, d, d, d, sh.vec);
+  load_rows<NTC>(R, r + g0, rs, q, d, sh.vec);
+  load_rows<NTC>(K, k + g0, rs, q, d, sh.vec);
+  load_rows<NTC>(L, lw + g0, rs, q, d, sh.vec);
+  load_rows<NTC>(V, v + g0, rs, q, d, sh.vec);
+  load_rows<NTC>(Y, dy + g0, rs, q, d, sh.vec);
+  load_rows<NTC>(S, ss + task * dd, d, d, d, sh.vec);
+  load_rows<NTC>(G, gs + task * dd, d, d, d, sh.vec);
   cp_commit();
-  zero_pad(R, q, qp, d, dp);
-  zero_pad(K, q, qp, d, dp);
-  zero_pad(V, q, qp, d, dp);
-  zero_pad(L, q, qp, d, dp);
-  zero_pad(Y, q, qp, d, dp);
-  zero_pad(A, d, dp, d, dp);
-  zero_pad(G, d, dp, d, dp);
-  if (tid < MAXD) U[tid] = tid < d ? u[head * d + tid] : 0.f;
+  zero_pad<NTC>(R, q, qp, d, dp);
+  zero_pad<NTC>(K, q, qp, d, dp);
+  zero_pad<NTC>(L, q, qp, d, dp);
+  zero_pad<NTC>(V, q, qp, d, dp);
+  zero_pad<NTC>(Y, q, qp, d, dp);
+  zero_pad<NTC>(S, d, dp, d, dp);
+  zero_pad<NTC>(G, d, dp, d, dp);
+  if (tid < MAXD) {
+    U[tid] = tid < d ? u[head * d + tid] : 0.f;
+    E[tid] = 1.f;  // E_0: lwp[s_0] = 0
+  }
   cp_wait<0>();
   __syncthreads();
-  scan_rows(L, tot, sh);
-  for (int i = tid; i < dp * dp; i += NT) {
-    const int a = i / dp, e = i - a * dp;
-    GT[e * LD + a] = G[a * LD + e];
-    ST[e * LD + a] = A[a * LD + e];
-  }
-  __syncthreads();
-
-  // Rows tr + 16a, columns tc + 16m of every (rows, columns) tile below.
-  // Rows and columns past qp and dp hold whatever the tiles hold there:
-  // they reach no stored value, and every sum runs over valid indices.
-  const int tr = tid >> 4, tc = tid & 15;
+  scan_rows(L, SEG, sh);
   const float* last = L + (q - 1) * LD;
 
-  // att[t][j] (j <= t, u on the diagonal) and datt[t][j] (j <= t); zeros
-  // above the diagonal
+  // The factors, one exp each, thread (column c, rows r0 + 8m): r~ = r
+  // 2^(lwp - ref_a) and k's decay 2^(last - lwc) on every row, k~_a =
+  // k 2^(ref_a - lwc) on the rows before sub-chunk a, E_a = 2^ref_a.
+  // Rows past qp and columns past dp are left as they are: nothing reads
+  // them into a stored value.
   {
-    float at[4][4] = {}, da[4][4] = {};
-    for (int c = 0; c < dp; ++c) {
-      float rv[4], lp[4], yv[4], kv[4], lc[4], vv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int t = tr + 16 * a;
-        rv[a] = R[t * LD + c];
-        lp[a] = t ? L[(t - 1) * LD + c] : 0.f;
-        yv[a] = Y[t * LD + c];
+    const int c = tid & (MAXD - 1), r0 = tid / MAXD;
+    if (c < dp) {
+      const float lc = last[c];
+      for (int t = r0; t < qp; t += NTC / MAXD) {
+        const int a = t / SUB;
+        const float ref = a ? L[(a * SUB - 1) * LD + c] : 0.f;
+        const float lp = t ? L[(t - 1) * LD + c] : 0.f;
+        RT[t * LD + c] = R[t * LD + c] * exp2f(lp - ref);
+        KD[t * LD + c] = exp2f(lc - L[t * LD + c]);
       }
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int j = tc + 16 * m;
-        kv[m] = K[j * LD + c];
-        lc[m] = L[j * LD + c];
-        vv[m] = V[j * LD + c];
+      for (int kr = r0; kr < 8 * na * (na - 1); kr += NTC / MAXD) {
+        const int a = kr < SUB ? 1 : kr < 3 * SUB ? 2 : 3;
+        const int j = kr - 8 * a * (a - 1);
+        KT[kr * LD + c] = K[j * LD + c] * exp2f(L[(a * SUB - 1) * LD + c] -
+                                                L[j * LD + c]);
       }
-      const float uc = U[c];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int m = 0; m <= a; ++m) {
-          const int t = tr + 16 * a, j = tc + 16 * m;
-          if (j < t)
-            at[a][m] += exp2f(lp[a] - lc[m]) * rv[a] * kv[m];
-          else if (j == t)
-            at[a][m] += rv[a] * uc * kv[m];
-          da[a][m] += yv[a] * vv[m];
-        }
+      if (r0 && r0 < na) E[r0 * MAXD + c] = exp2f(L[(r0 * SUB - 1) * LD + c]);
     }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int t = tr + 16 * a, j = tc + 16 * m;
-        const bool on = m <= a && j <= t;
-        A[t * LD + j] = on ? at[a][m] : 0.f;
-        DA[t * LD + j] = on ? da[a][m] : 0.f;
-      }
   }
   __syncthreads();
 
-  // dv (rows j, columns e) and dr (rows t, columns c); r * d^r kept
-  float pr[4][4];
-  {
+  // att. Warps 0-5: the blocks below the diagonal ones, r~_a k~_a^T, a
+  // 4 x 4 tile of (t, j) per lane pair, each lane half of the channels,
+  // summed by a shuffle (the forward's product); warps 6-7: X. Warps
+  // 8-15: the diagonal blocks, pairwise, as the forward's phase C takes
+  // them (4 x 4 sub-tiles of (t, j), 8 lanes a sub-tile below the
+  // diagonal, 4 on it, u at j = t, the lanes' sums met by a reduce-scatter
+  // of shuffles), then zeros in the sub-tiles above the diagonal.
+  if (tid < 6 * 32) {
+    const int hf = tid & 1, it = tid >> 1;
+    const bool on = it < 8 * na * (na - 1);  // 16 a tiles for sub-chunk a
     float acc[4][4] = {};
-    for (int t = tr; t < q; ++t) {
-      float av[4], yv[4];
+    int t0 = 0, j0 = 0;
+    if (on) {
+      const int a = it < SUB ? 1 : it < 3 * SUB ? 2 : 3;
+      const int loc = it - 8 * a * (a - 1), tt = loc / (4 * a);
+      t0 = a * SUB + 4 * tt;
+      j0 = 4 * (loc - tt * 4 * a);
+      const float* kb = KT + (8 * a * (a - 1) + j0) * LD;
+      for (int cc = 4 * hf; cc < dp; cc += 8) {
+        float4 ra[4], ka[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = A[t * LD + tr + 16 * a];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) yv[m] = Y[t * LD + tc + 16 * m];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) acc[a][m] += av[a] * yv[m];
-    }
-    for (int i = 0; i < dp; ++i) {
-      float kd[4], gv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int j = tr + 16 * a;
-        kd[a] = K[j * LD + i] * exp2f(last[i] - L[j * LD + i]);
-      }
-#pragma unroll
-      for (int m = 0; m < 4; ++m) gv[m] = G[i * LD + tc + 16 * m];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) acc[a][m] += kd[a] * gv[m];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int j = tr + 16 * a, e = tc + 16 * m;
-        if (j < q && e < d) dv[g0 + j * rs + e] = acc[a][m];
-      }
-  }
-  {
-    float acc[4][4] = {}, lpv[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int t = tr + 16 * a;
-        lpv[a][m] = t ? L[(t - 1) * LD + tc + 16 * m] : 0.f;
-      }
-    const int jend = min(q, tr + 48);  // j < t <= tr + 48
-    for (int j = 0; j < jend; ++j) {
-      float kv[4], lc[4], dav[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        kv[m] = K[j * LD + tc + 16 * m];
-        lc[m] = L[j * LD + tc + 16 * m];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) dav[a] = DA[(tr + 16 * a) * LD + j];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        if (j < tr + 16 * a) {
-#pragma unroll
-          for (int m = 0; m < 4; ++m)
-            acc[a][m] += dav[a] * kv[m] * exp2f(lpv[a][m] - lc[m]);
+        for (int i = 0; i < 4; ++i) {
+          ra[i] = ld4(RT + (t0 + i) * LD + cc);
+          ka[i] = ld4(kb + i * LD + cc);
         }
-    }
-    float sv[4][4] = {};
-    for (int e = 0; e < dp; ++e) {
-      float yv[4], st[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) yv[a] = Y[(tr + 16 * a) * LD + e];
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int m = 0; m < 4; ++m) st[m] = ST[e * LD + tc + 16 * m];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) sv[a][m] += yv[a] * st[m];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int t = tr + 16 * a, c = tc + 16 * m;
-        const float dh = acc[a][m] + exp2f(lpv[a][m]) * sv[a][m];
-        pr[a][m] = R[t * LD + c] * dh;
-        if (t < q && c < d)
-          dr[g0 + t * rs + c] = dh + DA[t * LD + t] * U[c] * K[t * LD + c];
+          for (int jj = 0; jj < 4; ++jj)
+            acc[i][jj] += ra[i].x * ka[jj].x + ra[i].y * ka[jj].y +
+                          ra[i].z * ka[jj].z + ra[i].w * ka[jj].w;
       }
-  }
-  if (tid < dp) {  // exp(lwc[q-1]) sum_e G_c S_c, by column
-    float x = 0.f;
-    for (int e = 0; e < dp; ++e) x += GT[e * LD + tid] * ST[e * LD + tid];
-    X[tid] = exp2f(last[tid]) * x;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        acc[i][jj] += __shfl_xor_sync(0xffffffffu, acc[i][jj], 1);
+    if (on) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if ((i >> 1) == hf)
+          *reinterpret_cast<float4*>(A + (t0 + i) * LD + j0) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+  } else if (tid < NT) {
+    const int c = tid - 6 * 32;
+    if (c < dp) {
+      float x = 0.f;
+      for (int e = 0; e < dp; e += 4) {
+        const float4 gv = ld4(G + c * LD + e), sv = ld4(S + c * LD + e);
+        x += gv.x * sv.x + gv.y * sv.y + gv.z * sv.z + gv.w * sv.w;
+      }
+      X[c] = exp2f(last[c]) * x;
+    }
+  } else {
+    const int ln = tid - NT;
+    const int lower = (48 * na + 31) / 32 * 32;  // lanes of the 6 na below
+    const bool on_diag = ln >= lower;
+    const int nl = on_diag ? 4 : 8;              // lanes an item
+    const int it = on_diag ? (ln - lower) / 4 : ln / 8;
+    const int g = ln % nl;
+    const bool live = it < (on_diag ? 4 : 6) * na;
+    float w16[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) w16[i] = 0.f;
+    int t0 = 0, j0 = 0;
+    if (live) {
+      int a, ti, tj;
+      if (on_diag) {
+        a = it / 4;
+        ti = tj = it % 4;
+      } else {
+        a = it / 6;
+        const int k6 = it % 6;  // (1,0) (2,0) (2,1) (3,0) (3,1) (3,2)
+        ti = k6 < 1 ? 1 : k6 < 3 ? 2 : 3;
+        tj = k6 - ti * (ti - 1) / 2;
+      }
+      t0 = a * SUB + 4 * ti;
+      j0 = a * SUB + 4 * tj;
+      for (int c = 4 * g; c < dp; c += 4 * nl) {
+        float4 rr[4], lp[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          rr[i] = ld4(R + (t0 + i) * LD + c);
+          lp[i] = ld4(L + max(t0 + i - 1, 0) * LD + c);  // lwp[t0 + i]
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float4 kk = ld4(K + (j0 + jj) * LD + c);
+          const float4 lc = ld4(L + (j0 + jj) * LD + c);
+          if (on_diag) {
+            const float4 uu = ld4(U + c);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (jj < i)
+                w16[4 * i + jj] += exp2f(lp[i].x - lc.x) * rr[i].x * kk.x +
+                                   exp2f(lp[i].y - lc.y) * rr[i].y * kk.y +
+                                   exp2f(lp[i].z - lc.z) * rr[i].z * kk.z +
+                                   exp2f(lp[i].w - lc.w) * rr[i].w * kk.w;
+              else if (jj == i)
+                w16[4 * i + jj] += rr[i].x * uu.x * kk.x +
+                                   rr[i].y * uu.y * kk.y +
+                                   rr[i].z * uu.z * kk.z +
+                                   rr[i].w * uu.w * kk.w;
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              w16[4 * i + jj] += exp2f(lp[i].x - lc.x) * rr[i].x * kk.x +
+                                 exp2f(lp[i].y - lc.y) * rr[i].y * kk.y +
+                                 exp2f(lp[i].z - lc.z) * rr[i].z * kk.z +
+                                 exp2f(lp[i].w - lc.w) * rr[i].w * kk.w;
+          }
+        }
+      }
+    }
+    // reduce-scatter over the item's lanes: lane g ends with the sums of
+    // pairs 16 g / nl onwards (8 lanes: 2 a lane; 4 lanes: one row, 4)
+    const bool b4 = g & 4, b2 = g & 2, b1 = g & 1;
+    float w[8], x[4], z[2];
+    if (on_diag) {  // a whole warp of 4-lane items
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        w[i] = (b2 ? w16[i + 8] : w16[i]) +
+               __shfl_xor_sync(0xffffffffu, b2 ? w16[i] : w16[i + 8], 2);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[i] = (b1 ? w[i + 4] : w[i]) +
+               __shfl_xor_sync(0xffffffffu, b1 ? w[i] : w[i + 4], 1);
+      if (live)
+        *reinterpret_cast<float4*>(A + (t0 + g) * LD + j0) =
+            make_float4(x[0], x[1], x[2], x[3]);
+    } else {        // a whole warp of 8-lane items
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        w[i] = (b4 ? w16[i + 8] : w16[i]) +
+               __shfl_xor_sync(0xffffffffu, b4 ? w16[i] : w16[i + 8], 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[i] = (b2 ? w[i + 4] : w[i]) +
+               __shfl_xor_sync(0xffffffffu, b2 ? w[i] : w[i + 4], 2);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        z[i] = (b1 ? x[i + 2] : x[i]) +
+               __shfl_xor_sync(0xffffffffu, b1 ? x[i] : x[i + 2], 1);
+      if (live) {
+        float* o = A + (t0 + (g >> 1)) * LD + j0 + 2 * (g & 1);
+        o[0] = z[0];
+        o[1] = z[1];
+      }
+    }
+    for (int i = ln; i < na * SUB * SUB; i += NT) {
+      const int a = i / (SUB * SUB), tl = (i / SUB) % SUB, jl = i % SUB;
+      if (jl / 4 > tl / 4) A[(a * SUB + tl) * LD + a * SUB + jl] = 0.f;
+    }
   }
   __syncthreads();
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      A[(tr + 16 * a) * LD + tc + 16 * m] = pr[a][m];
 
-  // dk (rows j, columns c); k * d^k into ST, k * its state part into Y
-  // (neither read here)
-  {
-    float acc[4][4] = {}, lj[4][4];
+  if (tid < NT) {
+    // dv = att^T dy + (k 2^(last - lwc)) G_c: thread (rows j0 .. j0 + 3,
+    // columns e0 .. e0 + 3); att holds zeros above the diagonal
+    const int j0 = 4 * (tid >> 4), e0 = 4 * (tid & 15);
+    if (j0 < qp && e0 < dp) {
+      float acc[4][4] = {};
+      for (int i = 0; i < dp; i += 4) {
+        float4 kd[4], gv[4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+        for (int jj = 0; jj < 4; ++jj) {
+          const float4 f = ld4(KD + (j0 + jj) * LD + i);
+          const float4 kk = ld4(K + (j0 + jj) * LD + i);
+          kd[jj] = make_float4(kk.x * f.x, kk.y * f.y, kk.z * f.z,
+                               kk.w * f.w);
+          gv[jj] = ld4(G + (i + jj) * LD + e0);  // G_c row i + jj
+        }
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
-        lj[a][m] = L[(tr + 16 * a) * LD + tc + 16 * m];
-    for (int t = tr + 1; t < q; ++t) {  // t > j >= tr
-      float rv[4], lp[4], dav[4];
+        for (int jj = 0; jj < 4; ++jj) {
+          const float kv[4] = {kd[jj].x, kd[jj].y, kd[jj].z, kd[jj].w};
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        rv[m] = R[t * LD + tc + 16 * m];
-        lp[m] = L[(t - 1) * LD + tc + 16 * m];
+          for (int m = 0; m < 4; ++m) {
+            acc[jj][0] += kv[m] * gv[m].x;
+            acc[jj][1] += kv[m] * gv[m].y;
+            acc[jj][2] += kv[m] * gv[m].z;
+            acc[jj][3] += kv[m] * gv[m].w;
+          }
+        }
+      }
+      for (int t = j0; t < qp; ++t) {
+        const float4 at = ld4(A + t * LD + j0), yv = ld4(Y + t * LD + e0);
+        const float av[4] = {at.x, at.y, at.z, at.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          acc[jj][0] += av[jj] * yv.x;
+          acc[jj][1] += av[jj] * yv.y;
+          acc[jj][2] += av[jj] * yv.z;
+          acc[jj][3] += av[jj] * yv.w;
+        }
       }
 #pragma unroll
-      for (int a = 0; a < 4; ++a) dav[a] = DA[t * LD + tr + 16 * a];
+      for (int jj = 0; jj < 4; ++jj) {
+        float* row = dv + g0 + (j0 + jj) * rs + e0;
+        if (j0 + jj < q && sh.vec) {
+          *reinterpret_cast<float4*>(row) =
+              make_float4(acc[jj][0], acc[jj][1], acc[jj][2], acc[jj][3]);
+        } else if (j0 + jj < q) {
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-        if (t > tr + 16 * a) {
+          for (int e = 0; e < 4; ++e)
+            if (e0 + e < d) row[e] = acc[jj][e];
+        }
+      }
+    }
+  } else {
+    // datt[t][j] = dy_t . v_j: thread (rows t0 .. t0 + 3, columns jb +
+    // 16m), both operands along their rows by float4, consecutive lanes
+    // on consecutive rows of v
+    const int ln = tid - NT, t0 = 4 * (ln >> 4), jb = ln & 15;
+    if (t0 < qp) {
+      float acc[4][4] = {};
+      for (int e = 0; e < dp; e += 4) {
+        float4 yv[4], vv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          yv[i] = ld4(Y + (t0 + i) * LD + e);
+          vv[i] = ld4(V + (jb + 16 * i) * LD + e);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int m = 0; m < 4; ++m)
-            acc[a][m] += dav[a] * rv[m] * exp2f(lp[m] - lj[a][m]);
-        }
-    }
-    float sv[4][4] = {};
-    for (int e = 0; e < dp; ++e) {
-      float vv[4], gt[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) vv[a] = V[(tr + 16 * a) * LD + e];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) gt[m] = GT[e * LD + tc + 16 * m];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) sv[a][m] += vv[a] * gt[m];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int j = tr + 16 * a, c = tc + 16 * m;
-        const float ks = exp2f(last[c] - lj[a][m]) * sv[a][m];
-        const float dh = acc[a][m] + ks, kjc = K[j * LD + c];
-        if (j < q && c < d)
-          dk[g0 + j * rs + c] = dh + DA[j * LD + j] * R[j * LD + c] * U[c];
-        ST[j * LD + c] = kjc * dh;
-        Y[j * LD + c] = kjc * ks;
+            acc[i][m] += yv[i].x * vv[m].x + yv[i].y * vv[m].y +
+                         yv[i].z * vv[m].z + yv[i].w * vv[m].w;
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          DA[(t0 + i) * LD + jb + 16 * m] = acc[i][m];
+    }
   }
   __syncthreads();
 
-  // the gradient of lwc, summed from the last step into dlogw; du's share
-  if (tid < dp) {
-    const int c = tid;
-    float x = X[c];
-    for (int j = 0; j < q; ++j) x += Y[j * LD + c];
-    float acc = 0.f, du = 0.f;
-    for (int j = q - 1; j >= 0; --j) {
-      acc += (j + 1 < q ? A[(j + 1) * LD + c] : x) - ST[j * LD + c];
-      if (c < d) dlw[g0 + j * rs + c] = acc;
-      du += DA[j * LD + j] * R[j * LD + c] * K[j * LD + c];
+  // d^r (warps 0-7) and d^k (warps 8-15), each thread rows x0 .. x0 + 3
+  // of sub-chunk x0 / 16 and columns cb + 16m; their state products read
+  // dy or v and S_c or G_c along rows by float4, consecutive lanes on
+  // consecutive rows of the state.
+  {
+    const int ln = tid & (NT - 1), x0 = 4 * (ln >> 4), cb = ln & 15;
+    const int a = x0 / SUB;
+    if (tid < NT && x0 < qp) {
+      // d^r_t = 2^(lwp_t - ref_a) (E_a (S_c dy_t) + datt[t, :s_a] k~_a)
+      //         + the pairs of the sub-chunk
+      float acc[4][4] = {};
+      for (int e = 0; e < dp; e += 4) {
+        float4 yv[4], sv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          yv[i] = ld4(Y + (x0 + i) * LD + e);
+          sv[i] = ld4(S + (cb + 16 * i) * LD + e);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            acc[i][m] += yv[i].x * sv[m].x + yv[i].y * sv[m].y +
+                         yv[i].z * sv[m].z + yv[i].w * sv[m].w;
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float ea = E[a * MAXD + cb + 16 * m];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][m] *= ea;
+      }
+      const float* kb = KT + 8 * a * (a - 1) * LD + cb;
+      for (int j = 0; j < a * SUB; j += 4) {
+        float4 da[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) da[i] = ld4(DA + (x0 + i) * LD + j);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float kt[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) kt[m] = kb[(j + jj) * LD + 16 * m];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float w = (&da[i].x)[jj];
+#pragma unroll
+            for (int m = 0; m < 4; ++m) acc[i][m] += w * kt[m];
+          }
+        }
+      }
+      float lp[4][4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int c = cb + 16 * m;
+        const float ref = a ? L[(a * SUB - 1) * LD + c] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int t = x0 + i;
+          lp[i][m] = t ? L[(t - 1) * LD + c] : 0.f;
+          acc[i][m] *= exp2f(lp[i][m] - ref);
+        }
+      }
+      for (int j = a * SUB; j < x0 + 3; ++j) {
+        float kv[4], lc[4], da[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          kv[m] = K[j * LD + cb + 16 * m];
+          lc[m] = L[j * LD + cb + 16 * m];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) da[i] = DA[(x0 + i) * LD + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (j < x0 + i) {
+#pragma unroll
+            for (int m = 0; m < 4; ++m)
+              acc[i][m] += da[i] * kv[m] * exp2f(lp[i][m] - lc[m]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = x0 + i;
+        const float dt = DA[t * LD + t];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int c = cb + 16 * m;
+          A[t * LD + c] = R[t * LD + c] * acc[i][m];
+          if (t < q && c < d)
+            dr[g0 + t * rs + c] = acc[i][m] + dt * U[c] * K[t * LD + c];
+        }
+      }
+    } else if (tid >= NT && x0 < qp) {
+      // d^k_j = 2^(last - lwc_j) (G_c v_j)
+      //         + sum_{a' > a} 2^(ref_a' - lwc_j) (datt[s_a'.., j]^T r~_a')
+      //         + the pairs of the sub-chunk
+      float acc[4][4] = {};
+      for (int e = 0; e < dp; e += 4) {
+        float4 vv[4], gv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          vv[i] = ld4(V + (x0 + i) * LD + e);
+          gv[i] = ld4(G + (cb + 16 * i) * LD + e);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            acc[i][m] += vv[i].x * gv[m].x + vv[i].y * gv[m].y +
+                         vv[i].z * gv[m].z + vv[i].w * gv[m].w;
+      }
+      float lj[4][4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int c = cb + 16 * m;
+        float wp = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          lj[i][m] = L[(x0 + i) * LD + c];
+          acc[i][m] *= KD[(x0 + i) * LD + c];
+          wp += K[(x0 + i) * LD + c] * acc[i][m];
+        }
+        WP[(ln >> 4) * MAXD + c] = wp;
+      }
+      for (int a2 = a + 1; a2 < na; ++a2) {
+        float mc[4][4] = {};
+        for (int t = a2 * SUB; t < (a2 + 1) * SUB; ++t) {
+          const float4 da = ld4(DA + t * LD + x0);
+          float rv[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) rv[m] = RT[t * LD + cb + 16 * m];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            mc[0][m] += da.x * rv[m];
+            mc[1][m] += da.y * rv[m];
+            mc[2][m] += da.z * rv[m];
+            mc[3][m] += da.w * rv[m];
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const float ref = L[(a2 * SUB - 1) * LD + cb + 16 * m];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[i][m] += exp2f(ref - lj[i][m]) * mc[i][m];
+        }
+      }
+      const int tend = min((a + 1) * SUB, qp);
+      for (int t = x0 + 1; t < tend; ++t) {
+        const float4 da4 = ld4(DA + t * LD + x0);
+        const float da[4] = {da4.x, da4.y, da4.z, da4.w};
+        float rv[4], lp[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          rv[m] = R[t * LD + cb + 16 * m];
+          lp[m] = L[(t - 1) * LD + cb + 16 * m];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (t > x0 + i) {
+#pragma unroll
+            for (int m = 0; m < 4; ++m)
+              acc[i][m] += da[i] * rv[m] * exp2f(lp[m] - lj[i][m]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = x0 + i;
+        const float dj = DA[j * LD + j];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int c = cb + 16 * m;
+          const float kv = K[j * LD + c];
+          KD[j * LD + c] = kv * acc[i][m];
+          if (j < q && c < d)
+            dk[g0 + j * rs + c] = acc[i][m] + dj * R[j * LD + c] * U[c];
+        }
+      }
     }
-    if (c < d) dup[task * d + c] = du;
+  }
+  __syncthreads();
+
+  // the gradient of lwc, r_{j+1} d^r_{j+1} - k_j d^k_j, summed from the
+  // last step into dlogw, with the last step's state terms: thread
+  // (column c, rows 8g .. 8g + 7) sums its rows from the last, then adds
+  // the totals of the segments after it, in order; du's share by segment
+  {
+    const int c = tid & (MAXD - 1), g = tid / MAXD;
+    constexpr int SEGR = MAXD / (NTC / MAXD);  // 8 rows a segment
+    float z[SEGR];
+    if (c < dp) {
+      float du = 0.f;
+#pragma unroll
+      for (int i = SEGR - 1; i >= 0; --i) {
+        const int j = SEGR * g + i;
+        z[i] = 0.f;
+        if (j < q) {
+          z[i] = (j + 1 < q ? A[(j + 1) * LD + c] : 0.f) - KD[j * LD + c];
+          du += DA[j * LD + j] * R[j * LD + c] * K[j * LD + c];
+        }
+        if (i < SEGR - 1) z[i] += z[i + 1];
+      }
+      SEG[g * MAXD + c] = z[0];
+      DUS[g * MAXD + c] = du;
+    }
+    __syncthreads();
+    if (c < dp) {
+      float off = X[c];
+      for (int jb = 0; jb < qp / 4; ++jb) off += WP[jb * MAXD + c];
+      for (int g2 = NTC / MAXD - 1; g2 > g; --g2) off += SEG[g2 * MAXD + c];
+      if (c < d) {
+#pragma unroll
+        for (int i = 0; i < SEGR; ++i) {
+          const int j = SEGR * g + i;
+          if (j < q) dlw[g0 + j * rs + c] = z[i] + off;
+        }
+        if (g == 0) {
+          float du = 0.f;
+          for (int g2 = 0; g2 < NTC / MAXD; ++g2) du += DUS[g2 * MAXD + c];
+          dup[task * d + c] = du;
+        }
+      }
+    }
   }
   __syncthreads();  // the tiles are free for the next task
 }
@@ -463,7 +782,7 @@ grad_scan(Shape sh, long n, float* __restrict__ gs,
   if (idx < n) grad_element(sh, idx, gs, wd, ds);
 }
 
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(NTC, 1)
 chunk_grads(Shape sh, long tasks, const float* __restrict__ r,
             const float* __restrict__ k, const float* __restrict__ v,
             const float* __restrict__ lw, const float* __restrict__ u,
@@ -491,7 +810,33 @@ du_sum(Shape sh, int b, const float* __restrict__ dup,
   du[idx] = s;
 }
 
+// The opt-ins of A' and C' to their shared memory, once.
+cudaError_t opt_in_all() {
+  static int conf_a = 0, conf_c = 0;
+  cudaError_t e = opt_in(grad_parts, SMEM_GA, &conf_a);
+  if (e == cudaSuccess) e = opt_in(chunk_grads, SMEM_GC, &conf_c);
+  return e;
+}
+
 }  // namespace
+
+// For A', B', C' and D' in launch order: the CTAs an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the launch's threads
+// and shared memory) and the threads of a CTA, into out[0 .. 7]; returns
+// the first CUDA error.
+extern "C" int wkv_chunk_bwd_occupancy(int* out) {
+  cudaError_t e = opt_in_all();
+  const void* fns[4] = {(const void*)grad_parts, (const void*)grad_scan,
+                        (const void*)chunk_grads, (const void*)du_sum};
+  const int threads[4] = {NT, NT, NTC, NT};
+  const int smem[4] = {SMEM_GA, 0, SMEM_GC, 0};
+  for (int i = 0; i < 4 && e == cudaSuccess; ++i) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2 * i], fns[i],
+                                                      threads[i], smem[i]);
+    out[2 * i + 1] = threads[i];
+  }
+  return (int)e;
+}
 
 // (r, k, v, logw, u, dy, dstate or null, forward workspace, workspace, dr,
 // dk, dv, dlogw, du, b, s, h, d, q, stream): both workspaces hold
@@ -517,7 +862,8 @@ extern "C" int wkv_chunk_bwd(const void* r, const void* k, const void* v,
   sh.dp = (d + 3) / 4 * 4;
   sh.vec = d % 4 == 0 &&
            ((uintptr_t)r | (uintptr_t)k | (uintptr_t)v | (uintptr_t)lw |
-            (uintptr_t)dy | (uintptr_t)ws | (uintptr_t)gws) % 16 == 0;
+            (uintptr_t)dy | (uintptr_t)ws | (uintptr_t)gws |
+            (uintptr_t)dv) % 16 == 0;
   const long tasks = (long)b * h * sh.nc;
   const long n = (long)b * h * d * d;
   const float* ss = (const float*)ws;
@@ -529,9 +875,7 @@ extern "C" int wkv_chunk_bwd(const void* r, const void* k, const void* v,
   const long grid_e = (n + NT - 1) / NT;
   if (grid_e > INT_MAX || (long)h * d > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  static int conf_a = 0, conf_c = 0;
-  cudaError_t e = opt_in(grad_parts, SMEM_GA, &conf_a);
-  if (e == cudaSuccess) e = opt_in(chunk_grads, SMEM_GC, &conf_c);
+  cudaError_t e = opt_in_all();
   if (e != cudaSuccess) return (int)e;
   grad_parts<<<grid_t, NT, SMEM_GA, st>>>(
       sh, tasks, (const float*)r, (const float*)dy, (const float*)lw, gs);
@@ -541,7 +885,7 @@ extern "C" int wkv_chunk_bwd(const void* r, const void* k, const void* v,
                                         (const float*)dstate);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  chunk_grads<<<grid_t, NT, SMEM_GC, st>>>(
+  chunk_grads<<<grid_t, NTC, SMEM_GC, st>>>(
       sh, tasks, (const float*)r, (const float*)k, (const float*)v,
       (const float*)lw, (const float*)u, (const float*)dy, ss, gs,
       (float*)dr, (float*)dk, (float*)dv, (float*)dlw, dup);

@@ -53,27 +53,30 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 
 // n rows of d floats, row stride `rs` in global memory, into a tile of
 // rows LD floats apart (a row's copies over MAXD / 4 or MAXD slots, so
-// rows and columns come from shifts).
+// rows and columns come from shifts), by a CTA of N threads.
+template <int N = NT>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long rs, int n, int d, bool vec) {
   if (vec) {
-    for (int i = threadIdx.x; i < n * (MAXD / 4); i += NT) {
+    for (int i = threadIdx.x; i < n * (MAXD / 4); i += N) {
       const int t = i / (MAXD / 4), c = 4 * (i % (MAXD / 4));
       if (c < d) cp_async16(dst + t * LD + c, src + t * rs + c);
     }
   } else {
-    for (int i = threadIdx.x; i < n * MAXD; i += NT) {
+    for (int i = threadIdx.x; i < n * MAXD; i += N) {
       const int t = i / MAXD, c = i % MAXD;
       if (c < d) cp_async4(dst + t * LD + c, src + t * rs + c);
     }
   }
 }
 
-// Zero a tile's padding: columns [d, dp) of rows [0, n), rows [n, np).
+// Zero a tile's padding: columns [d, dp) of rows [0, n), rows [n, np),
+// by a CTA of N threads.
+template <int N = NT>
 __device__ __forceinline__ void zero_pad(float* dst, int n, int np, int d,
                                          int dp) {
   if (n == np && d == dp) return;
-  for (int i = threadIdx.x; i < np * MAXD; i += NT) {
+  for (int i = threadIdx.x; i < np * MAXD; i += N) {
     const int t = i / MAXD, c = i % MAXD;
     if (c < dp && (t >= n || c >= d)) dst[t * LD + c] = 0.f;
   }
@@ -87,8 +90,9 @@ __device__ __forceinline__ long div_long(long a, int b) {
 // logw -> lwc in place over the tile's qp rows, in units of log2 (each
 // logw times log2(e)), so every decay is one exp2f: thread (column c =
 // tid % 64, segment g = tid / 64) sums rows 16g .. 16g + 15 in registers,
-// then adds the totals of the segments before it, in order. Ends with a
-// barrier.
+// then adds the totals of the segments before it, in order (threads of
+// segments past qp, in a CTA of more than 256, only pass the barriers).
+// Ends with a barrier.
 __device__ __forceinline__ void scan_rows(float* L, float* tot,
                                           const Shape& sh) {
   const int c = threadIdx.x & (MAXD - 1), g = threadIdx.x / MAXD;

@@ -45,6 +45,8 @@ KERNELS_PER_CALL = 3
 #: (phases A', B', C' and the du sum), added where they launch.
 BWD_LAUNCHES = 0
 BWD_KERNELS_PER_CALL = 4
+#: the backward's kernels in launch order (phases A', B', C', D')
+BWD_KERNELS = ("grad_parts", "grad_scan", "chunk_grads", "du_sum")
 
 #: the kernel's largest head width and chunk (its tiles in shared memory)
 MAX_D = 64
@@ -299,16 +301,34 @@ def wkv_backward_phases_plain(r: torch.Tensor, k: torch.Tensor,
     mirrors the forward: the tiles and the log2 scan of the forward, the
     states S_c of its phases A and B (the workspace the forward keeps),
     then A' (each chunk's part of the state's gradient, (r 2^lwp)^T dy),
-    B' (the reverse scan G_{c-1} = w_c G_c + A'_c from dstate), C' (per
-    chunk: att and datt by pairs, dv, dr, dk, the gradient of lwc and its
-    reverse cumulative sum into dlogw, each chunk's share of du) and D'
-    (du summed over the batch, then the chunks, in order). Inputs and
-    outputs as :func:`wkv_backward_plain`."""
+    B' (the reverse scan G_{c-1} = w_c G_c + A'_c from dstate), C' and D'
+    (du summed over the batch, then the chunks, in order). C' cuts the
+    chunk into sub-chunks of :data:`SUB` steps, as the forward's phase C:
+
+    - the factors, once a chunk: r~ = r 2^(lwp - ref_a) (ref_a = lwc at
+      the step before sub-chunk a, 0 for the first), k's decay 2^(last -
+      lwc), k~_a = k 2^(ref_a - lwc) on the rows before sub-chunk a and
+      E_a = 2^ref_a;
+    - att: pairwise inside each sub-chunk (u on the diagonal), r~_a
+      k~_a^T below it; datt = dy v^T;
+    - dv = att^T dy + (k 2^(last - lwc)) G_c;
+    - d^r = 2^(lwp - ref_a) (E_a (dy S_c^T) + datt[:, :s_a] k~_a) plus the
+      sub-chunk's pairs;
+    - d^k = 2^(last - lwc) (v G_c^T) + sum over the later sub-chunks a of
+      2^(ref_a - lwc) (datt[s_a.., :]^T r~_a) plus the sub-chunk's pairs;
+    - the gradient of lwc and its reverse cumulative sum into dlogw, each
+      chunk's share of du, as the header of ``csrc/wkv_chunk_bwd.cu``
+      gives them.
+
+    Log-decays are in units of log2, as the kernel keeps them, and every
+    exp2 takes an argument <= 0. Inputs and outputs as
+    :func:`wkv_backward_plain`."""
     dy, dstate = _grad_inputs(r, dy, dstate)
     b, s, h, d = r.shape
     n, nc = b * h, s // q
     rr, kk, vv, ll, gy = _phase_tiles(q, r, k, v, logw, dy)
     qp = rr.shape[2]
+    na = qp // SUB
     uu = u[None].expand(b, h, d).reshape(n, 1, 1, d)
     lwc, lwp, last = _log2_scan(ll, q)
     sc, _, wd = _state_starts(kk, vv, lwc, last)
@@ -321,22 +341,57 @@ def wkv_backward_phases_plain(r: torch.Tensor, k: torch.Tensor,
         ends[c] = g
         g = wd[:, c, :, None] * g + gp[:, c]
     ge = torch.stack(ends, 1)
-    # C': pairs j < t in units of log2, every exp2 argument <= 0
-    tq = torch.arange(qp, device=r.device)
-    below = (tq[:, None] > tq[None, :])
-    lr = lwp[:, :, :, None] - lwc[:, :, None]                  # (n,nc,t,j,d)
-    dec = torch.where(below[..., None], torch.exp2(torch.where(
-        below[..., None], lr, 0.0)), 0.0)
-    att = (torch.einsum("nctjd,nctd,ncjd->nctj", dec, rr, kk)
-           + torch.diag_embed((rr * uu * kk).sum(-1)))
+    # C': the factors, one exp2 each, every argument <= 0
+    ref = torch.zeros_like(lwc)
+    for a in range(1, na):
+        ref[:, :, a * SUB:(a + 1) * SUB] = lwc[:, :, a * SUB - 1, None]
+    fr = torch.exp2(lwp - ref)                                 # r~ / r
+    rt = rr * fr
+    kd = torch.exp2(last[:, :, None] - lwc)                    # k's decay
+    ea = torch.exp2(ref)                                       # E_a by row
+    kt = [None] + [kk[:, :, :a * SUB] * torch.exp2(
+        lwc[:, :, a * SUB - 1, None] - lwc[:, :, :a * SUB])
+        for a in range(1, na)]
+    # att and datt; the pairwise decays inside each sub-chunk
+    tq = torch.arange(SUB, device=r.device)
+    below = (tq[:, None] > tq[None, :])[:, :, None]            # j < t
+    att = torch.zeros((n, nc, qp, qp), dtype=torch.float32, device=r.device)
+    decs = []
+    for a in range(na):
+        sl = slice(a * SUB, (a + 1) * SUB)
+        ra, ka = rr[:, :, sl], kk[:, :, sl]
+        lr = lwp[:, :, sl, None] - lwc[:, :, None, sl]         # (n,nc,t,j,d)
+        dec = torch.where(below, torch.exp2(torch.where(below, lr, 0.0)),
+                          0.0)
+        decs.append(dec)
+        att[:, :, sl, sl] = (torch.einsum("nctjd,nctd,ncjd->nctj", dec, ra,
+                                          ka)
+                             + torch.diag_embed((ra * uu * ka).sum(-1)))
+        if a:
+            att[:, :, sl, :a * SUB] = rt[:, :, sl] @ kt[a].transpose(2, 3)
     dfull = gy @ vv.transpose(2, 3)
-    dlow, dd = torch.where(below, dfull, 0.0), dfull.diagonal(0, 2, 3)
-    fk = torch.exp2(last[:, :, None] - lwc)
-    dv = att.transpose(2, 3) @ gy + (kk * fk) @ ge
-    drh = (torch.einsum("nctj,nctjd,ncjd->nctd", dlow, dec, kk)
-           + torch.exp2(lwp) * (gy @ sc.transpose(2, 3)))
-    dks = fk * (vv @ ge.transpose(2, 3))
-    dkh = torch.einsum("nctj,nctjd,nctd->ncjd", dlow, dec, rr) + dks
+    tqp = torch.arange(qp, device=r.device)
+    dlow = torch.where(tqp[:, None] > tqp[None, :], dfull, 0.0)
+    dd = dfull.diagonal(0, 2, 3)
+    dv = att.transpose(2, 3) @ gy + (kk * kd) @ ge
+    # d^r and d^k, less their u terms
+    q1 = gy @ sc.transpose(2, 3)                               # S_c dy_t
+    dks = kd * (vv @ ge.transpose(2, 3))                       # its state part
+    drh = torch.empty_like(rr)
+    dkh = dks.clone()
+    for a in range(na):
+        sl = slice(a * SUB, (a + 1) * SUB)
+        part = ea[:, :, sl] * q1[:, :, sl]
+        if a:
+            part = part + dlow[:, :, sl, :a * SUB] @ kt[a]
+            dkh[:, :, :a * SUB] += torch.exp2(
+                lwc[:, :, a * SUB - 1, None] - lwc[:, :, :a * SUB]) * (
+                dlow[:, :, sl, :a * SUB].transpose(2, 3) @ rt[:, :, sl])
+        dl_a = dlow[:, :, sl, sl]
+        drh[:, :, sl] = fr[:, :, sl] * part + torch.einsum(
+            "nctj,nctjd,ncjd->nctd", dl_a, decs[a], kk[:, :, sl])
+        dkh[:, :, sl] += torch.einsum("nctj,nctjd,nctd->ncjd", dl_a, decs[a],
+                                      rr[:, :, sl])
     dr = drh + dd[..., None] * uu * kk
     dk = dkh + dd[..., None] * rr * uu
     dlwc = -kk * dkh
@@ -430,6 +485,22 @@ def wkv_backward_kernel(r, k, v, logw, u, dy, dstate, q: int = 64,
     global BWD_LAUNCHES
     BWD_LAUNCHES += BWD_KERNELS_PER_CALL
     return dr, dk, dv, dl, du
+
+
+def bwd_occupancy() -> dict:
+    """Per backward kernel (:data:`BWD_KERNELS`): the CTAs an SM holds at
+    once at its launch's threads and shared memory, the threads of a CTA
+    and the warps an SM, from the card's occupancy calculator
+    (``wkv_chunk_bwd_occupancy`` in ``csrc/wkv_chunk_bwd.cu``). Card
+    only."""
+    import ctypes
+    from repro_torch.kernels import build
+    out = (ctypes.c_int * (2 * len(BWD_KERNELS)))()
+    build.check(build.entry("wkv_chunk_bwd_occupancy")(
+        ctypes.addressof(out)), "wkv_chunk_bwd_occupancy")
+    return {name: {"ctas_an_sm": out[2 * i], "threads": out[2 * i + 1],
+                   "warps_an_sm": out[2 * i] * out[2 * i + 1] // 32}
+            for i, name in enumerate(BWD_KERNELS)}
 
 
 class WkvChunk(torch.autograd.Function):

@@ -1688,14 +1688,17 @@ def _hold_wkv_grads(got, want, tol=3e-4):
     (2, 192, 1, 64, 64, 0.0, False), (2, 192, 1, 40, 24, 0.0, False),
     (2, 64, 3, 64, 64, 0.0, False), (2, 35, 1, 7, 5, 0.0, False),
     (2, 256, 4, 64, 64, 3.0, False), (2, 256, 4, 64, 64, 0.0, True),
+    (1, 96, 2, 64, 48, 0.0, False), (1, 80, 3, 12, 40, 3.0, False),
     (1, 4096, 32, 64, 64, 0.0, False)])
 def test_wkv_backward_on_the_card(card, b, s, h, d, q, shift, skew):
     """The four launches of ``csrc/wkv_chunk_bwd.cu`` on the forward
     kernel's workspace, every plain version made to raise during the
     call, against ``wkv_backward_plain``; a random state gradient, none
     (zero, as in training) on the inputs one float into their storage
-    (4-byte copies at D = 64); a second call bit-equal (no atomics) and
-    the ``WkvChunk`` Function's gradients equal to the direct call's."""
+    (4-byte copies at D = 64); q = 48 and 40 (three sub-chunks, the last
+    ragged at 40, with D = 12 and strong decays); a second call bit-equal
+    (no atomics) and the ``WkvChunk`` Function's gradients equal to the
+    direct call's."""
     from repro_torch.kernels import wkv_chunk as TW
     r, k, v, z, dy = (_normal(card, s + i, b, s, h, d) for i in range(5))
     logw = -torch.exp(z * 0.5 + shift)
@@ -1729,6 +1732,17 @@ def test_wkv_backward_on_the_card(card, b, s, h, d, q, shift, skew):
     _hold_wkv_grads(got, plain(r, k, v, logw, u, dy, dst, q))
     assert all(bool(torch.equal(a, c)) for a, c in zip(got, again))
     assert all(bool(torch.equal(a, c)) for a, c in zip(got, viaf))
+
+
+def test_wkv_backward_holds_16_warps_an_sm_on_the_card(card):
+    """C' (``chunk_grads``) keeps at least 16 warps on an SM at its launch's
+    threads and shared memory, by the card's occupancy calculator; A', B'
+    and D' hold at least one CTA."""
+    from repro_torch.kernels import wkv_chunk as TW
+    occ = TW.bwd_occupancy()
+    assert list(occ) == list(TW.BWD_KERNELS)
+    assert occ["chunk_grads"]["warps_an_sm"] >= 16, occ
+    assert all(o["ctas_an_sm"] >= 1 for o in occ.values()), occ
 
 
 def test_wkv_backward_refuses_what_it_cannot_take_on_the_card(card):

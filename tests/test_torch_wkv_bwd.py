@@ -15,7 +15,10 @@ kernel's phases. Here:
   gradient of w sits 2e-5 to 6e-5 of the leaf's largest entry from its
   float64 value on these inputs (dw = dlogw / w magnifies rounding where
   w is small), beyond the limit;
-- ``wkv_backward_phases_plain`` against ``wkv_backward_plain``;
+- ``wkv_backward_phases_plain`` (the kernel's phases: pairwise decays
+  inside 16-step sub-chunks, factored products below them, k's decay
+  once) against ``wkv_backward_plain``, and every exp2 it takes with an
+  argument <= 0;
 - the Function's gradients against autograd through ``wkv_plain``.
 
 The limit is atol 1e-5 x the leaf's largest entry and rtol 1e-4 on
@@ -116,6 +119,30 @@ def test_backward_phases_match_plain(b, s, h, d, q, strong):
     zero = TW.wkv_backward_phases_plain(r, k, v, logw, u, dy,
                                         torch.zeros_like(ds), q)
     assert all(bool(torch.equal(a, c)) for a, c in zip(none, zero))
+
+
+@pytest.mark.parametrize("b,s,h,d,q,strong", PHASE_CASES)
+def test_backward_phases_take_no_exp_above_zero(b, s, h, d, q, strong):
+    """Every exp2 of the mirror (the forward's states, A', B', C') takes
+    arguments <= 0, so every factor lies in [0, 1]: ragged sub-chunks,
+    padded D and strong decays included. No natural exp is taken."""
+    r, k, v, logw, u, dy, ds = (torch.from_numpy(a) for a in _inputs(
+        b, s, h, d, strong, 3 * s + d))
+    tops = []
+    real = torch.exp2
+
+    def exp2(x, *a, **kw):
+        tops.append(float(x.max()) if x.numel() else float("-inf"))
+        return real(x, *a, **kw)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a natural exp in the mirror")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "exp2", exp2)
+        mp.setattr(torch, "exp", refuse)
+        got = TW.wkv_backward_phases_plain(r, k, v, logw, u, dy, ds, q)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert len(tops) > 5 and max(tops) <= 0.0, max(tops)
 
 
 @pytest.mark.parametrize("zero_state", [False, True])
