@@ -214,6 +214,38 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    their plain versions. Every train run also logs the step's model
    FLOPs (``repro_torch.roofline.model_flops_for``) and their share of
    the bf16 peak at the step's ms. ``[train]`` lines;
+10e. runs the seven configured archs no earlier phase runs (``archs``
+   phase, ``ARCH_SERVE``, ``ARCH_TRAIN``), each on bf16 weights drawn
+   from a seed on the card and freed before the next. Each is served at
+   full width: ``Engine.generate`` at batch 4, 8 new tokens, greedy,
+   twice on the same prompts (``yi-6b``, ``nemotron-4-15b``,
+   ``olmoe-1b-7b``, ``internvl2-1b`` and ``musicgen-medium`` uncut at
+   prompt 4096, the last two on embedding prompts;
+   ``qwen3-moe-235b-a22b`` cut to 8 of its 94 layers; ``hymba-1.5b``
+   uncut at prompt 1024), the cut printed on its ``[models]`` line: each
+   run's flash launches, one a layer (none for hymba, whose windowed
+   attention takes ``_sdpa`` as the reference's model does; the line says
+   so), the two runs' tokens equal, layer 0's flash call within
+   ``flash_bf16_tol`` of ``flash_plain`` (``FLASH_BF16_TOL``, its atol
+   scaled by the values' rms past 1; SDPA's difference beside), one
+   decode step leaving every
+   cache tensor in its storage with a peak rise under the cache's bytes,
+   and the second run's prefill ms, decode ms a token, tok/s, weight
+   bytes, peak memory, the flash calls' device ms inside the prefill
+   (``KernelCalls``), the GQA copy's bytes and, for hymba, the Mamba
+   loop's device ms and share of the prefill. Then three are trained in
+   bf16 with remat for three steps, step 0 the warm-up (``train_steps``):
+   ``olmoe-1b-7b`` at 4 of 16 layers, 2 x 4096 in 2 microbatches, first
+   two forward and backward passes on one batch whose loss and every
+   gradient leaf must be bit-equal; ``hymba-1.5b`` at 4 of 32 layers, 1 x
+   1024, the Mamba loop's device ms in a step and one layer's backward;
+   ``internvl2-1b`` uncut, 2 x 4096 embeddings in 2 microbatches: finite
+   losses and grad norms, the state in place, the flash forward and
+   backward launches, step ms, tokens/s, the peak against the state's
+   bytes and the flash ms a step. Every flash shape new here adds its
+   rows to the ``kernels`` line (``flash_attention [<arch> prefill]``,
+   ``flash_attention`` and ``flash_attention_bwd [<arch> train]``) with
+   its bound and SDPA's time;
 11. times with CUDA events, after a warm-up, every kernel per forward of the
    path that runs it (``resnet_50_v2`` f32 for conv, pool, elementwise and
    the head; ``densenet_121`` for concat, flat, blocked and staged in the
@@ -243,14 +275,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``softmax_matmul`` in the JSON;
 12. writes every number to ``build/chip_smoke.json`` (the chains'
     schedules and times under ``chains``, the serving runtime under
-    ``serve``, the models under ``models``, training under ``train``) and
+    ``serve``, the models under ``models``, training under ``train``, the
+    archs phase under ``archs``) and
     prints the
     ``kernels`` JSON line (a ``[blocks]`` line per kernel for the
     row-blocked program, the three streaming kernels, a ``dmo_dwconv2d``
     line, the three standalone kernels, ``flash_attention_bwd`` and
     ``wkv_chunk_bwd``, ``flash_attention`` and ``wkv_chunk`` on the
     models' prefill, ``flash_attention`` and ``flash_attention_bwd`` in
-    qwen's train step and ``wkv_chunk`` and ``wkv_chunk_bwd`` in rwkv's),
+    qwen's train step, ``wkv_chunk`` and ``wkv_chunk_bwd`` in rwkv's, and
+    the archs phase's flash rows),
     the card line, and as its last line the device JSON.
 
 Any failed check raises and the script exits non-zero. It exits 2, printing
@@ -415,6 +449,18 @@ BF16_TOL = 5e-2
 #: outside it (scripts/torch_flash_faults.py)
 FLASH_BF16_TOL = (4e-3, 2e-2)
 
+
+def flash_bf16_tol(v) -> tuple:
+    """``FLASH_BF16_TOL`` for a call whose values ``v`` may be larger than
+    unit scale: the kernel's rounding (P to bf16 before P V) is linear in
+    v, so atol scales with v's rms where that exceeds 1 (never below
+    ``FLASH_BF16_TOL``). A full-width model's layer 0 at d_model 6144
+    (nemotron-4-15b) has rms(v) 1.57, and SDPA's bf16 output there is as
+    far from ``flash_plain`` as the kernel's (``scripts/torch_flash_model_
+    error.py``)."""
+    atol, rtol = FLASH_BF16_TOL
+    return (atol * max(1.0, v.float().pow(2).mean().sqrt().item()), rtol)
+
 #: the flash backward's limits against flash_backward_plain, (atol, rtol)
 #: with atol scaled by the plain version's largest entry: f32 1e-4 (sums
 #: in other orders); bf16 the forward's FLASH_BF16_TOL, since both compute
@@ -469,6 +515,25 @@ MODEL_SERVE_REPS = 3
 #: and the six requests' prompt lengths
 CONT = (4, 512, 8)
 CONT_PROMPTS = (37, 300, 120, 64, 211, 150)
+
+#: the archs phase (10e): the seven configured archs that no earlier phase
+#: runs, each served in bf16 on weights drawn from a seed at batch
+#: ARCH_SERVE_BATCH with ARCH_SERVE_NEW new tokens, greedy, twice: (arch,
+#: layers kept, None for every layer, prompt length). Width is never cut:
+#: qwen3-moe-235b-a22b keeps 8 of its 94 layers (all 94 are 470 GB of
+#: bf16 weights), hymba-1.5b's prompt is 1024 (its Mamba loop is a Python
+#: loop of S steps a layer)
+ARCH_SERVE = (("yi-6b", None, 4096), ("nemotron-4-15b", None, 4096),
+              ("olmoe-1b-7b", None, 4096), ("qwen3-moe-235b-a22b", 8, 4096),
+              ("hymba-1.5b", None, 1024), ("internvl2-1b", None, 4096),
+              ("musicgen-medium", None, 4096))
+ARCH_SERVE_BATCH = 4
+ARCH_SERVE_NEW = 8
+#: three of them trained in bf16 with remat, TRAIN_STEPS steps (step 0 the
+#: warm-up): (arch, layers kept, (batch, seq), microbatches)
+ARCH_TRAIN = (("olmoe-1b-7b", 4, (2, 4096), 2),
+              ("hymba-1.5b", 4, (1, 1024), 1),
+              ("internvl2-1b", None, (2, 4096), 2))
 
 
 class SmokeError(RuntimeError):
@@ -2140,9 +2205,11 @@ class KernelCalls:
     backward calls): keeps the first
     call's inputs and outputs (layer 0's in a forward) and the last's
     (layer 0's in a backward) and, with ``timed``, CUDA events around
-    every call. The kernels' own launch counters are untouched."""
+    every call. The kernels' own launch counters are untouched. ``extra``
+    (name -> (module, function)) wraps more of the path the same way
+    (the archs phase: ``ssm.mamba_forward``, hymba's Mamba loop)."""
 
-    def __init__(self, torch, timed: bool = False):
+    def __init__(self, torch, timed: bool = False, extra=None):
         from repro_torch.kernels import flash_attention as TF
         from repro_torch.kernels import ops as TO
         from repro_torch.kernels import wkv_chunk as TW
@@ -2151,7 +2218,8 @@ class KernelCalls:
         self.mods = {"flash_attention": (TO, "flash_attention"),
                      "wkv_chunk": (TW, "wkv_chunk_kernel"),
                      "flash_attention_bwd": (TF, "flash_backward_kernel"),
-                     "wkv_chunk_bwd": (TW, "wkv_backward_kernel")}
+                     "wkv_chunk_bwd": (TW, "wkv_backward_kernel"),
+                     **(extra or {})}
         self.first, self.last, self.events = {}, {}, {}
 
     def _wrap(self, name, fn):
@@ -2218,6 +2286,83 @@ def model_kernel_check(torch, calls: KernelCalls, name: str, tol) -> float:
     y0, st0 = TW.wkv_plain(*args, kw["q"])
     return max(close_err(torch, out[0], y0, tol, "wkv layer 0 y"),
                close_err(torch, out[1], st0, tol, "wkv layer 0 state"))
+
+
+def event_wrap(torch, fn, marks: list):
+    """``fn`` with CUDA events recorded around each call into ``marks``."""
+    def run(*args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = fn(*args)
+        ev[1].record()
+        marks.append(ev)
+        return res
+    return run
+
+
+def flash_prefill_row(torch, F, calls: KernelCalls, arch: str,
+                      launches: int, kernel_ms: float) -> dict:
+    """The ``flash_attention`` row of a served bf16 prefill: layer 0's call
+    of the pass ``calls`` recorded, against ``flash_plain`` within
+    ``flash_bf16_tol`` (SDPA's largest difference from it beside), timed
+    beside its plain version, SDPA on (1, B·H, S, D) copies and its
+    bound. Its ``ms`` is the prefill's device ms over
+    its ``launches`` calls (CUDA events around each, all of one shape);
+    plain and library ms are layer 0's call's."""
+    from repro_torch.kernels import flash_attention as TF
+    (q, k, v), _, res = calls.first["flash_attention"]
+    plain = TF.flash_plain(q, k, v, True, 128, 128)
+    tol = flash_bf16_tol(v)
+    err = close_err(torch, res, plain, tol, f"{arch} bf16 flash layer 0")
+    sq, bh, d = q.shape
+    qh, kh, vh = (a.permute(1, 0, 2)[None].contiguous() for a in (q, k, v))
+    # SDPA's bf16 output against the same plain version, for scale
+    lib_err = (F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)[0]
+               .permute(1, 0, 2).float() - plain.float()).abs().max().item()
+    del plain
+    call_ms = time_auto(torch, lambda: TF.flash_attention_kernel(
+        q, k, v, True))
+    plain_ms = time_ms(torch, lambda: TF.flash_plain(q, k, v, True, 128,
+                                                     128), 1)
+    library_ms = time_auto(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True))
+    del qh, kh, vh
+    cost = attention_cost(sq, sq, bh, d, True, q.element_size())
+    return {
+        "name": f"flash_attention [{arch} prefill]", "route": "cuda",
+        "source": KERNELS["flash_attention"][0],
+        "replaces": KERNELS["flash_attention"][1],
+        "path": (f"{arch} bf16 prefill: B·H = {bh}, S = T = {sq}, D = {d}, "
+                 f"{launches} a prefill; every time one call's"),
+        "launches": launches, "max_abs_err": err,
+        "ms": kernel_ms / launches, "plain_ms": plain_ms,
+        "bound_ms": cost_ms(cost), "bound_by": cost_by(cost),
+        "library_ms": library_ms, "calls_a_prefill": launches,
+        "prefill_device_ms": kernel_ms, "layer0_call_ms": call_ms,
+        "tol": list(tol), "library_max_abs_err": lib_err}
+
+
+def decode_in_place(torch, eng, prompts, sp: int, arch: str) -> dict:
+    """One decode step of ``eng`` after its prefill of ``prompts``: every
+    stacked cache tensor keeps its storage and the step's peak memory
+    rises by less than the cache's bytes."""
+    with torch.inference_mode():
+        logits, cache = eng._prefill(eng.params, prompts)
+        tok = torch.argmax(logits[:, -1].float(), -1)[:, None]
+        ptrs = {n: t.data_ptr() for n, t in cache.items()}
+        cache_bytes = _tree_bytes(cache)
+        del logits
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        logits, cache = eng._decode(eng.params, cache, tok, sp)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base_mem
+    check({n: t.data_ptr() for n, t in cache.items()} == ptrs,
+          f"{arch}: a decode step moved the cache")
+    check(rise < cache_bytes, f"{arch}: one decode step's peak memory "
+          f"rose {rise} B, the stacked cache is {cache_bytes} B")
+    return {"decode_step_peak_rise_bytes": rise, "cache_bytes": cache_bytes}
 
 
 def models_phase(torch, F) -> tuple:
@@ -2338,18 +2483,8 @@ def models_phase(torch, F) -> tuple:
               f"{want_launches} of {kname} (prefill only)")
         rec["bf16_generate_launches"] = launches
         marks = {"prefill": [], "decode": []}
-
-        def timed(fn, kind):
-            def run(*args):
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                ev[0].record()
-                res = fn(*args)
-                ev[1].record()
-                marks[kind].append(ev)
-                return res
-            return run
-        eng._prefill = timed(eng._prefill, "prefill")
-        eng._decode = timed(eng._decode, "decode")
+        eng._prefill = event_wrap(torch, eng._prefill, marks["prefill"])
+        eng._decode = event_wrap(torch, eng._decode, marks["decode"])
         walls, same, kernel_ms = [], True, []
         for _ in range(MODEL_SERVE_REPS):
             with KernelCalls(torch, timed=True) as calls:
@@ -2389,113 +2524,83 @@ def models_phase(torch, F) -> tuple:
 
         # the kernel's row: layer 0's bf16 call against its plain version,
         # its per-launch times beside the plain version, library, bound
-        args, kw, res = calls.first[kname]
         if kname == "flash_attention":
-            q, k, v = args
-            err = close_err(torch, res, TF.flash_plain(q, k, v, True, 128,
-                                                       128),
-                            FLASH_BF16_TOL, f"{arch} bf16 flash layer 0")
-            sq, bh, d = q.shape
-            qh, kh, vh = (a.permute(1, 0, 2)[None].contiguous()
-                          for a in (q, k, v))
-            one = {
-                "ms": time_auto(torch, lambda: TF.flash_attention_kernel(
-                    q, k, v, True)),
-                "plain_ms": time_ms(torch, lambda: TF.flash_plain(
-                    q, k, v, True, 128, 128), 1),
-                "library_ms": time_auto(torch, lambda: (
-                    F.scaled_dot_product_attention(qh, kh, vh,
-                                                   is_causal=True)))}
-            cost = attention_cost(sq, sq, bh, d, True, q.element_size())
-            path = (f"{arch} bf16 prefill: B·H = {bh}, S = T = {sq}, D = "
-                    f"{d}, {want_launches} a prefill")
-            del qh, kh, vh
+            rows.append(flash_prefill_row(torch, F, calls, arch,
+                                          want_launches,
+                                          serve["kernel_ms_in_prefill"]))
         else:
+            args, kw, res = calls.first[kname]
             err = model_kernel_check(torch, calls, kname,
                                      STANDALONE_TOL[kname])
             bb, sw, hh, dd = args[0].shape
-            one = {
-                "ms": time_auto(torch, lambda: TW.wkv_chunk_kernel(
-                    *args, **kw)),
+            cost = wkv_cost(bb, sw, hh, dd, kw["q"])
+            # every number of the row is one call's: ms the served
+            # prefill's calls (CUDA events around each, all of one shape)
+            # over their count; plain ms measured on layer 0's call
+            calls_n = base.num_layers
+            rows.append({
+                "name": f"{kname} [{arch} prefill]", "route": "cuda",
+                "source": KERNELS[kname][0], "replaces": KERNELS[kname][1],
+                "path": (f"{arch} bf16 prefill: B {bb}, S {sw}, {hh} heads "
+                         f"of {dd}, q {kw['q']}, f32 inside, 3 x "
+                         f"{base.num_layers}; every time one call's"),
+                "launches": launches[kname], "max_abs_err": err,
+                "ms": serve["kernel_ms_in_prefill"] / calls_n,
                 "plain_ms": time_ms(torch, lambda: TW.wkv_plain(
                     *args, kw["q"]), 1),
-                "library_ms": None}
-            cost = wkv_cost(bb, sw, hh, dd, kw["q"])
-            path = (f"{arch} bf16 prefill: B {bb}, S {sw}, {hh} heads of "
-                    f"{dd}, q {kw['q']}, f32 inside, 3 x {base.num_layers}")
-        # every number of the row is one call's: ms the served prefill's
-        # calls (CUDA events around each, all of one shape) over their
-        # count; plain and library ms measured on layer 0's call
-        calls_n = base.num_layers
-        rows.append({
-            "name": f"{kname} [{arch} prefill]", "route": "cuda",
-            "source": KERNELS[kname][0], "replaces": KERNELS[kname][1],
-            "path": path + "; every time one call's",
-            "launches": launches[kname], "max_abs_err": err,
-            "ms": serve["kernel_ms_in_prefill"] / calls_n,
-            "plain_ms": one["plain_ms"],
-            "bound_ms": cost_ms(cost), "bound_by": cost_by(cost),
-            "library_ms": one["library_ms"],
-            "calls_a_prefill": calls_n,
-            "prefill_device_ms": serve["kernel_ms_in_prefill"],
-            "layer0_call_ms": one["ms"]})
-        del calls, args, kw, res
+                "bound_ms": cost_ms(cost), "bound_by": cost_by(cost),
+                "library_ms": None, "calls_a_prefill": calls_n,
+                "prefill_device_ms": serve["kernel_ms_in_prefill"],
+                "layer0_call_ms": time_auto(torch, lambda: (
+                    TW.wkv_chunk_kernel(*args, **kw)))})
+            del args, kw, res
+        del calls
 
         # 4. one decode step updates the stacked cache in place
-        with torch.inference_mode():
-            logits, cache = eng._prefill(eng.params, prompts)
-            tok = torch.argmax(logits[:, -1].float(), -1)[:, None]
-            ptrs = {n: t.data_ptr() for n, t in cache.items()}
-            cache_bytes = _tree_bytes(cache)
-            del logits
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base_mem = torch.cuda.memory_allocated()
-            logits, cache = eng._decode(eng.params, cache, tok, sp)
-            torch.cuda.synchronize()
-            rise = torch.cuda.max_memory_allocated() - base_mem
-        check({n: t.data_ptr() for n, t in cache.items()} == ptrs,
-              f"{arch}: a decode step moved the cache")
-        check(rise < cache_bytes, f"{arch}: one decode step's peak memory "
-              f"rose {rise} B, the stacked cache is {cache_bytes} B")
-        rec["decode_step_peak_rise_bytes"] = rise
-        rec["cache_bytes"] = cache_bytes
+        rec.update(decode_in_place(torch, eng, prompts, sp, arch))
         log(f"[models] {arch} bf16 decode step in place: peak memory rose "
-            f"{rise} B against the stacked cache's {cache_bytes} B; every "
-            f"cache tensor kept its storage; {kname} row: "
-            + json.dumps(rows[-1]))
-        del eng, params, cache, logits
+            f"{rec['decode_step_peak_rise_bytes']} B against the stacked "
+            f"cache's {rec['cache_bytes']} B; every cache tensor kept its "
+            f"storage; {kname} row: " + json.dumps(rows[-1]))
+        del eng, params
         torch.cuda.empty_cache()
     return rows, out
 
 
-def train_steps(torch, arch: str, seed: int, want: dict, timed) -> tuple:
-    """``TRAIN_STEPS`` ``make_train_step`` steps of ``arch`` at full width
-    in bf16 on weights drawn from ``seed``, ``TRAIN_BATCH`` of the port's
-    ``SyntheticCorpus`` in ``default_microbatches`` (2) with remat, each
+def train_steps(torch, arch: str, seed: int, want: dict, timed,
+                cfg=None, shape=TRAIN_BATCH, want_mbs: int = 2,
+                extra=None) -> tuple:
+    """``TRAIN_STEPS`` ``make_train_step`` steps of ``arch`` (or of
+    ``cfg``, the arch with its depth cut) at full width in bf16 on weights
+    drawn from ``seed``, a batch of ``shape`` from the port's
+    ``SyntheticCorpus`` (``embedding_batches`` for a frontend stub) in
+    ``default_microbatches`` (``want_mbs``) with remat, each
     with the launch counts reset just before and read just after: finite
     losses and grad norms, ``want`` launches a step (kernel for kernel),
     every param, m and v leaf in its storage after each update, the
-    update's peak rise under the largest leaf's f32 bytes (step 0);
+    update's peak rise under the largest leaf's f32 bytes or eight
+    ``adamw.SLICE`` slices', whichever is larger (step 0);
     step ms (CUDA events), each step's host wall and allocator counts
     (cudaMalloc calls, retries), tokens/s, the device ms a step of the
-    kernels named in ``timed`` (``KernelCalls``, steps 1 on), the update's ms, the
+    kernels named in ``timed`` (``KernelCalls`` with ``extra``, steps 1
+    on), the update's ms, the
     step's peak against the state's bytes, and the step's model FLOPs
     (``roofline.model_flops_for``) with their share of the bf16 peak.
     Returns (the record, the last step's ``KernelCalls``)."""
     from repro_torch import roofline as RL
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
-                                           shard_batch)
+                                           embedding_batches, shard_batch)
     from repro_torch.kernels import flash_attention as TF
     from repro_torch.kernels import wkv_chunk as TW
     from repro_torch.models.config import ShapeConfig
     from repro_torch.optim import adamw
     from repro_torch.train import steps as TS
-    cfg = get_arch(arch)
-    b, s = TRAIN_BATCH
+    cfg = cfg or get_arch(arch)
+    b, s = shape
     mbs = TS.default_microbatches(cfg, b, s, 1)
-    check(mbs == 2, f"{arch}: default_microbatches gives {mbs}, expected 2")
+    check(mbs == want_mbs, f"{arch}: default_microbatches gives {mbs}, "
+          f"expected {want_mbs}")
     opt = TS.opt_config_for(cfg)
     gen = torch.Generator(device="cuda")
     state = TS.init_state(cfg, gen.manual_seed(seed), opt)
@@ -2505,10 +2610,13 @@ def train_steps(torch, arch: str, seed: int, want: dict, timed) -> tuple:
             for k, v in parts.items()}
     nbytes = {k: _tree_bytes(v) for k, v in parts.items()}
     largest = max(t.numel() for t in adamw.tree_leaves(state["params"]))
-    data = SyntheticCorpus(DataConfig(cfg.vocab_size, s, b,
-                                      seed=seed)).packed_batches()
+    dc = DataConfig(cfg.vocab_size, s, b, seed=seed)
+    data = (embedding_batches(dc, cfg.d_model, seed=seed)
+            if cfg.frontend != "none"
+            else SyntheticCorpus(dc).packed_batches())
     step = TS.make_train_step(cfg, opt, remat=True, microbatches=mbs)
-    rec = {"arch": arch, "batch": b, "seq": s, "microbatches": mbs,
+    rec = {"arch": arch, "layers": cfg.num_layers, "batch": b, "seq": s,
+           "microbatches": mbs,
            "remat": True, "steps": TRAIN_STEPS, "opt": dataclasses.asdict(
                opt), "state_bytes": nbytes,
            "largest_leaf_elements": largest, "launches_a_step": [],
@@ -2557,7 +2665,7 @@ def train_steps(torch, arch: str, seed: int, want: dict, timed) -> tuple:
         a0 = alloc_counts()
         t0 = time.perf_counter()
         try:
-            with KernelCalls(torch, timed=i > 0) as calls:
+            with KernelCalls(torch, timed=i > 0, extra=extra) as calls:
                 ev[0].record()
                 state, m = step(state, batch)
                 ev[1].record()
@@ -2594,9 +2702,11 @@ def train_steps(torch, arch: str, seed: int, want: dict, timed) -> tuple:
             + (f", kernels (ms, calls) {json.dumps(per_step[-1])}"
                if i > 0 else ""))
     check(int(state["opt"]["step"]) == TRAIN_STEPS, f"{arch}: step count")
-    check(mem["update_rise"] < 4 * largest,
+    # the update's float32 temporaries are a few slices of each leaf
+    limit = 4 * max(largest, 8 * adamw.SLICE)
+    check(mem["update_rise"] < limit,
           f"{arch}: the update's peak memory rose {mem['update_rise']} B, "
-          f"the largest leaf is {4 * largest} B in f32")
+          f"over {limit} B (the largest leaf is {4 * largest} B in f32)")
     rec.update(mem)
     rec["step_peak"] = max(mem["before_update_peak"], mem["update_peak"])
     rec["step_peak_over_state"] = rec["step_peak"] / sum(nbytes.values())
@@ -2615,7 +2725,8 @@ def train_steps(torch, arch: str, seed: int, want: dict, timed) -> tuple:
     rec["model_flops"] = flops
     rec["model_flops_share_of_bf16_peak"] = flops / (step_ms * 1e-3) \
         / BF16_OPS_S
-    log(f"[train] {arch} bf16 at full width, batch {b} x {s} in {mbs} "
+    log(f"[train] {arch} bf16 at full width, {cfg.num_layers} layers, "
+        f"batch {b} x {s} in {mbs} "
         f"microbatches, remat, {TRAIN_STEPS} steps: losses {rec['loss']}, "
         f"grad norms {rec['grad_norm']}; step {step_ms:.1f} device ms "
         f"(median of steps 1-{TRAIN_STEPS - 1}), {rec['tokens_s']:.0f} "
@@ -2698,6 +2809,74 @@ def grad_check(torch, arch: str, seed: int, route: tuple) -> dict:
     return rec
 
 
+def flash_train_rows(torch, F, rec: dict, calls: KernelCalls, arch: str,
+                     want: dict, label: str) -> list:
+    """The ``flash_attention`` and ``flash_attention_bwd`` rows of a bf16
+    train step (``train_steps``' record ``rec``): layer 0's forward and
+    backward calls of the last step (``calls``) against their plain
+    versions (recorded under ``rec["layer0_errors"]``), timed beside
+    them, their bounds and SDPA's forward and backward; each row's ``ms``
+    the step's device ms of the kernel over its calls."""
+    from repro_torch.kernels import flash_attention as TF
+    per, ncalls = rec["kernel_ms_in_step"], rec["kernel_calls_a_step"]
+    q, k, v = calls.first["flash_attention"][0][:3]
+    y = calls.first["flash_attention"][2]
+    bargs, _, bout = calls.last["flash_attention_bwd"]
+    bargs = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                  for a in bargs)
+    with torch.no_grad():
+        fwd_err = close_err(torch, y, TF.flash_plain(q, k, v, True, 128,
+                                                     128),
+                            flash_bf16_tol(v), f"{arch} train layer 0 forward")
+        bwd_err = grads_close(torch, bout, TF.flash_backward_plain(*bargs),
+                              FLASH_BWD_TOL["bf16"],
+                              f"{arch} train layer 0 backward")
+    rec["layer0_errors"] = {"flash_attention": fwd_err,
+                            "flash_attention_bwd": bwd_err}
+    sq, bh, d = q.shape
+    fcost = attention_cost(sq, sq, bh, d, True, q.element_size())
+    bcost = attention_bwd_cost(sq, sq, bh, d, True, q.element_size())
+    q, k, v = (a.detach() for a in (q, k, v))
+    qh, kh, vh = (a.permute(1, 0, 2)[None].contiguous() for a in (q, k, v))
+    fwd_lib = time_auto(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True))
+    del qh, kh, vh
+    path = f"{label}: B·H = {bh}, S = T = {sq}, D = {d}"
+    n_fwd, n_bwd = (ncalls[n] for n in ("flash_attention",
+                                        "flash_attention_bwd"))
+    rows = [
+        {"name": f"flash_attention [{arch} train]", "route": "cuda",
+         "source": KERNELS["flash_attention"][0],
+         "replaces": KERNELS["flash_attention"][1],
+         "path": path + f"; {n_fwd} calls a step; every time one call's",
+         "launches": want["flash_attention"], "max_abs_err": fwd_err,
+         "ms": per["flash_attention"] / n_fwd,
+         "plain_ms": time_ms(torch, lambda: TF.flash_plain(
+             q, k, v, True, 128, 128), 1),
+         "bound_ms": cost_ms(fcost), "bound_by": cost_by(fcost),
+         "library_ms": fwd_lib, "step_device_ms": per["flash_attention"],
+         "model_flops": rec["model_flops"],
+         "model_flops_share_of_bf16_peak":
+             rec["model_flops_share_of_bf16_peak"]},
+        {"name": f"flash_attention_bwd [{arch} train]",
+         "route": "cuda", "source": KERNELS["flash_attention_bwd"][0],
+         "replaces": KERNELS["flash_attention_bwd"][1],
+         "path": path + f"; {n_bwd} calls a step; every time one call's",
+         "launches": want["flash_attention_bwd"], "max_abs_err": bwd_err,
+         "ms": per["flash_attention_bwd"] / n_bwd,
+         "plain_ms": time_ms(torch, lambda: TF.flash_backward_plain(
+             *bargs), 1),
+         "bound_ms": cost_ms(bcost), "bound_by": cost_by(bcost),
+         **sdpa_backward_ms(torch, F, *bargs[:3], bargs[4]),
+         "step_device_ms": per["flash_attention_bwd"],
+         "model_flops": rec["model_flops"],
+         "model_flops_share_of_bf16_peak":
+             rec["model_flops_share_of_bf16_peak"]}]
+    log(f"[train] {arch}: layer 0 against plain "
+        f"{json.dumps(rec['layer0_errors'])}")
+    return rows
+
+
 def train_phase(torch, F) -> tuple:
     """Phase 10d of the module docstring: training at full width. Returns
     the training path's rows of the ``kernels`` line and the ``train``
@@ -2716,66 +2895,10 @@ def train_phase(torch, F) -> tuple:
     rec, calls = train_steps(torch, TRAIN_ARCH, 29,
                              want, ("flash_attention", "flash_attention_bwd"))
     b, s = TRAIN_BATCH
-    per, ncalls = rec["kernel_ms_in_step"], rec["kernel_calls_a_step"]
-
-    # layer 0's calls of the last step against the plain versions
-    q, k, v = calls.first["flash_attention"][0][:3]
-    y = calls.first["flash_attention"][2]
-    bargs, _, bout = calls.last["flash_attention_bwd"]
-    bargs = tuple(a.detach() if isinstance(a, torch.Tensor) else a
-                  for a in bargs)
-    with torch.no_grad():
-        fwd_err = close_err(torch, y, TF.flash_plain(q, k, v, True, 128,
-                                                     128),
-                            FLASH_BF16_TOL, "train layer 0 forward")
-        bwd_err = grads_close(torch, bout, TF.flash_backward_plain(*bargs),
-                              FLASH_BWD_TOL["bf16"],
-                              "train layer 0 backward")
-    rec["layer0_errors"] = {"flash_attention": fwd_err,
-                            "flash_attention_bwd": bwd_err}
-    sq, bh, d = q.shape
-    fcost = attention_cost(sq, sq, bh, d, True, q.element_size())
-    bcost = attention_bwd_cost(sq, sq, bh, d, True, q.element_size())
-    q, k, v = (a.detach() for a in (q, k, v))
-    qh, kh, vh = (a.permute(1, 0, 2)[None].contiguous() for a in (q, k, v))
-    fwd_lib = time_auto(torch, lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True))
-    del qh, kh, vh
-    path = (f"{TRAIN_ARCH} bf16 train step, batch {b} x {s} in {mbs} "
-            f"microbatches, remat: B·H = {bh}, S = T = {sq}, D = {d}")
-    n_fwd, n_bwd = (ncalls[n] for n in ("flash_attention",
-                                        "flash_attention_bwd"))
-    rows = [
-        {"name": f"flash_attention [{TRAIN_ARCH} train]", "route": "cuda",
-         "source": KERNELS["flash_attention"][0],
-         "replaces": KERNELS["flash_attention"][1],
-         "path": path + f"; {n_fwd} calls a step; every time one call's",
-         "launches": want["flash_attention"], "max_abs_err": fwd_err,
-         "ms": per["flash_attention"] / n_fwd,
-         "plain_ms": time_ms(torch, lambda: TF.flash_plain(
-             q.detach(), k.detach(), v.detach(), True, 128, 128), 1),
-         "bound_ms": cost_ms(fcost), "bound_by": cost_by(fcost),
-         "library_ms": fwd_lib, "step_device_ms": per["flash_attention"],
-         "model_flops": rec["model_flops"],
-         "model_flops_share_of_bf16_peak":
-             rec["model_flops_share_of_bf16_peak"]},
-        {"name": f"flash_attention_bwd [{TRAIN_ARCH} train]",
-         "route": "cuda", "source": KERNELS["flash_attention_bwd"][0],
-         "replaces": KERNELS["flash_attention_bwd"][1],
-         "path": path + f"; {n_bwd} calls a step; every time one call's",
-         "launches": want["flash_attention_bwd"], "max_abs_err": bwd_err,
-         "ms": per["flash_attention_bwd"] / n_bwd,
-         "plain_ms": time_ms(torch, lambda: TF.flash_backward_plain(
-             *bargs), 1),
-         "bound_ms": cost_ms(bcost), "bound_by": cost_by(bcost),
-         **sdpa_backward_ms(torch, F, *bargs[:3], bargs[4]),
-         "step_device_ms": per["flash_attention_bwd"],
-         "model_flops": rec["model_flops"],
-         "model_flops_share_of_bf16_peak":
-             rec["model_flops_share_of_bf16_peak"]}]
-    log(f"[train] {TRAIN_ARCH}: layer 0 against plain "
-        f"{json.dumps(rec['layer0_errors'])}")
-    del calls, q, k, v, y, bargs, bout
+    rows = flash_train_rows(torch, F, rec, calls, TRAIN_ARCH, want, (
+        f"{TRAIN_ARCH} bf16 train step, batch {b} x {s} in {mbs} "
+        "microbatches, remat"))
+    del calls
     torch.cuda.empty_cache()
 
     # the gradient check: 2 layers in float32, every leaf against the same
@@ -2867,6 +2990,274 @@ def train_phase(torch, F) -> tuple:
     del calls, fargs, fout, bargs, bout
     torch.cuda.empty_cache()
     return rows, rec
+
+
+def cut_arch(arch: str, layers) -> tuple:
+    """``arch`` at full width with its first ``layers`` layers (None: every
+    layer), and the cut as its line prints it."""
+    from repro_torch.configs import get_arch
+    base = get_arch(arch)
+    if layers is None or layers == base.num_layers:
+        return base, f"uncut, {base.num_layers} layers"
+    return (dataclasses.replace(base, num_layers=layers),
+            f"{layers} of {base.num_layers} layers")
+
+
+def flash_route(cfg, s: int) -> bool:
+    """Whether a causal pass of ``s`` tokens takes the flash kernel, as
+    ``models/layers.py::_prefill_attention`` decides: past
+    ``FLASH_THRESHOLD`` with no window (a hybrid block's attention always
+    has ``cfg.sliding_window``)."""
+    from repro_torch.models import layers as L
+    return s > L.FLASH_THRESHOLD and cfg.attention in ("gqa", "mla")
+
+
+def arch_serve(torch, F, arch: str, layers, sp: int, seed: int) -> tuple:
+    """One served arch of the archs phase: bf16 weights drawn from
+    ``seed`` on the card, ``Engine.generate`` at ``ARCH_SERVE_BATCH`` x
+    ``sp`` (token ids, or embeddings for a frontend stub),
+    ``ARCH_SERVE_NEW`` new tokens, greedy, twice on the same prompts: each
+    run's flash launches (one a layer where the prefill takes the kernel,
+    else none), the tokens equal, the second run timed (CUDA events around
+    the prefill and each decode step; the flash calls' and hymba's Mamba
+    loop's device ms inside the prefill, ``KernelCalls``); layer 0's
+    flash call against its plain version, its row; one decode step in
+    place. Returns (rows, record)."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import wkv_chunk as TW
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, ServeConfig
+    cfg, cut = cut_arch(arch, layers)
+    b, new = ARCH_SERVE_BATCH, ARCH_SERVE_NEW
+    rng = np.random.default_rng(seed)
+    if cfg.frontend != "none":
+        kind = "embeddings"
+        prompts = rng.standard_normal((b, sp, cfg.d_model)).astype(
+            np.float32)
+    else:
+        kind = "tokens"
+        prompts = rng.integers(0, cfg.vocab_size, (b, sp)).astype(np.int32)
+    want = cfg.num_layers if flash_route(cfg, sp) else 0
+    hybrid = cfg.attention == "hybrid"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed))
+    wbytes = _tree_bytes(params)
+    eng = Engine(cfg, params, ServeConfig(cache_len=sp + new,
+                                          max_new_tokens=new))
+    marks = {"prefill": [], "decode": []}
+    extra = {"mamba_forward": (S, "mamba_forward")} if hybrid else None
+    toks, walls = [], []
+    for i in range(2):
+        if i == 1:
+            eng._prefill = event_wrap(torch, eng._prefill, marks["prefill"])
+            eng._decode = event_wrap(torch, eng._decode, marks["decode"])
+        TF.reset_launches()
+        TW.reset_launches()
+        with KernelCalls(torch, timed=True, extra=extra) as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks.append(eng.generate(prompts))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = {"flash_attention": TF.LAUNCHES, "wkv_chunk": TW.LAUNCHES}
+        check(launches == {"flash_attention": want, "wkv_chunk": 0},
+              f"{arch} generate {i}: launches {launches}, expected {want} "
+              "of flash_attention (the prefill's only)")
+        if i == 0:
+            del calls
+    peak = torch.cuda.max_memory_allocated()
+    same = bool(np.array_equal(toks[0], toks[1]))
+    check(same, f"{arch}: two greedy runs on the same prompts gave "
+          f"different tokens: {toks[0].tolist()} and {toks[1].tolist()}")
+    check(toks[0].shape == (b, new), f"{arch}: tokens {toks[0].shape}")
+    dec = [a.elapsed_time(z) for a, z in marks["decode"]]
+    prefill_ms = marks["prefill"][0][0].elapsed_time(marks["prefill"][0][1])
+    rec = {"cut": cut, "layers": cfg.num_layers, "batch": b, "prompt": sp,
+           "prompt_kind": kind, "new_tokens": new, "weight_bytes": wbytes,
+           "params": cfg.param_count(), "peak_bytes": peak,
+           "prefill_ms": prefill_ms, "decode_ms": statistics.median(dec),
+           "decode_ms_all": dec, "generate_wall_s": walls,
+           "tok_s": b * new / walls[1],
+           "decode_tok_s": 1e3 * b / statistics.median(dec),
+           "tokens_equal": same, "flash_launches_a_prefill": want,
+           "flash_ms_in_prefill": calls.device_ms("flash_attention"),
+           "tokens": toks[1].tolist()}
+    rows = []
+    if want:
+        g = cfg.num_heads // cfg.num_kv_heads
+        # the k and v copies _flash_prefill makes at q's heads
+        rec["gqa_copy_bytes"] = (2 * sp * b * cfg.num_heads * cfg.head_dim
+                                 * 2 if g > 1 else 0)
+        rows.append(flash_prefill_row(torch, F, calls, arch, want,
+                                      rec["flash_ms_in_prefill"]))
+        route = (f"flash {want} launches a prefill (one a layer), "
+                 f"{rec['flash_ms_in_prefill']:.3f} device ms of them, "
+                 f"group {g}, the GQA copy {rec['gqa_copy_bytes']} B, layer "
+                 f"0 within {rows[-1]['max_abs_err']:.3g} of flash_plain")
+    else:
+        route = (f"flash 0 launches: the attention's window of "
+                 f"{cfg.sliding_window} takes layers._sdpa at S = {sp} "
+                 "(_sdpa_blockwise past FLASH_THRESHOLD), as the reference's "
+                 "model does; a route, not a fallback")
+    if hybrid:
+        rec["mamba_ms_in_prefill"] = calls.device_ms("mamba_forward")
+        rec["mamba_calls"] = calls.calls("mamba_forward")
+        rec["mamba_share_of_prefill"] = rec["mamba_ms_in_prefill"] / \
+            prefill_ms
+        route += (f"; the Mamba loop {rec['mamba_ms_in_prefill']:.1f} ms "
+                  f"of the prefill ({rec['mamba_calls']} calls, "
+                  f"{100 * rec['mamba_share_of_prefill']:.1f} %)")
+    del calls
+    rec.update(decode_in_place(torch, eng, prompts, sp, arch))
+    log(f"[models] {arch} ({cut}) bf16 serve: batch {b}, prompt {sp} "
+        f"{kind}, {new} new, greedy, two runs with equal tokens; weights "
+        f"{wbytes} B ({cfg.param_count() / 1e9:.2f} B params), peak "
+        f"{peak} B; run 2 (CUDA events): prefill {prefill_ms:.3f} ms, "
+        f"decode {rec['decode_ms']:.4f} ms a token, {rec['tok_s']:.1f} "
+        f"tok/s end to end (wall {walls[1]:.3f} s; run 1 "
+        f"{walls[0]:.3f} s); {route}; one decode step in place, its "
+        f"peak rise {rec['decode_step_peak_rise_bytes']} B against the "
+        f"cache's {rec['cache_bytes']} B")
+    del eng, params
+    torch.cuda.empty_cache()
+    return rows, rec
+
+
+def grad_repeat(torch, cfg, seed: int, s: int) -> dict:
+    """Two forward and backward passes of ``cfg`` (bf16, remat) on one
+    batch of 1 x ``s`` tokens and the same weights: the loss and every
+    gradient leaf bit-equal (MoE's sums run in a fixed order,
+    ``models/moe.py``)."""
+    from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
+                                           shard_batch)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as TS
+    params = T.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed))
+    batch = shard_batch(next(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, s, 1, seed=seed)).packed_batches()), "cuda")
+    (l1, _), g1 = TS.value_and_grad(cfg, params, batch, remat=True)
+    (l2, _), g2 = TS.value_and_grad(cfg, params, batch, remat=True)
+    names = _leaf_names(params)
+    differ = [n for n, a, z in zip(names, adamw.tree_leaves(g1),
+                                   adamw.tree_leaves(g2))
+              if not torch.equal(a, z)]
+    check(bool(torch.equal(l1, l2)) and not differ,
+          f"{cfg.name}: two passes on one batch differ: loss {float(l1)!r} "
+          f"and {float(l2)!r}, gradient leaves {differ}")
+    rec = {"tokens": s, "loss": float(l1), "leaves": len(names),
+           "bit_equal": True}
+    log(f"[train] {cfg.name} ({cfg.num_layers} layers) bf16: two forward "
+        f"and backward passes on one batch of {s} tokens: the loss "
+        f"{float(l1)!r} and all {len(names)} gradient leaves bit-equal")
+    del params, g1, g2, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mamba_backward_ms(torch, calls: KernelCalls) -> dict:
+    """Device ms of one layer's ``mamba_forward`` and of its backward
+    (``torch.autograd.grad`` to its input and parameters) on layer 0's
+    input and parameters of the step ``calls`` recorded: CUDA events
+    around each, the second of two runs."""
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    (p, h, cfg), _, _ = calls.first["mamba_forward"]
+    p = T.tree_map(lambda t: t.detach().requires_grad_(), p)
+    h = h.detach().requires_grad_()
+    leaves = [h, *adamw.tree_leaves(p)]
+    times = []
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.enable_grad():
+            ev[0].record()
+            y, _ = S.mamba_forward(p, h, cfg)
+            ev[1].record()
+            torch.autograd.grad(y, leaves, torch.ones_like(y))
+            ev[2].record()
+        torch.cuda.synchronize()
+        times.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    return {"forward_ms": times[1][0], "backward_ms": times[1][1],
+            "shape": list(h.shape)}
+
+
+def arch_train(torch, F, arch: str, layers, shape, mbs: int,
+               seed: int) -> tuple:
+    """One trained arch of the archs phase: for MoE, ``grad_repeat`` at
+    one microbatch first; then ``train_steps`` at full width with its
+    depth cut to ``layers``, ``shape`` in ``mbs`` microbatches, remat,
+    each step's flash forward and backward launches (two forwards and one
+    backward call a layer a microbatch on the kernel route, else none);
+    the flash rows, or for hymba its Mamba loop's device ms in a step
+    (forward and recomputation, ``KernelCalls``) and one layer's
+    backward. Returns (rows, record)."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.models import ssm as S
+    cfg, cut = cut_arch(arch, layers)
+    b, s = shape
+    n = cfg.num_layers
+    flash = flash_route(cfg, s)
+    want = {"flash_attention": 2 * n * mbs if flash else 0,
+            "flash_attention_bwd": TF.BWD_KERNELS_PER_CALL * n * mbs
+            if flash else 0, "wkv_chunk": 0, "wkv_chunk_bwd": 0}
+    repeat = grad_repeat(torch, cfg, seed, s) if cfg.is_moe else None
+    hybrid = cfg.attention == "hybrid"
+    extra = {"mamba_forward": (S, "mamba_forward")} if hybrid else None
+    timed = (("flash_attention", "flash_attention_bwd") if flash
+             else ("mamba_forward",) if hybrid else ())
+    rec, calls = train_steps(torch, arch, seed, want, timed, cfg=cfg,
+                             shape=shape, want_mbs=mbs, extra=extra)
+    rec["cut"] = cut
+    if repeat:
+        rec["grad_repeat"] = repeat
+    label = (f"{arch} ({cut}) bf16 train step, batch {b} x {s} in {mbs} "
+             f"microbatches, remat")
+    rows = (flash_train_rows(torch, F, rec, calls, arch, want, label)
+            if flash else [])
+    if hybrid:
+        m = mamba_backward_ms(torch, calls)
+        step_ms = rec["step_ms_median"]
+        fwd = rec["kernel_ms_in_step"]["mamba_forward"]
+        bwd = m["backward_ms"] * n * mbs
+        m.update({"forward_ms_in_step": fwd,
+                  "calls_a_step": rec["kernel_calls_a_step"]["mamba_forward"],
+                  "backward_ms_a_step": bwd,
+                  "share_of_step": (fwd + bwd) / step_ms})
+        rec["mamba"] = m
+        log(f"[train] {arch} train: the Mamba loop {fwd:.1f} device ms of "
+            f"the step's forwards and recomputations "
+            f"({m['calls_a_step']} calls), one layer's backward "
+            f"{m['backward_ms']:.1f} ms (forward {m['forward_ms']:.1f}) "
+            f"at {m['shape']}, so {bwd:.1f} ms for the step's {n * mbs}: "
+            f"{100 * m['share_of_step']:.1f} % of the {step_ms:.1f} ms "
+            "step; flash 0 launches (the window's _sdpa at S = "
+            f"{s}, a route, not a fallback)")
+    del calls
+    torch.cuda.empty_cache()
+    return rows, rec
+
+
+def archs_phase(torch, F) -> tuple:
+    """Phase 10e of the module docstring: the seven archs no earlier phase
+    runs, served (``ARCH_SERVE``) and three of them trained
+    (``ARCH_TRAIN``) on the card, each model freed before the next.
+    Returns their rows of the ``kernels`` line and the ``archs`` section
+    of ``build/chip_smoke.json``."""
+    rows, out = [], {"serve": {}, "train": {}}
+    for i, (arch, layers, sp) in enumerate(ARCH_SERVE):
+        r, out["serve"][arch] = arch_serve(torch, F, arch, layers, sp,
+                                           330 + i)
+        rows += r
+    for i, (arch, layers, shape, mbs) in enumerate(ARCH_TRAIN):
+        r, out["train"][arch] = arch_train(torch, F, arch, layers, shape,
+                                           mbs, 340 + i)
+        rows += r
+    return rows, out
 
 
 def standalone_phase(torch, F):
@@ -3665,6 +4056,10 @@ def main() -> int:
     train_rows, train = train_phase(torch, F)
     phase_done("train")
 
+    # 10e. the seven archs no earlier phase runs, served and trained
+    arch_rows, archs = archs_phase(torch, F)
+    phase_done("archs")
+
     # 11. times
     walls = []
     c = slice_cps["resnet_50_v2"]
@@ -3845,6 +4240,7 @@ def main() -> int:
     rows.extend(st_rows_k)
     rows.extend(model_rows)
     rows.extend(train_rows)
+    rows.extend(arch_rows)
     times = {path: {name: {k: v for k, v in r.items() if k != "specs"}
                     for name, r in p.items()} for path, p in per.items()}
     times_blk = {path: {name: {k: v for k, v in r.items() if k != "specs"}
@@ -3877,7 +4273,7 @@ def main() -> int:
          "arena_elementwise": ew_info, "pool_and_fc": head_info,
          "chains": {"schedules": chains, "times": chain_times},
          "softmax_matmul": sm_out, "serve": serve, "models": models,
-         "train": train,
+         "train": train, "archs": archs,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

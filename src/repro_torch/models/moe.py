@@ -9,9 +9,18 @@ Switch-style auxiliary load-balancing loss is returned beside the output.
 The reference's expert-parallel ``shard_map`` path (taken under an
 installed mesh, ``repro.sharding.current_env``) waits for the port's mesh
 tooling: one card has no mesh, so :func:`moe_ffn` is always the local
-dispatch. The reference's scatters become ``index_put_`` and
-``index_add_``; on the card ``index_add_`` adds in no fixed order, so MoE
-outputs there may differ in their last bits between runs.
+dispatch.
+
+Every sum runs in an order fixed by the shapes, so a MoE model's outputs
+and gradients repeat bit for bit on the card: a token's k copies are its
+row repeated (an expand, whose backward sums the k copies' gradients in a
+reduction), and the combine sums each token's weighted copies over k in
+one reduction, in top-k order on the CPU at the configured widths
+(``tests/test_torch_moe_order.py``). The reference's scatters become
+``index_put_`` with distinct rows (dropped copies share the discarded pad
+row) and the expert load an integer count; no floating-point
+``index_add_`` remains, whose atomic adds on the card fall in no fixed
+order.
 """
 from __future__ import annotations
 
@@ -50,26 +59,19 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ArchConfig
     return _moe_ffn_local(p, x, cfg)
 
 
-def _moe_ffn_local(p: Params, x: torch.Tensor, cfg: ArchConfig
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, s, d = x.shape
+def _route(p: Params, xf: torch.Tensor, cfg: ArchConfig):
+    """The router over xf (T,d): (gate weights (T,k), expert of each copy
+    (T,k), aux loss, keep (T*k,), each copy's buffer row (T*k,),
+    capacity). A kept copy's row is its expert's next free slot; a
+    dropped copy's is the pad row ``E * C``."""
+    t = xf.shape[0]
     e, k = cfg.num_experts, cfg.experts_per_token
-    t = b * s
-    dev = x.device
-    xf = x.reshape(t, d)
-
     logits = (xf @ p["router"]["w"].to(xf.dtype)).float()            # (T,E)
     probs = torch.softmax(logits, dim=-1)
     # sorted top-k, as jax.lax.top_k (ties to the lower index; random
     # inputs have none)
     gate_w, gate_i = torch.topk(probs, k, dim=-1, sorted=True)       # (T,k)
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
-
-    # Switch aux loss: E * mean(importance) . mean(load)
-    importance = probs.mean(0)                                       # (E,)
-    load = torch.zeros((e,), device=dev).index_add_(
-        0, gate_i.reshape(-1), torch.ones((t * k,), device=dev)) / (t * k)
-    aux = e * torch.sum(importance * load)
 
     # slot assignment: position of each copy within its expert, by cumsum
     flat_e = gate_i.reshape(t * k)                                   # (T*k,)
@@ -80,22 +82,42 @@ def _moe_ffn_local(p: Params, x: torch.Tensor, cfg: ArchConfig
     dest = torch.where(keep, flat_e * cap + pos,
                        torch.full_like(flat_e, e * cap))            # drop row
 
-    # dispatch: (E*C, d) buffer of token copies (pad row at the end)
-    token_row = torch.arange(t, device=dev).repeat_interleave(k)
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
-    buf.index_put_((dest,), xf[token_row])
-    expert_in = buf[:e * cap].reshape(e, cap, d)
+    # Switch aux loss: E * mean(importance) . mean(load); the load an
+    # integer count of each expert's copies
+    importance = probs.mean(0)                                       # (E,)
+    load = onehot.sum(0).float() / (t * k)
+    aux = e * torch.sum(importance * load)
+    return gate_w, gate_i, aux, keep, dest, cap
 
+
+def _experts(p: Params, expert_in: torch.Tensor) -> torch.Tensor:
+    """The expert FFNs, one batched product over (E,C,d) -> (E,C,d)."""
     h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, p["w_gate"]))
     h = h * torch.einsum("ecd,edf->ecf", expert_in, p["w_up"])
-    y_exp = torch.einsum("ecf,efd->ecd", h, p["w_down"])              # (E,C,d)
+    return torch.einsum("ecf,efd->ecd", h, p["w_down"])
 
-    # combine: gather each copy's expert output, weight, sum per token
+
+def _moe_ffn_local(p: Params, x: torch.Tensor, cfg: ArchConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    t = b * s
+    xf = x.reshape(t, d)
+    gate_w, _, aux, keep, dest, cap = _route(p, xf, cfg)
+
+    # dispatch: (E*C, d) buffer of token copies (pad row at the end); the
+    # copies are each token's row repeated k times
+    copies = xf[:, None].expand(t, k, d).reshape(t * k, d)
+    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((dest,), copies)
+    y_exp = _experts(p, buf[:e * cap].reshape(e, cap, d))             # (E,C,d)
+
+    # combine: gather each copy's expert output, weight, sum each token's
+    # k copies in one reduction
     y_flat = y_exp.reshape(e * cap, d)
     y_copy = torch.where(keep[:, None],
                          y_flat[torch.clamp(dest, max=e * cap - 1)],
-                         torch.zeros((), dtype=y_flat.dtype, device=dev))
+                         torch.zeros((), dtype=y_flat.dtype, device=x.device))
     w_copy = (gate_w.reshape(t * k) * keep).to(x.dtype)
-    out = torch.zeros((t, d), dtype=x.dtype, device=dev).index_add_(
-        0, token_row, y_copy * w_copy[:, None])
+    out = (y_copy * w_copy[:, None]).reshape(t, k, d).sum(1)
     return out.reshape(b, s, d), aux

@@ -1485,25 +1485,67 @@ def test_wkv_route_on_the_card(card):
     _assert_close(gst["wkv"].cpu(), wst["wkv"], 3e-4)
 
 
-@pytest.mark.parametrize("arch,s", [("qwen2.5-3b", 2112),
-                                    ("minicpm3-4b", 2112),
-                                    ("rwkv6-1.6b", 256)])
+#: (arch, prompt) of the card's prefill and decode test, every configured
+#: arch: past FLASH_THRESHOLD where the arch's attention has no window
+#: (the flash kernel), 256 for RWKV's chunked WKV and hymba's windowed
+#: attention
+MODEL_CASES = [("qwen2.5-3b", 2112), ("minicpm3-4b", 2112),
+               ("rwkv6-1.6b", 256), ("yi-6b", 2112),
+               ("nemotron-4-15b", 2112), ("olmoe-1b-7b", 2112),
+               ("qwen3-moe-235b-a22b", 2112), ("hymba-1.5b", 256),
+               ("internvl2-1b", 2112), ("musicgen-medium", 2112)]
+
+
+def _prompt(cfg, b, s, seed):
+    """(prompt, tokens): b x (s + 4) token ids, the prompt their first s,
+    or b x s x d_model embeddings for a frontend stub (its decode steps
+    take tokens)."""
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s + 4))
+                           .astype(np.int32))
+    if cfg.frontend == "none":
+        return toks[:, :s], toks
+    return torch.as_tensor(rng.standard_normal((b, s, cfg.d_model))
+                           .astype(np.float32)), toks
+
+
+@pytest.mark.parametrize("arch,s", MODEL_CASES)
 def test_prefill_and_decode_on_the_card(card, arch, s):
     """A reduced model's prefill (on the kernels: one flash launch or
-    three WKV launches a layer) and four decode steps on the card, each
-    within 2e-3 of the CPU route."""
+    three WKV launches a layer, none for hymba's windowed attention, with
+    flash's plain version made to raise where the kernel route applies)
+    and four decode steps on the card, each within 2e-3 of the CPU route;
+    a MoE prefill's routers pick the same experts on both devices."""
     from repro_torch.kernels import flash_attention as TF
     from repro_torch.kernels import wkv_chunk as TW
+    from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
     cfg, cpu, dev = _model(arch)
-    toks = torch.as_tensor(np.random.default_rng(11).integers(
-        0, cfg.vocab_size, (2, s + 4)).astype(np.int32))
-    want, wcache = T.prefill(cfg, cpu, toks[:, :s], s + 4)
-    TF.reset_launches()
-    TW.reset_launches()
-    got, gcache = T.prefill(cfg, dev, toks[:, :s].cuda(), s + 4)
-    torch.cuda.synchronize()
-    per_layer = TW.KERNELS_PER_CALL if cfg.attention == "none" else 1
+    prompt, toks = _prompt(cfg, 2, s, 11)
+    flash = _chip_smoke().flash_route(cfg, s)
+    picks = []
+    route = M._route
+
+    def recorded(p, xf, c):
+        out = route(p, xf, c)
+        picks.append(out[1].cpu())
+        return out
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(M, "_route", recorded)
+        want, wcache = T.prefill(cfg, cpu, prompt, s + 4)
+        if flash:
+            mp.setattr(TF, "flash_plain", _refuse)
+        TF.reset_launches()
+        TW.reset_launches()
+        got, gcache = T.prefill(cfg, dev, prompt.cuda(), s + 4)
+        torch.cuda.synchronize()
+    if cfg.is_moe:
+        n = cfg.num_layers
+        assert len(picks) == 2 * n
+        for i in range(n):
+            assert torch.equal(picks[n + i], picks[i]), f"layer {i} routes"
+    per_layer = (TW.KERNELS_PER_CALL if cfg.attention == "none"
+                 else int(flash))
     assert TF.LAUNCHES + TW.LAUNCHES == per_layer * cfg.num_layers
     _assert_close(got.cpu(), want, 2e-3)
     for i in range(4):
@@ -1515,7 +1557,8 @@ def test_prefill_and_decode_on_the_card(card, arch, s):
         _assert_close(gcache[name].cpu(), w, 2e-3)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "rwkv6-1.6b", "hymba-1.5b",
+                                  "olmoe-1b-7b"])
 def test_decode_step_is_in_place_on_the_card(card, arch):
     """One decode step after a prefill keeps every stacked cache tensor in
     its storage and raises the peak memory by less than the cache's
@@ -1585,9 +1628,14 @@ def test_engines_on_the_card(card):
 
 
 def _train_batch(cfg, s, seed, b=1):
-    toks = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
-    return {"inputs": torch.as_tensor(toks[:, :-1]),
+    """b x s token ids and their next tokens; a frontend stub's inputs
+    are b x s x d_model embeddings."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    inputs = toks[:, :-1]
+    if cfg.frontend != "none":
+        inputs = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    return {"inputs": torch.as_tensor(inputs),
             "targets": torch.as_tensor(toks[:, 1:])}
 
 
@@ -1671,6 +1719,81 @@ def test_wkv_trains_on_the_card(card):
         hit = [n for n in names if n.endswith(f"rwkv/{leaf}")]
         assert hit and all(grads[n].abs().max().item() > 0 for n in hit), \
             leaf
+
+
+@pytest.mark.parametrize("arch,s", [("olmoe-1b-7b", 2112),
+                                    ("hymba-1.5b", 256),
+                                    ("internvl2-1b", 2112)])
+def test_model_trains_on_the_card(card, arch, s):
+    """A reduced model's loss under grad with remat on the card, batch 2
+    (internvl2's inputs embeddings): two flash forwards and one backward
+    call a layer where the kernel route applies, with every plain version
+    of flash made to raise, none for hymba (MoE's aux loss and the Mamba
+    loop under remat); the loss and every gradient leaf within
+    ``chip_smoke.TRAIN_GRAD_TOL`` of the same loss on the CPU."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as TS
+    cs = _chip_smoke()
+    cfg, cpu, dev = _model(arch)
+    batch = _train_batch(cfg, s, 17, b=2)
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    (wl, wparts), wg = TS.value_and_grad(cfg, cpu, batch, remat=True)
+    flash = cs.flash_route(cfg, s)
+    TF.reset_launches()
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("flash_plain", "flash_plain_lse",
+                     "flash_backward_plain"):
+            mp.setattr(TF, name, _refuse)
+        (gl, gparts), gg = TS.value_and_grad(cfg, dev, gbatch, remat=True)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES == 2 * cfg.num_layers * flash
+    assert TF.BWD_LAUNCHES == TF.BWD_KERNELS_PER_CALL * cfg.num_layers \
+        * flash
+    atol, rtol = cs.TRAIN_GRAD_TOL
+    for got, want in ((gl, wl), (gparts["moe_aux"], wparts["moe_aux"])):
+        torch.testing.assert_close(got.cpu(), want,
+                                   atol=atol * abs(float(want)), rtol=rtol)
+    for name, w, g in zip(cs._leaf_names(cpu), adamw.tree_leaves(wg),
+                          adamw.tree_leaves(gg)):
+        top = w.abs().max().item()
+        torch.testing.assert_close(g.cpu(), w, atol=atol * top, rtol=rtol,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-235b-a22b"])
+def test_moe_repeats_bit_for_bit_on_the_card(card, arch):
+    """A reduced MoE model's forward output and aux, and its loss and
+    every gradient leaf (remat, S = 2112 on the flash kernel, batch 2,
+    capacity factor 1.0 so that some copies drop), are bit-equal across
+    two runs on the card: the dispatch and the combine sum in a fixed
+    order."""
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as TS
+    cfg, _, dev = _model(arch, capacity_factor=1.0)
+    batch = {k: v.cuda() for k, v in _train_batch(cfg, 2112, 18,
+                                                  b=2).items()}
+    kept = []
+    route = M._route
+
+    def recorded(p, xf, c):
+        out = route(p, xf, c)
+        kept.append(bool(out[3].all()))
+        return out
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(M, "_route", recorded)
+        runs = [T.forward_train(cfg, dev, batch["inputs"]) for _ in range(2)]
+    assert not all(kept)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    grads = [TS.value_and_grad(cfg, dev, batch, remat=True)
+             for _ in range(2)]
+    (l0, _), g0 = grads[0]
+    (l1, _), g1 = grads[1]
+    assert torch.equal(l0, l1)
+    for a, b in zip(adamw.tree_leaves(g0), adamw.tree_leaves(g1)):
+        assert torch.equal(a, b)
 
 
 def _hold_wkv_grads(got, want, tol=3e-4):
