@@ -125,9 +125,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    call (``F.rms_norm`` then ``torch.add``;
    ``F.scaled_dot_product_attention``; none for WKV); then the flash
    backward (``csrc/flash_attention_bwd.cu``, two launches a call; no
-   stack frame or spills in its bf16 body's wgmma kernels) at the
-   same full width in f32 and bf16: ``ops.flash_attention`` under autograd
-   once per type with the counts reset just before, each call's dq, dk,
+   stack frame or spills in its bf16 body's wgmma kernels or its f32
+   body's pre-pass and one pass) at the same full width in f32 and bf16,
+   and in f32 at the reduced training width (32 heads of 32):
+   ``ops.flash_attention`` under autograd once per case with the counts
+   reset just before, each call's dq, dk,
    dv against ``flash_backward_plain`` on the forward's own output and
    lse (``FLASH_BWD_TOL``), a second call bit-equal, timed beside its
    plain version, its bound (the backward's five products) and SDPA's
@@ -437,6 +439,10 @@ WKV_BWD_MIN_WARPS = 16
 #: 2048, WKV heads of 64, so 32)
 RMS_FULL = (4096, 2048)
 FLASH_FULL = (4096, 4096, 16, 128)
+#: the flash backward's f32 case at the train launcher's --reduced
+#: qwen2.5-3b width (4 heads of 32, models/config.py::reduced) at --seq
+#: 4096 and its default batch 8: B·H = 32 heads of 32
+FLASH_BWD_REDUCED = (4096, 4096, 32, 32)
 WKV_FULL = (1, 4096, 32, 64, 64)
 #: the reference's tolerances (atol = rtol) in f32, by kernel; bf16 5e-2
 STANDALONE_TOL = {"rmsnorm_inplace": 2e-5, "flash_attention": 2e-4,
@@ -1842,13 +1848,15 @@ def sdpa_backward_ms(torch, F, q, k, v, do) -> dict:
 
 def flash_bwd_standalone(torch, F, normal) -> tuple:
     """The standalone phase's backward row: causal S = T = 4096, 16 heads
-    of 128, f32 and bf16. The main path: ``ops.flash_attention`` under
-    autograd once per type, the counts reset just before (one forward
-    and one backward call each). Then each backward against
-    ``flash_backward_plain`` on the forward's own output and lse, a second
-    call bit-equal, and its device ms beside the plain version, its bound
-    and SDPA's backward. The bf16 body's two wgmma kernels (both slab
-    counts) have no stack frame or spills (``-Xptxas -v``). Returns (row,
+    of 128, f32 and bf16, and the f32 reduced training width
+    (``FLASH_BWD_REDUCED``: 32 heads of 32). The main path:
+    ``ops.flash_attention`` under autograd once per case, the counts reset
+    just before (one forward and one backward call each). Then each
+    backward against ``flash_backward_plain`` on the forward's own output
+    and lse, a second call bit-equal, and its device ms beside the plain
+    version, its bound and SDPA's backward. The bf16 body's two wgmma
+    kernels (both slab counts) and the f32 body's pre-pass and one pass
+    (each W) have no stack frame or spills (``-Xptxas -v``). Returns (row,
     section)."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as TF
@@ -1856,20 +1864,26 @@ def flash_bwd_standalone(torch, F, normal) -> tuple:
     res = build.ptxas_resources("flash_attention_bwd")
     wg = {fn: r for fn, r in res.items()
           if "bwd_dq_wg" in fn or "bwd_dkv_wg" in fn}
+    f32 = {fn: r for fn, r in res.items() if "flash_bwd_f32" in fn}
     check(len(wg) == 4, f"flash_attention_bwd: {len(wg)} wgmma kernels in "
           f"the ptxas report")
-    for fn, r in wg.items():
+    check(len(f32) == 4, f"flash_attention_bwd: {len(f32)} f32 kernels in "
+          f"the ptxas report")
+    for fn, r in {**wg, **f32}.items():
         check(r["stack"] == r["spill_stores"] == r["spill_loads"] == 0
               and r["registers"] > 0, f"flash_attention_bwd {fn}: {r}")
     log(f"[standalone] flash_attention_bwd ptxas: {json.dumps(res)}")
     fs, ft, fh, fd = FLASH_FULL
-    types = {"f32": torch.float32, "bf16": torch.bfloat16}
-    ins = {dt: [normal(n, fh, fd, dtype=ty) for n in (fs, ft, ft, fs)]
-           for dt, ty in types.items()}
+    rs, rt, rh, rd = FLASH_BWD_REDUCED
+    cases = {"f32": (torch.float32, FLASH_FULL),
+             "bf16": (torch.bfloat16, FLASH_FULL),
+             "f32 reduced": (torch.float32, FLASH_BWD_REDUCED)}
+    ins = {dt: [normal(n, h, d, dtype=ty) for n in (s, t, t, s)]
+           for dt, (ty, (s, t, h, d)) in cases.items()}
     torch.cuda.synchronize()
     TF.reset_launches()
     grads = {}
-    for dt in types:
+    for dt in cases:
         q, k, v, do = ins[dt]
         leaves = [a.clone().requires_grad_() for a in (q, k, v)]
         grads[dt] = torch.autograd.grad(TO.flash_attention(*leaves), leaves,
@@ -1877,22 +1891,22 @@ def flash_bwd_standalone(torch, F, normal) -> tuple:
     torch.cuda.synchronize()
     launches = {"flash_attention": TF.LAUNCHES,
                 "flash_attention_bwd": TF.BWD_LAUNCHES}
-    check(launches == {"flash_attention": 2, "flash_attention_bwd":
-                       2 * TF.BWD_KERNELS_PER_CALL},
-          f"flash backward full width: launches {launches}")
+    check(launches == {"flash_attention": len(cases), "flash_attention_bwd":
+                       len(cases) * TF.BWD_KERNELS_PER_CALL},
+          f"flash backward: launches {launches}")
     errs, timing = {}, {}
-    for dt in types:
+    for dt, (ty, (s, t, h, d)) in cases.items():
         q, k, v, do = ins[dt]
         out, lse = TF._forward(q, k, v, True, 128, 128, True)
         want = TF.flash_backward_plain(q, k, v, out, do, lse, True)
-        label = f"flash backward full width {dt}"
-        errs[dt] = grads_close(torch, grads[dt], want, FLASH_BWD_TOL[dt],
-                               label)
+        label = f"flash backward {dt} ({s}, {t}, {h}, {d})"
+        errs[dt] = grads_close(torch, grads[dt], want,
+                               FLASH_BWD_TOL[dt.split()[0]], label)
         again = TF.flash_backward_kernel(q, k, v, out, do, lse, True)
         check(all(bool(torch.equal(a, b)) for a, b in zip(again, grads[dt])),
               f"{label}: a second call is not bit-equal to the first")
         del want, again
-        cost = attention_bwd_cost(fs, ft, fh, fd, True, q.element_size())
+        cost = attention_bwd_cost(s, t, h, d, True, q.element_size())
         timing[dt] = {
             "ms": time_auto(torch, lambda: TF.flash_backward_kernel(
                 q, k, v, out, do, lse, True)),
@@ -1908,12 +1922,16 @@ def flash_bwd_standalone(torch, F, normal) -> tuple:
                    f"autograd, {TF.BWD_KERNELS_PER_CALL} launches a call",
            "launches": launches["flash_attention_bwd"],
            "max_abs_err": errs["f32"], **timing["f32"],
-           "bf16": dict(timing["bf16"], max_abs_err=errs["bf16"])}
+           "bf16": dict(timing["bf16"], max_abs_err=errs["bf16"]),
+           "f32_reduced": dict(timing["f32 reduced"],
+                               max_abs_err=errs["f32 reduced"],
+                               shape=[rs, rt, rh, rd])}
     section = {"launches": launches, "errors": errs, "times": timing,
                "bit_equal_repeat": True, "ptxas": res}
-    log(f"[standalone] flash backward at full width: launches {launches}, "
-        f"against plain {json.dumps(errs)}, a second call bit-equal; "
-        f"times (ms) {json.dumps(timing)}")
+    log(f"[standalone] flash backward at full width and the f32 reduced "
+        f"width {FLASH_BWD_REDUCED}: launches {launches}, against plain "
+        f"{json.dumps(errs)}, a second call bit-equal; times (ms) "
+        f"{json.dumps(timing)}")
     return row, section
 
 
@@ -2749,8 +2767,9 @@ def grad_check(torch, arch: str, seed: int, route: tuple) -> dict:
     one kernel's entry point ``route`` = (module, name, plain stand-in,
     launch counter names, launches of the kernel route) swapped for its
     plain versions called directly, within ``TRAIN_GRAD_TOL`` (atol
-    scaled by the leaf's largest entry). Returns the record, with the
-    names of the leaves whose gradient is zero."""
+    scaled by the leaf's largest entry); the kernels' device ms within the
+    kernel run (``KernelCalls``). Returns the record, with the names of
+    the leaves whose gradient is zero."""
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
                                            shard_batch)
@@ -2777,8 +2796,11 @@ def grad_check(torch, arch: str, seed: int, route: tuple) -> dict:
         return tuple(getattr(m, c) for m, c in counters)
     for m, _ in counters:
         m.reset_launches()
-    kl, kg = grads()
+    with KernelCalls(torch, timed=True) as calls:
+        kl, kg = grads()
     torch.cuda.synchronize()
+    kernel_ms = {n: {"ms": calls.device_ms(n), "calls": calls.calls(n)}
+                 for n in calls.events}
     check(counts() == want, f"{arch} gradient check: launches {counts()}, "
           f"expected {want}")
     real = getattr(mod, name)
@@ -2799,12 +2821,13 @@ def grad_check(torch, arch: str, seed: int, route: tuple) -> dict:
            "plain_loss": float(pl), "max_abs_err": max(errs),
            "leaves": len(errs), "tol": TRAIN_GRAD_TOL,
            "zero": [n for n, g in zip(names, kg) if g.abs().max().item()
-                    == 0], "names": names}
+                    == 0], "names": names, "kernel_ms": kernel_ms}
     log(f"[train] {arch} gradient check, {layers} layers in f32 at {cs} "
         f"tokens: loss {float(kl):.6f} (plain {float(pl):.6f}); "
         f"{len(errs)} gradient leaves within {max(errs):.3g} of the plain "
-        f"route's (limit {TRAIN_GRAD_TOL})")
-    del params, leaves, kg, pg, batch
+        f"route's (limit {TRAIN_GRAD_TOL}); the kernels' device ms "
+        f"(calls) {json.dumps(kernel_ms)}")
+    del params, leaves, kg, pg, batch, calls
     torch.cuda.empty_cache()
     return rec
 

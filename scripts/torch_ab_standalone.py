@@ -8,7 +8,7 @@ Usage, on a machine with an NVIDIA card, from the root of a checkout::
 
     python3 scripts/torch_ab_standalone.py <root of the tree to time> \\
         [--against <root of the other tree>] [--train] \\
-        [--arch qwen2.5-3b|rwkv6-1.6b]
+        [--arch qwen2.5-3b|rwkv6-1.6b] [--grad-check]
 
 It builds that tree's kernels (into its own ``build/repro_torch/``), makes
 the full-width inputs of ``chip_smoke.py``'s standalone phase from a seed
@@ -21,13 +21,16 @@ around 20 calls after a warm-up, ``chip_smoke.time_ms``), and of
 copies made outside the timed call (``library``). The flash backward
 goes through ``flash_attention_bwd.flash_backward_kernel`` on the forward
 kernel's own output and lse (f32 and bf16, the same shapes, a seeded
-output gradient), beside SDPA's backward (``chip_smoke.sdpa_backward_ms``:
-a timed ``torch.autograd.grad`` minus its forward). The WKV backward goes
+output gradient), and in f32 at the train launcher's ``--reduced``
+qwen2.5-3b width (causal S = T = 4096, 32 heads of 32: ``f32 reduced``),
+beside SDPA's backward (``chip_smoke.sdpa_backward_ms``: a timed
+``torch.autograd.grad`` minus its forward). The WKV backward goes
 through ``wkv_chunk.wkv_backward_kernel`` on the forward kernel's own
 workspace at ``chip_smoke.WKV_FULL`` (a seeded output gradient and final
 state gradient); no PyTorch call computes it. ``launch_ms`` gives each
-backward's launches' device ms a call (the flash backward's two, the
-WKV backward's ``grad_parts``, ``grad_scan``, ``chunk_grads`` and
+backward's launches' device ms a call (the flash backward's two: bf16
+``bwd_dq_wg`` and ``bwd_dkv_wg``, f32 the pre-pass ``flash_bwd_f32_pre``
+and the one pass ``flash_bwd_f32``; the WKV backward's ``grad_parts``, ``grad_scan``, ``chunk_grads`` and
 ``du_sum``), from ``torch.profiler`` kernel events over ten calls ("not
 measured" where the trace holds no device time), and ``ptxas`` the two
 backwards' registers, stack and spills (``build.ptxas_resources``).
@@ -35,7 +38,12 @@ With ``--train`` it then runs ``chip_smoke.train_steps`` for ``--arch``
 (qwen2.5-3b, the default, or rwkv6-1.6b; bf16 at full width, 2 x 4096
 tokens in 2 microbatches, remat, three steps) and adds each step's
 device ms and its kernels' ms a step under ``train`` (the flash forward
-and backward for qwen, the WKV forward and backward for rwkv).
+and backward for qwen, the WKV forward and backward for rwkv). With
+``--grad-check`` it times ``chip_smoke.py``'s f32 gradient check's loss
+(qwen2.5-3b, ``TRAIN_CHECK``: 2 layers at full width in float32, 4096
+tokens, remat) and its gradient twice under ``chip_smoke.KernelCalls``
+and adds the flash forward's and backward's device ms of the second
+under ``grad_check``.
 
 Each kernel's output of one call on the seeded inputs is saved under
 ``<root>/build/ab_standalone/`` (WKV's y and state apart, and its
@@ -58,11 +66,53 @@ import sys
 
 REPS = 20
 #: each backward's launches in a profiler trace, by kernel name
-LAUNCH_NAMES = {"flash_attention_bwd": r"(\w*bwd\w*(<\d+>)?)",
+LAUNCH_NAMES = {"flash_attention_bwd": r"(bwd_dq_wg<\d+>|bwd_dkv_wg<\d+>|"
+                                       r"flash_bwd_f32_pre|flash_bwd_f32<\d+>|"
+                                       r"flash_bwd_dq<\d+>|flash_bwd_dkv<\d+>)",
                 "wkv_chunk_bwd": r"(grad_parts|grad_scan|chunk_grads|du_sum)"}
 #: the kernels timed within a train step, by architecture
 TRAIN_KERNELS = {"qwen2.5-3b": ("flash_attention", "flash_attention_bwd"),
                  "rwkv6-1.6b": ("wkv_chunk", "wkv_chunk_bwd")}
+
+
+#: the f32 backward at the train launcher's --reduced qwen2.5-3b width,
+#: (S, T, B·H, D)
+REDUCED = (4096, 4096, 32, 32)
+
+
+def grad_check_ms(torch, cs) -> dict:
+    """Device ms of the flash forward and backward calls within
+    ``chip_smoke.grad_check``'s loss and gradient (qwen2.5-3b, 2 float32
+    layers at full width, ``TRAIN_CHECK`` tokens, remat, seed 30), the
+    second of two runs, by ``chip_smoke.KernelCalls``."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
+                                           shard_batch)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as TS
+    layers, tokens = cs.TRAIN_CHECK
+    cfg = get_arch(cs.TRAIN_ARCH)
+    cfg2 = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    params = T.init_params(cfg2, torch.Generator(device="cuda")
+                           .manual_seed(30))
+    batch = shard_batch(next(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, tokens, 1, seed=30)).packed_batches()), "cuda")
+    leaves = adamw.tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    rec = {}
+    for _ in range(2):
+        with cs.KernelCalls(torch, timed=True) as calls:
+            loss, _ = TS.loss_fn(cfg2, params, batch, remat=True)
+            torch.autograd.grad(loss, leaves)
+        rec = {name: {"ms": calls.device_ms(name),
+                      "calls": calls.calls(name)}
+               for name in ("flash_attention", "flash_attention_bwd")}
+    del params, leaves, batch
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> int:
@@ -71,6 +121,7 @@ def main() -> int:
     ap.add_argument("--against", default=None)
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--arch", default="qwen2.5-3b", choices=TRAIN_KERNELS)
+    ap.add_argument("--grad-check", action="store_true")
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
     sys.path.insert(0, str(root / "src"))
@@ -130,6 +181,13 @@ def main() -> int:
         backward[f"flash_attention_bwd {dt}"] = (
             lambda q=q, k=k, v=v, out=out, do=do, lse=lse:
             TF.flash_backward_kernel(q, k, v, out, do, lse, True))
+    rs_, rt_, rh_, rd_ = REDUCED
+    q, k, v, do = (normal(m, rh_, rd_) for m in (rs_, rt_, rt_, rs_))
+    out, lse = TF._forward(q, k, v, True, 128, 128, True)
+    bwd_inputs["f32 reduced"] = (q, k, v, do)
+    backward["flash_attention_bwd f32 reduced"] = (
+        lambda q=q, k=k, v=v, out=out, do=do, lse=lse:
+        TF.flash_backward_kernel(q, k, v, out, do, lse, True))
     rr, kk, vv, z = (normal(wb, ws, wh, wd) for _ in range(4))
     logw = -torch.exp(z * 0.5)
     u = normal(wh, wd) * 0.1
@@ -184,6 +242,8 @@ def main() -> int:
                 getattr(ev, "device_time_total", 0.0) / 1e3 / 10
                 or "not measured")
             for ev in prof.key_averages() if pat.search(ev.key)}
+    if args.grad_check:
+        out["grad_check"] = grad_check_ms(torch, cs)
     if args.train:
         del calls, backward, bwd_inputs, library, wws
         torch.cuda.empty_cache()

@@ -2,10 +2,10 @@
 // saved output and per-row logsumexp. q, dq: (S, H, D); k, v, dk, dv:
 // (T, H, D); out, dout: (S, H, D); f32 or bf16 (one flag for all), lse
 // (S, H) f32, and a f32 workspace of 2·H·S_pad floats, S_pad = S rounded up
-// to 128 (flash_attention.py::bwd_workspace_floats). With scale s =
-// 1/sqrt(D) and score_ij = s q_i k_j (masked where the forward masks: key
-// j > i + T - S when causal), the backward recomputes P_ij = exp(score_ij
-// - lse_i) and takes
+// to 128, then the f32 body's counters (flash_attention.py::
+// bwd_workspace_floats). With scale s = 1/sqrt(D) and score_ij = s q_i k_j
+// (masked where the forward masks: key j > i + T - S when causal), the
+// backward recomputes P_ij = exp(score_ij - lse_i) and takes
 //   D_i  = sum_c dout_ic out_ic
 //   dS   = P o (dout V^T - D)
 //   dQ   = s dS K,   dK = s dS^T Q,   dV = P^T dout.
@@ -19,28 +19,26 @@
 // through XLA. Here the long causal attention of training runs the forward
 // kernel, so the port needs this one.
 //
-// Two launches on the stream and no atomics, so every sum runs in an order
-// fixed by the shapes and a second call is bit-equal to the first:
+// Two launches on the stream a call, and no atomic on dq, dk or dv, so
+// every sum runs in an order fixed by the shapes and a second call is
+// bit-equal to the first. Bound on this card: operations. The five
+// products of the backward at causal S = T = 4096, H = 16, D = 128 take
+// 172 GFLOP: 2.56 ms at the 67 TFLOP/s of f32 outside the tensor cores,
+// 0.17 ms at the 989 TFLOP/s of bf16 on them. Two bodies, one per type:
+//
+// bf16 on the tensor cores through wgmma (bf16 in, f32 accumulate), two
+// passes:
 //   dQ: one CTA per (query tile, head), heaviest tile first, heads the
-//       fastest grid dimension. It computes D for its rows (and, in the
-//       bf16 body, writes D and lse·log2(e) to the workspace in (H, S_pad)
-//       order), then walks the key tiles the forward walked: S and dout
-//       V^T, then P and dS, then dQ += dS K.
+//       fastest grid dimension. It computes D for its rows, writes D and
+//       lse·log2(e) to the workspace in (H, S_pad) order, then walks the
+//       key tiles the forward walked: S and dout V^T, then P and dS, then
+//       dQ += dS K.
 //   dK, dV: one CTA per (key tile, head), the first key tiles (which the
 //       most query rows see) first. It walks the query tiles that see its
 //       keys: S^T and V dout^T, then P^T and dS^T (D read back from the
 //       workspace the first launch wrote), then dV += P^T dout and dK +=
 //       dS^T Q.
-// One pass that also accumulates dQ would need atomics or a second sum in
-// a fixed order; the two launches pay for that with two products more
-// (S and dout V^T again in the second launch: seven products, not five).
-// Bound on this card: operations. The five products of the backward at
-// causal S = T = 4096, H = 16, D = 128 take 172 GFLOP: 2.56 ms at the
-// 67 TFLOP/s of f32 outside the tensor cores, 0.17 ms at the 989 TFLOP/s
-// of bf16 on them. Two bodies, one per type:
-//
-// bf16 on the tensor cores through wgmma (bf16 in, f32 accumulate). It
-// replaces a body of 4 warps on mma.sync m16n8k16 fed by ldmatrix, whose
+// It replaces a body of 4 warps on mma.sync m16n8k16 fed by ldmatrix, whose
 // every tile copy (cp.async) was waited for at once, and which spilled at
 // several D. A CTA is three warpgroups: two consumers, each owning 64
 // query rows (dQ: 128-row tiles) or 64 keys (dK, dV: 128-key tiles), and a
@@ -79,15 +77,59 @@
 // warpgroups taking turns at issuing products (named barriers), the next
 // tile's S and dP started with this tile's last product, a ring of 3.
 //
-// f32 on the FMA units (no TF32): 256 threads (16 x 16) a CTA, 64-row and
-// 64-key tiles; thread (ty, tx) owns the 4 x 4 scores of rows ty + 16i and
-// keys tx + 16j, and the 4 x 4·NC outputs of rows (or keys) ty + 16i and
-// columns 4tx + 64c (NC = 1 for D <= 64, else 2). Q is scaled by s as it
-// is stored, as the f32 forward does; P and dS pass through shared memory.
-// K and V rows are padded by 4 floats so 8 lanes reading 8 keys hit 8 bank
-// groups; P and dS rows by 1 float. 150,272 B (dQ) and 166,912 B (dK, dV)
-// of shared memory at D = 128, one CTA an SM; D goes to the workspace in
-// (S, H) order.
+// f32 on the FMA units (no TF32), one pass of the five products. It
+// replaces two launches (dQ over query tiles, then dK and dV over key
+// tiles) that computed S and dout V^T twice, seven products for five, with
+// every tile copied synchronously:
+//   pre-pass (flash_bwd_f32_pre): 8 lanes a (row, head) pair write D and
+//       lse·log2(e) to the workspace in (H, S_pad) order (zero past S), and
+//       zero the counters below;
+//   main pass (flash_bwd_f32): one CTA of 256 threads per (64-key tile,
+//       head) holds its K and V in shared memory and walks the 64-row query
+//       tiles that see its keys from the last down to the first. Per tile:
+//       warps 0-3 compute S = Q K^T, then P = 2^(S·log2(e)/sqrt(D) -
+//       lse·log2(e)) on ex2.approx (masked per element) into a shared P
+//       tile, while warps 4-7 compute dP = dout V^T (8 rows x 4 keys a
+//       thread: a float loaded from shared memory feeds 2.67 products,
+//       not 2 as with both products 4 x 4 a thread). Then warps 0-3 take
+//       dV += P^T dout while warps 4-7 write dS = P (dP - D) to a shared
+//       dS tile and take dK += dS^T Q (8 keys x 8 columns a thread at
+//       W = 128: 4 products a float loaded); all 8 warps then take dQ's
+//       partial dS K (4 rows x 8 columns a thread at W = 128). dV and dK
+//       stay in registers for the whole walk; dq gets each partial times
+//       s, added in a fixed order.
+// The order of dQ's sum: CTAs take tickets from a counter in the workspace,
+// key tiles ascending and heads the fastest (as csrc/conv_tiles.cuh), so a
+// CTA's ticket says which tile it owns. Warp w of key tile j adds its part
+// of a query tile's partial once the (head, query tile, w) counter reads j
+// (an acquire load) and then sets it to j + 1 (__syncwarp, then a release
+// store, which orders the warp's adds before it); key tile 0 writes
+// without reading (every query tile is its), so dq needs no zeroing. Each
+// element of dq is thus summed over the key tiles in ascending order, the
+// same on every call. No wait can deadlock: a CTA waits only on the one key
+// tile before it in its head, whose ticket is earlier (so it is resident
+// or done), and which walks the same descending query tiles from the same
+// last one, ahead of it; a walk from the first query tile up would leave
+// key tile j j tiles behind key tile 0 in every head. Key tiles that start
+// together still form a chain in each head, each a wait behind the one
+// before, so the span from a warp's wait to its release is kept short: it
+// waits after dV and dK, reads dq (through L2, ld.global.cg) under dQ's
+// partial, adds and releases at once (releasing a tile after the next
+// tile's S and dP made the chain's waits cost more than the fence saved;
+// __threadfence before the release store cost 2 % and orders nothing the
+// release does not).
+// Every shared operand is a float4 load, and the lanes of one load read
+// one 128-byte row segment or broadcast. Rows of K, V, Q and dout in
+// shared memory are W + 4 floats (W = D rounded up to 32, 64 or 128, the
+// pad zero-filled by the copies) and of P and dS 68, so 8 lanes reading 8
+// rows hit 8 bank groups. The next tile's Q and its rows' lse·log2(e) and
+// D come in (cp.async) at a tile's start, into the second of two Q
+// buffers, its dout once dV and dK are done with this one's: three tiles
+// for two stages. Shared memory 204,816 B at W = 128 (one CTA an SM),
+// 81,936 B at W = 32 (two CTAs an SM by the launch bounds). q is not
+// scaled: the scale goes into the exponent, onto each dQ partial and onto
+// dk at the end. What each part costs on an H100:
+// scripts/torch_flash_bwd_variants.py.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,19 +138,18 @@
 
 namespace {
 
-constexpr int BQ = 64;   // query rows of a tile
-constexpr int BK = 64;   // keys of a tile
-constexpr int NT = 256;  // threads of a CTA, 16 x 16
-constexpr int LDP = BK + 1;  // row stride of the P and dS tiles
+constexpr int BQ = 64;   // f32: query rows of a walked tile
+constexpr int BK = 64;   // f32: keys of a CTA
+constexpr int NT = 256;  // f32: threads of a CTA
+constexpr int WARPS = 8;  // f32: warps of a CTA, counters a query tile
+constexpr int LDP = BK + 4;  // f32: row stride of the P / dS tile
+constexpr int CTR0 = 4;      // f32: the counters after the ticket
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ float4 scale4(float4 x, float c) {
-  return make_float4(x.x * c, x.y * c, x.z * c, x.w * c);
 }
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -117,286 +158,12 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-// Rows [r0, r0 + ROWS) of one head of a (rows, H, D) f32 tensor into a
-// shared tile of row stride LD, times `mul`; the columns at or past D (up
-// to W) and the rows at or past `limit` are zero.
-template <int ROWS, int W, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* g, int r0,
-                                          int limit, long rs, long hoff,
-                                          int d, float mul, int tid) {
-  constexpr int CH = W / 4;
-#pragma unroll 4
-  for (int idx = tid; idx < ROWS * CH; idx += NT) {
-    const int r = idx / CH, c = idx - r * CH;
-    const int row = r0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < limit && c * 4 < d)
-      x = scale4(load4(g + row * rs + hoff + c * 4), mul);
-    store4(dst + r * LD + c * 4, x);
-  }
-}
-
 // The keys [0, end) that rows [r0, min(r0 + rows, s)) see, as the forward
 // walks them.
 __device__ __forceinline__ int key_end(int r0, int rows, int s, int t,
                                        int causal) {
   if (!causal || t < s) return t;
   return min(min(r0 + rows, s) - 1 + (t - s) + 1, t);
-}
-
-// sc = Q K^T and dp = dO V^T over the depth D for this thread's 4 x 4
-// (rows ty + 16i of Qs / dOs, keys tx + 16j of Ks / Vs)
-template <int W, int LDK>
-__device__ __forceinline__ void scores(const float* Qs, const float* dOs,
-                                       const float* Ks, const float* Vs,
-                                       int d, int ty, int tx,
-                                       float (&sc)[4][4], float (&dp)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-  for (int c = 0; c < d; c += 4) {
-    float4 a[4], g[4], b[4], w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = load4(Qs + (ty + 16 * i) * W + c);
-      g[i] = load4(dOs + (ty + 16 * i) * W + c);
-      b[i] = load4(Ks + (tx + 16 * i) * LDK + c);
-      w[i] = load4(Vs + (tx + 16 * i) * LDK + c);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sc[i][j] = dot4(a[i], b[j], sc[i][j]);
-        dp[i][j] = dot4(g[i], w[j], dp[i][j]);
-      }
-  }
-}
-
-// P and dS of this thread's 4 x 4 into the shared tiles (P only when Ps is
-// non-null): zero for a masked pair, a row past S or a key past T.
-__device__ __forceinline__ void probs(const float (&sc)[4][4],
-                                      const float (&dp)[4][4],
-                                      const float* Ls, const float* Ds,
-                                      float* Ps, float* dSs, int q0, int k0,
-                                      int s, int t, int causal, int ty,
-                                      int tx) {
-  const int offset = t - s;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, row = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kk = tx + 16 * j, key = k0 + kk;
-      const bool seen = row < s && key < t && (!causal || key <= row + offset);
-      const float p = seen ? expf(sc[i][j] - Ls[r]) : 0.f;
-      if (Ps != nullptr) Ps[r * LDP + kk] = p;
-      dSs[r * LDP + kk] = p * (dp[i][j] - Ds[r]);
-    }
-  }
-}
-
-// ------------------------------------------------------------- f32: dQ
-
-template <int NC>
-__global__ void __launch_bounds__(NT, 1)
-flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ o,
-             const float* __restrict__ dout, const float* __restrict__ lse,
-             float* __restrict__ delta, float* __restrict__ dq, int s, int t,
-             int h, int d, int causal) {
-  constexpr int W = 64 * NC;  // columns of a shared Q / dO row (D padded)
-  constexpr int LDK = W + 4;  // K and V row stride
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // [BQ][W], scaled
-  float* dOs = Qs + BQ * W;                        // [BQ][W]
-  float* Ks = dOs + BQ * W;                        // [BK][LDK]
-  float* Vs = Ks + BK * LDK;                       // [BK][LDK]
-  float* dSs = Vs + BK * LDK;                      // [BQ][LDP]
-  float* Ls = dSs + BQ * LDP;                      // [BQ]
-  float* Ds = Ls + BQ;                             // [BQ]
-  const int head = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest first
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long rs = (long)h * d, hoff = (long)head * d;
-  const float sc_mul = rsqrtf((float)d);
-  const int ntiles = (key_end(q0, BQ, s, t, causal) + BK - 1) / BK;
-
-  load_tile<BQ, W, W>(Qs, q, q0, s, rs, hoff, d, sc_mul, tid);
-  load_tile<BQ, W, W>(dOs, dout, q0, s, rs, hoff, d, 1.f, tid);
-  __syncthreads();
-  {
-    // D = rowsum(dO o O): 4 lanes a row, columns 4·part + 16·n, summed
-    // across the quad in a fixed order
-    const int r = tid >> 2, part = tid & 3, row = q0 + r;
-    float acc = 0.f;
-    if (row < s)
-      for (int c = 4 * part; c < d; c += 16)
-        acc = dot4(load4(o + row * rs + hoff + c), load4(dOs + r * W + c),
-                   acc);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if (part == 0) {
-      Ds[r] = acc;
-      Ls[r] = row < s ? lse[(long)row * h + head] : 0.f;
-      if (row < s) delta[(long)row * h + head] = acc;
-    }
-  }
-
-  float acc[4][4 * NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
-
-  for (int j = 0; j < ntiles; ++j) {
-    const int k0 = j * BK;
-    // every thread is done with the last tile's K and dS
-    __syncthreads();
-    load_tile<BK, W, LDK>(Ks, k, k0, t, rs, hoff, d, 1.f, tid);
-    load_tile<BK, W, LDK>(Vs, v, k0, t, rs, hoff, d, 1.f, tid);
-    __syncthreads();
-    float sc[4][4], dp[4][4];
-    scores<W, LDK>(Qs, dOs, Ks, Vs, d, ty, tx, sc, dp);
-    probs(sc, dp, Ls, Ds, nullptr, dSs, q0, k0, s, t, causal, ty, tx);
-    __syncthreads();
-    // dQ += dS K (the scale at the end)
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float4 kv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        kv[c] = load4(Ks + kk * LDK + 4 * tx + 64 * c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = dSs[(ty + 16 * i) * LDP + kk];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          acc[i][4 * c + 0] = fmaf(ds, kv[c].x, acc[i][4 * c + 0]);
-          acc[i][4 * c + 1] = fmaf(ds, kv[c].y, acc[i][4 * c + 1]);
-          acc[i][4 * c + 2] = fmaf(ds, kv[c].z, acc[i][4 * c + 2]);
-          acc[i][4 * c + 3] = fmaf(ds, kv[c].w, acc[i][4 * c + 3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = 4 * tx + 64 * c;
-      if (row < s && col < d)
-        store4(dq + row * rs + hoff + col,
-               make_float4(acc[i][4 * c] * sc_mul, acc[i][4 * c + 1] * sc_mul,
-                           acc[i][4 * c + 2] * sc_mul,
-                           acc[i][4 * c + 3] * sc_mul));
-    }
-  }
-}
-
-// --------------------------------------------------------- f32: dK, dV
-
-template <int NC>
-__global__ void __launch_bounds__(NT, 1)
-flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dk, float* __restrict__ dv, int s, int t,
-              int h, int d, int causal) {
-  constexpr int W = 64 * NC;
-  constexpr int LDK = W + 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);  // [BK][LDK]
-  float* Vs = Ks + BK * LDK;                       // [BK][LDK]
-  float* Qs = Vs + BK * LDK;                       // [BQ][W], scaled
-  float* dOs = Qs + BQ * W;                        // [BQ][W]
-  float* Ps = dOs + BQ * W;                        // [BQ][LDP]
-  float* dSs = Ps + BQ * LDP;                      // [BQ][LDP]
-  float* Ls = dSs + BQ * LDP;                      // [BQ]
-  float* Ds = Ls + BQ;                             // [BQ]
-  const int head = blockIdx.x;
-  const int k0 = blockIdx.y * BK;  // the first key tiles see the most rows
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long rs = (long)h * d, hoff = (long)head * d;
-  const float sc_mul = rsqrtf((float)d);
-  const int offset = t - s;
-  // the first query row that sees key k0 (every row when not causal)
-  const int qfirst = causal ? max(0, k0 - offset) : 0;
-  const int nq = (s + BQ - 1) / BQ;
-
-  load_tile<BK, W, LDK>(Ks, k, k0, t, rs, hoff, d, 1.f, tid);
-  load_tile<BK, W, LDK>(Vs, v, k0, t, rs, hoff, d, 1.f, tid);
-
-  float adk[4][4 * NC], adv[4][4 * NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) adk[i][c] = adv[i][c] = 0.f;
-
-  for (int qt = qfirst / BQ; qt < nq; ++qt) {
-    const int q0 = qt * BQ;
-    // every thread is done with the last tile's Q, dO, P and dS
-    __syncthreads();
-    load_tile<BQ, W, W>(Qs, q, q0, s, rs, hoff, d, sc_mul, tid);
-    load_tile<BQ, W, W>(dOs, dout, q0, s, rs, hoff, d, 1.f, tid);
-    if (tid < BQ) {
-      const int row = q0 + tid;
-      Ls[tid] = row < s ? lse[(long)row * h + head] : 0.f;
-      Ds[tid] = row < s ? delta[(long)row * h + head] : 0.f;
-    }
-    __syncthreads();
-    float sc[4][4], dp[4][4];
-    scores<W, LDK>(Qs, dOs, Ks, Vs, d, ty, tx, sc, dp);
-    probs(sc, dp, Ls, Ds, Ps, dSs, q0, k0, s, t, causal, ty, tx);
-    __syncthreads();
-    // dV += P^T dO, dK += dS^T Q (Q already scaled): keys ty + 16i
-#pragma unroll 2
-    for (int r = 0; r < BQ; ++r) {
-      float4 go[NC], qq[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        go[c] = load4(dOs + r * W + 4 * tx + 64 * c);
-        qq[c] = load4(Qs + r * W + 4 * tx + 64 * c);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[r * LDP + ty + 16 * i];
-        const float ds = dSs[r * LDP + ty + 16 * i];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          adv[i][4 * c + 0] = fmaf(p, go[c].x, adv[i][4 * c + 0]);
-          adv[i][4 * c + 1] = fmaf(p, go[c].y, adv[i][4 * c + 1]);
-          adv[i][4 * c + 2] = fmaf(p, go[c].z, adv[i][4 * c + 2]);
-          adv[i][4 * c + 3] = fmaf(p, go[c].w, adv[i][4 * c + 3]);
-          adk[i][4 * c + 0] = fmaf(ds, qq[c].x, adk[i][4 * c + 0]);
-          adk[i][4 * c + 1] = fmaf(ds, qq[c].y, adk[i][4 * c + 1]);
-          adk[i][4 * c + 2] = fmaf(ds, qq[c].z, adk[i][4 * c + 2]);
-          adk[i][4 * c + 3] = fmaf(ds, qq[c].w, adk[i][4 * c + 3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = 4 * tx + 64 * c;
-      if (key < t && col < d) {
-        store4(dk + key * rs + hoff + col,
-               make_float4(adk[i][4 * c], adk[i][4 * c + 1],
-                           adk[i][4 * c + 2], adk[i][4 * c + 3]));
-        store4(dv + key * rs + hoff + col,
-               make_float4(adv[i][4 * c], adv[i][4 * c + 1],
-                           adv[i][4 * c + 2], adv[i][4 * c + 3]));
-      }
-    }
-  }
 }
 
 // ------------------------------------------------ bf16, wgmma and TMA
@@ -973,37 +740,399 @@ bwd_dkv_wg(const __grid_constant__ CUtensorMap mk,
   }
 }
 
+// ------------------------------------------------------------ f32, FMA
+
+// 16 bytes global -> shared through cp.async; with ok false the 16 bytes
+// are zero-filled and nothing is read
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ float part_of(float4 x, int u) {
+  return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
+}
+// N floats from shared memory (N a multiple of 4): 4 at p, 4 at p + 32,
+// ... (the keys of a thread in dV and dK, so 8 lanes read 128 bytes)
+template <int N>
+__device__ __forceinline__ void load_keys(float (&x)[N], const float* p) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 a = load4(p + 8 * i);
+    x[i] = a.x, x[i + 1] = a.y, x[i + 2] = a.z, x[i + 3] = a.w;
+  }
+}
+// acc[e][4c + .] += x[e] y[c]: a thread's KPT x 4·NF outer product
+template <int KPT, int NF>
+__device__ __forceinline__ void outer(float (&acc)[KPT][4 * NF],
+                                      const float (&x)[KPT],
+                                      const float4 (&y)[NF]) {
+#pragma unroll
+  for (int e = 0; e < KPT; ++e)
+#pragma unroll
+    for (int c = 0; c < NF; ++c) {
+      acc[e][4 * c + 0] = fmaf(x[e], y[c].x, acc[e][4 * c + 0]);
+      acc[e][4 * c + 1] = fmaf(x[e], y[c].y, acc[e][4 * c + 1]);
+      acc[e][4 * c + 2] = fmaf(x[e], y[c].z, acc[e][4 * c + 2]);
+      acc[e][4 * c + 3] = fmaf(x[e], y[c].w, acc[e][4 * c + 3]);
+    }
+}
+
+// The pre-pass: D = rowsum(dout o out) and lse·log2(e) of every (row,
+// head) pair of S_pad x H into the workspace in (H, S_pad) order, zero for
+// the rows past S; 8 lanes a pair (consecutive pairs are consecutive heads
+// of one row, so a warp reads 4 contiguous rows of D floats), summed
+// across the 8 in a fixed order. Also zeroes the main pass's `nctr`
+// counters (its ticket first).
+__global__ void __launch_bounds__(NT)
+flash_bwd_f32_pre(const float* __restrict__ o, const float* __restrict__ dout,
+                  const float* __restrict__ lse, float* __restrict__ ws,
+                  int* __restrict__ ctr, int nctr, int s, int h, int d,
+                  int s_pad) {
+  const long gt = (long)blockIdx.x * NT + threadIdx.x;
+  const long pair = gt >> 3;
+  const int part = (int)(gt & 7);
+  const int row = (int)(pair / h), head = (int)(pair - (long)row * h);
+  float acc = 0.f;
+  if (row < s) {
+    const long base = pair * d;  // (row, head) of a contiguous (S, H, D)
+    for (int c = 4 * part; c < d; c += 32)
+      acc = dot4(load4(o + base + c), load4(dout + base + c), acc);
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  if (part == 0 && row < s_pad) {
+    ws[(long)head * s_pad + row] =
+        row < s ? lse[(long)row * h + head] * LOG2E : 0.f;
+    ws[(long)(h + head) * s_pad + row] = acc;
+  }
+  for (long i = gt; i < nctr; i += (long)gridDim.x * NT) ctr[i] = 0;
+}
+
+// Shared memory of the main pass, in floats: K and V, BK rows each; two
+// buffers of the walked Q tiles and one of the dout tile (BQ rows each:
+// the next tile's Q comes in at a tile's start, its dout once dV and dK
+// are done with this one's); two stages of the rows' lse·log2(e) and D;
+// the P and the dS tiles; the CTA's ticket. Rows of W + 4.
+template <int W>
+struct F32Smem {
+  static constexpr int LD = W + 4;
+  static constexpr int TILE = BQ * LD;
+  static constexpr int K = 0, V = BK * LD, Q = 2 * BK * LD;
+  static constexpr int DO = Q + 2 * TILE;
+  static constexpr int STATS = DO + TILE;  // [stage][lse·log2e, D][BQ]
+  static constexpr int P = STATS + 4 * BQ;
+  static constexpr int DS = P + BQ * LDP;
+  static constexpr int TICKET = DS + BQ * LDP;
+  static constexpr int BYTES = 4 * (TICKET + 4);
+};
+
+// The main pass, W = D rounded up to 32, 64 or 128.
+template <int W>
+__global__ void __launch_bounds__(NT, W == 32 ? 2 : 1)
+flash_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ ws, int* __restrict__ ctr,
+              float* __restrict__ dq, float* __restrict__ dk,
+              float* __restrict__ dv, int s, int t, int h, int d, int causal,
+              int s_pad) {
+  typedef F32Smem<W> L;
+  constexpr int LD = L::LD;
+  // dQ's partial over all 8 warps: KPT rows x 4·NF columns a thread
+  constexpr int KPT = W == 32 ? 2 : 4;
+  constexpr int NF = W == 128 ? 2 : 1;
+  constexpr int CB = WARPS / (BK / (8 * KPT));  // warps along the columns
+  // dV (warps 0-3) and dK (warps 4-7): GK keys x 4·GF columns a thread
+  constexpr int GK = W == 128 ? 8 : 4;
+  constexpr int GF = W == 32 ? 1 : 2;
+  constexpr int GCB = 4 / (BK / (8 * GK));  // a group's warps along columns
+  static_assert(GCB * 16 * GF == W && CB * 16 * NF == W, "f32 tiles");
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int* const ticket = reinterpret_cast<int*>(sm + L::TICKET);
+  if (tid == 0) *ticket = atomicAdd(ctr, 1);
+  __syncthreads();
+  const int head = *ticket % h, kt = *ticket / h, k0 = kt * BK;
+  const int offset = t - s, nq = (s + BQ - 1) / BQ;
+  // the query tiles nq - 1 down to the first holding a row that sees k0
+  const int ntiles = nq - (causal ? max(0, k0 - offset) : 0) / BQ;
+  const long rs = (long)h * d, hoff = (long)head * d;
+  int* const counters = ctr + CTR0 + head * nq * WARPS + warp;
+
+  // rows [r0, r0 + 64) of one head of a (rows, H, D) tensor into a shared
+  // tile, zero at or past `limit` and at or past column D
+  auto rows_in = [&](float* dst, const float* g, int r0, int limit) {
+#pragma unroll 4
+    for (int idx = tid; idx < 64 * (W / 4); idx += NT) {
+      const int r = idx / (W / 4), c = (idx % (W / 4)) * 4;
+      const bool ok = r0 + r < limit && c < d;
+      cp_async16(dst + r * LD + c, ok ? g + (r0 + r) * rs + hoff + c : g,
+                 ok);
+    }
+  };
+  // walked tile n's Q and its rows' lse·log2(e) and D (query tile
+  // nq - 1 - n) into buffer and stage n & 1
+  auto q_in = [&](int n) {
+    const int st = n & 1, q0 = (nq - 1 - n) * BQ;
+    rows_in(sm + L::Q + st * L::TILE, q, q0, s);
+    if (tid < 32) {  // lse·log2(e), then D
+      const int which = tid >> 4, c = (tid & 15) * 4;
+      cp_async16(sm + L::STATS + (2 * st + which) * BQ + c,
+                 ws + (long)(which * h + head) * s_pad + q0 + c, true);
+    }
+    cp_async_commit();
+  };
+  auto dout_in = [&](int n) {
+    rows_in(sm + L::DO, dout, (nq - 1 - n) * BQ, s);
+    cp_async_commit();
+  };
+  rows_in(sm + L::K, k, k0, t);
+  rows_in(sm + L::V, v, k0, t);
+  dout_in(0);
+  q_in(0);
+
+  // S (warps 0-3: Q K^T, then P) or dP (warps 4-7: dout V^T, then dS):
+  // rows r1 + 4i, keys c1 + 8j of the tile
+  const bool first4 = warp < WARPS / 2;
+  const int gw = warp & 3;
+  const int r1 = (gw >> 1) * 32 + (lane >> 3);
+  const int c1 = (gw & 1) * 32 + (lane & 7);
+  const int la = lane & 7, lc = lane >> 3;
+  // dV (warps 0-3) or dK (warps 4-7): keys gk + (e & 3) + 32 (e >> 2),
+  // columns gc + 16c
+  const int gk = (gw / GCB) * 32 + 4 * la;
+  const int gc = (gw % GCB) * 16 * GF + 4 * lc;
+  // dQ's partial: rows ro + 8i, columns cw + 16c
+  const int ro = (warp / CB) * 8 * KPT + la;
+  const int cw = (warp % CB) * 16 * NF + 4 * lc;
+  const float scale = rsqrtf((float)d), sl2 = scale * LOG2E;
+  const float* Ks = sm + L::K;
+  const float* Bs = sm + (first4 ? L::K : L::V);
+  const float* Os = sm + L::DO;
+  float* const Ps = sm + L::P;
+  float* const dSs = sm + L::DS;
+  // dV (warps 0-3) or dK (warps 4-7, scaled at the end)
+  float acc[GK][4 * GF];
+#pragma unroll
+  for (int e = 0; e < GK; ++e)
+#pragma unroll
+    for (int c = 0; c < 4 * GF; ++c) acc[e][c] = 0.f;
+
+  for (int n = 0; n < ntiles; ++n) {
+    const int st = n & 1, qt = nq - 1 - n, q0 = qt * BQ;
+    const float* Qs = sm + L::Q + st * L::TILE;
+    const float* Ls = sm + L::STATS + 2 * st * BQ;
+    const float* Ds = Ls + BQ;
+    cp_async_wait_all();
+    // tile n has landed for every thread, and every thread is done with
+    // tile n - 1 (its Q buffer, the P and dS tiles)
+    __syncthreads();
+    if (n + 1 < ntiles) q_in(n + 1);
+
+    // S = Q K^T or dP = dout V^T over the depth D (two steps at a time but
+    // at W = 32, where two CTAs an SM leave 128 registers a thread)
+    const float* As = first4 ? Qs : Os;
+    float x[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[i][j] = 0.f;
+#pragma unroll(W == 32 ? 1 : 2)
+    for (int c = 0; c < d; c += 4) {
+      float4 a[8], b[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = load4(As + (r1 + 4 * i) * LD + c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = load4(Bs + (c1 + 8 * j) * LD + c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[i][j] = dot4(a[i], b[j], x[i][j]);
+    }
+    // P to its tile: zero for a masked pair, a row past S or a key past T
+    if (first4) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = r1 + 4 * i, row = q0 + r;
+        const float l2 = Ls[r];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = k0 + c1 + 8 * j;
+          const bool seen =
+              row < s && key < t && (!causal || key <= row + offset);
+          Ps[r * LDP + c1 + 8 * j] =
+              seen ? ex2(fmaf(x[i][j], sl2, -l2)) : 0.f;
+        }
+      }
+    }
+    __syncthreads();
+    if (first4) {
+      // dV += P^T dout
+#pragma unroll(W == 128 ? 4 : 2)
+      for (int r = 0; r < BQ; ++r) {
+        float z[GK];
+        float4 y[GF];
+        load_keys<GK>(z, Ps + r * LDP + gk);
+#pragma unroll
+        for (int c = 0; c < GF; ++c) y[c] = load4(Os + r * LD + gc + 16 * c);
+        outer<GK, GF>(acc, z, y);
+      }
+    } else {
+      // dS = P (dP - D) to its tile, then dK += dS^T Q
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = r1 + 4 * i;
+        const float dd = Ds[r];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dSs[r * LDP + c1 + 8 * j] =
+              Ps[r * LDP + c1 + 8 * j] * (x[i][j] - dd);
+      }
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+#pragma unroll(W == 128 ? 4 : 2)
+      for (int r = 0; r < BQ; ++r) {
+        float z[GK];
+        float4 y[GF];
+        load_keys<GK>(z, dSs + r * LDP + gk);
+#pragma unroll
+        for (int c = 0; c < GF; ++c) y[c] = load4(Qs + r * LD + gc + 16 * c);
+        outer<GK, GF>(acc, z, y);
+      }
+    }
+    // every thread is done with this tile's dout, and dS is in
+    __syncthreads();
+    if (n + 1 < ntiles) dout_in(n + 1);
+
+    // the ordered add: once key tile kt - 1 has added its part of this
+    // tile (this warp's rows and columns), read what dq holds; the read's
+    // latency hides under dQ's partial
+    int* const counter = counters + qt * WARPS;
+    if (kt > 0) {
+      if (lane == 0)
+        while (ld_acquire(counter) != kt) {
+        }
+      __syncwarp();
+    }
+    float4 old[KPT][NF];
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+#pragma unroll
+      for (int c = 0; c < NF; ++c) {
+        const int row = q0 + ro + 8 * i, col = cw + 16 * c;
+        old[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (kt > 0 && row < s && col < d)
+          old[i][c] = __ldcg(
+              reinterpret_cast<const float4*>(dq + row * rs + hoff + col));
+      }
+    // dQ's partial dS K, rows ro + 8i
+    float part[KPT][4 * NF];
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+#pragma unroll
+      for (int c = 0; c < 4 * NF; ++c) part[i][c] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 a[KPT];
+#pragma unroll
+      for (int i = 0; i < KPT; ++i)
+        a[i] = load4(dSs + (ro + 8 * i) * LDP + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float4 b[NF];
+        float z[KPT];
+#pragma unroll
+        for (int c = 0; c < NF; ++c)
+          b[c] = load4(Ks + (kk + u) * LD + cw + 16 * c);
+#pragma unroll
+        for (int i = 0; i < KPT; ++i) z[i] = part_of(a[i], u);
+        outer<KPT, NF>(part, z, b);
+      }
+    }
+    // dq = what it held + s · the partial; then the counter reads kt + 1
+    // (the warp's stores before lane 0's release store)
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+#pragma unroll
+      for (int c = 0; c < NF; ++c) {
+        const int row = q0 + ro + 8 * i, col = cw + 16 * c;
+        if (row < s && col < d)
+          __stcg(reinterpret_cast<float4*>(dq + row * rs + hoff + col),
+                 make_float4(fmaf(part[i][4 * c + 0], scale, old[i][c].x),
+                             fmaf(part[i][4 * c + 1], scale, old[i][c].y),
+                             fmaf(part[i][4 * c + 2], scale, old[i][c].z),
+                             fmaf(part[i][4 * c + 3], scale, old[i][c].w)));
+      }
+    __syncwarp();
+    if (lane == 0) st_release(counter, kt + 1);
+  }
+
+  // dV (warps 0-3) or dK (warps 4-7, times s)
+  float* const out = first4 ? dv : dk;
+  const float mul = first4 ? 1.f : scale;
+#pragma unroll
+  for (int e = 0; e < GK; ++e) {
+    const int key = k0 + gk + (e & 3) + 32 * (e >> 2);
+#pragma unroll
+    for (int c = 0; c < GF; ++c) {
+      const int col = gc + 16 * c;
+      if (key < t && col < d)
+        store4(out + key * rs + hoff + col,
+               make_float4(acc[e][4 * c] * mul, acc[e][4 * c + 1] * mul,
+                           acc[e][4 * c + 2] * mul,
+                           acc[e][4 * c + 3] * mul));
+    }
+  }
+}
+
 // ------------------------------------------------------------- launches
 
-template <int NC>
+template <int W>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
-                       float* delta, void* dq, void* dk, void* dv, int s,
-                       int t, int h, int d, int causal, cudaStream_t stream) {
-  constexpr int W = 64 * NC, LDK = W + 4;
-  const size_t smem_dq =
-      sizeof(float) * (2 * BQ * W + 2 * BK * LDK + BQ * LDP + 2 * BQ);
-  const size_t smem_dkv =
-      sizeof(float) * (2 * BK * LDK + 2 * BQ * W + 2 * BQ * LDP + 2 * BQ);
+                       float* ws, void* dq, void* dk, void* dv, int s, int t,
+                       int h, int d, int causal, cudaStream_t stream) {
+  typedef F32Smem<W> L;
+  const int s_pad = (s + PAD_ROWS - 1) / PAD_ROWS * PAD_ROWS;
   const int nq = (s + BQ - 1) / BQ, nk = (t + BK - 1) / BK;
-  if (nq > 65535 || nk > 65535) return cudaErrorInvalidValue;
-  auto* kdq = &flash_bwd_dq<NC>;
-  auto* kdkv = &flash_bwd_dkv<NC>;
-  // opt in to each launch's size every time
-  cudaError_t e = cudaFuncSetAttribute(
-      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+  const long nctr = CTR0 + (long)h * nq * WARPS;
+  const long pre = ((long)s_pad * h * 8 + NT - 1) / NT;
+  if ((long)nk * h > 0x7fffffffL || pre > 0x7fffffffL || nctr > 0x7fffffffL)
+    return cudaErrorInvalidValue;
+  int* ctr = reinterpret_cast<int*>(ws + 2L * h * s_pad);
+  flash_bwd_f32_pre<<<(unsigned)pre, NT, 0, stream>>>(
+      (const float*)o, (const float*)dout, lse, ws, ctr, (int)nctr, s, h, d,
+      s_pad);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  kdq<<<dim3(h, nq), NT, smem_dq, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)o,
-      (const float*)dout, lse, delta, (float*)dq, s, t, h, d, causal);
-  e = cudaGetLastError();
+  auto* kern = &flash_bwd_f32<W>;
+  // opt in to the launch's size every time
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L::BYTES);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(
-      kdkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
-  if (e != cudaSuccess) return e;
-  kdkv<<<dim3(h, nk), NT, smem_dkv, stream>>>(
+  kern<<<(unsigned)(nk * h), NT, L::BYTES, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      lse, delta, (float*)dk, (float*)dv, s, t, h, d, causal);
+      ws, ctr, (float*)dq, (float*)dk, (float*)dv, s, t, h, d, causal, s_pad);
   return cudaGetLastError();
 }
 
@@ -1087,9 +1216,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// (q, k, v, out, dout, lse, workspace of 2·H·S_pad floats, dq, dk, dv, s,
-// t, h, d, causal, bf16, stream): the two launches; returns
-// cudaGetLastError() after them.
+// (q, k, v, out, dout, lse, workspace (flash_attention.py::
+// bwd_workspace_floats), dq, dk, dv, s, t, h, d, causal, bf16, stream): the
+// two launches; returns cudaGetLastError() after them.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
@@ -1106,10 +1235,12 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   const float* l = (const float*)lse;
   float* w = (float*)ws;
   if (!bf16)
-    return (int)(d <= 64 ? launch_f32<1>(q, k, v, o, dout, l, w, dq, dk, dv,
-                                         s, t, h, d, causal, st)
-                         : launch_f32<2>(q, k, v, o, dout, l, w, dq, dk, dv,
-                                         s, t, h, d, causal, st));
+    return (int)(d <= 32   ? launch_f32<32>(q, k, v, o, dout, l, w, dq, dk,
+                                            dv, s, t, h, d, causal, st)
+                 : d <= 64 ? launch_f32<64>(q, k, v, o, dout, l, w, dq, dk,
+                                            dv, s, t, h, d, causal, st)
+                           : launch_f32<128>(q, k, v, o, dout, l, w, dq, dk,
+                                             dv, s, t, h, d, causal, st));
   return (int)(d <= 64 ? launch_bf16<1>(q, k, v, o, dout, l, w, dq, dk, dv,
                                         s, t, h, d, causal, st)
                        : launch_bf16<2>(q, k, v, o, dout, l, w, dq, dk, dv,

@@ -19,9 +19,11 @@ layout: q (S, H, D), k and v (T, H, D) with q's H, out (S, H, D).
 **Training.** Where grad is enabled and an input requires it, the call
 goes through :class:`FlashAttention`, an autograd Function: its forward
 also writes each row's logsumexp (``lse``, (S, H) float32), and its
-backward is ``csrc/flash_attention_bwd.cu`` on the card (two launches:
-dQ over query tiles, dK and dV over key tiles, recomputing P from
-``lse``; bfloat16 on ``wgmma`` fed by a TMA tile ring) and
+backward is ``csrc/flash_attention_bwd.cu`` on the card (two launches,
+recomputing P from ``lse``: bfloat16 dQ over query tiles, then dK and dV
+over key tiles, on ``wgmma`` fed by a TMA tile ring; float32 a pre-pass
+for D = rowsum(dout o out), then one pass over key tiles that also sums
+dQ's partials in a fixed order, :func:`bwd_tile_walk`) and
 :func:`flash_backward_plain` on the CPU. The reference never
 differentiates its Pallas kernel (its training attends blockwise through
 XLA); the port's long causal attention runs this kernel in training too,
@@ -52,19 +54,26 @@ ALIGN = 16
 
 
 #: Launches of ``csrc/flash_attention_bwd.cu`` since :func:`reset_launches`
-#: (:data:`BWD_KERNELS_PER_CALL` a backward call).
+#: (:data:`BWD_KERNELS_PER_CALL` a backward call, either type: bfloat16
+#: dQ, then dK/dV; float32 the pre-pass, then the one pass).
 BWD_LAUNCHES = 0
 BWD_KERNELS_PER_CALL = 2
-#: The backward's tiles by type (``csrc/flash_attention_bwd.cu``): query
+#: The backward's tiles by type (``csrc/flash_attention_bwd.cu``). float32
+#: (``BK``, ``BQ``): keys of a CTA and rows of the query tiles it walks.
+#: bfloat16 (``DQ_ROWS``, ``DQ_KEYS``, ``DKV_KEYS``, ``DKV_ROWS``): query
 #: rows of a dQ CTA, keys of the key tiles it walks, keys of a dK/dV CTA,
-#: rows of the query tiles it walks. float32 ``BQ``/``BK``; bfloat16
-#: ``DQ_ROWS``, ``DQ_KEYS``, ``DKV_KEYS``, ``DKV_ROWS`` (two warpgroups of
-#: 64 rows or keys a CTA, each walked tile through the ring).
-BWD_TILES = {torch.float32: (64, 64, 64, 64),
+#: rows of the query tiles it walks (two warpgroups of 64 rows or keys a
+#: CTA, each walked tile through the ring).
+BWD_TILES = {torch.float32: (64, 64),
              torch.bfloat16: (128, 64, 128, 64)}
-#: The workspace's rows are S rounded up to this: the bf16 body keeps each
+#: The workspace's rows are S rounded up to this: both bodies keep each
 #: row's lse·log2(e) and D there in (H, S_pad) order.
 BWD_PAD_ROWS = 128
+#: The float32 body's counters after those rows (ints): its ticket (in a
+#: slot of ``BWD_CTR0``), then ``BWD_CTR_WARPS`` a (head, query tile), one
+#: a warp of a CTA (``CTR0``, ``WARPS`` in the source).
+BWD_CTR0 = 4
+BWD_CTR_WARPS = 8
 
 
 def reset_launches() -> None:
@@ -105,16 +114,40 @@ def tile_walk(s: int, t: int, h: int, causal: bool) -> list:
 
 def bwd_tile_walk(s: int, t: int, h: int, causal: bool,
                   dtype: torch.dtype = torch.bfloat16) -> tuple:
-    """The backward's two grids in launch order for one type, a
-    plain-Python mirror of ``csrc/flash_attention_bwd.cu`` with the tiles
-    of :data:`BWD_TILES`: ``(dq, dkv)``. ``dq`` lists the dQ CTAs as
-    ``(head, q0, q1, tiles)``: query rows ``[q0, q1)`` of one head
-    (heaviest first, heads the fastest grid dimension) and key tiles ``0
-    .. tiles - 1``, ending where the forward's walk ends for the CTA's
+    """The backward's grids for one type, a plain-Python mirror of
+    ``csrc/flash_attention_bwd.cu`` with the tiles of :data:`BWD_TILES`.
+    Causal with T >= S or non-causal, the backward's domain.
+
+    bfloat16, two grids in launch order, ``(dq, dkv)``: ``dq`` lists the
+    dQ CTAs as ``(head, q0, q1, tiles)``: query rows ``[q0, q1)`` of one
+    head (heaviest first, heads the fastest grid dimension) and key tiles
+    ``0 .. tiles - 1``, ending where the forward's walk ends for the CTA's
     last row. ``dkv`` lists the dK/dV CTAs as ``(head, k0, k1, first,
     last)``: keys ``[k0, k1)`` (the first key tiles first) and query tiles
     ``first .. last - 1``, from the first one holding a row that sees key
-    ``k0``. Causal with T >= S or non-causal, the backward's domain."""
+    ``k0``.
+
+    float32, the one pass, ``(ctas, adders)``: ``ctas`` lists the CTAs in
+    ticket order (key tiles ascending, heads the fastest) as ``(head, k0,
+    k1, walk)``: keys ``[k0, k1)`` and the query tiles the CTA walks, in
+    its order, from the last down to the first holding a row that sees key
+    ``k0``. ``adders`` maps each ``(head, query tile)`` to the key tiles
+    whose dQ partials it sums, in the order the counters let them add:
+    key tile ``j`` adds once the tile's counter reads ``j``, so ascending,
+    and they must be ``0, 1, 2, ...`` for every wait to end."""
+    if dtype == torch.float32:
+        keys, rows = BWD_TILES[dtype]
+        nq, nk = -(-s // rows), -(-t // keys)
+        ctas, adders = [], {}
+        for j in range(nk):
+            k0 = j * keys
+            first = max(0, k0 - (t - s)) // rows if causal else 0
+            for head in range(h):
+                walk = tuple(range(nq - 1, first - 1, -1))
+                ctas.append((head, k0, min(k0 + keys, t), walk))
+                for qt in walk:
+                    adders.setdefault((head, qt), []).append(j)
+        return ctas, adders
     rows_q, keys_q, keys_kv, rows_kv = BWD_TILES[dtype]
     nq, nk = -(-s // rows_q), -(-t // keys_kv)
     dq = []
@@ -134,10 +167,13 @@ def bwd_tile_walk(s: int, t: int, h: int, causal: bool,
 
 def bwd_workspace_floats(s: int, h: int) -> int:
     """Floats of the backward's workspace: 2·H·S_pad (S rounded up to
-    :data:`BWD_PAD_ROWS`). The bf16 body writes each row's lse·log2(e)
-    and D there in (H, S_pad) order; the f32 body uses its first S·H
-    floats for D in (S, H) order."""
-    return 2 * h * (-(-s // BWD_PAD_ROWS) * BWD_PAD_ROWS)
+    :data:`BWD_PAD_ROWS`), where both bodies keep each row's lse·log2(e)
+    and D in (H, S_pad) order, then the float32 body's counters (ints of
+    the same size): :data:`BWD_CTR0` and :data:`BWD_CTR_WARPS` a (head,
+    query tile of ``BWD_TILES[float32][1]`` rows)."""
+    rows = BWD_TILES[torch.float32][1]
+    return (2 * h * (-(-s // BWD_PAD_ROWS) * BWD_PAD_ROWS) + BWD_CTR0
+            + h * -(-s // rows) * BWD_CTR_WARPS)
 
 
 def check_card_inputs(q: torch.Tensor, k: torch.Tensor,
@@ -305,8 +341,9 @@ def flash_backward_kernel(q: torch.Tensor, k: torch.Tensor,
     """(dq, dk, dv) of attention from the forward's output ``o``, its
     ``lse`` ((S, H) float32) and the output's gradient ``do``. On the CPU
     :func:`flash_backward_plain`; on the card the two launches of
-    ``csrc/flash_attention_bwd.cu``, which need the forward's domain with
-    causal T >= S, and contiguous q, k, v, o, do on 16-byte boundaries."""
+    ``csrc/flash_attention_bwd.cu`` (:data:`BWD_KERNELS_PER_CALL`), which
+    need the forward's domain with causal T >= S, and contiguous q, k, v,
+    o, do on 16-byte boundaries."""
     _check_args(q, k, v)
     s, h, d = q.shape
     t = k.shape[0]

@@ -1224,16 +1224,19 @@ def _hold_grads(got, want, dt, label=""):
     (64, 64, 2, 32, True), (130, 130, 3, 64, True), (256, 256, 2, 128, True),
     (64, 200, 2, 16, True), (100, 60, 2, 40, False), (300, 300, 2, 48, True),
     (4096, 4096, 16, 128, True),
+    # the train launcher's --reduced qwen2.5-3b at --seq 4096, batch 8
+    (4096, 4096, 32, 32, True),
     # one past a 128-row (bf16 CTA) tile, and D at each other D_pad
     (129, 129, 2, 128, True), (257, 257, 2, 64, True),
     (200, 200, 2, 24, True), (200, 200, 2, 56, True), (200, 200, 2, 80, True),
     (200, 200, 2, 96, True), (200, 200, 2, 112, True)])
 def test_flash_backward_on_the_card(card, s, t, h, d, causal, dt):
-    """The two backward launches (the dQ grid over query tiles, the dK/dV
-    grid over key tiles) against ``flash_backward_plain`` on the forward
-    kernel's own output and lse, with the lse against the plain forward's;
-    a second call bit-equal to the first; the Function's gradients equal
-    to the direct call's."""
+    """The two backward launches of either type (bf16: the dQ grid over
+    query tiles, the dK/dV grid over key tiles; f32: the pre-pass, the one
+    pass over key tiles with dQ's ordered adds) against
+    ``flash_backward_plain`` on the forward kernel's own output and lse,
+    with the lse against the plain forward's; a second call bit-equal to
+    the first; the Function's gradients equal to the direct call's."""
     from repro_torch.kernels import flash_attention as TF
     ty = _TYPES[dt]
     q = _normal(card, s + 3, s, h, d, dtype=ty)
@@ -1292,6 +1295,20 @@ def test_flash_backward_bf16_runs_on_wgmma_and_tma_on_the_card(card):
     for fn, r in wide.items():
         assert r["stack"] == r["spill_stores"] == r["spill_loads"] == 0, \
             (fn, r)
+
+
+def test_flash_backward_f32_has_no_stack_or_spills_on_the_card(card):
+    """``-Xptxas -v`` of the built ``flash_attention_bwd`` library: the f32
+    pre-pass and the one pass at each W (32, 64, 128) use no stack frame
+    and spill nothing."""
+    from repro_torch.kernels import build
+    build.load()
+    res = build.ptxas_resources("flash_attention_bwd")
+    f32 = {fn: r for fn, r in res.items() if "flash_bwd_f32" in fn}
+    assert len(f32) == 4, sorted(res)
+    for fn, r in f32.items():
+        assert r["stack"] == r["spill_stores"] == r["spill_loads"] == 0 \
+            and r["registers"] > 0, (fn, r)
 
 
 def test_flash_backward_refuses_what_it_cannot_take_on_the_card(card):
@@ -1678,6 +1695,56 @@ def test_train_step_on_the_card(card):
         _assert_close(gm[k].cpu(), cm[k], 1e-5)
     for w, g in zip(adamw.tree_leaves(cstate), adamw.tree_leaves(gstate)):
         _assert_close(g.cpu(), w, 1e-5)
+
+
+def test_reduced_train_step_at_4096_on_the_card(card):
+    """The train launcher's ``--reduced`` qwen2.5-3b (float32, 2 layers, 4
+    heads of 32) at ``--seq 4096`` and its default batch 8: attention takes
+    the flash route (B·H = 32, D = 32), one forward and one backward call
+    (two f32 launches) a layer. Every gradient leaf of the loss on the
+    kernels within ``chip_smoke.TRAIN_GRAD_TOL`` of the same loss with
+    attention from ``chip_smoke.plain_attention``; then one train step of
+    ``make_train_step`` (as the launcher runs it) gives a finite loss and
+    grad norm."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
+                                           shard_batch)
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import ops as TO
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as TS
+    cs = _chip_smoke()
+    cfg = get_arch("qwen2.5-3b").reduced()
+    assert (cfg.dtype, cfg.num_heads, cfg.head_dim) == ("float32", 4, 32)
+    batch = shard_batch(next(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, 4096, 8, seed=18)).packed_batches()), "cuda")
+    opt = adamw.OptConfig()
+    state = TS.init_state(cfg, torch.Generator(device="cuda").manual_seed(18),
+                          opt, "cuda")
+    TF.reset_launches()
+    (kl, _), kg = TS.value_and_grad(cfg, state["params"], batch, remat=False)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES == cfg.num_layers
+    assert TF.BWD_LAUNCHES == TF.BWD_KERNELS_PER_CALL * cfg.num_layers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TO, "flash_attention", cs.plain_attention(torch))
+        (pl, _), pg = TS.value_and_grad(cfg, state["params"], batch,
+                                        remat=False)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES == cfg.num_layers
+    atol, rtol = cs.TRAIN_GRAD_TOL
+    torch.testing.assert_close(kl, pl, atol=atol * abs(float(pl)), rtol=rtol)
+    for name, g, w in zip(cs._leaf_names(state["params"]),
+                          adamw.tree_leaves(kg), adamw.tree_leaves(pg)):
+        top = w.abs().max().item()
+        torch.testing.assert_close(g, w, atol=atol * top, rtol=rtol,
+                                   msg=name)
+    step = TS.make_train_step(cfg, opt, remat=False)
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert TF.BWD_LAUNCHES == 2 * TF.BWD_KERNELS_PER_CALL * cfg.num_layers
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))
 
 
 def test_wkv_trains_on_the_card(card):

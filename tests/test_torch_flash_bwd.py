@@ -1,10 +1,12 @@
 """The flash-attention backward on the CPU: ``flash_backward_plain`` (the
 recomputation the card's ``csrc/flash_attention_bwd.cu`` runs) against
 ``torch.autograd`` of ``flash_plain`` and ``jax.vjp`` of the reference's
-oracle ``repro.kernels.ref.attention``; the ``FlashAttention`` Function's
-gradients; the backward's two grids through their Python mirror
-(``bwd_tile_walk``); and one training step on the flash route (S = 2112)
-whose attention-projection gradients match the reference's.
+oracle ``repro.kernels.ref.attention``; the f32 kernel's dq summation
+order (partials over key tiles, added ascending) emulated against both;
+the ``FlashAttention`` Function's gradients; the backward's grids
+through their Python mirror (``bwd_tile_walk``); and one training step on
+the flash route (S = 2112) whose attention-projection gradients match the
+reference's.
 
 Inputs are made with numpy from seeds and cross the packages as arrays.
 """
@@ -82,6 +84,58 @@ def test_backward_plain_matches_autograd_and_the_reference(s, t, h, d,
     _hold([g.float() for g in got], ref, dt, "jax.vjp")
 
 
+def _dq_by_key_tiles(q, k, v, o, do, lse, causal):
+    """dq as the card's f32 one pass sums it: for each (head, query tile)
+    of ``bwd_tile_walk(..., float32)``, each adding key tile's partial
+    ``s dS K`` over its keys alone, added in the order of ``adders``
+    (ascending key tiles; the first one written, not added), in float32."""
+    s, h, d = q.shape
+    t = k.shape[0]
+    keys, rows = TF.BWD_TILES[torch.float32]
+    _, adders = TF.bwd_tile_walk(s, t, h, causal, torch.float32)
+    scale = d ** -0.5
+    delta = (do * o).sum(-1)
+    dq = torch.empty_like(q)
+    for (head, qt), js in adders.items():
+        r0, r1 = qt * rows, min((qt + 1) * rows, s)
+        for j in js:
+            k0, k1 = j * keys, min((j + 1) * keys, t)
+            kk, vv = k[k0:k1, head], v[k0:k1, head]
+            p = torch.exp(q[r0:r1, head] @ kk.T * scale
+                          - lse[r0:r1, head, None])
+            if causal:
+                seen = (torch.arange(k0, k1)[None, :]
+                        <= torch.arange(r0, r1)[:, None] + (t - s))
+                p = torch.where(seen, p, torch.zeros(()))
+            ds = p * (do[r0:r1, head] @ vv.T - delta[r0:r1, head, None])
+            part = (ds @ kk) * scale
+            dq[r0:r1, head] = part if j == 0 else dq[r0:r1, head] + part
+    return dq
+
+
+@pytest.mark.parametrize("s,t,h,d,causal", SHAPES)
+def test_dq_in_the_one_pass_order_matches_plain_and_the_reference(
+        s, t, h, d, causal):
+    """The f32 kernel's dq summation order, emulated in torch (partials
+    over key tiles, summed ascending per query tile), agrees with
+    ``flash_backward_plain`` and with ``jax.vjp`` of the reference's oracle
+    within the f32 tolerance."""
+    q, k, v, do = _inputs(s, t, h, d, "f32", s * 5 + t + d)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = TF.flash_plain_lse(tq, tk, tv, causal)
+    got = _dq_by_key_tiles(tq, tk, tv, out, tdo, lse, causal)
+    plain = TF.flash_backward_plain(tq, tk, tv, out, tdo, lse, causal)
+    _, vjp = jax.vjp(lambda a, b, c: RREF.attention(a, b, c, causal),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(do))
+    atol, _ = TOL["f32"]
+    for want, label in ((plain[0], "plain"), (ref[0], "jax.vjp")):
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=atol * np.abs(want).max(),
+                                   err_msg=label)
+
+
 def test_lse_is_the_rows_logsumexp():
     q, k, v, _ = _inputs(130, 160, 2, 32, "f32", 3)
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
@@ -136,22 +190,33 @@ _BF16_WALKS = _WALKS + [(129, 129, True), (257, 257, True),
     pytest.param(s, t, c, torch.bfloat16, id=f"bf16-{s}-{t}-{c}")
     for s, t, c in _BF16_WALKS])
 def test_bwd_tile_walk_visits_every_pair_once(s, t, causal, dtype):
-    """Brute force over (query, key) pairs, with each type's tiles (f32:
-    64-row and 64-key CTAs walking 64-key and 64-row tiles; bf16: 128-row
-    and 128-key CTAs of two warpgroups walking 64-key and 64-row tiles):
-    each grid of the backward covers every pair a row sees exactly once a
-    head, its walked tiles hold no pair outside the sequences, and none
-    lies wholly past the causal edge; the dQ grid launches the heaviest
-    tiles first, the dK/dV grid the first key tiles first. The tiles
-    equal the constants of ``csrc/flash_attention_bwd.cu``."""
+    """Brute force over (query, key) pairs, with each type's tiles. bf16:
+    128-row and 128-key CTAs of two warpgroups walking 64-key and 64-row
+    tiles; each grid covers every pair a row sees exactly once a head, its
+    walked tiles hold no pair outside the sequences, and none lies wholly
+    past the causal edge; the dQ grid launches the heaviest tiles first,
+    the dK/dV grid the first key tiles first. f32: the one pass of 64-key
+    CTAs walking 64-row tiles (:func:`_check_f32_walk`). The tiles equal
+    the constants of ``csrc/flash_attention_bwd.cu``."""
     h = 2
-    rows_q, keys_q, keys_kv, rows_kv = TF.BWD_TILES[dtype]
-    dq, dkv = TF.bwd_tile_walk(s, t, h, causal, dtype)
+    src = (pathlib.Path(TF.__file__).parent / "csrc" /
+           "flash_attention_bwd.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
     seen = np.zeros((s, t), bool)
     if causal:
         seen = np.arange(t)[None, :] <= np.arange(s)[:, None] + (t - s)
     else:
         seen[:] = True
+    if dtype == torch.float32:
+        assert TF.BWD_TILES[dtype] == (const("BK"), const("BQ"))
+        assert (TF.BWD_CTR0, TF.BWD_CTR_WARPS) == (const("CTR0"),
+                                                   const("WARPS"))
+        _check_f32_walk(s, t, h, causal, seen)
+        return
+    rows_q, keys_q, keys_kv, rows_kv = TF.BWD_TILES[dtype]
+    dq, dkv = TF.bwd_tile_walk(s, t, h, causal, dtype)
     for grid, name in ((dq, "dq"), (dkv, "dkv")):
         count = np.zeros((h, s, t), np.int32)
         for cta in grid:
@@ -175,14 +240,67 @@ def test_bwd_tile_walk_visits_every_pair_once(s, t, causal, dtype):
     work = [c[3] for c in dq[::h]]
     assert work == sorted(work, reverse=True)
     assert [c[1] for c in dkv[::h]] == sorted(c[1] for c in dkv[::h])
-    src = (pathlib.Path(TF.__file__).parent / "csrc" /
-           "flash_attention_bwd.cu").read_text()
-
-    def const(name):
-        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
-    names = (("BQ", "BK", "BK", "BQ") if dtype == torch.float32 else
-             ("DQ_ROWS", "DQ_KEYS", "DKV_KEYS", "DKV_ROWS"))
+    names = ("DQ_ROWS", "DQ_KEYS", "DKV_KEYS", "DKV_ROWS")
     assert TF.BWD_TILES[dtype] == tuple(const(n) for n in names)
+
+
+def _check_f32_walk(s, t, h, causal, seen):
+    """The f32 one pass (``bwd_tile_walk(..., float32)``): CTAs in ticket
+    order, key tiles ascending and heads the fastest; each walks its query
+    tiles from the last down, every walked tile holding a pair its keys
+    see, and together they cover every seen pair exactly once a head.
+    Each (head, query tile)'s adders are key tiles 0, 1, 2, ... in
+    ascending order, so the counter that key tile j waits on reads j once
+    key tile j - 1 has added: the CTA waited on has the earlier ticket
+    and walks the tile too. Run as the counters run it (a CTA adds to a
+    tile once its counter reads its key tile), with only a few CTAs
+    resident at a time, taken in ticket order, every CTA finishes and
+    each tile's adds come in ascending key-tile order."""
+    keys, rows = TF.BWD_TILES[torch.float32]
+    ctas, adders = TF.bwd_tile_walk(s, t, h, causal, torch.float32)
+    nq, nk = -(-s // rows), -(-t // keys)
+    assert [(c[0], c[1]) for c in ctas] == [
+        (head, j * keys) for j in range(nk) for head in range(h)]
+    count = np.zeros((h, s, t), np.int32)
+    ticket = {}
+    for n, (head, k0, k1, walk) in enumerate(ctas):
+        ticket[(head, k0 // keys)] = n
+        assert list(walk) == sorted(walk, reverse=True) and walk[0] == nq - 1
+        for qt in walk:
+            q0, q1 = qt * rows, min((qt + 1) * rows, s)
+            assert seen[q0:q1, k0:k1].any(), (head, k0, qt)
+            count[head, q0:q1, k0:k1] += 1
+    assert ((count == 1) | ~seen[None]).all()
+    assert (count <= 1).all()
+    assert set(adders) == {(head, qt) for head in range(h)
+                           for qt in range(nq)}
+    for (head, qt), js in adders.items():
+        assert js == list(range(len(js))), (head, qt, js)
+        for j in js[1:]:  # waits on key tile j - 1 only: an earlier ticket
+            assert ticket[(head, j - 1)] < ticket[(head, j)]
+            assert qt in ctas[ticket[(head, j - 1)]][3]
+    for resident in (1, 3):
+        counter = {key: 0 for key in adders}
+        order = {key: [] for key in adders}
+        pos = [0] * len(ctas)
+        live, nxt = [], 0
+        while live or nxt < len(ctas):
+            while len(live) < resident and nxt < len(ctas):
+                live.append(nxt)
+                nxt += 1
+            moved = False
+            for n in list(live):
+                head, k0, _, walk = ctas[n]
+                key = (head, walk[pos[n]])
+                if counter[key] == k0 // keys:
+                    order[key].append(k0 // keys)
+                    counter[key] += 1
+                    pos[n] += 1
+                    moved = True
+                    if pos[n] == len(walk):
+                        live.remove(n)
+            assert moved, ("the resident CTAs all wait", resident, live)
+        assert order == adders
 
 
 def _tiny(case="qwen2.5-3b", **kw):
