@@ -216,13 +216,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    their plain versions. Every train run also logs the step's model
    FLOPs (``repro_torch.roofline.model_flops_for``) and their share of
    the bf16 peak at the step's ms. ``[train]`` lines;
-10e. runs the seven configured archs no earlier phase runs (``archs``
+10e. runs the eight configured archs no earlier phase runs (``archs``
    phase, ``ARCH_SERVE``, ``ARCH_TRAIN``), each on bf16 weights drawn
-   from a seed on the card and freed before the next. Each is served at
+   from a seed on the card and freed before the next. First the MLA arch
+   ``minicpm3-4b`` (62 layers, d 2560, 40 heads of nope 64 + rope 32, v
+   64, latent ranks 768 and 256) in float32 as the models phase checks
+   qwen (``ARCH_F32``): ``forward_train`` over 4096 + 4 tokens (its
+   attention the flash kernel at the folded D = 96), ``prefill`` of 4096
+   and four ``decode_step``s within 2e-3 of it, 62 flash launches and
+   layer 0's call against its plain version. Each is served at
    full width: ``Engine.generate`` at batch 4, 8 new tokens, greedy,
    twice on the same prompts (``yi-6b``, ``nemotron-4-15b``,
-   ``olmoe-1b-7b``, ``internvl2-1b`` and ``musicgen-medium`` uncut at
-   prompt 4096, the last two on embedding prompts;
+   ``olmoe-1b-7b``, ``internvl2-1b``, ``musicgen-medium`` and
+   ``minicpm3-4b`` uncut at prompt 4096, ``internvl2-1b`` and
+   ``musicgen-medium`` on embedding prompts;
    ``qwen3-moe-235b-a22b`` cut to 8 of its 94 layers; ``hymba-1.5b``
    uncut at prompt 1024), the cut printed on its ``[models]`` line: each
    run's flash launches, one a layer (none for hymba, whose windowed
@@ -234,20 +241,42 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    cache tensor in its storage with a peak rise under the cache's bytes,
    and the second run's prefill ms, decode ms a token, tok/s, weight
    bytes, peak memory, the flash calls' device ms inside the prefill
-   (``KernelCalls``), the GQA copy's bytes and, for hymba, the Mamba
-   loop's device ms and share of the prefill. Then three are trained in
-   bf16 with remat for three steps, step 0 the warm-up (``train_steps``):
-   ``olmoe-1b-7b`` at 4 of 16 layers, 2 x 4096 in 2 microbatches, first
-   two forward and backward passes on one batch whose loss and every
-   gradient leaf must be bit-equal; ``hymba-1.5b`` at 4 of 32 layers, 1 x
-   1024, the Mamba loop's device ms in a step and one layer's backward;
-   ``internvl2-1b`` uncut, 2 x 4096 embeddings in 2 microbatches: finite
+   (``KernelCalls``), the GQA copy's bytes (MLA: the fold's copies, k_rope
+   expanded over the heads and v padded to D = 96) and, for hymba, the
+   Mamba loop's device ms and share of the prefill. Then four are trained
+   in bf16 with remat for three steps, step 0 the warm-up
+   (``train_steps``): ``olmoe-1b-7b`` at 4 of 16 layers, 2 x 4096 in 2
+   microbatches, first two forward and backward passes on one batch whose
+   loss and every gradient leaf must be bit-equal; ``hymba-1.5b`` at 4 of
+   32 layers, 1 x 1024, the Mamba loop's device ms in a step and one
+   layer's backward; ``internvl2-1b`` uncut, 2 x 4096 embeddings in 2
+   microbatches; ``minicpm3-4b`` at 8 of 62 layers, 2 x 4096 in 2
+   microbatches, first the bit-equal repeat, after the steps a 2-layer
+   float32 gradient check over 4096 tokens against ``plain_attention``
+   (every latent projection's gradient non-zero): finite
    losses and grad norms, the state in place, the flash forward and
    backward launches, step ms, tokens/s, the peak against the state's
    bytes and the flash ms a step. Every flash shape new here adds its
    rows to the ``kernels`` line (``flash_attention [<arch> prefill]``,
    ``flash_attention`` and ``flash_attention_bwd [<arch> train]``) with
    its bound and SDPA's time;
+10f. runs the reference's shapes past 4,096 tokens (``shapes`` phase,
+   ``models/config.py`` ``SHAPES``): ``prefill_32k`` and ``decode_32k``
+   on ``qwen2.5-3b`` (D 128) and ``minicpm3-4b`` (folded D 96) in bf16,
+   uncut, batch cut to 2, a prompt of 32,760 tokens into
+   ``cache_len_for(decode_32k)`` = 32,768 slots, 8 new, greedy, twice
+   (``arch_serve``: tokens equal, one flash launch a layer, layer 0's
+   call at S = 32,760 against ``flash_plain``, a decode step in place,
+   rows ``flash_attention [<arch> 32k prefill]``); ``qwen2.5-3b`` in
+   float32 at batch 1, prefill 32,760 tokens and one decode step within
+   2e-3 of a prefill one token longer; then ``long_500k``:
+   ``rwkv6-1.6b`` bf16 at batch 1 over 524,288 tokens, 8 new, twice (72
+   WKV launches a prefill, tokens equal, layer 0's WKV call, 2^30 floats
+   an input, within 3e-4 of ``wkv_plain``, prefill ms and peak memory,
+   row ``wkv_chunk [rwkv6-1.6b 500k prefill]``), and ``qwen2.5-3b``'s
+   4,096-slot ring with window 0 filled by a 4,096-token prompt and
+   wrapped by 64 decode steps, twice (tokens equal, every cache tensor
+   in its storage after every step). ``[shapes]`` lines;
 11. times with CUDA events, after a warm-up, every kernel per forward of the
    path that runs it (``resnet_50_v2`` f32 for conv, pool, elementwise and
    the head; ``densenet_121`` for concat, flat, blocked and staged in the
@@ -278,15 +307,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 12. writes every number to ``build/chip_smoke.json`` (the chains'
     schedules and times under ``chains``, the serving runtime under
     ``serve``, the models under ``models``, training under ``train``, the
-    archs phase under ``archs``) and
+    archs phase under ``archs``, the shapes phase under ``shapes``) and
     prints the
     ``kernels`` JSON line (a ``[blocks]`` line per kernel for the
     row-blocked program, the three streaming kernels, a ``dmo_dwconv2d``
     line, the three standalone kernels, ``flash_attention_bwd`` and
     ``wkv_chunk_bwd``, ``flash_attention`` and ``wkv_chunk`` on the
     models' prefill, ``flash_attention`` and ``flash_attention_bwd`` in
-    qwen's train step, ``wkv_chunk`` and ``wkv_chunk_bwd`` in rwkv's, and
-    the archs phase's flash rows),
+    qwen's train step, ``wkv_chunk`` and ``wkv_chunk_bwd`` in rwkv's, the
+    archs phase's flash rows and the shapes phase's flash and WKV rows),
     the card line, and as its last line the device JSON.
 
 Any failed check raises and the script exits non-zero. It exits 2, printing
@@ -522,7 +551,7 @@ MODEL_SERVE_REPS = 3
 CONT = (4, 512, 8)
 CONT_PROMPTS = (37, 300, 120, 64, 211, 150)
 
-#: the archs phase (10e): the seven configured archs that no earlier phase
+#: the archs phase (10e): the eight configured archs that no earlier phase
 #: runs, each served in bf16 on weights drawn from a seed at batch
 #: ARCH_SERVE_BATCH with ARCH_SERVE_NEW new tokens, greedy, twice: (arch,
 #: layers kept, None for every layer, prompt length). Width is never cut:
@@ -532,14 +561,48 @@ CONT_PROMPTS = (37, 300, 120, 64, 211, 150)
 ARCH_SERVE = (("yi-6b", None, 4096), ("nemotron-4-15b", None, 4096),
               ("olmoe-1b-7b", None, 4096), ("qwen3-moe-235b-a22b", 8, 4096),
               ("hymba-1.5b", None, 1024), ("internvl2-1b", None, 4096),
-              ("musicgen-medium", None, 4096))
+              ("musicgen-medium", None, 4096), ("minicpm3-4b", None, 4096))
 ARCH_SERVE_BATCH = 4
 ARCH_SERVE_NEW = 8
-#: three of them trained in bf16 with remat, TRAIN_STEPS steps (step 0 the
-#: warm-up): (arch, layers kept, (batch, seq), microbatches)
+#: four of them trained in bf16 with remat, TRAIN_STEPS steps (step 0 the
+#: warm-up): (arch, layers kept, (batch, seq), microbatches).
+#: minicpm3-4b keeps 8 of its 62 layers: all 62 are 4.26 G parameters,
+#: 42.6 GB of state at 10 B a parameter
 ARCH_TRAIN = (("olmoe-1b-7b", 4, (2, 4096), 2),
               ("hymba-1.5b", 4, (1, 1024), 1),
-              ("internvl2-1b", None, (2, 4096), 2))
+              ("internvl2-1b", None, (2, 4096), 2),
+              ("minicpm3-4b", 8, (2, 4096), 2))
+#: the MLA arch's float32 check before it is served, as the models phase
+#: checks qwen: (arch, prompt S, extra tokens of the full pass)
+ARCH_F32 = (("minicpm3-4b", 4096, 4),)
+#: MLA's latent projections, each of which must get a gradient
+MLA_PROJECTIONS = ("wq_a", "wq_b", "wkv_a", "wk_b", "wv_b")
+
+#: the shapes phase (10f): the reference's prefill_32k and decode_32k
+#: (models/config.py SHAPES) in bf16 on a GQA arch (D 128) and the MLA arch
+#: (folded D 96), batch cut to SHAPE_BATCH (the reference's global batches
+#: are 32 and 128), a prompt of SHAPE_PROMPT tokens into the
+#: cache_len_for(decode_32k) = 32,768 slots, ARCH_SERVE_NEW new tokens
+SHAPE_ARCHS = ("qwen2.5-3b", "minicpm3-4b")
+SHAPE_BATCH = 2
+SHAPE_PROMPT = 32760
+#: then qwen2.5-3b in float32 at batch 1: prefill SHAPE_PROMPT tokens and
+#: one decode step, against a prefill one token longer (MODEL_TOL)
+SHAPE_F32_ARCH = "qwen2.5-3b"
+#: long_500k on the sub-quadratic family: rwkv6-1.6b bf16 at batch 1 over
+#: LONG_PROMPT tokens (a multiple of WKV_CHUNK, so the WKV kernel runs),
+#: ARCH_SERVE_NEW new tokens, twice. hymba-1.5b stays out: its Mamba loop
+#: is a Python loop of S steps a layer
+LONG_ARCH = "rwkv6-1.6b"
+LONG_PROMPT = 524_288
+#: long_500k on an attention arch: a prompt of cache_len_for(long_500k) =
+#: 4,096 tokens into that ring with window 0, then RING_STEPS decode steps
+#: that wrap it, batch 1, twice. decode_window(long_500k) is the arch's
+#: sliding_window, 4,096 (ArchConfig's default) for qwen2.5-3b: on a ring
+#: of as many slots it masks nothing that window 0 keeps, and a prefill
+#: with a window leaves the flash kernel for the plain blockwise path
+RING_ARCH = "qwen2.5-3b"
+RING_STEPS = 64
 
 
 class SmokeError(RuntimeError):
@@ -2225,9 +2288,15 @@ class KernelCalls:
     (layer 0's in a backward) and, with ``timed``, CUDA events around
     every call. The kernels' own launch counters are untouched. ``extra``
     (name -> (module, function)) wraps more of the path the same way
-    (the archs phase: ``ssm.mamba_forward``, hymba's Mamba loop)."""
+    (the archs phase: ``ssm.mamba_forward``, hymba's Mamba loop).
+    ``keep`` names the calls whose tensors are kept: a run whose layer
+    inputs are gigabytes keeps only the first or none, since the last
+    call's tensors stay alive until the next call returns. With ``host``
+    the kept tensors are copied to the host as the call returns, so they
+    take no device memory for the rest of the run."""
 
-    def __init__(self, torch, timed: bool = False, extra=None):
+    def __init__(self, torch, timed: bool = False, extra=None,
+                 keep=("first", "last"), host: bool = False):
         from repro_torch.kernels import flash_attention as TF
         from repro_torch.kernels import ops as TO
         from repro_torch.kernels import wkv_chunk as TW
@@ -2239,6 +2308,20 @@ class KernelCalls:
                      "wkv_chunk_bwd": (TW, "wkv_backward_kernel"),
                      **(extra or {})}
         self.first, self.last, self.events = {}, {}, {}
+        self.keep, self.host = keep, host
+
+    def _kept(self, x):
+        """``x`` (a call's args, kwargs or outputs), on the host with
+        ``host``."""
+        if not self.host:
+            return x
+        if isinstance(x, self.torch.Tensor):
+            return x.to("cpu")
+        if isinstance(x, (tuple, list)):
+            return type(x)(self._kept(y) for y in x)
+        if isinstance(x, dict):
+            return {k: self._kept(v) for k, v in x.items()}
+        return x
 
     def _wrap(self, name, fn):
         def run(*args, **kw):
@@ -2251,8 +2334,10 @@ class KernelCalls:
             if ev:
                 ev[1].record()
                 self.events.setdefault(name, []).append(ev)
-            self.first.setdefault(name, (args, kw, out))
-            self.last[name] = (args, kw, out)
+            if "first" in self.keep and name not in self.first:
+                self.first[name] = self._kept((args, kw, out))
+            if "last" in self.keep:
+                self.last[name] = self._kept((args, kw, out))
             return out
         return run
 
@@ -2319,8 +2404,10 @@ def event_wrap(torch, fn, marks: list):
 
 
 def flash_prefill_row(torch, F, calls: KernelCalls, arch: str,
-                      launches: int, kernel_ms: float) -> dict:
-    """The ``flash_attention`` row of a served bf16 prefill: layer 0's call
+                      launches: int, kernel_ms: float,
+                      tag: str = "prefill") -> dict:
+    """The ``flash_attention [<arch> <tag>]`` row of a served bf16
+    prefill: layer 0's call
     of the pass ``calls`` recorded, against ``flash_plain`` within
     ``flash_bf16_tol`` (SDPA's largest difference from it beside), timed
     beside its plain version, SDPA on (1, B·H, S, D) copies and its
@@ -2329,7 +2416,7 @@ def flash_prefill_row(torch, F, calls: KernelCalls, arch: str,
     plain and library ms are layer 0's call's."""
     from repro_torch.kernels import flash_attention as TF
     (q, k, v), _, res = calls.first["flash_attention"]
-    plain = TF.flash_plain(q, k, v, True, 128, 128)
+    plain = TF.flash_plain(q, k, v, True, 128, 128)  # also its warm-up
     tol = flash_bf16_tol(v)
     err = close_err(torch, res, plain, tol, f"{arch} bf16 flash layer 0")
     sq, bh, d = q.shape
@@ -2341,13 +2428,13 @@ def flash_prefill_row(torch, F, calls: KernelCalls, arch: str,
     call_ms = time_auto(torch, lambda: TF.flash_attention_kernel(
         q, k, v, True))
     plain_ms = time_ms(torch, lambda: TF.flash_plain(q, k, v, True, 128,
-                                                     128), 1)
+                                                     128), 1, warm=False)
     library_ms = time_auto(torch, lambda: F.scaled_dot_product_attention(
         qh, kh, vh, is_causal=True))
     del qh, kh, vh
     cost = attention_cost(sq, sq, bh, d, True, q.element_size())
     return {
-        "name": f"flash_attention [{arch} prefill]", "route": "cuda",
+        "name": f"flash_attention [{arch} {tag}]", "route": "cuda",
         "source": KERNELS["flash_attention"][0],
         "replaces": KERNELS["flash_attention"][1],
         "path": (f"{arch} bf16 prefill: B·H = {bh}, S = T = {sq}, D = {d}, "
@@ -2383,6 +2470,63 @@ def decode_in_place(torch, eng, prompts, sp: int, arch: str) -> dict:
     return {"decode_step_peak_rise_bytes": rise, "cache_bytes": cache_bytes}
 
 
+def f32_decode_check(torch, base, s: int, extra: int, rng, gen) -> tuple:
+    """``base`` at full width in float32 (TF32 off) on weights drawn from
+    ``gen`` (seed 0): ``forward_train`` over ``s + extra`` tokens from
+    ``rng``, then ``prefill`` of the first ``s`` and ``MODEL_STEPS``
+    ``decode_step``s, each step's logits within ``MODEL_TOL`` of the full
+    pass; the prefill's launches (one flash a layer, or three WKV), with
+    the counts reset just before and read just after, and layer 0's kernel
+    call against its plain version (``STANDALONE_TOL``). Returns (record,
+    the float32 config, its weights)."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import wkv_chunk as TW
+    from repro_torch.models import transformer as T
+    arch = base.name
+    kname = "wkv_chunk" if base.attention == "none" else "flash_attention"
+    want_launches = base.num_layers * (
+        TW.KERNELS_PER_CALL if kname == "wkv_chunk" else 1)
+    cfg = dataclasses.replace(base, dtype="float32")
+    params = T.init_params(cfg, gen.manual_seed(0))
+    rec = {"f32_param_bytes": _tree_bytes(params)}
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (1, s + extra)).astype(np.int32)).cuda()
+    with torch.inference_mode():
+        full, _ = T.forward_train(cfg, params, toks)
+        want = full[0, s - 1:s + MODEL_STEPS].clone()
+        del full
+        TF.reset_launches()
+        TW.reset_launches()
+        with KernelCalls(torch) as calls:
+            logits, cache = T.prefill(cfg, params, toks[:, :s], s + extra)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": TF.LAUNCHES, "wkv_chunk": TW.LAUNCHES}
+        check(launches[kname] == want_launches and sum(
+            launches.values()) == want_launches,
+            f"{arch} f32 prefill: launches {launches}, expected "
+            f"{want_launches} of {kname}")
+        rec["f32_prefill_launches"] = launches
+        rec["f32_kernel_vs_plain"] = model_kernel_check(
+            torch, calls, kname, STANDALONE_TOL[kname])
+        del calls
+        errs = [close_err(torch, logits[0, 0], want[0], MODEL_TOL,
+                          f"{arch} f32 prefill against the full pass")]
+        for i in range(MODEL_STEPS):
+            logits, cache = T.decode_step(cfg, params, cache,
+                                          toks[:, s + i:s + i + 1], s + i)
+            errs.append(close_err(
+                torch, logits[0, 0], want[i + 1], MODEL_TOL,
+                f"{arch} f32 decode step {i} against the full pass"))
+    rec["f32_decode_vs_full"] = errs
+    del cache, logits, want
+    log(f"[models] {arch} f32: full pass over {s + extra} tokens; "
+        f"prefill {s} + {MODEL_STEPS} decode steps within "
+        f"{max(errs):.3g} of it (limit {MODEL_TOL}); one prefill "
+        f"{json.dumps(launches)} launches, layer 0's {kname} within "
+        f"{rec['f32_kernel_vs_plain']:.3g} of its plain version")
+    return rec, cfg, params
+
+
 def models_phase(torch, F) -> tuple:
     """Phase 10c of the module docstring: the decoder models and the decode
     engines at full width. Returns the model path's rows of the ``kernels``
@@ -2406,46 +2550,8 @@ def models_phase(torch, F) -> tuple:
         gen = torch.Generator(device="cuda")
 
         # 1-2. float32: decode against the full pass; one prefill's launches
-        cfg = dataclasses.replace(base, dtype="float32")
-        params = T.init_params(cfg, gen.manual_seed(0))
-        rec["f32_param_bytes"] = _tree_bytes(params)
-        toks = torch.as_tensor(rng.integers(
-            0, cfg.vocab_size, (1, s + extra)).astype(np.int32)).cuda()
-        with torch.inference_mode():
-            full, _ = T.forward_train(cfg, params, toks)
-            want = full[0, s - 1:s + MODEL_STEPS].clone()
-            del full
-            TF.reset_launches()
-            TW.reset_launches()
-            with KernelCalls(torch) as calls:
-                logits, cache = T.prefill(cfg, params, toks[:, :s],
-                                          s + extra)
-            torch.cuda.synchronize()
-            launches = {"flash_attention": TF.LAUNCHES,
-                        "wkv_chunk": TW.LAUNCHES}
-            check(launches[kname] == want_launches and sum(
-                launches.values()) == want_launches,
-                f"{arch} f32 prefill: launches {launches}, expected "
-                f"{want_launches} of {kname}")
-            rec["f32_prefill_launches"] = launches
-            rec["f32_kernel_vs_plain"] = model_kernel_check(
-                torch, calls, kname, STANDALONE_TOL[kname])
-            del calls
-            errs = [close_err(torch, logits[0, 0], want[0], MODEL_TOL,
-                              f"{arch} f32 prefill against the full pass")]
-            for i in range(MODEL_STEPS):
-                logits, cache = T.decode_step(cfg, params, cache,
-                                              toks[:, s + i:s + i + 1], s + i)
-                errs.append(close_err(
-                    torch, logits[0, 0], want[i + 1], MODEL_TOL,
-                    f"{arch} f32 decode step {i} against the full pass"))
-        rec["f32_decode_vs_full"] = errs
-        del cache, logits, want
-        log(f"[models] {arch} f32: full pass over {s + extra} tokens; "
-            f"prefill {s} + {MODEL_STEPS} decode steps within "
-            f"{max(errs):.3g} of it (limit {MODEL_TOL}); one prefill "
-            f"{json.dumps(launches)} launches, layer 0's {kname} within "
-            f"{rec['f32_kernel_vs_plain']:.3g} of its plain version")
+        f32, cfg, params = f32_decode_check(torch, base, s, extra, rng, gen)
+        rec.update(f32)
 
         # 5. continuous batching against single-request engines (qwen)
         if fam == "attention":
@@ -3035,24 +3141,31 @@ def flash_route(cfg, s: int) -> bool:
     return s > L.FLASH_THRESHOLD and cfg.attention in ("gqa", "mla")
 
 
-def arch_serve(torch, F, arch: str, layers, sp: int, seed: int) -> tuple:
-    """One served arch of the archs phase: bf16 weights drawn from
-    ``seed`` on the card, ``Engine.generate`` at ``ARCH_SERVE_BATCH`` x
-    ``sp`` (token ids, or embeddings for a frontend stub),
+def arch_serve(torch, F, arch: str, layers, sp: int, seed: int,
+               batch: int = ARCH_SERVE_BATCH, cache_len=None,
+               tag: str = "prefill") -> tuple:
+    """One served arch of the archs phase (or the shapes phase): bf16
+    weights drawn from ``seed`` on the card, ``Engine.generate`` at
+    ``batch`` x ``sp`` (token ids, or embeddings for a frontend stub) into
+    ``cache_len`` slots (None: ``sp`` + the new tokens),
     ``ARCH_SERVE_NEW`` new tokens, greedy, twice on the same prompts: each
     run's flash launches (one a layer where the prefill takes the kernel,
     else none), the tokens equal, the second run timed (CUDA events around
     the prefill and each decode step; the flash calls' and hymba's Mamba
     loop's device ms inside the prefill, ``KernelCalls``); layer 0's
-    flash call against its plain version, its row; one decode step in
-    place. Returns (rows, record)."""
+    flash call against its plain version, its row (``flash_attention
+    [<arch> <tag>]``); one decode step in place. Returns (rows,
+    record)."""
     from repro_torch.kernels import flash_attention as TF
     from repro_torch.kernels import wkv_chunk as TW
     from repro_torch.models import ssm as S
     from repro_torch.models import transformer as T
     from repro_torch.serve import Engine, ServeConfig
     cfg, cut = cut_arch(arch, layers)
-    b, new = ARCH_SERVE_BATCH, ARCH_SERVE_NEW
+    b, new = batch, ARCH_SERVE_NEW
+    cache_len = cache_len or sp + new
+    check(sp + new <= cache_len, f"{arch}: {sp} + {new} tokens overrun "
+          f"{cache_len} cache slots")
     rng = np.random.default_rng(seed)
     if cfg.frontend != "none":
         kind = "embeddings"
@@ -3068,7 +3181,7 @@ def arch_serve(torch, F, arch: str, layers, sp: int, seed: int) -> tuple:
     params = T.init_params(cfg, torch.Generator(device="cuda")
                            .manual_seed(seed))
     wbytes = _tree_bytes(params)
-    eng = Engine(cfg, params, ServeConfig(cache_len=sp + new,
+    eng = Engine(cfg, params, ServeConfig(cache_len=cache_len,
                                           max_new_tokens=new))
     marks = {"prefill": [], "decode": []}
     extra = {"mamba_forward": (S, "mamba_forward")} if hybrid else None
@@ -3099,7 +3212,8 @@ def arch_serve(torch, F, arch: str, layers, sp: int, seed: int) -> tuple:
     dec = [a.elapsed_time(z) for a, z in marks["decode"]]
     prefill_ms = marks["prefill"][0][0].elapsed_time(marks["prefill"][0][1])
     rec = {"cut": cut, "layers": cfg.num_layers, "batch": b, "prompt": sp,
-           "prompt_kind": kind, "new_tokens": new, "weight_bytes": wbytes,
+           "cache_len": cache_len, "prompt_kind": kind, "new_tokens": new,
+           "weight_bytes": wbytes,
            "params": cfg.param_count(), "peak_bytes": peak,
            "prefill_ms": prefill_ms, "decode_ms": statistics.median(dec),
            "decode_ms_all": dec, "generate_wall_s": walls,
@@ -3110,16 +3224,27 @@ def arch_serve(torch, F, arch: str, layers, sp: int, seed: int) -> tuple:
            "tokens": toks[1].tolist()}
     rows = []
     if want:
-        g = cfg.num_heads // cfg.num_kv_heads
-        # the k and v copies _flash_prefill makes at q's heads
-        rec["gqa_copy_bytes"] = (2 * sp * b * cfg.num_heads * cfg.head_dim
-                                 * 2 if g > 1 else 0)
         rows.append(flash_prefill_row(torch, F, calls, arch, want,
-                                      rec["flash_ms_in_prefill"]))
+                                      rec["flash_ms_in_prefill"], tag))
+        if cfg.attention == "mla":
+            # mla_forward's fold: k_rope expanded over the heads into the
+            # keys, v padded from v_head_dim to the folded D
+            dr, d = cfg.rope_head_dim, cfg.head_dim + cfg.rope_head_dim
+            rec["fold_copy_bytes"] = {
+                "k_rope_expand": sp * b * cfg.num_heads * dr * 2,
+                "v_pad": sp * b * cfg.num_heads * d * 2}
+            copies = (f"the MLA fold's copies (k_rope expanded, v padded to "
+                      f"D = {d}) {json.dumps(rec['fold_copy_bytes'])} B")
+        else:
+            g = cfg.num_heads // cfg.num_kv_heads
+            # the k and v copies _flash_prefill makes at q's heads
+            rec["gqa_copy_bytes"] = (2 * sp * b * cfg.num_heads
+                                     * cfg.head_dim * 2 if g > 1 else 0)
+            copies = f"group {g}, the GQA copy {rec['gqa_copy_bytes']} B"
         route = (f"flash {want} launches a prefill (one a layer), "
                  f"{rec['flash_ms_in_prefill']:.3f} device ms of them, "
-                 f"group {g}, the GQA copy {rec['gqa_copy_bytes']} B, layer "
-                 f"0 within {rows[-1]['max_abs_err']:.3g} of flash_plain")
+                 f"{copies}, layer 0 within "
+                 f"{rows[-1]['max_abs_err']:.3g} of flash_plain")
     else:
         route = (f"flash 0 launches: the attention's window of "
                  f"{cfg.sliding_window} takes layers._sdpa at S = {sp} "
@@ -3135,8 +3260,9 @@ def arch_serve(torch, F, arch: str, layers, sp: int, seed: int) -> tuple:
                   f"{100 * rec['mamba_share_of_prefill']:.1f} %)")
     del calls
     rec.update(decode_in_place(torch, eng, prompts, sp, arch))
-    log(f"[models] {arch} ({cut}) bf16 serve: batch {b}, prompt {sp} "
-        f"{kind}, {new} new, greedy, two runs with equal tokens; weights "
+    log(f"[{'models' if tag == 'prefill' else 'shapes'}] {arch} ({cut}) "
+        f"bf16 serve: batch {b}, prompt {sp} {kind} into {cache_len} cache "
+        f"slots, {new} new, greedy, two runs with equal tokens; weights "
         f"{wbytes} B ({cfg.param_count() / 1e9:.2f} B params), peak "
         f"{peak} B; run 2 (CUDA events): prefill {prefill_ms:.3f} ms, "
         f"decode {rec['decode_ms']:.4f} ms a token, {rec['tok_s']:.1f} "
@@ -3153,7 +3279,8 @@ def grad_repeat(torch, cfg, seed: int, s: int) -> dict:
     """Two forward and backward passes of ``cfg`` (bf16, remat) on one
     batch of 1 x ``s`` tokens and the same weights: the loss and every
     gradient leaf bit-equal (MoE's sums run in a fixed order,
-    ``models/moe.py``)."""
+    ``models/moe.py``; MLA's k_rope, expanded over the heads, sums over
+    them in its backward)."""
     from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
                                            shard_batch)
     from repro_torch.models import transformer as T
@@ -3211,14 +3338,18 @@ def mamba_backward_ms(torch, calls: KernelCalls) -> dict:
 
 def arch_train(torch, F, arch: str, layers, shape, mbs: int,
                seed: int) -> tuple:
-    """One trained arch of the archs phase: for MoE, ``grad_repeat`` at
-    one microbatch first; then ``train_steps`` at full width with its
+    """One trained arch of the archs phase: for MoE and MLA,
+    ``grad_repeat`` at one microbatch first; then ``train_steps`` at full
+    width with its
     depth cut to ``layers``, ``shape`` in ``mbs`` microbatches, remat,
     each step's flash forward and backward launches (two forwards and one
     backward call a layer a microbatch on the kernel route, else none);
     the flash rows, or for hymba its Mamba loop's device ms in a step
     (forward and recomputation, ``KernelCalls``) and one layer's
-    backward. Returns (rows, record)."""
+    backward; for MLA then the 2-layer float32 gradient check against
+    ``plain_attention`` (``grad_check``), every latent projection's
+    gradient non-zero. Returns (rows, record)."""
+    from repro_torch.kernels import ops as TO
     from repro_torch.kernels import flash_attention as TF
     from repro_torch.models import ssm as S
     cfg, cut = cut_arch(arch, layers)
@@ -3228,7 +3359,8 @@ def arch_train(torch, F, arch: str, layers, shape, mbs: int,
     want = {"flash_attention": 2 * n * mbs if flash else 0,
             "flash_attention_bwd": TF.BWD_KERNELS_PER_CALL * n * mbs
             if flash else 0, "wkv_chunk": 0, "wkv_chunk_bwd": 0}
-    repeat = grad_repeat(torch, cfg, seed, s) if cfg.is_moe else None
+    mla = cfg.attention == "mla"
+    repeat = grad_repeat(torch, cfg, seed, s) if cfg.is_moe or mla else None
     hybrid = cfg.attention == "hybrid"
     extra = {"mamba_forward": (S, "mamba_forward")} if hybrid else None
     timed = (("flash_attention", "flash_attention_bwd") if flash
@@ -3262,16 +3394,36 @@ def arch_train(torch, F, arch: str, layers, shape, mbs: int,
             f"{s}, a route, not a fallback)")
     del calls
     torch.cuda.empty_cache()
+    if mla:
+        n2 = TRAIN_CHECK[0]
+        gc = grad_check(torch, arch, seed + 1, (
+            TO, "flash_attention", plain_attention(torch),
+            ((TF, "LAUNCHES"), (TF, "BWD_LAUNCHES")),
+            (2 * n2, TF.BWD_KERNELS_PER_CALL * n2)))
+        latent = [n for n in gc["names"] if any(
+            f"attn/{w}/" in n for w in MLA_PROJECTIONS)]
+        check(len(latent) == len(MLA_PROJECTIONS)
+              and not set(latent) & set(gc["zero"]),
+              f"{arch} gradient check: {latent} (zero: {gc['zero']})")
+        rec["grad_check"] = {k: v for k, v in gc.items() if k != "names"}
     return rows, rec
 
 
 def archs_phase(torch, F) -> tuple:
-    """Phase 10e of the module docstring: the seven archs no earlier phase
-    runs, served (``ARCH_SERVE``) and three of them trained
-    (``ARCH_TRAIN``) on the card, each model freed before the next.
+    """Phase 10e of the module docstring: the eight archs no earlier phase
+    runs, the MLA arch first checked in float32 (``ARCH_F32``), served
+    (``ARCH_SERVE``) and four of them trained (``ARCH_TRAIN``) on the
+    card, each model freed before the next.
     Returns their rows of the ``kernels`` line and the ``archs`` section
     of ``build/chip_smoke.json``."""
-    rows, out = [], {"serve": {}, "train": {}}
+    from repro_torch.configs import get_arch
+    rows, out = [], {"f32": {}, "serve": {}, "train": {}}
+    for i, (arch, s, extra) in enumerate(ARCH_F32):
+        out["f32"][arch], _, params = f32_decode_check(
+            torch, get_arch(arch), s, extra, np.random.default_rng(350 + i),
+            torch.Generator(device="cuda"))
+        del params
+        torch.cuda.empty_cache()
     for i, (arch, layers, sp) in enumerate(ARCH_SERVE):
         r, out["serve"][arch] = arch_serve(torch, F, arch, layers, sp,
                                            330 + i)
@@ -3280,6 +3432,279 @@ def archs_phase(torch, F) -> tuple:
         r, out["train"][arch] = arch_train(torch, F, arch, layers, shape,
                                            mbs, 340 + i)
         rows += r
+    return rows, out
+
+
+def f32_long_step(torch, arch: str, s: int, seed: int) -> dict:
+    """``arch`` at full width in float32 (TF32 off) at batch 1 on weights
+    drawn from ``seed``: a prefill of ``s`` tokens into
+    ``cache_len_for(decode_32k)`` slots and one decode step, whose logits
+    must lie within ``MODEL_TOL`` of the last logits of a prefill of the
+    ``s + 1`` tokens; one flash launch a layer a prefill."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.launch.specs import cache_len_for
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import SHAPES
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+    clen = cache_len_for(cfg, SHAPES["decode_32k"])
+    check(s < clen, f"{arch}: {s} + 1 tokens overrun {clen} slots")
+    params = T.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed))
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, s + 1)).astype(np.int32)).cuda()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with torch.inference_mode():
+        TF.reset_launches()
+        want, _ = T.prefill(cfg, params, toks, s + 1)
+        ev[0].record()
+        logits, cache = T.prefill(cfg, params, toks[:, :s], clen)
+        ev[1].record()
+        got, cache = T.decode_step(cfg, params, cache, toks[:, s:], s)
+        ev[2].record()
+        torch.cuda.synchronize()
+    check(TF.LAUNCHES == 2 * cfg.num_layers,
+          f"{arch} f32 prefills of {s} and {s + 1} tokens: {TF.LAUNCHES} "
+          f"flash launches, expected {2 * cfg.num_layers}")
+    err = close_err(torch, got[0, 0], want[0, 0], MODEL_TOL,
+                    f"{arch} f32 decode step at {s} against a prefill of "
+                    f"{s + 1}")
+    rec = {"arch": arch, "batch": 1, "prompt": s, "cache_len": clen,
+           "decode_vs_prefill": err, "tol": MODEL_TOL,
+           "prefill_ms": ev[0].elapsed_time(ev[1]),
+           "decode_ms": ev[1].elapsed_time(ev[2]),
+           "flash_launches": TF.LAUNCHES}
+    log(f"[shapes] {arch} f32, batch 1: prefill {s} tokens into {clen} "
+        f"slots ({rec['prefill_ms']:.1f} ms, CUDA events), one decode step "
+        f"({rec['decode_ms']:.2f} ms) within {err:.3g} of a prefill of "
+        f"{s + 1} (limit {MODEL_TOL}); {TF.LAUNCHES} flash launches over "
+        "the two prefills, one a layer")
+    del params, cache, logits, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def long_rwkv(torch, seed: int) -> tuple:
+    """long_500k on ``LONG_ARCH``: bf16 weights drawn from ``seed``,
+    ``Engine.generate`` at batch 1 over ``LONG_PROMPT`` tokens,
+    ``ARCH_SERVE_NEW`` new, greedy, twice: each run's WKV launches (three
+    a layer, the prefill's only) and peak memory; the first run copies
+    layer 0's WKV call to the host (its inputs are 16 GiB in float32,
+    which on the card beside the prefill's own peak left the allocator
+    too little room), then holds it on the card within
+    ``STANDALONE_TOL`` of ``wkv_plain`` (output and state) and times it
+    beside it; the second timed (CUDA events around the prefill,
+    each decode step and each WKV call). Returns (the ``wkv_chunk
+    [<arch> 500k prefill]`` row, record)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import wkv_chunk as TW
+    from repro_torch.launch.specs import cache_len_for, decode_window
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import SHAPES
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = get_arch(LONG_ARCH)
+    s, new = LONG_PROMPT, ARCH_SERVE_NEW
+    shape = SHAPES["long_500k"]
+    check(s == shape.seq_len, f"{LONG_ARCH}: prompt {s} against long_500k's "
+          f"{shape.seq_len}")
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, s)).astype(np.int32)
+    params = T.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed))
+    eng = Engine(cfg, params, ServeConfig(
+        cache_len=cache_len_for(cfg, shape), window=decode_window(cfg, shape),
+        max_new_tokens=new))
+    want = {"flash_attention": 0,
+            "wkv_chunk": TW.KERNELS_PER_CALL * cfg.num_layers}
+    marks = {"prefill": [], "decode": []}
+    toks, walls, peaks, reserved = [], [], [], []
+    for i in range(2):
+        if i == 1:
+            eng._prefill = event_wrap(torch, eng._prefill, marks["prefill"])
+            eng._decode = event_wrap(torch, eng._decode, marks["decode"])
+        TF.reset_launches()
+        TW.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with KernelCalls(torch, timed=i == 1, host=True,
+                         keep=("first",) if i == 0 else ()) as calls:
+            t0 = time.perf_counter()
+            toks.append(eng.generate(prompts))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        reserved.append(torch.cuda.max_memory_reserved())
+        launches = {"flash_attention": TF.LAUNCHES, "wkv_chunk": TW.LAUNCHES}
+        check(launches == want, f"{LONG_ARCH} 500k generate {i}: launches "
+              f"{launches}, expected {want} (the prefill's only)")
+        if i == 0:
+            # layer 0's call back on the card against its plain version,
+            # then freed
+            args, kw, res = calls.first["wkv_chunk"]
+            del calls
+            torch.cuda.empty_cache()
+            args = tuple(a.to("cuda") for a in args)
+            res = tuple(a.to("cuda") for a in res)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            y0, st0 = TW.wkv_plain(*args, kw["q"])
+            ev[1].record()
+            torch.cuda.synchronize()
+            plain_ms = ev[0].elapsed_time(ev[1])
+            tol = STANDALONE_TOL["wkv_chunk"]
+            err = max(close_err(torch, res[0], y0, tol,
+                                f"{LONG_ARCH} 500k layer 0 wkv y"),
+                      close_err(torch, res[1], st0, tol,
+                                f"{LONG_ARCH} 500k layer 0 wkv state"))
+            del y0, st0, res
+            call_ms = time_auto(torch, lambda: TW.wkv_chunk_kernel(*args,
+                                                                   **kw))
+            bb, sw, hh, dd = args[0].shape
+            q = kw["q"]
+            del args, kw
+            torch.cuda.empty_cache()
+    same = bool(np.array_equal(toks[0], toks[1]))
+    check(same, f"{LONG_ARCH} 500k: two greedy runs gave different tokens: "
+          f"{toks[0].tolist()} and {toks[1].tolist()}")
+    check(toks[0].shape == (1, new), f"{LONG_ARCH}: tokens {toks[0].shape}")
+    kernel_ms = calls.device_ms("wkv_chunk")
+    prefill_ms = marks["prefill"][0][0].elapsed_time(marks["prefill"][0][1])
+    dec = [a.elapsed_time(z) for a, z in marks["decode"]]
+    cost = wkv_cost(bb, sw, hh, dd, q)
+    n = cfg.num_layers
+    rec = {"arch": LONG_ARCH, "shape": "long_500k", "batch": 1, "prompt": s,
+           "new_tokens": new, "layers": n, "weight_bytes": _tree_bytes(params),
+           "prefill_ms": prefill_ms, "decode_ms": statistics.median(dec),
+           "decode_ms_all": dec, "generate_wall_s": walls,
+           "peak_bytes_run1": peaks[0], "peak_bytes": peaks[1],
+           "peak_reserved_bytes": reserved,
+           "wkv_launches_a_prefill": want["wkv_chunk"],
+           "wkv_ms_in_prefill": kernel_ms, "layer0_vs_plain": err,
+           "tokens_equal": same, "tokens": toks[1].tolist()}
+    row = {"name": f"wkv_chunk [{LONG_ARCH} 500k prefill]", "route": "cuda",
+           "source": KERNELS["wkv_chunk"][0],
+           "replaces": KERNELS["wkv_chunk"][1],
+           "path": (f"{LONG_ARCH} bf16 prefill, long_500k: B {bb}, S {sw}, "
+                    f"{hh} heads of {dd}, q {q}, f32 inside, 3 x {n}; "
+                    "every time one call's"),
+           "launches": want["wkv_chunk"], "max_abs_err": err,
+           "ms": kernel_ms / n, "plain_ms": plain_ms,
+           "bound_ms": cost_ms(cost), "bound_by": cost_by(cost),
+           "library_ms": None, "calls_a_prefill": n,
+           "prefill_device_ms": kernel_ms, "layer0_call_ms": call_ms}
+    log(f"[shapes] {LONG_ARCH} (uncut, {n} layers) bf16 long_500k: batch 1, "
+        f"prompt {s} tokens, {new} new, greedy, two runs with equal tokens; "
+        f"run 2 (CUDA events): prefill {prefill_ms:.1f} ms, decode "
+        f"{rec['decode_ms']:.3f} ms a token; peak {peaks[1]} B ({peaks[0]} "
+        f"B in run 1, which copied layer 0's WKV call to the host; the "
+        f"allocator's reserve at most {max(reserved)} B); wkv_chunk "
+        f"{want['wkv_chunk']} launches a prefill, {kernel_ms:.2f} device ms of them; layer 0 "
+        f"within {err:.3g} of wkv_plain (limit {STANDALONE_TOL['wkv_chunk']})"
+        f"; row: " + json.dumps(row))
+    del eng, params, calls
+    torch.cuda.empty_cache()
+    return [row], rec
+
+
+def ring_wrap(torch, seed: int) -> dict:
+    """long_500k on ``RING_ARCH``: bf16 weights drawn from ``seed``, a
+    prompt of ``cache_len_for(long_500k)`` tokens into that many ring
+    slots with window 0 (``decode_window(long_500k)`` must be 0 or the
+    ring's length, which masks the same slots), then ``RING_STEPS`` decode
+    steps that wrap the ring, batch 1, twice: the prefill's flash
+    launches, the tokens equal across the runs, and every cache tensor in
+    the prefill's storage after every step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.launch.specs import cache_len_for, decode_window
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import SHAPES
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = get_arch(RING_ARCH)
+    shape = SHAPES["long_500k"]
+    clen, window = cache_len_for(cfg, shape), 0
+    spec_window = decode_window(cfg, shape)
+    check(spec_window in (0, clen), f"{RING_ARCH}: long_500k's window "
+          f"{spec_window} masks slots of the {clen}-slot ring")
+    params = T.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed))
+    eng = Engine(cfg, params, ServeConfig(cache_len=clen, window=window,
+                                          max_new_tokens=RING_STEPS))
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, clen)).astype(np.int32)
+    ptrs, marks = [], []
+
+    def kept(fn):
+        def run(*args):
+            logits, cache = fn(*args)
+            ptrs[-1].append({n: t.data_ptr() for n, t in cache.items()})
+            return logits, cache
+        return run
+    eng._prefill = kept(eng._prefill)
+    eng._decode = event_wrap(torch, kept(eng._decode), marks)
+    toks = []
+    for i in range(2):
+        ptrs.append([])
+        TF.reset_launches()
+        toks.append(eng.generate(prompts))
+        want = cfg.num_layers if flash_route(cfg, clen) else 0
+        check(TF.LAUNCHES == want, f"{RING_ARCH} ring run {i}: "
+              f"{TF.LAUNCHES} flash launches, expected {want}")
+        check(len(ptrs[i]) == RING_STEPS + 1 and all(
+            p == ptrs[i][0] for p in ptrs[i]),
+            f"{RING_ARCH} ring run {i}: a decode step moved the cache")
+    same = bool(np.array_equal(toks[0], toks[1]))
+    check(same, f"{RING_ARCH} ring: two greedy runs gave different tokens")
+    dec = [a.elapsed_time(z) for a, z in marks[RING_STEPS:]]
+    rec = {"arch": RING_ARCH, "shape": "long_500k", "batch": 1,
+           "prompt": clen, "cache_len": clen, "window": window,
+           "decode_window_long_500k": spec_window,
+           "decode_steps": RING_STEPS, "wrapped_slots": RING_STEPS,
+           "decode_ms": statistics.median(dec), "decode_ms_all": dec,
+           "tokens_equal": same, "cache_in_place": True,
+           "tokens": toks[1].tolist()}
+    log(f"[shapes] {RING_ARCH} (uncut) bf16 long_500k ring: a {clen}-token "
+        f"prompt into {clen} slots, window {window}, {RING_STEPS} decode "
+        f"steps that wrap it (positions {clen} to {clen + RING_STEPS - 1}), "
+        f"batch 1, two runs with equal tokens; every cache tensor in the "
+        f"prefill's storage after every step; decode "
+        f"{rec['decode_ms']:.3f} ms a token (run 2, CUDA events)")
+    del eng, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def shapes_phase(torch, F) -> tuple:
+    """Phase 10f of the module docstring: the reference's shapes past 4,096
+    tokens. ``prefill_32k`` and ``decode_32k`` on ``SHAPE_ARCHS`` in bf16
+    (``arch_serve`` at ``SHAPE_BATCH`` x ``SHAPE_PROMPT`` into
+    ``cache_len_for(decode_32k)`` slots, rows ``flash_attention [<arch>
+    32k prefill]``), ``SHAPE_F32_ARCH``'s float32 decode step at 32k
+    (``f32_long_step``), then ``long_500k``: ``LONG_ARCH`` over
+    ``LONG_PROMPT`` tokens (``long_rwkv``) and ``RING_ARCH``'s wrapped
+    ring (``ring_wrap``). Returns the rows of the ``kernels`` line and the
+    ``shapes`` section of ``build/chip_smoke.json``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.specs import cache_len_for
+    from repro_torch.models.config import SHAPES
+    rows, out = [], {"32k": {}}
+    for i, arch in enumerate(SHAPE_ARCHS):
+        clen = cache_len_for(get_arch(arch), SHAPES["decode_32k"])
+        r, out["32k"][arch] = arch_serve(
+            torch, F, arch, None, SHAPE_PROMPT, 360 + i, batch=SHAPE_BATCH,
+            cache_len=clen, tag="32k prefill")
+        out["32k"][arch]["batch_cut"] = (
+            f"batch {SHAPE_BATCH}; the reference's prefill_32k and "
+            f"decode_32k take {SHAPES['prefill_32k'].global_batch} and "
+            f"{SHAPES['decode_32k'].global_batch}")
+        log(f"[shapes] {arch} 32k cut: {out['32k'][arch]['batch_cut']}")
+        rows += r
+    out["32k_f32"] = f32_long_step(torch, SHAPE_F32_ARCH, SHAPE_PROMPT, 362)
+    r, out["500k"] = long_rwkv(torch, 363)
+    rows += r
+    out["ring"] = ring_wrap(torch, 364)
     return rows, out
 
 
@@ -4079,9 +4504,13 @@ def main() -> int:
     train_rows, train = train_phase(torch, F)
     phase_done("train")
 
-    # 10e. the seven archs no earlier phase runs, served and trained
+    # 10e. the eight archs no earlier phase runs, served and trained
     arch_rows, archs = archs_phase(torch, F)
     phase_done("archs")
+
+    # 10f. the reference's 32k and 500k shapes
+    shape_rows, shapes = shapes_phase(torch, F)
+    phase_done("shapes")
 
     # 11. times
     walls = []
@@ -4264,6 +4693,7 @@ def main() -> int:
     rows.extend(model_rows)
     rows.extend(train_rows)
     rows.extend(arch_rows)
+    rows.extend(shape_rows)
     times = {path: {name: {k: v for k, v in r.items() if k != "specs"}
                     for name, r in p.items()} for path, p in per.items()}
     times_blk = {path: {name: {k: v for k, v in r.items() if k != "specs"}
@@ -4296,7 +4726,7 @@ def main() -> int:
          "arena_elementwise": ew_info, "pool_and_fc": head_info,
          "chains": {"schedules": chains, "times": chain_times},
          "softmax_matmul": sm_out, "serve": serve, "models": models,
-         "train": train, "archs": archs,
+         "train": train, "archs": archs, "shapes": shapes,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

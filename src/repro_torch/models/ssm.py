@@ -97,6 +97,9 @@ def rwkv_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
     r, k, v, w, g = _rwkv_proj(p, x, x_prev)
     rh, kh, vh = (_heads(t, h).float() for t in (r, k, v))
+    # the projections' own copies are dead once cast: at long_500k's
+    # 524,288 tokens each is 2 GiB beside the kernel's float32 inputs
+    del x_prev, r, k, v
     wh = _heads(w, h)
     u = _heads(p["u"].float()[None], h)[0]                    # (H,D)
 

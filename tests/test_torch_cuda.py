@@ -1226,6 +1226,9 @@ def _hold_grads(got, want, dt, label=""):
     (4096, 4096, 16, 128, True),
     # the train launcher's --reduced qwen2.5-3b at --seq 4096, batch 8
     (4096, 4096, 32, 32, True),
+    # minicpm3-4b's training microbatch: 40 heads of MLA's folded D = 96
+    # (bf16: the second 64-column slab half filled)
+    (4096, 4096, 40, 96, True),
     # one past a 128-row (bf16 CTA) tile, and D at each other D_pad
     (129, 129, 2, 128, True), (257, 257, 2, 64, True),
     (200, 200, 2, 24, True), (200, 200, 2, 56, True), (200, 200, 2, 80, True),
@@ -1572,6 +1575,63 @@ def test_prefill_and_decode_on_the_card(card, arch, s):
         _assert_close(got.cpu(), want, 2e-3)
     for name, w in wcache.items():
         _assert_close(gcache[name].cpu(), w, 2e-3)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm3-4b"])
+def test_ring_wraps_on_the_card(card, arch):
+    """The ring with no window (long_500k's on an attention arch): a
+    prefill of S = 2112 tokens (the flash kernel, its plain version made
+    to raise) into as many slots, then 24 decode steps that wrap the ring,
+    each within 2e-3 of the CPU route, the card's cache in its storage
+    throughout and within 2e-3 of the CPU's at the end."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.models import transformer as T
+    cfg, cpu, dev = _model(arch)
+    s, steps = 2112, 24
+    _, toks = _prompt(cfg, 2, s + steps - 4, 15)
+    TF.reset_launches()
+    with pytest.MonkeyPatch.context() as mp:
+        want, wcache = T.prefill(cfg, cpu, toks[:, :s], s)
+        mp.setattr(TF, "flash_plain", _refuse)
+        got, gcache = T.prefill(cfg, dev, toks[:, :s].cuda(), s)
+        torch.cuda.synchronize()
+    assert TF.LAUNCHES == cfg.num_layers
+    _assert_close(got.cpu(), want, 2e-3)
+    ptrs = {k: v.data_ptr() for k, v in gcache.items()}
+    for pos in range(s, s + steps):
+        tok = toks[:, pos:pos + 1]
+        want, wcache = T.decode_step(cfg, cpu, wcache, tok, pos)
+        got, gcache = T.decode_step(cfg, dev, gcache, tok.cuda(), pos)
+        _assert_close(got.cpu(), want, 2e-3)
+    assert {k: v.data_ptr() for k, v in gcache.items()} == ptrs
+    for name, w in wcache.items():
+        assert w.shape[2] == s
+        _assert_close(gcache[name].cpu(), w, 2e-3)
+
+
+def test_kernel_calls_keep_on_the_host_on_the_card(card):
+    """``chip_smoke.KernelCalls`` with ``host`` copies the kept call to
+    the host as it returns: once the caller drops its tensors the card
+    holds none of them (the 500k run's layer 0 kept on the card left the
+    prefill too little room), and the copies equal the call's."""
+    from repro_torch.kernels import wkv_chunk as TW
+    cs = _chip_smoke()
+    b, s, h, d, q = 1, 1024, 4, 64, 64
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    r, k, v = (torch.randn(b, s, h, d, device=card, generator=gen)
+               for _ in range(3))
+    logw = -torch.rand(b, s, h, d, device=card, generator=gen)
+    u = torch.randn(h, d, device=card, generator=gen)
+    with cs.KernelCalls(torch, keep=("first",), host=True) as calls:
+        y, st = TW.wkv_chunk_kernel(r, k, v, logw, u, q=q)
+    args, _, out = calls.first["wkv_chunk"]
+    for a, want in zip(args + out, (r, k, v, logw, u, y, st)):
+        assert a.device.type == "cpu" and torch.equal(a, want.cpu())
+    del r, k, v, logw, u, y, st, want
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "rwkv6-1.6b", "hymba-1.5b",

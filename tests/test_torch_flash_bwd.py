@@ -38,8 +38,10 @@ from repro_torch.train import steps as TS
 TOL = {"f32": (1e-4, 0.0), "bf16": (2e-2, 2e-2)}
 _TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
-#: causal S = T at every length and width, causal T > S and non-causal
-SHAPES = ([(n, n, 2, d, True) for n in (64, 130, 256) for d in (32, 64, 128)]
+#: causal S = T at every length and width (96: MLA's folded nope 64 +
+#: rope 32), causal T > S and non-causal
+SHAPES = ([(n, n, 2, d, True) for n in (64, 130, 256)
+           for d in (32, 64, 96, 128)]
           + [(64, 200, 2, 32, True), (130, 256, 3, 128, True),
              (130, 96, 2, 64, False), (256, 256, 1, 32, False)])
 

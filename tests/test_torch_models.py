@@ -192,6 +192,44 @@ def test_sliding_window_decode_bounded_cache():
     close(logits[:, 0], want[:, 0])
 
 
+#: the ring with no window: a prompt of RING_SLOTS tokens fills the ring,
+#: then RING_STEPS decode steps wrap it (long_500k's ring of
+#: cache_len_for slots, at the reduced width)
+RING_SLOTS, RING_STEPS = 8, 12
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "minicpm3-4b"])
+def test_ring_without_window_wraps_like_the_reference(arch):
+    """GQA and MLA: a prefill into as many ring slots as prompt tokens,
+    window 0, then decode steps past the ring's end, so each step
+    overwrites the oldest slot: every step's logits and the final cache
+    within 2e-3 of the reference's ``decode_step`` on the same carried
+    weights, the cache in its storage throughout."""
+    rcfg, tcfg = configs(arch)
+    rp = RT.init_params(rcfg, jax.random.PRNGKey(9))
+    tp = carry(rp)
+    toks = np.random.default_rng(9).integers(
+        0, rcfg.vocab_size, (B, RING_SLOTS + RING_STEPS)).astype(np.int32)
+    rlogits, rcache = jax.jit(lambda p, x: RT.prefill(rcfg, p, x,
+                                                      RING_SLOTS))(
+        rp, toks[:, :RING_SLOTS])
+    tlogits, tcache = TT.prefill(tcfg, tp, torch.as_tensor(
+        toks[:, :RING_SLOTS]), RING_SLOTS)
+    close(tlogits, rlogits, msg=f"{arch} prefill")
+    ptrs = {k: v.data_ptr() for k, v in tcache.items()}
+    rdec = jax.jit(lambda p, c, t, pos: RT.decode_step(rcfg, p, c, t, pos))
+    for i in range(RING_STEPS):
+        pos = RING_SLOTS + i
+        tok = toks[:, pos:pos + 1]
+        rlogits, rcache = rdec(rp, rcache, tok, jnp.int32(pos))
+        tlogits, tcache = TT.decode_step(tcfg, tp, tcache,
+                                         torch.as_tensor(tok), pos)
+        close(tlogits, rlogits, msg=f"{arch} decode step at {pos}")
+    assert {k: v.data_ptr() for k, v in tcache.items()} == ptrs
+    assert all(v.shape[2] == RING_SLOTS for v in tcache.values())
+    hold_cache(tcache, rcache, f"{arch} ring after {RING_STEPS} steps")
+
+
 def test_int8_kv_cache_decode():
     """The int8 KV cache: decode matches the float forward within the
     reference's quantisation tolerance; the cache really is int8."""

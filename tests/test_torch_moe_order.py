@@ -8,10 +8,11 @@ with drops; and it calls no floating-point ``index_add_``, whose atomic
 adds on the card fall in no fixed order.
 
 Then every model run of ``chip_smoke.py`` reckoned on the meta device: a
-served model's weights and a trained model's state at ``STATE_BYTES`` a
-parameter stay under ``SERVE_LIMIT`` and ``TRAIN_LIMIT`` (room on one 80
-GB card for the activations, the cache and the gradients beside them),
-and every configured arch has a card run or a card test
+served model's weights, a shapes-phase run's weights with its cache at its
+batch, and a trained model's state at ``STATE_BYTES`` a parameter stay
+under ``SERVE_LIMIT`` and ``TRAIN_LIMIT`` (room on one 80 GB card for the
+activations, the cache and the gradients beside them), and every
+configured arch has a card run and a card test
 (``tests/test_torch_cuda.py``).
 """
 import dataclasses
@@ -24,8 +25,11 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch, registry
+from repro_torch.launch.specs import cache_len_for
 from repro_torch.models import moe as TM
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
+from repro_torch.models.config import SHAPES
 from repro_torch.optim import adamw
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -183,7 +187,18 @@ def _count(tree) -> int:
 #: every served model of chip_smoke.py: (label, arch, layers kept, dtype)
 SERVED = ([(f"{a} f32", a, None, "float32") for a, _, _ in CS.MODEL_RUNS]
           + [(f"{a} bf16", a, None, "bfloat16") for a, _, _ in CS.MODEL_RUNS]
+          + [(f"{a} f32", a, None, "float32") for a, _, _ in CS.ARCH_F32]
           + [(a, a, n, "bfloat16") for a, n, _ in CS.ARCH_SERVE])
+#: every run of the shapes phase with its cache: (label, arch, dtype,
+#: batch, shape whose cache_len_for sizes the cache)
+SHAPE_RUNS = ([(f"{a} 32k", a, "bfloat16", CS.SHAPE_BATCH, "decode_32k")
+               for a in CS.SHAPE_ARCHS]
+              + [(f"{CS.SHAPE_F32_ARCH} 32k f32", CS.SHAPE_F32_ARCH,
+                  "float32", 1, "decode_32k"),
+                 (f"{CS.LONG_ARCH} 500k", CS.LONG_ARCH, "bfloat16", 1,
+                  "long_500k"),
+                 (f"{CS.RING_ARCH} ring", CS.RING_ARCH, "bfloat16", 1,
+                  "long_500k")])
 #: every trained model: (label, arch, layers kept)
 TRAINED = ([(CS.TRAIN_ARCH, CS.TRAIN_ARCH, None),
             (CS.RWKV_TRAIN_ARCH, CS.RWKV_TRAIN_ARCH, None)]
@@ -203,6 +218,59 @@ def test_served_weights_fit_the_card(label, arch, layers, dtype):
     assert (layers is None) == cut.startswith("uncut")
     nbytes = CS._tree_bytes(_meta_params(cfg))
     assert nbytes < SERVE_LIMIT, (label, nbytes)
+
+
+@pytest.mark.parametrize("label,arch,dtype,batch,shape", SHAPE_RUNS,
+                         ids=[r[0] for r in SHAPE_RUNS])
+def test_shape_runs_fit_the_card(label, arch, dtype, batch, shape):
+    """A shapes-phase run's weights and its decode cache at its batch and
+    ``cache_len_for`` slots (meta tensors) under ``SERVE_LIMIT``; the
+    32k prompt and its new tokens fill the 32k cache exactly."""
+    cfg = dataclasses.replace(get_arch(arch), dtype=dtype)
+    clen = cache_len_for(cfg, SHAPES[shape])
+    if shape == "decode_32k":
+        assert CS.SHAPE_PROMPT + CS.ARCH_SERVE_NEW == clen == 32768
+    nbytes = (CS._tree_bytes(_meta_params(cfg))
+              + CS._tree_bytes(T.init_cache(cfg, batch, clen, "meta")))
+    assert nbytes < SERVE_LIMIT, (label, nbytes)
+
+
+def test_the_long_prompt_takes_the_wkv_kernel():
+    """long_500k's prompt is the reference's 524,288 tokens, a multiple of
+    the WKV chunk past one chunk, so RWKV's prefill runs the kernel."""
+    s = CS.LONG_PROMPT
+    assert s == SHAPES["long_500k"].seq_len
+    assert s % S.WKV_CHUNK == 0 and s > S.WKV_CHUNK
+
+
+@pytest.mark.parametrize("keep", [("first",), ("last",), ()])
+def test_kernel_calls_keep_only_what_they_name(keep):
+    """``chip_smoke.KernelCalls`` with ``host`` (the 500k run's layer 0,
+    whose inputs beside the prefill's peak left the card too little
+    room): it keeps the first call, the last or none as ``keep`` names,
+    each kept tensor on the host and equal to the call's."""
+    from repro_torch.kernels import wkv_chunk as TW
+    rng = np.random.default_rng(0)
+    calls_in = []
+    for _ in range(3):
+        r, k, v = (torch.from_numpy(rng.standard_normal((1, 64, 2, 8))
+                                    .astype(np.float32)) for _ in range(3))
+        logw = -torch.rand(1, 64, 2, 8)
+        u = torch.from_numpy(rng.standard_normal((2, 8)).astype(np.float32))
+        calls_in.append((r, k, v, logw, u))
+    with CS.KernelCalls(torch, keep=keep, host=True) as calls:
+        outs = [TW.wkv_chunk_kernel(*a, q=16, device="cpu")
+                for a in calls_in]
+    assert TW.wkv_chunk_kernel is calls.real["wkv_chunk"]
+    for name, i in (("first", 0), ("last", 2)):
+        got = getattr(calls, name)
+        if name not in keep:
+            assert got == {}
+            continue
+        args, kw, out = got["wkv_chunk"]
+        assert kw["q"] == 16
+        for a, b in zip(args + out, calls_in[i] + outs[i]):
+            assert a.device.type == "cpu" and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("label,arch,layers", TRAINED,
@@ -230,5 +298,4 @@ def test_every_arch_runs_on_the_card():
     assert {a for a, _, _, _ in CS.ARCH_TRAIN} <= {
         a for a, _, _ in CS.ARCH_SERVE}
     earlier = {a for a, _, _ in CS.MODEL_RUNS}
-    assert set(registry()) - earlier - {"minicpm3-4b"} == {
-        a for a, _, _ in CS.ARCH_SERVE}
+    assert set(registry()) - earlier == {a for a, _, _ in CS.ARCH_SERVE}
