@@ -604,6 +604,27 @@ LONG_PROMPT = 524_288
 RING_ARCH = "qwen2.5-3b"
 RING_STEPS = 64
 
+#: the mesh phase (10g): the expert-parallel MoE body on a (data, model)
+#: mesh of processes (``launch/mesh.py``) whose ranks share the one card
+#: over gloo. MESH_ARCH in bf16 at full width (E 64, k 8, d 2048, f 1024),
+#: served uncut under each (mesh, fsdp) of MESH_SERVE at MESH_SERVE_SHAPE
+#: (batch, prompt, new tokens), twice; then trained under MESH_TRAIN
+#: (mesh, fsdp, layers kept, (batch, seq)) with remat. Ranks on one card
+#: time nothing about several cards: the card and the host's gloo copies
+#: are shared by every rank
+MESH_ARCH = "olmoe-1b-7b"
+MESH_SERVE = (((1, 2), False), ((2, 2), True))
+MESH_SERVE_SHAPE = (4, 4096, 8)
+MESH_TRAIN = ((2, 2), True, 4, (2, 4096))
+#: the prefill's last hidden state at data 1 against the one-process local
+#: path on the same weights: ||a - b|| / ||b||. bf16 keeps 8 bits (a step
+#: of 2^-8 = 3.9e-3 relative); the two paths round each MoE output at
+#: other points (each model rank's partial sum, then their sum) in each
+#: of the 16 layers
+MESH_HIDDEN_TOL = 5e-2
+#: seconds each spawn of the phase may take before its ranks are killed
+MESH_LIMIT_S = 300
+
 
 class SmokeError(RuntimeError):
     pass
@@ -3708,6 +3729,320 @@ def shapes_phase(torch, F) -> tuple:
     return rows, out
 
 
+def _digest(torch, t) -> str:
+    """sha1 of a tensor's bytes (compared across ranks)."""
+    import hashlib
+    return hashlib.sha1(t.detach().contiguous().reshape(-1).view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def _mesh_serve(torch, env, seed: int) -> dict:
+    """One rank's serve run of the mesh phase: its shard of MESH_ARCH's
+    weights (drawn from ``seed``, cut as they are drawn),
+    ``Engine.generate`` at MESH_SERVE_SHAPE twice (flash launches, CUDA
+    events around the prefill and each decode step, the prefill's logits
+    of the rank's rows kept), then at data 1 the prefill's last hidden
+    state (``forward_hidden``)."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Engine, ServeConfig
+    cfg, cut = cut_arch(MESH_ARCH, None)
+    b, sp, new = MESH_SERVE_SHAPE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = specs.rank_init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), env)
+    wbytes = _tree_bytes(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, sp)).astype(np.int32)
+    eng = Engine(cfg, params, ServeConfig(cache_len=sp + new,
+                                          max_new_tokens=new))
+    marks = {"prefill": [], "decode": []}
+    logits = []
+    prefill = event_wrap(torch, eng._prefill, marks["prefill"])
+
+    def kept(*args):
+        out = prefill(*args)
+        logits.append(out[0])
+        return out
+    eng._prefill = kept
+    eng._decode = event_wrap(torch, eng._decode, marks["decode"])
+    toks, launches, walls = [], [], []
+    for _ in range(2):
+        TF.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks.append(eng.generate(prompts))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(TF.LAUNCHES)
+    rec = {"cut": cut, "weight_bytes": wbytes, "tokens": toks,
+           "flash_launches": launches, "init_s": init_s, "walls_s": walls,
+           "logits_equal": bool(torch.equal(logits[0], logits[1])),
+           "logits_digest": _digest(torch, logits[1]),
+           "prefill_ms": marks["prefill"][1][0].elapsed_time(
+               marks["prefill"][1][1]),
+           "decode_ms": statistics.median(
+               a.elapsed_time(z) for a, z in marks["decode"][new:]),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "reserved_bytes": torch.cuda.max_memory_reserved()}
+    del logits
+    if env.mesh.shape["data"] == 1:   # held against the local path
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            x, _ = T.forward_hidden(cfg, eng.params, torch.as_tensor(
+                prompts, device="cuda"), remat=False)
+            rec["hidden"] = x[:, -1].float().cpu().numpy()
+        rec["hidden_s"] = time.perf_counter() - t0
+        del x
+    del eng, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _mesh_train(torch, env, seed: int) -> dict:
+    """One rank's train run of the mesh phase: its shard of MESH_TRAIN's
+    cut of MESH_ARCH, its rows of a seeded batch, two forward and backward
+    passes (loss and every gradient leaf bit-equal; digests of the leaves
+    every rank holds whole), then one ``train_step`` (CUDA events; the
+    state finite and in place; digests of the whole leaves after it)."""
+    from repro_torch import sharding as SH
+    from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
+                                           shard_batch)
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.launch import specs
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as TS
+    _, _, layers, (b, s) = MESH_TRAIN
+    cfg, cut = cut_arch(MESH_ARCH, layers)
+    torch.cuda.reset_peak_memory_stats()
+    params = specs.rank_init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), env)
+    batch = shard_batch(next(SyntheticCorpus(DataConfig(
+        cfg.vocab_size, s, b, seed=seed)).packed_batches()), None, env.mesh)
+    TF.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (l1, _), g1 = TS.value_and_grad(cfg, params, batch, remat=True)
+    launches = (TF.LAUNCHES, TF.BWD_LAUNCHES)
+    (l2, _), g2 = TS.value_and_grad(cfg, params, batch, remat=True)
+    torch.cuda.synchronize()
+    passes_s = time.perf_counter() - t0
+    paths = [p for p, _ in SH.tree_paths(params)]
+    whole = [p for p in paths if not SH.leaf_axes(p, env)]
+    differ = [p for p, a, z in zip(paths, adamw.tree_leaves(g1),
+                                   adamw.tree_leaves(g2))
+              if not torch.equal(a, z)]
+    grads = dict(SH.tree_paths(g1))
+    rec = {"cut": cut, "rows": int(batch["inputs"].shape[0]),
+           "loss": float(l1), "loss_bits_equal": bool(torch.equal(l1, l2)),
+           "passes_s": passes_s,
+           "leaves": len(paths), "leaves_differ": differ,
+           "flash_launches": launches,
+           "grad_digests": {p: _digest(torch, grads[p]) for p in whole}}
+    del g1, g2, grads
+    opt = TS.opt_config_for(cfg)
+    state = {"params": params, "opt": adamw.init(params)}
+    ptrs = [t.data_ptr() for t in adamw.tree_leaves(state)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    state, m = TS.train_step(cfg, opt, state, batch, remat=True)
+    ev[1].record()
+    torch.cuda.synchronize()
+    leaves = adamw.tree_leaves(state)
+    pdict = dict(SH.tree_paths(state["params"]))
+    rec.update({
+        "step_ms": ev[0].elapsed_time(ev[1]),
+        "step_loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+        "in_place": [t.data_ptr() for t in leaves] == ptrs,
+        "finite": all(bool(torch.isfinite(t).all()) for t in leaves
+                      if t.is_floating_point()),
+        "param_digests": {p: _digest(torch, pdict[p]) for p in whole},
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "reserved_bytes": torch.cuda.max_memory_reserved()})
+    del state, params, leaves, pdict
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_rank(mesh, job: dict) -> dict:
+    """What each rank of the mesh phase runs (``launch/mesh.py::spawn``,
+    one process a rank): ``job["serve"]``'s and ``job["train"]``'s seeds,
+    each run under the runtime mesh's env with ``job["fsdp"]``."""
+    import torch
+    from repro_torch import sharding as SH
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"coords": mesh.coords}
+    with SH.axis_env(mesh, ("data",), fsdp=job["fsdp"]) as env:
+        if "serve" in job:
+            out["serve"] = _mesh_serve(torch, env, job["serve"])
+        if "train" in job:
+            out["train"] = _mesh_train(torch, env, job["train"])
+    return out
+
+
+def _mesh_serve_checks(ranks: list, shape: tuple, fsdp: bool) -> dict:
+    """Across a served mesh's ranks: two runs' tokens equal on every rank
+    and equal on every rank, one flash launch a layer a prefill on every
+    rank, the prefill's logits bit-equal across the runs and on the model
+    ranks of a data row (and so the hidden states, where kept). Logs each
+    rank's times and peak."""
+    recs = [r["serve"] for r in ranks]
+    b, sp, new = MESH_SERVE_SHAPE
+    layers = cut_arch(MESH_ARCH, None)[0].num_layers
+    for r, rec in zip(ranks, recs):
+        t0, t1 = rec["tokens"]
+        check(np.array_equal(t0, t1) and t0.shape == (b, new),
+              f"mesh {shape} rank {r['coords']}: two runs' tokens differ")
+        check(np.array_equal(t0, recs[0]["tokens"][0]),
+              f"mesh {shape}: rank {r['coords']}'s tokens differ from rank "
+              "(0, 0)'s")
+        check(rec["flash_launches"] == [layers, layers],
+              f"mesh {shape} rank {r['coords']}: flash launches "
+              f"{rec['flash_launches']}, expected {layers} a prefill")
+    for r, rec in zip(ranks, recs):
+        first = next(q["serve"] for q in ranks
+                     if q["coords"][0] == r["coords"][0])
+        check(rec["logits_equal"]
+              and rec["logits_digest"] == first["logits_digest"]
+              and np.array_equal(rec.get("hidden"), first.get("hidden")),
+              f"mesh {shape} rank {r['coords']}: the prefill's logits differ "
+              "between its runs or from its data row's first model rank's, "
+              "or its hidden states do")
+    for r, rec in zip(ranks, recs):
+        log(f"[mesh] {MESH_ARCH} ({rec['cut']}) bf16 served under mesh "
+            f"{shape}{' fsdp' if fsdp else ''}, rank {r['coords']}: batch "
+            f"{b} x prompt {sp}, {new} new, two runs' tokens equal and "
+            f"equal on every rank, the prefill's logits alike on the data "
+            f"row's model ranks, {rec['flash_launches'][1]} flash "
+            f"launches a prefill; run 2 (CUDA events on this rank, the "
+            f"card shared by {len(ranks)} ranks): prefill "
+            f"{rec['prefill_ms']:.3f} ms, decode {rec['decode_ms']:.4f} ms "
+            f"a token; walls: weights {rec['init_s']:.1f} s, generates "
+            f"{rec['walls_s'][0]:.1f} and {rec['walls_s'][1]:.1f} s; shard "
+            f"{rec['weight_bytes']} B, peak {rec['peak_bytes']} B, reserve "
+            f"{rec['reserved_bytes']} B")
+    return {"mesh": list(shape), "fsdp": fsdp,
+            "tokens": recs[0]["tokens"][1].tolist(),
+            "ranks": [{"coords": list(r["coords"]),
+                       **{k: v for k, v in q.items()
+                          if k not in ("tokens", "hidden")}}
+                      for r, q in zip(ranks, recs)]}
+
+
+def mesh_phase(torch) -> dict:
+    """Phase 10g of the module docstring: MESH_ARCH on meshes of processes
+    sharing the card over gloo (``launch/mesh.py::spawn``, each spawn
+    within MESH_LIMIT_S): served under each of MESH_SERVE, the data-1
+    mesh's last hidden states against the one-process local path on the
+    same weights (MESH_HIDDEN_TOL); the last mesh of MESH_SERVE also
+    trains MESH_TRAIN. Checks the ranks' summed reserves against the
+    card. Returns the ``mesh`` section of ``build/chip_smoke.json``."""
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import transformer as T
+    card = torch.cuda.get_device_properties(0).total_memory
+    out = {"serve": [], "card_bytes": card}
+    tmesh, tfsdp, _, _ = MESH_TRAIN
+    for i, (shape, fsdp) in enumerate(MESH_SERVE):
+        job = {"fsdp": fsdp, "serve": 370}
+        if (shape, fsdp) == (tmesh, tfsdp):
+            job["train"] = 371
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = LM.spawn(mesh_rank, *shape, backend="gloo", device="cuda",
+                         args=(job,), timeout=MESH_LIMIT_S)
+        wall = time.perf_counter() - t0
+        rec = _mesh_serve_checks(ranks, shape, fsdp)
+        rec["spawn_wall_s"] = wall
+        runs = [r["serve"] for r in ranks] + [r["train"] for r in ranks
+                                              if "train" in r]
+        reserve = sum(q["reserved_bytes"] for q in runs[:len(ranks)])
+        check(reserve < card, f"mesh {shape}: the ranks' reserves {reserve} "
+              f"B exceed the card's {card} B")
+        if shape[0] == 1:
+            cfg, _ = cut_arch(MESH_ARCH, None)
+            b, sp, _ = MESH_SERVE_SHAPE
+            prompts = np.random.default_rng(370).integers(
+                0, cfg.vocab_size, (b, sp)).astype(np.int32)
+            params = T.init_params(cfg, torch.Generator(device="cuda")
+                                   .manual_seed(370))
+            with torch.inference_mode():
+                x, _ = T.forward_hidden(cfg, params, torch.as_tensor(
+                    prompts, device="cuda"), remat=False)
+                want = x[:, -1].float().cpu().numpy().astype(np.float64)
+            del params, x
+            torch.cuda.empty_cache()
+            got = ranks[0]["serve"]["hidden"].astype(np.float64)
+            rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+            rec["hidden_vs_local"] = {
+                "rel_err": rel, "max_abs_err": float(np.abs(got - want).max()),
+                "max_abs": float(np.abs(want).max()), "tol": MESH_HIDDEN_TOL}
+            check(rel <= MESH_HIDDEN_TOL,
+                  f"mesh {shape}: the prefill's last hidden state is "
+                  f"{rel:.3g} off the one-process local path's (tol "
+                  f"{MESH_HIDDEN_TOL})")
+            log(f"[mesh] mesh {shape}: the prefill's last hidden state "
+                f"(4 x 2048) against the one-process local path on the "
+                f"same weights: ||a - b|| / ||b|| {rel:.4g} (tol "
+                f"{MESH_HIDDEN_TOL}), max abs err "
+                f"{rec['hidden_vs_local']['max_abs_err']:.4g} of max "
+                f"{rec['hidden_vs_local']['max_abs']:.4g}")
+        log(f"[mesh] mesh {shape}: the ranks' summed peak "
+            f"{sum(q['peak_bytes'] for q in runs[:len(ranks)])} B and reserve"
+            f" {reserve} B of the card's {card} B; spawn wall {wall:.1f} s")
+        out["serve"].append(rec)
+        if "train" in job:
+            out["train"] = _mesh_train_checks(ranks, card)
+    return out
+
+
+def _mesh_train_checks(ranks: list, card: int) -> dict:
+    """Across the trained mesh's ranks: each rank's two passes bit-equal,
+    the loss and grad norm equal on every rank, the whole leaves'
+    gradients and updated params equal on every rank, the state finite
+    and in place. Logs each rank's step ms and peak."""
+    shape, fsdp, layers, (b, s) = MESH_TRAIN
+    recs = [r["train"] for r in ranks]
+    first = recs[0]
+    for r, rec in zip(ranks, recs):
+        c = r["coords"]
+        check(rec["loss_bits_equal"] and not rec["leaves_differ"],
+              f"mesh {shape} rank {c}: two passes differ: "
+              f"{rec['leaves_differ']}")
+        for k in ("loss", "step_loss", "grad_norm", "grad_digests",
+                  "param_digests"):
+            check(rec[k] == first[k], f"mesh {shape} rank {c}: {k} differs "
+                  "from rank (0, 0)'s")
+        check(rec["in_place"] and rec["finite"] and np.isfinite(rec["loss"])
+              and np.isfinite(rec["grad_norm"]),
+              f"mesh {shape} rank {c}: state in place {rec['in_place']}, "
+              f"finite {rec['finite']}")
+        log(f"[mesh] {MESH_ARCH} ({rec['cut']}) bf16 trained under mesh "
+            f"{shape}{' fsdp' if fsdp else ''}, rank {c}: {rec['rows']} x "
+            f"{s} of the {b} x {s} batch, remat; two passes bit-equal in "
+            f"{rec['passes_s']:.1f} s (loss "
+            f"{rec['loss']!r}, {rec['leaves']} leaves), flash launches "
+            f"{rec['flash_launches'][0]} forward, {rec['flash_launches'][1]}"
+            f" backward a pass; one step {rec['step_ms']:.1f} ms (CUDA "
+            f"events, the card shared by {len(ranks)} ranks), grad norm "
+            f"{rec['grad_norm']!r}, the state finite and in place; peak "
+            f"{rec['peak_bytes']} B, reserve {rec['reserved_bytes']} B")
+    reserve = sum(q["reserved_bytes"] for q in recs)
+    check(reserve < card, f"mesh train: the ranks' reserves {reserve} B "
+          f"exceed the card's {card} B")
+    return {"mesh": list(shape), "fsdp": fsdp, "layers": layers,
+            "batch": [b, s], "loss": first["loss"],
+            "grad_norm": first["grad_norm"],
+            "ranks": [{"coords": list(r["coords"]),
+                       **{k: v for k, v in q.items()
+                          if not k.endswith("digests")}}
+                      for r, q in zip(ranks, recs)]}
+
+
 def standalone_phase(torch, F):
     """Phase 10 of the module docstring: the three standalone kernels.
     Returns their rows of the ``kernels`` line and the ``standalone``
@@ -4512,6 +4847,10 @@ def main() -> int:
     shape_rows, shapes = shapes_phase(torch, F)
     phase_done("shapes")
 
+    # 10g. olmoe's expert-parallel body on meshes of processes
+    mesh = mesh_phase(torch)
+    phase_done("mesh")
+
     # 11. times
     walls = []
     c = slice_cps["resnet_50_v2"]
@@ -4726,7 +5065,7 @@ def main() -> int:
          "arena_elementwise": ew_info, "pool_and_fc": head_info,
          "chains": {"schedules": chains, "times": chain_times},
          "softmax_matmul": sm_out, "serve": serve, "models": models,
-         "train": train, "archs": archs, "shapes": shapes,
+         "train": train, "archs": archs, "shapes": shapes, "mesh": mesh,
          "build_s": build.LAST_BUILD_S, "ptxas": build.ptxas_report(),
          "phase_s": phase_s, "wall_s": time.perf_counter() - t_start},
         indent=1))

@@ -8,8 +8,9 @@ variable-length documents over the arch's vocabulary, enough to drive
 real training steps and show the loss fall on learnable structure
 (documents are n-gram-ish: each token depends on the previous one).
 
-The reference's ``shard_batch`` places a batch on a mesh; one card has
-none, so :func:`shard_batch` is a plain move to the device.
+The reference's ``shard_batch`` places a batch on a mesh, split over
+``data``; :func:`shard_batch` gives a rank of a runtime mesh its rows
+(without a mesh, the whole batch), moved to the device.
 """
 from __future__ import annotations
 
@@ -73,11 +74,28 @@ class SyntheticCorpus:
             }
 
 
-def shard_batch(batch: Dict[str, np.ndarray],
-                device=None) -> Dict[str, torch.Tensor]:
+def shard_batch(batch: Dict[str, np.ndarray], device=None, mesh=None,
+                microbatches: int = 1) -> Dict[str, torch.Tensor]:
     """A host batch as tensors on ``device`` (None: the card, raising
-    without one; ``"cpu"``), one copy each."""
+    without one; ``"cpu"``), one copy each. With a runtime ``mesh``, only
+    this rank's rows, as ``device_put`` with ``P("data", ...)`` splits
+    them: data rank i of n takes the i-th n-th of each of the
+    ``microbatches`` blocks of rows (the whole i-th n-th for one), so
+    that ``train_step``'s microbatch slices are its part of the global
+    microbatches. Raises where the rows do not split."""
     dev = resolve_device(device)
+    if mesh is not None:
+        n, i = mesh.shape["data"], mesh.index("data")
+        rows = next(iter(batch.values())).shape[0]
+        if rows % (n * microbatches):
+            raise ValueError(f"shard_batch: {rows} rows do not split into "
+                             f"{microbatches} microbatch(es) over {n} data "
+                             "ranks")
+        mb = rows // microbatches
+        mine = np.concatenate([np.arange(j * mb + i * mb // n,
+                                         j * mb + (i + 1) * mb // n)
+                               for j in range(microbatches)])
+        batch = {k: np.asarray(v)[mine] for k, v in batch.items()}
     return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
 
 

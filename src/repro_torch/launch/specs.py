@@ -9,6 +9,14 @@ config is ever allocated. Where the reference returns ``NamedSharding``s
 of ``PartitionSpec``s, the port returns the specs as tuples of mesh axis
 names (a tuple of names where axes compose, None where replicated), over a
 ``launch/mesh.py`` mesh or anything with ``axis_names`` and ``shape``.
+
+Under a runtime mesh (``launch/mesh.py::RuntimeMesh``) a rank holds its
+shard of the parameters (:func:`rank_params`, :func:`rank_init_params`):
+the expert leaves sliced as the reference's shard_map ``in_specs``
+(``sharding.leaf_axes``), every other leaf whole. The reference's jit
+would also split the dense leaves over model (:func:`param_shardings`);
+that is XLA's partitioning of the same arithmetic, and here those leaves
+are replicated.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.train import steps as TS
@@ -259,3 +268,38 @@ def cache_shardings(cfg: ArchConfig, shape: ShapeConfig, mesh,
         return _fit(mesh, shp, dims)
 
     return {k: spec_for(k, v) for k, v in ac.items()}
+
+
+# ---------------------------------------------------------------------------
+# A rank's shard under a runtime mesh
+# ---------------------------------------------------------------------------
+
+
+def shard_leaf(path: str, t: torch.Tensor, env: SH.AxisEnv) -> torch.Tensor:
+    """This rank's slice of the full leaf ``t`` at ``path`` (a copy, so the
+    full leaf can be freed; ``t`` itself where the leaf is whole)."""
+    axes = SH.leaf_axes(path, env)
+    for axis, dim in axes.items():
+        n = t.shape[dim] // env.mesh.shape[axis]
+        t = t.narrow(dim, env.mesh.index(axis) * n, n)
+    return t.clone() if axes else t
+
+
+def rank_params(params, env: SH.AxisEnv):
+    """This rank's shard of a full parameter tree (e.g.
+    ``transformer.params_from_reference``'s), so that every rank and the
+    reference start from one tree."""
+    def build(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: build(v, f"{prefix}{k}/") for k, v in tree.items()}
+        return shard_leaf(prefix[:-1], tree, env)
+    return build(params, "")
+
+
+def rank_init_params(cfg: ArchConfig, generator: torch.Generator,
+                     env: SH.AxisEnv, device=None):
+    """:func:`transformer.init_params`'s tree, drawn in the same order from
+    ``generator``, with each layer's leaves cut to this rank's shard as
+    they are drawn: a rank never holds more than one full layer."""
+    return T.init_params(cfg, generator, device,
+                         shard=lambda path, t: shard_leaf(path, t, env))

@@ -27,7 +27,9 @@ reference's donated scan carry, the serving side's ``O_s = |out|`` case.
 :data:`REMAT_GROUP` layers (one layer below
 :data:`REMAT_GROUP_MIN_LAYERS`), applied only while grad is enabled, so
 serving under ``inference_mode`` is unchanged. Each group's forward runs
-again in the backward, the flash kernel's launches with it.
+again in the backward, the flash kernel's launches with it, under the
+axis env installed at the forward (``sharding.keep_env``: on the card the
+backward runs on autograd's own thread).
 
 The reference's four ``repro.sharding.constrain`` calls stand at the same
 places (each block's two residual sums, the embedding, the logits) as
@@ -49,7 +51,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ArchConfig
-from repro_torch.sharding import constrain
+from repro_torch.sharding import constrain, keep_env
 
 Params = Dict[str, Any]
 
@@ -115,21 +117,35 @@ def _stack_into(stacked, l: int, tree) -> None:
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device=None) -> Params:
+                device=None, shard: Optional[Callable] = None) -> Params:
     """Random weights drawn from ``generator`` (on its own device), placed
     on ``device`` (None: the card; ``"cpu"``). The draws cannot equal
     ``jax.random``'s: a comparison with the reference carries its weights
-    (:func:`params_from_reference`)."""
+    (:func:`params_from_reference`). ``shard(path, t)``, where given, cuts
+    each layer's leaf (path as ``"blocks/moe/w_gate"``) before it is
+    stacked: a rank's shard (``launch/specs.py::rank_init_params``)."""
     dev = resolve_device(device)
     dt = L.dtype_of(cfg)
+
+    def block():
+        b = _block_init(cfg, generator, dev)
+        if shard is None:
+            return b
+
+        def cut(tree, prefix):
+            if isinstance(tree, dict):
+                return {k: cut(v, f"{prefix}{k}/") for k, v in tree.items()}
+            return shard(prefix[:-1], tree)
+        return cut(b, "blocks/")
+
     embed = L.randn(generator, (cfg.vocab_size, cfg.d_model), dt, dev, 0.02)
-    first = _block_init(cfg, generator, dev)
+    first = block()
     blocks = tree_map(lambda t: t.new_empty((cfg.num_layers, *t.shape)),
                       first)
     _stack_into(blocks, 0, first)
     del first
     for l in range(1, cfg.num_layers):
-        _stack_into(blocks, l, _block_init(cfg, generator, dev))
+        _stack_into(blocks, l, block())
     p = {"embed": embed, "blocks": blocks,
          "final_norm": L.rms_norm_init(cfg.d_model, dt, dev)}
     if not cfg.tie_embeddings:
@@ -287,7 +303,9 @@ def forward_hidden(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
     for l0 in range(0, n, g):
         group = layers[l0:l0 + g]
         if remat and torch.is_grad_enabled():
-            x, a = checkpoint(_group_seq, cfg, group, x, use_reentrant=False)
+            # the recompute runs the group under the env installed now
+            x, a = checkpoint(keep_env(_group_seq), cfg, group, x,
+                              use_reentrant=False)
         else:
             x, a = _group_seq(cfg, group, x)
         aux = aux + a

@@ -5,10 +5,11 @@ are kept in float32 regardless of parameter dtype (bfloat16 for the
 >100B configs). The reference's train step donates its state to XLA,
 which writes the new params and moments over the old: the ``O_s = |out|``
 in-place case of the paper's diagonal memory optimisation. Here
-:func:`update` writes the new p, m and v into their own storage, walking
-every leaf in slices of :data:`SLICE` elements, so its float32
-temporaries stay a few slices in size whatever the leaf (qwen2.5-3b's
-stacked MLP weight is 811.6 M elements, 3.25 GB in float32).
+:func:`update` writes the new p, m and v into their own storage (under a
+runtime mesh, a rank its own shard), walking every leaf in slices of
+:data:`SLICE` elements, so its float32 temporaries stay a few slices in
+size whatever the leaf (qwen2.5-3b's stacked MLP weight is 811.6 M
+elements, 3.25 GB in float32).
 
 The reference's update is an elementwise chain that XLA fuses, not a
 Pallas kernel; here it is plain PyTorch, a few launches a slice. Every
@@ -23,6 +24,8 @@ import math
 from typing import Any, Dict, List, Tuple
 
 import torch
+
+from repro_torch import sharding as SH
 
 #: elements of one slice of a leaf; float32 temporaries of this size
 #: (64 MiB each) are the update's working memory
@@ -50,9 +53,7 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     """The leaves of a tree of nested dicts in ``jax.tree.leaves`` order
     (dict keys sorted), so that sums over them run in the reference's
     order."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    return [tree]
+    return [x for _, x in SH.tree_paths(tree)]
 
 
 def schedule(cfg: OptConfig, step) -> torch.Tensor:
@@ -90,13 +91,23 @@ def _slices(t: torch.Tensor):
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32: each leaf's
-    sum over its slices, the leaves summed in :func:`tree_leaves` order."""
-    total = None
-    for x in tree_leaves(tree):
+    sum over its slices, the leaves summed in :func:`tree_leaves` order.
+    Under a runtime mesh ``tree`` is this rank's shard: a split leaf's sum
+    is summed over the groups that split it, a whole one counted once
+    (``sharding.shard_sums``), so every rank holds the same norm."""
+    paths, sqs = [], []
+    for path, x in SH.tree_paths(tree):
         sq = None
         for sl in _slices(x):
             part = torch.sum(torch.square(sl.to(torch.float32)))
             sq = part if sq is None else sq + part
+        paths.append(path)
+        sqs.append(sq)
+    env = SH.runtime_env()
+    if env is not None:
+        sqs = SH.shard_sums(paths, sqs, env)
+    total = None
+    for sq in sqs:
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 

@@ -10,6 +10,12 @@ serving-side realisation of the paper's ``O_s = |out|`` overlap.
 
 Everything runs under ``torch.inference_mode()`` on ``device`` (None: the
 card, raising without one; ``"cpu"``: the kernels' plain versions).
+
+Under a runtime mesh (``launch/mesh.py``) ``params`` is the rank's shard:
+each data rank prefills and decodes its rows (every rank all of them
+where the data axis does not divide the batch, as the reference's MoE
+body replicates such tokens) and the tokens are gathered in ascending
+data order, so every rank returns the whole batch.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import sharding as SH
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
@@ -81,7 +88,20 @@ class Engine:
     def generate(self, prompts: np.ndarray, seed: int = 0) -> np.ndarray:
         """prompts: (B, S) int32 (or (B,S,d) embeddings for stub frontends).
         Returns (B, max_new_tokens) int32. ``temperature > 0`` samples from
-        a generator on the engine's device seeded by ``seed``."""
+        a generator on the engine's device seeded by ``seed`` (under a
+        mesh, each data rank's rows from its own, seeded alike)."""
+        env = SH.runtime_env()
+        if env is None:
+            return self._generate(prompts, seed).cpu().numpy()
+        b, n, i = prompts.shape[0], env.mesh.shape["data"], \
+            env.mesh.index("data")
+        if b % n:
+            with SH.replicated_rows():
+                return self._generate(prompts, seed).cpu().numpy()
+        mine = self._generate(prompts[i * b // n:(i + 1) * b // n], seed)
+        return torch.cat(SH.gather(mine, env.mesh, "data")).cpu().numpy()
+
+    def _generate(self, prompts: np.ndarray, seed: int) -> torch.Tensor:
         s = prompts.shape[1]
         gen = torch.Generator(device=self.device).manual_seed(seed)
         logits, cache = self._prefill(self.params, prompts)
@@ -94,4 +114,4 @@ class Engine:
                                          pos)
             tok = self._sample(logits, gen)
             pos += 1
-        return torch.stack(toks, dim=1).to(torch.int32).cpu().numpy()
+        return torch.stack(toks, dim=1).to(torch.int32)

@@ -8,10 +8,13 @@ and moments over the old: the ``O_s = |out|`` case), the callable of
 ``data_ptr`` across steps.
 
 Gradients come from ``torch.autograd.grad`` on aliases of the params that
-require grad (the params themselves never do). On the card the long
-causal attention of a forward runs the flash kernel and its backward
-(``kernels/flash_attention.py::FlashAttention``), and RWKV's chunked WKV
-runs the WKV kernel and its backward (``kernels/wkv_chunk.py::WkvChunk``).
+require grad (the params themselves never do). Under a runtime mesh
+(``launch/mesh.py``) every rank runs the step on its rows and its shard,
+and the gradient and the clip's norm are those of the global batch. On
+the card the long causal attention of a forward runs the flash kernel
+and its backward (``kernels/flash_attention.py::FlashAttention``), and
+RWKV's chunked WKV runs the WKV kernel and its backward
+(``kernels/wkv_chunk.py::WkvChunk``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import adamw
@@ -116,14 +120,27 @@ def value_and_grad(cfg: ArchConfig, params, batch: Batch,
                    remat: bool = True):
     """((loss, parts), grads): the loss on aliases of the params that
     require grad, and its gradient as a tree of the params' shape (zeros
-    for a leaf the loss does not use, as ``jax.grad`` gives)."""
-    alias = [p.detach().requires_grad_() for p in adamw.tree_leaves(params)]
+    for a leaf the loss does not use, as ``jax.grad`` gives).
+
+    Under a runtime mesh ``params`` is this rank's shard and ``batch`` its
+    rows (``data/pipeline.py::shard_batch``): the loss and its parts are
+    the means over the data group of the ranks' own (the mean over the
+    global batch), and each leaf's gradient that of that mean
+    (``sharding.data_mean``), every sum in ascending data index."""
+    paths, leaves = zip(*SH.tree_paths(params))
+    alias = [p.detach().requires_grad_() for p in leaves]
     with torch.enable_grad():
         loss, parts = loss_fn(cfg, _like(params, alias), batch, remat)
         grads = torch.autograd.grad(loss, alias, allow_unused=True,
                                     materialize_grads=True)
-    return ((loss.detach(), {k: v.detach() for k, v in parts.items()}),
-            _like(params, grads))
+    loss, parts = loss.detach(), {k: v.detach() for k, v in parts.items()}
+    env = SH.runtime_env()
+    if env is not None and env.mesh.shape["data"] > 1:
+        grads = SH.data_mean(list(paths), list(grads), env)
+        nd = env.mesh.shape["data"]
+        loss, parts["ce"] = (SH.ordered_sum(SH.gather(v, env.mesh, "data"))
+                             / nd for v in (loss, parts["ce"]))
+    return (loss, parts), _like(params, grads)
 
 
 def train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig, state: TrainState,
@@ -133,7 +150,9 @@ def train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig, state: TrainState,
     """One step, optionally with gradient accumulation over
     ``microbatches`` slices of the global batch (bounds the activations
     and logits held at once) in ``accum_dtype``. Updates ``state`` in
-    place and returns it with the metrics (device tensors)."""
+    place and returns it with the metrics (device tensors). Under a
+    runtime mesh each slice is this rank's part of a global microbatch,
+    as ``shard_batch(..., microbatches=...)`` lays the rows out."""
     params = state["params"]
     if microbatches <= 1:
         (loss, parts), grads = value_and_grad(cfg, params, batch, remat)

@@ -2009,3 +2009,54 @@ def test_wkv_backward_refuses_what_it_cannot_take_on_the_card(card):
     with pytest.raises(ValueError, match="workspace"):
         TW.wkv_backward_kernel(r, r, r, -r.abs(), u, r, None, 64, None)
     assert TW.LAUNCHES == 0 and TW.BWD_LAUNCHES == 0
+
+
+def test_expert_parallel_layer_on_ranks_sharing_the_card(card):
+    """The MoE layer's expert-parallel body on 2 ranks (mesh (1, 2)) that
+    share the card over gloo, every floating-point ``index_add_`` and
+    ``all_reduce`` made to raise in them: output and aux bit-equal to the
+    one-process local path on the card (k = 2: each token's copies add
+    alike), the gradients within 1e-4 of each leaf's max of its, both
+    model ranks alike and two runs bit-equal."""
+    import _torch_mesh_cases as C
+    from repro_torch import configs
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import moe as TM
+    ranks = M.spawn(C.run_rank, 1, 2, backend="gloo", device="cuda",
+                    args=([("layer", "1x2")], "cuda"), timeout=300)
+    cfg = C.layer_cfg(configs.get_arch("olmoe-1b-7b").reduced(), "1x2")
+    r, wg, wu, wd, x = (torch.as_tensor(a, device=card).requires_grad_()
+                        for a in C.layer_arrays(cfg, "1x2"))
+    y, aux = TM._moe_ffn_local({"router": {"w": r}, "w_gate": wg,
+                                "w_up": wu, "w_down": wd}, x, cfg)
+    loss = torch.sum(y * torch.sin(y)) + C.AUX_WEIGHT * aux
+    want = dict(zip(("gr", "gwg", "gwu", "gwd", "gx"),
+                    (g.cpu().numpy() for g in
+                     torch.autograd.grad(loss, (r, wg, wu, wd, x)))))
+    e_loc = cfg.num_experts // 2
+    for m, res in enumerate(ranks):
+        first, again = res["layer/1x2"]
+        assert all(np.array_equal(first[k], again[k]) for k in first)
+        assert np.array_equal(first["y"], y.detach().cpu().numpy())
+        assert np.array_equal(first["aux"], aux.detach().cpu().numpy())
+        for k, w in want.items():
+            if k in ("gwg", "gwu", "gwd"):
+                w = w[m * e_loc:(m + 1) * e_loc]
+            assert np.abs(first[k] - w).max() <= 1e-4 * np.abs(w).max(), k
+        for k in ("y", "aux", "gx", "gr"):
+            assert np.array_equal(first[k], ranks[0]["layer/1x2"][0][k]), k
+
+
+def test_nccl_refuses_two_ranks_on_one_card(monkeypatch):
+    """``"nccl"`` takes one card a rank: two ranks on the one card raise
+    before any process group is made (no fall back to gloo). Runs on the
+    CPU too: the card count is patched to 1."""
+    from repro_torch.launch import mesh as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="share one"):
+        M.rank_device("nccl", 0, 2)
+    with pytest.raises(ValueError, match="share one"):
+        M.open_mesh(1, 2, backend="nccl", rank=0,
+                    init_method="file:///nonexistent/store")
+    assert M.rank_device("nccl", 0, 1) == torch.device("cuda", 0)
