@@ -24,6 +24,8 @@ import threading
 import time
 from typing import Dict
 
+from repro_torch import trace
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 #: ``build/repro_torch`` at the root of the checkout (``src/repro_torch/
 #: kernels/build.py`` -> three levels up), listed in ``.gitignore``.
@@ -138,27 +140,31 @@ def _compile_all(out: pathlib.Path) -> None:
 
 def load() -> Dict[str, ctypes.CDLL]:
     """Build (if needed) and load every kernel library; returns name ->
-    CDLL with ``argtypes``/``restype`` set."""
+    CDLL with ``argtypes``/``restype`` set. The first load is the span
+    ``repro/kernels/load``; the sources it compiles add to the counter
+    ``kernels.compiled``."""
     global LAST_BUILD_S
     with _LOCK:
         if _LIBS:
             return _LIBS
-        out = build_dir()
-        t0 = time.perf_counter()
-        if not all((out / f"lib{n}.so").exists() for n in KERNELS):
-            _compile_all(out)
-        LAST_BUILD_S = time.perf_counter() - t0
-        for name in KERNELS:
-            lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-            fn = getattr(lib, name)
-            fn.argtypes = ARGTYPES_OF.get(name) or GRID_ARGTYPES[name]
-            fn.restype = ctypes.c_int
-            _LIBS[name] = lib
-        for name, lib in EXTRA_ENTRIES.items():
-            fn = getattr(_LIBS[lib], name)
-            fn.argtypes = EXTRA_ARGTYPES.get(name) or GRID_ARGTYPES[name]
-            fn.restype = ctypes.c_int
-        return _LIBS
+        with trace.span("repro/kernels/load"):
+            out = build_dir()
+            t0 = time.perf_counter()
+            if not all((out / f"lib{n}.so").exists() for n in KERNELS):
+                _compile_all(out)
+                trace.count("kernels.compiled", len(KERNELS))
+            LAST_BUILD_S = time.perf_counter() - t0
+            for name in KERNELS:
+                lib = ctypes.CDLL(str(out / f"lib{name}.so"))
+                fn = getattr(lib, name)
+                fn.argtypes = ARGTYPES_OF.get(name) or GRID_ARGTYPES[name]
+                fn.restype = ctypes.c_int
+                _LIBS[name] = lib
+            for name, lib in EXTRA_ENTRIES.items():
+                fn = getattr(_LIBS[lib], name)
+                fn.argtypes = EXTRA_ARGTYPES.get(name) or GRID_ARGTYPES[name]
+                fn.restype = ctypes.c_int
+            return _LIBS
 
 
 def entry(name: str):

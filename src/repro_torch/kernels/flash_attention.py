@@ -34,6 +34,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
+
 #: the finite mask value of the reference (never -inf: a row that sees no
 #: key then averages v over all keys)
 NEG = -1e30
@@ -313,25 +315,27 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def _forward(q, k, v, causal: bool, block_q: int, block_k: int,
              with_lse: bool):
     """(out, lse or None): the plain version on the CPU, else one launch
-    of the kernel, which writes ``lse`` only when asked."""
-    if q.device.type == "cpu":
-        out, lse = flash_plain_lse(q, k, v, causal, block_q, block_k)
-        return out, (lse if with_lse else None)
-    check_card_inputs(q, k, v)
-    from repro_torch.kernels import build
+    of the kernel, which writes ``lse`` only when asked. Recorded as the
+    span ``repro/kernels/flash_fwd`` (``s``, ``bh``, ``d``)."""
     s, h, d = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((s, h), dtype=torch.float32,
-                      device=q.device) if with_lse else None
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check(build.entry("flash_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), s, k.shape[0], h, d,
-        int(causal), int(q.dtype == torch.bfloat16), stream),
-        "flash_attention")
-    global LAUNCHES
-    LAUNCHES += 1
-    return out, lse
+    with trace.span("repro/kernels/flash_fwd", s=s, bh=h, d=d):
+        if q.device.type == "cpu":
+            out, lse = flash_plain_lse(q, k, v, causal, block_q, block_k)
+            return out, (lse if with_lse else None)
+        check_card_inputs(q, k, v)
+        from repro_torch.kernels import build
+        out = torch.empty_like(q)
+        lse = torch.empty((s, h), dtype=torch.float32,
+                          device=q.device) if with_lse else None
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        build.check(build.entry("flash_attention")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), s, k.shape[0], h, d,
+            int(causal), int(q.dtype == torch.bfloat16), stream),
+            "flash_attention")
+        global LAUNCHES
+        LAUNCHES += 1
+        return out, lse
 
 
 def flash_backward_kernel(q: torch.Tensor, k: torch.Tensor,

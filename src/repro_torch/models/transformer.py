@@ -36,6 +36,14 @@ places (each block's two residual sums, the embedding, the logits) as
 ``repro_torch.sharding.constrain``, the identity on one card. Not here:
 the reference's ``identity_barrier``, an XLA scheduling fence whose value
 and gradient are the identity (nothing to fence in eager PyTorch).
+
+With a :mod:`repro_torch.trace` recorder on, :func:`prefill` records
+``repro/model/prefill`` (``tokens``) and :func:`decode_step`
+``repro/model/decode`` (``slots``); inside them each layer's
+``repro/model/attn`` (norm, mixer, residual) and ``repro/model/ffn``
+(norm, MLP, MoE or channel mix, residual) with its ``layer``, the
+prefill's ``repro/model/cache_fill`` a layer, and ``repro/model/head``
+(final norm and unembedding).
 """
 from __future__ import annotations
 
@@ -46,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import trace
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -175,72 +184,80 @@ def unbind_layers(blocks: Params, n: int) -> List[Params]:
 # ---------------------------------------------------------------------------
 
 
-def _block_seq(cfg: ArchConfig, bp: Params, x: torch.Tensor, window: int
+def _block_seq(cfg: ArchConfig, bp: Params, x: torch.Tensor, window: int,
+               index: Optional[int] = None
                ) -> Tuple[torch.Tensor, Params, torch.Tensor]:
-    """Full-sequence block (train / prefill). Returns (x, cache, aux)."""
+    """Full-sequence block (train / prefill). Returns (x, cache, aux).
+    ``index``: the layer's, for its spans."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = L.rms_norm(bp["norm1"], x)
-    cache: Params = {}
-    if cfg.attention == "gqa":
-        y, cache = L.attn_forward(bp["attn"], h, cfg, window)
-    elif cfg.attention == "mla":
-        y, cache = L.mla_forward(bp["attn"], h, cfg, window)
-    elif cfg.attention == "hybrid":
-        ya, ca = L.attn_forward(bp["attn"], h, cfg,
-                                window or cfg.sliding_window)
-        ym, cm = S.mamba_forward(bp["mamba"], h, cfg)
-        y = 0.5 * (ya + ym)
-        cache = {**ca, **cm}
-    else:  # rwkv
-        y, cache = S.rwkv_forward(bp["rwkv"], h, cfg)
-    x = constrain(x + y, "batch", None, None)
-    h = L.rms_norm(bp["norm2"], x)
-    if cfg.attention == "none":
-        hp = F.pad(h, (0, 0, 1, 0))[:, :-1]
-        y = S.rwkv_channel_mix(bp["cmix"], h, hp)
-        cache["cm_shift"] = h[:, -1]
-    elif cfg.is_moe:
-        y, aux = M.moe_ffn(bp["moe"], h, cfg)
-    else:
-        y = L.mlp(bp["mlp"], h, cfg)
-    return constrain(x + y, "batch", None, None), cache, aux
+    with trace.span("repro/model/attn", layer=index):
+        h = L.rms_norm(bp["norm1"], x)
+        cache: Params = {}
+        if cfg.attention == "gqa":
+            y, cache = L.attn_forward(bp["attn"], h, cfg, window)
+        elif cfg.attention == "mla":
+            y, cache = L.mla_forward(bp["attn"], h, cfg, window)
+        elif cfg.attention == "hybrid":
+            ya, ca = L.attn_forward(bp["attn"], h, cfg,
+                                    window or cfg.sliding_window)
+            ym, cm = S.mamba_forward(bp["mamba"], h, cfg)
+            y = 0.5 * (ya + ym)
+            cache = {**ca, **cm}
+        else:  # rwkv
+            y, cache = S.rwkv_forward(bp["rwkv"], h, cfg)
+        x = constrain(x + y, "batch", None, None)
+    with trace.span("repro/model/ffn", layer=index):
+        h = L.rms_norm(bp["norm2"], x)
+        if cfg.attention == "none":
+            hp = F.pad(h, (0, 0, 1, 0))[:, :-1]
+            y = S.rwkv_channel_mix(bp["cmix"], h, hp)
+            cache["cm_shift"] = h[:, -1]
+        elif cfg.is_moe:
+            y, aux = M.moe_ffn(bp["moe"], h, cfg)
+        else:
+            y = L.mlp(bp["mlp"], h, cfg)
+        return constrain(x + y, "batch", None, None), cache, aux
 
 
 def _block_dec(cfg: ArchConfig, bp: Params, x: torch.Tensor, cache: Params,
-               pos, window: int, step: Optional[L.DecodeStep] = None
-               ) -> Tuple[torch.Tensor, Params]:
+               pos, window: int, step: Optional[L.DecodeStep] = None,
+               index: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
     """Single-token decode block. Attention caches are written in place;
     the returned dict holds every new cache entry. ``step``: the decode
-    step's values shared by every layer (:func:`_step_values`)."""
-    h = L.rms_norm(bp["norm1"], x)
-    new: Params = {}
-    if cfg.attention == "gqa":
-        y, new = L.attn_decode(bp["attn"], h, cache, pos, cfg, window,
-                               step=step)
-    elif cfg.attention == "mla":
-        y, new = L.mla_decode(bp["attn"], h, cache, pos, cfg, window,
-                              step=step)
-    elif cfg.attention == "hybrid":
-        ya, ca = L.attn_decode(bp["attn"], h,
-                               {"k": cache["k"], "v": cache["v"]}, pos, cfg,
-                               window or cfg.sliding_window, step=step)
-        ym, cm = S.mamba_decode(bp["mamba"], h,
-                                {"ssm": cache["ssm"], "conv": cache["conv"]},
-                                cfg)
-        y = 0.5 * (ya + ym)
-        new = {**ca, **cm}
-    else:
-        y, new = S.rwkv_decode(bp["rwkv"], h, cache, cfg)
-    x = x + y
-    h = L.rms_norm(bp["norm2"], x)
-    if cfg.attention == "none":
-        y = S.rwkv_channel_mix(bp["cmix"], h, cache["cm_shift"][:, None])
-        new["cm_shift"] = h[:, 0]
-    elif cfg.is_moe:
-        y, _ = M.moe_ffn(bp["moe"], h, cfg)
-    else:
-        y = L.mlp(bp["mlp"], h, cfg)
-    return x + y, new
+    step's values shared by every layer (:func:`_step_values`); ``index``:
+    the layer's, for its spans."""
+    with trace.span("repro/model/attn", layer=index):
+        h = L.rms_norm(bp["norm1"], x)
+        new: Params = {}
+        if cfg.attention == "gqa":
+            y, new = L.attn_decode(bp["attn"], h, cache, pos, cfg, window,
+                                   step=step)
+        elif cfg.attention == "mla":
+            y, new = L.mla_decode(bp["attn"], h, cache, pos, cfg, window,
+                                  step=step)
+        elif cfg.attention == "hybrid":
+            ya, ca = L.attn_decode(bp["attn"], h,
+                                   {"k": cache["k"], "v": cache["v"]}, pos,
+                                   cfg, window or cfg.sliding_window,
+                                   step=step)
+            ym, cm = S.mamba_decode(bp["mamba"], h,
+                                    {"ssm": cache["ssm"],
+                                     "conv": cache["conv"]}, cfg)
+            y = 0.5 * (ya + ym)
+            new = {**ca, **cm}
+        else:
+            y, new = S.rwkv_decode(bp["rwkv"], h, cache, cfg)
+        x = x + y
+    with trace.span("repro/model/ffn", layer=index):
+        h = L.rms_norm(bp["norm2"], x)
+        if cfg.attention == "none":
+            y = S.rwkv_channel_mix(bp["cmix"], h, cache["cm_shift"][:, None])
+            new["cm_shift"] = h[:, 0]
+        elif cfg.is_moe:
+            y, _ = M.moe_ffn(bp["moe"], h, cfg)
+        else:
+            y = L.mlp(bp["mlp"], h, cfg)
+        return x + y, new
 
 
 # ---------------------------------------------------------------------------
@@ -277,12 +294,13 @@ REMAT_GROUP = 2
 REMAT_GROUP_MIN_LAYERS = 48
 
 
-def _group_seq(cfg: ArchConfig, group: List[Params], x: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A group of full-sequence blocks: (x, the sum of their aux)."""
+def _group_seq(cfg: ArchConfig, group: List[Params], x: torch.Tensor,
+               l0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A group of full-sequence blocks, the first layer ``l0``: (x, the
+    sum of their aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bp in group:
-        x, _, a = _block_seq(cfg, bp, x, window=0)
+    for i, bp in enumerate(group):
+        x, _, a = _block_seq(cfg, bp, x, window=0, index=l0 + i)
         aux = aux + a
     return x, aux
 
@@ -304,10 +322,10 @@ def forward_hidden(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
         group = layers[l0:l0 + g]
         if remat and torch.is_grad_enabled():
             # the recompute runs the group under the env installed now
-            x, a = checkpoint(keep_env(_group_seq), cfg, group, x,
+            x, a = checkpoint(keep_env(_group_seq), cfg, group, x, l0,
                               use_reentrant=False)
         else:
-            x, a = _group_seq(cfg, group, x)
+            x, a = _group_seq(cfg, group, x, l0)
         aux = aux + a
     return x, aux / n
 
@@ -325,21 +343,25 @@ def prefill(cfg: ArchConfig, params: Params, inputs: torch.Tensor,
             ) -> Tuple[torch.Tensor, Params]:
     """Full-sequence pass that also materialises the decode cache (stacked
     over layers, each layer's entries copied into it as they come)."""
-    x = embed(cfg, params, inputs)
-    s = x.shape[1]
-    cache_len = cache_len or s
-    cache: Params = {}
-    for l in range(cfg.num_layers):
-        x, c, _ = _block_seq(cfg, layer(params["blocks"], l), x,
-                             window=window)
-        c = _pad_cache(cfg, c, cache_len, s)
-        if not cache:
-            cache = {k: v.new_empty((cfg.num_layers, *v.shape))
-                     for k, v in c.items()}
-        for k, v in c.items():
-            cache[k][l].copy_(v)
-    logits = unembed(cfg, params, x[:, -1:])
-    return logits, cache
+    with trace.span("repro/model/prefill",
+                    tokens=int(inputs.shape[0] * inputs.shape[1])):
+        x = embed(cfg, params, inputs)
+        s = x.shape[1]
+        cache_len = cache_len or s
+        cache: Params = {}
+        for l in range(cfg.num_layers):
+            x, c, _ = _block_seq(cfg, layer(params["blocks"], l), x,
+                                 window=window, index=l)
+            with trace.span("repro/model/cache_fill", layer=l):
+                c = _pad_cache(cfg, c, cache_len, s)
+                if not cache:
+                    cache = {k: v.new_empty((cfg.num_layers, *v.shape))
+                             for k, v in c.items()}
+                for k, v in c.items():
+                    cache[k][l].copy_(v)
+        with trace.span("repro/model/head"):
+            logits = unembed(cfg, params, x[:, -1:])
+        return logits, cache
 
 
 def _pad_cache(cfg: ArchConfig, cache: Params, cache_len: int,
@@ -388,16 +410,19 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Params,
     place (the ring slot of an attention cache; the whole state of an
     SSM); the stacked cache is never copied. Returns the logits and the
     same cache dict."""
-    x = embed(cfg, params, tokens)
-    step = _step_values(cfg, cache, pos, x.shape[0], window, x.device)
-    for l in range(cfg.num_layers):
-        c_l = {k: t[l] for k, t in cache.items()}
-        x, new_l = _block_dec(cfg, layer(params["blocks"], l), x, c_l, pos,
-                              window, step)
-        for k, v in new_l.items():
-            if v.data_ptr() != c_l[k].data_ptr():
-                c_l[k].copy_(v)
-    return unembed(cfg, params, x), cache
+    with trace.span("repro/model/decode", slots=int(tokens.shape[0])):
+        x = embed(cfg, params, tokens)
+        step = _step_values(cfg, cache, pos, x.shape[0], window, x.device)
+        for l in range(cfg.num_layers):
+            c_l = {k: t[l] for k, t in cache.items()}
+            x, new_l = _block_dec(cfg, layer(params["blocks"], l), x, c_l,
+                                  pos, window, step, index=l)
+            for k, v in new_l.items():
+                if v.data_ptr() != c_l[k].data_ptr():
+                    c_l[k].copy_(v)
+        with trace.span("repro/model/head"):
+            logits = unembed(cfg, params, x)
+        return logits, cache
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ variants whose arena peak fits the configured budget: the device has one
 fixed arena, and the largest batch the arena admits is a *planning*
 question, not a runtime guess. Queued requests are batched up to a deadline
 and routed to the largest admitted variant; the server reports plan-cache
-hit rates, per-batch arena peaks and request-level timing spans.
+hit rates, per-batch arena peaks and request-level timing spans. With a
+:mod:`repro_torch.trace` recorder on, each flush is also the span
+``repro/plan_server/flush`` (``batch``, ``requests``).
 
 Each flush runs its variant's flat arena program through the hand-written
 kernels (:class:`~repro_torch.core.exec.cuda_backend.CudaExecutor`,
@@ -35,6 +37,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.core import exec as X
 from repro_torch.core.exec.ops import (QuantSpec, acc_multiplier, dequantise,
                                        op_quant, pads, quantise, requantise,
@@ -451,6 +454,11 @@ class PlanServer:
         b = self._pick_batch(force)
         if b is None:
             return 0
+        with trace.span("repro/plan_server/flush", batch=b,
+                        requests=min(b, len(self.queue))):
+            return self._flush(b)
+
+    def _flush(self, b: int) -> int:
         now = time.perf_counter()
         reqs = [self.queue.popleft()
                 for _ in range(min(b, len(self.queue)))]
